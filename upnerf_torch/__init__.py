@@ -1,0 +1,26 @@
+"""upnerf_torch: the PyTorch/CUDA port of up-nerf-tpu for NVIDIA Hopper.
+
+The JAX package `upnerf` is the reference; each module here names the JAX
+module it mirrors and is held against it by `tests/test_torch_*.py`. This
+package imports `torch` and never `jax` or `upnerf`.
+
+Subpackages (same layout as `upnerf`):
+  geometry  SE(3) exp map, pose algebra, novel-view orbit, rays
+  ops       dense layer precision policy, the fused forward render kernel
+            (CUDA C++ in csrc/) with its plain PyTorch version, kernel build
+  models    NeRF field (nn.Module, reference state_dict names), embeddings
+  render    stratified + inverse-CDF sampling, volume compositing,
+            coarse+fine render_rays
+  evaluate  chunked novel-view renders
+  utils     reference-checkpoint weight bridge
+  cli       render_video
+"""
+
+import torch
+
+__version__ = "0.1.0"
+
+# f32 products on the card stay f32: the JAX reference runs its f32 mode at
+# Precision.HIGHEST, and TF32 keeps only ~3 decimal digits.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,104 @@
+"""Novel-view orbit rendering from a reference checkpoint (upnerf/cli/render_video.py).
+
+    python -m upnerf_torch.cli.render_video --ckpt model.ckpt --wh 128 128 \\
+        --focal 120 [--anchor 0] [--frames 60] [--scale 1.0] [--out DIR] [--device cuda]
+
+Renders a circular camera path around a training view with that view's
+appearance embedding, writing frame_XXX.png (8-bit RGB) and depth_XXX.npy.
+The checkpoint is a reference checkpoint ({"state_dict",
+"hyper_parameters", "global_step"}, see upnerf_torch/utils/weights.py). The
+anchor pose is the refined training pose exp(se3_refine[anchor]) o I: in the
+pose-prior-free mode every training base pose is the identity. The
+intrinsics come from --wh and --focal (principal point at the image
+centre); a COLMAP scene's own base pose and K need the data layer, which is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import struct
+import zlib
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """(H, W, 3) uint8 -> 8-bit RGB PNG (filter 0 on every row)."""
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--ckpt", required=True, help="reference checkpoint (torch.save'd dict)")
+    p.add_argument("--out", default="video", help="output directory")
+    p.add_argument("--anchor", default=0, type=int, help="training image whose pose and appearance anchor the orbit")
+    p.add_argument("--frames", default=60, type=int)
+    p.add_argument("--scale", default=1.0, type=float, help="orbit radius scale")
+    p.add_argument("--wh", nargs=2, type=int, required=True, metavar=("W", "H"))
+    p.add_argument("--focal", type=float, required=True, help="focal length in pixels")
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+    """Render the orbit; returns {"frames": [png paths], "depths": [npy paths]}."""
+    args = parse_args(argv)
+    from upnerf_torch.evaluate.render import make_pose_renderer, render_image
+    from upnerf_torch.geometry import se3
+    from upnerf_torch.models.nerf import NeRFConfig
+    from upnerf_torch.render.render_rays import RenderConfig
+    from upnerf_torch.utils.weights import load_reference_ckpt, render_params
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but no CUDA device is available")
+    sd, hparams, _ = load_reference_ckpt(args.ckpt)
+    if hparams is None:
+        raise ValueError(f"{args.ckpt} has no hyper_parameters")
+    nerf_cfg = NeRFConfig.from_hparams(hparams)
+    rcfg = RenderConfig.from_hparams(hparams)._replace(perturb=0.0)
+    chunk = int(hparams["val.chunk_size"])
+    params, se3_table = render_params(sd, nerf_cfg, device)
+    if not 0 <= args.anchor < se3_table.shape[0]:
+        raise ValueError(f"--anchor {args.anchor} outside the {se3_table.shape[0]} training images")
+
+    base = torch.eye(3, 4, device=device)
+    anchor_pose = se3.compose([se3.se3_to_SE3(se3_table[args.anchor]), base])
+    poses = se3.get_novel_view_poses(anchor_pose, N=args.frames, scale=args.scale)
+    w, h = args.wh
+    K = np.array([[args.focal, 0.0, w / 2.0], [0.0, args.focal, h / 2.0], [0.0, 0.0, 1.0]], np.float32)
+    near_far = np.array([hparams["nerf.near"], hparams["nerf.far"]], np.float32)
+    renderer = make_pose_renderer(rcfg, chunk=chunk)
+
+    os.makedirs(args.out, exist_ok=True)
+    frames, depths = [], []
+    for i in range(args.frames):
+        rgb, depth = render_image(
+            renderer, params, K, poses[i].cpu().numpy(), (w, h), near_far,
+            a_idx=args.anchor, chunk=chunk, device=device,
+        )
+        frames.append(os.path.join(args.out, f"frame_{i:03d}.png"))
+        depths.append(os.path.join(args.out, f"depth_{i:03d}.npy"))
+        write_png(frames[-1], (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+        np.save(depths[-1], depth.astype(np.float32))
+        print(f"[video] frame {i + 1}/{args.frames}", flush=True)
+    print(f"[video] frames -> {args.out}", flush=True)
+    return {"frames": frames, "depths": depths}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,188 @@
+"""UP-NeRF field with BARF-annealed positional encoding (upnerf/models/nerf.py).
+
+`NeRFField` is an nn.Module whose parameter names are the reference's
+NeRF state_dict keys (`xyz_encoding_1.0.weight`, ..., `share_sigma.0.*`,
+`rgb_share_layer.{0,2}.*`, `feat_share_layer.*`, `candidate_encoding.{0,2}.*`,
+`candidate_sigma.0.*`, `feat_candidate_layer.*`, `progress`), so a
+reference checkpoint loads with `load_state_dict(strict=True)`.
+
+Architecture:
+  trunk   : D layers of W + ReLU, skip concat [x0, h] at the skip layers;
+            xyz_encoding_final Linear(W, W).
+  shared  : sigma = Softplus(Linear(W, 1)); feat = Linear(W, feat_dim);
+            rgb = Sigmoid(MLP(feat + PE(dir) + appearance, W/2)).
+  candidate branch: its parameters load, its forward (phases 0/1) is not
+  ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F_
+from torch import nn
+
+from upnerf_torch.ops.linear import dense, init_linear_
+from upnerf_torch.ops.render_train import softplus
+
+
+class NeRFConfig(NamedTuple):
+    """Static NeRF hyperparameters."""
+
+    D: int = 8
+    W: int = 256
+    skips: Tuple[int, ...] = (4,)
+    encode_feat: bool = True
+    feat_dim: int = 384
+    xyz_L: int = 10
+    dir_L: int = 4
+    appearance_dim: int = 48
+    candidate_dim: int = 16
+    c2f: Optional[Tuple[float, float]] = (0.1, 0.5)
+
+    @property
+    def in_channels_xyz(self) -> int:
+        return 6 * self.xyz_L + 3
+
+    @property
+    def in_channels_dir(self) -> int:
+        return 6 * self.dir_L + 3
+
+    @property
+    def encode_appearance(self) -> bool:
+        return self.appearance_dim > 0
+
+    @property
+    def encode_candidate(self) -> bool:
+        return self.candidate_dim > 0
+
+    @classmethod
+    def from_hparams(cls, hp: Dict[str, Any]) -> "NeRFConfig":
+        c2f = hp.get("pose.c2f")
+        return cls(
+            D=hp.get("nerf.D", 8),
+            W=hp.get("nerf.W", 256),
+            skips=tuple(hp.get("nerf.skips", (4,))),
+            encode_feat=hp["nerf.feat_dim"] > 0,
+            feat_dim=hp["nerf.feat_dim"],
+            xyz_L=hp["nerf.N_emb_xyz"],
+            dir_L=hp["nerf.N_emb_dir"],
+            appearance_dim=hp["nerf.appearance_dim"],
+            candidate_dim=hp["nerf.candidate_dim"],
+            c2f=tuple(c2f) if c2f is not None else None,
+        )
+
+
+def pe_weight(progress: float, L: int, c2f: Tuple[float, float], device=None) -> torch.Tensor:
+    """(L,) BARF coarse-to-fine band weights:
+    w_k = (1 - cos(pi * clamp(alpha - k, 0, 1))) / 2,
+    alpha = (progress - start) / (end - start) * L, in f32 as the reference
+    computes it. alpha is formed on the host, so no host-to-device copy (and
+    no stream synchronisation) happens per call."""
+    start, end = c2f
+    alpha = ((torch.tensor(float(progress), dtype=torch.float32) - start) / (end - start) * L).item()
+    k = torch.arange(L, dtype=torch.float32, device=device)
+    return (1 - torch.cos(torch.clamp(alpha - k, 0.0, 1.0) * math.pi)) / 2
+
+
+def band_weights(cfg: NeRFConfig, L: int, progress: float, device=None) -> torch.Tensor:
+    """pe_weight under c2f, ones without it."""
+    if cfg.c2f is None:
+        return torch.ones(L, dtype=torch.float32, device=device)
+    return pe_weight(progress, L, cfg.c2f, device=device)
+
+
+def positional_encoding(x: torch.Tensor, L: int, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sin/cos PE in the torch column layout: the raw coordinates, then per
+    coordinate [sin(f_0 x) .. sin(f_{L-1} x), cos(f_0 x) .. cos(f_{L-1} x)],
+    f_l = 2^l * pi. Output dim N + 2NL for input dim N."""
+    freq = 2.0 ** torch.arange(L, dtype=torch.float32, device=x.device) * math.pi
+    spectrum = x[..., None] * freq  # [..., N, L]
+    sin, cos = torch.sin(spectrum), torch.cos(spectrum)
+    if weight is not None:
+        sin = sin * weight
+        cos = cos * weight
+    enc = torch.stack([sin, cos], dim=-2).reshape(*x.shape[:-1], x.shape[-1] * 2 * L)
+    return torch.cat([x, enc], dim=-1)
+
+
+class NeRFField(nn.Module):
+    """One NeRF MLP (coarse or fine), reference parameter names."""
+
+    def __init__(self, cfg: NeRFConfig, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device)
+        for i in range(cfg.D):
+            if i == 0:
+                fan_in = cfg.in_channels_xyz
+            elif i in cfg.skips:
+                fan_in = cfg.W + cfg.in_channels_xyz
+            else:
+                fan_in = cfg.W
+            setattr(self, f"xyz_encoding_{i + 1}", nn.Sequential(nn.Linear(fan_in, cfg.W, **kw), nn.ReLU(True)))
+        self.xyz_encoding_final = nn.Linear(cfg.W, cfg.W, **kw)
+        self.share_sigma = nn.Sequential(nn.Linear(cfg.W, 1, **kw), nn.Softplus())
+        rgb_in = (cfg.feat_dim if cfg.encode_feat else cfg.W) + cfg.in_channels_dir + cfg.appearance_dim
+        self.rgb_share_layer = nn.Sequential(
+            nn.Linear(rgb_in, cfg.W // 2, **kw), nn.ReLU(True), nn.Linear(cfg.W // 2, 3, **kw), nn.Sigmoid()
+        )
+        if cfg.encode_feat:
+            self.feat_share_layer = nn.Linear(cfg.W, cfg.feat_dim, **kw)
+        if cfg.encode_candidate:
+            self.candidate_encoding = nn.Sequential(
+                nn.Linear(cfg.W + cfg.candidate_dim, cfg.W // 2, **kw),
+                nn.ReLU(True),
+                nn.Linear(cfg.W // 2, cfg.W // 2, **kw),
+                nn.ReLU(True),
+            )
+            self.candidate_sigma = nn.Sequential(nn.Linear(cfg.W // 2, 1, **kw), nn.Softplus())
+            if cfg.encode_feat:
+                self.feat_candidate_layer = nn.Linear(cfg.W // 2, cfg.feat_dim, **kw)
+            else:
+                self.rgb_candidate_layer = nn.Linear(cfg.W // 2, 3, **kw)
+        self.progress = nn.Parameter(torch.tensor(0.0, device=device), requires_grad=False)
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                init_linear_(m, generator)
+
+    def trunk_layers(self):
+        return [getattr(self, f"xyz_encoding_{i + 1}")[0] for i in range(self.cfg.D)]
+
+    def forward(
+        self,
+        xyz: torch.Tensor,  # (..., 3)
+        dirs: torch.Tensor,  # (..., 3), or per ray (R, 3) for xyz (R, S, 3)
+        a_emb: Optional[torch.Tensor],  # like dirs, (..., appearance_dim)
+        *,
+        progress: float,
+        precision: str = "float32",
+    ) -> Dict[str, torch.Tensor]:
+        """Phase-2 forward (rgb only, no candidate branch): s_sigma (...),
+        s_feat (..., feat_dim), s_rgb (..., 3). Per-ray `dirs`/`a_emb` are
+        broadcast over the sample axis."""
+        cfg = self.cfg
+        if not cfg.encode_feat:
+            raise NotImplementedError("the feature-less field is not ported")
+        x0 = positional_encoding(xyz, cfg.xyz_L, band_weights(cfg, cfg.xyz_L, progress, xyz.device))
+        h = x0
+        for i, layer in enumerate(self.trunk_layers()):
+            if i in cfg.skips:
+                h = torch.cat([x0, h], dim=-1)
+            h = F_.relu(dense(h, layer.weight, layer.bias, precision))
+        lin = self.share_sigma[0]
+        out = {"s_sigma": softplus(dense(h, lin.weight, lin.bias, precision))[..., 0]}
+        xyz_final = dense(h, self.xyz_encoding_final.weight, self.xyz_encoding_final.bias, precision)
+        feat = dense(xyz_final, self.feat_share_layer.weight, self.feat_share_layer.bias, precision)
+        out["s_feat"] = feat
+
+        dir_pe = positional_encoding(dirs, cfg.dir_L, band_weights(cfg, cfg.dir_L, progress, dirs.device))
+        parts = [dir_pe] + ([a_emb] if cfg.encode_appearance else [])
+        if dirs.dim() == xyz.dim() - 1:
+            parts = [p[..., None, :].expand(*feat.shape[:-1], p.shape[-1]) for p in parts]
+        l1, l2 = self.rgb_share_layer[0], self.rgb_share_layer[2]
+        rgbh = F_.relu(dense(torch.cat([feat] + parts, -1), l1.weight, l1.bias, precision))
+        out["s_rgb"] = torch.sigmoid(dense(rgbh, l2.weight, l2.bias, precision))
+        return out

@@ -1,0 +1,5 @@
+from .render_rays import RenderConfig, render_rays
+from .sampling import sample_pdf, stratified_z_vals
+from .volume import composite_weights
+
+__all__ = ["RenderConfig", "composite_weights", "render_rays", "sample_pdf", "stratified_z_vals"]
