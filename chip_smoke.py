@@ -1,18 +1,36 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (upnerf_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
 Phases, each of which must pass (the script exits non-zero otherwise):
   1. the card: name and power limit from nvidia-smi;
-  2. build: nvcc compiles upnerf_torch/csrc/*.cu for sm_90a;
-  3. kernel against its plain PyTorch version on one 4096-ray chunk at the
-     brandenburg_gate width, S = 128 and 256 samples, float32 and bfloat16;
+  2. build: nvcc compiles upnerf_torch/csrc/*.cu for sm_90a, one process per
+     source, all at once;
+  3. the forward kernel's serving mode against its plain PyTorch version on
+     one 4096-ray chunk at the brandenburg_gate width, S = 128 and 256
+     samples, float32 and bfloat16;
   4. the serving path: a seeded checkpoint at that width is rendered for 2
      frames at 128x128 by `upnerf_torch.cli.render_video.main`, every
      coarse and fine pass through the kernel; then rays of frame 0 rendered
      on the card are held against the same rays rendered on the CPU;
-  5. timings of the kernel and the plain version per chunk and per frame.
+  5. timings of the serving kernel and the plain version per chunk and per
+     frame;
+  6. the forward kernel in the phase-0 and phase-1 training modes, with the
+     residuals the backward reads, against its plain version at the train
+     batch (2048 rays), S = 128 and 256, float32 and bfloat16;
+  7. the backward kernel against `render_train_rays_bwd_plain` on the same
+     inputs and residuals and random cotangents, every cotangent;
+  8. the flagship train step, `upnerf_torch.train.step.make_train_step`, on
+     an in-memory scene as the JAX package's benchmark builds it (16 images
+     of 256x256, 55x55x384 bf16 features, batch 2048, 128 + 128 samples,
+     bfloat16): 1 warm-up and 3 steps in each of phases 0, 1 and 2, each
+     step 2 forward and 2 backward kernel launches; then one phase-1 step of
+     256 rays on the card (kernels) against the same step on the CPU (plain
+     versions), on the loss terms and every gradient;
+  9. step ms and rays/s per phase (CUDA events), the backward kernel against
+     the plain backward per 4096-ray chunk, the step's peak memory; with
+     --profile, a torch.profiler table of one phase-1 step into DIR.
 
 The last two lines are one JSON object describing each kernel, and
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc and one card;
@@ -21,6 +39,8 @@ imports no JAX.
 
 from __future__ import annotations
 
+import argparse
+import copy
 import json
 import os
 import subprocess
@@ -62,13 +82,33 @@ BRANDENBURG_GATE = {
 # an activation whose f32 sum lands on the other side of a bf16 rounding
 # boundary moves by one bf16 ulp (2^-8 relative), rarely.
 TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# The saved walk chain, max |d| over max |value|: f32 as above; bf16 values
+# are stored rounded, so a rounding flip is one bf16 ulp (2^-8) of the value.
+CHAIN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# Backward kernel against the plain backward, per cotangent, max |d| over the
+# leaf's max |g|: f32 sums in another order (atomics in an order that changes
+# from run to run) over up to 2048 x 256 samples; bf16 also rounds every
+# cotangent to bf16 before each product, where one flip is 2^-8 of a term.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # A frame's rays on the card (kernel) against the CPU (plain version):
 # besides the above, fine samples move with the coarse weights, and the top
 # PE band (2^9 pi) turns a 1e-6 move of a sample into a ~2e-3 change of x0.
 E2E_TOL = 1e-2
+# One train step of 256 rays, card (kernels) against CPU (plain versions),
+# bf16: loss terms relative; gradients max |d| over the leaf's max |g|. The
+# kernels and the plain versions round in the same places, but a product
+# summed in another order can round a bf16 operand the other way, and the
+# fine samples follow the coarse weights (sample_pdf), so the two steps see
+# slightly different samples.
+STEP_LOSS_TOL = 1e-3
+STEP_GRAD_TOL = 5e-2
 CHUNK = 4096
 FRAME_WH = (128, 128)
 FOCAL = 128.0
+TRAIN_RAYS = 2048
+STEP_PHASES = (0, 1, 2)
+MAX_STEPS = 600000
+PHASE_PROGRESS = {0: 0.0, 1: 0.3, 2: 0.6}  # inside each phase of the candidate schedule (0.1, 0.5)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -97,21 +137,22 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def chunk_inputs(field, S: int, seed: int, dev):
-    """One 4096-ray chunk as the serving path gives it to the kernel:
-    unit directions, sorted depths in [near, far], the field's ray_cond."""
+def chunk_inputs(field, S: int, seed: int, dev, R: int = CHUNK):
+    """R rays as the render path gives them to the kernel: unit directions,
+    sorted depths in [near, far], the field's ray_cond, a candidate embedding."""
     from upnerf_torch.render.render_rays import ray_conditioning
 
     rng = np.random.RandomState(seed)
-    o = torch.tensor(rng.randn(CHUNK, 3).astype(np.float32) * 0.3, device=dev)
-    d = torch.tensor(rng.randn(CHUNK, 3).astype(np.float32), device=dev)
+    o = torch.tensor(rng.randn(R, 3).astype(np.float32) * 0.3, device=dev)
+    d = torch.tensor(rng.randn(R, 3).astype(np.float32), device=dev)
     d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-    z = torch.tensor(rng.uniform(0.1, 5.0, (CHUNK, S)).astype(np.float32), device=dev)
+    z = torch.tensor(rng.uniform(0.1, 5.0, (R, S)).astype(np.float32), device=dev)
     z = torch.sort(z, -1).values.contiguous()
-    a_emb = torch.tensor(rng.randn(CHUNK, 48).astype(np.float32), device=dev)
+    a_emb = torch.tensor(rng.randn(R, field.cfg.appearance_dim).astype(np.float32), device=dev)
+    c_emb = torch.tensor(rng.randn(R, field.cfg.candidate_dim).astype(np.float32), device=dev)
     with torch.no_grad():
         cond = ray_conditioning(field, d, a_emb, 1.0)
-    return o, d, z, torch.ones(10, device=dev), cond
+    return o, d, z, torch.ones(field.cfg.xyz_L, device=dev), cond, c_emb
 
 
 def read_png_size(path: str):
@@ -130,7 +171,270 @@ def read_png_size(path: str):
     return w, h
 
 
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|."""
+    scale = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / max(scale, 1e-30)
+
+
+def train_static(nerf_cfg, precision: str, phase: int):
+    from upnerf_torch.ops import render_train as rt
+
+    return rt.RTStatic(D=nerf_cfg.D, skips=nerf_cfg.skips, xyz_L=nerf_cfg.xyz_L, precision=precision,
+                       use_cand=phase < 2, use_rgb=phase > 0, out_feat=phase < 2)
+
+
+def mode_args(field, inputs, st):
+    """Kernel arguments of one mode: the head subset and the mode's inputs."""
+    from upnerf_torch.render.render_rays import field_weights
+
+    o, d, z, pe_w, cond, c_emb = inputs
+    trunk, heads = field_weights(field)
+    heads = {k: heads[k] for k in st.head_keys}
+    return (o, d, z, pe_w, cond if st.use_rgb else None, trunk, heads, st), (c_emb if st.use_cand else None)
+
+
+def phase_train_kernels(field, nerf_cfg, dev):
+    """Phases 6 and 7: forward (with residuals) and backward kernels against
+    their plain versions at the train batch. Returns the worst errors."""
+    from upnerf_torch.ops import render_train as rt
+
+    fwd_err, bwd_err, bwd_abs = 0.0, 0.0, 0.0
+    for S in (128, 256):
+        inputs = chunk_inputs(field, S, seed=100 + S, dev=dev, R=TRAIN_RAYS)
+        for prec in ("float32", "bfloat16"):
+            for phase in (0, 1):
+                st = train_static(nerf_cfg, prec, phase)
+                args, c_emb = mode_args(field, inputs, st)
+                with torch.no_grad():
+                    got, got_res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+                    want, want_res = rt.render_train_rays_plain(*args, c_emb=c_emb, save_res=True)
+                torch.cuda.synchronize()
+                e = {}
+                for k in st.out_keys:
+                    check(bool(torch.isfinite(got[k]).all()), f"forward output {k} not finite (S={S} {prec} phase {phase})")
+                    diff = (got[k] - want[k]).abs()
+                    e[k] = (diff / want[k].abs().clamp(min=1e-6)).max().item() if "depth" in k else diff.max().item()
+                for k in ("sig_s", "sig_c", "rgb"):
+                    if k in want_res:
+                        e[k] = rel_err(got_res[k], want_res[k])
+                e_chain = rel_err(got_res["chain"], want_res["chain"])
+                worst = max(e.values())
+                print(f"[6] S={S} {prec} phase {phase}: max err {worst:.3e} (tol {TOL[prec]:.0e}) "
+                      + " ".join(f"{k} {v:.2e}" for k, v in e.items())
+                      + f"  chain {e_chain:.3e} (tol {CHAIN_TOL[prec]:.0e})", flush=True)
+                check(worst <= TOL[prec], f"forward kernel disagrees with its plain version: {e}")
+                check(e_chain <= CHAIN_TOL[prec], f"forward kernel's chain disagrees: {e_chain}")
+                fwd_err = max(fwd_err, max(v for k, v in e.items() if "depth" not in k))
+
+                # 7. backward on the kernel's residuals, random cotangents
+                g = torch.Generator(device=dev).manual_seed(S + phase)
+                cots = {k: torch.randn(want[k].shape, generator=g, device=dev) for k in st.out_keys}
+                with torch.no_grad():
+                    kb = rt.render_train_rays_bwd(*args[:7], st, c_emb, got_res, cots)
+                    pb = rt.render_train_rays_bwd_plain(*args[:7], st, c_emb, got_res, cots)
+                torch.cuda.synchronize()
+                pairs = {name: (a_, b_) for name, a_, b_ in zip(["rays_o", "rays_d", "ray_cond", "c_emb"], kb[:4], pb[:4])
+                         if b_ is not None}
+                for i, ((aw, ab), (bw, bb)) in enumerate(zip(kb[4], pb[4])):
+                    pairs[f"trunk{i}.w"], pairs[f"trunk{i}.b"] = (aw, bw), (ab, bb)
+                for k in st.head_keys:
+                    pairs[k] = (kb[5][k], pb[5][k].reshape(kb[5][k].shape))
+                errs = {k: rel_err(a_, b_) for k, (a_, b_) in pairs.items()}
+                bwd_abs = max([bwd_abs] + [(a_ - b_).abs().max().item() for a_, b_ in pairs.values()])
+                for k, v in errs.items():
+                    check(np.isfinite(v), f"backward {k} not finite")
+                worst_k = max(errs, key=errs.get)
+                print(f"[7] S={S} {prec} phase {phase}: {len(errs)} cotangents, worst {worst_k} {errs[worst_k]:.3e}"
+                      f" (tol {BWD_TOL[prec]:.0e}); rays_o {errs['rays_o']:.2e} trunk0.w {errs['trunk0.w']:.2e}",
+                      flush=True)
+                check(errs[worst_k] <= BWD_TOL[prec], f"backward kernel disagrees with its plain version: {errs}")
+                bwd_err = max(bwd_err, errs[worst_k])
+                del got, got_res, want, want_res, kb, pb
+                torch.cuda.empty_cache()
+    return fwd_err, bwd_err, bwd_abs
+
+
+def flagship_world(dev, seed: int = 0):
+    """The JAX package's benchmark scene (__graft_entry__.py:_build) on the
+    card: 16 images of 256x256, identity poses, 55x55x384 bf16 features, the
+    full ray store; and the brandenburg_gate train step config."""
+    from upnerf_torch.models.nerf import NeRFConfig
+    from upnerf_torch.models.transient import TransientConfig
+    from upnerf_torch.render.render_rays import RenderConfig
+    from upnerf_torch.train import LossConfig, RayStore, SceneConstants, StepConfig
+
+    n_images, H, W, fh, fw = 16, 256, 256, 55, 55
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Ks = torch.zeros((n_images, 3, 3), device=dev)
+    Ks[:, 0, 0] = Ks[:, 1, 1] = W * 1.2
+    Ks[:, 0, 2], Ks[:, 1, 2], Ks[:, 2, 2] = W / 2, H / 2, 1.0
+    scene = SceneConstants(
+        Ks=Ks, poses=torch.eye(3, 4, device=dev).expand(n_images, 3, 4).contiguous(),
+        near_far=torch.tensor([[0.1, 5.0]], device=dev).expand(n_images, 2).contiguous(),
+        wh=torch.tensor([[W, H]], device=dev, dtype=torch.int32).expand(n_images, 2).contiguous(),
+        feat_maps=torch.randn((n_images, fh, fw, 384), generator=g, device=dev).to(torch.bfloat16),
+    )
+    n = n_images * H * W
+    pix = torch.arange(H * W, device=dev, dtype=torch.int32)
+    store = RayStore(
+        px=(pix % W).repeat(n_images), py=(pix // W).repeat(n_images),
+        img_idx=torch.arange(n_images, device=dev).repeat_interleave(H * W),
+        rgb=torch.randint(0, 256, (n, 3), generator=g, device=dev, dtype=torch.uint8),
+        inv_depth=(torch.rand(n, generator=g, device=dev) * 5 + 0.2).to(torch.float16),
+    )
+    hp = BRANDENBURG_GATE
+    cfg = StepConfig(
+        nerf=NeRFConfig.from_hparams(hp), transient=TransientConfig.from_hparams(hp),
+        render=RenderConfig.from_hparams(hp), loss=LossConfig(encode_feat=True, fine=True),
+        candidate_schedule=(0.1, 0.5), max_steps=MAX_STEPS, pose_optimize=True, near=0.1, far=5.0,
+        batch_size=TRAIN_RAYS,
+    )
+    return cfg, scene, store, n_images
+
+
+def fresh_state(cfg, n_images, dev, seed: int = 0):
+    from upnerf_torch.train import init_params, init_pose_params, make_optimizer, make_train_state
+
+    model = init_params(cfg.nerf, cfg.transient, n_images, generator=torch.Generator().manual_seed(seed))
+    opt = make_optimizer("adam", 5e-4, 5e-5, cfg.max_steps)
+    pose_opt = make_optimizer("adam", 2e-3, 1e-5, cfg.max_steps)
+    return make_train_state(model, init_pose_params(n_images), opt, pose_opt, seed=seed + 1, device=dev), opt, pose_opt
+
+
+def phase_train_step(dev, card: str, profile_dir=None):
+    """Phases 8 and 9 for the train step. Returns (launch counts, step times)."""
+    from upnerf_torch.ops import render_train as rt
+    from upnerf_torch.train import make_train_step
+    from upnerf_torch.train import step as tstep
+    from upnerf_torch.train.schedules import pe_progress, schedule_mult
+
+    cfg, scene, store, n_images = flagship_world(dev)
+    state, opt, pose_opt = fresh_state(cfg, n_images, dev)
+    step, _ = make_train_step(cfg, opt, pose_opt)
+    se3_0 = state.pose_params.se3_refine.weight.detach().clone()
+    ds_0 = state.pose_params.depth_scale.weight.detach().clone()
+
+    n_steps = 3
+    rt.launches = rt.bwd_launches = 0
+    times, peaks = {}, {}
+    for phase in STEP_PHASES:
+        state = state._replace(step=int(PHASE_PROGRESS[phase] * MAX_STEPS))
+        state, m = step(state, scene, store, phase)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = []
+        for _ in range(n_steps):
+            state, m = step(state, scene, store, phase)
+            losses.append(m["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / n_steps
+        peaks[phase] = torch.cuda.max_memory_allocated(dev)
+        losses = [float(x) for x in losses]
+        check(all(np.isfinite(losses)), f"phase {phase}: loss not finite {losses}")
+        times[phase] = ms
+        terms = " ".join(f"{k[5:]} {float(v):.4g}" for k, v in m.items() if k.startswith("loss/"))
+        print(f"[8] phase {phase}: losses {['%.5g' % x for x in losses]} ({terms}); psnr {float(m['psnr']):.3f}",
+              flush=True)
+    steps = len(STEP_PHASES) * (n_steps + 1)
+    launches = {"render_train_fwd": rt.launches, "render_train_bwd": rt.bwd_launches}
+    print(f"[8] {steps} steps: forward launches {launches['render_train_fwd']}, backward launches"
+          f" {launches['render_train_bwd']} (expected {2 * steps} each)", flush=True)
+    check(launches["render_train_fwd"] == 2 * steps and launches["render_train_bwd"] == 2 * steps,
+          "the train step did not make 2 forward + 2 backward kernel launches a step")
+    d_se3 = (state.pose_params.se3_refine.weight.detach() - se3_0).abs().max().item()
+    d_ds = (state.pose_params.depth_scale.weight.detach() - ds_0).abs().max().item()
+    print(f"[8] pose tables moved: max |d se3| {d_se3:.3e}, max |d depth_scale| {d_ds:.3e}", flush=True)
+    check(d_se3 > 0 and d_ds > 0, "the pose tables did not move")
+
+    # one phase-1 step of 256 rays: card (kernels) against CPU (plain versions)
+    n = 256
+    g = torch.Generator(device=dev).manual_seed(7)
+    idx = torch.randint(0, store.n_rays, (n,), generator=g, device=dev)
+    batch = tstep.gather_batch(store, idx)
+    noise = {"coarse": torch.rand((n, cfg.render.N_samples), generator=g, device=dev),
+             "fine": torch.rand((n, cfg.render.N_importance), generator=g, device=dev)}
+    progress = pe_progress(int(PHASE_PROGRESS[1] * MAX_STEPS), MAX_STEPS)
+    sched = schedule_mult(progress, cfg.candidate_schedule)
+    cpu_model, cpu_pose = copy.deepcopy(state.params).cpu(), copy.deepcopy(state.pose_params).cpu()
+    cpu_scene = type(scene)(*[None if t is None else t.cpu() for t in scene])
+    grads = {}
+    for where, model, pose, sc, b, nz in (
+        ("card", state.params, state.pose_params, scene, batch, noise),
+        ("cpu", cpu_model, cpu_pose, cpu_scene, {k: v.cpu() for k, v in batch.items()},
+         {k: v.cpu() for k, v in noise.items()}),
+    ):
+        model.zero_grad(set_to_none=True)
+        pose.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss, metrics = tstep._loss_and_metrics(model, pose, cfg, sc, b, nz, 1, sched, progress)
+        loss.backward()
+        named = list(model.named_parameters()) + list(pose.named_parameters())
+        grads[where] = ({k: float(v.detach()) for k, v in metrics.items() if k.startswith("loss")},
+                        {k: p.grad.detach().cpu() for k, p in named if p.grad is not None})
+        print(f"    {where}: 256-ray phase-1 step in {time.perf_counter() - t0:.2f} s", flush=True)
+    (lc, gc), (lp, gp) = grads["card"], grads["cpu"]
+    loss_err = max(abs(lc[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp)
+    check(set(gc) == set(gp), "card and CPU steps reach different parameters")
+    grad_errs = {k: rel_err(gc[k], gp[k]) for k in gp}
+    worst = max(grad_errs, key=grad_errs.get)
+    print(f"[8] 256 rays, card vs CPU: max rel d loss term {loss_err:.3e} (tol {STEP_LOSS_TOL:.0e}); "
+          f"{len(grad_errs)} gradients, worst {worst} {grad_errs[worst]:.3e} (tol {STEP_GRAD_TOL:.0e}); "
+          f"se3 {grad_errs['se3_refine.weight']:.3e}", flush=True)
+    check(loss_err <= STEP_LOSS_TOL, f"the card's step loss disagrees with the CPU's: {lc} vs {lp}")
+    check(grad_errs[worst] <= STEP_GRAD_TOL, f"the card's gradients disagree with the CPU's: {grad_errs}")
+
+    # 9. step times
+    for phase in STEP_PHASES:
+        print(f"[9] train step phase {phase}: {times[phase]:.2f} ms, {TRAIN_RAYS / times[phase] * 1e3:.0f} rays/s,"
+              f" peak memory {peaks[phase] / 2**30:.2f} GiB ({card})", flush=True)
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        state = state._replace(step=int(PHASE_PROGRESS[1] * MAX_STEPS))
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            state, _ = step(state, scene, store, 1)
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        with open(os.path.join(profile_dir, "train_step_phase1.txt"), "w") as f:
+            f.write(f"{card}\n{table}\n")
+        prof.export_chrome_trace(os.path.join(profile_dir, "train_step_phase1.json"))
+        print(f"[9] profile of one phase-1 step -> {profile_dir}", flush=True)
+    return launches, times
+
+
+def phase_bwd_timing(field, nerf_cfg, dev, card: str):
+    """Backward kernel against the plain backward per 4096-ray chunk, S = 256,
+    phase 1, bfloat16, in turns (plain, kernel, kernel, plain)."""
+    from upnerf_torch.ops import render_train as rt
+
+    st = train_static(nerf_cfg, "bfloat16", 1)
+    inputs = chunk_inputs(field, 256, seed=9, dev=dev, R=CHUNK)
+    args, c_emb = mode_args(field, inputs, st)
+    with torch.no_grad():
+        out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+        g = torch.Generator(device=dev).manual_seed(3)
+        cots = {k: torch.randn(v.shape, generator=g, device=dev) for k, v in out.items()}
+        kern = lambda: rt.render_train_rays_bwd(*args[:7], st, c_emb, res, cots)  # noqa: E731
+        plain = lambda: rt.render_train_rays_bwd_plain(*args[:7], st, c_emb, res, cots)  # noqa: E731
+        fwd_k = lambda: rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)  # noqa: E731
+        fwd_p = lambda: rt.render_train_rays_plain(*args, c_emb=c_emb, save_res=True)  # noqa: E731
+        p1, k1, k2, p2 = cuda_ms(plain, 2), cuda_ms(kern, 2), cuda_ms(kern, 2), cuda_ms(plain, 2)
+        fp1, fk1, fk2, fp2 = cuda_ms(fwd_p, 2), cuda_ms(fwd_k, 2), cuda_ms(fwd_k, 2), cuda_ms(fwd_p, 2)
+    t = {"bwd": ((k1 + k2) / 2, (p1 + p2) / 2), "fwd": ((fk1 + fk2) / 2, (fp1 + fp2) / 2)}
+    print(f"[9] per {CHUNK}-ray chunk, S=256, phase 1, bfloat16: backward kernel {t['bwd'][0]:.2f} ms, plain"
+          f" {t['bwd'][1]:.2f} ms; forward with residuals kernel {t['fwd'][0]:.2f} ms, plain {t['fwd'][1]:.2f} ms"
+          f" ({card})", flush=True)
+    return t
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Smoke test of upnerf_torch on one NVIDIA GPU.")
+    parser.add_argument("--profile", default=None, help="write a torch.profiler table of one phase-1 step here")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card", file=sys.stderr)
         return 2
@@ -147,6 +451,7 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    t_start = time.perf_counter()
 
     # 1. the card
     card = card_line()
@@ -154,18 +459,21 @@ def main() -> int:
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
 
     # 2. build
-    info = _build.build()
-    print(f"[2] nvcc {info.seconds:.1f} s -> {info.path}", flush=True)
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("    " + line.strip(), flush=True)
+    t0 = time.perf_counter()
+    infos = _build.build()
+    print(f"[2] nvcc, {len(infos)} sources in parallel: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, info in infos.items():
+        print(f"    {name} -> {info.path.name}", flush=True)
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("      " + line.strip(), flush=True)
 
-    # 3. kernel against plain version, one chunk at full width
+    # 3. serving kernel against plain version, one chunk at full width
     nerf_cfg = NeRFConfig.from_hparams(BRANDENBURG_GATE)
     field = NeRFField(nerf_cfg, generator=torch.Generator().manual_seed(0)).to(dev).requires_grad_(False)
     errs, inputs = {}, {}
     for S in (128, 256):
-        inputs[S] = chunk_inputs(field, S, seed=S, dev=dev)
+        inputs[S] = chunk_inputs(field, S, seed=S, dev=dev)[:5]
         for prec in ("float32", "bfloat16"):
             st = rt.RTStatic(D=nerf_cfg.D, skips=nerf_cfg.skips, xyz_L=nerf_cfg.xyz_L, precision=prec)
             trunk, heads = field_weights(field)
@@ -199,10 +507,10 @@ def main() -> int:
         written = render_video.main(argv)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
-        launches = rt.launches
-        print(f"[4] render_video: 2 frames {FRAME_WH[0]}x{FRAME_WH[1]} in {cli_s:.2f} s, kernel launches {launches}"
-              f" (expected 2 frames x {n_chunks} chunks x 2 passes = {expected})", flush=True)
-        check(launches == expected, f"kernel launched {launches} times, expected {expected}")
+        serve_launches = rt.launches
+        print(f"[4] render_video: 2 frames {FRAME_WH[0]}x{FRAME_WH[1]} in {cli_s:.2f} s, kernel launches"
+              f" {serve_launches} (expected 2 frames x {n_chunks} chunks x 2 passes = {expected})", flush=True)
+        check(serve_launches == expected, f"kernel launched {serve_launches} times, expected {expected}")
         depth0 = None
         for png, npy in zip(written["frames"], written["depths"]):
             check(read_png_size(png) == FRAME_WH, f"{png} has the wrong size")
@@ -249,13 +557,6 @@ def main() -> int:
             times[(S, prec)] = ((k1 + k2) / 2, (p1 + p2) / 2)
             print(f"[5] S={S} {prec}: kernel {times[(S, prec)][0]:.2f} ms  plain {times[(S, prec)][1]:.2f} ms"
                   f" per {CHUNK}-ray chunk ({card})", flush=True)
-    n_chunks = FRAME_WH[0] * FRAME_WH[1] // CHUNK
-    for prec in ("float32", "bfloat16"):
-        fk = n_chunks * (times[(128, prec)][0] + times[(256, prec)][0])
-        fp = n_chunks * (times[(128, prec)][1] + times[(256, prec)][1])
-        print(f"[5] frame {FRAME_WH[0]}x{FRAME_WH[1]} {prec}, coarse+fine passes only: kernel {fk:.1f} ms"
-              f" ({FRAME_WH[0] * FRAME_WH[1] / fk * 1e3:.0f} rays/s), plain {fp:.1f} ms"
-              f" ({FRAME_WH[0] * FRAME_WH[1] / fp * 1e3:.0f} rays/s) ({card})", flush=True)
     renderer = make_pose_renderer(rcfg, chunk=CHUNK)
     pose_np, K_np = pose0.numpy(), K.numpy()
     render_image(renderer, gpu_params, K_np, pose_np, FRAME_WH, [0.1, 5.0], 1, chunk=CHUNK, device=dev)
@@ -268,18 +569,39 @@ def main() -> int:
     frame_ms = (time.perf_counter() - t0) / reps * 1e3
     print(f"[5] frame {FRAME_WH[0]}x{FRAME_WH[1]} end to end (render_image, bfloat16): {frame_ms:.1f} ms"
           f" ({FRAME_WH[0] * FRAME_WH[1] / frame_ms * 1e3:.0f} rays/s) ({card})", flush=True)
+    print(f"    phases 1-5: {time.perf_counter() - t_start:.0f} s", flush=True)
 
-    serve = (256, "bfloat16")
-    print(json.dumps({"kernels": [{
-        "name": "render_train_fwd",
-        "route": "cuda",
-        "source": "upnerf_torch/csrc/render_train_fwd.cu",
-        "replaces": "upnerf/ops/pallas_render_train.py:555",
-        "launches": launches,
-        "max_abs_err": max(max(e["rgb_map"], e["s_weights"]) for e in errs.values()),
-        "ms": times[serve][0],
-        "plain_ms": times[serve][1],
-    }]}), flush=True)
+    # 6 + 7. training modes of the forward kernel, and the backward kernel
+    fwd_err, _, bwd_abs = phase_train_kernels(field, nerf_cfg, dev)
+    print(f"    phases 6-7: {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # 8 + 9. the flagship train step
+    launches, step_ms = phase_train_step(dev, card, args.profile)
+    kt = phase_bwd_timing(field, nerf_cfg, dev, card)
+    print(f"    phases 8-9: {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "render_train_fwd",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/render_train_fwd.cu",
+            "replaces": "upnerf/ops/pallas_render_train.py:555",
+            "launches": launches["render_train_fwd"],
+            "max_abs_err": max(fwd_err, max(max(e["rgb_map"], e["s_weights"]) for e in errs.values())),
+            "ms": kt["fwd"][0],
+            "plain_ms": kt["fwd"][1],
+        },
+        {
+            "name": "render_train_bwd",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/render_train_bwd.cu",
+            "replaces": "upnerf/ops/pallas_render_train.py:671",
+            "launches": launches["render_train_bwd"],
+            "max_abs_err": bwd_abs,
+            "ms": kt["bwd"][0],
+            "plain_ms": kt["bwd"][1],
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

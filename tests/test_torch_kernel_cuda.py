@@ -87,3 +87,108 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         rt.render_train_rays_fwd(o, d, z, pe_w, cond[:, :64], trunk, heads, st)
     with pytest.raises(RuntimeError, match="forward-only"):
         rt.render_train_rays_fwd(o, d, z, pe_w, cond.requires_grad_(), trunk, heads, st)
+
+
+def add_candidate(heads, device, seed=1, C=16, HC=128):
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    def lin(i, o):
+        b = i**-0.5
+        return t(rng.uniform(-b, b, (i, o))), t(rng.uniform(-b, b, o))
+
+    heads = dict(heads)
+    heads["c1x_w"], heads["c1_b"] = lin(W, HC)
+    heads["c1c_w"] = lin(C, HC)[0]
+    heads["c2_w"], heads["c2_b"] = lin(HC, HC)
+    heads["csig_w"], heads["csig_b"] = lin(HC, 1)
+    heads["cfeat_w"], heads["cfeat_b"] = lin(HC, F)
+    return heads
+
+
+def train_inputs(R, S, device, phase, precision, seed=0):
+    """Inputs of one training mode (phase 0: candidate + feature map; phase 1:
+    also rgb) and its RTStatic."""
+    o, d, z, pe_w, cond, trunk, heads = make_inputs(R, S, device, seed)
+    heads = add_candidate(heads, device, seed + 1)
+    c_emb = torch.from_numpy(np.random.RandomState(seed + 2).randn(R, 16).astype(np.float32)).to(device)
+    st = rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision, use_cand=True, use_rgb=phase > 0, out_feat=True)
+    heads = {k: heads[k] for k in st.head_keys}
+    return (o, d, z, pe_w, cond if st.use_rgb else None, trunk, heads, st), c_emb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("phase", [0, 1])
+@pytest.mark.parametrize("S", [128, 100])
+def test_train_forward_matches_plain(cuda_device, precision, phase, S):
+    """Forward kernel with residuals in the phase-0/1 modes; residuals too (the
+    bf16 chain is stored rounded: 1e-2 of its max for a rounding flip)."""
+    args, c_emb = train_inputs(256, S, cuda_device, phase, precision)
+    before = rt.launches
+    with torch.no_grad():
+        got, got_res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+        want, want_res = rt.render_train_rays_plain(*args, c_emb=c_emb, save_res=True)
+    torch.cuda.synchronize()
+    assert rt.launches == before + 1
+    tol = TOL[precision]
+    for k in args[-1].out_keys:
+        if "depth" in k:
+            torch.testing.assert_close(got[k], want[k], rtol=tol, atol=0)
+        else:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=tol)
+    for k in ("sig_s", "sig_c", "rgb"):
+        if k in want_res:
+            torch.testing.assert_close(got_res[k], want_res[k], rtol=tol, atol=tol)
+    chain_tol = 1e-2 if precision == "bfloat16" else 1e-5
+    scale = want_res["chain"].float().abs().max()
+    assert (got_res["chain"].float() - want_res["chain"].float()).abs().max() <= chain_tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("phase", [0, 1])
+def test_backward_matches_plain(cuda_device, precision, phase):
+    """Backward kernel against render_train_rays_bwd_plain on the same
+    residuals; every cotangent within 1e-4 (f32) / 1e-2 (bf16) of its max."""
+    args, c_emb = train_inputs(256, 128, cuda_device, phase, precision, seed=3)
+    st = args[-1]
+    with torch.no_grad():
+        out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+        g = torch.Generator(device=cuda_device).manual_seed(0)
+        cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in out.items()}
+        before = rt.bwd_launches
+        got = rt.render_train_rays_bwd(*args[:7], st, c_emb, res, cots)
+        want = rt.render_train_rays_bwd_plain(*args[:7], st, c_emb, res, cots)
+    torch.cuda.synchronize()
+    assert rt.bwd_launches == before + 1
+    tol = 1e-2 if precision == "bfloat16" else 1e-4
+
+    def close(a, b):
+        assert torch.isfinite(a).all()
+        assert (a - b.reshape(a.shape)).abs().max() <= tol * b.abs().max()
+
+    for a, b in zip(got[:4], want[:4]):
+        if b is not None:
+            close(a, b)
+    for (aw, ab), (bw, bb) in zip(got[4], want[4]):
+        close(aw, bw)
+        close(ab, bb)
+    for k in st.head_keys:
+        close(got[5][k], want[5][k])
+
+
+@pytest.mark.cuda
+def test_render_train_rays_function_launches_both_kernels(cuda_device):
+    args, c_emb = train_inputs(64, 128, cuda_device, 1, "bfloat16", seed=5)
+    o, d, z, pe_w, cond, trunk, heads, st = args
+    leaves = [o.requires_grad_(), cond.requires_grad_(), trunk[0][0].requires_grad_(), heads["c1c_w"].requires_grad_()]
+    before = (rt.launches, rt.bwd_launches)
+    out = rt.render_train_rays(o, d, z, pe_w, cond, trunk, heads, st, c_emb=c_emb)
+    (out["feat_map"].sum() + out["rgb_map"].sum() + out["s_depth"].sum()).backward()
+    torch.cuda.synchronize()
+    assert (rt.launches, rt.bwd_launches) == (before[0] + 1, before[1] + 1)
+    for t in leaves:
+        assert t.grad is not None and torch.isfinite(t.grad).all() and t.grad.abs().max() > 0

@@ -110,7 +110,7 @@ def test_port_imports_neither_jax_nor_upnerf():
         "sys.modules['upnerf'] = None\n"
         "import upnerf_torch, upnerf_torch.geometry, upnerf_torch.ops, upnerf_torch.ops._build\n"
         "import upnerf_torch.models, upnerf_torch.render, upnerf_torch.evaluate, upnerf_torch.utils\n"
-        "import upnerf_torch.cli.render_video\n"
+        "import upnerf_torch.cli.render_video, upnerf_torch.train, upnerf_torch.train.step\n"
         "bad = [m for m, v in sys.modules.items() if v is not None\n"
         "       and (m in ('jax', 'upnerf') or m.startswith(('jax.', 'jaxlib', 'upnerf.')))]\n"
         "assert not bad, bad\n"

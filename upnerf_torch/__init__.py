@@ -6,13 +6,17 @@ package imports `torch` and never `jax` or `upnerf`.
 
 Subpackages (same layout as `upnerf`):
   geometry  SE(3) exp map, pose algebra, novel-view orbit, rays
-  ops       dense layer precision policy, the fused forward render kernel
-            (CUDA C++ in csrc/) with its plain PyTorch version, kernel build
-  models    NeRF field (nn.Module, reference state_dict names), embeddings
+  ops       dense layer precision policy, bilinear feature gathers, the fused
+            render kernels, forward and backward (CUDA C++ in csrc/), with
+            their plain PyTorch versions and the autograd.Function that
+            joins them, kernel build
+  models    NeRF field (nn.Module, reference state_dict names), transient
+            net, embeddings
   render    stratified + inverse-CDF sampling, volume compositing,
-            coarse+fine render_rays
+            coarse+fine render_rays in all three schedule phases
+  train     the train step: state, schedules, losses, Adam, make_train_step
   evaluate  chunked novel-view renders
-  utils     reference-checkpoint weight bridge
+  utils     reference-checkpoint weight bridge, both ways
   cli       render_video
 """
 

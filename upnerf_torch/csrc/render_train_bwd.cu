@@ -1,0 +1,810 @@
+// Fused backward render of one NeRF pass, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel upnerf/ops/pallas_render_train.py:_bwd_kernel (reached
+// through fused_render_train_rays's VJP _vjp_bwd_rays -> _bwd_impl -> pl.pallas_call)
+// in its training mode: rays frontend, save_chain (the forward saved the walk chain:
+// trunk activations, xyzf, rgbh, h1, h2), param_grads. Per ray it computes:
+//   1. the per-sample inner products p = <feat_s, g_feat>, q = <c_feat_s, g_feat>,
+//      rr = <rgb_s, g_rgb_map>, with feat_s = xyzf_s Wf + bf re-derived from the chain
+//      (as p = xyzf_s (Wf g_feat) + bf g_feat: the same bf16 operands, f32 sums);
+//   2. the division-free compositing backward (pallas_render_train.py:34-37):
+//        d sig_s = delta [e_s T_s g_ow - sum_{t>s} g_ow,t ow_t]
+//                + delta [e^a T_j g_sw + e^j T_j g_jw - sum_{t>s} m_t]      (candidate)
+//        d sig_c = delta [e^b T_j g_cw + e^j T_j g_jw - sum_{t>s} m_t]
+//      with a warp scan for the exclusive prefix sums and a reverse one for the
+//      exclusive suffix sums, then softplus' = 1 - exp(-sig);
+//   3. the reverse walk over the saved chain, 32 samples at a time: rgb2, rgb1
+//      (-> d_ray_cond), feat, c_feat / c_sig / c2 / c1 (-> d_c_emb), sigma / xyzf and
+//      the trunk, with ReLU masks from the stored activations;
+//   4. the PE backward down to d_rays_o and d_rays_d (d sin(x f) = cos(x f) f,
+//      d cos(x f) = -sin(x f) f, with the forward's non-contracted arguments);
+//   5. every dW = x^T dy and db = sum dy.
+// In bfloat16 mode every product rounds both operands to bf16 and sums in f32, the
+// cotangent included, as the TPU kernel's _dot does; bias sums and the rank-1 sigma
+// terms stay f32. upnerf_torch/ops/render_train.py:render_train_rays_bwd_plain is the
+// same computation written out in PyTorch.
+//
+// What bounds it on the H100: ~2.8 MFLOP a sample (the walk's data path and the dW
+// products, ~1.4 M each) and the dW accumulation. Blocks run in parallel, so the
+// weight gradients (0.81 M values with the candidate branch) cannot stay resident as
+// on the TPU's sequential grid; they are too large for a block's shared memory. Each
+// block adds its 32-sample tile's dW into one f32 copy in device memory with vector
+// atomic adds: no partial buffers and no second launch, and the 3.2 MB target stays
+// in the 50 MB L2. The price is an order of the sums that changes from run to run
+// (last bits only). One block of 256 threads per ray. bfloat16 mode: the walk's
+// products (g W^T, and dW = x^T g) run on the tensor cores with mma.sync m16n8k16,
+// the weights packed in fragment order as in the forward kernel, x and g taken from
+// shared memory by ldmatrix (.trans for the dW operands). float32 mode: SIMT FMAs.
+// ~160 KB of shared memory in bfloat16 mode, ~210 KB in float32 mode at 256
+// samples a ray: one block per SM.
+
+#include <type_traits>
+
+#include "render_common.cuh"
+
+namespace {
+
+using namespace upnerf;
+
+constexpr int BT = 32;        // samples per walk tile
+constexpr int THREADS = 256;  // 8 warps
+constexpr int LDT = F;        // row stride of the wide f32 tile buffer (F >= W)
+constexpr int LDA = F + 8;    // row stride of the wide operand buffers: + 16 bytes keeps ldmatrix
+                              // rows in distinct bank groups
+constexpr int LDX0 = MAX_IN0 + 8;  // row stride of the x0 operand buffer
+
+// Head-gradient slots, in upnerf_torch/ops/render_train.py:HEAD_KEYS order.
+enum Dh {
+  XYZF_W, XYZF_B, SIGMA_W, SIGMA_B, FEAT_W, FEAT_B, RGB1_W, RGB2_W, RGB2_B,
+  C1X_W, C1C_W, C1_B, C2_W, C2_B, CSIG_W, CSIG_B, CFEAT_W, CFEAT_B, N_DH
+};
+
+struct Bwd {
+  const float *o, *d, *z, *pe_w, *cemb;
+  const float *g_sw, *g_sdep, *g_rgbm, *g_feat, *g_jw, *g_cdep, *g_tw;  // cotangents, null = 0
+  const float *sig_s, *sig_c, *rgb;                                     // residuals
+  const void* chain;
+  int chain_w;
+  const void* tT[MAX_D];  // trunk W^T (W, in_pad), x0 padded to 64 columns
+  const void *xyzf_wT, *feat_w, *feat_wT, *rgb1_wT, *rgb2_wT, *c1x_wT, *c1c_w, *c2_wT, *cfeat_wT;
+  const float *sigma_w, *csig_w, *feat_b, *cfeat_b;
+  const void *feat_w_rm, *cfeat_wT_rm;  // row-major copies for the per-ray vectors
+  float *d_o, *d_d, *d_cond, *d_cemb;
+  float* dtw[MAX_D];
+  float* dtb[MAX_D];
+  float* dh[N_DH];
+  int D;
+  unsigned skips;
+  int R, S, L, C, in0, flags;
+};
+
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float (&v)[4]);
+template <>
+__device__ __forceinline__ void load4<float>(const float* p, float (&v)[4]) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+template <>
+__device__ __forceinline__ void load4<bf16>(const bf16* p, float (&v)[4]) {
+  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(t.x << 16); v[1] = __uint_as_float(t.x & 0xffff0000u);
+  v[2] = __uint_as_float(t.y << 16); v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+
+// C[0:BT, 0:N] (f32, row stride ldc) = (accumulate ? C : 0) + A[0:BT, 0:K] @ B[0:K, 0:N].
+// A in shared memory (TA), B in device memory (TB, row stride ldb). A thread takes
+// 8 rows x 4 columns at a time; neighbouring threads take neighbouring columns.
+template <typename TA, typename TB>
+__device__ void mm(float* Cm, int ldc, bool accumulate, const TA* A, int lda, int K, const TB* B, int ldb, int N) {
+  const int nq = N / 4, items = (BT / 8) * nq;
+  for (int it = threadIdx.x; it < items; it += THREADS) {
+    const int r0 = (it / nq) * 8, c0 = (it % nq) * 4;
+    float c[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[r][e] = 0.f;
+    for (int k = 0; k < K; ++k) {
+      float b[4];
+      load4<TB>(B + (size_t)k * ldb + c0, b);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float a = to_float(A[(r0 + r) * lda + k]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[r][e] = fmaf(a, b[e], c[r][e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float* dst = Cm + (r0 + r) * ldc + c0 + e;
+        *dst = accumulate ? *dst + c[r][e] : c[r][e];
+      }
+  }
+}
+
+// dW[0:K, 0:N] (device memory, row stride ldw) += X[0:BT, 0:K]^T @ G[0:BT, 0:N], both in
+// shared memory; 4 x 4 outputs a thread at a time, added with 16-byte vector atomics.
+template <typename T>
+__device__ void dw(float* dW, int ldw, const T* X, int ldx, int K, const T* G, int ldg, int N) {
+  const int nq = N / 4, items = (K / 4) * nq;
+  for (int it = threadIdx.x; it < items; it += THREADS) {
+    const int k0 = (it / nq) * 4, n0 = (it % nq) * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int r = 0; r < BT; ++r) {
+      float x[4], g[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = to_float(X[r * ldx + k0 + i]);
+        g[i] = to_float(G[r * ldg + n0 + i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], g[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      atomicAdd(reinterpret_cast<float4*>(dW + (size_t)(k0 + i) * ldw + n0),
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+  }
+}
+
+// dst[k] += sum_r X[r, k] * v[r * vs] for k < K (narrow dW of sigma / c_sig), v
+// rounded like X.
+template <typename T>
+__device__ void dw_col(float* dst, const T* X, int ldx, int K, const float* v, int vs) {
+  for (int k = threadIdx.x; k < K; k += THREADS) {
+    float acc = 0.f;
+    for (int r = 0; r < BT; ++r) acc = fmaf(to_float(X[r * ldx + k]), to_float(from_float<T>(v[r * vs])), acc);
+    atomicAdd(dst + k, acc);
+  }
+}
+
+// Tensor-core products of bfloat16 mode. mm_tc: C[0:BT, 0:N] (f32, shared, row stride
+// ldc) (=|+=) A[0:BT, 0:K] @ W[0:K, n_off : n_off + N], W packed in fragment order
+// (_pack_fragments) over its whole K; the 8 warps split the N columns, each covers
+// the BT rows (2 m-tiles).
+template <int NT>
+__device__ void mm_tc_n(float* Cm, int ldc, bool accumulate, const bf16* A, int lda, int K, const void* Wp,
+                        int nt_base) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+  mma_accumulate<2, NT>(acc, A, lda, K, static_cast<const uint2*>(Wp), K / 16, 0, nt_base + warp * NT);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = (warp * NT + j) * 8 + t * 2;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* c = Cm + (mi * 16 + g + 8 * h) * ldc + col;
+        if (accumulate) {
+          c[0] += acc[mi][j][2 * h];
+          c[1] += acc[mi][j][2 * h + 1];
+        } else {
+          c[0] = acc[mi][j][2 * h];
+          c[1] = acc[mi][j][2 * h + 1];
+        }
+      }
+  }
+}
+
+__device__ void mm_tc(float* Cm, int ldc, bool accumulate, const bf16* A, int lda, int K, const void* Wp, int N,
+                      int n_off) {
+  const int nt = n_off / 8;
+  switch (N) {
+    case 64: mm_tc_n<1>(Cm, ldc, accumulate, A, lda, K, Wp, nt); break;
+    case 128: mm_tc_n<2>(Cm, ldc, accumulate, A, lda, K, Wp, nt); break;
+    case 256: mm_tc_n<4>(Cm, ldc, accumulate, A, lda, K, Wp, nt); break;
+    case 384: mm_tc_n<6>(Cm, ldc, accumulate, A, lda, K, Wp, nt); break;
+  }
+}
+
+// dw_tc: dW[0:K, 0:N] (device memory, row stride ldw) += X[0:BT, 0:K]^T @ G[0:BT, 0:N],
+// X and G bf16 in shared memory. A warp task is 16 rows x 32 columns of dW over the
+// BT samples (2 k-steps); both operands come transposed by ldmatrix.trans, and the
+// task's sums are added to dW with atomics (8-byte vectors: 1.9x faster than
+// scalar atomics, and faster than plain stores of the scalars; 16-byte vectors
+// assembled by a lane exchange gain nothing more, measured on one H100).
+__device__ void dw_tc(float* dW, int ldw, const bf16* X, int ldx, int K, const bf16* G, int ldg, int N) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int j8 = lane >> 3, r8 = lane & 7;
+  const int ntask = N / 32, tasks = (K / 16) * ntask;
+  for (int task = warp; task < tasks; task += THREADS / 32) {
+    const int m0 = (task / ntask) * 16, n0 = (task % ntask) * 32;
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < BT; k0 += 16) {
+      uint32_t af[4];  // A = X^T: blocks (m0, k0), (m0 + 8, k0), (m0, k0 + 8), (m0 + 8, k0 + 8)
+      ldmatrix_x4_trans(af, smem_addr(X + (k0 + r8 + (j8 >> 1) * 8) * ldx + m0 + (j8 & 1) * 8));
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t bf[4];  // B = G: (k0, n), (k0 + 8, n), (k0, n + 8), (k0 + 8, n + 8), n = n0 + 16p
+        ldmatrix_x4_trans(bf, smem_addr(G + (k0 + r8 + (j8 & 1) * 8) * ldg + n0 + p * 16 + (j8 >> 1) * 8));
+        mma_bf16(acc[2 * p], af, bf[0], bf[1]);
+        mma_bf16(acc[2 * p + 1], af, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)  // a thread holds column pairs: one 8-byte vector atomic each
+        atomicAdd(reinterpret_cast<float2*>(dW + (size_t)(m0 + g + 8 * h) * ldw + n0 + j * 8 + t * 2),
+                  make_float2(acc[j][2 * h], acc[j][2 * h + 1]));
+  }
+}
+
+// The products of the walk: SIMT in float32 mode (W row-major, ldb its row stride),
+// tensor cores in bfloat16 mode (W packed in fragment order).
+template <typename T>
+__device__ void mmw(float* Cm, int ldc, bool accumulate, const T* A, int lda, int K, const void* Wm, int ldb, int N,
+                    int n_off) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    mm_tc(Cm, ldc, accumulate, A, lda, K, Wm, N, n_off);
+  } else {
+    mm<T, T>(Cm, ldc, accumulate, A, lda, K, static_cast<const T*>(Wm) + n_off, ldb, N);
+  }
+}
+
+template <typename T>
+__device__ void dww(float* dW, int ldw, const T* X, int ldx, int K, const T* G, int ldg, int N) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    dw_tc(dW, ldw, X, ldx, K, G, ldg, N);
+  } else {
+    dw<T>(dW, ldw, X, ldx, K, G, ldg, N);
+  }
+}
+
+// Column sums of G[0:BT, 0:N] (f32): added to device memory (atomics) or to a
+// per-ray shared accumulator (each column owned by one thread).
+__device__ void colsum(const float* G, int ldg, int N, float* dst_global, float* dst_shared = nullptr) {
+  for (int n = threadIdx.x; n < N; n += THREADS) {
+    float acc = 0.f;
+    for (int r = 0; r < BT; ++r) acc += G[r * ldg + n];
+    if (dst_global) atomicAdd(dst_global + n, acc);
+    if (dst_shared) dst_shared[n] += acc;
+  }
+}
+
+// dst (T) = G (f32) rounded to T, BT x N.
+template <typename T>
+__device__ void round_to(T* dst, int ldd, const float* G, int ldg, int N) {
+  for (int i = threadIdx.x; i < BT * N; i += THREADS) {
+    const int r = i / N, n = i - r * N;
+    dst[r * ldd + n] = from_float<T>(G[r * ldg + n]);
+  }
+}
+
+// Chain columns [col0, col0 + ncols) of tile s0 into dst (T); rows past the ray's end 0.
+template <typename T>
+__device__ void load_chain(T* dst, int ldd, const Bwd& a, int ray, int s0, int col0, int ncols) {
+  constexpr int V = 16 / sizeof(T);
+  const T* chain = static_cast<const T*>(a.chain);
+  const int vpr = ncols / V;
+  for (int i = threadIdx.x; i < BT * vpr; i += THREADS) {
+    const int r = i / vpr, v = i - r * vpr, s = s0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (s < a.S) val = __ldg(reinterpret_cast<const uint4*>(chain + ((size_t)ray * a.S + s) * a.chain_w + col0 + v * V));
+    *reinterpret_cast<uint4*>(dst + r * ldd + v * V) = val;
+  }
+}
+
+__device__ __forceinline__ float cot(const float* p, size_t i) { return p ? __ldg(p + i) : 0.f; }
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
+  const int ray = blockIdx.x, S = a.S, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const bool rgb = a.flags & USE_RGB, feat = a.flags & OUT_FEAT, cand = a.flags & USE_CAND;
+  const int col_xyzf = a.D * W, col_rgbh = (a.D + 1) * W, col_h1 = col_rgbh + (rgb ? HH : 0), col_h2 = col_h1 + HC;
+
+  extern __shared__ float4 smem4[];
+  T* X0 = reinterpret_cast<T*>(smem4);  // (BT, LDX0) x0, zero past in0
+  T* A = X0 + BT * LDX0;                // (BT, LDA) chain operand
+  T* B = A + BT * LDA;                  // (BT, LDA) rounded cotangent
+  T* GUT = B + BT * LDA;                // (BT, 4) rounded rgb cotangent
+  float* DX0 = reinterpret_cast<float*>(GUT + BT * 4);  // (BT, 64)
+  float* GF = DX0 + BT * MAX_IN0;       // (BT, LDT) f32 cotangent
+  float* GX = GF + BT * LDT;            // (BT, W) f32 cotangent of xyzf
+  float* GU = GX + BT * W;              // (BT, 4)
+  float* gfeat = GU + BT * 4;           // (F,)
+  float* vfeat = gfeat + F;             // (W,) Wf g_feat
+  float* vcfeat = vfeat + W;            // (HC,) Wcf g_feat
+  float* dcond = vcfeat + HC;           // (HH,) per-ray d_ray_cond
+  float* rayg1 = dcond + HH;            // (HC,) per-ray sum of d h1
+  float* cemb = rayg1 + HC;             // (MAX_C,)
+  float* misc = cemb + MAX_C;           // [0..2] d_o, [3..5] d_d, [6] bfeat, [7] bcfeat, [8..10] g_rgb_map
+  float* zs = misc + 16;                // per-sample arrays (S,)
+  float* sgs = zs + S;
+  float* sgc = sgs + S;
+  float* pp = sgc + S;
+  float* qq = pp + S;
+  float* rr = qq + S;
+  float* Tsa = rr + S;
+  float* Tja = Tsa + S;
+  float* gsp = Tja + S;
+  float* gcp = gsp + S;
+  float* cfw = gcp + S;
+  float* cgw = cfw + S;
+  float* crw = cgw + S;
+  float* rgbs = crw + S;                // (S, 3)
+
+  // ---- per-ray set-up -------------------------------------------------------
+  float o[3], d[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    o[c] = __ldg(a.o + ray * 3 + c);
+    d[c] = __ldg(a.d + ray * 3 + c);
+  }
+  for (int s = tid; s < S; s += THREADS) {
+    const size_t i = (size_t)ray * S + s;
+    zs[s] = __ldg(a.z + i);
+    sgs[s] = __ldg(a.sig_s + i);
+    sgc[s] = cand ? __ldg(a.sig_c + i) : 0.f;
+    for (int n = 0; n < 3; ++n) rgbs[3 * s + n] = rgb ? __ldg(a.rgb + i * 3 + n) : 0.f;
+  }
+  for (int j = tid; j < F; j += THREADS) gfeat[j] = feat ? cot(a.g_feat, (size_t)ray * F + j) : 0.f;
+  for (int j = tid; j < HH; j += THREADS) dcond[j] = 0.f;
+  for (int j = tid; j < HC; j += THREADS) rayg1[j] = 0.f;
+  for (int j = tid; j < a.C; j += THREADS) cemb[j] = __ldg(a.cemb + (size_t)ray * a.C + j);
+  if (tid < 16) misc[tid] = 0.f;
+  __syncthreads();
+  if (tid < 3 && rgb) misc[8 + tid] = cot(a.g_rgbm, (size_t)ray * 3 + tid);
+  if (feat) {
+    // vfeat[k] = sum_c Wf[k, c] g_feat[c]: a warp per row, lanes over c
+    const T* wf = static_cast<const T*>(a.feat_w_rm);  // (W, F) row-major
+    for (int k = warp; k < W; k += THREADS / 32) {
+      float acc = 0.f;
+      for (int c = lane; c < F; c += 32) acc = fmaf(to_float(wf[(size_t)k * F + c]), gfeat[c], acc);
+      acc = warp_sum(acc);
+      if (lane == 0) vfeat[k] = acc;
+    }
+    if (cand)
+      for (int k = tid; k < HC; k += THREADS) {
+        const T* wct = static_cast<const T*>(a.cfeat_wT_rm);  // (F, HC) row-major
+        float acc = 0.f;
+        for (int c = 0; c < F; ++c) acc = fmaf(to_float(wct[(size_t)c * HC + k]), gfeat[c], acc);
+        vcfeat[k] = acc;
+      }
+    if (warp == 0) {
+      float b1 = 0.f, b2 = 0.f;
+      for (int c = lane; c < F; c += 32) {
+        b1 = fmaf(__ldg(a.feat_b + c), gfeat[c], b1);
+        if (cand) b2 = fmaf(__ldg(a.cfeat_b + c), gfeat[c], b2);
+      }
+      b1 = warp_sum(b1);
+      b2 = warp_sum(b2);
+      if (lane == 0) {
+        misc[6] = b1;
+        misc[7] = b2;
+      }
+    }
+  }
+  __syncthreads();
+  // per-sample inner products: a warp per sample
+  {
+    const T* chain = static_cast<const T*>(a.chain);
+    for (int s = warp; s < S; s += THREADS / 32) {
+      const T* row = chain + ((size_t)ray * S + s) * a.chain_w;
+      float p = 0.f, q = 0.f;
+      if (feat) {
+        for (int k = lane; k < W; k += 32) p = fmaf(to_float(row[col_xyzf + k]), vfeat[k], p);
+        if (cand)
+          for (int k = lane; k < HC; k += 32) q = fmaf(to_float(row[col_h2 + k]), vcfeat[k], q);
+      }
+      p = warp_sum(p);
+      q = warp_sum(q);
+      if (lane == 0) {
+        pp[s] = p + misc[6];
+        qq[s] = q + misc[7];
+        rr[s] = rgbs[3 * s] * misc[8] + rgbs[3 * s + 1] * misc[9] + rgbs[3 * s + 2] * misc[10];
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- compositing backward (warp 0): lane l owns a contiguous run of samples ----
+  if (warp == 0) {
+    const float g_sdep = cot(a.g_sdep, ray), g_cdep = cand ? cot(a.g_cdep, ray) : 0.f;
+    const float g_tw = cand ? cot(a.g_tw, ray) : 0.f;
+    const int per = (S + 31) / 32;
+    const int sb = min(lane * per, S), se = min(sb + per, S);
+    float ls = 0.f, lj = 0.f;
+    for (int s = sb; s < se; ++s) {
+      const float dl = delta_of(zs, s, S);
+      ls += dl * sgs[s];
+      lj += dl * (sgs[s] + sgc[s]);
+    }
+    float es = __shfl_up_sync(FULL, warp_incl_scan(ls), 1);
+    float ej = __shfl_up_sync(FULL, warp_incl_scan(lj), 1);
+    if (lane == 0) es = ej = 0.f;
+    // forward walk: transmittances, and the local sums of the suffix terms
+    float l1 = 0.f, l2 = 0.f;
+    for (int s = sb; s < se; ++s) {
+      const float dl = delta_of(zs, s, S), ds = dl * sgs[s], dc = dl * sgc[s];
+      const float Ts = expf(-es), Tj = expf(-ej);
+      es += ds;
+      ej += ds + dc;
+      Tsa[s] = Ts;
+      Tja[s] = Tj;
+      const float ow = (1.f - expf(-ds)) * Ts;
+      float g_ow = cot(a.g_sw, (size_t)ray * S + s) + g_sdep * zs[s] + (rgb ? rr[s] : 0.f);
+      if (feat && !cand) g_ow += pp[s];
+      l1 += g_ow * ow;
+      if (cand) {
+        const float sw = (1.f - expf(-ds)) * Tj, cw = (1.f - expf(-dc)) * Tj, jw = (1.f - expf(-(ds + dc))) * Tj;
+        const float g_sw = feat ? pp[s] : 0.f, g_cw = (feat ? qq[s] : 0.f) + g_tw;
+        const float g_jw = cot(a.g_jw, (size_t)ray * S + s) + g_cdep * zs[s];
+        l2 += g_sw * sw + g_cw * cw + g_jw * jw;
+      }
+    }
+    // exclusive suffix over the lanes after this one: reverse inclusive scan, shifted
+    float r1 = l1, r2 = l2;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float t1 = __shfl_down_sync(FULL, r1, off), t2 = __shfl_down_sync(FULL, r2, off);
+      if (lane + off < 32) {
+        r1 += t1;
+        r2 += t2;
+      }
+    }
+    float sfx1 = __shfl_down_sync(FULL, r1, 1), sfx2 = __shfl_down_sync(FULL, r2, 1);
+    if (lane == 31) sfx1 = sfx2 = 0.f;
+    // backward walk
+    for (int s = se - 1; s >= sb; --s) {
+      const float dl = delta_of(zs, s, S), ds = dl * sgs[s], dc = dl * sgc[s];
+      const float Ts = Tsa[s], Tj = Tja[s];
+      const float e_s = expf(-ds), ow = (1.f - e_s) * Ts;
+      float g_ow = cot(a.g_sw, (size_t)ray * S + s) + g_sdep * zs[s] + (rgb ? rr[s] : 0.f);
+      if (feat && !cand) g_ow += pp[s];
+      float gsig_s = dl * (e_s * Ts * g_ow - sfx1), gsig_c = 0.f;
+      sfx1 += g_ow * ow;
+      float sw = 0.f, cw = 0.f;
+      if (cand) {
+        const float e_c = expf(-dc), e_j = e_s * e_c;
+        sw = (1.f - e_s) * Tj;
+        cw = (1.f - e_c) * Tj;
+        const float jw = (1.f - expf(-(ds + dc))) * Tj;
+        const float g_sw = feat ? pp[s] : 0.f, g_cw = (feat ? qq[s] : 0.f) + g_tw;
+        const float g_jw = cot(a.g_jw, (size_t)ray * S + s) + g_cdep * zs[s];
+        gsig_s += dl * (e_s * Tj * g_sw + e_j * Tj * g_jw - sfx2);
+        gsig_c = dl * (e_c * Tj * g_cw + e_j * Tj * g_jw - sfx2);
+        sfx2 += g_sw * sw + g_cw * cw + g_jw * jw;
+      }
+      gsp[s] = gsig_s * (1.f - expf(-sgs[s]));
+      gcp[s] = cand ? gsig_c * (1.f - expf(-sgc[s])) : 0.f;
+      cfw[s] = feat ? (cand ? sw : ow) : 0.f;
+      cgw[s] = (feat && cand) ? cw : 0.f;
+      crw[s] = rgb ? ow : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // ---- reverse walk over the saved chain, BT samples at a time ----------------
+  for (int s0 = 0; s0 < S; s0 += BT) {
+    // x0 of the tile (rounded as the forward's operand), zero past in0 and the ray's end
+    for (int i = tid; i < BT * MAX_IN0; i += THREADS) {
+      const int r = i / MAX_IN0, j = i - r * MAX_IN0, s = s0 + r;
+      X0[r * LDX0 + j] = from_float<T>((j < a.in0 && s < S) ? pe_value(o, d, zs[s], j, a.L, a.pe_w) : 0.f);
+      DX0[i] = 0.f;
+    }
+    auto row_coef = [&](const float* v, int r) { return s0 + r < S ? v[s0 + r] : 0.f; };
+
+    if (rgb) {
+      // feat_s = xyzf_s Wf + bf (the dW operand of rgb1), rounded
+      load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
+      __syncthreads();
+      mmw<T>(GF, LDT, false, A, LDA, W, a.feat_w, F, F, 0);
+      __syncthreads();
+      for (int i = tid; i < BT * F; i += THREADS) {
+        const int r = i / F, n = i - r * F;
+        A[r * LDA + n] = from_float<T>(GF[r * LDT + n] + __ldg(a.feat_b + n));
+      }
+      // d(rgb pre-sigmoid) g_u, and rgbh
+      for (int i = tid; i < BT * 3; i += THREADS) {
+        const int r = i / 3, n = i - r * 3;
+        const float c = row_coef(crw, r), v = s0 + r < S ? rgbs[3 * (s0 + r) + n] : 0.f;
+        const float gu = c * misc[8 + n] * v * (1.f - v);
+        GU[r * 4 + n] = gu;
+        GUT[r * 4 + n] = from_float<T>(gu);
+      }
+      load_chain<T>(B, LDA, a, ray, s0, col_rgbh, HH);
+      __syncthreads();
+      // dW rgb2 (HH, 3) += rgbh^T g_u; db rgb2
+      for (int i = tid; i < HH * 3; i += THREADS) {
+        const int k = i / 3, n = i - k * 3;
+        float acc = 0.f;
+        for (int r = 0; r < BT; ++r) acc = fmaf(to_float(B[r * LDA + k]), to_float(GUT[r * 4 + n]), acc);
+        atomicAdd(a.dh[RGB2_W] + k * 3 + n, acc);
+      }
+      if (tid < 3) {
+        float acc = 0.f;
+        for (int r = 0; r < BT; ++r) acc += GU[r * 4 + tid];
+        atomicAdd(a.dh[RGB2_B] + tid, acc);
+      }
+      // g_rgbh = (g_u Wr2^T) * (rgbh > 0)
+      mm<T, T>(GF, LDT, false, GUT, 4, 3, static_cast<const T*>(a.rgb2_wT), HH, HH);
+      __syncthreads();
+      for (int i = tid; i < BT * HH; i += THREADS) {
+        const int r = i / HH, n = i - r * HH;
+        if (!(to_float(B[r * LDA + n]) > 0.f)) GF[r * LDT + n] = 0.f;
+      }
+      __syncthreads();
+      colsum(GF, LDT, HH, nullptr, dcond);
+      round_to<T>(B, LDA, GF, LDT, HH);
+      __syncthreads();
+      dww<T>(a.dh[RGB1_W], HH, A, LDA, F, B, LDA, HH);
+      // g_f = cf g_feat + g_rgbh Wr1^T
+      mmw<T>(GF, LDT, false, B, LDA, HH, a.rgb1_wT, F, F, 0);
+      __syncthreads();
+    }
+    for (int i = tid; i < BT * F; i += THREADS) {
+      const int r = i / F, n = i - r * F;
+      const float v = row_coef(cfw, r) * gfeat[n];
+      GF[r * LDT + n] = rgb ? GF[r * LDT + n] + v : v;
+    }
+    __syncthreads();
+    colsum(GF, LDT, F, a.dh[FEAT_B]);
+    round_to<T>(B, LDA, GF, LDT, F);
+    load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
+    __syncthreads();
+    dww<T>(a.dh[FEAT_W], F, A, LDA, W, B, LDA, F);
+    mmw<T>(GX, W, false, B, LDA, F, a.feat_wT, W, W, 0);
+    __syncthreads();
+
+    if (cand) {
+      for (int i = tid; i < BT * F; i += THREADS) {
+        const int r = i / F, n = i - r * F;
+        GF[r * LDT + n] = row_coef(cgw, r) * gfeat[n];
+      }
+      load_chain<T>(A, LDA, a, ray, s0, col_h2, HC);
+      __syncthreads();
+      colsum(GF, LDT, F, a.dh[CFEAT_B]);
+      round_to<T>(B, LDA, GF, LDT, F);
+      __syncthreads();
+      dww<T>(a.dh[CFEAT_W], F, A, LDA, HC, B, LDA, F);
+      // g_h2 = (g_cf Wcf^T + g_cpre csig_w) * (h2 > 0); dW / db of c_sig
+      mmw<T>(GF, LDT, false, B, LDA, F, a.cfeat_wT, HC, HC, 0);
+      if (tid < BT) GU[tid * 4 + 3] = row_coef(gcp, tid);
+      __syncthreads();
+      for (int i = tid; i < BT * HC; i += THREADS) {
+        const int r = i / HC, n = i - r * HC;
+        const float v = GF[r * LDT + n] + GU[r * 4 + 3] * __ldg(a.csig_w + n);
+        GF[r * LDT + n] = to_float(A[r * LDA + n]) > 0.f ? v : 0.f;
+      }
+      if (tid == 0) {
+        float acc = 0.f;
+        for (int r = 0; r < BT; ++r) acc += GU[r * 4 + 3];
+        atomicAdd(a.dh[CSIG_B], acc);
+      }
+      dw_col<T>(a.dh[CSIG_W], A, LDA, HC, GU + 3, 4);
+      __syncthreads();
+      colsum(GF, LDT, HC, a.dh[C2_B]);
+      round_to<T>(B, LDA, GF, LDT, HC);
+      load_chain<T>(A, LDA, a, ray, s0, col_h1, HC);
+      __syncthreads();
+      dww<T>(a.dh[C2_W], HC, A, LDA, HC, B, LDA, HC);
+      // g_h1 = (g_h2 Wc2^T) * (h1 > 0)
+      mmw<T>(GF, LDT, false, B, LDA, HC, a.c2_wT, HC, HC, 0);
+      __syncthreads();
+      for (int i = tid; i < BT * HC; i += THREADS) {
+        const int r = i / HC, n = i - r * HC;
+        if (!(to_float(A[r * LDA + n]) > 0.f)) GF[r * LDT + n] = 0.f;
+      }
+      __syncthreads();
+      colsum(GF, LDT, HC, a.dh[C1_B], rayg1);
+      round_to<T>(B, LDA, GF, LDT, HC);
+      load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
+      __syncthreads();
+      dww<T>(a.dh[C1X_W], HC, A, LDA, W, B, LDA, HC);
+      mmw<T>(GX, W, true, B, LDA, HC, a.c1x_wT, W, W, 0);
+      __syncthreads();
+    }
+
+    // sigma / xyzf: g_h = g_spre sigma_w + g_xyzf Wx^T
+    load_chain<T>(A, LDA, a, ray, s0, (a.D - 1) * W, W);
+    if (tid < BT) GU[tid * 4 + 3] = row_coef(gsp, tid);
+    __syncthreads();
+    colsum(GX, W, W, a.dh[XYZF_B]);
+    round_to<T>(B, LDA, GX, W, W);
+    if (tid == 0) {
+      float acc = 0.f;
+      for (int r = 0; r < BT; ++r) acc += GU[r * 4 + 3];
+      atomicAdd(a.dh[SIGMA_B], acc);
+    }
+    dw_col<T>(a.dh[SIGMA_W], A, LDA, W, GU + 3, 4);
+    __syncthreads();
+    dww<T>(a.dh[XYZF_W], W, A, LDA, W, B, LDA, W);
+    mmw<T>(GF, LDT, false, B, LDA, W, a.xyzf_wT, W, W, 0);
+    __syncthreads();
+    for (int i = tid; i < BT * W; i += THREADS) {
+      const int r = i / W, n = i - r * W;
+      GF[r * LDT + n] += GU[r * 4 + 3] * __ldg(a.sigma_w + n);
+    }
+
+    // trunk, last layer first; A holds act[i] at the top of each iteration
+    for (int i = a.D - 1; i >= 0; --i) {
+      __syncthreads();
+      for (int e = tid; e < BT * W; e += THREADS) {
+        const int r = e / W, n = e - r * W;
+        if (!(to_float(A[r * LDA + n]) > 0.f)) GF[r * LDT + n] = 0.f;
+      }
+      __syncthreads();
+      colsum(GF, LDT, W, a.dtb[i]);
+      round_to<T>(B, LDA, GF, LDT, W);
+      __syncthreads();
+      const bool skip = i > 0 && ((a.skips >> i) & 1u);
+      const int in_pad = i == 0 ? MAX_IN0 : (skip ? MAX_IN0 + W : W);
+      if (i == 0 || skip) {
+        dww<T>(a.dtw[i], W, X0, LDX0, MAX_IN0, B, LDA, W);
+        mmw<T>(DX0, MAX_IN0, true, B, LDA, W, a.tT[i], in_pad, MAX_IN0, 0);
+      }
+      if (i > 0) {
+        load_chain<T>(A, LDA, a, ray, s0, (i - 1) * W, W);
+        __syncthreads();
+        dww<T>(a.dtw[i] + (skip ? MAX_IN0 * W : 0), W, A, LDA, W, B, LDA, W);
+        mmw<T>(GF, LDT, false, B, LDA, W, a.tT[i], in_pad, W, skip ? MAX_IN0 : 0);
+      }
+    }
+    __syncthreads();
+
+    // PE backward: dx0 -> dxyz -> d_o += dxyz, d_d += dxyz z
+    if (tid < BT * 3) {
+      const int r = tid / 3, c = tid - r * 3, s = s0 + r;
+      if (s < S) {
+        const float x = xyz_of(o, d, zs[s], c);
+        const int L = a.L;
+        float g = DX0[r * MAX_IN0 + c];
+        for (int l = 0; l < L; ++l) {
+          const float f = ldexpf(PI_F, l), arg = __fmul_rn(x, f), pw = __ldg(a.pe_w + l);
+          g += DX0[r * MAX_IN0 + 3 + c * 2 * L + l] * pw * cosf(arg) * f;
+          g -= DX0[r * MAX_IN0 + 3 + c * 2 * L + L + l] * pw * sinf(arg) * f;
+        }
+        atomicAdd(misc + c, g);
+        atomicAdd(misc + 3 + c, g * zs[s]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- per-ray outputs ------------------------------------------------------
+  if (tid < 3) {
+    a.d_o[ray * 3 + tid] = misc[tid];
+    a.d_d[ray * 3 + tid] = misc[3 + tid];
+  }
+  if (rgb)
+    for (int j = tid; j < HH; j += THREADS) a.d_cond[(size_t)ray * HH + j] = dcond[j];
+  if (cand) {
+    const T* c1c = static_cast<const T*>(a.c1c_w);  // (C, HC)
+    for (int c = warp; c < a.C; c += THREADS / 32) {
+      float acc = 0.f;
+      for (int j = lane; j < HC; j += 32)
+        acc = fmaf(to_float(from_float<T>(rayg1[j])), to_float(c1c[(size_t)c * HC + j]), acc);
+      acc = warp_sum(acc);
+      if (lane == 0) a.d_cemb[(size_t)ray * a.C + c] = acc;
+    }
+    for (int i = tid; i < a.C * HC; i += THREADS) {
+      const int c = i / HC, j = i - c * HC;
+      atomicAdd(a.dh[C1C_W] + i, to_float(from_float<T>(cemb[c])) * to_float(from_float<T>(rayg1[j])));
+    }
+  }
+}
+
+long long smem_bytes(int S, int tsize) {
+  const long long t = (long long)BT * (LDX0 + 2 * LDA + 4) * tsize;
+  const long long f = (long long)BT * (MAX_IN0 + LDT + W + 4) + F + W + 2 * HC + HH + MAX_C + 16 + 16LL * S;
+  return t + f * 4 + 16;
+}
+
+template <typename T>
+int launch(const Bwd& a, cudaStream_t stream) {
+  const long long bytes = smem_bytes(a.S, sizeof(T));
+  if (bytes > SMEM_LIMIT) return BAD_SMEM;
+  cudaError_t err = cudaFuncSetAttribute(bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  bwd_kernel<T><<<a.R, THREADS, (int)bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0, a cudaError_t (> 0) from the launch, or a negative Status.
+// ins: rays_o, rays_d, z_vals, pe_w, c_emb. cots: s_weights, s_depth, rgb_map,
+// feat_map, j_weights, c_depth, t_weight (null = zero). res: sig_s, sig_c, rgb, chain.
+// trunk_t: per layer W^T (W, in_pad) in the compute dtype, x0 padded to 64 columns.
+// w: xyzf_w^T, feat_w, feat_w^T, rgb1_w^T, rgb2_w^T, c1x_w^T, c1c_w, c2_w^T,
+// cfeat_w^T (compute dtype), sigma_w, csig_w, feat_b, cfeat_b (f32). outs: d_rays_o,
+// d_rays_d, d_ray_cond, d_c_emb. dtw / dtb: trunk weight (padded rows) and bias
+// gradients, dh: head gradients in HEAD_KEYS order; all f32 and zeroed by the caller.
+int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, const void* const* res,
+                            const void* const* trunk_t, int D, unsigned skip_mask, const void* const* w,
+                            void* const* outs, void* const* dtw, void* const* dtb, void* const* dh, int R, int S,
+                            int L, int C, int flags, void* stream) {
+  const int in0 = 3 + 6 * L;
+  if (R <= 0 || S <= 0 || L <= 0 || in0 > MAX_IN0 || D <= 0 || D > MAX_D || C < 0 || C > MAX_C) return BAD_SHAPE;
+  if (!(flags & (USE_RGB | OUT_FEAT)) || ((flags & USE_CAND) && C == 0)) return BAD_MODE;
+  Bwd a;
+  a.o = static_cast<const float*>(ins[0]);
+  a.d = static_cast<const float*>(ins[1]);
+  a.z = static_cast<const float*>(ins[2]);
+  a.pe_w = static_cast<const float*>(ins[3]);
+  a.cemb = static_cast<const float*>(ins[4]);
+  a.g_sw = static_cast<const float*>(cots[0]);
+  a.g_sdep = static_cast<const float*>(cots[1]);
+  a.g_rgbm = static_cast<const float*>(cots[2]);
+  a.g_feat = static_cast<const float*>(cots[3]);
+  a.g_jw = static_cast<const float*>(cots[4]);
+  a.g_cdep = static_cast<const float*>(cots[5]);
+  a.g_tw = static_cast<const float*>(cots[6]);
+  a.sig_s = static_cast<const float*>(res[0]);
+  a.sig_c = static_cast<const float*>(res[1]);
+  a.rgb = static_cast<const float*>(res[2]);
+  a.chain = res[3];
+  a.chain_w = (D + 1) * W + ((flags & USE_RGB) ? HH : 0) + ((flags & USE_CAND) ? 2 * HC : 0);
+  for (int i = 0; i < D; ++i) {
+    a.tT[i] = trunk_t[i];
+    a.dtw[i] = static_cast<float*>(dtw[i]);
+    a.dtb[i] = static_cast<float*>(dtb[i]);
+  }
+  a.xyzf_wT = w[0];
+  a.feat_w = w[1];
+  a.feat_wT = w[2];
+  a.rgb1_wT = w[3];
+  a.rgb2_wT = w[4];
+  a.c1x_wT = w[5];
+  a.c1c_w = w[6];
+  a.c2_wT = w[7];
+  a.cfeat_wT = w[8];
+  a.sigma_w = static_cast<const float*>(w[9]);
+  a.csig_w = static_cast<const float*>(w[10]);
+  a.feat_b = static_cast<const float*>(w[11]);
+  a.cfeat_b = static_cast<const float*>(w[12]);
+  a.feat_w_rm = w[13];
+  a.cfeat_wT_rm = w[14];
+  a.d_o = static_cast<float*>(outs[0]);
+  a.d_d = static_cast<float*>(outs[1]);
+  a.d_cond = static_cast<float*>(outs[2]);
+  a.d_cemb = static_cast<float*>(outs[3]);
+  for (int k = 0; k < N_DH; ++k) a.dh[k] = static_cast<float*>(dh[k]);
+  a.D = D;
+  a.skips = skip_mask & ~1u;
+  a.R = R;
+  a.S = S;
+  a.L = L;
+  a.C = C;
+  a.in0 = in0;
+  a.flags = flags;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (flags & BF16) ? launch<bf16>(a, st) : launch<float>(a, st);
+}
+
+const char* upnerf_error_string(int code) {
+  switch (code) {
+    case OK: return "ok";
+    case BAD_SHAPE: return "unsupported shape (W=256, F=384, HH=128, HC=128; 3 + 6L <= 64; D <= 16; C <= 32)";
+    case BAD_SMEM: return "too many samples per ray for shared memory";
+    case BAD_MODE: return "unsupported mode (needs use_rgb or out_feat; the candidate branch needs C > 0)";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
+}
+
+}  // extern "C"

@@ -11,8 +11,13 @@ Architecture:
             xyz_encoding_final Linear(W, W).
   shared  : sigma = Softplus(Linear(W, 1)); feat = Linear(W, feat_dim);
             rgb = Sigmoid(MLP(feat + PE(dir) + appearance, W/2)).
-  candidate branch: its parameters load, its forward (phases 0/1) is not
-  ported yet.
+  candidate: enc = 2 x (Linear -> ReLU) on [xyz_final, candidate embedding];
+            c_sigma = Softplus(Linear); c_feat = Linear (phases 0 and 1).
+
+`NeRFField.forward` is the plain per-sample field (apply_nerf). The render
+path runs the same math through the fused kernel of
+upnerf_torch.ops.render_train; this forward is what the kernel-free tests
+hold it against.
 """
 
 from __future__ import annotations
@@ -159,10 +164,14 @@ class NeRFField(nn.Module):
         *,
         progress: float,
         precision: str = "float32",
+        phase: int = 2,
+        c_emb: Optional[torch.Tensor] = None,  # like dirs, (..., candidate_dim)
+        encode_candidate: bool = True,
     ) -> Dict[str, torch.Tensor]:
-        """Phase-2 forward (rgb only, no candidate branch): s_sigma (...),
-        s_feat (..., feat_dim), s_rgb (..., 3). Per-ray `dirs`/`a_emb` are
-        broadcast over the sample axis."""
+        """apply_nerf: s_sigma (...), s_feat (..., feat_dim); s_rgb (..., 3)
+        in phases 1 and 2; c_sigma and c_feat in phases 0 and 1 with the
+        candidate branch. Per-ray `dirs`/`a_emb`/`c_emb` are broadcast over
+        the sample axis."""
         cfg = self.cfg
         if not cfg.encode_feat:
             raise NotImplementedError("the feature-less field is not ported")
@@ -177,12 +186,23 @@ class NeRFField(nn.Module):
         xyz_final = dense(h, self.xyz_encoding_final.weight, self.xyz_encoding_final.bias, precision)
         feat = dense(xyz_final, self.feat_share_layer.weight, self.feat_share_layer.bias, precision)
         out["s_feat"] = feat
+        per_ray = dirs.dim() == xyz.dim() - 1
 
-        dir_pe = positional_encoding(dirs, cfg.dir_L, band_weights(cfg, cfg.dir_L, progress, dirs.device))
-        parts = [dir_pe] + ([a_emb] if cfg.encode_appearance else [])
-        if dirs.dim() == xyz.dim() - 1:
-            parts = [p[..., None, :].expand(*feat.shape[:-1], p.shape[-1]) for p in parts]
-        l1, l2 = self.rgb_share_layer[0], self.rgb_share_layer[2]
-        rgbh = F_.relu(dense(torch.cat([feat] + parts, -1), l1.weight, l1.bias, precision))
-        out["s_rgb"] = torch.sigmoid(dense(rgbh, l2.weight, l2.bias, precision))
+        def widen(p):
+            return p[..., None, :].expand(*feat.shape[:-1], p.shape[-1]) if per_ray else p
+
+        if cfg.encode_candidate and encode_candidate and phase < 2:
+            c1, c2 = self.candidate_encoding[0], self.candidate_encoding[2]
+            hc = F_.relu(dense(torch.cat([xyz_final, widen(c_emb)], -1), c1.weight, c1.bias, precision))
+            hc = F_.relu(dense(hc, c2.weight, c2.bias, precision))
+            cs = self.candidate_sigma[0]
+            out["c_sigma"] = softplus(dense(hc, cs.weight, cs.bias, precision))[..., 0]
+            cf = self.feat_candidate_layer
+            out["c_feat"] = dense(hc, cf.weight, cf.bias, precision)
+        if phase > 0:
+            dir_pe = positional_encoding(dirs, cfg.dir_L, band_weights(cfg, cfg.dir_L, progress, dirs.device))
+            parts = [dir_pe] + ([a_emb] if cfg.encode_appearance else [])
+            l1, l2 = self.rgb_share_layer[0], self.rgb_share_layer[2]
+            rgbh = F_.relu(dense(torch.cat([feat] + [widen(p) for p in parts], -1), l1.weight, l1.bias, precision))
+            out["s_rgb"] = torch.sigmoid(dense(rgbh, l2.weight, l2.bias, precision))
         return out

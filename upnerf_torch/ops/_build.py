@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-At first use, `nvcc` compiles every `upnerf_torch/csrc/*.cu` into one shared
-library with a plain C interface, for sm_90a (Hopper), into
-`build/upnerf_torch_kernels/` at the repository root; the library is loaded
-with ctypes. The file name carries a hash of the sources and flags, so an
-edited source is rebuilt and a stale library is never loaded. Building takes
+At first use, `nvcc` compiles each `upnerf_torch/csrc/*.cu` into its own
+shared library with a plain C interface, for sm_90a (Hopper), into
+`build/upnerf_torch_kernels/` at the repository root; all sources compile at
+once, one nvcc process each. A library is loaded with ctypes. Its file name
+carries a hash of its source, the shared headers and the flags, so an edited
+source is rebuilt and a stale library is never loaded. Building takes
 seconds: no source includes PyTorch's headers.
 """
 
@@ -18,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -28,6 +29,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+KERNELS = ("render_train_fwd", "render_train_bwd")
 
 
 class BuildInfo(NamedTuple):
@@ -47,46 +49,63 @@ def _nvcc() -> str:
     return path
 
 
-@functools.lru_cache(maxsize=None)
-def build() -> BuildInfo:
-    """Compile csrc/*.cu once per source hash; return the library's path."""
+def _target(name: str) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu*")):
+    for src in [CSRC_DIR / f"{name}.cu"] + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    out = BUILD_DIR / f"libupnerf_torch_kernels_{digest.hexdigest()[:16]}.so"
-    if out.is_file():
-        return BuildInfo(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
-    return BuildInfo(out, seconds, log)
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The built kernel library, loaded once per process, with every C
-    function's argtypes and restype declared (ctypes would otherwise pass
+def build() -> Dict[str, BuildInfo]:
+    """Compile every kernel source not yet built for its hash, all at once;
+    returns {name: BuildInfo}. A failed compile raises with nvcc's output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: Dict[str, BuildInfo] = {}
+    procs = {}
+    t0 = time.perf_counter()
+    for name in KERNELS:
+        target = _target(name)
+        if target.is_file():
+            out[name] = BuildInfo(target, 0.0, "")
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (target, tmp, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                          text=True))
+    failed = []
+    for name, (target, tmp, cmd, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, target)
+        out[name] = BuildInfo(target, time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+_ARGTYPES = {
+    # ins, trunk W, trunk b, D, skip mask, heads, outs, R, S, L, C, flags, stream
+    "upnerf_render_train_fwd": ["pp", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "p"],
+    # ins, cots, res, trunk W^T, D, skip mask, weights, outs, dW trunk, db trunk, d heads, R, S, L, C, flags, stream
+    "upnerf_render_train_bwd": ["pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "i", "i", "i", "i", "i",
+                                "p"],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The built library of kernel `name`, loaded once per process, with its C
+    functions' argtypes and restype declared (ctypes would otherwise pass
     pointers as 32-bit ints)."""
-    lib = ctypes.CDLL(str(build().path))
-    vp, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    fn = lib.upnerf_render_train_fwd
-    fn.argtypes = [
-        vp, vp, vp, vp, vp,  # rays_o, rays_d, z_vals, pe_w, ray_cond
-        ctypes.POINTER(vp), ctypes.POINTER(vp), i32, u32,  # trunk W, trunk b, D, skip mask
-        vp, vp, vp, vp, vp, vp, vp, vp, vp,  # xyzf W/b, sigma W/b, feat W/b, rgb1 W, rgb2 W/b
-        vp, vp, vp,  # s_weights, s_depth, rgb_map
-        i32, i32, i32, i32, i32, i32, i32,  # R, S, L, W, F, HH, bf16
-        vp,  # stream
-    ]
-    fn.restype = i32
-    lib.upnerf_error_string.argtypes = [i32]
+    lib = ctypes.CDLL(str(build()[name].path))
+    kinds = {"p": ctypes.c_void_p, "pp": ctypes.POINTER(ctypes.c_void_p), "i": ctypes.c_int, "u": ctypes.c_uint}
+    fn = getattr(lib, f"upnerf_{name}")
+    fn.argtypes = [kinds[k] for k in _ARGTYPES[f"upnerf_{name}"]]
+    fn.restype = ctypes.c_int
+    lib.upnerf_error_string.argtypes = [ctypes.c_int]
     lib.upnerf_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,29 +1,43 @@
-"""Fused forward render of one NeRF pass (upnerf/ops/pallas_render_train.py).
+"""Fused render of one NeRF pass, forward and backward
+(upnerf/ops/pallas_render_train.py, rays frontend).
 
-The port covers the kernel's phase-2 inference mode: the rays frontend
-(xyz = o + d z and the annealed PE built from per-ray origin/direction),
-the trunk, the sigma/xyz_final/feat/rgb heads and the static compositing,
-with no candidate branch, no feature output and no saved residuals. Its
-outputs are s_weights (R, S), s_depth (R,) and rgb_map (R, 3).
+Per ray: xyz = o + d z and the annealed PE, the D-layer trunk, the sigma /
+xyz_final / feat / rgb heads, the candidate branch (h1 = relu(xyzf @ c1x_w +
+c_emb @ c1c_w + c1_b), h2, c_sigma, c_feat) and both compositing branches
+(s-only and joint). RTStatic selects the mode, as in the JAX kernel:
+phase 0 (use_cand, out_feat), phase 1 (use_cand, use_rgb, out_feat), phase 2
+(use_rgb). Outputs, in RTStatic.out_keys: s_weights (R, S), s_depth (R,),
+rgb_map (R, 3), feat_map (R, F), j_weights (R, S), c_depth (R,), t_weight (R,).
 
-- `render_train_rays_plain` is the plain PyTorch version (the JAX package's
-  XLA twin, `xla_render_train_rays`): PE, trunk and heads as tensor ops,
-  compositing by cumprod as in render/volume.py.
-- `render_train_rays_fwd` is the wrapper: on CPU tensors it runs the plain
-  version; on CUDA tensors it launches the hand-written kernel in
-  `upnerf_torch/csrc/render_train_fwd.cu` or raises. It counts its launches
-  in `launches`.
+- `render_train_rays_plain` is the plain PyTorch forward (the JAX package's
+  XLA twin `xla_render_train_rays`, compositing by cumprod). With
+  `save_res=True` it also returns the residuals the backward reads (the
+  kernel's `save_res`/`save_chain` mode): the sigmas (f32), the per-sample rgb
+  and the walk chain (trunk activations, xyzf, rgbh, h1, h2) in the compute
+  dtype.
+- `render_train_rays_bwd_plain` is the plain backward: `_bwd_kernel` step by
+  step, with its division-free compositing formulas and its roundings (in
+  bf16 mode every product rounds both operands, the cotangent included).
+- `render_train_rays_fwd` / `render_train_rays_bwd` are the wrappers: on CPU
+  tensors they run the plain versions; on CUDA tensors they launch the
+  hand-written kernels (`csrc/render_train_fwd.cu`, `csrc/render_train_bwd.cu`)
+  or raise. They count their launches in `launches` and `bwd_launches`.
+- `RenderTrainRays` is the autograd.Function of the training path: its
+  forward runs the forward with residuals, its backward the backward. It
+  returns gradients for rays_o, rays_d, ray_cond, c_emb and every weight, and
+  None for z_vals and pe_w (neither has a trainable ancestor in training).
 
 Weights come in the JAX kernel's interface: `trunk` is a sequence of
 (W (in, out), b (out,)) pairs and `heads` holds xyzf_w/b, sigma_w/b,
-feat_w/b, rgb1_w (F, HH; its bias is folded into ray_cond), rgb2_w/b.
+feat_w/b, rgb1_w (F, HH; its bias is folded into ray_cond), rgb2_w/b and
+c1x_w, c1c_w, c1_b, c2_w/b, csig_w/b, cfeat_w/b, as RTStatic.head_keys says.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,21 +45,78 @@ from upnerf_torch.ops.linear import canonical_precision, matmul
 
 LAST_DELTA = 1e2  # the last interval is quasi-infinite, as in render/volume.py
 
-HEAD_KEYS = ("xyzf_w", "xyzf_b", "sigma_w", "sigma_b", "feat_w", "feat_b", "rgb1_w", "rgb2_w", "rgb2_b")
-X0_PAD = 64  # the bf16 kernel's x0 width: 3 + 6L padded to a multiple of 16
+HEAD_BASE = ("xyzf_w", "xyzf_b", "sigma_w", "sigma_b")
+HEAD_FEAT = ("feat_w", "feat_b")
+HEAD_RGB = ("rgb1_w", "rgb2_w", "rgb2_b")
+HEAD_CAND = ("c1x_w", "c1c_w", "c1_b", "c2_w", "c2_b", "csig_w", "csig_b", "cfeat_w", "cfeat_b")
+HEAD_KEYS = HEAD_BASE + HEAD_FEAT + HEAD_RGB + HEAD_CAND  # the kernels' pointer order
+X0_PAD = 64  # the kernels' x0 width: 3 + 6L padded to a multiple of 16
+# The widths the CUDA kernels take (configs/brandenburg_gate.yaml).
+KERNEL_WIDTHS = {"W": 256, "F": 384, "HH": 128, "HC": 128}
+MAX_C = 32  # candidate embedding width the kernels take
 
-# Number of kernel launches made by render_train_rays_fwd in this process.
+# Kernel launches made in this process by render_train_rays_fwd / _bwd.
 launches = 0
+bwd_launches = 0
 
 
 class RTStatic(NamedTuple):
-    """Static configuration of the forward: trunk depth, skip layers, PE
-    bands of xyz, and the matmul precision ('bfloat16' or 'float32')."""
+    """Static configuration: trunk depth, skip layers, PE bands of xyz, the
+    matmul precision ('bfloat16' or 'float32'), the mode (use_cand, use_rgb,
+    out_feat), store_f32 (per-sample rgb/feat kept in f32; False rounds them
+    to bf16 in bf16 mode) and save_chain (the forward saves the walk chain and
+    the backward reads it; the backward needs it)."""
 
     D: int
     skips: Tuple[int, ...]
     xyz_L: int
     precision: str = "float32"
+    use_cand: bool = False
+    use_rgb: bool = True
+    out_feat: bool = False
+    store_f32: bool = True
+    save_chain: bool = True
+
+    @property
+    def use_feat(self) -> bool:
+        return self.out_feat or self.use_rgb
+
+    @property
+    def head_keys(self) -> Tuple[str, ...]:
+        keys = list(HEAD_BASE)
+        if self.use_feat:
+            keys += HEAD_FEAT
+        if self.use_rgb:
+            keys += HEAD_RGB
+        if self.use_cand:
+            keys += HEAD_CAND
+        return tuple(keys)
+
+    @property
+    def out_keys(self) -> Tuple[str, ...]:
+        keys = ["s_weights", "s_depth"]
+        if self.use_rgb:
+            keys.append("rgb_map")
+        if self.out_feat:
+            keys.append("feat_map")
+        if self.use_cand:
+            keys += ["j_weights", "c_depth", "t_weight"]
+        return tuple(keys)
+
+    @property
+    def res_keys(self) -> Tuple[str, ...]:
+        keys = ["sig_s"] + (["sig_c"] if self.use_cand else [])
+        return tuple(keys + (["rgb"] if self.use_rgb else []) + ["chain"])
+
+    def chain_cols(self, W: int, HH: int, HC: int) -> Tuple[Tuple[str, int], ...]:
+        """(name, width) segments of the saved walk chain, concatenated along
+        the columns of one (R*S, total) tensor (the JAX kernel's layout)."""
+        segs = [(f"act{i}", W) for i in range(self.D)] + [("xyzf", W)]
+        if self.use_rgb:
+            segs.append(("rgbh", HH))
+        if self.use_cand:
+            segs += [("h1", HC), ("h2", HC)]
+        return tuple(segs)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -54,46 +125,290 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
-def render_train_rays_plain(
-    rays_o: torch.Tensor,  # (R, 3)
-    rays_d: torch.Tensor,  # (R, 3)
-    z_vals: torch.Tensor,  # (R, S)
-    pe_w: torch.Tensor,  # (L,) annealed band weights
-    ray_cond: torch.Tensor,  # (R, HH) per-ray rgb conditioning incl. bias
-    trunk: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-    heads: Dict[str, torch.Tensor],
-    st: RTStatic,
-) -> Dict[str, torch.Tensor]:
-    """Plain PyTorch forward (xla_render_train_rays + xla_render_train)."""
-    prec = canonical_precision(st.precision)
-    L = st.xyz_L
+def _cdt(st: RTStatic) -> torch.dtype:
+    return torch.bfloat16 if canonical_precision(st.precision) == "bfloat16" else torch.float32
+
+
+def _stored(x: torch.Tensor, st: RTStatic) -> torch.Tensor:
+    """Per-sample rgb/feat as the kernel keeps them: rounded to bf16 only in
+    bf16 mode with store_f32 off."""
+    if _cdt(st) == torch.bfloat16 and not st.store_f32:
+        return x.bfloat16().float()
+    return x
+
+
+def _pe(rays_o, rays_d, z_vals, pe_w, L):
+    """x0 (R*S, 3 + 6L) and xyz (R*S, 3), as xla_render_train_rays builds them."""
     R, S = z_vals.shape
     xyz = (rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]).reshape(R * S, 3)
     freq = 2.0 ** torch.arange(L, dtype=torch.float32, device=xyz.device) * math.pi
     sp = xyz[:, :, None] * freq  # (M, 3, L)
     enc = torch.stack([torch.sin(sp) * pe_w, torch.cos(sp) * pe_w], dim=-2)
-    x0 = torch.cat([xyz, enc.reshape(R * S, 6 * L)], dim=-1)
+    return torch.cat([xyz, enc.reshape(R * S, 6 * L)], dim=-1), xyz
 
-    h = x0
+
+def _deltas(z_vals: torch.Tensor) -> torch.Tensor:
+    return torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.full_like(z_vals[:, :1], LAST_DELTA)], -1)
+
+
+def _cumprod_weights(alphas: torch.Tensor):
+    """(transmittance, weights) by exclusive cumprod, as render/volume.py."""
+    T = torch.cumprod(torch.cat([torch.ones_like(alphas[:, :1]), 1.0 - alphas[:, :-1]], -1), -1)
+    return T, alphas * T
+
+
+def render_train_rays_plain(
+    rays_o: torch.Tensor,  # (R, 3)
+    rays_d: torch.Tensor,  # (R, 3)
+    z_vals: torch.Tensor,  # (R, S)
+    pe_w: torch.Tensor,  # (L,) annealed band weights
+    ray_cond: Optional[torch.Tensor],  # (R, HH) per-ray rgb conditioning incl. bias (use_rgb)
+    trunk: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    heads: Dict[str, torch.Tensor],
+    st: RTStatic,
+    c_emb: Optional[torch.Tensor] = None,  # (R, C) candidate embedding (use_cand)
+    save_res: bool = False,
+):
+    """Plain PyTorch forward (xla_render_train_rays + xla_render_train).
+    Returns the outputs, and with save_res the residuals as a second dict."""
+    prec = canonical_precision(st.precision)
+    R, S = z_vals.shape
+    x0, _ = _pe(rays_o, rays_d, z_vals, pe_w, st.xyz_L)
+    h, acts = x0, []
     for i, (w, b) in enumerate(trunk):
         if i in st.skips and i > 0:
             h = torch.cat([x0, h], dim=-1)
         h = torch.relu(matmul(h, w, prec) + b)
-    sig = softplus(matmul(h, heads["sigma_w"], prec) + heads["sigma_b"]).reshape(R, S)
+        acts.append(h)
+    sig_s = softplus(matmul(h, heads["sigma_w"], prec) + heads["sigma_b"]).reshape(R, S)
     xyzf = matmul(h, heads["xyzf_w"], prec) + heads["xyzf_b"]
-    feat = matmul(xyzf, heads["feat_w"], prec) + heads["feat_b"]
-    pre = matmul(feat, heads["rgb1_w"], prec).reshape(R, S, -1)
-    rgbh = torch.relu(pre + ray_cond[:, None, :]).reshape(R * S, -1)
-    rgb = torch.sigmoid(matmul(rgbh, heads["rgb2_w"], prec) + heads["rgb2_b"]).reshape(R, S, 3)
+    chain = acts + [xyzf]
+    feat = rgb = sig_c = cfeat = None
+    if st.use_feat:
+        feat = matmul(xyzf, heads["feat_w"], prec) + heads["feat_b"]
+    if st.use_rgb:
+        pre = matmul(feat, heads["rgb1_w"], prec).reshape(R, S, -1)
+        rgbh = torch.relu(pre + ray_cond[:, None, :]).reshape(R * S, -1)
+        rgb = _stored(torch.sigmoid(matmul(rgbh, heads["rgb2_w"], prec) + heads["rgb2_b"]), st)
+        chain.append(rgbh)
+    if st.use_cand:
+        ray1 = matmul(c_emb, heads["c1c_w"], prec) + heads["c1_b"]
+        h1 = torch.relu(matmul(xyzf, heads["c1x_w"], prec).reshape(R, S, -1) + ray1[:, None, :]).reshape(R * S, -1)
+        h2 = torch.relu(matmul(h1, heads["c2_w"], prec) + heads["c2_b"])
+        sig_c = softplus(matmul(h2, heads["csig_w"], prec) + heads["csig_b"]).reshape(R, S)
+        cfeat = matmul(h2, heads["cfeat_w"], prec) + heads["cfeat_b"]
+        chain += [h1, h2]
 
-    delta = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.full_like(z_vals[:, :1], LAST_DELTA)], -1)
-    a_s = 1.0 - torch.exp(-delta * sig)
-    ow = a_s * torch.cumprod(torch.cat([torch.ones_like(a_s[:, :1]), 1.0 - a_s[:, :-1]], -1), -1)
-    return {
-        "s_weights": ow,
-        "s_depth": (ow * z_vals).sum(-1),
-        "rgb_map": (ow[..., None] * rgb).sum(1),
-    }
+    delta = _deltas(z_vals)
+    a_s = 1.0 - torch.exp(-delta * sig_s)
+    _, ow = _cumprod_weights(a_s)
+    out = {"s_weights": ow, "s_depth": (ow * z_vals).sum(-1)}
+    if st.use_rgb:
+        out["rgb_map"] = (ow[..., None] * rgb.reshape(R, S, 3)).sum(1)
+    if st.use_cand:
+        a_c = 1.0 - torch.exp(-delta * sig_c)
+        Tj, jw = _cumprod_weights(1.0 - torch.exp(-delta * (sig_s + sig_c)))
+        sw, cw = a_s * Tj, a_c * Tj
+        out["j_weights"] = jw
+        out["c_depth"] = (jw * z_vals).sum(-1)
+        out["t_weight"] = cw.sum(-1)
+        if st.out_feat:
+            fm = (sw[..., None] * _stored(feat, st).reshape(R, S, -1)).sum(1)
+            out["feat_map"] = fm + (cw[..., None] * _stored(cfeat, st).reshape(R, S, -1)).sum(1)
+    elif st.out_feat:
+        out["feat_map"] = (ow[..., None] * _stored(feat, st).reshape(R, S, -1)).sum(1)
+    out = {k: out[k] for k in st.out_keys}
+    if not save_res:
+        return out
+    res = {"sig_s": sig_s}
+    if st.use_cand:
+        res["sig_c"] = sig_c
+    if st.use_rgb:
+        res["rgb"] = rgb
+    res["chain"] = torch.cat(chain, dim=-1).to(_cdt(st))
+    return out, res
+
+
+def _excl_prefix(x: torch.Tensor) -> torch.Tensor:
+    """out[:, s] = sum_{t<s} x[:, t]."""
+    return torch.cat([torch.zeros_like(x[:, :1]), torch.cumsum(x, -1)[:, :-1]], -1)
+
+
+def _excl_suffix(x: torch.Tensor) -> torch.Tensor:
+    """out[:, s] = sum_{t>s} x[:, t]."""
+    return torch.flip(_excl_prefix(torch.flip(x, [-1])), [-1])
+
+
+def render_train_rays_bwd_plain(
+    rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res: Dict[str, torch.Tensor],
+    cots: Dict[str, Optional[torch.Tensor]],
+):
+    """Plain backward: upnerf/ops/pallas_render_train.py:_bwd_kernel in its
+    save_chain, param_grads mode, written out step by step.
+
+    cots: a cotangent for each of st.out_keys (None means zero). Returns
+    (d_rays_o, d_rays_d, d_ray_cond or None, d_c_emb or None,
+    [(dW, db)] per trunk layer, {head key: grad}). In bf16 mode every product
+    rounds both operands to bf16 and accumulates in f32, as the kernel's
+    `_dot` does; bias sums and the rank-1 sigma terms stay f32."""
+    prec = canonical_precision(st.precision)
+    R, S = z_vals.shape
+    L = st.xyz_L
+    in0 = 3 + 6 * L
+    W = trunk[0][1].shape[0]
+    HH = heads["rgb1_w"].shape[1] if st.use_rgb else 0
+    HC = heads["c2_w"].shape[1] if st.use_cand else 0
+    M = R * S
+    f32 = torch.float32
+
+    def dot(a, b):
+        return matmul(a, b, prec)
+
+    def cot(k, shape):
+        g = cots.get(k)
+        return torch.zeros(shape, dtype=f32, device=z_vals.device) if g is None else g.to(f32)
+
+    cuts, col = {}, 0
+    for name, w in st.chain_cols(W, HH, HC):
+        cuts[name] = res["chain"][:, col : col + w].float()
+        col += w
+
+    g_feat = cot("feat_map", (R, heads["feat_b"].shape[0])) if st.out_feat else None
+    g_rgbm = cot("rgb_map", (R, 3)) if st.use_rgb else None
+    feat = dot(cuts["xyzf"], heads["feat_w"]) + heads["feat_b"] if st.use_feat else None
+    p = q = rr = None
+    if st.out_feat:
+        p = (feat.reshape(R, S, -1) * g_feat[:, None, :]).sum(-1)
+        if st.use_cand:
+            cfeat = dot(cuts["h2"], heads["cfeat_w"]) + heads["cfeat_b"]
+            q = (cfeat.reshape(R, S, -1) * g_feat[:, None, :]).sum(-1)
+    if st.use_rgb:
+        rr = (res["rgb"].reshape(R, S, 3) * g_rgbm[:, None, :]).sum(-1)
+
+    # compositing backward, division-free (the JAX kernel's _composite)
+    sig_s = res["sig_s"]
+    delta = _deltas(z_vals)
+    ds = delta * sig_s
+    Ts = torch.exp(-_excl_prefix(ds))
+    a_s = 1.0 - torch.exp(-ds)
+    ow = a_s * Ts
+    g_ow = cot("s_weights", (R, S)) + cot("s_depth", (R,))[:, None] * z_vals
+    if st.use_rgb:
+        g_ow = g_ow + rr
+    if st.out_feat and not st.use_cand:
+        g_ow = g_ow + p
+    e_s = torch.exp(-ds)
+    gsig_s = delta * (e_s * Ts * g_ow - _excl_suffix(g_ow * ow))
+    cf = cg = None
+    if st.use_cand:
+        sig_c = res["sig_c"]
+        dc = delta * sig_c
+        Tj = torch.exp(-_excl_prefix(ds + dc))
+        a_c = 1.0 - torch.exp(-dc)
+        a_j = 1.0 - torch.exp(-(ds + dc))
+        sw, cw, jw = a_s * Tj, a_c * Tj, a_j * Tj
+        zero = torch.zeros_like(g_ow)
+        g_sw = p if st.out_feat else zero
+        g_cw = (q if st.out_feat else zero) + cot("t_weight", (R,))[:, None]
+        g_jw = cot("j_weights", (R, S)) + cot("c_depth", (R,))[:, None] * z_vals
+        sfx = _excl_suffix(g_sw * sw + g_cw * cw + g_jw * jw)
+        e_c = torch.exp(-dc)
+        e_j = e_s * e_c
+        gsig_s = gsig_s + delta * (e_s * Tj * g_sw + e_j * Tj * g_jw - sfx)
+        gsig_c = delta * (e_c * Tj * g_cw + e_j * Tj * g_jw - sfx)
+        g_cpre = (gsig_c * (1.0 - torch.exp(-sig_c))).reshape(M, 1)
+        if st.out_feat:
+            cf, cg = sw, cw
+    elif st.out_feat:
+        cf = ow
+    g_spre = (gsig_s * (1.0 - torch.exp(-sig_s))).reshape(M, 1)
+
+    # reverse walk over the saved chain
+    dh: Dict[str, torch.Tensor] = {}
+    g_xyzf = torch.zeros((M, W), dtype=f32, device=z_vals.device)
+    g_f = None
+    if st.out_feat:
+        g_f = (cf[..., None] * g_feat[:, None, :]).reshape(M, -1)
+    d_cond = d_cemb = None
+    if st.use_rgb:
+        g_rgb = (ow[..., None] * g_rgbm[:, None, :]).reshape(M, 3)
+        rgb = res["rgb"]
+        g_u = g_rgb * rgb * (1.0 - rgb)
+        rgbh = cuts["rgbh"]
+        dh["rgb2_w"] = dot(rgbh.t(), g_u)
+        dh["rgb2_b"] = g_u.sum(0)
+        g_rgbh = dot(g_u, heads["rgb2_w"].t()) * (rgbh > 0)
+        dh["rgb1_w"] = dot(feat.t(), g_rgbh)
+        d_cond = g_rgbh.reshape(R, S, -1).sum(1)
+        g_from_rgb = dot(g_rgbh, heads["rgb1_w"].t())
+        g_f = g_from_rgb if g_f is None else g_f + g_from_rgb
+    if st.use_feat:
+        dh["feat_w"] = dot(cuts["xyzf"].t(), g_f)
+        dh["feat_b"] = g_f.sum(0)
+        g_xyzf = g_xyzf + dot(g_f, heads["feat_w"].t())
+    if st.use_cand:
+        h1, h2 = cuts["h1"], cuts["h2"]
+        F = heads["cfeat_w"].shape[1]
+        if st.out_feat:
+            g_cf = (cg[..., None] * g_feat[:, None, :]).reshape(M, -1)
+        else:
+            g_cf = torch.zeros((M, F), dtype=f32, device=z_vals.device)
+        dh["cfeat_w"] = dot(h2.t(), g_cf)
+        dh["cfeat_b"] = g_cf.sum(0)
+        g_h2 = dot(g_cf, heads["cfeat_w"].t())
+        dh["csig_w"] = dot(h2.t(), g_cpre)
+        dh["csig_b"] = g_cpre.sum(0)
+        g_h2 = (g_h2 + g_cpre * heads["csig_w"].reshape(1, -1)) * (h2 > 0)
+        dh["c2_w"] = dot(h1.t(), g_h2)
+        dh["c2_b"] = g_h2.sum(0)
+        g_h1 = dot(g_h2, heads["c2_w"].t()) * (h1 > 0)
+        dh["c1x_w"] = dot(cuts["xyzf"].t(), g_h1)
+        dh["c1_b"] = g_h1.sum(0)
+        ray_g1 = g_h1.reshape(R, S, -1).sum(1)
+        dh["c1c_w"] = dot(c_emb.t(), ray_g1)
+        d_cemb = dot(ray_g1, heads["c1c_w"].t())
+        g_xyzf = g_xyzf + dot(g_h1, heads["c1x_w"].t())
+    h = cuts[f"act{st.D - 1}"]
+    dh["sigma_w"] = dot(h.t(), g_spre)
+    dh["sigma_b"] = g_spre.sum(0)
+    dh["xyzf_w"] = dot(h.t(), g_xyzf)
+    dh["xyzf_b"] = g_xyzf.sum(0)
+    g = g_spre * heads["sigma_w"].reshape(1, -1) + dot(g_xyzf, heads["xyzf_w"].t())
+
+    x0, xyz = _pe(rays_o, rays_d, z_vals, pe_w, L)
+    dx0 = torch.zeros((M, in0), dtype=f32, device=z_vals.device)
+    dtrunk = [None] * st.D
+    for i in reversed(range(st.D)):
+        g = g * (cuts[f"act{i}"] > 0)
+        if i == 0:
+            inp = x0
+        elif i in st.skips:
+            inp = torch.cat([x0, cuts[f"act{i - 1}"]], -1)
+        else:
+            inp = cuts[f"act{i - 1}"]
+        dtrunk[i] = (dot(inp.t(), g), g.sum(0))
+        g_in = dot(g, trunk[i][0].t())
+        if i in st.skips and i > 0:
+            dx0 = dx0 + g_in[:, :in0]
+            g = g_in[:, in0:]
+        elif i == 0:
+            dx0 = dx0 + g_in
+        else:
+            g = g_in
+
+    # PE backward: d sin(x f) = cos(x f) f dx, d cos(x f) = -sin(x f) f dx
+    freq = 2.0 ** torch.arange(L, dtype=f32, device=z_vals.device) * math.pi
+    sp = xyz[:, :, None] * freq  # (M, 3, L)
+    denc = dx0[:, 3:].reshape(M, 3, 2, L) * pe_w
+    dxyz = dx0[:, :3] + (denc[:, :, 0] * torch.cos(sp) * freq - denc[:, :, 1] * torch.sin(sp) * freq).sum(-1)
+    dxyz = dxyz.reshape(R, S, 3)
+    d_o = dxyz.sum(1)
+    d_d = (dxyz * z_vals[..., None]).sum(1)
+    return d_o, d_d, d_cond, d_cemb, dtrunk, dh
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
 
 
 def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device) -> None:
@@ -115,28 +430,134 @@ def _pack_fragments(w: torch.Tensor) -> torch.Tensor:
     return wt.reshape(N // 8, 8, K // 16, 2, 4, 2).permute(0, 2, 1, 4, 3, 5).contiguous()
 
 
+def _pad_x0_rows(w: torch.Tensor, in0: int) -> torch.Tensor:
+    """Zero rows after the 3 + 6L x0 rows of a layer-0 or skip weight, up to X0_PAD."""
+    return torch.cat([w[:in0], w.new_zeros(X0_PAD - in0, w.shape[1]), w[in0:]], 0)
+
+
 def _kernel_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
-    """Weights in the layout the CUDA kernel reads, each its own contiguous
+    """Weights in the layout the forward kernel reads, each its own contiguous
     (so 16-byte aligned) tensor. float32 mode: every matrix (in, out), f32.
-    bfloat16 mode: the trunk, xyzf, feat and rgb1 matrices packed by
-    _pack_fragments, with the x0 rows of layer 0 and of the skip layers
-    zero-padded to X0_PAD; sigma and rgb2 (in, out) in bf16. Biases f32."""
+    bfloat16 mode: the trunk, xyzf, feat, rgb1, c1x, c2 and cfeat matrices
+    packed by _pack_fragments, with the x0 rows of layer 0 and of the skip
+    layers zero-padded to X0_PAD; sigma, rgb2, csig and c1c (in, out) in bf16.
+    Biases f32."""
     if canonical_precision(st.precision) == "float32":
         return [(w.contiguous(), b.contiguous()) for w, b in trunk], {k: v.contiguous() for k, v in heads.items()}
     in0 = 3 + 6 * st.xyz_L
     out = []
     for i, (w, b) in enumerate(trunk):
         if i == 0 or i in st.skips:
-            w = torch.cat([w[:in0], w.new_zeros(X0_PAD - in0, w.shape[1]), w[in0:]], 0)
+            w = _pad_x0_rows(w, in0)
         out.append((_pack_fragments(w), b.contiguous()))
     kheads = {}
     for k, v in heads.items():
-        if k in ("xyzf_w", "feat_w", "rgb1_w"):
+        if k in ("xyzf_w", "feat_w", "rgb1_w", "c1x_w", "c2_w", "cfeat_w"):
             v = _pack_fragments(v)
-        elif k in ("sigma_w", "rgb2_w"):
+        elif k in ("sigma_w", "rgb2_w", "csig_w", "c1c_w"):
             v = v.to(torch.bfloat16)
         kheads[k] = v.contiguous()
     return out, kheads
+
+
+# The backward kernel's weight pointers, in order. "^T" marks a transpose; "rm" a
+# row-major copy the kernel reads outside its products.
+BWD_WEIGHTS = ("xyzf_w^T", "feat_w", "feat_w^T", "rgb1_w^T", "rgb2_w^T", "c1x_w^T", "c1c_w", "c2_w^T", "cfeat_w^T",
+               "sigma_w", "csig_w", "feat_b", "cfeat_b", "feat_w rm", "cfeat_w^T rm")
+_BWD_PRODUCT_WEIGHTS = ("xyzf_w^T", "feat_w", "feat_w^T", "rgb1_w^T", "c1x_w^T", "c2_w^T", "cfeat_w^T")
+
+
+def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
+    """Weights in the layout the backward kernel reads: the trunk's
+    transposes (out, in) with x0 padded to X0_PAD columns, and BWD_WEIGHTS
+    (None where the mode has no such head). float32 mode: every matrix f32,
+    row-major. bfloat16 mode: the matrices the walk's products read (the
+    trunk's, and _BWD_PRODUCT_WEIGHTS) packed in fragment order for the
+    tensor cores; rgb2_w^T, c1c_w and the "rm" copies row-major bf16.
+    sigma_w and csig_w are f32 columns (the JAX kernel keeps them f32: they
+    enter rank-1 terms, not products), the biases f32."""
+    cdt = _cdt(st)
+    packed = cdt == torch.bfloat16
+    in0 = 3 + 6 * st.xyz_L
+    kt = []
+    for i, (w, _) in enumerate(trunk):
+        if i == 0 or i in st.skips:
+            w = _pad_x0_rows(w, in0)
+        kt.append(_pack_fragments(w.t()) if packed else w.t().contiguous())
+    out = []
+    for name in BWD_WEIGHTS:
+        key = name.split(" ")[0].removesuffix("^T")
+        v = heads.get(key) if key in st.head_keys else None
+        if v is not None:
+            if key in ("sigma_w", "csig_w"):
+                v = v.reshape(-1)
+            elif "_b" not in key:
+                v = v.t() if "^T" in name else v
+                v = _pack_fragments(v) if packed and name in _BWD_PRODUCT_WEIGHTS else v.to(cdt)
+            v = v.contiguous()
+        out.append(v)
+    return kt, out
+
+
+def _head_shapes(W, F, HH, HC, C):
+    return {
+        "xyzf_w": (W, W), "xyzf_b": (W,), "sigma_w": (W, 1), "sigma_b": (1,), "feat_w": (W, F), "feat_b": (F,),
+        "rgb1_w": (F, HH), "rgb2_w": (HH, 3), "rgb2_b": (3,), "c1x_w": (W, HC), "c1c_w": (C, HC), "c1_b": (HC,),
+        "c2_w": (HC, HC), "c2_b": (HC,), "csig_w": (HC, 1), "csig_b": (1,), "cfeat_w": (HC, F), "cfeat_b": (F,),
+    }
+
+
+def _check_kernel_args(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, trunk, heads, st: RTStatic):
+    """Device, dtype and shape checks of everything a kernel reads; returns
+    (R, S, C). Raises on what the kernels do not take."""
+    dev = rays_o.device
+    R, S = z_vals.shape
+    L, D = st.xyz_L, len(trunk)
+    if D != st.D:
+        raise ValueError(f"trunk has {D} layers, st.D is {st.D}")
+    W, F, HH, HC = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["F"], KERNEL_WIDTHS["HH"], KERNEL_WIDTHS["HC"]
+    got = (trunk[0][1].shape[0], heads["feat_b"].shape[0] if "feat_b" in heads else F,
+           ray_cond.shape[1] if st.use_rgb else HH, heads["c2_b"].shape[0] if st.use_cand else HC)
+    C = c_emb.shape[1] if st.use_cand else 0
+    if got != (W, F, HH, HC) or 3 + 6 * L > X0_PAD or D > 16 or C > MAX_C:
+        raise ValueError(
+            f"the CUDA kernels take W=256, F=384, HH=128, HC=128, 3+6L <= 64, D <= 16, C <= {MAX_C};"
+            f" got {(*got, L, D, C)}"
+        )
+    if not st.use_feat:
+        raise ValueError("the CUDA kernels need use_rgb or out_feat")
+    in0 = 3 + 6 * L
+    _check("rays_o", rays_o, (R, 3), dev)
+    _check("rays_d", rays_d, (R, 3), dev)
+    _check("z_vals", z_vals, (R, S), dev)
+    _check("pe_w", pe_w, (L,), dev)
+    if st.use_rgb:
+        _check("ray_cond", ray_cond, (R, HH), dev)
+    if st.use_cand:
+        _check("c_emb", c_emb, (R, C), dev)
+    for i, (w, b) in enumerate(trunk):
+        fan_in = in0 if i == 0 else (in0 + W if i in st.skips else W)
+        _check(f"trunk[{i}].w", w, (fan_in, W), dev)
+        _check(f"trunk[{i}].b", b, (W,), dev)
+    shapes = _head_shapes(W, F, HH, HC, C)
+    for k in st.head_keys:
+        _check(k, heads[k], shapes[k], dev)
+    return R, S, C
+
+
+def _ptrs(ts) -> ctypes.Array:
+    return (ctypes.c_void_p * len(ts))(*[0 if t is None else t.data_ptr() for t in ts])
+
+
+def _flags(st: RTStatic, save_res: bool) -> int:
+    bf16 = canonical_precision(st.precision) == "bfloat16"
+    bits = (bf16, st.use_rgb, st.out_feat, st.use_cand, save_res, st.store_f32)
+    return sum(int(b) << i for i, b in enumerate(bits))
+
+
+def _raise_on(code: int, name: str, lib) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name} kernel failed ({code}): {lib.upnerf_error_string(code).decode()}")
 
 
 def render_train_rays_fwd(
@@ -144,73 +565,188 @@ def render_train_rays_fwd(
     rays_d: torch.Tensor,
     z_vals: torch.Tensor,
     pe_w: torch.Tensor,
-    ray_cond: torch.Tensor,
+    ray_cond: Optional[torch.Tensor],
     trunk: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     heads: Dict[str, torch.Tensor],
     st: RTStatic,
-) -> Dict[str, torch.Tensor]:
-    """Forward render: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors; the same arguments either way, all f32.
+    c_emb: Optional[torch.Tensor] = None,
+    save_res: bool = False,
+):
+    """Forward render: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors; the same arguments either way, all f32. Returns the
+    outputs, and with save_res the residuals the backward reads.
 
-    The CUDA kernel takes the repo model's widths (W=256, F=384, HH=128),
-    3 + 6L <= 64 and D <= 16, and is forward only: inputs that require grad
-    are refused while grad mode is on."""
+    The CUDA kernel takes the repo model's widths (W=256, F=384, HH=128,
+    HC=128), 3 + 6L <= 64 and D <= 16. It computes no gradient: inputs that
+    require grad are refused while grad mode is on (the training path goes
+    through RenderTrainRays)."""
     if rays_o.device.type == "cpu":
-        return render_train_rays_plain(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st)
+        return render_train_rays_plain(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st,
+                                       c_emb=c_emb, save_res=save_res)
     if rays_o.device.type != "cuda":
         raise ValueError(f"no render kernel for device {rays_o.device}")
     global launches
     from upnerf_torch.ops import _build
 
-    prec = canonical_precision(st.precision)
+    R, S, C = _check_kernel_args(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, trunk, heads, st)
+    tensors = [rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, *heads.values()] + [t for wb in trunk for t in wb]
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError("the CUDA render kernel is forward-only: run it under torch.no_grad()"
+                           " or train through RenderTrainRays")
+    if save_res and not st.save_chain:
+        raise NotImplementedError("the recompute backward (save_chain=False) is not ported")
     dev = rays_o.device
-    R, S = z_vals.shape
-    L, D = st.xyz_L, len(trunk)
-    if D != st.D:
-        raise ValueError(f"trunk has {D} layers, st.D is {st.D}")
-    W, F, HH = trunk[0][1].shape[0], heads["feat_b"].shape[0], ray_cond.shape[1]
-    if (W, F, HH) != (256, 384, 128) or 3 + 6 * L > X0_PAD or D > 16:
-        raise ValueError(f"the CUDA kernel takes W=256, F=384, HH=128, 3+6L <= 64, D <= 16; got {(W, F, HH, L, D)}")
-    in0 = 3 + 6 * L
-    _check("rays_o", rays_o, (R, 3), dev)
-    _check("rays_d", rays_d, (R, 3), dev)
-    _check("z_vals", z_vals, (R, S), dev)
-    _check("pe_w", pe_w, (L,), dev)
-    _check("ray_cond", ray_cond, (R, HH), dev)
-    for i, (w, b) in enumerate(trunk):
-        fan_in = in0 if i == 0 else (in0 + W if i in st.skips else W)
-        _check(f"trunk[{i}].w", w, (fan_in, W), dev)
-        _check(f"trunk[{i}].b", b, (W,), dev)
-    shapes = {
-        "xyzf_w": (W, W), "xyzf_b": (W,), "sigma_w": (W, 1), "sigma_b": (1,), "feat_w": (W, F),
-        "feat_b": (F,), "rgb1_w": (F, HH), "rgb2_w": (HH, 3), "rgb2_b": (3,),
-    }
-    for k in HEAD_KEYS:
-        _check(k, heads[k], shapes[k], dev)
-    tensors = [rays_o, rays_d, z_vals, pe_w, ray_cond, *heads.values()] + [t for wb in trunk for t in wb]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("the CUDA render kernel is forward-only: run it under torch.no_grad()")
-
-    rays_o, rays_d, z_vals, pe_w, ray_cond = (t.contiguous() for t in (rays_o, rays_d, z_vals, pe_w, ray_cond))
-    ktrunk, kheads = _kernel_weights(trunk, heads, st)
-    s_weights = torch.empty((R, S), dtype=torch.float32, device=dev)
-    s_depth = torch.empty((R,), dtype=torch.float32, device=dev)
-    rgb_map = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    ptr_array = ctypes.c_void_p * D
-    trunk_w = ptr_array(*[w.data_ptr() for w, _ in ktrunk])
-    trunk_b = ptr_array(*[b.data_ptr() for _, b in ktrunk])
-    skip_mask = sum(1 << i for i in st.skips if 0 < i < D)
+    ins = [t.contiguous() if t is not None else None for t in (rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb)]
+    ktrunk, kheads = _kernel_weights(trunk, {k: heads[k] for k in st.head_keys}, st)
+    f32 = dict(dtype=torch.float32, device=dev)
+    F = KERNEL_WIDTHS["F"]
+    out = {"s_weights": torch.empty((R, S), **f32), "s_depth": torch.empty((R,), **f32)}
+    if st.use_rgb:
+        out["rgb_map"] = torch.empty((R, 3), **f32)
+    if st.out_feat:
+        out["feat_map"] = torch.empty((R, F), **f32)
+    if st.use_cand:
+        out["j_weights"] = torch.empty((R, S), **f32)
+        out["c_depth"] = torch.empty((R,), **f32)
+        out["t_weight"] = torch.empty((R,), **f32)
+    res = {}
+    if save_res:
+        res["sig_s"] = torch.empty((R, S), **f32)
+        if st.use_cand:
+            res["sig_c"] = torch.empty((R, S), **f32)
+        if st.use_rgb:
+            res["rgb"] = torch.empty((R * S, 3), **f32)
+        W, HH, HC = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["HH"], KERNEL_WIDTHS["HC"]
+        chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
+        res["chain"] = torch.empty((R * S, chain_w), dtype=_cdt(st), device=dev)
+    out_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
+    res_order = ("sig_s", "sig_c", "rgb", "chain")
+    outs = [out.get(k) for k in out_order] + [res.get(k) for k in res_order]
+    lib = _build.library("render_train_fwd")
+    skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = _build.library().upnerf_render_train_fwd(
-            rays_o.data_ptr(), rays_d.data_ptr(), z_vals.data_ptr(), pe_w.data_ptr(), ray_cond.data_ptr(),
-            trunk_w, trunk_b, D, skip_mask,
-            *[kheads[k].data_ptr() for k in HEAD_KEYS],
-            s_weights.data_ptr(), s_depth.data_ptr(), rgb_map.data_ptr(),
-            R, S, L, W, F, HH, int(prec == "bfloat16"), stream,
+        code = lib.upnerf_render_train_fwd(
+            _ptrs(ins), _ptrs([w for w, _ in ktrunk]), _ptrs([b for _, b in ktrunk]), st.D, skip_mask,
+            _ptrs([kheads.get(k) for k in HEAD_KEYS]), _ptrs(outs), R, S, st.xyz_L, C, _flags(st, save_res), stream,
         )
-    if code != 0:
-        msg = _build.library().upnerf_error_string(code).decode()
-        raise RuntimeError(f"render_train_fwd kernel failed ({code}): {msg}")
+    _raise_on(code, "render_train_fwd", lib)
     launches += 1
-    return {"s_weights": s_weights, "s_depth": s_depth, "rgb_map": rgb_map}
+    return (out, res) if save_res else out
+
+
+def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots):
+    """Backward render: `render_train_rays_bwd_plain` for CPU tensors, the
+    CUDA kernel for CUDA tensors, with the same arguments and results.
+
+    The kernel accumulates the weight gradients over all rays with f32
+    atomic adds in device memory, so their last bits change from run to run."""
+    if rays_o.device.type == "cpu":
+        return render_train_rays_bwd_plain(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st, c_emb, res,
+                                           cots)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"no render kernel for device {rays_o.device}")
+    global bwd_launches
+    from upnerf_torch.ops import _build
+
+    R, S, C = _check_kernel_args(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, trunk, heads, st)
+    if not st.save_chain:
+        raise NotImplementedError("the recompute backward (save_chain=False) is not ported")
+    dev = rays_o.device
+    W, F, HH, HC = (KERNEL_WIDTHS[k] for k in ("W", "F", "HH", "HC"))
+    f32 = dict(dtype=torch.float32, device=dev)
+    in0 = 3 + 6 * st.xyz_L
+    ins = [t.contiguous() if t is not None else None for t in (rays_o, rays_d, z_vals, pe_w, c_emb)]
+    cot_shapes = {"s_weights": (R, S), "s_depth": (R,), "rgb_map": (R, 3), "feat_map": (R, F), "j_weights": (R, S),
+                  "c_depth": (R,), "t_weight": (R,)}
+    cot_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
+    cot_list = []
+    for k in cot_order:
+        g = cots.get(k) if k in st.out_keys else None
+        if g is not None:
+            _check(f"cotangent {k}", g, cot_shapes[k], dev)
+            g = g.contiguous()
+        cot_list.append(g)
+    res_shapes = {"sig_s": (R, S), "sig_c": (R, S), "rgb": (R * S, 3)}
+    for k in st.res_keys[:-1]:
+        _check(f"residual {k}", res[k], res_shapes[k], dev)
+    chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
+    chain = res["chain"]
+    if chain.device != dev or tuple(chain.shape) != (R * S, chain_w) or chain.dtype != _cdt(st):
+        raise ValueError("the chain residual does not match st")
+    res_list = [res[k].contiguous() if k in res else None for k in ("sig_s", "sig_c", "rgb")] + [chain.contiguous()]
+    kt, kw = _bwd_weights(trunk, heads, st)
+    d_o, d_d = torch.empty((R, 3), **f32), torch.empty((R, 3), **f32)
+    d_cond = torch.empty((R, HH), **f32) if st.use_rgb else None
+    d_cemb = torch.empty((R, C), **f32) if st.use_cand else None
+    # weight gradients, accumulated by atomics: zero first; trunk in the padded layout
+    dtw, dtb = [], []
+    for i in range(st.D):
+        rows = (X0_PAD if i == 0 else (X0_PAD + W if i in st.skips else W))
+        dtw.append(torch.zeros((rows, W), **f32))
+        dtb.append(torch.zeros((W,), **f32))
+    dhd = {k: torch.zeros(heads[k].shape, **f32) for k in st.head_keys}
+    lib = _build.library("render_train_bwd")
+    skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = lib.upnerf_render_train_bwd(
+            _ptrs(ins), _ptrs(cot_list), _ptrs(res_list), _ptrs(kt), st.D, skip_mask, _ptrs(kw),
+            _ptrs([d_o, d_d, d_cond, d_cemb]), _ptrs(dtw), _ptrs(dtb), _ptrs([dhd.get(k) for k in HEAD_KEYS]),
+            R, S, st.xyz_L, C, _flags(st, True), stream,
+        )
+    _raise_on(code, "render_train_bwd", lib)
+    bwd_launches += 1
+    dtrunk = []
+    for i in range(st.D):
+        w = dtw[i]
+        if i == 0:
+            w = w[:in0]
+        elif i in st.skips:
+            w = torch.cat([w[:in0], w[X0_PAD:]], 0)
+        dtrunk.append((w, dtb[i]))
+    return d_o, d_d, d_cond, d_cemb, dtrunk, dhd
+
+
+class RenderTrainRays(torch.autograd.Function):
+    """Differentiable fused render of one pass (the JAX kernel's custom VJP).
+
+    apply(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, st, head_names,
+    *trunk_flat, *head_tensors) -> the outputs in st.out_keys order."""
+
+    @staticmethod
+    def forward(ctx, rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, st, head_names, *weights):
+        D = st.D
+        trunk = [(weights[2 * i], weights[2 * i + 1]) for i in range(D)]
+        heads = dict(zip(head_names, weights[2 * D :]))
+        out, res = render_train_rays_fwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st,
+                                         c_emb=c_emb, save_res=True)
+        ctx.st, ctx.head_names = st, head_names
+        ctx.res_keys = tuple(res)
+        ctx.save_for_backward(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, *weights, *res.values())
+        return tuple(out[k] for k in st.out_keys)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        st, names = ctx.st, ctx.head_names
+        saved = ctx.saved_tensors
+        rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb = saved[:6]
+        nw = 2 * st.D + len(names)
+        weights = saved[6 : 6 + nw]
+        res = dict(zip(ctx.res_keys, saved[6 + nw :]))
+        trunk = [(weights[2 * i], weights[2 * i + 1]) for i in range(st.D)]
+        heads = dict(zip(names, weights[2 * st.D :]))
+        cots = dict(zip(st.out_keys, grads))
+        d_o, d_d, d_cond, d_cemb, dtrunk, dh = render_train_rays_bwd(
+            rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st, c_emb, res, cots
+        )
+        flat = [t for wb in dtrunk for t in wb] + [dh[k].reshape(heads[k].shape) for k in names]
+        return (d_o, d_d, None, None, d_cond, d_cemb, None, None, *flat)
+
+
+def render_train_rays(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb=None):
+    """Differentiable forward: the outputs dict, through RenderTrainRays."""
+    names = st.head_keys
+    flat = [t for wb in trunk for t in wb] + [heads[k] for k in names]
+    outs = RenderTrainRays.apply(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, st, names, *flat)
+    return dict(zip(st.out_keys, outs))

@@ -1,17 +1,26 @@
-"""Coarse + fine volume renderer (upnerf/render/render_rays.py), phase 2.
+"""Coarse + fine volume renderer (upnerf/render/render_rays.py), all phases.
 
-Phase 2 is the rgb-only schedule phase: the phase of every val, eval and
-novel-view render. Each pass (coarse at N_samples, fine at N_samples +
-N_importance merged samples) goes through the fused forward of
-upnerf_torch.ops.render_train, as the JAX package's `_fused_train_path`
-does: the per-ray rgb conditioning
+The schedule phase is an argument: 0 (feature/candidate), 1 (blended), 2
+(rgb). Each pass (coarse at N_samples, fine at N_samples + N_importance
+merged samples) goes through the fused render of upnerf_torch.ops.render_train,
+as the JAX package's `_fused_train_path` does, and emits the same result keys:
+- phases 0/1 with the candidate branch: c_weights_* (the joint weights),
+  c_depth_*, t_weight_*, feat_*; without it s_weights_*, feat_*;
+- phases 1/2: s_weights_*, s_rgb_*;
+- always s_depth_*.
+
+The per-ray rgb conditioning
 
     ray_cond = PE(dir) @ W_rgb1[F:F+27] + b_rgb1 + a_emb @ W_rgb1[F+27:]
 
-is computed outside the kernel (a small per-ray product), and the kernel
-builds xyz, its PE, the trunk, the heads and the compositing. Directions are
-inputs only (no gradient flows through this forward-only path). Phases 0/1
-(the candidate branch and the feature output) are not ported yet.
+is a small product outside the kernel; the kernel builds xyz, its PE, the
+trunk, the heads and the compositing. With grad mode on and a trainable input
+the pass goes through the autograd.Function `RenderTrainRays` (forward and
+backward kernels); otherwise through the forward alone.
+
+Gradient stops, as in the JAX package: directions are detached as MLP
+inputs, z is detached, the importance weights are detached. Fine samples in
+phase 1 are drawn from the mixture CDF (1 - m) c_weights + m s_weights.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ class RenderConfig(NamedTuple):
     use_disp: bool = False
     perturb: float = 1.0
     precision: str = "float32"
+    store_f32: bool = True
 
     @classmethod
     def from_hparams(cls, hp: Dict[str, Any]) -> "RenderConfig":
@@ -45,14 +55,17 @@ class RenderConfig(NamedTuple):
             use_disp=hp["nerf.use_disp"],
             perturb=hp["nerf.perturb"],
             precision=canonical_precision(hp.get("tpu.matmul_precision", "float32")),
+            store_f32=hp.get("tpu.store_f32", True),
         )
 
 
 def field_weights(field: NeRFField):
-    """(trunk, heads) of one field in the fused forward's interface: (in,
-    out) matrices as in the JAX package; the rgb1 bias goes into ray_cond."""
+    """(trunk, heads) of one field in the fused render's interface: (in,
+    out) matrices as in the JAX package; the rgb1 bias goes into ray_cond.
+    The heads cover every mode; a mode reads RTStatic.head_keys of them."""
+    cfg = field.cfg
     trunk = [(lay.weight.t(), lay.bias) for lay in field.trunk_layers()]
-    F = field.cfg.feat_dim
+    F = cfg.feat_dim
     heads = {
         "xyzf_w": field.xyz_encoding_final.weight.t(),
         "xyzf_b": field.xyz_encoding_final.bias,
@@ -64,6 +77,14 @@ def field_weights(field: NeRFField):
         "rgb2_w": field.rgb_share_layer[2].weight.t(),
         "rgb2_b": field.rgb_share_layer[2].bias,
     }
+    if cfg.encode_candidate:
+        c1, c2 = field.candidate_encoding[0], field.candidate_encoding[2]
+        heads.update(
+            c1x_w=c1.weight[:, : cfg.W].t(), c1c_w=c1.weight[:, cfg.W :].t(), c1_b=c1.bias,
+            c2_w=c2.weight.t(), c2_b=c2.bias,
+            csig_w=field.candidate_sigma[0].weight.t(), csig_b=field.candidate_sigma[0].bias,
+            cfeat_w=field.feat_candidate_layer.weight.t(), cfeat_b=field.feat_candidate_layer.bias,
+        )
     return trunk, heads
 
 
@@ -71,8 +92,10 @@ def ray_conditioning(
     field: NeRFField, rays_d: torch.Tensor, a_emb: Optional[torch.Tensor], progress: float
 ) -> torch.Tensor:
     """(R, W/2) per-ray part of the rgb head's first layer, bias included:
-    concat(feat, PE(dir), a) @ W == feat @ W0 + (PE(dir) @ W1 + b + a @ W2)."""
+    concat(feat, PE(dir), a) @ W == feat @ W0 + (PE(dir) @ W1 + b + a @ W2).
+    Directions are detached: pose gradients flow only through the samples."""
     cfg = field.cfg
+    rays_d = rays_d.detach()
     dir_pe = positional_encoding(rays_d, cfg.dir_L, band_weights(cfg, cfg.dir_L, progress, rays_d.device))
     rgb1 = field.rgb_share_layer[0]
     F, dd = cfg.feat_dim, dir_pe.shape[-1]
@@ -90,24 +113,45 @@ def _inference(
     rays_d: torch.Tensor,  # (R, 3)
     z_vals: torch.Tensor,  # (R, S)
     a_emb: Optional[torch.Tensor],  # (R, A)
+    c_emb: Optional[torch.Tensor],  # (R, C)
     *,
+    phase: int,
     progress: float,
-    precision: str,
+    cfg: RenderConfig,
+    encode_candidate: bool,
 ) -> None:
-    """One pass through the fused forward; adds s_weights/s_rgb/s_depth
-    with the suffix `typ` ('coarse' | 'fine') to `results`."""
-    cfg = field.cfg
-    if not cfg.encode_feat:
+    """One pass through the fused render; adds its result keys with the
+    suffix `typ` ('coarse' | 'fine') to `results`."""
+    ncfg = field.cfg
+    if not ncfg.encode_feat:
         raise NotImplementedError("the feature-less field is not ported")
-    w_xyz = band_weights(cfg, cfg.xyz_L, progress, rays_o.device)
-    ray_cond = ray_conditioning(field, rays_d, a_emb, progress)
-    trunk, heads = field_weights(field)
-    st = rt.RTStatic(D=cfg.D, skips=tuple(cfg.skips), xyz_L=cfg.xyz_L, precision=precision)
-    out = rt.render_train_rays_fwd(
-        rays_o.contiguous(), rays_d.contiguous(), z_vals.contiguous(), w_xyz, ray_cond, trunk, heads, st
+    use_cand = ncfg.encode_candidate and encode_candidate and phase < 2
+    st = rt.RTStatic(
+        D=ncfg.D, skips=tuple(ncfg.skips), xyz_L=ncfg.xyz_L, precision=cfg.precision, use_cand=use_cand,
+        use_rgb=phase > 0, out_feat=phase < 2, store_f32=cfg.store_f32,
     )
-    results[f"s_weights_{typ}"] = out["s_weights"]
-    results[f"s_rgb_{typ}"] = out["rgb_map"]
+    w_xyz = band_weights(ncfg, ncfg.xyz_L, progress, rays_o.device)
+    ray_cond = ray_conditioning(field, rays_d, a_emb, progress) if st.use_rgb else None
+    c_emb = c_emb.contiguous() if use_cand else None
+    trunk, heads = field_weights(field)
+    heads = {k: heads[k] for k in st.head_keys}
+    args = (rays_o.contiguous(), rays_d.contiguous(), z_vals.contiguous(), w_xyz, ray_cond, trunk, heads, st)
+    tensors = [rays_o, rays_d, ray_cond, c_emb, *heads.values()] + [t for wb in trunk for t in wb]
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        out = rt.render_train_rays(*args, c_emb=c_emb)
+    else:
+        out = rt.render_train_rays_fwd(*args, c_emb=c_emb)
+    if phase < 2:
+        if use_cand:
+            results[f"c_weights_{typ}"] = out["j_weights"]
+            results[f"c_depth_{typ}"] = out["c_depth"]
+            results[f"t_weight_{typ}"] = out["t_weight"]
+        else:
+            results[f"s_weights_{typ}"] = out["s_weights"]
+        results[f"feat_{typ}"] = out["feat_map"]
+    if phase > 0:
+        results[f"s_weights_{typ}"] = out["s_weights"]
+        results[f"s_rgb_{typ}"] = out["rgb_map"]
     results[f"s_depth_{typ}"] = out["s_depth"]
 
 
@@ -118,45 +162,53 @@ def render_rays(
     img_idx: torch.Tensor,  # (R,) int
     *,
     phase: int = 2,
+    sched_mult: float = 1.0,
     progress: float = 1.0,
+    encode_candidate: bool = True,
     det: bool = False,
     generator: Optional[torch.Generator] = None,
     noise: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Render a ray batch at phase 2.
+    """Render a ray batch at a schedule phase.
 
     params: {"nerf_coarse": NeRFField, "nerf_fine": NeRFField,
-    "embeddings": {"coarse_a": (N_images, A), "fine_a": ...}}; embedding
-    rows are gathered by img_idx. det=True, or no generator and no noise,
-    gives the deterministic eval path. `noise` supplies pre-drawn uniforms
-    {"coarse": (R, N_samples), "fine": (R, N_importance)}."""
-    if phase != 2:
-        raise NotImplementedError("only phase 2 (rgb) is ported; phases 0/1 need the candidate branch")
+    "embeddings": {"coarse_a", "fine_a", "coarse_c", "fine_c": (N_images,
+    dim)}}; embedding rows are gathered by img_idx. det=True, or no generator
+    and no noise, gives the deterministic eval path. `noise` supplies
+    pre-drawn uniforms {"coarse": (R, N_samples), "fine": (R, N_importance)}.
+    `sched_mult` (a host float) weights the phase-1 mixture CDF."""
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
-    near, far = rays[:, 6:7], rays[:, 7:8]
+    near, far = rays[:, 6:7].detach(), rays[:, 7:8].detach()
     emb = params["embeddings"]
     if generator is None and noise is None:
         det = True
     noise = noise or {}
 
-    def emb_for(prefix: str):
-        table = emb.get(f"{prefix}_a")
+    def emb_for(prefix: str, name: str):
+        table = emb.get(f"{prefix}_{name}")
         return None if table is None else table[img_idx]
 
     z_vals = stratified_z_vals(
         near, far, cfg.N_samples, use_disp=cfg.use_disp, perturb=0.0 if det else cfg.perturb,
         generator=generator, u=noise.get("coarse"),
-    )
+    ).detach()
     results: Dict[str, torch.Tensor] = {}
-    _inference(results, params["nerf_coarse"], "coarse", rays_o, rays_d, z_vals, emb_for("coarse"),
-               progress=progress, precision=cfg.precision)
+    kw = dict(phase=phase, progress=progress, cfg=cfg, encode_candidate=encode_candidate)
+    _inference(results, params["nerf_coarse"], "coarse", rays_o, rays_d, z_vals, emb_for("coarse", "a"),
+               emb_for("coarse", "c"), **kw)
     if cfg.N_importance > 0:
         z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+        use_cand = params["nerf_coarse"].cfg.encode_candidate and encode_candidate
+        if use_cand and phase == 0:
+            w_src = results["c_weights_coarse"]
+        elif use_cand and phase == 1:
+            w_src = (1.0 - sched_mult) * results["c_weights_coarse"] + sched_mult * results["s_weights_coarse"]
+        else:
+            w_src = results["s_weights_coarse"]
         z_samples = sample_pdf(
-            z_mid, results["s_weights_coarse"][:, 1:-1], cfg.N_importance, det=det,
-            generator=generator, u=noise.get("fine"),
+            z_mid, w_src[:, 1:-1].detach(), cfg.N_importance, det=det, generator=generator, u=noise.get("fine"),
         )
-        z_fine = volume.merge_sorted_z(z_vals, z_samples)
-        _inference(results, params["nerf_fine"], "fine", rays_o, rays_d, z_fine, emb_for("fine"),
-                   progress=progress, precision=cfg.precision)
+        z_fine = volume.merge_sorted_z(z_vals, z_samples).detach()
+        _inference(results, params["nerf_fine"], "fine", rays_o, rays_d, z_fine, emb_for("fine", "a"),
+                   emb_for("fine", "c"), **kw)
     return results

@@ -1,3 +1,13 @@
-from .weights import init_reference_ckpt, load_reference_ckpt, render_params, state_dict_from_jax
+from .weights import (
+    export_reference_ckpt,
+    init_reference_ckpt,
+    load_reference_ckpt,
+    render_params,
+    state_dict_from_jax,
+    train_modules_from_jax,
+)
 
-__all__ = ["init_reference_ckpt", "load_reference_ckpt", "render_params", "state_dict_from_jax"]
+__all__ = [
+    "export_reference_ckpt", "init_reference_ckpt", "load_reference_ckpt", "render_params", "state_dict_from_jax",
+    "train_modules_from_jax",
+]

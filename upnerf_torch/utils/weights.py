@@ -14,6 +14,9 @@ hyper_parameters is the flat dotted-key config dict.
 - `load_reference_ckpt` reads such a file; `render_params` builds the
   serving modules from it (NeRFField loads with strict=True).
 - `init_reference_ckpt` writes a freshly seeded model in that layout.
+- `train_modules_from_jax` builds the train modules (UPNeRF, PoseTables)
+  from the JAX parameter pytree; `export_reference_ckpt` writes a trained
+  state back in the reference layout, which `render_video` reads.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch import nn
 
 from upnerf_torch.models.embeddings import init_embedding
 from upnerf_torch.models.nerf import NeRFConfig, NeRFField
+from upnerf_torch.models.transient import TransientConfig
 from upnerf_torch.ops.linear import init_linear_
 
 _EMBEDDINGS = (
@@ -170,4 +174,33 @@ def init_reference_ckpt(path: str, hparams: Dict[str, Any], n_images: int, seed:
     sd["depth_scale.weight"] = torch.zeros(n_images, 2)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save({"state_dict": sd, "hyper_parameters": dict(hparams), "global_step": 0}, path)
+    return path
+
+
+def train_modules_from_jax(params: Dict[str, Any], pose_params: Dict[str, Any], nerf_cfg: NeRFConfig,
+                           t_cfg: Optional[TransientConfig], n_images: int):
+    """(UPNeRF, PoseTables) holding the JAX package's parameter pytree and
+    pose tables (numpy arrays), loaded with strict=True: the candidate heads,
+    transient_net.*, the appearance and candidate tables, se3 and
+    depth_scale."""
+    from upnerf_torch.train.state import PoseTables, UPNeRF
+
+    sd = state_dict_from_jax(params, pose_params, 0.0)
+    model = UPNeRF(nerf_cfg, t_cfg, n_images, fine="nerf_fine" in params)
+    pose = PoseTables(n_images)
+    pose_keys = ("se3_refine.weight", "depth_scale.weight")
+    model.load_state_dict({k: v for k, v in sd.items() if k not in pose_keys}, strict=True)
+    pose.load_state_dict({k: sd[k] for k in pose_keys}, strict=True)
+    return model, pose
+
+
+def export_reference_ckpt(path: str, model: nn.Module, pose: nn.Module, hparams: Dict[str, Any], step: int,
+                          progress: float) -> str:
+    """Write a trained state as a reference checkpoint {"state_dict",
+    "hyper_parameters", "global_step"}; `progress` goes into nerf_*.progress."""
+    model.set_progress(progress)
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    sd.update({k: v.detach().cpu().clone() for k, v in pose.state_dict().items()})
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"state_dict": sd, "hyper_parameters": dict(hparams), "global_step": int(step)}, path)
     return path
