@@ -30,7 +30,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      versions), on the loss terms and every gradient;
   9. step ms and rays/s per phase (CUDA events), the backward kernel against
      the plain backward per 4096-ray chunk, the step's peak memory; with
-     --profile, a torch.profiler table of one phase-1 step into DIR.
+     --profile, a torch.profiler table of one phase-1 step into DIR;
+ 10. the flash-attention kernel against its plain PyTorch version at the
+     DINO extractor's shape (6 heads x 12,322 tokens x 64), bfloat16 and
+     float32, unit-normal and logits x 20, and at N = 300 (ragged tiles);
+     ms of each at N = 12,322 bfloat16, in turns;
+ 11. the offline extractors through `upnerf_torch.cli.preprocess.main` at
+     full width (DINO ViT-S/8 at 448 stride 4, DPT-Large at 384) on two PNGs
+     of 500x375 and 640x480, from seeded npz weights: the files, their
+     shapes and dtypes, 9 kernel launches per DINO image; image 0's DINO map
+     from the card held against the CPU (plain version); ms per image and
+     peak memory of each extractor.
 
 The last two lines are one JSON object describing each kernel, and
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc and one card;
@@ -109,6 +119,19 @@ TRAIN_RAYS = 2048
 STEP_PHASES = (0, 1, 2)
 MAX_STEPS = 600000
 PHASE_PROGRESS = {0: 0.0, 1: 0.3, 2: 0.6}  # inside each phase of the candidate schedule (0.1, 0.5)
+# Flash attention, kernel against plain version at the kernel's key tile,
+# absolute on unit-normal q, k, v: f32 sums in another order (f32); an f32
+# score or sum on the other side of a bf16 rounding boundary moves a p by one
+# bf16 ulp, 2^-8 relative (bf16). With logits x 20 the softmax is peaked, so
+# such a flip lands on a weight near 1.
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+ATTN_PEAKED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+DINO_HEADS, DINO_TOKENS = 6, 12322  # ViT-S/8 at 448x448, stride 4: 111 x 111 + CLS
+DINO_GRID, DINO_DIM = 111, 384
+# Image 0's DINO map, card (kernel) against CPU (plain version at the same
+# tile), max |d| over max |value|: the bf16 flips above, through 9 blocks.
+DINO_E2E_TOL = 1e-2
+EXTRACT_IMAGES = (("scene_a.png", (375, 500)), ("scene_b.png", (480, 640)))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -431,6 +454,144 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
     return t
 
 
+def phase_flash_kernel(dev, card: str):
+    """Phase 10: the flash-attention kernel against its plain version.
+    Returns (worst max |d|, kernel ms, plain ms) at N = 12,322 bfloat16."""
+    from upnerf_torch.ops import attention
+
+    worst = 0.0
+    for N, mult in ((DINO_TOKENS, 1.0), (DINO_TOKENS, 20.0), (300, 1.0)):
+        g = torch.Generator(device=dev).manual_seed(N + int(mult))
+        q, k, v = (torch.randn(DINO_HEADS, N, 64, generator=g, device=dev) for _ in range(3))
+        q = q * mult
+        for prec in ("bfloat16", "float32"):
+            with torch.no_grad():
+                got = attention.flash_attention(q, k, v, scale=0.125, compute_dtype=prec)
+                want = attention.flash_attention_plain(q, k, v, scale=0.125, compute_dtype=prec,
+                                                       block_k=attention.BLOCK_K)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"attention output not finite (N={N}, x{mult}, {prec})")
+            err = (got - want).abs().max().item()
+            tol = (ATTN_PEAKED_TOL if mult != 1.0 else ATTN_TOL)[prec]
+            print(f"[10] attention G={DINO_HEADS} N={N} logits x{mult:g} {prec}: max err {err:.3e} (tol {tol:.0e})",
+                  flush=True)
+            check(err <= tol, f"flash kernel disagrees with its plain version: N={N} x{mult} {prec} {err}")
+            worst = max(worst, err)
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(DINO_HEADS, DINO_TOKENS, 64, generator=g, device=dev) for _ in range(3))
+    with torch.no_grad():
+        kern = lambda: attention.flash_attention(q, k, v, scale=0.125)  # noqa: E731
+        plain = lambda: attention.flash_attention_plain(q, k, v, scale=0.125)  # noqa: E731
+        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern, 10), cuda_ms(kern, 10), cuda_ms(plain)
+    kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+    flop = 4.0 * DINO_HEADS * DINO_TOKENS**2 * 64
+    print(f"[10] attention G={DINO_HEADS} N={DINO_TOKENS} bfloat16: kernel {kms:.3f} ms ({flop / kms / 1e9:.0f} TFLOP/s),"
+          f" plain {pms:.3f} ms ({card})", flush=True)
+    return worst, kms, pms
+
+
+def _flatten(tree, prefix: str = ""):
+    """{"a": {"b": x}} -> {"a/b": x}: the npz layout's keys."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def phase_extractors(dev, card: str):
+    """Phase 11: `upnerf_torch.cli.preprocess` at full width. Returns the
+    flash kernel's launches in the CLI run."""
+    from upnerf_torch.cli import preprocess
+    from upnerf_torch.cli.render_video import write_png
+    from upnerf_torch.features import dino, dpt, vit
+    from upnerf_torch.features.images import read_rgb_u8
+    from upnerf_torch.ops import attention
+    from upnerf_torch.utils.weights import dpt_params_from_jax, vit_params_from_jax
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # seeded weights at full width, written in the npz layout the CLI reads
+        t0 = time.perf_counter()
+        dino_tree = vit.init_vit_params(np.random.default_rng(10), vit.ViTConfig())
+        dpt_tree = dpt.init_dpt_params(np.random.default_rng(11))
+        np.savez(os.path.join(tmp, "dino_vits8.npz"), **_flatten(dino_tree))
+        np.savez(os.path.join(tmp, "dpt_large.npz"), **_flatten(dpt_tree))
+        n_dpt = sum(a.size for a in _flatten(dpt_tree).values())
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        rng = np.random.RandomState(12)
+        for name, (h, w) in EXTRACT_IMAGES:
+            yy, xx = np.mgrid[0:h, 0:w]
+            smooth = np.stack([xx / w, yy / h, (xx + yy) / (w + h)], -1) * 200
+            write_png(os.path.join(img_dir, name), np.clip(smooth + rng.randint(0, 56, (h, w, 3)), 0, 255)
+                      .astype(np.uint8))
+        print(f"[11] seeded npz weights (DINO ViT-S/8, DPT-Large {n_dpt / 1e6:.0f} M parameters) and"
+              f" {len(EXTRACT_IMAGES)} PNGs written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        save = os.path.join(tmp, "out")
+        argv = ["--image_dir", img_dir, "--save_dir", save, "--what", "dino", "dpt", "--device", "cuda",
+                "--dino_weights", os.path.join(tmp, "dino_vits8.npz"), "--dpt_weights", os.path.join(tmp, "dpt_large.npz")]
+        attention.launches = 0
+        t0 = time.perf_counter()
+        preprocess.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = attention.launches
+        expected = 9 * len(EXTRACT_IMAGES)
+        print(f"[11] preprocess --what dino dpt: {cli_s:.1f} s (weights loaded from npz included); flash kernel"
+              f" launches {launches} (expected 9 blocks x {len(EXTRACT_IMAGES)} images = {expected})", flush=True)
+        check(launches == expected, f"flash kernel launched {launches} times, expected {expected}")
+
+        for name, (h, w) in EXTRACT_IMAGES:
+            stem = name[:-4]
+            want = {
+                f"DINO/feature_maps/{stem}.npy": (DINO_GRID, DINO_GRID, DINO_DIM),
+                f"DINO/pca_infos/{stem}_mean.npy": (DINO_DIM,),
+                f"DINO/pca_infos/{stem}_components.npy": (3, DINO_DIM),
+                f"DPT/{stem}.npy": (h, w),
+            }
+            for rel_path, shape in want.items():
+                arr = np.load(os.path.join(save, rel_path))
+                check(arr.shape == shape and arr.dtype == np.float32, f"{rel_path}: {arr.dtype} {arr.shape}, want {shape}")
+                check(bool(np.isfinite(arr).all()), f"{rel_path} is not finite")
+            depth = np.load(os.path.join(save, f"DPT/{stem}.npy"))
+            print(f"    {stem}: features {want[f'DINO/feature_maps/{stem}.npy']}, pca ({DINO_DIM},) + (3, {DINO_DIM}), depth"
+                  f" {depth.shape} in [{depth.min():.4g}, {depth.max():.4g}]", flush=True)
+
+        # image 0 on the card (the CLI's file) against the CPU (plain version at the kernel's tile)
+        img0 = read_rgb_u8(os.path.join(img_dir, EXTRACT_IMAGES[0][0]))
+        on_card = np.load(os.path.join(save, f"DINO/feature_maps/{EXTRACT_IMAGES[0][0][:-4]}.npy"))
+        t0 = time.perf_counter()
+        cpu_ex = dino.DinoExtractor(vit_params_from_jax(dino_tree, "cpu"), cfg=vit.ViTConfig(attn_impl="flash"))
+        on_cpu = cpu_ex(img0)
+        d = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+        print(f"[11] image 0 DINO map, card vs CPU: max |d| / max |value| {d:.3e} (tol {DINO_E2E_TOL:.0e});"
+              f" CPU extract {time.perf_counter() - t0:.1f} s", flush=True)
+        check(d <= DINO_E2E_TOL, "the card's DINO map disagrees with the CPU's")
+
+    # ms per image and peak memory, extractors built in memory from the same trees, one at a time
+    extractors = {"dino": lambda: dino.DinoExtractor(vit_params_from_jax(dino_tree, dev)),
+                "dpt": lambda: dpt.DPTDepth(dpt_params_from_jax(dpt_tree, dev))}
+    for name, build in extractors.items():
+        model = build()
+        model(img0)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model(img0)  # returns numpy: ends synchronised
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"[11] {name}: {ms:.1f} ms per {EXTRACT_IMAGES[0][1][1]}x{EXTRACT_IMAGES[0][1][0]} image (host clock,"
+              f" resize and copy back included), peak memory {peak:.2f} GiB ({card})", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of upnerf_torch on one NVIDIA GPU.")
     parser.add_argument("--profile", default=None, help="write a torch.profiler table of one phase-1 step here")
@@ -580,6 +741,11 @@ def main() -> int:
     kt = phase_bwd_timing(field, nerf_cfg, dev, card)
     print(f"    phases 8-9: {time.perf_counter() - t_start:.0f} s", flush=True)
 
+    # 10 + 11. the flash-attention kernel and the offline extractors
+    attn_err, attn_ms, attn_plain_ms = phase_flash_kernel(dev, card)
+    attn_launches = phase_extractors(dev, card)
+    print(f"    phases 10-11: {time.perf_counter() - t_start:.0f} s", flush=True)
+
     print(json.dumps({"kernels": [
         {
             "name": "render_train_fwd",
@@ -600,6 +766,16 @@ def main() -> int:
             "max_abs_err": bwd_abs,
             "ms": kt["bwd"][0],
             "plain_ms": kt["bwd"][1],
+        },
+        {
+            "name": "flash_attn_fwd",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/flash_attn_fwd.cu",
+            "replaces": "upnerf/ops/pallas_attention.py:41",
+            "launches": attn_launches,
+            "max_abs_err": attn_err,
+            "ms": attn_ms,
+            "plain_ms": attn_plain_ms,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

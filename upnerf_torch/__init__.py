@@ -9,15 +9,19 @@ Subpackages (same layout as `upnerf`):
   ops       dense layer precision policy, bilinear feature gathers, the fused
             render kernels, forward and backward (CUDA C++ in csrc/), with
             their plain PyTorch versions and the autograd.Function that
-            joins them, kernel build
+            joins them, the flash-attention kernel of the extractors, kernel
+            build
   models    NeRF field (nn.Module, reference state_dict names), transient
             net, embeddings
   render    stratified + inverse-CDF sampling, volume compositing,
             coarse+fine render_rays in all three schedule phases
   train     the train step: state, schedules, losses, Adam, make_train_step
   evaluate  chunked novel-view renders
-  utils     reference-checkpoint weight bridge, both ways
-  cli       render_video
+  features  the offline extractors: ViT backbone, DINO descriptor maps, DPT
+            inverse depth, weight converters, image reading without PIL
+  utils     reference-checkpoint weight bridge, both ways; the extractors'
+            npz-layout bridge
+  cli       render_video, preprocess
 """
 
 import torch

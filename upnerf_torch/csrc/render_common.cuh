@@ -1,4 +1,4 @@
-// Device helpers shared by render_train_fwd.cu and render_train_bwd.cu.
+// Device helpers shared by the kernels of this directory.
 #pragma once
 
 #include <cuda_bf16.h>

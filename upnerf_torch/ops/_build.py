@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-KERNELS = ("render_train_fwd", "render_train_bwd")
+KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd")
 
 
 class BuildInfo(NamedTuple):
@@ -93,6 +93,8 @@ _ARGTYPES = {
     # ins, cots, res, trunk W^T, D, skip mask, weights, outs, dW trunk, db trunk, d heads, R, S, L, C, flags, stream
     "upnerf_render_train_bwd": ["pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "i", "i", "i", "i", "i",
                                 "p"],
+    # q, k, v, o, G, N, hd, scale, use_bf16, stream
+    "upnerf_flash_attn_fwd": ["p", "p", "p", "p", "i", "i", "i", "f", "i", "p"],
 }
 
 
@@ -102,7 +104,8 @@ def library(name: str) -> ctypes.CDLL:
     functions' argtypes and restype declared (ctypes would otherwise pass
     pointers as 32-bit ints)."""
     lib = ctypes.CDLL(str(build()[name].path))
-    kinds = {"p": ctypes.c_void_p, "pp": ctypes.POINTER(ctypes.c_void_p), "i": ctypes.c_int, "u": ctypes.c_uint}
+    kinds = {"p": ctypes.c_void_p, "pp": ctypes.POINTER(ctypes.c_void_p), "i": ctypes.c_int, "u": ctypes.c_uint,
+             "f": ctypes.c_float}
     fn = getattr(lib, f"upnerf_{name}")
     fn.argtypes = [kinds[k] for k in _ARGTYPES[f"upnerf_{name}"]]
     fn.restype = ctypes.c_int

@@ -17,6 +17,11 @@ hyper_parameters is the flat dotted-key config dict.
 - `train_modules_from_jax` builds the train modules (UPNeRF, PoseTables)
   from the JAX parameter pytree; `export_reference_ckpt` writes a trained
   state back in the reference layout, which `render_video` reads.
+- `vit_params_from_jax` / `dpt_params_from_jax` turn the extractors'
+  parameter trees in the npz layout (upnerf/features/vit.py:11-17,
+  dpt.py:14-23; numpy leaves, as `init_vit_params`, `init_dpt_params` or
+  `_unflatten` give them) into the port's: the same keys, convs in torch's
+  layouts. The npz loaders go through them.
 """
 
 from __future__ import annotations
@@ -204,3 +209,38 @@ def export_reference_ckpt(path: str, model: nn.Module, pose: nn.Module, hparams:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save({"state_dict": sd, "hyper_parameters": dict(hparams), "global_step": int(step)}, path)
     return path
+
+
+# XLA conv_transpose kernels of the DPT neck (upnerf/features/dpt.py:150-152).
+_TRANSPOSED_CONVS = ("reassemble0/resample/w", "reassemble1/resample/w")
+
+
+def _extractor_params(tree: Dict[str, Any], device, prefix: str = "") -> Dict[str, Any]:
+    """npz-layout tree -> torch tree on `device`. Every 4-D leaf is a conv
+    kernel in HWIO: to (out, in, kh, kw), or for XLA's conv_transpose (no
+    kernel transpose) to F.conv_transpose2d's (in, out, kh, kw), spatially
+    flipped. Everything else is copied as float32."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = prefix + k
+        if isinstance(v, dict):
+            out[k] = _extractor_params(v, device, path + "/")
+            continue
+        a = np.asarray(v, np.float32)
+        if a.ndim == 4:
+            a = a[::-1, ::-1].transpose(2, 3, 0, 1) if path in _TRANSPOSED_CONVS else a.transpose(3, 2, 0, 1)
+        out[k] = _t(a).to(device)
+    return out
+
+
+def vit_params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """ViT parameters, npz layout -> the port's (upnerf_torch/features/vit.py):
+    the patch-embed conv HWIO -> (D, 3, P, P); linears stay (in, out)."""
+    return _extractor_params(tree, device)
+
+
+def dpt_params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """DPT parameters, npz layout -> the port's (upnerf_torch/features/dpt.py):
+    convs HWIO -> (out, in, kh, kw), the transposed convs of reassemble0/1 ->
+    (in, out, kh, kw) flipped, linears stay (in, out)."""
+    return _extractor_params(tree, device)
