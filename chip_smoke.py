@@ -30,7 +30,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      versions), on the loss terms and every gradient;
   9. step ms and rays/s per phase (CUDA events), the backward kernel against
      the plain backward per 4096-ray chunk, the step's peak memory; with
-     --profile, a torch.profiler table of one phase-1 step into DIR;
+     --profile, a torch.profiler table of one phase-1 step into DIR (and of
+     one fast frame, phase 15);
  10. the flash-attention kernel against its plain PyTorch version at the
      DINO extractor's shape (6 heads x 12,322 tokens x 64), bfloat16 and
      float32, unit-normal and logits x 20, and at N = 300 (ragged tiles);
@@ -40,10 +41,28 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      of 500x375 and 640x480, from seeded npz weights: the files, their
      shapes and dtypes, 9 kernel launches per DINO image; image 0's DINO map
      from the card held against the CPU (plain version); ms per image and
-     peak memory of each extractor.
+     peak memory of each extractor;
+ 12. the backward kernel's frozen-model mode (param_grads=False, test-time
+     optimization's) at 4096 rays, S = 256, phase 2 bf16 / f32 and phase 1
+     bf16: its data cotangents equal the train mode's bit for bit and meet the
+     plain frozen backward; both modes timed in turns per chunk;
+ 13. TTO -> eval through `upnerf_torch.cli.tto.main` and
+     `upnerf_torch.cli.eval.main` at the brandenburg_gate width, on a
+     Phototourism-layout scene the port writes (COLMAP binaries, tsv, PNGs of
+     the checkpoint's renders at the GT poses, read through the LANCZOS
+     downscale 2): the files, finite metrics, 2 forward + 1 frozen backward
+     launches a step, refined test poses near GT, eval's train pose errors ~0,
+     SSIM on the card against the CPU; ms of a TTO step (4 x 1024 rays) and of
+     an eval chunk;
+ 14. the trunk kernel against its plain version at 262,144 rows (the fast
+     render's probe) and at a ragged N, bf16 and f32; ms of each in turns;
+ 15. `upnerf_torch.cli.render_video --fast` for 2 frames at 128x128: the
+     files and the trunk kernel's launches; a fast frame's ms against phase
+     5's full-budget frame.
 
-The last two lines are one JSON object describing each kernel, and
-{"ok": true, "device": {...}}. Needs torch with CUDA, nvcc and one card;
+The last two lines are one JSON object describing each kernel (with its
+bound from the shapes and the library call's time where PyTorch has one),
+and {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc and one card;
 imports no JAX.
 """
 
@@ -132,6 +151,38 @@ DINO_GRID, DINO_DIM = 111, 384
 # tile), max |d| over max |value|: the bf16 flips above, through 9 blocks.
 DINO_E2E_TOL = 1e-2
 EXTRACT_IMAGES = (("scene_a.png", (375, 500)), ("scene_b.png", (480, 640)))
+# The trunk kernel against its plain version, max |d| over max |value| of the
+# (N, 256) f32 output: f32 sums in another order over 8 layers; in bf16 an
+# activation whose f32 sum lands on the other side of a bf16 rounding boundary
+# moves by one bf16 ulp (2^-8 relative) and carries into the next layers.
+# Such flips are sparse but reach the max: the f32 plain trunk is ~2.6e-3 from
+# the bf16 one by this measure, so the max alone cannot tell a kernel that
+# skips the bf16 rounding. TRUNK_RMS_RATIO does: the kernel's RMS distance to
+# the plain version of its own precision must be under this share of its RMS
+# distance to the plain version of the other precision (a summation order
+# that differs in every sum reads ~0.05 on the CPU; no rounding reads ~1).
+TRUNK_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+TRUNK_RMS_RATIO = 0.25
+PROBE_ROWS = CHUNK * 64  # the fast render's sigma-only probe: 4096 rays x 64 samples
+# Phase 13's scene: a ring of 8 train and 4 test cameras, PNGs of 128x96 that
+# the loader's img_downscale 2 (brandenburg_gate's) reads as 64x48, TTO in one
+# group of 4 with batch 1024 (4096 rays a step).
+TTO_TRAIN, TTO_TEST, TTO_PNG_WH, TTO_FOCAL = 8, 4, (128, 96), 100.0
+TTO_EPOCHS = (4, 3)  # pose, appearance
+# The test images are the checkpoint's renders at the GT test poses, and its
+# se3 table holds the GT train poses, so TTO starts at the GT test pose; the
+# only pull away from it is the fresh appearance embedding. Adam moves each se3
+# component by at most lr (1 - b1) / sqrt(1 - b2) = 3.16 lr = 3.2e-4 a step, so
+# 4 epochs x 3 steps move a rotation by at most 12 x 3.2e-4 x sqrt(3) rad = 0.38
+# degrees. A wrong alignment or composition order would land degrees away.
+TTO_POSE_DEG = 0.5
+# eval's train-pose errors: the se3 table is the GT, so only f32 rounding
+# (arccos near 1 floors the angle at ~0.03 degrees).
+EVAL_POSE_DEG = 0.1
+SSIM_TOL = 1e-5  # SSIM card vs CPU: the same f32 operations, sums in another order
+# H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them; HBM3.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -479,15 +530,19 @@ def phase_flash_kernel(dev, card: str):
             worst = max(worst, err)
     g = torch.Generator(device=dev).manual_seed(5)
     q, k, v = (torch.randn(DINO_HEADS, DINO_TOKENS, 64, generator=g, device=dev) for _ in range(3))
+    # the yardstick, never called by the port: one PyTorch call of the same function in bf16
+    qb, kb, vb = (t.to(torch.bfloat16)[None] for t in (q, k, v))
     with torch.no_grad():
         kern = lambda: attention.flash_attention(q, k, v, scale=0.125)  # noqa: E731
         plain = lambda: attention.flash_attention_plain(q, k, v, scale=0.125)  # noqa: E731
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(qb, kb, vb, scale=0.125)  # noqa: E731
         p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern, 10), cuda_ms(kern, 10), cuda_ms(plain)
+        lms = cuda_ms(lib, 10)
     kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
     flop = 4.0 * DINO_HEADS * DINO_TOKENS**2 * 64
     print(f"[10] attention G={DINO_HEADS} N={DINO_TOKENS} bfloat16: kernel {kms:.3f} ms ({flop / kms / 1e9:.0f} TFLOP/s),"
-          f" plain {pms:.3f} ms ({card})", flush=True)
-    return worst, kms, pms
+          f" plain {pms:.3f} ms, F.scaled_dot_product_attention (bf16 in, bf16 out) {lms:.3f} ms ({card})", flush=True)
+    return worst, kms, pms, lms
 
 
 def _flatten(tree, prefix: str = ""):
@@ -592,9 +647,421 @@ def phase_extractors(dev, card: str):
     return launches
 
 
+def bound(flop: float, nbytes: float, dtype: str):
+    """(ms, "operations" | "bytes"): the least time the card could take for
+    `flop` operations in `dtype` and `nbytes` of device-memory traffic, at
+    the H100 SXM's published peaks."""
+    t_ops = flop / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def trunk_macs(nerf_cfg) -> int:
+    """Multiply-adds of the D-layer trunk for one sample."""
+    in0, W = nerf_cfg.in_channels_xyz, nerf_cfg.W
+    return sum((in0 if i == 0 else W + in0 if i in nerf_cfg.skips else W) * W for i in range(nerf_cfg.D))
+
+
+def render_macs(nerf_cfg, st) -> int:
+    """Multiply-adds of the fused render's products for one sample in mode st
+    (the forward's; the backward's data path walks the same products
+    transposed, and its dW products are as many again)."""
+    W, F, HH, HC = nerf_cfg.W, nerf_cfg.feat_dim, nerf_cfg.W // 2, nerf_cfg.W // 2
+    macs = trunk_macs(nerf_cfg) + W * W + W + W * F
+    if st.use_rgb:
+        macs += F * HH + HH * 3
+    if st.use_cand:
+        macs += W * HC + HC * HC + HC + HC * F
+    return macs
+
+
+def chain_bytes(nerf_cfg, st, n_samples: int, kind: str) -> int:
+    """Bytes of the saved walk chain in bf16: all of it written by the forward
+    ("fwd"); read by the backward ("bwd"), which in the frozen mode without a
+    feat_map reads no xyzf (its readers there are the dW products and feat_map's
+    cotangent, render_train_bwd.cu)."""
+    W, HH, HC = nerf_cfg.W, nerf_cfg.W // 2, nerf_cfg.W // 2
+    cols = st.chain_cols(W, HH, HC)
+    if kind == "bwd" and not st.param_grads and not st.out_feat:
+        cols = [c for c in cols if c[0] != "xyzf"]
+    return 2 * n_samples * sum(w for _, w in cols)
+
+
+def render_bound(field, st, R: int, S: int, kind: str):
+    """bound() of one fused-render call on R rays x S samples in bf16: kind
+    "fwd" is the forward with residuals, "serve" the forward without them,
+    "bwd" the backward in st's mode (the frozen mode does the walk's products
+    only and writes no dW)."""
+    from upnerf_torch.render.render_rays import field_weights
+
+    cfg = field.cfg
+    M = R * S
+    trunk, heads = field_weights(field)
+    n_w = sum(t.numel() for wb in trunk for t in wb) + sum(heads[k].numel() for k in st.head_keys)
+    per_ray = {"s_depth": 1, "rgb_map": 3, "feat_map": cfg.feat_dim, "c_depth": 1, "t_weight": 1}
+    outs = sum(M if k in ("s_weights", "j_weights") else R * per_ray[k] for k in st.out_keys)
+    res = M * (1 + st.use_cand + 3 * st.use_rgb)  # sig_s, sig_c, rgb in f32
+    per_ray_in = R * (6 + cfg.W // 2 * st.use_rgb + cfg.candidate_dim * st.use_cand)  # o, d, ray_cond, c_emb
+    macs = render_macs(cfg, st) * M
+    if kind == "serve":
+        return bound(2 * macs, 4 * (per_ray_in + M + outs) + 2 * n_w, "bfloat16")
+    chain = chain_bytes(cfg, st, M, "bwd" if kind == "bwd" else "fwd")
+    if kind == "fwd":
+        return bound(2 * macs, 4 * (per_ray_in + M + outs + res) + 2 * n_w + chain, "bfloat16")
+    grads = per_ray_in + (n_w if st.param_grads else 0)  # per-ray cotangents out, dW out
+    flop = 2 * macs * (2 if st.param_grads else 1)
+    return bound(flop, 4 * (per_ray_in + M + outs + res + grads) + 2 * n_w + chain, "bfloat16")
+
+
+def phase_frozen_bwd(field, nerf_cfg, dev, card: str):
+    """Phase 12: the backward's frozen-model mode (param_grads=False) at 4096
+    rays, S = 256, in phase 2 (test-time optimization's mode) and phase 1,
+    bf16 and f32: its data cotangents equal the train mode's bit for bit and
+    meet the plain frozen backward; then both modes timed in turns (train,
+    frozen, frozen, train) in phase 2, bf16. Returns (worst max |d| against
+    plain, frozen ms, train ms, plain frozen ms)."""
+    from upnerf_torch.ops import render_train as rt
+
+    worst = 0.0
+    for phase, prec in ((2, "bfloat16"), (2, "float32"), (1, "bfloat16")):
+        st = train_static(nerf_cfg, prec, phase)
+        frozen = st._replace(param_grads=False)
+        inputs = chunk_inputs(field, 256, seed=120 + phase, dev=dev, R=CHUNK)
+        args, c_emb = mode_args(field, inputs, st)
+        with torch.no_grad():
+            out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+            g = torch.Generator(device=dev).manual_seed(12 + phase)
+            cots = {k: torch.randn(v.shape, generator=g, device=dev) for k, v in out.items()}
+            kt = rt.render_train_rays_bwd(*args[:7], st, c_emb, res, cots)
+            kf = rt.render_train_rays_bwd(*args[:7], frozen, c_emb, res, cots)
+            pf = rt.render_train_rays_bwd_plain(*args[:7], frozen, c_emb, res, cots)
+        torch.cuda.synchronize()
+        check(kf[4] is None and kf[5] is None and pf[4] is None and pf[5] is None,
+              "the frozen backward returned weight gradients")
+        names = ["rays_o", "rays_d", "ray_cond", "c_emb"]
+        errs, same = {}, {}
+        for name, a_, t_, p_ in zip(names, kf[:4], kt[:4], pf[:4]):
+            if p_ is None:
+                continue
+            check(bool(torch.isfinite(a_).all()), f"frozen backward {name} not finite")
+            same[name] = torch.equal(a_, t_)
+            errs[name] = rel_err(a_, p_)
+            worst = max(worst, (a_ - p_).abs().max().item())
+        print(f"[12] phase {phase} {prec}: frozen == train mode bit for bit: {same}; frozen vs plain frozen: "
+              + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {BWD_TOL[prec]:.0e})", flush=True)
+        check(all(same.values()), f"the frozen backward's data cotangents differ from the train mode's: {same}")
+        check(max(errs.values()) <= BWD_TOL[prec], f"the frozen backward disagrees with its plain version: {errs}")
+        del out, res, kt, kf, pf
+    st = train_static(nerf_cfg, "bfloat16", 2)
+    frozen = st._replace(param_grads=False)
+    inputs = chunk_inputs(field, 256, seed=9, dev=dev, R=CHUNK)
+    args, c_emb = mode_args(field, inputs, st)
+    with torch.no_grad():
+        out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+        g = torch.Generator(device=dev).manual_seed(3)
+        cots = {k: torch.randn(v.shape, generator=g, device=dev) for k, v in out.items()}
+        train = lambda: rt.render_train_rays_bwd(*args[:7], st, c_emb, res, cots)  # noqa: E731
+        kern = lambda: rt.render_train_rays_bwd(*args[:7], frozen, c_emb, res, cots)  # noqa: E731
+        plain = lambda: rt.render_train_rays_bwd_plain(*args[:7], frozen, c_emb, res, cots)  # noqa: E731
+        t1, f1, f2, t2 = cuda_ms(train, 2), cuda_ms(kern, 2), cuda_ms(kern, 2), cuda_ms(train, 2)
+        p1 = cuda_ms(plain, 2)
+    fms, tms = (f1 + f2) / 2, (t1 + t2) / 2
+    print(f"[12] per {CHUNK}-ray chunk, S=256, phase 2, bfloat16: frozen backward {fms:.2f} ms ({f1:.2f}, {f2:.2f}),"
+          f" train mode {tms:.2f} ms ({t1:.2f}, {t2:.2f}), plain frozen {p1:.2f} ms ({card})", flush=True)
+    return worst, fms, tms, p1
+
+
+def phase_trunk_kernel(field, nerf_cfg, dev, card: str):
+    """Phase 14: the trunk kernel against its plain version at the fast
+    render's probe batch (4096 rays x 64 samples = 262,144 rows) and at a
+    ragged N, bf16 and f32; then both timed in turns at 262,144 rows, bf16.
+    Returns (worst max |d|, kernel ms, plain ms)."""
+    from upnerf_torch.models.nerf import positional_encoding
+    from upnerf_torch.ops import mlp
+
+    trunk = [(lay.weight.t(), lay.bias) for lay in field.trunk_layers()]
+    worst, xs = 0.0, {}
+    rms = lambda t: t.pow(2).mean().sqrt().item()  # noqa: E731
+    for n in (PROBE_ROWS, 1037):
+        g = torch.Generator(device=dev).manual_seed(n)
+        xyz = torch.randn((n, 3), generator=g, device=dev)
+        xs[n] = positional_encoding(xyz, nerf_cfg.xyz_L).contiguous()
+        with torch.no_grad():
+            plain = {p: mlp.fused_trunk_plain(xs[n], trunk, nerf_cfg.skips, p) for p in ("bfloat16", "float32")}
+        for prec, other in (("bfloat16", "float32"), ("float32", "bfloat16")):
+            with torch.no_grad():
+                got = mlp.fused_trunk(xs[n], trunk, nerf_cfg.skips, prec)
+            torch.cuda.synchronize()
+            want = plain[prec]
+            check(bool(torch.isfinite(got).all()), f"trunk kernel output not finite (N={n}, {prec})")
+            err = rel_err(got, want)
+            ratio = rms(got - want) / rms(got - plain[other])
+            worst = max(worst, (got - want).abs().max().item())
+            print(f"[14] trunk N={n} {prec}: max |d| / max |value| {err:.3e} (tol {TRUNK_TOL[prec]:.0e}),"
+                  f" max |value| {want.abs().max().item():.3g}; against the {other} plain version"
+                  f" {rel_err(got, plain[other]):.3e}; RMS distance to {prec} plain / to {other} plain"
+                  f" {ratio:.3e} (limit {TRUNK_RMS_RATIO})", flush=True)
+            check(err <= TRUNK_TOL[prec], f"trunk kernel disagrees with its plain version: N={n} {prec} {err}")
+            check(ratio <= TRUNK_RMS_RATIO, f"the {prec} trunk kernel does not round as its plain version: {ratio}")
+    x = xs[PROBE_ROWS]
+    with torch.no_grad():
+        kern = lambda: mlp.fused_trunk(x, trunk, nerf_cfg.skips, "bfloat16")  # noqa: E731
+        plain = lambda: mlp.fused_trunk_plain(x, trunk, nerf_cfg.skips, "bfloat16")  # noqa: E731
+        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern, 10), cuda_ms(kern, 10), cuda_ms(plain)
+    kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+    flop = 2.0 * trunk_macs(nerf_cfg) * PROBE_ROWS
+    print(f"[14] trunk N={PROBE_ROWS} bfloat16: kernel {kms:.3f} ms ({k1:.3f}, {k2:.3f}; {flop / kms / 1e9:.0f}"
+          f" TFLOP/s), plain {pms:.3f} ms ({card})", flush=True)
+    return worst, kms, pms
+
+
+def ring_poses(n: int, radius: float = 3.0, height: float = 0.6, arc: float = 0.3) -> np.ndarray:
+    """(n, 3, 4) c2w poses (right-up-back) on an arc around the origin, looking at
+    it, at heights alternating by +-0.3: camera centres in one plane would make
+    the centre-only Procrustes of the pose metric reflection-bistable."""
+    poses = []
+    for i in range(n):
+        ang = 2 * np.pi * arc * (i / n - 0.5)
+        eye = np.array([radius * np.sin(ang), height + 0.3 * (-1) ** i, radius * np.cos(ang)])
+        forward = -eye / np.linalg.norm(eye)
+        right = np.cross(forward, [0.0, 1.0, 0.0])
+        right /= np.linalg.norm(right)
+        up = np.cross(right, forward)
+        poses.append(np.concatenate([np.stack([right, up, -forward], 1), eye[:, None]], 1))
+    return np.stack(poses)
+
+
+def write_phototourism_scene(root: str, name: str, poses: np.ndarray, split, wh, focal: float, seed: int = 0):
+    """tsv + COLMAP binaries (PINHOLE, one camera per image, 256 points on the
+    unit sphere) of a Phototourism-layout scene, with the port's writers; the
+    images go to root/dense/images/NNN.png afterwards."""
+    from upnerf_torch.data import colmap
+
+    sparse = os.path.join(root, "dense", "sparse")
+    os.makedirs(sparse, exist_ok=True)
+    os.makedirs(os.path.join(root, "dense", "images"), exist_ok=True)
+    cameras, images = {}, {}
+    w, h = wh
+    with open(os.path.join(root, f"{name}.tsv"), "w") as f:
+        f.write("filename\tid\tsplit\tdataset\n")
+        for i, c2w in enumerate(poses):
+            img_id, fname = i + 1, f"{i:03d}.png"
+            f.write(f"{fname}\t{img_id}\t{split[i]}\t{name}\n")
+            cameras[img_id] = colmap.Camera(id=img_id, model="PINHOLE", width=w, height=h,
+                                            params=np.array([focal, focal, w / 2, h / 2], np.float64))
+            c2w = np.array(c2w, np.float64)
+            c2w[:, 1:3] *= -1  # right-up-back -> COLMAP's right-down-front
+            w2c = np.linalg.inv(np.concatenate([c2w, [[0, 0, 0, 1.0]]]))
+            images[img_id] = colmap.Image(id=img_id, qvec=colmap.rotmat2qvec(w2c[:3, :3]), tvec=w2c[:3, 3],
+                                          camera_id=img_id, name=fname, xys=np.zeros((0, 2)),
+                                          point3D_ids=np.zeros(0, np.int64))
+    pts = np.random.RandomState(seed).randn(256, 3)
+    pts /= np.linalg.norm(pts, axis=-1, keepdims=True)
+    points = {j + 1: colmap.Point3D(id=j + 1, xyz=p, rgb=np.array([128, 128, 128]), error=np.array(0.5),
+                                    image_ids=np.array([1], np.int32), point2D_idxs=np.array([0], np.int32))
+              for j, p in enumerate(pts)}
+    colmap.write_cameras_binary(cameras, os.path.join(sparse, "cameras.bin"))
+    colmap.write_images_binary(images, os.path.join(sparse, "images.bin"))
+    colmap.write_points3d_binary(points, os.path.join(sparse, "points3D.bin"))
+
+
+def phase_tto_eval(dev, card: str, profile_dir=None):
+    """Phase 13: TTO -> eval through `upnerf_torch.cli.tto.main` and
+    `upnerf_torch.cli.eval.main` on a Phototourism-layout scene written by the
+    port, at the brandenburg_gate width; with profile_dir, a torch.profiler
+    table of one TTO step. Returns (frozen backward launches, TTO step ms,
+    eval chunk ms)."""
+    from upnerf_torch.cli import eval as eval_cli
+    from upnerf_torch.cli import tto as tto_cli
+    from upnerf_torch.cli.render_video import write_png
+    from upnerf_torch.data import load_scene_meta
+    from upnerf_torch.evaluate import metrics
+    from upnerf_torch.evaluate.render import make_pose_renderer, render_image
+    from upnerf_torch.evaluate.tto import TTOConfig, TTOGroup, TTORunner
+    from upnerf_torch.geometry import procrustes, se3
+    from upnerf_torch.models.nerf import NeRFConfig
+    from upnerf_torch.ops import render_train as rt
+    from upnerf_torch.render.render_rays import RenderConfig
+    from upnerf_torch.utils.weights import init_reference_ckpt, load_reference_ckpt, render_params
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root, name = os.path.join(tmp, "scene"), "scene"
+        n = TTO_TRAIN + TTO_TEST
+        split = ["test" if i % 3 == 1 else "train" for i in range(n)]  # test views between train views
+        write_phototourism_scene(root, name, ring_poses(n), split, TTO_PNG_WH, TTO_FOCAL)
+        hp = dict(BRANDENBURG_GATE, dataset_name="phototourism", root_dir=root, scene_name=name,
+                  **{"phototourism.img_downscale": 2, "pose.noise": -1, "seed": 0})
+        meta = load_scene_meta(hp)
+        check(meta.N_images_train == TTO_TRAIN and meta.N_images_test == TTO_TEST, "the scene's split")
+        ckpt = init_reference_ckpt(os.path.join(tmp, "bg.ckpt"), hp, n_images=TTO_TRAIN, seed=1)
+        saved = torch.load(ckpt, weights_only=False)
+        gt_train = torch.tensor(np.stack([meta.GT_poses_dict[i] for i in meta.img_ids_train]), dtype=torch.float32)
+        saved["state_dict"]["se3_refine.weight"] = se3.SE3_to_se3(gt_train)  # the learned frame is the GT frame
+        torch.save(saved, ckpt)
+        # every image: the checkpoint's render at its GT pose (train image 0's appearance), written full size
+        sd, _, _ = load_reference_ckpt(ckpt)
+        params, _ = render_params(sd, NeRFConfig.from_hparams(hp), dev)
+        renderer = make_pose_renderer(RenderConfig.from_hparams(hp)._replace(perturb=0.0), chunk=CHUNK)
+        K_full = np.array([[TTO_FOCAL, 0, TTO_PNG_WH[0] / 2], [0, TTO_FOCAL, TTO_PNG_WH[1] / 2], [0, 0, 1]], np.float32)
+        for id_ in meta.img_ids:
+            rgb, _ = render_image(renderer, params, K_full, meta.GT_poses_dict[id_], TTO_PNG_WH,
+                                  [hp["nerf.near"], hp["nerf.far"]], 0, chunk=CHUNK, device=dev)
+            write_png(os.path.join(meta.image_dir, meta.image_paths[id_]),
+                      (np.clip(rgb, 0, 1) * 255).round().astype(np.uint8))
+        print(f"[13] scene ({TTO_TRAIN} train + {TTO_TEST} test, {TTO_PNG_WH[0]}x{TTO_PNG_WH[1]} PNGs, COLMAP"
+              f" binaries, tsv) and checkpoint written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        result_dir = os.path.join(tmp, "result")
+        argv = ["--ckpt", ckpt, "--result_dir", result_dir, "--group_size", str(TTO_TEST), "--batch_size", "1024",
+                "--pose_epochs", str(TTO_EPOCHS[0]), "--appearance_epochs", str(TTO_EPOCHS[1]), "--device", dev.type]
+        rt.launches = rt.bwd_launches = rt.frozen_bwd_launches = 0
+        t0 = time.perf_counter()
+        metrics_path = tto_cli.main(argv)
+        torch.cuda.synchronize()
+        tto_s = time.perf_counter() - t0
+        launches = {"fwd": rt.launches, "bwd": rt.bwd_launches, "frozen": rt.frozen_bwd_launches}
+        w, h = TTO_PNG_WH[0] // 2, TTO_PNG_WH[1] // 2
+        steps_a = -(-w * h // 1024)
+        steps = TTO_EPOCHS[0] * steps_a + TTO_EPOCHS[1] * max(1, steps_a // 2)
+        evals = sum(TTO_EPOCHS)  # one chunk each (64 x 64 padded region, group of 4)
+        want = {"fwd": 2 * steps + 2 * evals, "bwd": 0, "frozen": steps}
+        print(f"[13] tto: {steps} steps + {evals} eval renders in {tto_s:.2f} s; launches {launches} (expected {want}:"
+              " 2 forward + 1 frozen backward a step, 2 forward an eval chunk)", flush=True)
+        check(launches == want, f"TTO kernel launches {launches}, expected {want}")
+        with open(metrics_path) as f:
+            m = json.load(f)
+        check(sorted(m) == [str(i) for i in range(TTO_TEST)], f"metrics.json keys {sorted(m)}")
+        check(all(np.isfinite(v["psnr"]) and np.isfinite(v["ssim"]) for v in m.values()), f"metrics not finite: {m}")
+        gt_test = torch.tensor(np.stack([meta.GT_poses_dict[i] for i in meta.img_ids_test]), dtype=torch.float32)
+        worst_deg = 0.0
+        for i in range(TTO_TEST):
+            pose = np.load(os.path.join(result_dir, "a_optimize", "optimized_pose", f"best_pose_{i:02d}.npy"))
+            emb = np.load(os.path.join(result_dir, "a_optimize", "optimized_emb_a", f"best_emb_{i:02d}.npy"))
+            check(pose.shape == (3, 4) and emb.shape == (hp["nerf.appearance_dim"],), "pose / embedding file shapes")
+            rad = procrustes.rotation_distance(torch.from_numpy(pose[:, :3]).float(), gt_test[i, :, :3])
+            deg = float(rad) * 180 / np.pi
+            dt = float(np.linalg.norm(pose[:, 3] - gt_test[i, :, 3].numpy()))
+            worst_deg = max(worst_deg, deg)
+            print(f"    test image {i}: psnr {m[str(i)]['psnr']:.2f} ssim {m[str(i)]['ssim']:.4f}; refined pose vs GT"
+                  f" {deg:.4f} deg, |d t| {dt:.2e}", flush=True)
+        check(worst_deg <= TTO_POSE_DEG, f"a refined test pose is {worst_deg:.3f} deg from GT (bound {TTO_POSE_DEG})")
+
+        ev = eval_cli.main(["--ckpt", ckpt, "--result_dir", result_dir, "--device", dev.type])
+        check(all(np.isfinite(v) for v in ev.values()), f"eval printed non-finite numbers: {ev}")
+        check(ev["train/pose_R"] <= EVAL_POSE_DEG and ev["train/pose_R_rel"] <= EVAL_POSE_DEG,
+              f"train pose errors should be ~0: {ev}")
+        print(f"[13] eval: {ev}", flush=True)
+
+        # SSIM of one pair of 64x48 images on the card against the CPU
+        img = torch.from_numpy(np.random.RandomState(13).rand(h, w, 3).astype(np.float32))
+        ref = torch.from_numpy(np.random.RandomState(14).rand(h, w, 3).astype(np.float32)) * 0.2 + img * 0.8
+        d_ssim = abs(float(metrics.ssim(img.to(dev), ref.to(dev))) - float(metrics.ssim(img, ref)))
+        print(f"[13] SSIM card vs CPU: |d| {d_ssim:.2e} (tol {SSIM_TOL:.0e})", flush=True)
+        check(d_ssim <= SSIM_TOL, "SSIM on the card disagrees with the CPU")
+
+        # a TTO step of group 4 x batch 1024, and an eval chunk (group 4 x 4096 rays), CUDA events
+        _, frozen, _, _ = tto_cli.load_trained(ckpt, dev)
+        rcfg = RenderConfig.from_hparams(hp)._replace(perturb=1.0, param_grads=False)
+        cfg = TTOConfig(nerf=NeRFConfig.from_hparams(hp), render=rcfg, batch_size=1024)
+        runner = TTORunner(frozen, cfg, hp["nerf.appearance_dim"], region_A=(64, 64), region_B=(64, 64))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        group = TTOGroup(
+            Ks=torch.from_numpy(np.stack([meta.Ks[i] for i in meta.img_ids_test])).to(dev),
+            base_poses=gt_test.to(dev),
+            rgbs=torch.randint(0, 256, (TTO_TEST, 64, 64, 3), dtype=torch.uint8, device=dev, generator=gen),
+            wh=torch.tensor([[w, h]] * TTO_TEST, dtype=torch.int32, device=dev),
+            near_far=torch.tensor([[0.1, 5.0]] * TTO_TEST, device=dev),
+        )
+        trainables = {"fine_a": torch.randn((TTO_TEST, 48), generator=gen, device=dev).requires_grad_(True),
+                      "se3": torch.zeros((TTO_TEST, 6), device=dev, requires_grad=True)}
+        opt = runner.opt_A(trainables)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms = cuda_ms(lambda: runner.step_A(trainables, opt, group, gen), reps=5)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        chunk_ms = cuda_ms(lambda: runner.eval_A(trainables, group, 64, 64), reps=3)
+        print(f"[13] TTO step ({TTO_TEST} x 1024 rays, phase A): {step_ms:.2f} ms, peak memory {peak:.2f} GiB; eval"
+              f" chunk ({TTO_TEST} x {CHUNK} rays): {chunk_ms:.2f} ms, {chunk_ms / TTO_TEST:.2f} ms per {CHUNK} rays"
+              f" ({card})", flush=True)
+        if profile_dir:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                runner.step_A(trainables, opt, group, gen)
+                torch.cuda.synchronize()
+            with open(os.path.join(profile_dir, "tto_step.txt"), "w") as f:
+                f.write(f"{card}\n{prof.key_averages().table(sort_by='cuda_time_total', row_limit=30)}\n")
+            print(f"[13] profile of one TTO step -> {profile_dir}", flush=True)
+    return launches["frozen"], step_ms, chunk_ms
+
+
+def phase_fast_render(dev, card: str, frame_ms: float, pose: np.ndarray, profile_dir=None):
+    """Phase 15: `upnerf_torch.cli.render_video --fast` for 2 frames at 128x128
+    on a seeded full-width checkpoint: the files, the trunk kernel's launches
+    (one per 4096-ray chunk: the sigma-only probe), and a fast frame's time
+    against the full-budget frame of phase 5; with profile_dir, a
+    torch.profiler table of one fast frame. Returns the trunk launches."""
+    from upnerf_torch.cli import render_video
+    from upnerf_torch.evaluate.render import make_pose_renderer, render_image
+    from upnerf_torch.models.nerf import NeRFConfig
+    from upnerf_torch.ops import mlp
+    from upnerf_torch.ops import render_train as rt
+    from upnerf_torch.render.fast import FastRenderConfig
+    from upnerf_torch.render.render_rays import RenderConfig
+    from upnerf_torch.utils.weights import init_reference_ckpt, load_reference_ckpt, render_params
+
+    hp = dict(BRANDENBURG_GATE)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = init_reference_ckpt(os.path.join(tmp, "bg.ckpt"), hp, n_images=4, seed=0)
+        out_dir = os.path.join(tmp, "video")
+        argv = ["--ckpt", ckpt, "--out", out_dir, "--frames", "2", "--wh", str(FRAME_WH[0]), str(FRAME_WH[1]),
+                "--focal", str(FOCAL), "--anchor", "1", "--device", dev.type, "--fast"]
+        n_chunks = FRAME_WH[0] * FRAME_WH[1] // CHUNK
+        mlp.launches = rt.launches = 0
+        t0 = time.perf_counter()
+        written = render_video.main(argv)
+        torch.cuda.synchronize()
+        launches = {"mlp_fwd": mlp.launches, "render_train_fwd": rt.launches}
+        want = {"mlp_fwd": 2 * n_chunks, "render_train_fwd": 2 * n_chunks * 2}
+        print(f"[15] render_video --fast: 2 frames in {time.perf_counter() - t0:.2f} s, launches {launches} (expected"
+              f" {want}: a probe and 2 passes per chunk)", flush=True)
+        check(launches == want, f"fast render launches {launches}, expected {want}")
+        for png, npy in zip(written["frames"], written["depths"]):
+            check(read_png_size(png) == FRAME_WH, f"{png} has the wrong size")
+            depth = np.load(npy)
+            check(depth.shape == FRAME_WH[::-1] and bool(np.isfinite(depth).all()), f"{npy}: bad depth")
+            check(0.0 <= float(depth.min()) and float(depth.max()) <= 5.0 + 1e-3, f"{npy}: depth outside [0, far]")
+        sd, hparams, _ = load_reference_ckpt(ckpt)
+        params, _ = render_params(sd, NeRFConfig.from_hparams(hparams), dev)
+    # phase 5's frame: the same weights (seed 0) and pose, at the reduced budget
+    rcfg = RenderConfig.from_hparams(hparams)._replace(perturb=0.0)
+    renderer = make_pose_renderer(rcfg, chunk=CHUNK, fast=FastRenderConfig())
+    K = np.array([[FOCAL, 0, FRAME_WH[0] / 2], [0, FOCAL, FRAME_WH[1] / 2], [0, 0, 1]], np.float32)
+    render_image(renderer, params, K, pose, FRAME_WH, [0.1, 5.0], 1, chunk=CHUNK, device=dev)
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        render_image(renderer, params, K, pose, FRAME_WH, [0.1, 5.0], 1, chunk=CHUNK, device=dev)
+    torch.cuda.synchronize()
+    fast_ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"[15] fast frame {FRAME_WH[0]}x{FRAME_WH[1]} (probe 64, 64 + 64 samples, bfloat16): {fast_ms:.1f} ms,"
+          f" against the full-budget frame's {frame_ms:.1f} ms (phase 5; ratio {fast_ms / frame_ms:.2f}) ({card})", flush=True)
+    if profile_dir:
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            render_image(renderer, params, K, pose, FRAME_WH, [0.1, 5.0], 1, chunk=CHUNK, device=dev)
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
+        with open(os.path.join(profile_dir, "fast_frame.txt"), "w") as f:
+            f.write(f"{card}\n{table}\n")
+        print(f"[15] profile of one fast frame -> {profile_dir}", flush=True)
+    return launches["mlp_fwd"], fast_ms
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of upnerf_torch on one NVIDIA GPU.")
-    parser.add_argument("--profile", default=None, help="write a torch.profiler table of one phase-1 step here")
+    parser.add_argument("--profile", default=None,
+                        help="write torch.profiler tables of one phase-1 step, one TTO step and one fast frame here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card", file=sys.stderr)
@@ -742,9 +1209,33 @@ def main() -> int:
     print(f"    phases 8-9: {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # 10 + 11. the flash-attention kernel and the offline extractors
-    attn_err, attn_ms, attn_plain_ms = phase_flash_kernel(dev, card)
+    attn_err, attn_ms, attn_plain_ms, attn_lib_ms = phase_flash_kernel(dev, card)
     attn_launches = phase_extractors(dev, card)
     print(f"    phases 10-11: {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # 12-15. the frozen backward, TTO -> eval, the trunk kernel, fast serving renders
+    frozen_err, frozen_ms, train_mode_ms, frozen_plain_ms = phase_frozen_bwd(field, nerf_cfg, dev, card)
+    frozen_launches, _, _ = phase_tto_eval(dev, card, args.profile)
+    trunk_err, trunk_ms, trunk_plain_ms = phase_trunk_kernel(field, nerf_cfg, dev, card)
+    trunk_launches, _ = phase_fast_render(dev, card, frame_ms, pose_np, args.profile)
+    print(f"    phases 12-15: {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # the least time the card could take for each timed call, from its shapes
+    st1 = train_static(nerf_cfg, "bfloat16", 1)
+    st2 = train_static(nerf_cfg, "bfloat16", 2)._replace(param_grads=False)
+    bounds = {
+        "render_train_fwd": render_bound(field, st1, CHUNK, 256, "fwd"),
+        "render_train_fwd, serving mode (phase 5)": render_bound(field, st2, CHUNK, 256, "serve"),
+        "render_train_bwd": render_bound(field, st1, CHUNK, 256, "bwd"),
+        "render_train_bwd_frozen": render_bound(field, st2, CHUNK, 256, "bwd"),
+        "flash_attn_fwd": bound(4.0 * DINO_HEADS * DINO_TOKENS**2 * 64, 4 * 4 * DINO_HEADS * DINO_TOKENS * 64,
+                                "bfloat16"),
+        "mlp_fwd": bound(2.0 * trunk_macs(nerf_cfg) * PROBE_ROWS,
+                         4 * PROBE_ROWS * (nerf_cfg.in_channels_xyz + nerf_cfg.W)
+                         + 2 * sum(lay.weight.numel() + lay.bias.numel() for lay in field.trunk_layers()), "bfloat16"),
+    }
+    for name, (ms, by) in bounds.items():
+        print(f"    bound of {name}: {ms:.3f} ms ({by})", flush=True)
 
     print(json.dumps({"kernels": [
         {
@@ -756,6 +1247,9 @@ def main() -> int:
             "max_abs_err": max(fwd_err, max(max(e["rgb_map"], e["s_weights"]) for e in errs.values())),
             "ms": kt["fwd"][0],
             "plain_ms": kt["fwd"][1],
+            "bound_ms": bounds["render_train_fwd"][0],
+            "bound_by": bounds["render_train_fwd"][1],
+            "library_ms": None,
         },
         {
             "name": "render_train_bwd",
@@ -766,6 +1260,22 @@ def main() -> int:
             "max_abs_err": bwd_abs,
             "ms": kt["bwd"][0],
             "plain_ms": kt["bwd"][1],
+            "bound_ms": bounds["render_train_bwd"][0],
+            "bound_by": bounds["render_train_bwd"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "render_train_bwd_frozen",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/render_train_bwd.cu",
+            "replaces": "upnerf/ops/pallas_render_train.py:671",
+            "launches": frozen_launches,
+            "max_abs_err": frozen_err,
+            "ms": frozen_ms,
+            "plain_ms": frozen_plain_ms,
+            "bound_ms": bounds["render_train_bwd_frozen"][0],
+            "bound_by": bounds["render_train_bwd_frozen"][1],
+            "library_ms": None,
         },
         {
             "name": "flash_attn_fwd",
@@ -776,6 +1286,22 @@ def main() -> int:
             "max_abs_err": attn_err,
             "ms": attn_ms,
             "plain_ms": attn_plain_ms,
+            "bound_ms": bounds["flash_attn_fwd"][0],
+            "bound_by": bounds["flash_attn_fwd"][1],
+            "library_ms": attn_lib_ms,
+        },
+        {
+            "name": "mlp_fwd",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/mlp_fwd.cu",
+            "replaces": "upnerf/ops/pallas_mlp.py:58",
+            "launches": trunk_launches,
+            "max_abs_err": trunk_err,
+            "ms": trunk_ms,
+            "plain_ms": trunk_plain_ms,
+            "bound_ms": bounds["mlp_fwd"][0],
+            "bound_by": bounds["mlp_fwd"][1],
+            "library_ms": None,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""The CUDA fused forward render kernel against its plain PyTorch version, on
-the card, at the brandenburg_gate width (D=8, W=256, skip 4, F=384, HH=128,
-L=10). Every test here needs an NVIDIA card: it carries the `cuda` marker
-and skips without one.
+"""The CUDA kernels of the render path against their plain PyTorch versions,
+on the card, at the brandenburg_gate width (D=8, W=256, skip 4, F=384, HH=128,
+L=10): the fused forward render, its backward in the train and frozen-model
+modes, and the trunk kernel of the fast render's probe. Every test here needs
+an NVIDIA card: it carries the `cuda` marker and skips without one.
 
 This file imports no JAX, so it also runs on a GPU machine without it:
 
@@ -192,3 +193,66 @@ def test_render_train_rays_function_launches_both_kernels(cuda_device):
     assert (rt.launches, rt.bwd_launches) == (before[0] + 1, before[1] + 1)
     for t in leaves:
         assert t.grad is not None and torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("phase", [1, 2])
+def test_frozen_backward_matches_train_mode_and_plain(cuda_device, precision, phase):
+    """The backward's frozen-model mode (param_grads=False): no weight
+    gradients, data cotangents bit for bit the train mode's (the same
+    instructions in the same order, no atomics on them), and within 1e-4 (f32)
+    / 1e-2 (bf16) of the plain frozen backward."""
+    if phase == 2:
+        o, d, z, pe_w, cond, trunk, heads = make_inputs(128, 128, cuda_device, seed=7)
+        st = rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision)
+        args, c_emb = (o, d, z, pe_w, cond, trunk, heads, st), None
+    else:
+        args, c_emb = train_inputs(128, 128, cuda_device, phase, precision, seed=7)
+        st = args[-1]
+    frozen = st._replace(param_grads=False)
+    with torch.no_grad():
+        out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+        g = torch.Generator(device=cuda_device).manual_seed(1)
+        cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in out.items()}
+        before = (rt.bwd_launches, rt.frozen_bwd_launches)
+        train = rt.render_train_rays_bwd(*args[:7], st, c_emb, res, cots)
+        got = rt.render_train_rays_bwd(*args[:7], frozen, c_emb, res, cots)
+        want = rt.render_train_rays_bwd_plain(*args[:7], frozen, c_emb, res, cots)
+    torch.cuda.synchronize()
+    assert (rt.bwd_launches, rt.frozen_bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert got[4] is None and got[5] is None
+    tol = 1e-2 if precision == "bfloat16" else 1e-4
+    for a, t, b in zip(got[:4], train[:4], want[:4]):
+        if b is None:
+            assert a is None
+            continue
+        assert torch.equal(a, t)
+        assert torch.isfinite(a).all() and (a - b).abs().max() <= tol * b.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [4096, 1037])
+def test_trunk_kernel_matches_plain(cuda_device, precision, N):
+    """The trunk kernel against fused_trunk_plain, max |d| over max |value|:
+    1e-5 (f32), 5e-3 (bf16: a bf16 rounding flip of an activation carries
+    into the next layers); rows past N (ragged) are not written. Such flips
+    are sparse, so the kernel's RMS distance to the plain version of its own
+    precision is under a quarter of its distance to the other precision's (as
+    in chip_smoke.py): the bf16 kernel rounds its operands."""
+    from upnerf_torch.ops import mlp
+
+    _, _, _, _, _, trunk, _ = make_inputs(8, 8, cuda_device, seed=11)
+    x = torch.from_numpy(np.random.RandomState(12).randn(N, 3 + 6 * L).astype(np.float32)).to(cuda_device)
+    other = "float32" if precision == "bfloat16" else "bfloat16"
+    before = mlp.launches
+    with torch.no_grad():
+        got = mlp.fused_trunk(x, trunk, SKIPS, precision)
+        want = mlp.fused_trunk_plain(x, trunk, SKIPS, precision)
+        want_other = mlp.fused_trunk_plain(x, trunk, SKIPS, other)
+    torch.cuda.synchronize()
+    assert mlp.launches == before + 1 and got.shape == (N, W)
+    tol = 5e-3 if precision == "bfloat16" else 1e-5
+    assert torch.isfinite(got).all() and (got - want).abs().max() <= tol * want.abs().max()
+    assert (got - want).pow(2).mean().sqrt() <= 0.25 * (got - want_other).pow(2).mean().sqrt()

@@ -5,23 +5,29 @@ module it mirrors and is held against it by `tests/test_torch_*.py`. This
 package imports `torch` and never `jax` or `upnerf`.
 
 Subpackages (same layout as `upnerf`):
-  geometry  SE(3) exp map, pose algebra, novel-view orbit, rays
+  geometry  SE(3) exp / log maps, pose algebra, novel-view orbit, rays,
+            Procrustes alignment and pose errors
   ops       dense layer precision policy, bilinear feature gathers, the fused
-            render kernels, forward and backward (CUDA C++ in csrc/), with
-            their plain PyTorch versions and the autograd.Function that
-            joins them, the flash-attention kernel of the extractors, kernel
-            build
+            render kernels, forward and backward (train and frozen-model
+            modes; CUDA C++ in csrc/), with their plain PyTorch versions and
+            the autograd.Function that joins them, the trunk kernel of the
+            fast render's probe, the flash-attention kernel of the
+            extractors, kernel build
   models    NeRF field (nn.Module, reference state_dict names), transient
             net, embeddings
   render    stratified + inverse-CDF sampling, volume compositing,
-            coarse+fine render_rays in all three schedule phases
+            coarse+fine render_rays in all three schedule phases, fast
+            serving renders (interval tightening)
   train     the train step: state, schedules, losses, Adam, make_train_step
-  evaluate  chunked novel-view renders
+  data      scene metadata (Phototourism, custom), COLMAP models, scene
+            images (LANCZOS downscale without PIL)
+  evaluate  chunked novel-view renders, test-time optimization, PSNR / SSIM /
+            LPIPS
   features  the offline extractors: ViT backbone, DINO descriptor maps, DPT
             inverse depth, weight converters, image reading without PIL
   utils     reference-checkpoint weight bridge, both ways; the extractors'
             npz-layout bridge
-  cli       render_video, preprocess
+  cli       render_video, preprocess, tto, eval
 """
 
 import torch

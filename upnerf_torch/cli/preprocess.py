@@ -15,25 +15,20 @@ format with PIL where it is installed.
 from __future__ import annotations
 
 import argparse
-import csv
 import os
 from glob import glob
 from typing import List, Optional
 
 import torch
 
-# pandas.read_csv's default NA strings: a row whose id is one of these is
-# dropped, as the JAX package's `files[~files["id"].isnull()]` drops it.
-_NA = {"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND", "1.#QNAN", "<NA>", "N/A",
-       "NA", "NULL", "NaN", "None", "n/a", "nan", "null"}
+from upnerf_torch.data.scene import read_tsv
 
 
 def collect_images(image_dir: str, tsv_path: Optional[str] = None) -> List[str]:
     if tsv_path is None:
         names = sorted(os.path.basename(p) for p in glob(os.path.join(image_dir, "*")))
     else:
-        with open(tsv_path, newline="") as f:
-            names = [row["filename"] for row in csv.DictReader(f, delimiter="\t") if (row["id"] or "") not in _NA]
+        names = [row["filename"] for row in read_tsv(tsv_path)]
     return [os.path.join(image_dir, n) for n in names]
 
 

@@ -1,7 +1,8 @@
 """Novel-view orbit rendering from a reference checkpoint (upnerf/cli/render_video.py).
 
     python -m upnerf_torch.cli.render_video --ckpt model.ckpt --wh 128 128 \\
-        --focal 120 [--anchor 0] [--frames 60] [--scale 1.0] [--out DIR] [--device cuda]
+        --focal 120 [--anchor 0] [--frames 60] [--scale 1.0] [--out DIR] [--device cuda] \\
+        [--fast [--fast_probe 64] [--fast_samples 64] [--fast_importance 64]]
 
 Renders a circular camera path around a training view with that view's
 appearance embedding, writing frame_XXX.png (8-bit RGB) and depth_XXX.npy.
@@ -10,8 +11,10 @@ The checkpoint is a reference checkpoint ({"state_dict",
 anchor pose is the refined training pose exp(se3_refine[anchor]) o I: in the
 pose-prior-free mode every training base pose is the identity. The
 intrinsics come from --wh and --focal (principal point at the image
-centre); a COLMAP scene's own base pose and K need the data layer, which is
-not ported yet.
+centre). --fast is the serving-only interval-tightened render: a
+sigma-only probe of the coarse field (through the CUDA trunk kernel on the
+card) shrinks each ray's [near, far], and a reduced sample budget renders
+inside it (upnerf_torch/render/fast.py).
 """
 
 from __future__ import annotations
@@ -51,6 +54,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--wh", nargs=2, type=int, required=True, metavar=("W", "H"))
     p.add_argument("--focal", type=float, required=True, help="focal length in pixels")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--fast", action="store_true",
+                   help="interval-tightened serving render (reduced sample budget inside a sigma-probed [near, far])")
+    p.add_argument("--fast_probe", default=64, type=int)
+    p.add_argument("--fast_samples", default=64, type=int)
+    p.add_argument("--fast_importance", default=64, type=int)
     return p.parse_args(argv)
 
 
@@ -60,6 +68,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     from upnerf_torch.evaluate.render import make_pose_renderer, render_image
     from upnerf_torch.geometry import se3
     from upnerf_torch.models.nerf import NeRFConfig
+    from upnerf_torch.render.fast import FastRenderConfig
     from upnerf_torch.render.render_rays import RenderConfig
     from upnerf_torch.utils.weights import load_reference_ckpt, render_params
 
@@ -82,7 +91,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     w, h = args.wh
     K = np.array([[args.focal, 0.0, w / 2.0], [0.0, args.focal, h / 2.0], [0.0, 0.0, 1.0]], np.float32)
     near_far = np.array([hparams["nerf.near"], hparams["nerf.far"]], np.float32)
-    renderer = make_pose_renderer(rcfg, chunk=chunk)
+    fast = None
+    if args.fast:
+        fast = FastRenderConfig(n_probe=args.fast_probe, N_samples=args.fast_samples,
+                                N_importance=args.fast_importance)
+    renderer = make_pose_renderer(rcfg, chunk=chunk, fast=fast)
 
     os.makedirs(args.out, exist_ok=True)
     frames, depths = [], []

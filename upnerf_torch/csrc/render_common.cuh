@@ -21,7 +21,8 @@ constexpr int MAX_C = 32;           // candidate embedding width
 constexpr int W = 256, F = 384, HH = 128, HC = 128;
 
 // Mode bits of the `flags` argument (upnerf_torch/ops/render_train.py:_flags).
-enum Flag { BF16 = 1, USE_RGB = 2, OUT_FEAT = 4, USE_CAND = 8, SAVE_RES = 16, STORE_F32 = 32 };
+// NO_PARAM_GRADS: the backward's frozen-model mode (RTStatic.param_grads = False).
+enum Flag { BF16 = 1, USE_RGB = 2, OUT_FEAT = 4, USE_CAND = 8, SAVE_RES = 16, STORE_F32 = 32, NO_PARAM_GRADS = 64 };
 enum Status { OK = 0, BAD_SHAPE = -1, BAD_SMEM = -2, BAD_MODE = -3 };
 
 __device__ __forceinline__ float softplus(float x) { return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))); }
@@ -145,6 +146,55 @@ __device__ __forceinline__ void mma_accumulate(float (&acc)[MT][NT][4], const bf
       for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
         for (int j = 0; j < NT; ++j) mma_bf16(acc[mi][j], af[mi], b[u][j].x, b[u][j].y);
+    }
+  }
+}
+
+// float32 SIMT products: acc[r][c] += sum_k a[row r, k] * w[k, col c] over this warp's
+// RPW rows (rows RPW * warp ..) and this lane's CPT columns (4-column groups j at cols
+// j*128 + lane*4); a in shared memory (row stride lda, a multiple of 4), w (K, 32 CPT)
+// f32 row-major in device memory.
+template <int RPW, int CPT>
+__device__ __forceinline__ void accumulate_f32(float (&acc)[RPW][CPT], const float* a, int lda, int K,
+                                               const float* __restrict__ w) {
+  constexpr int N = 32 * CPT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* arow = a + warp * RPW * lda;
+  const float* wl = w + lane * 4;
+  int k = 0;
+  for (; k + 4 <= K; k += 4) {
+    float av[RPW][4];
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const float4 t = *reinterpret_cast<const float4*>(arow + r * lda + k);
+      av[r][0] = t.x; av[r][1] = t.y; av[r][2] = t.z; av[r][3] = t.w;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float wv[CPT];
+#pragma unroll
+      for (int j = 0; j < CPT / 4; ++j) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(wl + (size_t)(k + kk) * N + j * 128));
+        wv[4 * j] = t.x; wv[4 * j + 1] = t.y; wv[4 * j + 2] = t.z; wv[4 * j + 3] = t.w;
+      }
+#pragma unroll
+      for (int r = 0; r < RPW; ++r)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(av[r][kk], wv[c], acc[r][c]);
+    }
+  }
+  for (; k < K; ++k) {
+    float wv[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT / 4; ++j) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(wl + (size_t)k * N + j * 128));
+      wv[4 * j] = t.x; wv[4 * j + 1] = t.y; wv[4 * j + 2] = t.z; wv[4 * j + 3] = t.w;
+    }
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const float av = arow[r * lda + k];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(av, wv[c], acc[r][c]);
     }
   }
 }

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel upnerf/ops/pallas_render_train.py:_bwd_kernel (reached
 // through fused_render_train_rays's VJP _vjp_bwd_rays -> _bwd_impl -> pl.pallas_call)
-// in its training mode: rays frontend, save_chain (the forward saved the walk chain:
-// trunk activations, xyzf, rgbh, h1, h2), param_grads. Per ray it computes:
+// with the rays frontend and save_chain (the forward saved the walk chain: trunk
+// activations, xyzf, rgbh, h1, h2), in its training mode (param_grads) and its
+// frozen-model mode (below). Per ray it computes:
 //   1. the per-sample inner products p = <feat_s, g_feat>, q = <c_feat_s, g_feat>,
 //      rr = <rgb_s, g_rgb_map>, with feat_s = xyzf_s Wf + bf re-derived from the chain
 //      (as p = xyzf_s (Wf g_feat) + bf g_feat: the same bf16 operands, f32 sums);
@@ -37,6 +38,19 @@
 // shared memory by ldmatrix (.trans for the dW operands). float32 mode: SIMT FMAs.
 // ~160 KB of shared memory in bfloat16 mode, ~210 KB in float32 mode at 256
 // samples a ray: one block per SM.
+//
+// Frozen-model mode (flag NO_PARAM_GRADS, RTStatic.param_grads = False; the JAX
+// kernel's param_grads=False, pallas_render_train.py:131-138, which test-time
+// optimization runs): only the data cotangents d_rays_o, d_rays_d, d_ray_cond and
+// d_c_emb. Every dW product, bias column sum and atomic add into dtw / dtb / dh is
+// skipped, and so is the re-derivation of feat = xyzf Wf + bf whose only consumer is
+// rgb1's dW (pallas_render_train.py:733-736); the gradient pointers may be null. The
+// data path runs the same instructions in the same order in both modes, so its
+// results are bit for bit the train mode's. No per-ray output is summed with atomics:
+// d_ray_cond and the per-ray sum of d h1 are column sums each owned by one thread,
+// and d_rays_o / d_rays_d are summed over a tile's samples by one thread per
+// coordinate, in sample order. The frozen mode has no atomics at all; ~34 ms of the
+// train mode's ~62 ms per 4096-ray chunk were the dW products and their atomics.
 
 #include <type_traits>
 
@@ -313,6 +327,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   const int ray = blockIdx.x, S = a.S, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const bool rgb = a.flags & USE_RGB, feat = a.flags & OUT_FEAT, cand = a.flags & USE_CAND;
+  const bool pg = !(a.flags & NO_PARAM_GRADS);  // uniform over the block: barriers stay unconditional
   const int col_xyzf = a.D * W, col_rgbh = (a.D + 1) * W, col_h1 = col_rgbh + (rgb ? HH : 0), col_h2 = col_h1 + HC;
 
   extern __shared__ float4 smem4[];
@@ -509,11 +524,11 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
 
     if (rgb) {
       // feat_s = xyzf_s Wf + bf (the dW operand of rgb1), rounded
-      load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
+      if (pg) load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
       __syncthreads();
-      mmw<T>(GF, LDT, false, A, LDA, W, a.feat_w, F, F, 0);
+      if (pg) mmw<T>(GF, LDT, false, A, LDA, W, a.feat_w, F, F, 0);
       __syncthreads();
-      for (int i = tid; i < BT * F; i += THREADS) {
+      for (int i = tid; pg && i < BT * F; i += THREADS) {
         const int r = i / F, n = i - r * F;
         A[r * LDA + n] = from_float<T>(GF[r * LDT + n] + __ldg(a.feat_b + n));
       }
@@ -528,13 +543,13 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       load_chain<T>(B, LDA, a, ray, s0, col_rgbh, HH);
       __syncthreads();
       // dW rgb2 (HH, 3) += rgbh^T g_u; db rgb2
-      for (int i = tid; i < HH * 3; i += THREADS) {
+      for (int i = tid; pg && i < HH * 3; i += THREADS) {
         const int k = i / 3, n = i - k * 3;
         float acc = 0.f;
         for (int r = 0; r < BT; ++r) acc = fmaf(to_float(B[r * LDA + k]), to_float(GUT[r * 4 + n]), acc);
         atomicAdd(a.dh[RGB2_W] + k * 3 + n, acc);
       }
-      if (tid < 3) {
+      if (pg && tid < 3) {
         float acc = 0.f;
         for (int r = 0; r < BT; ++r) acc += GU[r * 4 + tid];
         atomicAdd(a.dh[RGB2_B] + tid, acc);
@@ -550,7 +565,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       colsum(GF, LDT, HH, nullptr, dcond);
       round_to<T>(B, LDA, GF, LDT, HH);
       __syncthreads();
-      dww<T>(a.dh[RGB1_W], HH, A, LDA, F, B, LDA, HH);
+      if (pg) dww<T>(a.dh[RGB1_W], HH, A, LDA, F, B, LDA, HH);
       // g_f = cf g_feat + g_rgbh Wr1^T
       mmw<T>(GF, LDT, false, B, LDA, HH, a.rgb1_wT, F, F, 0);
       __syncthreads();
@@ -561,11 +576,11 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       GF[r * LDT + n] = rgb ? GF[r * LDT + n] + v : v;
     }
     __syncthreads();
-    colsum(GF, LDT, F, a.dh[FEAT_B]);
+    if (pg) colsum(GF, LDT, F, a.dh[FEAT_B]);
     round_to<T>(B, LDA, GF, LDT, F);
-    load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
+    if (pg) load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
     __syncthreads();
-    dww<T>(a.dh[FEAT_W], F, A, LDA, W, B, LDA, F);
+    if (pg) dww<T>(a.dh[FEAT_W], F, A, LDA, W, B, LDA, F);
     mmw<T>(GX, W, false, B, LDA, F, a.feat_wT, W, W, 0);
     __syncthreads();
 
@@ -576,10 +591,10 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       }
       load_chain<T>(A, LDA, a, ray, s0, col_h2, HC);
       __syncthreads();
-      colsum(GF, LDT, F, a.dh[CFEAT_B]);
+      if (pg) colsum(GF, LDT, F, a.dh[CFEAT_B]);
       round_to<T>(B, LDA, GF, LDT, F);
       __syncthreads();
-      dww<T>(a.dh[CFEAT_W], F, A, LDA, HC, B, LDA, F);
+      if (pg) dww<T>(a.dh[CFEAT_W], F, A, LDA, HC, B, LDA, F);
       // g_h2 = (g_cf Wcf^T + g_cpre csig_w) * (h2 > 0); dW / db of c_sig
       mmw<T>(GF, LDT, false, B, LDA, F, a.cfeat_wT, HC, HC, 0);
       if (tid < BT) GU[tid * 4 + 3] = row_coef(gcp, tid);
@@ -589,18 +604,18 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         const float v = GF[r * LDT + n] + GU[r * 4 + 3] * __ldg(a.csig_w + n);
         GF[r * LDT + n] = to_float(A[r * LDA + n]) > 0.f ? v : 0.f;
       }
-      if (tid == 0) {
+      if (pg && tid == 0) {
         float acc = 0.f;
         for (int r = 0; r < BT; ++r) acc += GU[r * 4 + 3];
         atomicAdd(a.dh[CSIG_B], acc);
       }
-      dw_col<T>(a.dh[CSIG_W], A, LDA, HC, GU + 3, 4);
+      if (pg) dw_col<T>(a.dh[CSIG_W], A, LDA, HC, GU + 3, 4);
       __syncthreads();
-      colsum(GF, LDT, HC, a.dh[C2_B]);
+      if (pg) colsum(GF, LDT, HC, a.dh[C2_B]);
       round_to<T>(B, LDA, GF, LDT, HC);
       load_chain<T>(A, LDA, a, ray, s0, col_h1, HC);
       __syncthreads();
-      dww<T>(a.dh[C2_W], HC, A, LDA, HC, B, LDA, HC);
+      if (pg) dww<T>(a.dh[C2_W], HC, A, LDA, HC, B, LDA, HC);
       // g_h1 = (g_h2 Wc2^T) * (h1 > 0)
       mmw<T>(GF, LDT, false, B, LDA, HC, a.c2_wT, HC, HC, 0);
       __syncthreads();
@@ -609,11 +624,11 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         if (!(to_float(A[r * LDA + n]) > 0.f)) GF[r * LDT + n] = 0.f;
       }
       __syncthreads();
-      colsum(GF, LDT, HC, a.dh[C1_B], rayg1);
+      colsum(GF, LDT, HC, pg ? a.dh[C1_B] : nullptr, rayg1);
       round_to<T>(B, LDA, GF, LDT, HC);
-      load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
+      if (pg) load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
       __syncthreads();
-      dww<T>(a.dh[C1X_W], HC, A, LDA, W, B, LDA, HC);
+      if (pg) dww<T>(a.dh[C1X_W], HC, A, LDA, W, B, LDA, HC);
       mmw<T>(GX, W, true, B, LDA, HC, a.c1x_wT, W, W, 0);
       __syncthreads();
     }
@@ -622,16 +637,16 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
     load_chain<T>(A, LDA, a, ray, s0, (a.D - 1) * W, W);
     if (tid < BT) GU[tid * 4 + 3] = row_coef(gsp, tid);
     __syncthreads();
-    colsum(GX, W, W, a.dh[XYZF_B]);
+    if (pg) colsum(GX, W, W, a.dh[XYZF_B]);
     round_to<T>(B, LDA, GX, W, W);
-    if (tid == 0) {
+    if (pg && tid == 0) {
       float acc = 0.f;
       for (int r = 0; r < BT; ++r) acc += GU[r * 4 + 3];
       atomicAdd(a.dh[SIGMA_B], acc);
     }
-    dw_col<T>(a.dh[SIGMA_W], A, LDA, W, GU + 3, 4);
+    if (pg) dw_col<T>(a.dh[SIGMA_W], A, LDA, W, GU + 3, 4);
     __syncthreads();
-    dww<T>(a.dh[XYZF_W], W, A, LDA, W, B, LDA, W);
+    if (pg) dww<T>(a.dh[XYZF_W], W, A, LDA, W, B, LDA, W);
     mmw<T>(GF, LDT, false, B, LDA, W, a.xyzf_wT, W, W, 0);
     __syncthreads();
     for (int i = tid; i < BT * W; i += THREADS) {
@@ -647,39 +662,47 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         if (!(to_float(A[r * LDA + n]) > 0.f)) GF[r * LDT + n] = 0.f;
       }
       __syncthreads();
-      colsum(GF, LDT, W, a.dtb[i]);
+      if (pg) colsum(GF, LDT, W, a.dtb[i]);
       round_to<T>(B, LDA, GF, LDT, W);
       __syncthreads();
       const bool skip = i > 0 && ((a.skips >> i) & 1u);
       const int in_pad = i == 0 ? MAX_IN0 : (skip ? MAX_IN0 + W : W);
       if (i == 0 || skip) {
-        dww<T>(a.dtw[i], W, X0, LDX0, MAX_IN0, B, LDA, W);
+        if (pg) dww<T>(a.dtw[i], W, X0, LDX0, MAX_IN0, B, LDA, W);
         mmw<T>(DX0, MAX_IN0, true, B, LDA, W, a.tT[i], in_pad, MAX_IN0, 0);
       }
       if (i > 0) {
         load_chain<T>(A, LDA, a, ray, s0, (i - 1) * W, W);
         __syncthreads();
-        dww<T>(a.dtw[i] + (skip ? MAX_IN0 * W : 0), W, A, LDA, W, B, LDA, W);
+        if (pg) dww<T>(a.dtw[i] + (skip ? MAX_IN0 * W : 0), W, A, LDA, W, B, LDA, W);
         mmw<T>(GF, LDT, false, B, LDA, W, a.tT[i], in_pad, W, skip ? MAX_IN0 : 0);
       }
     }
     __syncthreads();
 
-    // PE backward: dx0 -> dxyz -> d_o += dxyz, d_d += dxyz z
+    // PE backward: dx0 -> dxyz per sample (into GX, free here), then d_o += dxyz and
+    // d_d += dxyz z summed in sample order by one thread per output (no atomics)
     if (tid < BT * 3) {
       const int r = tid / 3, c = tid - r * 3, s = s0 + r;
+      float g = 0.f;
       if (s < S) {
         const float x = xyz_of(o, d, zs[s], c);
         const int L = a.L;
-        float g = DX0[r * MAX_IN0 + c];
+        g = DX0[r * MAX_IN0 + c];
         for (int l = 0; l < L; ++l) {
           const float f = ldexpf(PI_F, l), arg = __fmul_rn(x, f), pw = __ldg(a.pe_w + l);
           g += DX0[r * MAX_IN0 + 3 + c * 2 * L + l] * pw * cosf(arg) * f;
           g -= DX0[r * MAX_IN0 + 3 + c * 2 * L + L + l] * pw * sinf(arg) * f;
         }
-        atomicAdd(misc + c, g);
-        atomicAdd(misc + 3 + c, g * zs[s]);
       }
+      GX[tid] = g;
+    }
+    __syncthreads();
+    if (tid < 6) {
+      const int c = tid % 3;
+      float acc = misc[tid];
+      for (int r = 0; r < BT && s0 + r < S; ++r) acc += tid < 3 ? GX[r * 3 + c] : GX[r * 3 + c] * zs[s0 + r];
+      misc[tid] = acc;
     }
     __syncthreads();
   }
@@ -700,7 +723,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       acc = warp_sum(acc);
       if (lane == 0) a.d_cemb[(size_t)ray * a.C + c] = acc;
     }
-    for (int i = tid; i < a.C * HC; i += THREADS) {
+    for (int i = tid; pg && i < a.C * HC; i += THREADS) {
       const int c = i / HC, j = i - c * HC;
       atomicAdd(a.dh[C1C_W] + i, to_float(from_float<T>(cemb[c])) * to_float(from_float<T>(rayg1[j])));
     }
@@ -734,7 +757,8 @@ extern "C" {
 // w: xyzf_w^T, feat_w, feat_w^T, rgb1_w^T, rgb2_w^T, c1x_w^T, c1c_w, c2_w^T,
 // cfeat_w^T (compute dtype), sigma_w, csig_w, feat_b, cfeat_b (f32). outs: d_rays_o,
 // d_rays_d, d_ray_cond, d_c_emb. dtw / dtb: trunk weight (padded rows) and bias
-// gradients, dh: head gradients in HEAD_KEYS order; all f32 and zeroed by the caller.
+// gradients, dh: head gradients in HEAD_KEYS order; all f32 and zeroed by the caller,
+// and never touched (null allowed) when flags has NO_PARAM_GRADS.
 int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, const void* const* res,
                             const void* const* trunk_t, int D, unsigned skip_mask, const void* const* w,
                             void* const* outs, void* const* dtw, void* const* dtb, void* const* dh, int R, int S,

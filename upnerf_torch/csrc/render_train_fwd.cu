@@ -360,53 +360,6 @@ __device__ __forceinline__ void store_chain(const Rays& a, int ray, int s0, cons
 // ---------------------------------------------------------------------------
 // float32 kernel: SIMT FMA
 
-// acc[r][c] += sum_k a[row r, k] * w[k, col c] over this warp's RPW rows and this
-// lane's CPT columns (4-column groups j at cols j*128 + lane*4).
-template <int CPT>
-__device__ __forceinline__ void accumulate_f32(float (&acc)[RPW][CPT], const float* a, int lda, int K,
-                                               const float* __restrict__ w) {
-  constexpr int N = 32 * CPT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* arow = a + warp * RPW * lda;
-  const float* wl = w + lane * 4;
-  int k = 0;
-  for (; k + 4 <= K; k += 4) {
-    float av[RPW][4];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const float4 t = *reinterpret_cast<const float4*>(arow + r * lda + k);
-      av[r][0] = t.x; av[r][1] = t.y; av[r][2] = t.z; av[r][3] = t.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float wv[CPT];
-#pragma unroll
-      for (int j = 0; j < CPT / 4; ++j) {
-        const float4 t = __ldg(reinterpret_cast<const float4*>(wl + (size_t)(k + kk) * N + j * 128));
-        wv[4 * j] = t.x; wv[4 * j + 1] = t.y; wv[4 * j + 2] = t.z; wv[4 * j + 3] = t.w;
-      }
-#pragma unroll
-      for (int r = 0; r < RPW; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(av[r][kk], wv[c], acc[r][c]);
-    }
-  }
-  for (; k < K; ++k) {
-    float wv[CPT];
-#pragma unroll
-    for (int j = 0; j < CPT / 4; ++j) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(wl + (size_t)k * N + j * 128));
-      wv[4 * j] = t.x; wv[4 * j + 1] = t.y; wv[4 * j + 2] = t.z; wv[4 * j + 3] = t.w;
-    }
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const float av = arow[r * lda + k];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(av, wv[c], acc[r][c]);
-    }
-  }
-}
-
 // out = act([a1 | a2] @ w + bias) for this warp's rows, N = 32 * CPT columns (out may
 // be null). With colsum, also colsum[c] += sum_r roww[r] * value[r, c] (shared-memory
 // atomics across the warps), the value rounded to bf16 first when round_sum.
@@ -419,8 +372,8 @@ __device__ __forceinline__ void dense_f32(const float* a1, int lda1, int K1, con
   for (int r = 0; r < RPW; ++r)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
-  accumulate_f32<CPT>(acc, a1, lda1, K1, w);
-  if (K2 > 0) accumulate_f32<CPT>(acc, a2, lda2, K2, w + (size_t)K1 * 32 * CPT);
+  accumulate_f32<RPW, CPT>(acc, a1, lda1, K1, w);
+  if (K2 > 0) accumulate_f32<RPW, CPT>(acc, a2, lda2, K2, w + (size_t)K1 * 32 * CPT);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll

@@ -2,26 +2,31 @@
 
 A Python loop over fixed-size chunks replaces the JAX package's `lax.map`;
 each chunk is one `render_rays` call at phase 2, deterministic, with the
-appearance embedding of one training image.
+appearance embedding of one training image. With `fast`, a sigma-only probe of
+the coarse field first tightens each ray's [near, far] and the render spends a
+reduced sample budget inside it (upnerf_torch/render/fast.py).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from upnerf_torch.geometry import rays as ray_utils
+from upnerf_torch.render.fast import FastRenderConfig, fast_render_config, tighten_rays
 from upnerf_torch.render.render_rays import RenderConfig, render_rays
 
 
-def make_pose_renderer(rcfg: RenderConfig, chunk: int = 4096) -> Callable:
+def make_pose_renderer(rcfg: RenderConfig, chunk: int = 4096, fast: Optional[FastRenderConfig] = None) -> Callable:
     """render(params, K, pose, px, py, near_far, a_idx) -> (rgb (n, 3), depth (n,)).
 
     px/py are flat pixel coordinates whose length is a multiple of `chunk`;
     K (3, 3), pose (3, 4) and near_far (2,) are tensors on the render
-    device; a_idx picks the appearance embedding row."""
+    device; a_idx picks the appearance embedding row. fast: serving-only
+    interval tightening with a reduced sample budget."""
+    render_cfg = rcfg if fast is None else fast_render_config(rcfg, fast)
 
     @torch.no_grad()
     def render(params: Dict[str, Any], K, pose, px, py, near_far, a_idx: int):
@@ -34,7 +39,9 @@ def make_pose_renderer(rcfg: RenderConfig, chunk: int = 4096) -> Callable:
             dirs = ray_utils.pixel_directions(px[c0 : c0 + chunk], py[c0 : c0 + chunk], K)
             rays_o, rays_d = ray_utils.get_rays(dirs, pose)
             rays = torch.cat([rays_o, rays_d, near_far.expand(chunk, 2)], -1)
-            out = render_rays(params, rcfg, rays, idx, phase=2, progress=1.0, det=True)
+            if fast is not None:
+                rays = tighten_rays(params["nerf_coarse"], rcfg, fast, rays, 1.0)
+            out = render_rays(params, render_cfg, rays, idx, phase=2, progress=1.0, det=True)
             rgbs.append(out["s_rgb_fine"])
             depths.append(out["s_depth_fine"])
         return torch.cat(rgbs), torch.cat(depths)

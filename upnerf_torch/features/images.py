@@ -13,10 +13,18 @@
   passes).
 - `resize_float`: PIL's bicubic resize of a float ("F") image, on the
   tensor's device.
+- `resize_lanczos_u8`: PIL's LANCZOS resize of a uint8 image, PIL's own
+  two-pass fixed-point resampler written out in numpy (support 3, 22-bit
+  integer coefficients, horizontal pass first, a clip to 0..255 between the
+  passes): equal to PIL's result. The scene loader's integer downscale
+  (upnerf/data/images.py:load_rgb_u8) uses it.
+- `image_wh`: (width, height) of an image file from its PNG header, without
+  decoding; other formats through PIL where it is installed.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 import zlib
@@ -142,6 +150,89 @@ def resize_u8(image_u8: np.ndarray, size_hw: Tuple[int, int], mode: str) -> np.n
     x = torch.from_numpy(np.ascontiguousarray(image_u8)).permute(2, 0, 1)[None]
     y = F.interpolate(x, size=tuple(size_hw), mode=mode, antialias=True, align_corners=False)
     return y[0].permute(1, 2, 0).contiguous().numpy()
+
+
+_PRECISION_BITS = 22  # PIL's 8-bit resampler: 32 - 8 - 2
+
+
+def _lanczos(x: float) -> float:
+    """PIL's lanczos_filter: sinc(x) sinc(x / 3) on [-3, 3)."""
+    def sinc(v):
+        if v == 0.0:
+            return 1.0
+        v = v * math.pi
+        return math.sin(v) / v
+
+    return sinc(x) * sinc(x / 3.0) if -3.0 <= x < 3.0 else 0.0
+
+
+def _lanczos_coeffs(in_size: int, out_size: int):
+    """PIL's precompute_coeffs + normalize_coeffs_8bpc for the whole input
+    range: (xmin (out,), fixed-point weights (out, ksize) int64)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 3.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
+    xmins = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = sum(k)
+        for x, w in enumerate(k):
+            w = w / ww if ww != 0.0 else w
+            kk[xx, x] = int(w * (1 << _PRECISION_BITS) + (-0.5 if w < 0 else 0.5))
+        xmins[xx] = xmin
+    return xmins, kk
+
+
+def _lanczos_pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One pass of PIL's 8-bit resampler along `axis` of an (H, W, C) uint8 image."""
+    in_size = img.shape[axis]
+    xmins, kk = _lanczos_coeffs(in_size, out_size)
+    shape = list(img.shape)
+    shape[axis] = out_size
+    acc = np.full(shape, 1 << (_PRECISION_BITS - 1), np.int64)
+    wshape = [1, 1, 1]
+    wshape[axis] = out_size
+    for x in range(kk.shape[1]):  # weights past a pixel's window are 0, so the clamped index is harmless
+        src = np.take(img, np.minimum(xmins + x, in_size - 1), axis=axis).astype(np.int64)
+        acc += src * kk[:, x].reshape(wshape)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_lanczos_u8(image_u8: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
+    """(H, W, 3) uint8 -> (h, w, 3) uint8, equal to PIL's
+    `Image.resize((w, h), Image.LANCZOS)`."""
+    w, h = size_wh
+    out = image_u8
+    if w != out.shape[1]:
+        out = _lanczos_pass(out, 1, w)
+    if h != out.shape[0]:
+        out = _lanczos_pass(out, 0, h)
+    return np.ascontiguousarray(out)
+
+
+def image_wh(path: str) -> Tuple[int, int]:
+    """(width, height) of an image file: a PNG's from its IHDR chunk, a .npy
+    array's from its shape, other formats through PIL."""
+    if path.lower().endswith(".npy"):
+        h, w = np.load(path, mmap_mode="r").shape[:2]
+        return int(w), int(h)
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] == PNG_SIGNATURE and head[12:16] == b"IHDR":
+        return struct.unpack(">II", head[16:24])
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError(f"cannot read the size of {path}: not a PNG or .npy file, and PIL is not installed"
+                           ) from None
+    with Image.open(path) as img:
+        return img.size
 
 
 def resize_float(x: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:

@@ -1,8 +1,8 @@
-"""SE(3) exp map and [R|t] pose algebra (upnerf/geometry/se3.py).
+"""SE(3) / SO(3) exp and log maps and [R|t] pose algebra (upnerf/geometry/se3.py).
 
-Functions broadcast over leading batch dims. The exp map uses the same
-10-term Taylor series as the reference, so it is exact and safe at w = 0
-(the se3 refinement table is zero-initialised).
+Functions broadcast over leading batch dims. The exp and log maps use the
+same 10-term Taylor series as the reference, so the exp map is exact and safe
+at w = 0 (the se3 refinement table is zero-initialised).
 """
 
 from __future__ import annotations
@@ -77,6 +77,26 @@ def se3_to_SE3(wu: torch.Tensor) -> torch.Tensor:
     return torch.cat([R, V @ u[..., None]], dim=-1)
 
 
+def SO3_to_so3(R: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Log map SO(3) -> so(3): [..., 3, 3] -> [..., 3]."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.remainder(torch.arccos(torch.clamp((trace - 1) / 2, -1 + eps, 1 - eps)), math.pi)[..., None, None]
+    lnR = 1 / (2 * taylor_A(theta) + 1e-8) * (R - R.transpose(-2, -1))  # explodes at theta == pi
+    return torch.stack([lnR[..., 2, 1], lnR[..., 0, 2], lnR[..., 1, 0]], dim=-1)
+
+
+def SE3_to_se3(Rt: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Log map SE(3) -> se(3): [..., 3, 4] -> [..., 6]."""
+    R, t = Rt[..., :3], Rt[..., 3:]
+    w = SO3_to_so3(R)
+    wx = skew_symmetric(w)
+    theta = _norm(w)[..., None, None]
+    I = torch.eye(3, dtype=Rt.dtype, device=Rt.device)
+    A, B = taylor_A(theta), taylor_B(theta)
+    invV = I - 0.5 * wx + (1 - A / (2 * B)) / (theta**2 + eps) * (wx @ wx)
+    return torch.cat([w, (invV @ t)[..., 0]], dim=-1)
+
+
 def make_pose(R: Optional[torch.Tensor] = None, t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[..., 3, 4] pose from R and/or t."""
     if R is None and t is None:
@@ -86,6 +106,12 @@ def make_pose(R: Optional[torch.Tensor] = None, t: Optional[torch.Tensor] = None
     elif t is None:
         t = torch.zeros(R.shape[:-1], dtype=R.dtype, device=R.device)
     return torch.cat([R, t[..., None]], dim=-1)
+
+
+def invert(pose: torch.Tensor) -> torch.Tensor:
+    """Inverse of a [..., 3, 4] pose."""
+    R_inv = pose[..., :3].transpose(-2, -1)
+    return make_pose(R=R_inv, t=(-R_inv @ pose[..., 3:])[..., 0])
 
 
 def compose_pair(pose_a: torch.Tensor, pose_b: torch.Tensor) -> torch.Tensor:
@@ -101,6 +127,21 @@ def compose(pose_list: Sequence[torch.Tensor]) -> torch.Tensor:
     for pose in pose_list[1:]:
         pose_new = compose_pair(pose_new, pose)
     return pose_new
+
+
+def to_hom(X: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> [..., 4] homogeneous coordinates."""
+    return torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
+
+
+def world2cam(X: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """[..., N, 3] x [..., 3, 4] -> [..., N, 3]."""
+    return to_hom(X) @ pose.transpose(-1, -2)
+
+
+def cam2world(X: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """[..., N, 3] x [..., 3, 4] -> [..., N, 3]."""
+    return to_hom(X) @ invert(pose).transpose(-1, -2)
 
 
 def angle_to_rotation_matrix(a: torch.Tensor, axis: str) -> torch.Tensor:

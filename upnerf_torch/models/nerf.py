@@ -17,7 +17,9 @@ Architecture:
 `NeRFField.forward` is the plain per-sample field (apply_nerf). The render
 path runs the same math through the fused kernel of
 upnerf_torch.ops.render_train; this forward is what the kernel-free tests
-hold it against.
+hold it against. Its sigma-only mode (the probe of the fast serving render)
+runs the trunk through upnerf_torch.ops.mlp.fused_trunk, the CUDA trunk
+kernel on the card, as the JAX package's fused_trunk path does.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch.nn.functional as F_
 from torch import nn
 
 from upnerf_torch.ops.linear import dense, init_linear_
+from upnerf_torch.ops.mlp import fused_trunk, fused_trunk_plain
 from upnerf_torch.ops.render_train import softplus
 
 
@@ -167,21 +170,24 @@ class NeRFField(nn.Module):
         phase: int = 2,
         c_emb: Optional[torch.Tensor] = None,  # like dirs, (..., candidate_dim)
         encode_candidate: bool = True,
+        sigma_only: bool = False,
     ) -> Dict[str, torch.Tensor]:
         """apply_nerf: s_sigma (...), s_feat (..., feat_dim); s_rgb (..., 3)
         in phases 1 and 2; c_sigma and c_feat in phases 0 and 1 with the
         candidate branch. Per-ray `dirs`/`a_emb`/`c_emb` are broadcast over
-        the sample axis."""
+        the sample axis. sigma_only: s_sigma alone, the trunk through the
+        fused trunk kernel (`dirs` and `a_emb` are not read)."""
         cfg = self.cfg
         if not cfg.encode_feat:
             raise NotImplementedError("the feature-less field is not ported")
         x0 = positional_encoding(xyz, cfg.xyz_L, band_weights(cfg, cfg.xyz_L, progress, xyz.device))
-        h = x0
-        for i, layer in enumerate(self.trunk_layers()):
-            if i in cfg.skips:
-                h = torch.cat([x0, h], dim=-1)
-            h = F_.relu(dense(h, layer.weight, layer.bias, precision))
         lin = self.share_sigma[0]
+        trunk = [(layer.weight.t(), layer.bias) for layer in self.trunk_layers()]
+        if sigma_only:
+            h = fused_trunk(x0.reshape(-1, x0.shape[-1]), trunk, cfg.skips, precision)
+            h = h.reshape(*x0.shape[:-1], cfg.W)
+            return {"s_sigma": softplus(dense(h, lin.weight, lin.bias, precision))[..., 0]}
+        h = fused_trunk_plain(x0, trunk, cfg.skips, precision)
         out = {"s_sigma": softplus(dense(h, lin.weight, lin.bias, precision))[..., 0]}
         xyz_final = dense(h, self.xyz_encoding_final.weight, self.xyz_encoding_final.bias, precision)
         feat = dense(xyz_final, self.feat_share_layer.weight, self.feat_share_layer.bias, precision)

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd")
+KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd", "mlp_fwd")
 
 
 class BuildInfo(NamedTuple):
@@ -95,6 +95,8 @@ _ARGTYPES = {
                                 "p"],
     # q, k, v, o, G, N, hd, scale, use_bf16, stream
     "upnerf_flash_attn_fwd": ["p", "p", "p", "p", "i", "i", "i", "f", "i", "p"],
+    # x, W per layer, b per layer, D, skip mask, out, N, in0, use_bf16, stream
+    "upnerf_mlp_fwd": ["p", "pp", "pp", "i", "u", "p", "i", "i", "i", "p"],
 }
 
 

@@ -21,11 +21,15 @@ rgb_map (R, 3), feat_map (R, F), j_weights (R, S), c_depth (R,), t_weight (R,).
 - `render_train_rays_fwd` / `render_train_rays_bwd` are the wrappers: on CPU
   tensors they run the plain versions; on CUDA tensors they launch the
   hand-written kernels (`csrc/render_train_fwd.cu`, `csrc/render_train_bwd.cu`)
-  or raise. They count their launches in `launches` and `bwd_launches`.
+  or raise. They count their launches in `launches`, `bwd_launches` and
+  (the backward's frozen-model mode) `frozen_bwd_launches`.
 - `RenderTrainRays` is the autograd.Function of the training path: its
   forward runs the forward with residuals, its backward the backward. It
   returns gradients for rays_o, rays_d, ray_cond, c_emb and every weight, and
   None for z_vals and pe_w (neither has a trainable ancestor in training).
+  With RTStatic.param_grads = False (the frozen-model mode that test-time
+  optimization runs) the backward computes the data cotangents only and
+  returns None for every weight; a weight that requires grad is refused.
 
 Weights come in the JAX kernel's interface: `trunk` is a sequence of
 (W (in, out), b (out,)) pairs and `heads` holds xyzf_w/b, sigma_w/b,
@@ -55,17 +59,20 @@ X0_PAD = 64  # the kernels' x0 width: 3 + 6L padded to a multiple of 16
 KERNEL_WIDTHS = {"W": 256, "F": 384, "HH": 128, "HC": 128}
 MAX_C = 32  # candidate embedding width the kernels take
 
-# Kernel launches made in this process by render_train_rays_fwd / _bwd.
+# Kernel launches made in this process by render_train_rays_fwd / _bwd
+# (the backward's frozen-model mode counted on its own).
 launches = 0
 bwd_launches = 0
+frozen_bwd_launches = 0
 
 
 class RTStatic(NamedTuple):
     """Static configuration: trunk depth, skip layers, PE bands of xyz, the
     matmul precision ('bfloat16' or 'float32'), the mode (use_cand, use_rgb,
     out_feat), store_f32 (per-sample rgb/feat kept in f32; False rounds them
-    to bf16 in bf16 mode) and save_chain (the forward saves the walk chain and
-    the backward reads it; the backward needs it)."""
+    to bf16 in bf16 mode), save_chain (the forward saves the walk chain and
+    the backward reads it; the backward needs it) and param_grads (False: the
+    backward skips every weight gradient, for a frozen model)."""
 
     D: int
     skips: Tuple[int, ...]
@@ -76,6 +83,7 @@ class RTStatic(NamedTuple):
     out_feat: bool = False
     store_f32: bool = True
     save_chain: bool = True
+    param_grads: bool = True
 
     @property
     def use_feat(self) -> bool:
@@ -244,13 +252,14 @@ def render_train_rays_bwd_plain(
     cots: Dict[str, Optional[torch.Tensor]],
 ):
     """Plain backward: upnerf/ops/pallas_render_train.py:_bwd_kernel in its
-    save_chain, param_grads mode, written out step by step.
+    save_chain mode, written out step by step.
 
     cots: a cotangent for each of st.out_keys (None means zero). Returns
     (d_rays_o, d_rays_d, d_ray_cond or None, d_c_emb or None,
-    [(dW, db)] per trunk layer, {head key: grad}). In bf16 mode every product
-    rounds both operands to bf16 and accumulates in f32, as the kernel's
-    `_dot` does; bias sums and the rank-1 sigma terms stay f32."""
+    [(dW, db)] per trunk layer, {head key: grad}); with st.param_grads off the
+    weight gradients are not computed and the last two are None. In bf16 mode
+    every product rounds both operands to bf16 and accumulates in f32, as the
+    kernel's `_dot` does; bias sums and the rank-1 sigma terms stay f32."""
     prec = canonical_precision(st.precision)
     R, S = z_vals.shape
     L = st.xyz_L
@@ -273,9 +282,12 @@ def render_train_rays_bwd_plain(
         cuts[name] = res["chain"][:, col : col + w].float()
         col += w
 
+    pg = st.param_grads
     g_feat = cot("feat_map", (R, heads["feat_b"].shape[0])) if st.out_feat else None
     g_rgbm = cot("rgb_map", (R, 3)) if st.use_rgb else None
-    feat = dot(cuts["xyzf"], heads["feat_w"]) + heads["feat_b"] if st.use_feat else None
+    # feat feeds the feat_map inner products and rgb1's dW: without either, skip it
+    need_feat = st.out_feat or (st.use_rgb and pg)
+    feat = dot(cuts["xyzf"], heads["feat_w"]) + heads["feat_b"] if need_feat else None
     p = q = rr = None
     if st.out_feat:
         p = (feat.reshape(R, S, -1) * g_feat[:, None, :]).sum(-1)
@@ -335,16 +347,19 @@ def render_train_rays_bwd_plain(
         rgb = res["rgb"]
         g_u = g_rgb * rgb * (1.0 - rgb)
         rgbh = cuts["rgbh"]
-        dh["rgb2_w"] = dot(rgbh.t(), g_u)
-        dh["rgb2_b"] = g_u.sum(0)
+        if pg:
+            dh["rgb2_w"] = dot(rgbh.t(), g_u)
+            dh["rgb2_b"] = g_u.sum(0)
         g_rgbh = dot(g_u, heads["rgb2_w"].t()) * (rgbh > 0)
-        dh["rgb1_w"] = dot(feat.t(), g_rgbh)
+        if pg:
+            dh["rgb1_w"] = dot(feat.t(), g_rgbh)
         d_cond = g_rgbh.reshape(R, S, -1).sum(1)
         g_from_rgb = dot(g_rgbh, heads["rgb1_w"].t())
         g_f = g_from_rgb if g_f is None else g_f + g_from_rgb
     if st.use_feat:
-        dh["feat_w"] = dot(cuts["xyzf"].t(), g_f)
-        dh["feat_b"] = g_f.sum(0)
+        if pg:
+            dh["feat_w"] = dot(cuts["xyzf"].t(), g_f)
+            dh["feat_b"] = g_f.sum(0)
         g_xyzf = g_xyzf + dot(g_f, heads["feat_w"].t())
     if st.use_cand:
         h1, h2 = cuts["h1"], cuts["h2"]
@@ -353,26 +368,28 @@ def render_train_rays_bwd_plain(
             g_cf = (cg[..., None] * g_feat[:, None, :]).reshape(M, -1)
         else:
             g_cf = torch.zeros((M, F), dtype=f32, device=z_vals.device)
-        dh["cfeat_w"] = dot(h2.t(), g_cf)
-        dh["cfeat_b"] = g_cf.sum(0)
         g_h2 = dot(g_cf, heads["cfeat_w"].t())
-        dh["csig_w"] = dot(h2.t(), g_cpre)
-        dh["csig_b"] = g_cpre.sum(0)
         g_h2 = (g_h2 + g_cpre * heads["csig_w"].reshape(1, -1)) * (h2 > 0)
-        dh["c2_w"] = dot(h1.t(), g_h2)
-        dh["c2_b"] = g_h2.sum(0)
         g_h1 = dot(g_h2, heads["c2_w"].t()) * (h1 > 0)
-        dh["c1x_w"] = dot(cuts["xyzf"].t(), g_h1)
-        dh["c1_b"] = g_h1.sum(0)
         ray_g1 = g_h1.reshape(R, S, -1).sum(1)
-        dh["c1c_w"] = dot(c_emb.t(), ray_g1)
+        if pg:
+            dh["cfeat_w"] = dot(h2.t(), g_cf)
+            dh["cfeat_b"] = g_cf.sum(0)
+            dh["csig_w"] = dot(h2.t(), g_cpre)
+            dh["csig_b"] = g_cpre.sum(0)
+            dh["c2_w"] = dot(h1.t(), g_h2)
+            dh["c2_b"] = g_h2.sum(0)
+            dh["c1x_w"] = dot(cuts["xyzf"].t(), g_h1)
+            dh["c1_b"] = g_h1.sum(0)
+            dh["c1c_w"] = dot(c_emb.t(), ray_g1)
         d_cemb = dot(ray_g1, heads["c1c_w"].t())
         g_xyzf = g_xyzf + dot(g_h1, heads["c1x_w"].t())
     h = cuts[f"act{st.D - 1}"]
-    dh["sigma_w"] = dot(h.t(), g_spre)
-    dh["sigma_b"] = g_spre.sum(0)
-    dh["xyzf_w"] = dot(h.t(), g_xyzf)
-    dh["xyzf_b"] = g_xyzf.sum(0)
+    if pg:
+        dh["sigma_w"] = dot(h.t(), g_spre)
+        dh["sigma_b"] = g_spre.sum(0)
+        dh["xyzf_w"] = dot(h.t(), g_xyzf)
+        dh["xyzf_b"] = g_xyzf.sum(0)
     g = g_spre * heads["sigma_w"].reshape(1, -1) + dot(g_xyzf, heads["xyzf_w"].t())
 
     x0, xyz = _pe(rays_o, rays_d, z_vals, pe_w, L)
@@ -380,13 +397,14 @@ def render_train_rays_bwd_plain(
     dtrunk = [None] * st.D
     for i in reversed(range(st.D)):
         g = g * (cuts[f"act{i}"] > 0)
-        if i == 0:
-            inp = x0
-        elif i in st.skips:
-            inp = torch.cat([x0, cuts[f"act{i - 1}"]], -1)
-        else:
-            inp = cuts[f"act{i - 1}"]
-        dtrunk[i] = (dot(inp.t(), g), g.sum(0))
+        if pg:
+            if i == 0:
+                inp = x0
+            elif i in st.skips:
+                inp = torch.cat([x0, cuts[f"act{i - 1}"]], -1)
+            else:
+                inp = cuts[f"act{i - 1}"]
+            dtrunk[i] = (dot(inp.t(), g), g.sum(0))
         g_in = dot(g, trunk[i][0].t())
         if i in st.skips and i > 0:
             dx0 = dx0 + g_in[:, :in0]
@@ -404,6 +422,8 @@ def render_train_rays_bwd_plain(
     dxyz = dxyz.reshape(R, S, 3)
     d_o = dxyz.sum(1)
     d_d = (dxyz * z_vals[..., None]).sum(1)
+    if not pg:
+        return d_o, d_d, d_cond, d_cemb, None, None
     return d_o, d_d, d_cond, d_cemb, dtrunk, dh
 
 
@@ -435,6 +455,13 @@ def _pad_x0_rows(w: torch.Tensor, in0: int) -> torch.Tensor:
     return torch.cat([w[:in0], w.new_zeros(X0_PAD - in0, w.shape[1]), w[in0:]], 0)
 
 
+def pack_trunk_weight(w: torch.Tensor, in0: Optional[int]) -> torch.Tensor:
+    """A trunk layer's (in, out) weight in the forward kernels' bf16 layout
+    (the render's and the trunk kernel's): x0 rows padded to X0_PAD (in0
+    given: layer 0 and the skip layers), packed by _pack_fragments."""
+    return _pack_fragments(w if in0 is None else _pad_x0_rows(w, in0))
+
+
 def _kernel_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
     """Weights in the layout the forward kernel reads, each its own contiguous
     (so 16-byte aligned) tensor. float32 mode: every matrix (in, out), f32.
@@ -445,11 +472,8 @@ def _kernel_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
     if canonical_precision(st.precision) == "float32":
         return [(w.contiguous(), b.contiguous()) for w, b in trunk], {k: v.contiguous() for k, v in heads.items()}
     in0 = 3 + 6 * st.xyz_L
-    out = []
-    for i, (w, b) in enumerate(trunk):
-        if i == 0 or i in st.skips:
-            w = _pad_x0_rows(w, in0)
-        out.append((_pack_fragments(w), b.contiguous()))
+    out = [(pack_trunk_weight(w, in0 if i == 0 or i in st.skips else None), b.contiguous())
+           for i, (w, b) in enumerate(trunk)]
     kheads = {}
     for k, v in heads.items():
         if k in ("xyzf_w", "feat_w", "rgb1_w", "c1x_w", "c2_w", "cfeat_w"):
@@ -488,6 +512,8 @@ def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
     for name in BWD_WEIGHTS:
         key = name.split(" ")[0].removesuffix("^T")
         v = heads.get(key) if key in st.head_keys else None
+        if name == "feat_w" and not st.param_grads:
+            v = None  # read only to re-derive feat for rgb1's dW
         if v is not None:
             if key in ("sigma_w", "csig_w"):
                 v = v.reshape(-1)
@@ -551,7 +577,7 @@ def _ptrs(ts) -> ctypes.Array:
 
 def _flags(st: RTStatic, save_res: bool) -> int:
     bf16 = canonical_precision(st.precision) == "bfloat16"
-    bits = (bf16, st.use_rgb, st.out_feat, st.use_cand, save_res, st.store_f32)
+    bits = (bf16, st.use_rgb, st.out_feat, st.use_cand, save_res, st.store_f32, not st.param_grads)
     return sum(int(b) << i for i, b in enumerate(bits))
 
 
@@ -640,13 +666,15 @@ def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, 
     CUDA kernel for CUDA tensors, with the same arguments and results.
 
     The kernel accumulates the weight gradients over all rays with f32
-    atomic adds in device memory, so their last bits change from run to run."""
+    atomic adds in device memory, so their last bits change from run to run.
+    With st.param_grads off it computes the data cotangents only (the same
+    bits as the train mode's) and returns None for the weight gradients."""
     if rays_o.device.type == "cpu":
         return render_train_rays_bwd_plain(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st, c_emb, res,
                                            cots)
     if rays_o.device.type != "cuda":
         raise ValueError(f"no render kernel for device {rays_o.device}")
-    global bwd_launches
+    global bwd_launches, frozen_bwd_launches
     from upnerf_torch.ops import _build
 
     R, S, C = _check_kernel_args(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, trunk, heads, st)
@@ -680,12 +708,13 @@ def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, 
     d_cond = torch.empty((R, HH), **f32) if st.use_rgb else None
     d_cemb = torch.empty((R, C), **f32) if st.use_cand else None
     # weight gradients, accumulated by atomics: zero first; trunk in the padded layout
-    dtw, dtb = [], []
-    for i in range(st.D):
-        rows = (X0_PAD if i == 0 else (X0_PAD + W if i in st.skips else W))
-        dtw.append(torch.zeros((rows, W), **f32))
-        dtb.append(torch.zeros((W,), **f32))
-    dhd = {k: torch.zeros(heads[k].shape, **f32) for k in st.head_keys}
+    dtw, dtb, dhd = [None] * st.D, [None] * st.D, {}
+    if st.param_grads:
+        for i in range(st.D):
+            rows = (X0_PAD if i == 0 else (X0_PAD + W if i in st.skips else W))
+            dtw[i] = torch.zeros((rows, W), **f32)
+            dtb[i] = torch.zeros((W,), **f32)
+        dhd = {k: torch.zeros(heads[k].shape, **f32) for k in st.head_keys}
     lib = _build.library("render_train_bwd")
     skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -696,6 +725,9 @@ def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, 
             R, S, st.xyz_L, C, _flags(st, True), stream,
         )
     _raise_on(code, "render_train_bwd", lib)
+    if not st.param_grads:
+        frozen_bwd_launches += 1
+        return d_o, d_d, d_cond, d_cemb, None, None
     bwd_launches += 1
     dtrunk = []
     for i in range(st.D):
@@ -716,6 +748,9 @@ class RenderTrainRays(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, st, head_names, *weights):
+        if not st.param_grads and any(w.requires_grad for w in weights):
+            raise RuntimeError("param_grads=False computes no weight gradient, but a weight requires grad:"
+                               " freeze the model (requires_grad_(False)) or set param_grads=True")
         D = st.D
         trunk = [(weights[2 * i], weights[2 * i + 1]) for i in range(D)]
         heads = dict(zip(head_names, weights[2 * D :]))
@@ -740,6 +775,8 @@ class RenderTrainRays(torch.autograd.Function):
         d_o, d_d, d_cond, d_cemb, dtrunk, dh = render_train_rays_bwd(
             rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st, c_emb, res, cots
         )
+        if not st.param_grads:
+            return (d_o, d_d, None, None, d_cond, d_cemb, None, None, *[None] * nw)
         flat = [t for wb in dtrunk for t in wb] + [dh[k].reshape(heads[k].shape) for k in names]
         return (d_o, d_d, None, None, d_cond, d_cemb, None, None, *flat)
 

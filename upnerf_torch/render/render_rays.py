@@ -46,6 +46,9 @@ class RenderConfig(NamedTuple):
     perturb: float = 1.0
     precision: str = "float32"
     store_f32: bool = True
+    # False: the fused backward computes no weight gradient (the frozen model of
+    # test-time optimization); set by the caller, never read from hparams.
+    param_grads: bool = True
 
     @classmethod
     def from_hparams(cls, hp: Dict[str, Any]) -> "RenderConfig":
@@ -128,7 +131,7 @@ def _inference(
     use_cand = ncfg.encode_candidate and encode_candidate and phase < 2
     st = rt.RTStatic(
         D=ncfg.D, skips=tuple(ncfg.skips), xyz_L=ncfg.xyz_L, precision=cfg.precision, use_cand=use_cand,
-        use_rgb=phase > 0, out_feat=phase < 2, store_f32=cfg.store_f32,
+        use_rgb=phase > 0, out_feat=phase < 2, store_f32=cfg.store_f32, param_grads=cfg.param_grads,
     )
     w_xyz = band_weights(ncfg, ncfg.xyz_L, progress, rays_o.device)
     ray_cond = ray_conditioning(field, rays_d, a_emb, progress) if st.use_rgb else None

@@ -11,8 +11,10 @@ hyper_parameters is the flat dotted-key config dict.
 - `state_dict_from_jax` maps the JAX package's parameter pytree onto that
   layout, key for key what upnerf/utils/ref_ckpt.py:export_state_dict
   writes.
-- `load_reference_ckpt` reads such a file; `render_params` builds the
-  serving modules from it (NeRFField loads with strict=True).
+- `load_reference_ckpt` reads such a file; `render_params` builds from it
+  the frozen modules that serving, test-time optimization and eval read:
+  both fields (NeRFField loads with strict=True, requires_grad off), the
+  coarse and fine appearance tables, and the se3 table.
 - `init_reference_ckpt` writes a freshly seeded model in that layout.
 - `train_modules_from_jax` builds the train modules (UPNeRF, PoseTables)
   from the JAX parameter pytree; `export_reference_ckpt` writes a trained
