@@ -6,7 +6,7 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
   1. the card: name and power limit from nvidia-smi;
   2. build: nvcc compiles upnerf_torch/csrc/*.cu for sm_90a, one process per
-     source, all at once;
+     source (and per timing variant), all at once;
   3. the forward kernel's serving mode against its plain PyTorch version on
      one 4096-ray chunk at the brandenburg_gate width, S = 128 and 256
      samples, float32 and bfloat16;
@@ -54,11 +54,29 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      launches a step, refined test poses near GT, eval's train pose errors ~0,
      SSIM on the card against the CPU; ms of a TTO step (4 x 1024 rays) and of
      an eval chunk;
- 14. the trunk kernel against its plain version at 262,144 rows (the fast
-     render's probe) and at a ragged N, bf16 and f32; ms of each in turns;
+ 14. the trunk kernel (the trunk-only mode of heads_fwd.cu) against its plain
+     version at 262,144 rows (the fast render's probe) and at a ragged N, bf16
+     and f32; ms of each in turns;
  15. `upnerf_torch.cli.render_video --fast` for 2 frames at 128x128: the
      files and the trunk kernel's launches; a fast frame's ms against phase
-     5's full-budget frame.
+     5's full-budget frame;
+ 16. the trunk + heads kernels (kernel 5: `ops.heads`, csrc/heads_fwd.cu and
+     heads_bwd.cu) against their plain versions, the forward and every
+     backward output, at 524,288 rows (2048 rays x 256 samples) in bf16 with
+     and without the candidate branch and in f32 at 65,536 rows and a ragged
+     N, the backward also against its plain version in float64; forward and
+     backward timed in turns, and the backward without its dW atomic adds;
+ 17. the static render from PE rows (kernel 4: the x0 mode of the render
+     forward, `ops.render`) against its plain version and against the
+     serving mode on the same rays, 4096 x 256, bf16 and f32; timed in turns;
+ 18. `upnerf_torch.cli.train.main` at brandenburg_gate's width and batch 2048
+     on a Phototourism-layout scene of PNGs with seeded DINO / DPT maps, 12
+     steps (phases 0, 1, 2; a val render and a checkpoint every 6 steps):
+     (a) the default flags, (b) `tpu.fused_train false`, (c) (a) resumed to
+     14 steps; each run's kernel launches (kernels 1/2 in the steps of (a),
+     kernel 5 in the steps of (b) and kernel 4 in its val renders), finite
+     losses and val PSNR; (b)'s checkpoint rendered by `render_video`; ms of a
+     phase-1 step of (b) against phase 9's, and the loop's rays/s.
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -163,12 +181,30 @@ EXTRACT_IMAGES = (("scene_a.png", (375, 500)), ("scene_b.png", (480, 640)))
 # that differs in every sum reads ~0.05 on the CPU; no rounding reads ~1).
 TRUNK_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 TRUNK_RMS_RATIO = 0.25
+# Kernel 5's backward against its plain version. Both recompute the forward
+# chain, each in its own summation order, so a ReLU pre-activation within
+# rounding of zero can land on the other side in one of them, and that row's
+# gradient through the unit switches on or off (the render backward reads one
+# saved chain and has no such flips): on the card dx0 moves by up to ~0.17 of
+# its max in bf16 and ~0.05 in f32, but by ~4e-3 of its RMS. So weight
+# gradients (sums over all rows): max |d| over max |g| <= 2e-2; the per-row dx0
+# and dc_emb by RMS: RMS distance over RMS value <= 2e-2, and RMS distance to
+# the plain version of the kernel's precision under TRUNK_RMS_RATIO of the
+# distance to the other precision's (bf16 rounds its operands, f32 does not).
+# A second witness shows that these gaps are rounding: the plain backward in
+# float64 on the same inputs. The kernel's RMS distance to it, on dx0, dc_emb
+# and all weight gradients together, must be within HEADS_F64_RATIO of the
+# plain version's own distance to it.
+HEADS_BWD_TOL = 2e-2
+HEADS_ROW_RMS_TOL = 2e-2
+HEADS_F64_RATIO = 2.0
 PROBE_ROWS = CHUNK * 64  # the fast render's sigma-only probe: 4096 rays x 64 samples
 # Phase 13's scene: a ring of 8 train and 4 test cameras, PNGs of 128x96 that
 # the loader's img_downscale 2 (brandenburg_gate's) reads as 64x48, TTO in one
 # group of 4 with batch 1024 (4096 rays a step).
 TTO_TRAIN, TTO_TEST, TTO_PNG_WH, TTO_FOCAL = 8, 4, (128, 96), 100.0
 TTO_EPOCHS = (4, 3)  # pose, appearance
+TRAIN_IMAGES = 8  # phase 18's train images (+ 2 test), read at brandenburg_gate's img_downscale 2 as 64 x 48
 # The test images are the checkpoint's renders at the GT test poses, and its
 # se3 table holds the GT train poses, so TTO starts at the GT test pose; the
 # only pull away from it is the fresh appearance embedding. Adam moves each se3
@@ -690,6 +726,7 @@ def chain_bytes(nerf_cfg, st, n_samples: int, kind: str) -> int:
 def render_bound(field, st, R: int, S: int, kind: str):
     """bound() of one fused-render call on R rays x S samples in bf16: kind
     "fwd" is the forward with residuals, "serve" the forward without them,
+    "static" the x0 mode (kernel 4),
     "bwd" the backward in st's mode (the frozen mode does the walk's products
     only and writes no dW)."""
     from upnerf_torch.render.render_rays import field_weights
@@ -705,6 +742,8 @@ def render_bound(field, st, R: int, S: int, kind: str):
     macs = render_macs(cfg, st) * M
     if kind == "serve":
         return bound(2 * macs, 4 * (per_ray_in + M + outs) + 2 * n_w, "bfloat16")
+    if kind == "static":  # the serving mode reading x0 (R*S, 3 + 6L) instead of o and d
+        return bound(2 * macs, 4 * (per_ray_in - 6 * R + M * (1 + cfg.in_channels_xyz) + outs) + 2 * n_w, "bfloat16")
     chain = chain_bytes(cfg, st, M, "bwd" if kind == "bwd" else "fwd")
     if kind == "fwd":
         return bound(2 * macs, 4 * (per_ray_in + M + outs + res) + 2 * n_w + chain, "bfloat16")
@@ -812,6 +851,188 @@ def phase_trunk_kernel(field, nerf_cfg, dev, card: str):
     flop = 2.0 * trunk_macs(nerf_cfg) * PROBE_ROWS
     print(f"[14] trunk N={PROBE_ROWS} bfloat16: kernel {kms:.3f} ms ({k1:.3f}, {k2:.3f}; {flop / kms / 1e9:.0f}"
           f" TFLOP/s), plain {pms:.3f} ms ({card})", flush=True)
+    return worst, kms, pms
+
+
+def heads_macs(nerf_cfg, cand: bool) -> int:
+    """Multiply-adds of kernel 5's forward for one row (trunk, sigma, xyzf, feat;
+    c1, c2, c_sigma, c_feat with the candidate branch)."""
+    W, F, HC, C = nerf_cfg.W, nerf_cfg.feat_dim, nerf_cfg.W // 2, nerf_cfg.candidate_dim
+    macs = trunk_macs(nerf_cfg) + W + W * W + W * F
+    if cand:
+        macs += (W + C) * HC + HC * HC + HC + HC * F
+    return macs
+
+
+def heads_bound(field, nerf_cfg, n: int, cand: bool, kind: str):
+    """bound() of one kernel-5 call on n rows in bf16: kind "fwd" reads x0 (and
+    c_emb) and writes the f32 head outputs; "bwd" reads them and the cotangents,
+    writes dx0 (and dc_emb) and every weight gradient, and does the recompute,
+    the walk's data path and the dW products (3 x the forward's multiply-adds)."""
+    trunk, heads = field.trunk_heads_weights(cand)
+    n_w = sum(t.numel() for wb in trunk for t in wb) + sum(t.numel() for t in heads.values())
+    C = nerf_cfg.candidate_dim if cand else 0
+    rows_in = nerf_cfg.in_channels_xyz + C
+    rows_out = (1 + nerf_cfg.feat_dim) * (2 if cand else 1)
+    macs = heads_macs(nerf_cfg, cand) * n
+    if kind == "fwd":
+        return bound(2 * macs, 4 * n * (rows_in + rows_out) + 2 * n_w, "bfloat16")
+    return bound(6 * macs, 4 * n * (2 * rows_in + rows_out) + 2 * n_w + 4 * n_w, "bfloat16")
+
+
+def phase_heads_kernel(field, nerf_cfg, dev, card: str):
+    """Phase 16: kernel 5 (trunk + heads, csrc/heads_fwd.cu and heads_bwd.cu)
+    against its plain versions, forward and every backward output: N = 524,288
+    rows (2048 rays x 256 fine samples, a train step's fine pass) in bf16, with
+    the candidate branch (phase 1) and without (phase 2); f32 at 65,536 rows and
+    a ragged N; the backward also against the plain backward in float64. Then
+    forward and backward timed in turns at 524,288 rows, bf16, with the
+    candidate branch, and the backward against its build without the weight
+    gradients' atomic adds (the adds' share of its time). Returns (worst fwd
+    max |d|, worst bwd max |d|, times {fwd, bwd}: (kernel ms, plain ms))."""
+    from unittest import mock
+
+    from upnerf_torch.models.nerf import positional_encoding
+    from upnerf_torch.ops import _build
+    from upnerf_torch.ops import heads as hk
+
+    worst_f = worst_b = 0.0
+    cases = [(TRAIN_RAYS * 256, "bfloat16", True), (TRAIN_RAYS * 256, "bfloat16", False),
+             (65536, "float32", True), (1037, "float32", True), (1037, "float32", False)]
+    for n, prec, cand in cases:
+        g = torch.Generator(device=dev).manual_seed(n + cand)
+        x0 = positional_encoding(torch.randn((n, 3), generator=g, device=dev), nerf_cfg.xyz_L).contiguous()
+        c_emb = torch.randn((n, nerf_cfg.candidate_dim), generator=g, device=dev) if cand else None
+        trunk, heads = field.trunk_heads_weights(cand)
+        other = "float32" if prec == "bfloat16" else "bfloat16"
+        with torch.no_grad():
+            got = hk.fused_trunk_heads_fwd(x0, c_emb, trunk, heads, nerf_cfg.skips, prec)
+            want = hk.fused_trunk_heads_plain(x0, c_emb, trunk, heads, nerf_cfg.skips, prec)
+            cots = [torch.randn(t.shape, generator=g, device=dev) for t in want]
+            kb = hk.fused_trunk_heads_bwd(x0, c_emb, trunk, heads, nerf_cfg.skips, prec, cots)
+            pb = hk.fused_trunk_heads_bwd_plain(x0, c_emb, trunk, heads, nerf_cfg.skips, prec, cots)
+            po = hk.fused_trunk_heads_bwd_plain(x0, c_emb, trunk, heads, nerf_cfg.skips, other, cots)[:2]
+            f64 = lambda t: None if t is None else t.double()  # noqa: E731
+            p64 = hk.fused_trunk_heads_bwd_plain(
+                f64(x0), f64(c_emb), [(f64(w), f64(b)) for w, b in trunk], {k: f64(v) for k, v in heads.items()},
+                nerf_cfg.skips, "float32", [f64(c) for c in cots])
+        torch.cuda.synchronize()
+        rms = lambda t: t.double().pow(2).mean().sqrt().item()  # noqa: E731
+        flat = lambda b: torch.cat([t.double().flatten() for wb in b[2] for t in wb]  # noqa: E731
+                                   + [b[3][k].double().flatten() for k in sorted(b[3])])
+        names = ["s_sigma", "s_feat", "c_sigma", "c_feat"]
+        ferr = {}
+        for name, a_, p_ in zip(names, got, want):
+            check(bool(torch.isfinite(a_).all()), f"kernel 5 forward {name} not finite (N={n} {prec})")
+            ferr[name] = rel_err(a_, p_)
+            worst_f = max(worst_f, (a_ - p_).abs().max().item())
+        rows = [("dx0", 0)] + ([("dc_emb", 1)] if cand else [])
+        row_rms = {name: rms(kb[i] - pb[i]) / rms(pb[i]) for name, i in rows}
+        row_ratio = {name: rms(kb[i] - pb[i]) / rms(kb[i] - po[i]) for name, i in rows}
+        berr = {}
+        for i, ((kw_, kb_), (pw_, pb_)) in enumerate(zip(kb[2], pb[2])):
+            berr[f"trunk{i}.w"], berr[f"trunk{i}.b"] = rel_err(kw_, pw_), rel_err(kb_, pb_)
+        for k in pb[3]:
+            berr[k] = rel_err(kb[3][k], pb[3][k])
+        for a_, p_ in [(kb[0], pb[0])] + ([(kb[1], pb[1])] if cand else []):
+            check(bool(torch.isfinite(a_).all()), f"kernel 5 backward not finite (N={n} {prec})")
+            worst_b = max(worst_b, (a_ - p_).abs().max().item())
+        # the float64 witness: kernel's RMS distance over the plain version's, both to float64
+        w64 = {name: rms(kb[i] - p64[i]) / rms(pb[i] - p64[i]) for name, i in rows}
+        w64["dW"] = rms(flat(kb) - flat(p64)) / rms(flat(pb) - flat(p64))
+        fw, bw = max(ferr, key=ferr.get), max(berr, key=berr.get)
+        print(f"[16] heads N={n} {prec} candidate={cand}: forward worst {fw} {ferr[fw]:.3e} (tol"
+              f" {TRUNK_TOL[prec]:.0e}); backward {len(berr)} weight gradients, worst {bw} {berr[bw]:.3e} (tol"
+              f" {HEADS_BWD_TOL:.0e}); per-row RMS " + " ".join(f"{k} {v:.3e}" for k, v in row_rms.items())
+              + f" (tol {HEADS_ROW_RMS_TOL:.0e}), RMS distance to {prec} plain / to {other} plain "
+              + " ".join(f"{k} {v:.3e}" for k, v in row_ratio.items()) + f" (limit {TRUNK_RMS_RATIO})"
+              + f"; max |d| / max |g| " + " ".join(f"{k} {rel_err(kb[i], pb[i]):.3e}" for k, i in rows)
+              + "; RMS distance to float64 plain, kernel / plain " + " ".join(f"{k} {v:.3f}" for k, v in w64.items())
+              + f" (limit {HEADS_F64_RATIO})", flush=True)
+        check(max(ferr.values()) <= TRUNK_TOL[prec], f"kernel 5 forward disagrees with its plain version: {ferr}")
+        check(max(berr.values()) <= HEADS_BWD_TOL, f"kernel 5 backward disagrees with its plain version: {berr}")
+        check(max(row_rms.values()) <= HEADS_ROW_RMS_TOL, f"kernel 5 backward's per-row outputs: {row_rms}")
+        check(max(row_ratio.values()) <= TRUNK_RMS_RATIO, f"kernel 5 backward does not round as its plain: {row_ratio}")
+        check(max(w64.values()) <= HEADS_F64_RATIO, f"kernel 5 backward is further from float64 than its plain: {w64}")
+        del got, want, cots, kb, pb, po, p64
+    n = TRAIN_RAYS * 256
+    g = torch.Generator(device=dev).manual_seed(16)
+    x0 = positional_encoding(torch.randn((n, 3), generator=g, device=dev), nerf_cfg.xyz_L).contiguous()
+    c_emb = torch.randn((n, nerf_cfg.candidate_dim), generator=g, device=dev)
+    trunk, heads = field.trunk_heads_weights(True)
+    cots = [torch.randn((n, 1), generator=g, device=dev), torch.randn((n, nerf_cfg.feat_dim), generator=g, device=dev),
+            torch.randn((n, 1), generator=g, device=dev), torch.randn((n, nerf_cfg.feat_dim), generator=g, device=dev)]
+    args = (x0, c_emb, trunk, heads, nerf_cfg.skips, "bfloat16")
+    times = {}
+    with torch.no_grad():
+        for kind, kern, plain in (
+            ("fwd", lambda: hk.fused_trunk_heads_fwd(*args), lambda: hk.fused_trunk_heads_plain(*args)),
+            ("bwd", lambda: hk.fused_trunk_heads_bwd(*args, cots), lambda: hk.fused_trunk_heads_bwd_plain(*args, cots)),
+        ):
+            p1, k1, k2, p2 = cuda_ms(plain, 2), cuda_ms(kern, 3), cuda_ms(kern, 3), cuda_ms(plain, 2)
+            times[kind] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            print(f"[16] heads {kind} N={n} bfloat16 candidate: kernel {times[kind][0]:.2f} ms ({k1:.2f}, {k2:.2f}),"
+                  f" plain {times[kind][1]:.2f} ms ({p1:.2f}, {p2:.2f}) ({card})", flush=True)
+        # the same backward from the build that leaves out the dW atomic adds (wrong sums, same products)
+        real_library = _build.library
+        no_adds = lambda name: real_library("heads_bwd_no_dw_adds" if name == "heads_bwd" else name)  # noqa: E731
+        kern = lambda: hk.fused_trunk_heads_bwd(*args, cots)  # noqa: E731
+
+        def kern_no_adds():
+            with mock.patch.object(_build, "library", no_adds):
+                kern()
+
+        a1, n1, n2, a2 = cuda_ms(kern, 3), cuda_ms(kern_no_adds, 3), cuda_ms(kern_no_adds, 3), cuda_ms(kern, 3)
+    full, bare = (a1 + a2) / 2, (n1 + n2) / 2
+    print(f"[16] heads bwd N={n} bfloat16 candidate: {full:.2f} ms ({a1:.2f}, {a2:.2f}); without the dW atomic adds"
+          f" {bare:.2f} ms ({n1:.2f}, {n2:.2f}): the adds take {full - bare:.2f} ms, {(full - bare) / full:.0%}"
+          f" ({card})", flush=True)
+    return worst_f, worst_b, times
+
+
+def phase_static_render(field, nerf_cfg, dev, card: str):
+    """Phase 17: kernel 4, the x0 mode of the render forward (ops/render.py),
+    against its plain version and against the render forward's serving mode
+    on the same rays (kernel 1 builds the PE from the rays, kernel 4 reads
+    it), 4096 rays x 256 samples, bf16 and f32; then timed in turns against
+    the plain version in bf16. Returns (worst max |d|, kernel ms, plain ms)."""
+    from upnerf_torch.ops import render as srk
+    from upnerf_torch.ops import render_train as rt
+    from upnerf_torch.render.render_rays import field_weights
+
+    trunk, heads = field_weights(field)
+    head = {k: heads[k] for k in srk.HEAD_KEYS}
+    o, d, z, pe_w, cond, _ = chunk_inputs(field, 256, seed=17, dev=dev)
+    x0, _ = rt._pe(o, d, z, pe_w, nerf_cfg.xyz_L)
+    x0 = x0.contiguous()
+    worst = 0.0
+    for prec in ("bfloat16", "float32"):
+        st = rt.RTStatic(D=nerf_cfg.D, skips=nerf_cfg.skips, xyz_L=nerf_cfg.xyz_L, precision=prec)
+        with torch.no_grad():
+            rgb, dep, w = srk.fused_static_render_fwd(x0, z, cond, trunk, head, nerf_cfg.skips, prec)
+            prgb, pdep, pw = srk.fused_static_render_plain(x0, z, cond, trunk, head, nerf_cfg.skips, prec)
+            serve = rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, {k: heads[k] for k in st.head_keys}, st)
+        torch.cuda.synchronize()
+        for t in (rgb, dep, w):
+            check(bool(torch.isfinite(t).all()), f"kernel 4 output not finite ({prec})")
+        e_plain = {"rgb_map": (rgb - prgb).abs().max().item(), "weights": (w - pw).abs().max().item(),
+                   "depth_rel": ((dep - pdep).abs() / pdep.abs()).max().item()}
+        e_serve = {"rgb_map": (rgb - serve["rgb_map"]).abs().max().item(),
+                   "weights": (w - serve["s_weights"]).abs().max().item(),
+                   "depth_rel": ((dep[:, 0] - serve["s_depth"]).abs() / serve["s_depth"].abs()).max().item()}
+        worst = max(worst, e_plain["rgb_map"], e_plain["weights"])
+        print(f"[17] static render {CHUNK}x256 {prec}: vs plain " + " ".join(f"{k} {v:.3e}" for k, v in e_plain.items())
+              + "; vs the serving mode " + " ".join(f"{k} {v:.3e}" for k, v in e_serve.items())
+              + f" (tol {TOL[prec]:.0e})", flush=True)
+        check(max(e_plain.values()) <= TOL[prec], f"kernel 4 disagrees with its plain version: {e_plain}")
+        check(max(e_serve.values()) <= TOL[prec], f"kernel 4 disagrees with the serving mode: {e_serve}")
+    with torch.no_grad():
+        kern = lambda: srk.fused_static_render_fwd(x0, z, cond, trunk, head, nerf_cfg.skips, "bfloat16")  # noqa: E731
+        plain = lambda: srk.fused_static_render_plain(x0, z, cond, trunk, head, nerf_cfg.skips, "bfloat16")  # noqa: E731
+        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+    kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"[17] static render per {CHUNK}-ray chunk, S=256, bfloat16: kernel {kms:.2f} ms ({k1:.2f}, {k2:.2f}),"
+          f" plain {pms:.2f} ms ({card})", flush=True)
     return worst, kms, pms
 
 
@@ -1020,8 +1241,8 @@ def phase_fast_render(dev, card: str, frame_ms: float, pose: np.ndarray, profile
         t0 = time.perf_counter()
         written = render_video.main(argv)
         torch.cuda.synchronize()
-        launches = {"mlp_fwd": mlp.launches, "render_train_fwd": rt.launches}
-        want = {"mlp_fwd": 2 * n_chunks, "render_train_fwd": 2 * n_chunks * 2}
+        launches = {"trunk": mlp.launches, "render_train_fwd": rt.launches}
+        want = {"trunk": 2 * n_chunks, "render_train_fwd": 2 * n_chunks * 2}
         print(f"[15] render_video --fast: 2 frames in {time.perf_counter() - t0:.2f} s, launches {launches} (expected"
               f" {want}: a probe and 2 passes per chunk)", flush=True)
         check(launches == want, f"fast render launches {launches}, expected {want}")
@@ -1055,7 +1276,129 @@ def phase_fast_render(dev, card: str, frame_ms: float, pose: np.ndarray, profile
         with open(os.path.join(profile_dir, "fast_frame.txt"), "w") as f:
             f.write(f"{card}\n{table}\n")
         print(f"[15] profile of one fast frame -> {profile_dir}", flush=True)
-    return launches["mlp_fwd"], fast_ms
+    return launches["trunk"], fast_ms
+
+
+def write_train_scene(root: str, name: str, seed: int = 0) -> None:
+    """Phase 18's scene: phase 13's Phototourism layout (COLMAP binaries, tsv)
+    with seeded textured PNGs, and seeded DINO maps (DINO_DIM-d, 12 x 16 cells)
+    and DPT inverse-depth maps (.npy, the PNGs' size) as the preprocess CLI
+    writes them."""
+    from upnerf_torch.features.images import npy_name, write_png
+
+    n = TRAIN_IMAGES + 2
+    split = ["test" if i % 5 == 4 else "train" for i in range(n)]
+    write_phototourism_scene(root, name, ring_poses(n), split, TTO_PNG_WH, TTO_FOCAL, seed=seed)
+    rng = np.random.RandomState(seed)
+    w, h = TTO_PNG_WH
+    dino, dpt = os.path.join(root, "DINO", "feature_maps"), os.path.join(root, "DPT")
+    os.makedirs(dino, exist_ok=True)
+    os.makedirs(dpt, exist_ok=True)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(n):
+        fname = f"{i:03d}.png"
+        base = 128 + 80 * np.sin(xx[..., None] / (6.0 + i) + yy[..., None] / 9.0 + np.arange(3) * 2.0)
+        write_png(os.path.join(root, "dense", "images", fname),
+                  np.clip(base + rng.randint(-20, 21, (h, w, 3)), 0, 255).astype(np.uint8))
+        np.save(os.path.join(dino, npy_name(fname)), rng.randn(12, 16, DINO_DIM).astype(np.float32))
+        np.save(os.path.join(dpt, npy_name(fname)), (1.0 + rng.rand(h, w)).astype(np.float32))
+
+
+def phase_train_cli(dev, card: str, fused_step_ms):
+    """Phase 18: `upnerf_torch.cli.train.main` on the card at brandenburg_gate's
+    full width and batch 2048, on write_train_scene's scene, max_steps 12
+    (phase 0 at steps 0-1, 1 at 2-5, 2 at 6-11; a val render and a checkpoint
+    every 6 steps): (a) the default flags, (b) tpu.fused_train false, (c) (a)
+    again with max_steps 14, which resumes from step 12. Checks each run's
+    kernel launches, finite losses and val PSNR, and renders (b)'s last
+    checkpoint through `cli.render_video`. Then a phase-1 step of (b)'s
+    configuration (CUDA events, 3 steps after a warm-up) against phase 9's
+    fused step, and the loop's rays/s in (a)'s configuration against phase 9's
+    phase-0 step. Returns ({kernel: launches in (b)} with kernel 1/2's in (a),
+    the unfused step's ms)."""
+    from upnerf_torch.cli import render_video
+    from upnerf_torch.cli import train as train_cli
+    from upnerf_torch.ops import heads as hk
+    from upnerf_torch.ops import render as srk
+    from upnerf_torch.ops import render_train as rt
+    from upnerf_torch.train.loop import Trainer
+
+    def zero():
+        rt.launches = rt.bwd_launches = rt.frozen_bwd_launches = 0
+        hk.launches = hk.bwd_launches = srk.launches = 0
+
+    def read():
+        return {"render_fwd": rt.launches, "render_bwd": rt.bwd_launches, "heads_fwd": hk.launches,
+                "heads_bwd": hk.bwd_launches, "static": srk.launches}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, name = os.path.join(tmp, "scene"), "scene"
+        write_train_scene(root, name)
+        base = ["--config", "configs/brandenburg_gate.yaml", "--device", "cuda", "root_dir", root, "scene_name", name,
+                "feat_dir", os.path.join(root, "DINO"), "depth_dir", os.path.join(root, "DPT"),
+                "out_dir", os.path.join(tmp, "out"), "max_steps", "12", "val.log_interval", "6",
+                "train.ckpt_interval", "6", "train.log_pose_interval", "6", "val.img_idx", "[0]",
+                "phototourism.use_cache", "False", "seed", "0"]
+        # per run: 12 steps x 2 passes forward and backward; a val render of 1 chunk x 2 passes at steps 6 and 12
+        want = {"a": {"render_fwd": 2 * 12 + 2 * 2, "render_bwd": 2 * 12, "heads_fwd": 0, "heads_bwd": 0, "static": 0},
+                "b": {"render_fwd": 0, "render_bwd": 0, "heads_fwd": 2 * 12, "heads_bwd": 2 * 12, "static": 2 * 2},
+                "c": {"render_fwd": 2 * 2 + 2, "render_bwd": 2 * 2, "heads_fwd": 0, "heads_bwd": 0, "static": 0}}
+        runs = {"a": base + ["exp_name", "fused"], "b": base + ["exp_name", "unfused", "tpu.fused_train", "false"],
+                "c": base + ["exp_name", "fused", "max_steps", "14"]}
+        got, trainers = {}, {}
+        for key, argv in runs.items():
+            zero()
+            t0 = time.perf_counter()
+            trainers[key] = tr = train_cli.main(argv)
+            torch.cuda.synchronize()
+            got[key] = read()
+            with open(os.path.join(tr.save_dir, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            losses = [r["loss"] for r in recs if "loss" in r]
+            psnrs = [r["val/psnr"] for r in recs if "val/psnr" in r]
+            print(f"[18] train ({key}) {' '.join(argv[len(base):])}: {tr.state.step} steps in"
+                  f" {time.perf_counter() - t0:.1f} s, launches {got[key]} (expected {want[key]}); losses {losses},"
+                  f" val psnr {psnrs}; checkpoints {tr.ckpt.all_steps()}", flush=True)
+            check(got[key] == want[key], f"train ({key}): kernel launches {got[key]}, expected {want[key]}")
+            check(bool(losses) and all(np.isfinite(losses)) and bool(psnrs) and all(np.isfinite(psnrs)),
+                  f"train ({key}): losses {losses}, val psnr {psnrs}")
+            check(tr.state.step == (14 if key == "c" else 12), f"train ({key}) ended at step {tr.state.step}")
+        check(trainers["c"].ckpt.all_steps()[-1] == 14, "the resumed run did not checkpoint step 14")
+        # (b)'s last checkpoint renders through render_video
+        ckpt = trainers["b"].ckpt.path(trainers["b"].ckpt.latest_step())
+        zero()
+        written = render_video.main(["--ckpt", ckpt, "--out", os.path.join(tmp, "video"), "--frames", "1",
+                                     "--wh", "64", "48", "--focal", "50", "--device", "cuda"])
+        check(read_png_size(written["frames"][0]) == (64, 48), "render_video of the trained checkpoint")
+        print(f"[18] render_video of (b)'s step-{trainers['b'].state.step} checkpoint: {written['frames'][0]}"
+              f" ({read()['static']} static render launches)", flush=True)
+
+        # a phase-1 step of (b)'s configuration, and the loop's rays/s in (a)'s
+        tb = trainers["b"]
+        tb.state = tb.state._replace(step=4)  # progress 0.33: phase 1
+        state = tb.state
+
+        def one_step():
+            nonlocal state
+            state, _ = tb.step_fn(state._replace(step=4), tb.scene, tb.store, 1)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        unfused_ms = cuda_ms(one_step, 3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"[18] phase-1 step, tpu.fused_train false (kernel 5 + plain compositing): {unfused_ms:.2f} ms,"
+              f" {TRAIN_RAYS / unfused_ms * 1e3:.0f} rays/s, peak {peak:.2f} GiB; phase 9's fused phase-1 step"
+              f" {fused_step_ms[1]:.2f} ms ({card})", flush=True)
+        hp = dict(trainers["a"].hp, exp_name="loop", max_steps=MAX_STEPS)
+        hp.update({"val.log_interval": 10**9, "train.ckpt_interval": 10**9, "train.log_pose_interval": 0})
+        tl = Trainer(hp, device=dev)
+        tl.fit(log_every=4, max_steps=12)
+        with open(os.path.join(tl.save_dir, "metrics.jsonl")) as f:
+            rps = [json.loads(line)["rays_per_sec"] for line in f if "rays_per_sec" in line]
+        print(f"[18] the loop's rays/s in phase 0 (windows of 4 steps, host clock): {[round(r) for r in rps]};"
+              f" phase 9's phase-0 step {fused_step_ms[0]:.2f} ms = {TRAIN_RAYS / fused_step_ms[0] * 1e3:.0f} rays/s"
+              f" ({card})", flush=True)
+    launches = dict(got["b"], render_fwd=got["a"]["render_fwd"], render_bwd=got["a"]["render_bwd"])
+    return launches, unfused_ms
 
 
 def main() -> int:
@@ -1220,6 +1563,12 @@ def main() -> int:
     trunk_launches, _ = phase_fast_render(dev, card, frame_ms, pose_np, args.profile)
     print(f"    phases 12-15: {time.perf_counter() - t_start:.0f} s", flush=True)
 
+    # 16-18. kernel 5 (trunk + heads), kernel 4 (the static render from PE rows), the train CLI
+    heads_fwd_err, heads_bwd_err, heads_t = phase_heads_kernel(field, nerf_cfg, dev, card)
+    static_err, static_ms, static_plain_ms = phase_static_render(field, nerf_cfg, dev, card)
+    train_launches, _ = phase_train_cli(dev, card, step_ms)
+    print(f"    phases 16-18: {time.perf_counter() - t_start:.0f} s", flush=True)
+
     # the least time the card could take for each timed call, from its shapes
     st1 = train_static(nerf_cfg, "bfloat16", 1)
     st2 = train_static(nerf_cfg, "bfloat16", 2)._replace(param_grads=False)
@@ -1230,10 +1579,14 @@ def main() -> int:
         "render_train_bwd_frozen": render_bound(field, st2, CHUNK, 256, "bwd"),
         "flash_attn_fwd": bound(4.0 * DINO_HEADS * DINO_TOKENS**2 * 64, 4 * 4 * DINO_HEADS * DINO_TOKENS * 64,
                                 "bfloat16"),
-        "mlp_fwd": bound(2.0 * trunk_macs(nerf_cfg) * PROBE_ROWS,
+        "trunk_fwd": bound(2.0 * trunk_macs(nerf_cfg) * PROBE_ROWS,
                          4 * PROBE_ROWS * (nerf_cfg.in_channels_xyz + nerf_cfg.W)
                          + 2 * sum(lay.weight.numel() + lay.bias.numel() for lay in field.trunk_layers()), "bfloat16"),
     }
+    heads_rows = TRAIN_RAYS * 256
+    bounds["heads_fwd"] = heads_bound(field, nerf_cfg, heads_rows, True, "fwd")
+    bounds["heads_bwd"] = heads_bound(field, nerf_cfg, heads_rows, True, "bwd")
+    bounds["static_render"] = render_bound(field, st2, CHUNK, 256, "static")
     for name, (ms, by) in bounds.items():
         print(f"    bound of {name}: {ms:.3f} ms ({by})", flush=True)
 
@@ -1291,16 +1644,55 @@ def main() -> int:
             "library_ms": attn_lib_ms,
         },
         {
-            "name": "mlp_fwd",
+            "name": "heads_fwd, trunk-only mode",
             "route": "cuda",
-            "source": "upnerf_torch/csrc/mlp_fwd.cu",
+            "source": "upnerf_torch/csrc/heads_fwd.cu",
             "replaces": "upnerf/ops/pallas_mlp.py:58",
             "launches": trunk_launches,
             "max_abs_err": trunk_err,
             "ms": trunk_ms,
             "plain_ms": trunk_plain_ms,
-            "bound_ms": bounds["mlp_fwd"][0],
-            "bound_by": bounds["mlp_fwd"][1],
+            "bound_ms": bounds["trunk_fwd"][0],
+            "bound_by": bounds["trunk_fwd"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "heads_fwd",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/heads_fwd.cu",
+            "replaces": "upnerf/ops/pallas_heads.py:93",
+            "launches": train_launches["heads_fwd"],
+            "max_abs_err": heads_fwd_err,
+            "ms": heads_t["fwd"][0],
+            "plain_ms": heads_t["fwd"][1],
+            "bound_ms": bounds["heads_fwd"][0],
+            "bound_by": bounds["heads_fwd"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "heads_bwd",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/heads_bwd.cu",
+            "replaces": "upnerf/ops/pallas_heads.py:120",
+            "launches": train_launches["heads_bwd"],
+            "max_abs_err": heads_bwd_err,
+            "ms": heads_t["bwd"][0],
+            "plain_ms": heads_t["bwd"][1],
+            "bound_ms": bounds["heads_bwd"][0],
+            "bound_by": bounds["heads_bwd"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "render_train_fwd, x0 mode (static render)",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/render_train_fwd.cu",
+            "replaces": "upnerf/ops/pallas_render.py:118",
+            "launches": train_launches["static"],
+            "max_abs_err": static_err,
+            "ms": static_ms,
+            "plain_ms": static_plain_ms,
+            "bound_ms": bounds["static_render"][0],
+            "bound_by": bounds["static_render"][1],
             "library_ms": None,
         },
     ]}), flush=True)

@@ -1,7 +1,8 @@
 """The CUDA kernels of the render path against their plain PyTorch versions,
 on the card, at the brandenburg_gate width (D=8, W=256, skip 4, F=384, HH=128,
 L=10): the fused forward render, its backward in the train and frozen-model
-modes, and the trunk kernel of the fast render's probe. Every test here needs
+modes, the trunk kernel of the fast render's probe, the trunk + heads kernels
+(forward and backward) and the static render from PE rows (the x0 mode). Every test here needs
 an NVIDIA card: it carries the `cuda` marker and skips without one.
 
 This file imports no JAX, so it also runs on a GPU machine without it:
@@ -256,3 +257,115 @@ def test_trunk_kernel_matches_plain(cuda_device, precision, N):
     tol = 5e-3 if precision == "bfloat16" else 1e-5
     assert torch.isfinite(got).all() and (got - want).abs().max() <= tol * want.abs().max()
     assert (got - want).pow(2).mean().sqrt() <= 0.25 * (got - want_other).pow(2).mean().sqrt()
+
+
+def heads_inputs(N, device, cand, seed=21, C=16, HC=128):
+    """x0 rows, a per-row candidate embedding and the kernel-5 weights (c1 unsplit)."""
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    def lin(i, o):
+        b = i**-0.5
+        return t(rng.uniform(-b, b, (i, o))), t(rng.uniform(-b, b, o))
+
+    in0 = 3 + 6 * L
+    trunk = [lin(in0 if i == 0 else (in0 + W if i in SKIPS else W), W) for i in range(D)]
+    shapes = {"sigma": (W, 1), "xyzf": (W, W), "feat": (W, F)}
+    if cand:
+        shapes.update(c1=(W + C, HC), c2=(HC, HC), csig=(HC, 1), cfeat=(HC, F))
+    heads = {}
+    for k, (i, o) in shapes.items():
+        heads[k + "_w"], heads[k + "_b"] = lin(i, o)
+    x0 = t(rng.randn(N, in0))
+    return x0, (t(rng.randn(N, C)) if cand else None), trunk, heads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cand", [True, False])
+@pytest.mark.parametrize("N", [4096, 1037])
+def test_heads_kernels_match_plain(cuda_device, precision, cand, N):
+    """Kernel 5 (csrc/heads_fwd.cu, heads_bwd.cu) against its plain versions.
+    Forward, max |d| over max |value|: 1e-5 (f32) / 5e-3 (bf16, as the trunk
+    kernel). Backward: both sides recompute the chain in their own summation
+    order, so a ReLU mask can flip in a row (chip_smoke.py: HEADS_BWD_TOL). At
+    a few thousand rows one flip is a large share of a weight gradient's max
+    (0.059 at 1037 rows, bf16) but not of its RMS, so every backward output is
+    held by RMS: within 2e-2 of its RMS value; and the per-row dx0 and dc_emb
+    are closer to the plain version of the kernel's precision than a quarter
+    of their distance to the other precision's."""
+    from upnerf_torch.ops import heads as hk
+
+    x0, c_emb, trunk, heads = heads_inputs(N, cuda_device, cand)
+    before = (hk.launches, hk.bwd_launches)
+    with torch.no_grad():
+        got = hk.fused_trunk_heads_fwd(x0, c_emb, trunk, heads, SKIPS, precision)
+        want = hk.fused_trunk_heads_plain(x0, c_emb, trunk, heads, SKIPS, precision)
+        g = torch.Generator(device=cuda_device).manual_seed(N)
+        cots = [torch.randn(w.shape, generator=g, device=cuda_device) for w in want]
+        kb = hk.fused_trunk_heads_bwd(x0, c_emb, trunk, heads, SKIPS, precision, cots)
+        pb = hk.fused_trunk_heads_bwd_plain(x0, c_emb, trunk, heads, SKIPS, precision, cots)
+    torch.cuda.synchronize()
+    assert (hk.launches, hk.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert len(got) == (4 if cand else 2)
+    ftol = 5e-3 if precision == "bfloat16" else 1e-5
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and (a - b).abs().max() <= ftol * b.abs().max()
+    other = "float32" if precision == "bfloat16" else "bfloat16"
+    with torch.no_grad():
+        po = hk.fused_trunk_heads_bwd_plain(x0, c_emb, trunk, heads, SKIPS, other, cots)
+    rms = lambda t: t.pow(2).mean().sqrt()  # noqa: E731
+    for i in range(2 if cand else 1):
+        assert rms(kb[i] - pb[i]) <= 0.25 * rms(kb[i] - po[i])
+    pairs = [(kb[0], pb[0])] + ([(kb[1], pb[1])] if cand else [])
+    pairs += [(a, b) for (aw, ab), (bw, bb) in zip(kb[2], pb[2]) for a, b in ((aw, bw), (ab, bb))]
+    pairs += [(kb[3][k], pb[3][k]) for k in pb[3]]
+    for a, b in pairs:
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert rms(a - b) <= 2e-2 * rms(b)
+
+
+@pytest.mark.cuda
+def test_heads_function_launches_both_kernels(cuda_device):
+    """fused_trunk_heads on CUDA tensors: the forward kernel, then the backward
+    kernel from autograd, and gradients for x0, c_emb and every weight."""
+    from upnerf_torch.ops import heads as hk
+
+    x0, c_emb, trunk, heads = heads_inputs(512, cuda_device, True)
+    x0.requires_grad_(True)
+    c_emb.requires_grad_(True)
+    for t_ in [*heads.values()] + [t for wb in trunk for t in wb]:
+        t_.requires_grad_(True)
+    before = (hk.launches, hk.bwd_launches)
+    outs = hk.fused_trunk_heads(x0, c_emb, trunk, heads, SKIPS, "bfloat16")
+    sum(o.sum() for o in outs).backward()
+    torch.cuda.synchronize()
+    assert (hk.launches, hk.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in [x0, c_emb, *heads.values()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_static_render_kernel_matches_plain_and_serving_mode(cuda_device, precision):
+    """Kernel 4 (the x0 mode of csrc/render_train_fwd.cu) against its plain
+    version (cumprod transmittance) and against the serving mode on the same
+    rays (PE built in the kernel), with the serving tolerances above."""
+    from upnerf_torch.ops import render as srk
+
+    o, d, z, pe_w, cond, trunk, heads = make_inputs(296, 128, cuda_device, seed=5)
+    st = rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision)
+    x0, _ = rt._pe(o, d, z, pe_w, L)
+    before = (srk.launches, rt.launches)
+    with torch.no_grad():
+        rgb, dep, w = srk.fused_static_render_fwd(x0, z, cond, trunk, heads, SKIPS, precision)
+        prgb, pdep, pw = srk.fused_static_render_plain(x0, z, cond, trunk, heads, SKIPS, precision)
+        serve = rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, heads, st)
+    torch.cuda.synchronize()
+    assert (srk.launches, rt.launches) == (before[0] + 1, before[1] + 1)
+    tol = TOL[precision]
+    for a, b in ((rgb, prgb), (w, pw), (rgb, serve["rgb_map"]), (w, serve["s_weights"])):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+    torch.testing.assert_close(dep, pdep, rtol=tol, atol=0)
+    torch.testing.assert_close(dep[:, 0], serve["s_depth"], rtol=tol, atol=0)

@@ -21,27 +21,12 @@ from __future__ import annotations
 
 import argparse
 import os
-import struct
-import zlib
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """(H, W, 3) uint8 -> 8-bit RGB PNG (filter 0 on every row)."""
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
+from upnerf_torch.features.images import write_png
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:

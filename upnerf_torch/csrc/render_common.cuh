@@ -22,7 +22,10 @@ constexpr int W = 256, F = 384, HH = 128, HC = 128;
 
 // Mode bits of the `flags` argument (upnerf_torch/ops/render_train.py:_flags).
 // NO_PARAM_GRADS: the backward's frozen-model mode (RTStatic.param_grads = False).
-enum Flag { BF16 = 1, USE_RGB = 2, OUT_FEAT = 4, USE_CAND = 8, SAVE_RES = 16, STORE_F32 = 32, NO_PARAM_GRADS = 64 };
+// X0_IN: the forward reads pre-built PE rows x0 instead of building them from the rays.
+enum Flag {
+  BF16 = 1, USE_RGB = 2, OUT_FEAT = 4, USE_CAND = 8, SAVE_RES = 16, STORE_F32 = 32, NO_PARAM_GRADS = 64, X0_IN = 128
+};
 enum Status { OK = 0, BAD_SHAPE = -1, BAD_SMEM = -2, BAD_MODE = -3 };
 
 __device__ __forceinline__ float softplus(float x) { return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))); }

@@ -2,7 +2,11 @@
 //
 // Replaces the TPU kernel upnerf/ops/pallas_render_train.py:_fwd_kernel (reached
 // through fused_render_train_rays -> _fwd_impl -> pl.pallas_call), rays frontend
-// (xyz_L > 0). Per ray r and sample s:
+// (xyz_L > 0), and, as its x0 mode (flag X0_IN), the TPU kernel
+// upnerf/ops/pallas_render.py:_fwd_kernel (fused_static_render -> _render_impl ->
+// pl.pallas_call): the phase-2 static render from pre-built PE rows x0 (R*S, 3 + 6L),
+// which the kernel reads in place of building them; everything after the frontend is
+// the serving mode (USE_RGB alone). Per ray r and sample s:
 //
 //   xyz  = o + d * z_s
 //   x0   = [xyz, sin(2^l pi x_c) w_l .. , cos(2^l pi x_c) w_l ..]   (per coordinate c)
@@ -99,6 +103,7 @@ struct Rays {
   const float* pe_w;       // (L,)
   const float* cond;       // (R, HH)
   const float* cemb;       // (R, C)
+  const float* x0;         // (R*S, in0) PE rows (X0_IN)
   float* s_weights;        // (R, S)
   float* s_depth;          // (R,)
   float* rgb_map;          // (R, 3)
@@ -300,10 +305,11 @@ __device__ __forceinline__ void composite(const Rays& a, int ray, const RaySmem&
 // h1's pre-activation rp = c_emb Wc1c + bc1 (operands rounded to bf16 in bf16 mode).
 __device__ __forceinline__ void load_ray(const Net& net, const Rays& a, int ray, float (&o)[3], float (&d)[3],
                                          const RaySmem& m) {
+  const bool x0_in = a.flags & X0_IN;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    o[c] = __ldg(a.o + ray * 3 + c);
-    d[c] = __ldg(a.d + ray * 3 + c);
+    o[c] = x0_in ? 0.f : __ldg(a.o + ray * 3 + c);
+    d[c] = x0_in ? 0.f : __ldg(a.d + ray * 3 + c);
   }
   for (int s = threadIdx.x; s < a.S; s += blockDim.x) m.zs[s] = __ldg(a.z + (size_t)ray * a.S + s);
   for (int j = threadIdx.x; j < F; j += blockDim.x) m.fm[j] = 0.f;
@@ -321,6 +327,15 @@ __device__ __forceinline__ void load_ray(const Net& net, const Rays& a, int ray,
     }
     m.rp[j] = acc + __ldg(net.c1_b + j);
   }
+}
+
+// Column j of sample s's x0 (s clamped to the ray's last sample): read from the PE rows
+// in the x0 mode, built from the ray otherwise.
+__device__ __forceinline__ float x0_value(const Rays& a, int ray, const float (&o)[3], const float (&d)[3],
+                                          const RaySmem& m, int s, int j) {
+  s = min(s, a.S - 1);
+  if (a.flags & X0_IN) return __ldg(a.x0 + ((size_t)ray * a.S + s) * a.in0 + j);
+  return pe_value(o, d, m.zs[s], j, a.L, a.pe_w);
 }
 
 // End of the ray: residual sigmas, the composites and the feature map.
@@ -424,7 +439,7 @@ __global__ void __launch_bounds__(THREADS, 1) f32_kernel(const Net net, const Ra
     // x0 rows of this warp; rows past the ray's last sample repeat it and are dropped.
     for (int idx = lane; idx < RPW * a.in0; idx += 32) {
       const int r = idx / a.in0, j = idx - r * a.in0;
-      xb[(r0 + r) * ldx + j] = pe_value(o, d, m.zs[min(s0 + r0 + r, S - 1)], j, a.L, a.pe_w);
+      xb[(r0 + r) * ldx + j] = x0_value(a, ray, o, d, m, s0 + r0 + r, j);
     }
     __syncwarp();
     // Trunk: ping-pong so that the last layer lands in X. Layer 0 reads x0, a skip
@@ -566,7 +581,7 @@ __global__ void __launch_bounds__(THREADS, 2) bf16_kernel(const Net net, const R
     // x0 (64 rows x K0P columns, zero past in0); rows past the last sample repeat it.
     for (int idx = tid; idx < TILE * K0P; idx += THREADS) {
       const int r = idx / K0P, j = idx - r * K0P;
-      const float v = j < a.in0 ? pe_value(o, d, m.zs[min(s0 + r, S - 1)], j, a.L, a.pe_w) : 0.f;
+      const float v = j < a.in0 ? x0_value(a, ray, o, d, m, s0 + r, j) : 0.f;
       xb[r * LDX0 + j] = __float2bfloat16_rn(v);
     }
     __syncthreads();
@@ -638,7 +653,8 @@ int launch(Kernel kernel, const Net& net, const Rays& a, long long smem_bytes, c
 extern "C" {
 
 // Returns 0, a cudaError_t (> 0) from the launch, or a negative Status.
-// ins: rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb (f32). heads: the 18 head
+// ins: rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, x0 (f32; rays_o, rays_d and
+// pe_w null in the x0 mode, x0 null otherwise). heads: the 18 head
 // tensors in upnerf_torch/ops/render_train.py:HEAD_KEYS order (null where the mode
 // reads none). outs: s_weights, s_depth, rgb_map, feat_map, j_weights, c_depth,
 // t_weight, then the residuals sig_s, sig_c, rgb, chain (null where unused). Weight
@@ -653,6 +669,7 @@ int upnerf_render_train_fwd(const void* const* ins, const void* const* trunk_w, 
   const int in0 = 3 + 6 * L;
   if (R <= 0 || S <= 0 || L <= 0 || in0 > MAX_IN0 || D <= 0 || D > MAX_D || C < 0 || C > MAX_C) return BAD_SHAPE;
   if (!(flags & (USE_RGB | OUT_FEAT)) || ((flags & USE_CAND) && C == 0)) return BAD_MODE;
+  if ((flags & X0_IN) && (!(flags & USE_RGB) || (flags & (OUT_FEAT | USE_CAND | SAVE_RES)) || !ins[6])) return BAD_MODE;
   Net net;
   for (int i = 0; i < D; ++i) {
     net.tw[i] = trunk_w[i];
@@ -686,6 +703,7 @@ int upnerf_render_train_fwd(const void* const* ins, const void* const* trunk_w, 
   a.pe_w = static_cast<const float*>(ins[3]);
   a.cond = static_cast<const float*>(ins[4]);
   a.cemb = static_cast<const float*>(ins[5]);
+  a.x0 = static_cast<const float*>(ins[6]);
   a.s_weights = static_cast<float*>(outs[0]);
   a.s_depth = static_cast<float*>(outs[1]);
   a.rgb_map = static_cast<float*>(outs[2]);
@@ -719,7 +737,9 @@ const char* upnerf_error_string(int code) {
     case OK: return "ok";
     case BAD_SHAPE: return "unsupported shape (W=256, F=384, HH=128, HC=128; 3 + 6L <= 64; D <= 16; C <= 32)";
     case BAD_SMEM: return "too many samples per ray for shared memory";
-    case BAD_MODE: return "unsupported mode (needs use_rgb or out_feat; the candidate branch needs C > 0)";
+    case BAD_MODE:
+      return "unsupported mode (needs use_rgb or out_feat; the candidate branch needs C > 0; the x0 mode is the"
+             " serving mode)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -11,8 +11,8 @@ far is 5, and the camera-noise modes:
   noise s>0  : the GT poses composed with persisted random se(3) noise of scale s
 
 The tsv is read with `csv` and the images' sizes from their headers, so the
-loader needs neither pandas nor PIL. The per-ray arrays of training
-(`build_arrays`, the ray cache) are not ported yet.
+loader needs neither pandas nor PIL. `build_arrays` builds the per-image
+tables and the compact per-ray store of the training images.
 """
 
 from __future__ import annotations
@@ -21,12 +21,12 @@ import csv
 import dataclasses
 import json
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from upnerf_torch.features.images import image_wh
+from upnerf_torch.features.images import image_wh, npy_name
 from upnerf_torch.geometry import se3 as se3_ops
 
 from . import colmap
@@ -223,3 +223,67 @@ def load_custom(root_dir: str, img_downscale: int = 1, camera_noise: Optional[fl
     if perturb:
         _apply_camera_noise(meta)
     return meta
+
+
+def build_arrays(
+    meta: SceneMeta,
+    feat_dir: Optional[str],
+    depth_dir: Optional[str],
+    near: float,
+    far: float,
+) -> Tuple[Dict[str, Optional[np.ndarray]], Dict[str, np.ndarray]]:
+    """The per-image scene tables and the compact per-ray store of the train
+    images (upnerf/data/scene.py:build_arrays).
+
+    Returns (scene_np, store_np):
+      scene_np: Ks (N,3,3), poses (N,3,4), near_far (N,2), wh (N,2),
+                feat_maps (N,h,w,C) | None, ray_offsets (N+1,)
+      store_np: px/py (uint16), img_idx (int32), rgb (N_rays,3 uint8),
+                inv_depth (float16)
+    """
+    from .images import load_feat_map, load_rgb_u8, normalize_inv_depth, resize_bilinear
+
+    ids = meta.img_ids_train
+    n = len(ids)
+    Ks = np.stack([meta.Ks[i] for i in ids]).astype(np.float32)
+    poses = np.stack([np.asarray(meta.poses_dict[i], np.float32) for i in ids])
+    if meta.camera_noise is not None or not meta.nears:
+        near_far = np.tile(np.array([[near, far]], np.float32), (n, 1))
+    else:  # per-image COLMAP bounds (cache-building mode)
+        near_far = np.stack([[meta.nears[i], meta.fars[i]] for i in ids]).astype(np.float32)
+
+    px_l, py_l, idx_l, rgb_l, invd_l, wh_l, feat_l = [], [], [], [], [], [], []
+    offsets = [0]
+    for k, id_ in enumerate(ids):
+        img = load_rgb_u8(os.path.join(meta.image_dir, meta.image_paths[id_]), meta.scale)
+        h, w = img.shape[:2]
+        wh_l.append([w, h])
+        jj, ii = np.meshgrid(np.arange(h, dtype=np.uint16), np.arange(w, dtype=np.uint16), indexing="ij")
+        px_l.append(ii.ravel())
+        py_l.append(jj.ravel())
+        idx_l.append(np.full(h * w, k, np.int32))
+        rgb_l.append(img.reshape(-1, 3))
+        offsets.append(offsets[-1] + h * w)
+        name = npy_name(meta.image_paths[id_])
+        if feat_dir is not None:
+            feat_l.append(load_feat_map(os.path.join(feat_dir, "feature_maps", name)))
+        if depth_dir is not None:
+            invd = normalize_inv_depth(np.load(os.path.join(depth_dir, name)), near, far)
+            invd_l.append(resize_bilinear(invd, (w, h)).reshape(-1).astype(np.float16))
+
+    scene_np = {
+        "Ks": Ks,
+        "poses": poses,
+        "near_far": near_far,
+        "wh": np.asarray(wh_l, np.int64),
+        "feat_maps": np.stack(feat_l) if feat_l else None,
+        "ray_offsets": np.asarray(offsets, np.int64),
+    }
+    store_np = {
+        "px": np.concatenate(px_l),
+        "py": np.concatenate(py_l),
+        "img_idx": np.concatenate(idx_l),
+        "rgb": np.concatenate(rgb_l),
+        "inv_depth": np.concatenate(invd_l) if invd_l else np.zeros(offsets[-1], np.float16),
+    }
+    return scene_np, store_np

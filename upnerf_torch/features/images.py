@@ -117,6 +117,21 @@ def read_png_rgb(path: str) -> np.ndarray:
     return np.ascontiguousarray(pixels[..., :3])
 
 
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """(H, W, 3) uint8 -> 8-bit RGB PNG (filter 0 on every row)."""
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
+
+
 def _read_with_pil(path: str, why: str) -> np.ndarray:
     try:
         from PIL import Image

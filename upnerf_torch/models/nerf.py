@@ -14,12 +14,16 @@ Architecture:
   candidate: enc = 2 x (Linear -> ReLU) on [xyz_final, candidate embedding];
             c_sigma = Softplus(Linear); c_feat = Linear (phases 0 and 1).
 
-`NeRFField.forward` is the plain per-sample field (apply_nerf). The render
-path runs the same math through the fused kernel of
-upnerf_torch.ops.render_train; this forward is what the kernel-free tests
-hold it against. Its sigma-only mode (the probe of the fast serving render)
-runs the trunk through upnerf_torch.ops.mlp.fused_trunk, the CUDA trunk
-kernel on the card, as the JAX package's fused_trunk path does.
+`NeRFField.forward` is the per-sample field (apply_nerf). With
+`NeRFConfig.fused_trunk` (on unless the config turns it off, as the JAX
+package turns it on for its accelerator) the trunk and the sigma / xyzf /
+feat / candidate heads run through upnerf_torch.ops.heads.fused_trunk_heads
+(the CUDA kernels on the card, forward and backward), without it through
+its plain version fused_trunk_heads_plain (autograd); the rgb head in
+PyTorch. The unfused render path (`tpu.fused_train` off) trains through it.
+Its sigma-only mode (the probe of the fast serving render) runs the trunk
+through upnerf_torch.ops.mlp.fused_trunk, the CUDA trunk kernel on the card.
+The fused render path runs the same math through upnerf_torch.ops.render_train.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ import torch
 import torch.nn.functional as F_
 from torch import nn
 
+from upnerf_torch.ops.heads import fused_trunk_heads, fused_trunk_heads_plain
 from upnerf_torch.ops.linear import dense, init_linear_
-from upnerf_torch.ops.mlp import fused_trunk, fused_trunk_plain
+from upnerf_torch.ops.mlp import fused_trunk
 from upnerf_torch.ops.render_train import softplus
 
 
@@ -49,6 +54,8 @@ class NeRFConfig(NamedTuple):
     appearance_dim: int = 48
     candidate_dim: int = 16
     c2f: Optional[Tuple[float, float]] = (0.1, 0.5)
+    # Trunk + heads through ops.heads.fused_trunk_heads (tpu.fused_trunk; omitted = on).
+    fused_trunk: bool = True
 
     @property
     def in_channels_xyz(self) -> int:
@@ -80,6 +87,7 @@ class NeRFConfig(NamedTuple):
             appearance_dim=hp["nerf.appearance_dim"],
             candidate_dim=hp["nerf.candidate_dim"],
             c2f=tuple(c2f) if c2f is not None else None,
+            fused_trunk=bool(hp.get("tpu.fused_trunk", True)),
         )
 
 
@@ -159,6 +167,24 @@ class NeRFField(nn.Module):
     def trunk_layers(self):
         return [getattr(self, f"xyz_encoding_{i + 1}")[0] for i in range(self.cfg.D)]
 
+    def trunk_heads_weights(self, use_cand: bool):
+        """(trunk, heads) in the interface of ops.heads (the JAX kernel's): (in,
+        out) matrices; HEAD_KEYS, and CAND_KEYS with c1 unsplit (W + C, HC)."""
+        trunk = [(lay.weight.t(), lay.bias) for lay in self.trunk_layers()]
+        heads = {
+            "sigma_w": self.share_sigma[0].weight.t(), "sigma_b": self.share_sigma[0].bias,
+            "xyzf_w": self.xyz_encoding_final.weight.t(), "xyzf_b": self.xyz_encoding_final.bias,
+            "feat_w": self.feat_share_layer.weight.t(), "feat_b": self.feat_share_layer.bias,
+        }
+        if use_cand:
+            c1, c2 = self.candidate_encoding[0], self.candidate_encoding[2]
+            heads.update(
+                c1_w=c1.weight.t(), c1_b=c1.bias, c2_w=c2.weight.t(), c2_b=c2.bias,
+                csig_w=self.candidate_sigma[0].weight.t(), csig_b=self.candidate_sigma[0].bias,
+                cfeat_w=self.feat_candidate_layer.weight.t(), cfeat_b=self.feat_candidate_layer.bias,
+            )
+        return trunk, heads
+
     def forward(
         self,
         xyz: torch.Tensor,  # (..., 3)
@@ -181,30 +207,29 @@ class NeRFField(nn.Module):
         if not cfg.encode_feat:
             raise NotImplementedError("the feature-less field is not ported")
         x0 = positional_encoding(xyz, cfg.xyz_L, band_weights(cfg, cfg.xyz_L, progress, xyz.device))
-        lin = self.share_sigma[0]
-        trunk = [(layer.weight.t(), layer.bias) for layer in self.trunk_layers()]
         if sigma_only:
+            lin = self.share_sigma[0]
+            trunk = [(layer.weight.t(), layer.bias) for layer in self.trunk_layers()]
             h = fused_trunk(x0.reshape(-1, x0.shape[-1]), trunk, cfg.skips, precision)
             h = h.reshape(*x0.shape[:-1], cfg.W)
             return {"s_sigma": softplus(dense(h, lin.weight, lin.bias, precision))[..., 0]}
-        h = fused_trunk_plain(x0, trunk, cfg.skips, precision)
-        out = {"s_sigma": softplus(dense(h, lin.weight, lin.bias, precision))[..., 0]}
-        xyz_final = dense(h, self.xyz_encoding_final.weight, self.xyz_encoding_final.bias, precision)
-        feat = dense(xyz_final, self.feat_share_layer.weight, self.feat_share_layer.bias, precision)
-        out["s_feat"] = feat
         per_ray = dirs.dim() == xyz.dim() - 1
+        lead = x0.shape[:-1]
 
         def widen(p):
-            return p[..., None, :].expand(*feat.shape[:-1], p.shape[-1]) if per_ray else p
+            return p[..., None, :].expand(*lead, p.shape[-1]) if per_ray else p
 
-        if cfg.encode_candidate and encode_candidate and phase < 2:
-            c1, c2 = self.candidate_encoding[0], self.candidate_encoding[2]
-            hc = F_.relu(dense(torch.cat([xyz_final, widen(c_emb)], -1), c1.weight, c1.bias, precision))
-            hc = F_.relu(dense(hc, c2.weight, c2.bias, precision))
-            cs = self.candidate_sigma[0]
-            out["c_sigma"] = softplus(dense(hc, cs.weight, cs.bias, precision))[..., 0]
-            cf = self.feat_candidate_layer
-            out["c_feat"] = dense(hc, cf.weight, cf.bias, precision)
+        use_cand = cfg.encode_candidate and encode_candidate and phase < 2
+        # the candidate embedding goes in per sample, as the JAX package broadcasts it
+        c_flat = widen(c_emb).reshape(-1, c_emb.shape[-1]) if use_cand else None
+        trunk_heads = fused_trunk_heads if cfg.fused_trunk else fused_trunk_heads_plain
+        outs = trunk_heads(x0.reshape(-1, x0.shape[-1]), c_flat, *self.trunk_heads_weights(use_cand), cfg.skips,
+                           precision)
+        out = {"s_sigma": outs[0].reshape(lead), "s_feat": outs[1].reshape(*lead, cfg.feat_dim)}
+        if use_cand:
+            out["c_sigma"] = outs[2].reshape(lead)
+            out["c_feat"] = outs[3].reshape(*lead, cfg.feat_dim)
+        feat = out["s_feat"]
         if phase > 0:
             dir_pe = positional_encoding(dirs, cfg.dir_L, band_weights(cfg, cfg.dir_L, progress, dirs.device))
             parts = [dir_pe] + ([a_emb] if cfg.encode_appearance else [])

@@ -6,7 +6,8 @@ shared library with a plain C interface, for sm_90a (Hopper), into
 once, one nvcc process each. A library is loaded with ctypes. Its file name
 carries a hash of its source, the shared headers and the flags, so an edited
 source is rebuilt and a stale library is never loaded. Building takes
-seconds: no source includes PyTorch's headers.
+seconds: no source includes PyTorch's headers. `VARIANTS` are extra builds of
+a source with other macros, for timing only; no path of the port loads them.
 """
 
 from __future__ import annotations
@@ -29,7 +30,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd", "mlp_fwd")
+KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd", "heads_fwd", "heads_bwd")
+# name: (source, nvcc flags). heads_bwd without its weight-gradient atomic adds
+# (walk_common.cuh:skip_dw_add): chip_smoke.py phase 16 times the adds' share.
+VARIANTS = {"heads_bwd_no_dw_adds": ("heads_bwd", ("-DUPNERF_SKIP_DW_ADDS",))}
 
 
 class BuildInfo(NamedTuple):
@@ -49,9 +53,15 @@ def _nvcc() -> str:
     return path
 
 
+def _source(name: str):
+    """(source name, extra nvcc flags) of a kernel or variant."""
+    return VARIANTS.get(name, (name, ()))
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC_DIR / f"{name}.cu"] + sorted(CSRC_DIR.glob("*.cuh")):
+    source, flags = _source(name)
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
+    for src in [CSRC_DIR / f"{source}.cu"] + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
@@ -65,13 +75,14 @@ def build() -> Dict[str, BuildInfo]:
     out: Dict[str, BuildInfo] = {}
     procs = {}
     t0 = time.perf_counter()
-    for name in KERNELS:
+    for name in KERNELS + tuple(VARIANTS):
         target = _target(name)
         if target.is_file():
             out[name] = BuildInfo(target, 0.0, "")
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        source, flags = _source(name)
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC_DIR / f"{source}.cu")]
         procs[name] = (target, tmp, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                                           text=True))
     failed = []
@@ -95,8 +106,12 @@ _ARGTYPES = {
                                 "p"],
     # q, k, v, o, G, N, hd, scale, use_bf16, stream
     "upnerf_flash_attn_fwd": ["p", "p", "p", "p", "i", "i", "i", "f", "i", "p"],
-    # x, W per layer, b per layer, D, skip mask, out, N, in0, use_bf16, stream
-    "upnerf_mlp_fwd": ["p", "pp", "pp", "i", "u", "p", "i", "i", "i", "p"],
+    # x0, c_emb, trunk W, trunk b, D, skip mask, heads (null: the trunk alone), outs, N, in0, C, use_bf16, stream
+    "upnerf_heads_fwd": ["p", "p", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "p"],
+    # x0, c_emb, cots, trunk W, trunk b, trunk W^T, D, skip mask, weights, biases, outs, dW trunk, db trunk,
+    # d heads, scratch, N, in0, C, use_bf16, grid, stream
+    "upnerf_heads_bwd": ["p", "p", "pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "pp", "p", "i", "i",
+                         "i", "i", "i", "p"],
 }
 
 
@@ -108,8 +123,9 @@ def library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[name].path))
     kinds = {"p": ctypes.c_void_p, "pp": ctypes.POINTER(ctypes.c_void_p), "i": ctypes.c_int, "u": ctypes.c_uint,
              "f": ctypes.c_float}
-    fn = getattr(lib, f"upnerf_{name}")
-    fn.argtypes = [kinds[k] for k in _ARGTYPES[f"upnerf_{name}"]]
+    fn_name = f"upnerf_{_source(name)[0]}"
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [kinds[k] for k in _ARGTYPES[fn_name]]
     fn.restype = ctypes.c_int
     lib.upnerf_error_string.argtypes = [ctypes.c_int]
     lib.upnerf_error_string.restype = ctypes.c_char_p

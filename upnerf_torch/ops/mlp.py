@@ -5,34 +5,57 @@ D dense + ReLU layers over the positional encoding x0, with the input
 sigma-only probe of the fast serving render runs it
 (NeRFField.forward(sigma_only=True), upnerf_torch/render/fast.py).
 
-- `fused_trunk_plain` is the plain PyTorch version. In bfloat16 mode every
-  product rounds h and W to bf16 and sums in f32, and the bias is added in
-  f32, as the TPU kernel's `_dot` does.
+- `trunk_chain` is the plain PyTorch trunk, every layer's input and output;
+  `fused_trunk_plain` its last activation. In bfloat16 mode every product
+  rounds h and W to bf16 and sums in f32, and the bias is added in f32, as the
+  TPU kernel's `_dot` does. The plain versions of the trunk + heads kernels
+  (ops/heads.py) and of the static render (ops/render.py) start from it.
 - `fused_trunk` is the wrapper: on a CPU tensor it runs the plain version; on
-  a CUDA tensor it launches the hand-written kernel (`csrc/mlp_fwd.cu`) or
-  raises. It counts its launches in `launches`. Its bf16 weights take the
-  fused render forward's trunk layout (render_train.pack_trunk_weight).
+  a CUDA tensor it launches the trunk-only mode of the trunk + heads forward
+  kernel (`csrc/heads_fwd.cu`, no head pointers) or raises. It counts its
+  launches in `launches`.
+- `_padded_trunk` / `_layout` give the trunk weights in the layout of the
+  heads kernels (forward and backward).
 
 Weights come in the JAX kernel's interface: `trunk` is a sequence of
 (W (in, out), b (out,)) pairs. The kernel computes no gradient (the JAX
 kernel's backward, pallas_mlp.py:193-244, is not ported: no path of the port
-differentiates the trunk outside the fused render).
+differentiates the trunk alone).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
 from upnerf_torch.ops.linear import canonical_precision, matmul
-from upnerf_torch.ops.render_train import X0_PAD, _ptrs, _raise_on, pack_trunk_weight
+from upnerf_torch.ops.render_train import X0_PAD, _pack_fragments, _pad_x0_rows, _ptrs, _raise_on
 
 KERNEL_W = 256  # the trunk width the CUDA kernel takes
 MAX_D = 16
 
 # Kernel launches made in this process by fused_trunk.
 launches = 0
+
+
+def trunk_chain(
+    x: torch.Tensor,  # (N, in0) PE input
+    trunk: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    skips: Tuple[int, ...],
+    precision: str = "float32",
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """(layer inputs, layer activations) of the trunk, plain PyTorch."""
+    prec = canonical_precision(precision)
+    inputs, acts = [], []
+    h = x
+    for i, (w, b) in enumerate(trunk):
+        if i in skips and i > 0:
+            h = torch.cat([x, h], dim=-1)
+        inputs.append(h)
+        h = torch.relu(matmul(h, w, prec) + b)
+        acts.append(h)
+    return inputs, acts
 
 
 def fused_trunk_plain(
@@ -42,13 +65,7 @@ def fused_trunk_plain(
     precision: str = "float32",
 ) -> torch.Tensor:
     """(N, W) last trunk activation, plain PyTorch."""
-    prec = canonical_precision(precision)
-    h = x
-    for i, (w, b) in enumerate(trunk):
-        if i in skips and i > 0:
-            h = torch.cat([x, h], dim=-1)
-        h = torch.relu(matmul(h, w, prec) + b)
-    return h
+    return trunk_chain(x, trunk, skips, precision)[1][-1]
 
 
 def _check_args(x: torch.Tensor, trunk, skips) -> None:
@@ -63,6 +80,16 @@ def _check_args(x: torch.Tensor, trunk, skips) -> None:
             if t.device != x.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
                 raise ValueError(f"{name}: {t.device} {t.dtype} {tuple(t.shape)}, the kernel takes"
                                  f" {x.device} torch.float32 {shape} (W = {KERNEL_W})")
+
+
+def _padded_trunk(trunk, skips, in0):
+    """Each layer's (in, W) weight with the x0 rows padded to X0_PAD (layer 0, skips)."""
+    return [_pad_x0_rows(w, in0) if i == 0 or i in skips else w for i, (w, _) in enumerate(trunk)]
+
+
+def _layout(w: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """A product's (K, N) weight: bf16 packed in fragment order, or f32 row-major."""
+    return _pack_fragments(w) if bf16 else w.contiguous()
 
 
 def fused_trunk(
@@ -87,18 +114,16 @@ def fused_trunk(
         raise RuntimeError("the CUDA trunk kernel is forward-only: run it under torch.no_grad()")
     N, in0 = x.shape
     bf16 = canonical_precision(precision) == "bfloat16"
-    ws, bs = [], []
-    for i, (w, b) in enumerate(trunk):
-        ws.append(pack_trunk_weight(w, in0 if i == 0 or i in skips else None) if bf16 else w.contiguous())
-        bs.append(b.contiguous())
+    ws = [_layout(w, bf16) for w in _padded_trunk(trunk, skips, in0)]
+    bs = [b.contiguous() for _, b in trunk]
     x = x.contiguous()
     out = torch.empty((N, KERNEL_W), dtype=torch.float32, device=x.device)
-    lib = _build.library("mlp_fwd")
+    lib = _build.library("heads_fwd")
     skip_mask = sum(1 << i for i in skips if 0 < i < len(trunk))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        code = lib.upnerf_mlp_fwd(x.data_ptr(), _ptrs(ws), _ptrs(bs), len(trunk), skip_mask, out.data_ptr(), N, in0,
-                                  int(bf16), stream)
-    _raise_on(code, "mlp_fwd", lib)
+        code = lib.upnerf_heads_fwd(x.data_ptr(), None, _ptrs(ws), _ptrs(bs), len(trunk), skip_mask, None,
+                                    _ptrs([out]), N, in0, 0, int(bf16), stream)
+    _raise_on(code, "heads_fwd (trunk only)", lib)
     launches += 1
     return out

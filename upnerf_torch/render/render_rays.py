@@ -2,21 +2,33 @@
 
 The schedule phase is an argument: 0 (feature/candidate), 1 (blended), 2
 (rgb). Each pass (coarse at N_samples, fine at N_samples + N_importance
-merged samples) goes through the fused render of upnerf_torch.ops.render_train,
-as the JAX package's `_fused_train_path` does, and emits the same result keys:
+merged samples) takes the JAX package's route for its configuration
+(`_inference`, the same conditions, R % 8 == 0 included):
+- a deterministic phase-2 pass without the candidate branch, with
+  fused_render or fused_train on: the fused render of
+  upnerf_torch.ops.render_train in its serving mode when fused_train is on,
+  else the static render of upnerf_torch.ops.render (kernel 4, from the PE
+  rows);
+- otherwise, with fused_train on: the fused render of ops.render_train in the
+  phase's mode (forward and backward kernels);
+- otherwise the field, NeRFField.forward (trunk and heads through
+  ops.heads.fused_trunk_heads with nerf's fused_trunk on), and the
+  compositing of volume.py; `remat` wraps the field in torch.utils.checkpoint.
+Each emits the same result keys:
 - phases 0/1 with the candidate branch: c_weights_* (the joint weights),
   c_depth_*, t_weight_*, feat_*; without it s_weights_*, feat_*;
 - phases 1/2: s_weights_*, s_rgb_*;
 - always s_depth_*.
 
-The per-ray rgb conditioning
+On the fused paths the per-ray rgb conditioning
 
     ray_cond = PE(dir) @ W_rgb1[F:F+27] + b_rgb1 + a_emb @ W_rgb1[F+27:]
 
-is a small product outside the kernel; the kernel builds xyz, its PE, the
-trunk, the heads and the compositing. With grad mode on and a trainable input
-the pass goes through the autograd.Function `RenderTrainRays` (forward and
-backward kernels); otherwise through the forward alone.
+is a small product outside the kernel; the kernel builds (or reads) the PE,
+the trunk, the heads and the compositing. With grad mode on and a trainable
+input the fused train pass goes through the autograd.Function
+`RenderTrainRays` (forward and backward kernels); otherwise through the
+forward alone.
 
 Gradient stops, as in the JAX package: directions are detached as MLP
 inputs, z is detached, the importance weights are detached. Fine samples in
@@ -28,8 +40,10 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from upnerf_torch.models.nerf import NeRFField, band_weights, positional_encoding
+from upnerf_torch.ops import render as static_render
 from upnerf_torch.ops import render_train as rt
 from upnerf_torch.ops.linear import canonical_precision
 
@@ -38,7 +52,9 @@ from .sampling import sample_pdf, stratified_z_vals
 
 
 class RenderConfig(NamedTuple):
-    """Static rendering hyperparameters."""
+    """Static rendering hyperparameters. The tpu.fused_* switches pick the
+    route of `_inference`; an omitted one is on, as the JAX package turns them
+    on for its accelerator."""
 
     N_samples: int = 128
     N_importance: int = 128
@@ -49,17 +65,29 @@ class RenderConfig(NamedTuple):
     # False: the fused backward computes no weight gradient (the frozen model of
     # test-time optimization); set by the caller, never read from hparams.
     param_grads: bool = True
+    fused_render: bool = True  # deterministic phase-2 passes through a fused forward
+    fused_train: bool = True  # every pass through ops.render_train, forward and backward
+    save_chain: bool = True  # the fused backward reads the forward's walk chain
+    remat: bool = False  # recompute the unfused field in the backward (torch.utils.checkpoint)
 
     @classmethod
     def from_hparams(cls, hp: Dict[str, Any]) -> "RenderConfig":
-        return cls(
+        cfg = cls(
             N_samples=hp["nerf.N_samples"],
             N_importance=hp["nerf.N_importance"],
             use_disp=hp["nerf.use_disp"],
             perturb=hp["nerf.perturb"],
             precision=canonical_precision(hp.get("tpu.matmul_precision", "float32")),
             store_f32=hp.get("tpu.store_f32", True),
+            fused_render=bool(hp.get("tpu.fused_render", True)),
+            fused_train=bool(hp.get("tpu.fused_train", True)),
+            save_chain=bool(hp.get("tpu.save_chain", True)),
+            remat=bool(hp.get("tpu.remat", False)),
         )
+        if cfg.fused_train and not cfg.save_chain:
+            raise NotImplementedError("tpu.save_chain false (the fused backward's recompute mode) is not ported"
+                                      " (ROADMAP.md, kernel 2)")
+        return cfg
 
 
 def field_weights(field: NeRFField):
@@ -108,30 +136,15 @@ def ray_conditioning(
     return ray_cond.contiguous()
 
 
-def _inference(
-    results: Dict[str, torch.Tensor],
-    field: NeRFField,
-    typ: str,
-    rays_o: torch.Tensor,  # (R, 3)
-    rays_d: torch.Tensor,  # (R, 3)
-    z_vals: torch.Tensor,  # (R, S)
-    a_emb: Optional[torch.Tensor],  # (R, A)
-    c_emb: Optional[torch.Tensor],  # (R, C)
-    *,
-    phase: int,
-    progress: float,
-    cfg: RenderConfig,
-    encode_candidate: bool,
-) -> None:
-    """One pass through the fused render; adds its result keys with the
-    suffix `typ` ('coarse' | 'fine') to `results`."""
+def _fused_train_path(results, field: NeRFField, typ, rays_o, rays_d, z_vals, a_emb, c_emb, *, phase, progress,
+                      cfg: RenderConfig, use_cand: bool) -> None:
+    """One pass through the fused render of ops.render_train (the JAX
+    package's `_fused_train_path`)."""
     ncfg = field.cfg
-    if not ncfg.encode_feat:
-        raise NotImplementedError("the feature-less field is not ported")
-    use_cand = ncfg.encode_candidate and encode_candidate and phase < 2
     st = rt.RTStatic(
         D=ncfg.D, skips=tuple(ncfg.skips), xyz_L=ncfg.xyz_L, precision=cfg.precision, use_cand=use_cand,
-        use_rgb=phase > 0, out_feat=phase < 2, store_f32=cfg.store_f32, param_grads=cfg.param_grads,
+        use_rgb=phase > 0, out_feat=phase < 2, store_f32=cfg.store_f32, save_chain=cfg.save_chain,
+        param_grads=cfg.param_grads,
     )
     w_xyz = band_weights(ncfg, ncfg.xyz_L, progress, rays_o.device)
     ray_cond = ray_conditioning(field, rays_d, a_emb, progress) if st.use_rgb else None
@@ -156,6 +169,104 @@ def _inference(
         results[f"s_weights_{typ}"] = out["s_weights"]
         results[f"s_rgb_{typ}"] = out["rgb_map"]
     results[f"s_depth_{typ}"] = out["s_depth"]
+
+
+def _fused_static_path(results, field: NeRFField, typ, rays_o, rays_d, z_vals, a_emb, *, progress,
+                       cfg: RenderConfig) -> None:
+    """A deterministic phase-2 pass through the static render of ops.render
+    (the JAX package's `_fused_static_path`): the PE rows are built here."""
+    ncfg = field.cfg
+    R, S = z_vals.shape
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    x0 = positional_encoding(xyz, ncfg.xyz_L, band_weights(ncfg, ncfg.xyz_L, progress, xyz.device)).reshape(R * S, -1)
+    trunk, heads = field_weights(field)
+    head = {k: heads[k] for k in static_render.HEAD_KEYS}
+    ray_cond = ray_conditioning(field, rays_d, a_emb, progress)
+    rgb_map, depth, weights = static_render.fused_static_render(x0, z_vals, ray_cond, trunk, head, ncfg.skips,
+                                                                cfg.precision)
+    results[f"s_weights_{typ}"] = weights
+    results[f"s_rgb_{typ}"] = rgb_map
+    results[f"s_depth_{typ}"] = depth[:, 0]
+
+
+def _field_path(results, field: NeRFField, typ, rays_o, rays_d, z_vals, a_emb, c_emb, *, phase, progress,
+                cfg: RenderConfig, encode_candidate: bool) -> None:
+    """One pass through NeRFField.forward and the compositing of volume.py
+    (the JAX package's XLA path)."""
+    ncfg = field.cfg
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    dirs = rays_d.detach()  # pose gradients flow only through the samples
+
+    def apply(xyz_, a_, c_):
+        return field(xyz_, dirs, a_, progress=progress, precision=cfg.precision, phase=phase, c_emb=c_,
+                     encode_candidate=encode_candidate)
+
+    if cfg.remat:
+        out = torch.utils.checkpoint.checkpoint(apply, xyz, a_emb, c_emb, use_reentrant=False)
+    else:
+        out = apply(xyz, a_emb, c_emb)
+    deltas = volume.deltas_from_z(z_vals)
+    s_alphas = volume.alpha_from_sigma(out["s_sigma"], deltas)
+    only_s = volume.composite_weights(s_alphas)
+    if phase < 2:
+        if "c_sigma" not in out:
+            results[f"s_weights_{typ}"] = only_s
+            results[f"feat_{typ}"] = volume.weighted_sum(only_s, out["s_feat"])
+        else:
+            c_alphas = volume.alpha_from_sigma(out["c_sigma"], deltas)
+            joint = volume.alpha_from_sigma(out["s_sigma"] + out["c_sigma"], deltas)
+            trans = volume.transmittance_of(joint)
+            s_w, c_w = s_alphas * trans, c_alphas * trans
+            weights = joint * trans
+            results[f"c_weights_{typ}"] = weights
+            results[f"c_depth_{typ}"] = volume.depth_map(weights, z_vals)
+            results[f"feat_{typ}"] = volume.weighted_sum(s_w, out["s_feat"]) + volume.weighted_sum(c_w, out["c_feat"])
+            results[f"t_weight_{typ}"] = c_w.sum(-1)
+    if phase > 0:
+        results[f"s_weights_{typ}"] = only_s
+        results[f"s_rgb_{typ}"] = volume.weighted_sum(only_s, out["s_rgb"])
+    results[f"s_depth_{typ}"] = volume.depth_map(only_s, z_vals)
+
+
+def _inference(
+    results: Dict[str, torch.Tensor],
+    field: NeRFField,
+    typ: str,
+    rays_o: torch.Tensor,  # (R, 3)
+    rays_d: torch.Tensor,  # (R, 3)
+    z_vals: torch.Tensor,  # (R, S)
+    a_emb: Optional[torch.Tensor],  # (R, A)
+    c_emb: Optional[torch.Tensor],  # (R, C)
+    *,
+    phase: int,
+    progress: float,
+    cfg: RenderConfig,
+    encode_candidate: bool,
+    det: bool,
+) -> None:
+    """One pass, by the JAX package's route for the configuration
+    (render_rays.py:132-243); adds its result keys with the suffix `typ`
+    ('coarse' | 'fine') to `results`."""
+    ncfg = field.cfg
+    R = z_vals.shape[0]
+    use_cand = ncfg.encode_candidate and encode_candidate and phase < 2
+    kw = dict(progress=progress, cfg=cfg)
+    if (phase == 2 and det and not use_cand and ncfg.encode_feat and ncfg.encode_appearance
+            and (cfg.fused_render or cfg.fused_train) and R % 8 == 0):
+        if cfg.fused_train:
+            _fused_train_path(results, field, typ, rays_o, rays_d, z_vals, a_emb, c_emb, phase=phase, use_cand=False,
+                              **kw)
+        else:
+            _fused_static_path(results, field, typ, rays_o, rays_d, z_vals, a_emb, **kw)
+        return
+    if cfg.fused_train and ncfg.encode_feat and R % 8 == 0:
+        _fused_train_path(results, field, typ, rays_o, rays_d, z_vals, a_emb, c_emb, phase=phase, use_cand=use_cand,
+                          **kw)
+        return
+    if not ncfg.encode_feat:
+        raise NotImplementedError("the feature-less field is not ported")
+    _field_path(results, field, typ, rays_o, rays_d, z_vals, a_emb, c_emb, phase=phase,
+                encode_candidate=encode_candidate, **kw)
 
 
 def render_rays(
@@ -196,7 +307,7 @@ def render_rays(
         generator=generator, u=noise.get("coarse"),
     ).detach()
     results: Dict[str, torch.Tensor] = {}
-    kw = dict(phase=phase, progress=progress, cfg=cfg, encode_candidate=encode_candidate)
+    kw = dict(phase=phase, progress=progress, cfg=cfg, encode_candidate=encode_candidate, det=det)
     _inference(results, params["nerf_coarse"], "coarse", rays_o, rays_d, z_vals, emb_for("coarse", "a"),
                emb_for("coarse", "c"), **kw)
     if cfg.N_importance > 0:

@@ -13,10 +13,10 @@ from .state import (
     make_scene_constants,
     make_train_state,
 )
-from .step import StepConfig, make_train_step
+from .step import StepConfig, make_eval_render, make_train_step
 
 __all__ = [
     "LossConfig", "OptState", "Optimizer", "PoseTables", "RayStore", "SceneConstants", "StepConfig", "TrainState",
     "UPNeRF", "compute_loss", "init_params", "init_pose_params", "make_optimizer", "make_ray_store",
-    "make_scene_constants", "make_train_state", "make_train_step", "pe_progress", "schedule_mult", "schedule_phase",
+    "make_eval_render", "make_scene_constants", "make_train_state", "make_train_step", "pe_progress", "schedule_mult", "schedule_phase",
 ]

@@ -118,14 +118,15 @@ def gather_feats(scene: SceneConstants, batch: Dict[str, torch.Tensor], feat_c2f
 
 def forward(params: UPNeRF, pose_params: PoseTables, cfg: StepConfig, scene: SceneConstants,
             batch: Dict[str, torch.Tensor], *, phase: int, sched_mult: float, progress: float,
-            noise: Dict[str, torch.Tensor]):
-    """Render + transient composite with the pre-drawn uniforms `noise`.
-    Returns (results, rays, feats)."""
+            noise: Optional[Dict[str, torch.Tensor]], det: bool = False):
+    """Render + transient composite with the pre-drawn uniforms `noise`
+    (det=True, noise None: the deterministic eval render). Returns (results,
+    rays, feats)."""
     rays = build_rays(pose_params, scene, batch, cfg.pose_optimize)
     feats = gather_feats(scene, batch, cfg.feat_c2f, progress)
     results = render_rays(
         params.render_params(), cfg.render, rays, batch["img_idx"], phase=phase, sched_mult=sched_mult,
-        progress=progress, noise=noise,
+        progress=progress, det=det, noise=noise,
     )
     if phase > 0 and cfg.transient is not None and feats is not None:
         t = params.transient_net(feats, batch["img_idx"], precision=cfg.render.precision)
@@ -225,3 +226,35 @@ def make_train_step(cfg: StepConfig, optimizer, pose_optimizer):
         return update(state, scene, batch, noise, phase)
 
     return step_fn, batch_step_fn
+
+
+def make_eval_render(cfg: StepConfig, chunk_size: int = 4096):
+    """Full-image renderer (upnerf/train/step.py:make_eval_render, without the
+    mesh branch): deterministic renders of fixed-size chunks, each with the
+    scaled DPT prior `pred_depth` and, where the scene has features, the
+    gathered DINO targets `feats_gt`.
+
+    render(params, pose_params, scene, batch, progress, phase) -> results,
+    batch holding px, py, img_idx, inv_depth padded to a multiple of
+    chunk_size; every result is concatenated over the chunks (the caller
+    crops the padding)."""
+
+    @torch.no_grad()
+    def render_fn(params: UPNeRF, pose_params: PoseTables, scene: SceneConstants, batch: Dict[str, torch.Tensor],
+                  progress: float, phase: int) -> Dict[str, torch.Tensor]:
+        sched = schedule_mult(progress, cfg.candidate_schedule)
+        n = batch["px"].shape[0]
+        if n % chunk_size:
+            raise ValueError(f"{n} pixels is not a multiple of the chunk size {chunk_size}: pad first")
+        outs = []
+        for c0 in range(0, n, chunk_size):
+            b = {k: v[c0 : c0 + chunk_size] for k, v in batch.items()}
+            results, _, feats = forward(params, pose_params, cfg, scene, b, phase=phase, sched_mult=sched,
+                                        progress=progress, noise=None, det=True)
+            if feats is not None:
+                results["feats_gt"] = feats
+            results["pred_depth"] = depth_prior(pose_params, b, cfg.near, cfg.far)
+            outs.append(results)
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    return render_fn

@@ -201,15 +201,22 @@ def train_modules_from_jax(params: Dict[str, Any], pose_params: Dict[str, Any], 
     return model, pose
 
 
-def export_reference_ckpt(path: str, model: nn.Module, pose: nn.Module, hparams: Dict[str, Any], step: int,
-                          progress: float) -> str:
-    """Write a trained state as a reference checkpoint {"state_dict",
-    "hyper_parameters", "global_step"}; `progress` goes into nerf_*.progress."""
+def reference_payload(model: nn.Module, pose: nn.Module, hparams: Dict[str, Any], step: int,
+                      progress: float) -> Dict[str, Any]:
+    """A trained state as a reference checkpoint {"state_dict",
+    "hyper_parameters", "global_step"} on the CPU; `progress` goes into
+    nerf_*.progress."""
     model.set_progress(progress)
     sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     sd.update({k: v.detach().cpu().clone() for k, v in pose.state_dict().items()})
+    return {"state_dict": sd, "hyper_parameters": dict(hparams), "global_step": int(step)}
+
+
+def export_reference_ckpt(path: str, model: nn.Module, pose: nn.Module, hparams: Dict[str, Any], step: int,
+                          progress: float) -> str:
+    """Write a trained state as a reference checkpoint (reference_payload)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save({"state_dict": sd, "hyper_parameters": dict(hparams), "global_step": int(step)}, path)
+    torch.save(reference_payload(model, pose, hparams, step, progress), path)
     return path
 
 
