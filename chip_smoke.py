@@ -18,9 +18,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      frame;
   6. the forward kernel in the phase-0 and phase-1 training modes, with the
      residuals the backward reads, against its plain version at the train
-     batch (2048 rays), S = 128 and 256, float32 and bfloat16;
+     batch (2048 rays), S = 128 and 256, float32 and bfloat16; and at the
+     validation configs' feature width F = 32 (S = 256);
   7. the backward kernel against `render_train_rays_bwd_plain` on the same
-     inputs and residuals and random cotangents, every cotangent;
+     inputs and residuals and random cotangents, every cotangent (F = 384
+     and 32);
   8. the flagship train step, `upnerf_torch.train.step.make_train_step`, on
      an in-memory scene as the JAX package's benchmark builds it (16 images
      of 256x256, 55x55x384 bf16 features, batch 2048, 128 + 128 samples,
@@ -29,7 +31,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      256 rays on the card (kernels) against the same step on the CPU (plain
      versions), on the loss terms and every gradient;
   9. step ms and rays/s per phase (CUDA events), the backward kernel against
-     the plain backward per 4096-ray chunk, the step's peak memory; with
+     the plain backward per 4096-ray chunk (F = 384 and 32), the step's peak
+     memory; with
      --profile, a torch.profiler table of one phase-1 step into DIR (and of
      one fast frame, phase 15);
  10. the flash-attention kernel against its plain PyTorch version at the
@@ -66,9 +69,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      and without the candidate branch and in f32 at 65,536 rows and a ragged
      N, the backward also against its plain version in float64; forward and
      backward timed in turns, and the backward without its dW atomic adds;
+     then the F = 32 instances (524,288 rows bf16, 65,536 and 1,037 rows f32),
+     timed in turns;
  17. the static render from PE rows (kernel 4: the x0 mode of the render
      forward, `ops.render`) against its plain version and against the
-     serving mode on the same rays, 4096 x 256, bf16 and f32; timed in turns;
+     serving mode on the same rays, 4096 x 256, bf16 and f32, at F = 384 and
+     32; timed in turns;
  18. `upnerf_torch.cli.train.main` at brandenburg_gate's width and batch 2048
      on a Phototourism-layout scene of PNGs with seeded DINO / DPT maps, 12
      steps (phases 0, 1, 2; a val render and a checkpoint every 6 steps):
@@ -76,7 +82,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      14 steps; each run's kernel launches (kernels 1/2 in the steps of (a),
      kernel 5 in the steps of (b) and kernel 4 in its val renders), finite
      losses and val PSNR; (b)'s checkpoint rendered by `render_video`; ms of a
-     phase-1 step of (b) against phase 9's, and the loop's rays/s.
+     phase-1 step of (b) against phase 9's, and the loop's rays/s;
+ 19. the trunk kernel's backward (the trunk-only mode of heads_bwd.cu, the
+     feature-less field's) against its plain version at 524,288 rows bf16,
+     65,536 rows f32 and a ragged N, and against the plain backward in
+     float64; timed in turns with the plain version;
+ 20. the feature-less field: `upnerf_torch.cli.train.main` with
+     `--config configs/brandenburg_gate.yaml nerf.feat_dim 0` (full width,
+     batch 2048, 128 + 128 samples) on phase 18's scene, 12 steps across
+     phases 0, 1, 2 with a val render: 2 trunk forward + 2 trunk backward
+     launches a step and none of kernels 1, 2, 4, 5; then `cli.tto` and
+     `cli.eval` on its checkpoint (1 pose and 1 appearance epoch) and
+     `cli.render_video --result_dir` on its run directory; ms of a phase-1
+     step against phase 9's fused step;
+ 21. a scene written by `upnerf_torch.data.synthetic.generate_scene` at
+     configs/validation/synth_pose.yaml's size, trained by `cli.train
+     --config configs/validation/synth_pose.yaml` for 12 steps (phases 0, 1,
+     2): (a) the default flags, through the F = 32 instances of kernels 1 and
+     2; (b) `tpu.fused_train false`, through those of kernels 5 and 4; each
+     run's launches and finite losses.
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -304,13 +328,15 @@ def mode_args(field, inputs, st):
     return (o, d, z, pe_w, cond if st.use_rgb else None, trunk, heads, st), (c_emb if st.use_cand else None)
 
 
-def phase_train_kernels(field, nerf_cfg, dev):
+def phase_train_kernels(field, nerf_cfg, dev, samples=(128, 256)):
     """Phases 6 and 7: forward (with residuals) and backward kernels against
-    their plain versions at the train batch. Returns the worst errors."""
+    their plain versions at the train batch, the field's feature width.
+    Returns the worst errors."""
     from upnerf_torch.ops import render_train as rt
 
     fwd_err, bwd_err, bwd_abs = 0.0, 0.0, 0.0
-    for S in (128, 256):
+    F = nerf_cfg.feat_dim
+    for S in samples:
         inputs = chunk_inputs(field, S, seed=100 + S, dev=dev, R=TRAIN_RAYS)
         for prec in ("float32", "bfloat16"):
             for phase in (0, 1):
@@ -330,7 +356,7 @@ def phase_train_kernels(field, nerf_cfg, dev):
                         e[k] = rel_err(got_res[k], want_res[k])
                 e_chain = rel_err(got_res["chain"], want_res["chain"])
                 worst = max(e.values())
-                print(f"[6] S={S} {prec} phase {phase}: max err {worst:.3e} (tol {TOL[prec]:.0e}) "
+                print(f"[6] F={F} S={S} {prec} phase {phase}: max err {worst:.3e} (tol {TOL[prec]:.0e}) "
                       + " ".join(f"{k} {v:.2e}" for k, v in e.items())
                       + f"  chain {e_chain:.3e} (tol {CHAIN_TOL[prec]:.0e})", flush=True)
                 check(worst <= TOL[prec], f"forward kernel disagrees with its plain version: {e}")
@@ -355,7 +381,7 @@ def phase_train_kernels(field, nerf_cfg, dev):
                 for k, v in errs.items():
                     check(np.isfinite(v), f"backward {k} not finite")
                 worst_k = max(errs, key=errs.get)
-                print(f"[7] S={S} {prec} phase {phase}: {len(errs)} cotangents, worst {worst_k} {errs[worst_k]:.3e}"
+                print(f"[7] F={F} S={S} {prec} phase {phase}: {len(errs)} cotangents, worst {worst_k} {errs[worst_k]:.3e}"
                       f" (tol {BWD_TOL[prec]:.0e}); rays_o {errs['rays_o']:.2e} trunk0.w {errs['trunk0.w']:.2e}",
                       flush=True)
                 check(errs[worst_k] <= BWD_TOL[prec], f"backward kernel disagrees with its plain version: {errs}")
@@ -535,7 +561,7 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
         p1, k1, k2, p2 = cuda_ms(plain, 2), cuda_ms(kern, 2), cuda_ms(kern, 2), cuda_ms(plain, 2)
         fp1, fk1, fk2, fp2 = cuda_ms(fwd_p, 2), cuda_ms(fwd_k, 2), cuda_ms(fwd_k, 2), cuda_ms(fwd_p, 2)
     t = {"bwd": ((k1 + k2) / 2, (p1 + p2) / 2), "fwd": ((fk1 + fk2) / 2, (fp1 + fp2) / 2)}
-    print(f"[9] per {CHUNK}-ray chunk, S=256, phase 1, bfloat16: backward kernel {t['bwd'][0]:.2f} ms, plain"
+    print(f"[9] F={nerf_cfg.feat_dim}, per {CHUNK}-ray chunk, S=256, phase 1, bfloat16: backward kernel {t['bwd'][0]:.2f} ms, plain"
           f" {t['bwd'][1]:.2f} ms; forward with residuals kernel {t['fwd'][0]:.2f} ms, plain {t['fwd'][1]:.2f} ms"
           f" ({card})", flush=True)
     return t
@@ -880,7 +906,7 @@ def heads_bound(field, nerf_cfg, n: int, cand: bool, kind: str):
     return bound(6 * macs, 4 * n * (2 * rows_in + rows_out) + 2 * n_w + 4 * n_w, "bfloat16")
 
 
-def phase_heads_kernel(field, nerf_cfg, dev, card: str):
+def phase_heads_kernel(field, nerf_cfg, dev, card: str, cases=None, adds_split: bool = True):
     """Phase 16: kernel 5 (trunk + heads, csrc/heads_fwd.cu and heads_bwd.cu)
     against its plain versions, forward and every backward output: N = 524,288
     rows (2048 rays x 256 fine samples, a train step's fine pass) in bf16, with
@@ -888,8 +914,10 @@ def phase_heads_kernel(field, nerf_cfg, dev, card: str):
     a ragged N; the backward also against the plain backward in float64. Then
     forward and backward timed in turns at 524,288 rows, bf16, with the
     candidate branch, and the backward against its build without the weight
-    gradients' atomic adds (the adds' share of its time). Returns (worst fwd
-    max |d|, worst bwd max |d|, times {fwd, bwd}: (kernel ms, plain ms))."""
+    gradients' atomic adds (the adds' share of its time; adds_split). cases:
+    (rows, precision, candidate) to check, by default the above. Returns
+    (worst fwd max |d|, worst bwd max |d|, times {fwd, bwd}: (kernel ms,
+    plain ms))."""
     from unittest import mock
 
     from upnerf_torch.models.nerf import positional_encoding
@@ -897,8 +925,9 @@ def phase_heads_kernel(field, nerf_cfg, dev, card: str):
     from upnerf_torch.ops import heads as hk
 
     worst_f = worst_b = 0.0
-    cases = [(TRAIN_RAYS * 256, "bfloat16", True), (TRAIN_RAYS * 256, "bfloat16", False),
-             (65536, "float32", True), (1037, "float32", True), (1037, "float32", False)]
+    F = nerf_cfg.feat_dim
+    cases = cases or [(TRAIN_RAYS * 256, "bfloat16", True), (TRAIN_RAYS * 256, "bfloat16", False),
+                      (65536, "float32", True), (1037, "float32", True), (1037, "float32", False)]
     for n, prec, cand in cases:
         g = torch.Generator(device=dev).manual_seed(n + cand)
         x0 = positional_encoding(torch.randn((n, 3), generator=g, device=dev), nerf_cfg.xyz_L).contiguous()
@@ -941,7 +970,7 @@ def phase_heads_kernel(field, nerf_cfg, dev, card: str):
         w64 = {name: rms(kb[i] - p64[i]) / rms(pb[i] - p64[i]) for name, i in rows}
         w64["dW"] = rms(flat(kb) - flat(p64)) / rms(flat(pb) - flat(p64))
         fw, bw = max(ferr, key=ferr.get), max(berr, key=berr.get)
-        print(f"[16] heads N={n} {prec} candidate={cand}: forward worst {fw} {ferr[fw]:.3e} (tol"
+        print(f"[16] heads F={F} N={n} {prec} candidate={cand}: forward worst {fw} {ferr[fw]:.3e} (tol"
               f" {TRUNK_TOL[prec]:.0e}); backward {len(berr)} weight gradients, worst {bw} {berr[bw]:.3e} (tol"
               f" {HEADS_BWD_TOL:.0e}); per-row RMS " + " ".join(f"{k} {v:.3e}" for k, v in row_rms.items())
               + f" (tol {HEADS_ROW_RMS_TOL:.0e}), RMS distance to {prec} plain / to {other} plain "
@@ -971,8 +1000,10 @@ def phase_heads_kernel(field, nerf_cfg, dev, card: str):
         ):
             p1, k1, k2, p2 = cuda_ms(plain, 2), cuda_ms(kern, 3), cuda_ms(kern, 3), cuda_ms(plain, 2)
             times[kind] = ((k1 + k2) / 2, (p1 + p2) / 2)
-            print(f"[16] heads {kind} N={n} bfloat16 candidate: kernel {times[kind][0]:.2f} ms ({k1:.2f}, {k2:.2f}),"
+            print(f"[16] heads F={F} {kind} N={n} bfloat16 candidate: kernel {times[kind][0]:.2f} ms ({k1:.2f}, {k2:.2f}),"
                   f" plain {times[kind][1]:.2f} ms ({p1:.2f}, {p2:.2f}) ({card})", flush=True)
+        if not adds_split:
+            return worst_f, worst_b, times
         # the same backward from the build that leaves out the dW atomic adds (wrong sums, same products)
         real_library = _build.library
         no_adds = lambda name: real_library("heads_bwd_no_dw_adds" if name == "heads_bwd" else name)  # noqa: E731
@@ -1021,7 +1052,7 @@ def phase_static_render(field, nerf_cfg, dev, card: str):
                    "weights": (w - serve["s_weights"]).abs().max().item(),
                    "depth_rel": ((dep[:, 0] - serve["s_depth"]).abs() / serve["s_depth"].abs()).max().item()}
         worst = max(worst, e_plain["rgb_map"], e_plain["weights"])
-        print(f"[17] static render {CHUNK}x256 {prec}: vs plain " + " ".join(f"{k} {v:.3e}" for k, v in e_plain.items())
+        print(f"[17] static render F={nerf_cfg.feat_dim} {CHUNK}x256 {prec}: vs plain " + " ".join(f"{k} {v:.3e}" for k, v in e_plain.items())
               + "; vs the serving mode " + " ".join(f"{k} {v:.3e}" for k, v in e_serve.items())
               + f" (tol {TOL[prec]:.0e})", flush=True)
         check(max(e_plain.values()) <= TOL[prec], f"kernel 4 disagrees with its plain version: {e_plain}")
@@ -1031,7 +1062,7 @@ def phase_static_render(field, nerf_cfg, dev, card: str):
         plain = lambda: srk.fused_static_render_plain(x0, z, cond, trunk, head, nerf_cfg.skips, "bfloat16")  # noqa: E731
         p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
     kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
-    print(f"[17] static render per {CHUNK}-ray chunk, S=256, bfloat16: kernel {kms:.2f} ms ({k1:.2f}, {k2:.2f}),"
+    print(f"[17] static render F={nerf_cfg.feat_dim} per {CHUNK}-ray chunk, S=256, bfloat16: kernel {kms:.2f} ms ({k1:.2f}, {k2:.2f}),"
           f" plain {pms:.2f} ms ({card})", flush=True)
     return worst, kms, pms
 
@@ -1304,6 +1335,48 @@ def write_train_scene(root: str, name: str, seed: int = 0) -> None:
         np.save(os.path.join(dpt, npy_name(fname)), (1.0 + rng.rand(h, w)).astype(np.float32))
 
 
+def _launch_counters():
+    """(zero, read) over every kernel wrapper's launch counts."""
+    from upnerf_torch.ops import heads as hk
+    from upnerf_torch.ops import mlp
+    from upnerf_torch.ops import render as srk
+    from upnerf_torch.ops import render_train as rt
+
+    def zero():
+        rt.launches = rt.bwd_launches = rt.frozen_bwd_launches = 0
+        hk.launches = hk.bwd_launches = srk.launches = mlp.launches = mlp.bwd_launches = 0
+
+    def read():
+        return {"render_fwd": rt.launches, "render_bwd": rt.bwd_launches, "render_frozen": rt.frozen_bwd_launches,
+                "heads_fwd": hk.launches, "heads_bwd": hk.bwd_launches, "static": srk.launches,
+                "trunk_fwd": mlp.launches, "trunk_bwd": mlp.bwd_launches}
+
+    return zero, read
+
+
+def _run_train(argv, label: str, zero, read, want):
+    """cli.train.main(argv) with the launch counts zeroed just before and read
+    just after; checks them against `want`, finite losses and val PSNR.
+    Returns the Trainer."""
+    from upnerf_torch.cli import train as train_cli
+
+    zero()
+    t0 = time.perf_counter()
+    tr = train_cli.main(argv)
+    torch.cuda.synchronize()
+    got = read()
+    with open(os.path.join(tr.save_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    psnrs = [r["val/psnr"] for r in recs if "val/psnr" in r]
+    print(f"[{label}] {tr.state.step} steps in {time.perf_counter() - t0:.1f} s, launches {got} (expected {want});"
+          f" losses {losses}, val psnr {psnrs}; checkpoints {tr.ckpt.all_steps()}", flush=True)
+    check(got == want, f"[{label}] kernel launches {got}, expected {want}")
+    check(bool(losses) and all(np.isfinite(losses)) and bool(psnrs) and all(np.isfinite(psnrs)),
+          f"[{label}] losses {losses}, val psnr {psnrs}")
+    return tr
+
+
 def phase_train_cli(dev, card: str, fused_step_ms):
     """Phase 18: `upnerf_torch.cli.train.main` on the card at brandenburg_gate's
     full width and batch 2048, on write_train_scene's scene, max_steps 12
@@ -1317,20 +1390,10 @@ def phase_train_cli(dev, card: str, fused_step_ms):
     phase-0 step. Returns ({kernel: launches in (b)} with kernel 1/2's in (a),
     the unfused step's ms)."""
     from upnerf_torch.cli import render_video
-    from upnerf_torch.cli import train as train_cli
-    from upnerf_torch.ops import heads as hk
-    from upnerf_torch.ops import render as srk
-    from upnerf_torch.ops import render_train as rt
     from upnerf_torch.train.loop import Trainer
 
-    def zero():
-        rt.launches = rt.bwd_launches = rt.frozen_bwd_launches = 0
-        hk.launches = hk.bwd_launches = srk.launches = 0
-
-    def read():
-        return {"render_fwd": rt.launches, "render_bwd": rt.bwd_launches, "heads_fwd": hk.launches,
-                "heads_bwd": hk.bwd_launches, "static": srk.launches}
-
+    zero, read = _launch_counters()
+    none = {k: 0 for k in read()}
     with tempfile.TemporaryDirectory() as tmp:
         root, name = os.path.join(tmp, "scene"), "scene"
         write_train_scene(root, name)
@@ -1340,28 +1403,14 @@ def phase_train_cli(dev, card: str, fused_step_ms):
                 "train.ckpt_interval", "6", "train.log_pose_interval", "6", "val.img_idx", "[0]",
                 "phototourism.use_cache", "False", "seed", "0"]
         # per run: 12 steps x 2 passes forward and backward; a val render of 1 chunk x 2 passes at steps 6 and 12
-        want = {"a": {"render_fwd": 2 * 12 + 2 * 2, "render_bwd": 2 * 12, "heads_fwd": 0, "heads_bwd": 0, "static": 0},
-                "b": {"render_fwd": 0, "render_bwd": 0, "heads_fwd": 2 * 12, "heads_bwd": 2 * 12, "static": 2 * 2},
-                "c": {"render_fwd": 2 * 2 + 2, "render_bwd": 2 * 2, "heads_fwd": 0, "heads_bwd": 0, "static": 0}}
-        runs = {"a": base + ["exp_name", "fused"], "b": base + ["exp_name", "unfused", "tpu.fused_train", "false"],
-                "c": base + ["exp_name", "fused", "max_steps", "14"]}
-        got, trainers = {}, {}
-        for key, argv in runs.items():
-            zero()
-            t0 = time.perf_counter()
-            trainers[key] = tr = train_cli.main(argv)
-            torch.cuda.synchronize()
-            got[key] = read()
-            with open(os.path.join(tr.save_dir, "metrics.jsonl")) as f:
-                recs = [json.loads(line) for line in f]
-            losses = [r["loss"] for r in recs if "loss" in r]
-            psnrs = [r["val/psnr"] for r in recs if "val/psnr" in r]
-            print(f"[18] train ({key}) {' '.join(argv[len(base):])}: {tr.state.step} steps in"
-                  f" {time.perf_counter() - t0:.1f} s, launches {got[key]} (expected {want[key]}); losses {losses},"
-                  f" val psnr {psnrs}; checkpoints {tr.ckpt.all_steps()}", flush=True)
-            check(got[key] == want[key], f"train ({key}): kernel launches {got[key]}, expected {want[key]}")
-            check(bool(losses) and all(np.isfinite(losses)) and bool(psnrs) and all(np.isfinite(psnrs)),
-                  f"train ({key}): losses {losses}, val psnr {psnrs}")
+        want = {"a": dict(none, render_fwd=2 * 12 + 2 * 2, render_bwd=2 * 12),
+                "b": dict(none, heads_fwd=2 * 12, heads_bwd=2 * 12, static=2 * 2),
+                "c": dict(none, render_fwd=2 * 2 + 2, render_bwd=2 * 2)}
+        runs = {"a": ["exp_name", "fused"], "b": ["exp_name", "unfused", "tpu.fused_train", "false"],
+                "c": ["exp_name", "fused", "max_steps", "14"]}
+        trainers = {}
+        for key, extra in runs.items():
+            trainers[key] = tr = _run_train(base + extra, f"18 {key}: {' '.join(extra)}", zero, read, want[key])
             check(tr.state.step == (14 if key == "c" else 12), f"train ({key}) ended at step {tr.state.step}")
         check(trainers["c"].ckpt.all_steps()[-1] == 14, "the resumed run did not checkpoint step 14")
         # (b)'s last checkpoint renders through render_video
@@ -1397,19 +1446,260 @@ def phase_train_cli(dev, card: str, fused_step_ms):
         print(f"[18] the loop's rays/s in phase 0 (windows of 4 steps, host clock): {[round(r) for r in rps]};"
               f" phase 9's phase-0 step {fused_step_ms[0]:.2f} ms = {TRAIN_RAYS / fused_step_ms[0] * 1e3:.0f} rays/s"
               f" ({card})", flush=True)
-    launches = dict(got["b"], render_fwd=got["a"]["render_fwd"], render_bwd=got["a"]["render_bwd"])
+    # the runs' launches, each checked equal to these by _run_train
+    launches = dict(want["b"], render_fwd=want["a"]["render_fwd"], render_bwd=want["a"]["render_bwd"])
     return launches, unfused_ms
+
+
+def trunk_bwd_bound(field, nerf_cfg, n: int):
+    """bound() of one trunk-backward call on n rows in bf16: it reads x0, the
+    cotangent and the weights, writes dx0 and every dW and db, and does the
+    recompute, the walk's data path and the dW products (3 x the trunk's
+    multiply-adds)."""
+    n_w = sum(lay.weight.numel() + lay.bias.numel() for lay in field.trunk_layers())
+    in0, W = nerf_cfg.in_channels_xyz, nerf_cfg.W
+    return bound(6.0 * trunk_macs(nerf_cfg) * n, 4 * n * (2 * in0 + W) + 2 * n_w + 4 * n_w, "bfloat16")
+
+
+def phase_trunk_bwd(field, nerf_cfg, dev, card: str):
+    """Phase 19: the trunk kernel's backward (kernel 6's, the trunk-only mode
+    of csrc/heads_bwd.cu) against its plain version, held as kernel 5's
+    backward is (phase 16: it recomputes the chain, so ReLU masks can flip):
+    weight gradients by max |d| over max |g|, dx0 by RMS, closer to the plain
+    version of its precision than to the other's, and no further from the
+    float64 plain backward than HEADS_F64_RATIO times the plain version's own
+    distance; at 524,288 rows bf16 (a feature-less fine pass), 65,536 rows
+    f32 and a ragged N. Then timed in turns with the plain version at
+    524,288 rows, bf16. Returns (worst dx0 max |d|, kernel ms, plain ms)."""
+    from upnerf_torch.models.nerf import positional_encoding
+    from upnerf_torch.ops import mlp
+
+    trunk = field.trunk_weights()
+    skips = nerf_cfg.skips
+    rms = lambda t: t.double().pow(2).mean().sqrt().item()  # noqa: E731
+    flat = lambda b: torch.cat([t.double().flatten() for wb in b[1] for t in wb])  # noqa: E731
+    worst = 0.0
+    n_full = TRAIN_RAYS * 256
+    for n, prec in ((n_full, "bfloat16"), (65536, "float32"), (1037, "bfloat16"), (1037, "float32")):
+        g = torch.Generator(device=dev).manual_seed(19 + n)
+        x0 = positional_encoding(torch.randn((n, 3), generator=g, device=dev), nerf_cfg.xyz_L).contiguous()
+        cot = torch.randn((n, nerf_cfg.W), generator=g, device=dev)
+        other = "float32" if prec == "bfloat16" else "bfloat16"
+        with torch.no_grad():
+            kb = mlp.fused_trunk_bwd(x0, trunk, skips, prec, cot)
+            pb = mlp.fused_trunk_bwd_plain(x0, trunk, skips, prec, cot)
+            po = mlp.fused_trunk_bwd_plain(x0, trunk, skips, other, cot)[0]
+            p64 = mlp.fused_trunk_bwd_plain(x0.double(), [(w.double(), b.double()) for w, b in trunk], skips,
+                                            "float32", cot)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(kb[0]).all()) and bool(torch.isfinite(flat(kb)).all()),
+              f"trunk backward not finite (N={n} {prec})")
+        berr = {}
+        for i, ((kw_, kb_), (pw_, pb_)) in enumerate(zip(kb[1], pb[1])):
+            berr[f"trunk{i}.w"], berr[f"trunk{i}.b"] = rel_err(kw_, pw_), rel_err(kb_, pb_)
+        row_rms = rms(kb[0] - pb[0]) / rms(pb[0])
+        row_ratio = rms(kb[0] - pb[0]) / rms(kb[0] - po)
+        w64 = {"dx0": rms(kb[0] - p64[0]) / rms(pb[0] - p64[0]),
+               "dW": rms(flat(kb) - flat(p64)) / rms(flat(pb) - flat(p64))}
+        worst = max(worst, (kb[0] - pb[0]).abs().max().item())
+        bw = max(berr, key=berr.get)
+        print(f"[19] trunk backward N={n} {prec}: {len(berr)} weight gradients, worst {bw} {berr[bw]:.3e} (tol"
+              f" {HEADS_BWD_TOL:.0e}); dx0 RMS {row_rms:.3e} (tol {HEADS_ROW_RMS_TOL:.0e}), RMS distance to {prec}"
+              f" plain / to {other} plain {row_ratio:.3e} (limit {TRUNK_RMS_RATIO}), max |d| / max |g|"
+              f" {rel_err(kb[0], pb[0]):.3e}; RMS distance to float64 plain, kernel / plain "
+              + " ".join(f"{k} {v:.3f}" for k, v in w64.items()) + f" (limit {HEADS_F64_RATIO})", flush=True)
+        check(berr[bw] <= HEADS_BWD_TOL, f"trunk backward disagrees with its plain version: {berr}")
+        check(row_rms <= HEADS_ROW_RMS_TOL, f"trunk backward's dx0: {row_rms}")
+        check(row_ratio <= TRUNK_RMS_RATIO, f"trunk backward does not round as its plain version: {row_ratio}")
+        check(max(w64.values()) <= HEADS_F64_RATIO, f"trunk backward is further from float64 than its plain: {w64}")
+        del kb, pb, po, p64
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(190)
+    x0 = positional_encoding(torch.randn((n_full, 3), generator=g, device=dev), nerf_cfg.xyz_L).contiguous()
+    cot = torch.randn((n_full, nerf_cfg.W), generator=g, device=dev)
+    with torch.no_grad():
+        kern = lambda: mlp.fused_trunk_bwd(x0, trunk, skips, "bfloat16", cot)  # noqa: E731
+        plain = lambda: mlp.fused_trunk_bwd_plain(x0, trunk, skips, "bfloat16", cot)  # noqa: E731
+        p1, k1, k2, p2 = cuda_ms(plain, 2), cuda_ms(kern, 3), cuda_ms(kern, 3), cuda_ms(plain, 2)
+    kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+    flop = 6.0 * trunk_macs(nerf_cfg) * n_full
+    print(f"[19] trunk backward N={n_full} bfloat16: kernel {kms:.2f} ms ({k1:.2f}, {k2:.2f}; {flop / kms / 1e9:.0f}"
+          f" TFLOP/s), plain {pms:.2f} ms ({p1:.2f}, {p2:.2f}) ({card})", flush=True)
+    return worst, kms, pms
+
+
+def phase_featureless(dev, card: str, fused_step_ms):
+    """Phase 20: the feature-less field (nerf.feat_dim 0) through the CLIs at
+    brandenburg_gate's width: cli.train for 12 steps on phase 18's scene (2
+    trunk forward + 2 trunk backward launches a step, 2 trunk forward
+    launches a val render, no launch of kernels 1, 2, 4, 5), cli.tto +
+    cli.eval on its checkpoint, cli.render_video on its run directory; then
+    a phase-1 step's ms against phase 9's fused step. Returns the trunk
+    launches of the train run."""
+    from upnerf_torch.cli import eval as eval_cli
+    from upnerf_torch.cli import render_video
+    from upnerf_torch.cli import tto as tto_cli
+
+    zero, read = _launch_counters()
+    none = {k: 0 for k in read()}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, name = os.path.join(tmp, "scene"), "scene"
+        write_train_scene(root, name)
+        argv = ["--config", "configs/brandenburg_gate.yaml", "--device", "cuda", "root_dir", root, "scene_name", name,
+                "feat_dir", os.path.join(root, "DINO"), "depth_dir", os.path.join(root, "DPT"),
+                "out_dir", os.path.join(tmp, "out"), "max_steps", "12", "val.log_interval", "6",
+                "train.ckpt_interval", "6", "train.log_pose_interval", "6", "val.img_idx", "[0]",
+                "phototourism.use_cache", "False", "seed", "0", "exp_name", "featureless", "nerf.feat_dim", "0"]
+        # 12 steps x 2 passes; a val render of 1 chunk x 2 passes at steps 6 and 12 (no grad: forward only)
+        want = dict(none, trunk_fwd=2 * 12 + 2 * 2, trunk_bwd=2 * 12)
+        tr = _run_train(argv, "20", zero, read, want)
+        field = tr.state.params.nerf_fine
+        check(not hasattr(field, "feat_share_layer") and hasattr(field, "rgb_candidate_layer"),
+              "the feature-less field has a feature head")
+        ckpt = tr.ckpt.path(tr.ckpt.latest_step())
+
+        result_dir = os.path.join(tmp, "result")
+        argv = ["--ckpt", ckpt, "--result_dir", result_dir, "--group_size", "2", "--batch_size", "1024",
+                "--pose_epochs", "1", "--appearance_epochs", "1", "--device", "cuda"]
+        zero()
+        t0 = time.perf_counter()
+        metrics_path = tto_cli.main(argv)
+        torch.cuda.synchronize()
+        got = read()
+        w, h = TTO_PNG_WH[0] // 2, TTO_PNG_WH[1] // 2
+        steps_a = -(-w * h // 1024)  # the steps of the pose epoch; the appearance epoch takes max(1, steps_a // 2)
+        # the loss reads the fine pass only, and an appearance step moves no input of the trunk: one trunk
+        # backward a pose step; two forwards a step and an eval chunk
+        want_tto = dict(none, trunk_fwd=2 * (steps_a + max(1, steps_a // 2)) + 2 * 2, trunk_bwd=steps_a)
+        print(f"[20] tto on the feature-less checkpoint in {time.perf_counter() - t0:.1f} s: launches {got}"
+              f" (expected {want_tto})", flush=True)
+        check(got == want_tto, f"feature-less TTO launches {got}, expected {want_tto}")
+        with open(metrics_path) as f:
+            m = json.load(f)
+        check(len(m) == 2 and all(np.isfinite(v["psnr"]) and np.isfinite(v["ssim"]) for v in m.values()),
+              f"feature-less TTO metrics {m}")
+        ev = eval_cli.main(["--ckpt", ckpt, "--result_dir", result_dir, "--device", "cuda"])
+        check(all(np.isfinite(v) for v in ev.values()), f"eval printed non-finite numbers: {ev}")
+        print(f"[20] eval: {ev}", flush=True)
+        zero()
+        written = render_video.main(["--result_dir", tr.save_dir, "--ckpt", "last", "--frames", "1", "--device",
+                                     "cuda"])
+        check(read_png_size(written["frames"][0]) == (w, h), "render_video of the feature-less run")
+        print(f"[20] render_video --result_dir: {written['frames'][0]} at the scene's {w}x{h}, launches {read()}",
+              flush=True)
+
+        state = tr.state
+
+        def one_step():
+            nonlocal state
+            state, _ = tr.step_fn(state._replace(step=4), tr.scene, tr.store, 1)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms = cuda_ms(one_step, 3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"[20] phase-1 step, nerf.feat_dim 0 (trunk kernel forward and backward, PyTorch heads and"
+              f" compositing): {step_ms:.2f} ms, {TRAIN_RAYS / step_ms * 1e3:.0f} rays/s, peak {peak:.2f} GiB;"
+              f" phase 9's fused phase-1 step {fused_step_ms[1]:.2f} ms ({card})", flush=True)
+    return want
+
+
+def phase_synth_pose(dev, card: str):
+    """Phase 21: configs/validation/synth_pose.yaml (nerf.feat_dim 32) on its
+    scene, written by the ported generator at the config's size, 12 steps
+    (phases 0, 1, 2): (a) the default flags, through the F = 32 instances of
+    kernels 1 and 2; (b) tpu.fused_train false, through those of kernels 5
+    and 4. Checks each run's launches and finite losses."""
+    from upnerf_torch.data.synthetic import generate_scene
+
+    zero, read = _launch_counters()
+    none = {k: 0 for k in read()}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "scene_pose")
+        t0 = time.perf_counter()
+        generate_scene(root, n_train=16, n_test=2, H=64, W=80, feat_hw=16, feat_dim=32, focal=80.0, arc=0.5)
+        print(f"[21] synth_pose scene (16 + 2 views of 80x64, 16x16x32 DINO maps) written in"
+              f" {time.perf_counter() - t0:.2f} s", flush=True)
+        base = ["--config", "configs/validation/synth_pose.yaml", "--device", "cuda", "root_dir", root,
+                "feat_dir", os.path.join(root, "DINO"), "depth_dir", os.path.join(root, "DPT"),
+                "out_dir", os.path.join(tmp, "out"), "max_steps", "12", "candidate_schedule", "[0.1, 0.5]",
+                "val.log_interval", "6", "train.ckpt_interval", "6", "train.log_pose_interval", "6",
+                "val.img_idx", "[0]", "seed", "0"]
+        chunks = -(-(64 // 2) * (80 // 2) // 4096)  # a val render's chunks: at downscale 2 (the Trainer's floor)
+        runs = {"a": (["exp_name", "fused"], dict(none, render_fwd=2 * 12 + 2 * 2 * chunks, render_bwd=2 * 12)),
+                "b": (["exp_name", "unfused", "tpu.fused_train", "false"],
+                      dict(none, heads_fwd=2 * 12, heads_bwd=2 * 12, static=2 * 2 * chunks))}
+        for key, (extra, want) in runs.items():
+            tr = _run_train(base + extra, f"21 {key}", zero, read, want)
+            F = tr.state.params.nerf_fine.feat_share_layer.out_features
+            check(F == 32 and tr.state.step == 12, f"synth_pose ({key}): F = {F}, step {tr.state.step}")
+    return runs["a"][1], runs["b"][1]
+
+
+def kernel_times(dev, card: str) -> dict:
+    """--kernel_times: the F = 384 kernels of phases 5, 9, 14, 16 and 17 alone,
+    bf16, at those phases' shapes (CUDA events, 5 launches after a warm-up),
+    with no checks: the numbers to compare two trees on one card. Uses only
+    wrappers that trees with kernels 4 and 5 already had, so the script can be
+    copied into an older tree's root and run there, the trees in turns."""
+    from upnerf_torch.models.nerf import NeRFConfig, NeRFField, positional_encoding
+    from upnerf_torch.ops import heads as hk
+    from upnerf_torch.ops import mlp
+    from upnerf_torch.ops import render as srk
+    from upnerf_torch.ops import render_train as rt
+    from upnerf_torch.render.render_rays import field_weights
+
+    nerf_cfg = NeRFConfig.from_hparams(BRANDENBURG_GATE)
+    field = NeRFField(nerf_cfg, generator=torch.Generator().manual_seed(0)).to(dev).requires_grad_(False)
+    trunk, heads = field_weights(field)
+    o, d, z, pe_w, cond, c_emb = chunk_inputs(field, 256, seed=9, dev=dev)
+    st1, st2 = train_static(nerf_cfg, "bfloat16", 1), train_static(nerf_cfg, "bfloat16", 2)
+    h1, h2 = {k: heads[k] for k in st1.head_keys}, {k: heads[k] for k in st2.head_keys}
+    hs = {k: heads[k] for k in srk.HEAD_KEYS}
+    x0 = rt._pe(o, d, z, pe_w, nerf_cfg.xyz_L)[0].contiguous()
+    n = TRAIN_RAYS * 256
+    g = torch.Generator(device=dev).manual_seed(16)
+    xr = positional_encoding(torch.randn((n, 3), generator=g, device=dev), nerf_cfg.xyz_L).contiguous()
+    cr = torch.randn((n, nerf_cfg.candidate_dim), generator=g, device=dev)
+    tk, hd = field.trunk_heads_weights(True)
+    hargs = (xr, cr, tk, hd, nerf_cfg.skips, "bfloat16")
+    tp = [(lay.weight.t(), lay.bias) for lay in field.trunk_layers()]
+    with torch.no_grad():
+        out, res = rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, h1, st1, c_emb=c_emb, save_res=True)
+        cots = {k: torch.randn(v.shape, generator=g, device=dev) for k, v in out.items()}
+        hcots = [torch.randn(t.shape, generator=g, device=dev) for t in hk.fused_trunk_heads_fwd(*hargs)]
+        calls = {
+            "render_train_fwd, serving mode (phase 5)": lambda: rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, h2,
+                                                                                         st2),
+            "render_train_fwd (phase 9)": lambda: rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, h1, st1,
+                                                                           c_emb=c_emb, save_res=True),
+            "render_train_bwd (phase 9)": lambda: rt.render_train_rays_bwd(o, d, z, pe_w, cond, trunk, h1, st1, c_emb,
+                                                                           res, cots),
+            "trunk_fwd (phase 14)": lambda: mlp.fused_trunk(xr[:PROBE_ROWS], tp, nerf_cfg.skips, "bfloat16"),
+            "heads_fwd (phase 16)": lambda: hk.fused_trunk_heads_fwd(*hargs),
+            "heads_bwd (phase 16)": lambda: hk.fused_trunk_heads_bwd(*hargs, hcots),
+            "static_render (phase 17)": lambda: srk.fused_static_render_fwd(x0, z, cond, trunk, hs, nerf_cfg.skips,
+                                                                             "bfloat16"),
+        }
+        times = {name: cuda_ms(fn, 5) for name, fn in calls.items()}
+    print(json.dumps({"kernel_times_ms": times, "card": card}), flush=True)
+    return times
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of upnerf_torch on one NVIDIA GPU.")
     parser.add_argument("--profile", default=None,
                         help="write torch.profiler tables of one phase-1 step, one TTO step and one fast frame here")
+    parser.add_argument("--kernel_times", action="store_true",
+                        help="only time the F = 384 kernels (no checks) and print them as one JSON line; to compare"
+                             " two trees on one card, copy this script into each tree's root and run them in turns")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card", file=sys.stderr)
         return 2
     import upnerf_torch  # noqa: F401  (fails here when run outside the repository)
+    if args.kernel_times:
+        kernel_times(torch.device("cuda:0"), card_line())
+        return 0
     from upnerf_torch.cli import render_video
     from upnerf_torch.evaluate.render import make_pose_renderer, render_image
     from upnerf_torch.geometry import rays as ray_utils
@@ -1442,6 +1732,9 @@ def main() -> int:
     # 3. serving kernel against plain version, one chunk at full width
     nerf_cfg = NeRFConfig.from_hparams(BRANDENBURG_GATE)
     field = NeRFField(nerf_cfg, generator=torch.Generator().manual_seed(0)).to(dev).requires_grad_(False)
+    # the same model at the validation configs' feature width (configs/validation/synth_*.yaml)
+    nerf32 = nerf_cfg._replace(feat_dim=32)
+    field32 = NeRFField(nerf32, generator=torch.Generator().manual_seed(32)).to(dev).requires_grad_(False)
     errs, inputs = {}, {}
     for S in (128, 256):
         inputs[S] = chunk_inputs(field, S, seed=S, dev=dev)[:5]
@@ -1542,13 +1835,16 @@ def main() -> int:
           f" ({FRAME_WH[0] * FRAME_WH[1] / frame_ms * 1e3:.0f} rays/s) ({card})", flush=True)
     print(f"    phases 1-5: {time.perf_counter() - t_start:.0f} s", flush=True)
 
-    # 6 + 7. training modes of the forward kernel, and the backward kernel
+    # 6 + 7. training modes of the forward kernel, and the backward kernel, at F = 384 and 32
     fwd_err, _, bwd_abs = phase_train_kernels(field, nerf_cfg, dev)
+    fwd_err32, _, bwd_abs32 = phase_train_kernels(field32, nerf32, dev, samples=(256,))
+    fwd_err, bwd_abs = max(fwd_err, fwd_err32), max(bwd_abs, bwd_abs32)
     print(f"    phases 6-7: {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # 8 + 9. the flagship train step
     launches, step_ms = phase_train_step(dev, card, args.profile)
     kt = phase_bwd_timing(field, nerf_cfg, dev, card)
+    phase_bwd_timing(field32, nerf32, dev, card)
     print(f"    phases 8-9: {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # 10 + 11. the flash-attention kernel and the offline extractors
@@ -1563,11 +1859,22 @@ def main() -> int:
     trunk_launches, _ = phase_fast_render(dev, card, frame_ms, pose_np, args.profile)
     print(f"    phases 12-15: {time.perf_counter() - t_start:.0f} s", flush=True)
 
-    # 16-18. kernel 5 (trunk + heads), kernel 4 (the static render from PE rows), the train CLI
+    # 16-18. kernel 5 (trunk + heads), kernel 4 (the static render from PE rows), the train CLI; 16, 17 at F = 32 too
     heads_fwd_err, heads_bwd_err, heads_t = phase_heads_kernel(field, nerf_cfg, dev, card)
+    e32 = phase_heads_kernel(field32, nerf32, dev, card, adds_split=False,
+                             cases=[(TRAIN_RAYS * 256, "bfloat16", True), (65536, "float32", True),
+                                    (1037, "float32", False)])
+    heads_fwd_err, heads_bwd_err = max(heads_fwd_err, e32[0]), max(heads_bwd_err, e32[1])
     static_err, static_ms, static_plain_ms = phase_static_render(field, nerf_cfg, dev, card)
+    static_err = max(static_err, phase_static_render(field32, nerf32, dev, card)[0])
     train_launches, _ = phase_train_cli(dev, card, step_ms)
     print(f"    phases 16-18: {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # 19-21. kernel 6's backward, the feature-less field through the CLIs, synth_pose at F = 32
+    trunk_bwd_err, trunk_bwd_ms, trunk_bwd_plain_ms = phase_trunk_bwd(field, nerf_cfg, dev, card)
+    featureless_launches = phase_featureless(dev, card, step_ms)
+    phase_synth_pose(dev, card)
+    print(f"    phases 19-21: {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # the least time the card could take for each timed call, from its shapes
     st1 = train_static(nerf_cfg, "bfloat16", 1)
@@ -1587,6 +1894,16 @@ def main() -> int:
     bounds["heads_fwd"] = heads_bound(field, nerf_cfg, heads_rows, True, "fwd")
     bounds["heads_bwd"] = heads_bound(field, nerf_cfg, heads_rows, True, "bwd")
     bounds["static_render"] = render_bound(field, st2, CHUNK, 256, "static")
+    bounds["trunk_bwd"] = trunk_bwd_bound(field, nerf_cfg, TRAIN_RAYS * 256)
+    st1_32 = train_static(nerf32, "bfloat16", 1)
+    st2_32 = train_static(nerf32, "bfloat16", 2)._replace(param_grads=False)
+    bounds.update({  # the F = 32 instances at the same shapes (printed only)
+        "render_train_fwd, F=32": render_bound(field32, st1_32, CHUNK, 256, "fwd"),
+        "render_train_bwd, F=32": render_bound(field32, st1_32, CHUNK, 256, "bwd"),
+        "heads_fwd, F=32": heads_bound(field32, nerf32, heads_rows, True, "fwd"),
+        "heads_bwd, F=32": heads_bound(field32, nerf32, heads_rows, True, "bwd"),
+        "static_render, F=32": render_bound(field32, st2_32, CHUNK, 256, "static"),
+    })
     for name, (ms, by) in bounds.items():
         print(f"    bound of {name}: {ms:.3f} ms ({by})", flush=True)
 
@@ -1680,6 +1997,19 @@ def main() -> int:
             "plain_ms": heads_t["bwd"][1],
             "bound_ms": bounds["heads_bwd"][0],
             "bound_by": bounds["heads_bwd"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "heads_bwd, trunk-only mode",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/heads_bwd.cu",
+            "replaces": "upnerf/ops/pallas_mlp.py:88",
+            "launches": featureless_launches["trunk_bwd"],
+            "max_abs_err": trunk_bwd_err,
+            "ms": trunk_bwd_ms,
+            "plain_ms": trunk_bwd_plain_ms,
+            "bound_ms": bounds["trunk_bwd"][0],
+            "bound_by": bounds["trunk_bwd"][1],
             "library_ms": None,
         },
         {

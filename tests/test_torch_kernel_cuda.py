@@ -1,9 +1,11 @@
 """The CUDA kernels of the render path against their plain PyTorch versions,
 on the card, at the brandenburg_gate width (D=8, W=256, skip 4, F=384, HH=128,
-L=10): the fused forward render, its backward in the train and frozen-model
-modes, the trunk kernel of the fast render's probe, the trunk + heads kernels
-(forward and backward) and the static render from PE rows (the x0 mode). Every test here needs
-an NVIDIA card: it carries the `cuda` marker and skips without one.
+L=10) and at the validation configs' feature widths (F=32, 64): the fused
+forward render, its backward in the train and frozen-model modes, the trunk
+kernel of the fast render's probe and its backward (the feature-less field's),
+the trunk + heads kernels (forward and backward) and the static render from
+PE rows (the x0 mode). Every test here needs an NVIDIA card: it carries the
+`cuda` marker and skips without one.
 
 This file imports no JAX, so it also runs on a GPU machine without it:
 
@@ -22,7 +24,8 @@ import torch
 from upnerf_torch.ops import render_train as rt
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-3}
-D, SKIPS, W, F, HH, L = 8, (4,), 256, 384, 128, 10
+D, SKIPS, W, HH, L = 8, (4,), 256, 128, 10
+WIDTHS = [384, 32, 64]  # the built feature widths (render_train.KERNEL_F)
 
 
 @pytest.fixture
@@ -32,7 +35,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def make_inputs(R, S, device, seed=0):
+def make_inputs(R, S, device, seed=0, F=384):
     """Rays, sorted depths in [0.1, 5], band weights, ray_cond and a
     torch-default-initialised network in the (in, out) interface."""
     rng = np.random.RandomState(seed)
@@ -60,10 +63,11 @@ def make_inputs(R, S, device, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F", WIDTHS)
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S", [128, 256, 100])
-def test_kernel_matches_plain(cuda_device, precision, S):
-    inputs = make_inputs(300, S, cuda_device)
+def test_kernel_matches_plain(cuda_device, precision, S, F):
+    inputs = make_inputs(300, S, cuda_device, F=F)
     st = rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision)
     before = rt.launches
     with torch.no_grad():
@@ -87,11 +91,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         rt.render_train_rays_fwd(o, d, z, pe_w[:9], cond, trunk, heads, st)
     with pytest.raises(ValueError, match="W=256"):
         rt.render_train_rays_fwd(o, d, z, pe_w, cond[:, :64], trunk, heads, st)
+    narrow = dict(heads, feat_w=heads["feat_w"][:, :48], feat_b=heads["feat_b"][:48], rgb1_w=heads["rgb1_w"][:48])
+    with pytest.raises(ValueError, match="feature widths"):
+        rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, narrow, st)
     with pytest.raises(RuntimeError, match="forward-only"):
         rt.render_train_rays_fwd(o, d, z, pe_w, cond.requires_grad_(), trunk, heads, st)
 
 
-def add_candidate(heads, device, seed=1, C=16, HC=128):
+def add_candidate(heads, device, seed=1, C=16, HC=128, F=384):
     rng = np.random.RandomState(seed)
 
     def t(a):
@@ -110,11 +117,11 @@ def add_candidate(heads, device, seed=1, C=16, HC=128):
     return heads
 
 
-def train_inputs(R, S, device, phase, precision, seed=0):
+def train_inputs(R, S, device, phase, precision, seed=0, F=384):
     """Inputs of one training mode (phase 0: candidate + feature map; phase 1:
     also rgb) and its RTStatic."""
-    o, d, z, pe_w, cond, trunk, heads = make_inputs(R, S, device, seed)
-    heads = add_candidate(heads, device, seed + 1)
+    o, d, z, pe_w, cond, trunk, heads = make_inputs(R, S, device, seed, F)
+    heads = add_candidate(heads, device, seed + 1, F=F)
     c_emb = torch.from_numpy(np.random.RandomState(seed + 2).randn(R, 16).astype(np.float32)).to(device)
     st = rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision, use_cand=True, use_rgb=phase > 0, out_feat=True)
     heads = {k: heads[k] for k in st.head_keys}
@@ -122,13 +129,14 @@ def train_inputs(R, S, device, phase, precision, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F", WIDTHS)
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
 @pytest.mark.parametrize("phase", [0, 1])
 @pytest.mark.parametrize("S", [128, 100])
-def test_train_forward_matches_plain(cuda_device, precision, phase, S):
+def test_train_forward_matches_plain(cuda_device, precision, phase, S, F):
     """Forward kernel with residuals in the phase-0/1 modes; residuals too (the
     bf16 chain is stored rounded: 1e-2 of its max for a rounding flip)."""
-    args, c_emb = train_inputs(256, S, cuda_device, phase, precision)
+    args, c_emb = train_inputs(256, S, cuda_device, phase, precision, F=F)
     before = rt.launches
     with torch.no_grad():
         got, got_res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
@@ -150,12 +158,13 @@ def test_train_forward_matches_plain(cuda_device, precision, phase, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F", WIDTHS)
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
 @pytest.mark.parametrize("phase", [0, 1])
-def test_backward_matches_plain(cuda_device, precision, phase):
+def test_backward_matches_plain(cuda_device, precision, phase, F):
     """Backward kernel against render_train_rays_bwd_plain on the same
     residuals; every cotangent within 1e-4 (f32) / 1e-2 (bf16) of its max."""
-    args, c_emb = train_inputs(256, 128, cuda_device, phase, precision, seed=3)
+    args, c_emb = train_inputs(256, 128, cuda_device, phase, precision, seed=3, F=F)
     st = args[-1]
     with torch.no_grad():
         out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
@@ -259,7 +268,61 @@ def test_trunk_kernel_matches_plain(cuda_device, precision, N):
     assert (got - want).pow(2).mean().sqrt() <= 0.25 * (got - want_other).pow(2).mean().sqrt()
 
 
-def heads_inputs(N, device, cand, seed=21, C=16, HC=128):
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [4096, 1037])
+def test_trunk_backward_matches_plain(cuda_device, precision, N):
+    """The trunk kernel's backward (the trunk-only mode of csrc/heads_bwd.cu)
+    against fused_trunk_bwd_plain. Both recompute the chain in their own
+    summation order, so a ReLU mask can flip in a row (as kernel 5's, in
+    chip_smoke.py: HEADS_BWD_TOL): every output within 2e-2 of its RMS by RMS
+    distance; dx closer to the plain version of the kernel's precision than a
+    quarter of its distance to the other precision's; and on dx and all
+    weight gradients together no further from the float64 plain backward than
+    twice the plain version's own distance (chip_smoke.py: HEADS_F64_RATIO)."""
+    from upnerf_torch.ops import mlp
+
+    _, _, _, _, _, trunk, _ = make_inputs(8, 8, cuda_device, seed=13)
+    rng = np.random.RandomState(14)
+    x = torch.from_numpy(rng.randn(N, 3 + 6 * L).astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.randn(N, W).astype(np.float32)).to(cuda_device)
+    other = "float32" if precision == "bfloat16" else "bfloat16"
+    before = mlp.bwd_launches
+    with torch.no_grad():
+        got = mlp.fused_trunk_bwd(x, trunk, SKIPS, precision, g)
+        want = mlp.fused_trunk_bwd_plain(x, trunk, SKIPS, precision, g)
+        want_other = mlp.fused_trunk_bwd_plain(x, trunk, SKIPS, other, g)
+        f64 = mlp.fused_trunk_bwd_plain(x.double(), [(w.double(), b.double()) for w, b in trunk], SKIPS, "float32", g)
+    torch.cuda.synchronize()
+    assert mlp.bwd_launches == before + 1
+    rms = lambda t: t.double().pow(2).mean().sqrt()  # noqa: E731
+    flat = lambda r: torch.cat([r[0].flatten()] + [t.flatten() for wb in r[1] for t in wb]).double()  # noqa: E731
+    assert got[0].shape == (N, 3 + 6 * L) and rms(got[0] - want[0]) <= 0.25 * rms(got[0] - want_other[0])
+    pairs = [(got[0], want[0])] + [(a, b) for (aw, ab), (bw, bb) in zip(got[1], want[1])
+                                   for a, b in ((aw, bw), (ab, bb))]
+    for a, b in pairs:
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert rms(a - b) <= 2e-2 * rms(b)
+    assert rms(flat(got) - flat(f64)) <= 2.0 * rms(flat(want) - flat(f64))
+
+
+@pytest.mark.cuda
+def test_trunk_function_launches_both_kernels(cuda_device):
+    """fused_trunk with a trainable input on CUDA tensors: the trunk kernel,
+    then its backward from autograd, and gradients for x and every layer."""
+    from upnerf_torch.ops import mlp
+
+    _, _, _, _, _, trunk, _ = make_inputs(8, 8, cuda_device, seed=15)
+    x = torch.from_numpy(np.random.RandomState(16).randn(512, 3 + 6 * L).astype(np.float32)).to(cuda_device)
+    leaves = [x.requires_grad_()] + [t.requires_grad_() for wb in trunk for t in wb]
+    before = (mlp.launches, mlp.bwd_launches)
+    mlp.fused_trunk(x, trunk, SKIPS, "bfloat16").pow(2).sum().backward()
+    torch.cuda.synchronize()
+    assert (mlp.launches, mlp.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
+
+
+def heads_inputs(N, device, cand, seed=21, C=16, HC=128, F=384):
     """x0 rows, a per-row candidate embedding and the kernel-5 weights (c1 unsplit)."""
     rng = np.random.RandomState(seed)
 
@@ -283,10 +346,11 @@ def heads_inputs(N, device, cand, seed=21, C=16, HC=128):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F", WIDTHS)
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
 @pytest.mark.parametrize("cand", [True, False])
 @pytest.mark.parametrize("N", [4096, 1037])
-def test_heads_kernels_match_plain(cuda_device, precision, cand, N):
+def test_heads_kernels_match_plain(cuda_device, precision, cand, N, F):
     """Kernel 5 (csrc/heads_fwd.cu, heads_bwd.cu) against its plain versions.
     Forward, max |d| over max |value|: 1e-5 (f32) / 5e-3 (bf16, as the trunk
     kernel). Backward: both sides recompute the chain in their own summation
@@ -298,7 +362,7 @@ def test_heads_kernels_match_plain(cuda_device, precision, cand, N):
     of their distance to the other precision's."""
     from upnerf_torch.ops import heads as hk
 
-    x0, c_emb, trunk, heads = heads_inputs(N, cuda_device, cand)
+    x0, c_emb, trunk, heads = heads_inputs(N, cuda_device, cand, F=F)
     before = (hk.launches, hk.bwd_launches)
     with torch.no_grad():
         got = hk.fused_trunk_heads_fwd(x0, c_emb, trunk, heads, SKIPS, precision)
@@ -347,14 +411,15 @@ def test_heads_function_launches_both_kernels(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F", WIDTHS)
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
-def test_static_render_kernel_matches_plain_and_serving_mode(cuda_device, precision):
+def test_static_render_kernel_matches_plain_and_serving_mode(cuda_device, precision, F):
     """Kernel 4 (the x0 mode of csrc/render_train_fwd.cu) against its plain
     version (cumprod transmittance) and against the serving mode on the same
     rays (PE built in the kernel), with the serving tolerances above."""
     from upnerf_torch.ops import render as srk
 
-    o, d, z, pe_w, cond, trunk, heads = make_inputs(296, 128, cuda_device, seed=5)
+    o, d, z, pe_w, cond, trunk, heads = make_inputs(296, 128, cuda_device, seed=5, F=F)
     st = rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision)
     x0, _ = rt._pe(o, d, z, pe_w, L)
     before = (srk.launches, rt.launches)

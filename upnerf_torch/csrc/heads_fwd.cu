@@ -46,6 +46,11 @@
 // float32 mode (f32_kernel): SIMT FMAs in f32 (no TF32) through render_common.cuh:
 // accumulate_f32; each warp owns 8 rows, so no layer needs a block barrier. ~144 KB of
 // shared memory: one block per SM.
+//
+// One instance per built feature width F (32, 64, 384; render_common.cuh:
+// feat_pad). Below 384 the feat layers run at the padded width FP (64 in bf16,
+// 128 in f32) over weights the wrapper zero-pads, as one pass, and only the first F
+// columns are stored. The trunk-only mode runs in the F = 384 instance.
 
 #include "render_common.cuh"
 
@@ -69,16 +74,16 @@ struct Heads {
   const float* sigma_b;
   const void* xyzf_w;       // (W, W) bf16 packed | f32
   const float* xyzf_b;
-  const void* feat_w;       // (W, F) bf16 packed | f32
-  const float* feat_b;
+  const void* feat_w;       // (W, FP) bf16 packed | f32, feature columns zero-padded
+  const float* feat_b;      // (FP,)
   const void* c1_w;         // (W + 64, HC), c_emb rows zero-padded: bf16 packed | f32
   const float* c1_b;
   const void* c2_w;         // (HC, HC) bf16 packed | f32
   const float* c2_b;
   const void* csig_w;       // (HC,) bf16 | f32
   const float* csig_b;
-  const void* cfeat_w;      // (HC, F) bf16 packed | f32
-  const float* cfeat_b;
+  const void* cfeat_w;      // (HC, FP) bf16 packed | f32
+  const float* cfeat_b;     // (FP,)
   float* s_sigma;           // (N,)
   float* s_feat;            // (N, F)
   float* c_sigma;           // (N,)
@@ -118,8 +123,9 @@ __device__ __forceinline__ void sigma_rows(const AT* a, int lda, int K, const vo
 // act([a1 | a2] @ W + bias) for the tile's 64 rows and the 64 NT columns from 8-column
 // tile nt_base on, split over the 8 warps; W (K1 + K2, n) packed in fragment order.
 // Into shared memory as bf16 (out_s, row stride LDHB), or into device memory as f32
-// (out_g, row stride ldg; rows >= N dropped). Ends with a barrier.
-template <int NT>
+// (out_g, row stride ldg; rows >= N dropped, and with CLIP columns >= ldg: the padded
+// feature columns). Ends with a barrier.
+template <int NT, bool CLIP = false>
 __device__ __forceinline__ void layer_bf16(const bf16* a1, int lda1, int K1, const bf16* a2, int lda2, int K2,
                                            const void* Wp, const float* bias, bool relu, bf16* out_s, float* out_g,
                                            int ldg, int row0, int N, int nt_base = 0) {
@@ -150,7 +156,8 @@ __device__ __forceinline__ void layer_bf16(const bf16* a1, int lda1, int K1, con
           v1 = fmaxf(v1, 0.f);
         }
         if (out_g) {
-          if (row0 + row < N) *reinterpret_cast<float2*>(out_g + (size_t)(row0 + row) * ldg + col) = make_float2(v0, v1);
+          if (row0 + row < N && (!CLIP || col < ldg))
+            *reinterpret_cast<float2*>(out_g + (size_t)(row0 + row) * ldg + col) = make_float2(v0, v1);
         } else {
           *reinterpret_cast<__nv_bfloat162*>(out_s + row * LDHB + col) = __floats2bfloat162_rn(v0, v1);
         }
@@ -159,6 +166,21 @@ __device__ __forceinline__ void layer_bf16(const bf16* a1, int lda1, int K1, con
   __syncthreads();
 }
 
+// A feat / c_feat layer into device memory (F columns, row stride F): two passes of
+// FP / 2 columns when FP is a multiple of 128 (F = 384), else one of 64 (F = 32, 64).
+template <int F>
+__device__ __forceinline__ void feat_layer_bf16(const bf16* a, int K, const void* Wp, const float* bias, float* out,
+                                                int row0, int N) {
+  constexpr int FP = feat_pad<F, true>();
+  if constexpr (FP % 128 == 0) {
+    for (int half = 0; half < 2; ++half)
+      layer_bf16<FP / 128>(a, LDHB, K, nullptr, 0, 0, Wp, bias, false, nullptr, out, F, row0, N, half * FP / 16);
+  } else {
+    layer_bf16<FP / 64, (F < FP)>(a, LDHB, K, nullptr, 0, 0, Wp, bias, false, nullptr, out, F, row0, N);
+  }
+}
+
+template <int F>
 __global__ void __launch_bounds__(THREADS, 2) bf16_kernel(const Heads m) {
   extern __shared__ float4 smem4[];
   bf16* xb = reinterpret_cast<bf16*>(smem4);  // (TILE, LDX0B) x0, later c_emb; zero past in0 / C and N
@@ -185,9 +207,7 @@ __global__ void __launch_bounds__(THREADS, 2) bf16_kernel(const Heads m) {
   bf16* o = H[m.D & 1];
   sigma_rows<bf16, bf16>(h, LDHB, W, m.sigma_w, m.sigma_b, m.s_sigma, row0, N);
   layer_bf16<W / 64>(h, LDHB, W, nullptr, 0, 0, m.xyzf_w, m.xyzf_b, false, o, nullptr, 0, row0, N);  // xyzf -> o
-  for (int half = 0; half < 2; ++half)
-    layer_bf16<F / 128>(o, LDHB, W, nullptr, 0, 0, m.feat_w, m.feat_b, false, nullptr, m.s_feat, F, row0, N,
-                        half * F / 16);
+  feat_layer_bf16<F>(o, W, m.feat_w, m.feat_b, m.s_feat, row0, N);
   if (!m.cemb) return;
   // x0 is spent: c_emb takes its buffer, h1 and h2 take h's columns
   for (int i = threadIdx.x; i < TILE * CPAD; i += THREADS) {
@@ -199,9 +219,7 @@ __global__ void __launch_bounds__(THREADS, 2) bf16_kernel(const Heads m) {
   layer_bf16<HC / 64>(o, LDHB, W, xb, LDX0B, CPAD, m.c1_w, m.c1_b, true, h, nullptr, 0, row0, N);  // h1
   layer_bf16<HC / 64>(h, LDHB, HC, nullptr, 0, 0, m.c2_w, m.c2_b, true, h + HC, nullptr, 0, row0, N);  // h2
   sigma_rows<bf16, bf16>(h + HC, LDHB, HC, m.csig_w, m.csig_b, m.c_sigma, row0, N);
-  for (int half = 0; half < 2; ++half)
-    layer_bf16<F / 128>(h + HC, LDHB, HC, nullptr, 0, 0, m.cfeat_w, m.cfeat_b, false, nullptr, m.c_feat, F, row0, N,
-                        half * F / 16);
+  feat_layer_bf16<F>(h + HC, HC, m.cfeat_w, m.cfeat_b, m.c_feat, row0, N);
 }
 
 // ---------------------------------------------------------------------------
@@ -209,8 +227,8 @@ __global__ void __launch_bounds__(THREADS, 2) bf16_kernel(const Heads m) {
 
 // act([a1 | a2] @ w + bias) for this warp's RPW rows, 32 CPT columns; w (K1 + K2, 32 CPT)
 // row-major f32. Into shared memory (out_s, row stride lds) or device memory (out_g,
-// row stride ldg; rows >= N dropped).
-template <int CPT>
+// row stride ldg; rows >= N dropped, and with CLIP columns >= ldg).
+template <int CPT, bool CLIP = false>
 __device__ __forceinline__ void dense_f32(const float* a1, int lda1, int K1, const float* a2, int lda2, int K2,
                                           const void* wv, const float* bias, bool relu, float* out_s, int lds,
                                           float* out_g, int ldg, int row0, int N) {
@@ -233,7 +251,8 @@ __device__ __forceinline__ void dense_f32(const float* a1, int lda1, int K1, con
                              acc[r][4 * j + 3] + b.w);
       if (relu) v = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
       if (out_g) {
-        if (row0 + r0 + r < N) *reinterpret_cast<float4*>(out_g + (size_t)(row0 + r0 + r) * ldg + col) = v;
+        if (row0 + r0 + r < N && (!CLIP || col < ldg))
+          *reinterpret_cast<float4*>(out_g + (size_t)(row0 + r0 + r) * ldg + col) = v;
       } else {
         *reinterpret_cast<float4*>(out_s + (r0 + r) * lds + col) = v;
       }
@@ -242,7 +261,9 @@ __device__ __forceinline__ void dense_f32(const float* a1, int lda1, int K1, con
   __syncwarp();
 }
 
+template <int F>
 __global__ void __launch_bounds__(THREADS, 1) f32_kernel(const Heads m) {
+  constexpr int FP = feat_pad<F, false>();
   extern __shared__ float4 smem4[];
   float* xb = reinterpret_cast<float*>(smem4);  // (TILE, MAX_IN0) x0, later c_emb
   float* H[2] = {xb + TILE * MAX_IN0, xb + TILE * MAX_IN0 + TILE * W};  // (TILE, W) ping-pong
@@ -269,7 +290,7 @@ __global__ void __launch_bounds__(THREADS, 1) f32_kernel(const Heads m) {
   float* o = H[m.D & 1];
   sigma_rows<float, float>(h, W, W, m.sigma_w, m.sigma_b, m.s_sigma, row0, N);
   dense_f32<W / 32>(h, W, W, nullptr, 0, 0, m.xyzf_w, m.xyzf_b, false, o, W, nullptr, 0, row0, N);
-  dense_f32<F / 32>(o, W, W, nullptr, 0, 0, m.feat_w, m.feat_b, false, nullptr, 0, m.s_feat, F, row0, N);
+  dense_f32<FP / 32, (F < FP)>(o, W, W, nullptr, 0, 0, m.feat_w, m.feat_b, false, nullptr, 0, m.s_feat, F, row0, N);
   if (!m.cemb) return;
   for (int i = lane; i < RPW * MAX_IN0; i += 32) {
     const int r = r0 + i / MAX_IN0, j = i % MAX_IN0;
@@ -279,7 +300,8 @@ __global__ void __launch_bounds__(THREADS, 1) f32_kernel(const Heads m) {
   dense_f32<HC / 32>(o, W, W, xb, MAX_IN0, CPAD, m.c1_w, m.c1_b, true, h, W, nullptr, 0, row0, N);  // h1
   dense_f32<HC / 32>(h, W, HC, nullptr, 0, 0, m.c2_w, m.c2_b, true, h + HC, W, nullptr, 0, row0, N);  // h2
   sigma_rows<float, float>(h + HC, W, HC, m.csig_w, m.csig_b, m.c_sigma, row0, N);
-  dense_f32<F / 32>(h + HC, W, HC, nullptr, 0, 0, m.cfeat_w, m.cfeat_b, false, nullptr, 0, m.c_feat, F, row0, N);
+  dense_f32<FP / 32, (F < FP)>(h + HC, W, HC, nullptr, 0, 0, m.cfeat_w, m.cfeat_b, false, nullptr, 0, m.c_feat, F,
+                                row0, N);
 }
 
 template <typename Kernel>
@@ -306,9 +328,11 @@ extern "C" {
 // columns (W,) / (HC,) in the compute dtype, biases f32; the candidate ones may be null
 // without cemb. The backward (heads_bwd.cu) reads the same layout.
 // outs: s_sigma (N,), s_feat (N, F), c_sigma (N,), c_feat (N, F), f32. heads null: the
-// trunk-only mode, outs[0] the last trunk activation (N, W) f32, cemb null.
+// trunk-only mode, outs[0] the last trunk activation (N, W) f32, cemb null. F: a built
+// feature width (ignored in the trunk-only mode); feat_w, feat_b, cfeat_w, cfeat_b come
+// with their feature columns zero-padded to FP (render_common.cuh:feat_pad).
 int upnerf_heads_fwd(const float* x, const float* cemb, const void* const* tw, const void* const* tb, int D,
-                     unsigned skip_mask, const void* const* heads, void* const* outs, int N, int in0, int C,
+                     unsigned skip_mask, const void* const* heads, void* const* outs, int N, int in0, int C, int F,
                      int use_bf16, void* stream) {
   if (N <= 0 || in0 <= 0 || in0 > MAX_IN0 || D <= 0 || D > MAX_D || C < 0 || C > CPAD) return BAD_SHAPE;
   if ((cemb != nullptr) != (C > 0) || (heads == nullptr && cemb != nullptr)) return BAD_MODE;
@@ -328,7 +352,7 @@ int upnerf_heads_fwd(const float* x, const float* cemb, const void* const* tw, c
   const int smem_bf16 = TILE * (LDX0B + 2 * LDHB) * 2, smem_f32 = TILE * (MAX_IN0 + 2 * W) * 4;
   if (heads == nullptr) {
     m.h_out = static_cast<float*>(outs[0]);
-    return use_bf16 ? launch(bf16_kernel, m, smem_bf16, st) : launch(f32_kernel, m, smem_f32, st);
+    return use_bf16 ? launch(bf16_kernel<384>, m, smem_bf16, st) : launch(f32_kernel<384>, m, smem_f32, st);
   }
   m.sigma_w = heads[0];
   m.sigma_b = static_cast<const float*>(heads[1]);
@@ -348,13 +372,18 @@ int upnerf_heads_fwd(const float* x, const float* cemb, const void* const* tw, c
   m.s_feat = static_cast<float*>(outs[1]);
   m.c_sigma = static_cast<float*>(outs[2]);
   m.c_feat = static_cast<float*>(outs[3]);
-  return use_bf16 ? launch(bf16_kernel, m, smem_bf16, st) : launch(f32_kernel, m, smem_f32, st);
+  switch (F) {
+    case 32: return use_bf16 ? launch(bf16_kernel<32>, m, smem_bf16, st) : launch(f32_kernel<32>, m, smem_f32, st);
+    case 64: return use_bf16 ? launch(bf16_kernel<64>, m, smem_bf16, st) : launch(f32_kernel<64>, m, smem_f32, st);
+    case 384: return use_bf16 ? launch(bf16_kernel<384>, m, smem_bf16, st) : launch(f32_kernel<384>, m, smem_f32, st);
+    default: return BAD_SHAPE;
+  }
 }
 
 const char* upnerf_error_string(int code) {
   switch (code) {
     case OK: return "ok";
-    case BAD_SHAPE: return "unsupported shape (W=256, F=384, HC=128; 3 + 6L <= 64; D <= 16; C <= 64)";
+    case BAD_SHAPE: return "unsupported shape (W=256, F in {32, 64, 384}, HC=128; 3 + 6L <= 64; D <= 16; C <= 64)";
     case BAD_MODE: return "c_emb and C > 0 go together, and need the heads";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

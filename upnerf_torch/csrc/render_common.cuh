@@ -17,8 +17,8 @@ constexpr int MAX_D = 16;
 constexpr int MAX_IN0 = 64;         // x0 = 3 + 6L columns, padded
 constexpr int MAX_C = 32;           // candidate embedding width
 
-// The model widths the launchers admit (configs/brandenburg_gate.yaml).
-constexpr int W = 256, F = 384, HH = 128, HC = 128;
+// The model widths the launchers admit (configs/brandenburg_gate.yaml, configs/validation/).
+constexpr int W = 256, HH = 128, HC = 128;
 
 // Mode bits of the `flags` argument (upnerf_torch/ops/render_train.py:_flags).
 // NO_PARAM_GRADS: the backward's frozen-model mode (RTStatic.param_grads = False).
@@ -27,6 +27,22 @@ enum Flag {
   BF16 = 1, USE_RGB = 2, OUT_FEAT = 4, USE_CAND = 8, SAVE_RES = 16, STORE_F32 = 32, NO_PARAM_GRADS = 64, X0_IN = 128
 };
 enum Status { OK = 0, BAD_SHAPE = -1, BAD_SMEM = -2, BAD_MODE = -3 };
+
+// The feature widths F (nerf.feat_dim) each kernel is built for: 384
+// (configs/brandenburg_gate.yaml), 32 and 64 (configs/validation/); each launcher
+// selects its instance from an int F and returns BAD_SHAPE for any other. Inside a
+// kernel the feature products run at FP = feat_pad<F, bf16 mode>(): F rounded up to
+// 64 columns in bfloat16 mode (the tensor-core products go in 64-column groups and
+// 64-deep k segments, mma_accumulate below) and to 128 in float32 mode
+// (accumulate_f32's lanes take 4-column groups at a 128-column stride). The wrappers
+// zero-pad the feature weights and biases to FP (upnerf_torch/ops/render_train.py:
+// feat_pad), so every padded column and row holds exact zeros; per-ray and per-row
+// feature arrays in device memory keep F columns. F = 384 is its own FP.
+template <int F, bool BF>
+__host__ __device__ constexpr int feat_pad() {
+  constexpr int m = BF ? 64 : 128;
+  return (F + m - 1) / m * m;
+}
 
 __device__ __forceinline__ float softplus(float x) { return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))); }
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }

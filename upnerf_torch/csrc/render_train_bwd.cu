@@ -37,7 +37,9 @@
 // the weights packed in fragment order as in the forward kernel, x and g taken from
 // shared memory by ldmatrix (.trans for the dW operands). float32 mode: SIMT FMAs.
 // ~160 KB of shared memory in bfloat16 mode, ~210 KB in float32 mode at 256
-// samples a ray: one block per SM.
+// samples a ray: one block per SM. One instance per built feature width (32, 64, 384);
+// below 384 the feature products run at the zero-padded width FP of the forward
+// (render_common.cuh:feat_pad), and the padded columns carry exact zeros throughout.
 //
 // Frozen-model mode (flag NO_PARAM_GRADS, RTStatic.param_grads = False; the JAX
 // kernel's param_grads=False, pallas_render_train.py:131-138, which test-time
@@ -58,10 +60,17 @@ namespace {
 
 using namespace upnerf;
 
-constexpr int LDT = F;        // row stride of the wide f32 tile buffer (F >= W)
-constexpr int LDA = F + 8;    // row stride of the wide operand buffers: + 16 bytes keeps ldmatrix
-                              // rows in distinct bank groups
 constexpr int LDX0 = MAX_IN0 + 8;  // row stride of the x0 operand buffer
+
+// Row strides of a feature width's instance: the wide f32 tile buffer holds W or FP
+// columns; the wide operand buffers 8 more (+ 16 bytes keeps ldmatrix rows in distinct
+// bank groups).
+template <typename T, int F>
+struct Widths {
+  static constexpr int FP = feat_pad<F, std::is_same<T, bf16>::value>();
+  static constexpr int LDT = FP > W ? FP : W;
+  static constexpr int LDA = LDT + 8;
+};
 
 // Head-gradient slots, in upnerf_torch/ops/render_train.py:HEAD_KEYS order.
 enum Dh {
@@ -76,9 +85,9 @@ struct Bwd {
   const void* chain;
   int chain_w;
   const void* tT[MAX_D];  // trunk W^T (W, in_pad), x0 padded to 64 columns
-  const void *xyzf_wT, *feat_w, *feat_wT, *rgb1_wT, *rgb2_wT, *c1x_wT, *c1c_w, *c2_wT, *cfeat_wT;
-  const float *sigma_w, *csig_w, *feat_b, *cfeat_b;
-  const void *feat_w_rm, *cfeat_wT_rm;  // row-major copies for the per-ray vectors
+  const void *xyzf_wT, *feat_w, *feat_wT, *rgb1_wT, *rgb2_wT, *c1x_wT, *c1c_w, *c2_wT, *cfeat_wT;  // F padded to FP
+  const float *sigma_w, *csig_w, *feat_b, *cfeat_b;  // feat_b, cfeat_b (FP,)
+  const void *feat_w_rm, *cfeat_wT_rm;  // row-major copies for the per-ray vectors, (W, F) and (F, HC)
   float *d_o, *d_d, *d_cond, *d_cemb;
   float* dtw[MAX_D];
   float* dtb[MAX_D];
@@ -104,8 +113,9 @@ __device__ void load_chain(T* dst, int ldd, const Bwd& a, int ray, int s0, int c
 
 __device__ __forceinline__ float cot(const float* p, size_t i) { return p ? __ldg(p + i) : 0.f; }
 
-template <typename T>
+template <typename T, int F>
 __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
+  constexpr int FP = Widths<T, F>::FP, LDT = Widths<T, F>::LDT, LDA = Widths<T, F>::LDA;
   const int ray = blockIdx.x, S = a.S, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const bool rgb = a.flags & USE_RGB, feat = a.flags & OUT_FEAT, cand = a.flags & USE_CAND;
@@ -121,8 +131,8 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   float* GF = DX0 + BT * MAX_IN0;       // (BT, LDT) f32 cotangent
   float* GX = GF + BT * LDT;            // (BT, W) f32 cotangent of xyzf
   float* GU = GX + BT * W;              // (BT, 4)
-  float* gfeat = GU + BT * 4;           // (F,)
-  float* vfeat = gfeat + F;             // (W,) Wf g_feat
+  float* gfeat = GU + BT * 4;           // (FP,) zero past F
+  float* vfeat = gfeat + FP;            // (W,) Wf g_feat
   float* vcfeat = vfeat + W;            // (HC,) Wcf g_feat
   float* dcond = vcfeat + HC;           // (HH,) per-ray d_ray_cond
   float* rayg1 = dcond + HH;            // (HC,) per-ray sum of d h1
@@ -157,7 +167,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
     sgc[s] = cand ? __ldg(a.sig_c + i) : 0.f;
     for (int n = 0; n < 3; ++n) rgbs[3 * s + n] = rgb ? __ldg(a.rgb + i * 3 + n) : 0.f;
   }
-  for (int j = tid; j < F; j += THREADS) gfeat[j] = feat ? cot(a.g_feat, (size_t)ray * F + j) : 0.f;
+  for (int j = tid; j < FP; j += THREADS) gfeat[j] = feat && j < F ? cot(a.g_feat, (size_t)ray * F + j) : 0.f;
   for (int j = tid; j < HH; j += THREADS) dcond[j] = 0.f;
   for (int j = tid; j < HC; j += THREADS) rayg1[j] = 0.f;
   for (int j = tid; j < a.C; j += THREADS) cemb[j] = __ldg(a.cemb + (size_t)ray * a.C + j);
@@ -308,10 +318,10 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       // feat_s = xyzf_s Wf + bf (the dW operand of rgb1), rounded
       if (pg) load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
       __syncthreads();
-      if (pg) mmw<T>(GF, LDT, false, A, LDA, W, a.feat_w, F, F, 0);
+      if (pg) mmw<T>(GF, LDT, false, A, LDA, W, a.feat_w, FP, FP, 0);
       __syncthreads();
-      for (int i = tid; pg && i < BT * F; i += THREADS) {
-        const int r = i / F, n = i - r * F;
+      for (int i = tid; pg && i < BT * FP; i += THREADS) {
+        const int r = i / FP, n = i - r * FP;
         A[r * LDA + n] = from_float<T>(GF[r * LDT + n] + __ldg(a.feat_b + n));
       }
       // d(rgb pre-sigmoid) g_u, and rgbh
@@ -347,38 +357,38 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       colsum(GF, LDT, HH, nullptr, dcond);
       round_to<T>(B, LDA, GF, LDT, HH);
       __syncthreads();
-      if (pg) dww<T>(a.dh[RGB1_W], HH, A, LDA, F, B, LDA, HH);
+      if (pg) dww<T>(a.dh[RGB1_W], HH, A, LDA, FP, B, LDA, HH);
       // g_f = cf g_feat + g_rgbh Wr1^T
-      mmw<T>(GF, LDT, false, B, LDA, HH, a.rgb1_wT, F, F, 0);
+      mmw<T>(GF, LDT, false, B, LDA, HH, a.rgb1_wT, FP, FP, 0);
       __syncthreads();
     }
-    for (int i = tid; i < BT * F; i += THREADS) {
-      const int r = i / F, n = i - r * F;
+    for (int i = tid; i < BT * FP; i += THREADS) {
+      const int r = i / FP, n = i - r * FP;
       const float v = row_coef(cfw, r) * gfeat[n];
       GF[r * LDT + n] = rgb ? GF[r * LDT + n] + v : v;
     }
     __syncthreads();
-    if (pg) colsum(GF, LDT, F, a.dh[FEAT_B]);
-    round_to<T>(B, LDA, GF, LDT, F);
+    if (pg) colsum(GF, LDT, FP, a.dh[FEAT_B]);
+    round_to<T>(B, LDA, GF, LDT, FP);
     if (pg) load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
     __syncthreads();
-    if (pg) dww<T>(a.dh[FEAT_W], F, A, LDA, W, B, LDA, F);
-    mmw<T>(GX, W, false, B, LDA, F, a.feat_wT, W, W, 0);
+    if (pg) dww<T>(a.dh[FEAT_W], FP, A, LDA, W, B, LDA, FP);
+    mmw<T>(GX, W, false, B, LDA, FP, a.feat_wT, W, W, 0);
     __syncthreads();
 
     if (cand) {
-      for (int i = tid; i < BT * F; i += THREADS) {
-        const int r = i / F, n = i - r * F;
+      for (int i = tid; i < BT * FP; i += THREADS) {
+        const int r = i / FP, n = i - r * FP;
         GF[r * LDT + n] = row_coef(cgw, r) * gfeat[n];
       }
       load_chain<T>(A, LDA, a, ray, s0, col_h2, HC);
       __syncthreads();
-      if (pg) colsum(GF, LDT, F, a.dh[CFEAT_B]);
-      round_to<T>(B, LDA, GF, LDT, F);
+      if (pg) colsum(GF, LDT, FP, a.dh[CFEAT_B]);
+      round_to<T>(B, LDA, GF, LDT, FP);
       __syncthreads();
-      if (pg) dww<T>(a.dh[CFEAT_W], F, A, LDA, HC, B, LDA, F);
+      if (pg) dww<T>(a.dh[CFEAT_W], FP, A, LDA, HC, B, LDA, FP);
       // g_h2 = (g_cf Wcf^T + g_cpre csig_w) * (h2 > 0); dW / db of c_sig
-      mmw<T>(GF, LDT, false, B, LDA, F, a.cfeat_wT, HC, HC, 0);
+      mmw<T>(GF, LDT, false, B, LDA, FP, a.cfeat_wT, HC, HC, 0);
       if (tid < BT) GU[tid * 4 + 3] = row_coef(gcp, tid);
       __syncthreads();
       for (int i = tid; i < BT * HC; i += THREADS) {
@@ -512,19 +522,21 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   }
 }
 
-long long smem_bytes(int S, int tsize) {
-  const long long t = (long long)BT * (LDX0 + 2 * LDA + 4) * tsize;
-  const long long f = (long long)BT * (MAX_IN0 + LDT + W + 4) + F + W + 2 * HC + HH + MAX_C + 16 + 16LL * S;
+template <typename T, int F>
+long long smem_bytes(int S) {
+  using L = Widths<T, F>;
+  const long long t = (long long)BT * (LDX0 + 2 * L::LDA + 4) * sizeof(T);
+  const long long f = (long long)BT * (MAX_IN0 + L::LDT + W + 4) + L::FP + W + 2 * HC + HH + MAX_C + 16 + 16LL * S;
   return t + f * 4 + 16;
 }
 
-template <typename T>
+template <typename T, int F>
 int launch(const Bwd& a, cudaStream_t stream) {
-  const long long bytes = smem_bytes(a.S, sizeof(T));
+  const long long bytes = smem_bytes<T, F>(a.S);
   if (bytes > SMEM_LIMIT) return BAD_SMEM;
-  cudaError_t err = cudaFuncSetAttribute(bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = cudaFuncSetAttribute(bwd_kernel<T, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  bwd_kernel<T><<<a.R, THREADS, (int)bytes, stream>>>(a);
+  bwd_kernel<T, F><<<a.R, THREADS, (int)bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -537,14 +549,17 @@ extern "C" {
 // feat_map, j_weights, c_depth, t_weight (null = zero). res: sig_s, sig_c, rgb, chain.
 // trunk_t: per layer W^T (W, in_pad) in the compute dtype, x0 padded to 64 columns.
 // w: xyzf_w^T, feat_w, feat_w^T, rgb1_w^T, rgb2_w^T, c1x_w^T, c1c_w, c2_w^T,
-// cfeat_w^T (compute dtype), sigma_w, csig_w, feat_b, cfeat_b (f32). outs: d_rays_o,
-// d_rays_d, d_ray_cond, d_c_emb. dtw / dtb: trunk weight (padded rows) and bias
-// gradients, dh: head gradients in HEAD_KEYS order; all f32 and zeroed by the caller,
-// and never touched (null allowed) when flags has NO_PARAM_GRADS.
+// cfeat_w^T (compute dtype), sigma_w, csig_w, feat_b, cfeat_b (f32), then the
+// row-major feat_w (W, F) and cfeat_w^T (F, HC); the feature dimension of the product
+// matrices and of feat_b, cfeat_b zero-padded from F to FP (render_common.cuh:
+// feat_pad). outs: d_rays_o, d_rays_d, d_ray_cond, d_c_emb. dtw / dtb: trunk weight
+// (padded rows) and bias gradients, dh: head gradients in HEAD_KEYS order, feat_w,
+// feat_b, rgb1_w, cfeat_w and cfeat_b at FP; all f32 and zeroed by the caller, and
+// never touched (null allowed) when flags has NO_PARAM_GRADS. F: a built feature width.
 int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, const void* const* res,
                             const void* const* trunk_t, int D, unsigned skip_mask, const void* const* w,
                             void* const* outs, void* const* dtw, void* const* dtb, void* const* dh, int R, int S,
-                            int L, int C, int flags, void* stream) {
+                            int L, int C, int F, int flags, void* stream) {
   const int in0 = 3 + 6 * L;
   if (R <= 0 || S <= 0 || L <= 0 || in0 > MAX_IN0 || D <= 0 || D > MAX_D || C < 0 || C > MAX_C) return BAD_SHAPE;
   if (!(flags & (USE_RGB | OUT_FEAT)) || ((flags & USE_CAND) && C == 0)) return BAD_MODE;
@@ -600,13 +615,19 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
   a.in0 = in0;
   a.flags = flags;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (flags & BF16) ? launch<bf16>(a, st) : launch<float>(a, st);
+  const bool bf = flags & BF16;
+  switch (F) {
+    case 32: return bf ? launch<bf16, 32>(a, st) : launch<float, 32>(a, st);
+    case 64: return bf ? launch<bf16, 64>(a, st) : launch<float, 64>(a, st);
+    case 384: return bf ? launch<bf16, 384>(a, st) : launch<float, 384>(a, st);
+    default: return BAD_SHAPE;
+  }
 }
 
 const char* upnerf_error_string(int code) {
   switch (code) {
     case OK: return "ok";
-    case BAD_SHAPE: return "unsupported shape (W=256, F=384, HH=128, HC=128; 3 + 6L <= 64; D <= 16; C <= 32)";
+    case BAD_SHAPE: return "unsupported shape (W=256, F in {32, 64, 384}, HH=128, HC=128; 3 + 6L <= 64; D <= 16; C <= 32)";
     case BAD_SMEM: return "too many samples per ray for shared memory";
     case BAD_MODE: return "unsupported mode (needs use_rgb or out_feat; the candidate branch needs C > 0)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -59,6 +59,12 @@
 // one computes while the other waits at a layer's barrier; the 384-wide feat layers
 // run as two 192-column passes to stay within the registers. The narrow heads
 // (sigma, c_sigma, rgb) are warp dot products in f32.
+//
+// Feature widths: one instance per built F (32, 64, 384; render_common.cuh:
+// feat_pad). At F = 32 and 64 the feature products run at FP = 64 (bf16) or
+// 128 (f32) columns over weights the wrapper zero-pads, so the padded feature columns
+// are exact zeros and rgb1's padded rows add nothing; only the feature map's F
+// columns are written.
 
 #include "render_common.cuh"
 
@@ -80,9 +86,9 @@ struct Net {
   const float* xyzf_b;
   const void* sigma_w;     // (W, 1), f32 or bf16
   const float* sigma_b;
-  const void* feat_w;      // f32 (W, F) | bf16 packed
-  const float* feat_b;
-  const void* rgb1_w;      // f32 (F, HH) | bf16 packed; its bias is folded into ray_cond
+  const void* feat_w;      // f32 (W, FP) | bf16 packed; feature columns zero-padded to FP
+  const float* feat_b;     // (FP,)
+  const void* rgb1_w;      // f32 (FP, HH) | bf16 packed, rows padded; its bias is folded into ray_cond
   const void* rgb2_w;      // (HH, 3), f32 or bf16
   const float* rgb2_b;
   const void* c1x_w;       // f32 (W, HC) | bf16 packed
@@ -92,8 +98,8 @@ struct Net {
   const float* c2_b;
   const void* csig_w;      // (HC, 1), f32 or bf16
   const float* csig_b;
-  const void* cfeat_w;     // f32 (HC, F) | bf16 packed
-  const float* cfeat_b;
+  const void* cfeat_w;     // f32 (HC, FP) | bf16 packed
+  const float* cfeat_b;    // (FP,)
 };
 
 struct Rays {
@@ -129,11 +135,12 @@ struct RaySmem {
   float* rgb;  // (S, 3)
   float* wf;   // (TILE,) this tile's feat weights
   float* wc;   // (TILE,) this tile's c_feat weights
-  float* fm;   // (F,) feature map accumulator
+  float* fm;   // (FP,) feature map accumulator (the padded columns sum zeros)
   float* rp;   // (HC,) ray part of h1's pre-activation
   float* carry;  // (1,) prefix of the transmittance exponent over the earlier tiles
 };
 
+template <int FP>
 __device__ __forceinline__ RaySmem ray_smem(float* base, int S) {
   RaySmem m;
   m.zs = base;
@@ -143,11 +150,12 @@ __device__ __forceinline__ RaySmem ray_smem(float* base, int S) {
   m.wf = m.rgb + 3 * S;
   m.wc = m.wf + TILE;
   m.fm = m.wc + TILE;
-  m.rp = m.fm + F;
+  m.rp = m.fm + FP;
   m.carry = m.rp + HC;
   return m;
 }
-constexpr int ray_smem_floats(int S) { return 6 * S + 2 * TILE + F + HC + 4; }
+template <int FP>
+constexpr int ray_smem_floats(int S) { return 6 * S + 2 * TILE + FP + HC + 4; }
 
 // res[r][n] = sum_k a[row 8*warp + r, k] * w[k, n] for the narrow heads (NOUT <= 3):
 // lanes split k, then a butterfly reduction leaves the sum in every lane.
@@ -303,6 +311,7 @@ __device__ __forceinline__ void composite(const Rays& a, int ray, const RaySmem&
 
 // Ray set-up: origin, direction, depths, zeroed accumulators, and the ray part of
 // h1's pre-activation rp = c_emb Wc1c + bc1 (operands rounded to bf16 in bf16 mode).
+template <int FP>
 __device__ __forceinline__ void load_ray(const Net& net, const Rays& a, int ray, float (&o)[3], float (&d)[3],
                                          const RaySmem& m) {
   const bool x0_in = a.flags & X0_IN;
@@ -312,7 +321,7 @@ __device__ __forceinline__ void load_ray(const Net& net, const Rays& a, int ray,
     d[c] = x0_in ? 0.f : __ldg(a.d + ray * 3 + c);
   }
   for (int s = threadIdx.x; s < a.S; s += blockDim.x) m.zs[s] = __ldg(a.z + (size_t)ray * a.S + s);
-  for (int j = threadIdx.x; j < F; j += blockDim.x) m.fm[j] = 0.f;
+  for (int j = threadIdx.x; j < FP; j += blockDim.x) m.fm[j] = 0.f;
   if (threadIdx.x == 0) *m.carry = 0.f;
   if ((a.flags & USE_CAND) && threadIdx.x < HC) {
     const int j = threadIdx.x;
@@ -338,7 +347,8 @@ __device__ __forceinline__ float x0_value(const Rays& a, int ray, const float (&
   return pe_value(o, d, m.zs[s], j, a.L, a.pe_w);
 }
 
-// End of the ray: residual sigmas, the composites and the feature map.
+// End of the ray: residual sigmas, the composites and the feature map (F columns).
+template <int F>
 __device__ __forceinline__ void finish_ray(const Rays& a, int ray, const RaySmem& m) {
   const bool cand = a.flags & USE_CAND;
   for (int s = threadIdx.x; s < a.S; s += blockDim.x) {
@@ -414,15 +424,17 @@ __device__ __forceinline__ void dense_f32(const float* a1, int lda1, int K1, con
   __syncwarp();
 }
 
+template <int F>
 __global__ void __launch_bounds__(THREADS, 1) f32_kernel(const Net net, const Rays a) {
   // A warp reads and writes only its own 8 rows, so the layers need no block barrier;
   // the tile's feature weights need all of its sigmas, hence the barriers there.
-  constexpr int ldX = W > F ? W : F, ldY = W > HH ? W : HH, ldx = MAX_IN0;
+  constexpr int FP = feat_pad<F, false>();
+  constexpr int ldX = W > FP ? W : FP, ldY = W > HH ? W : HH, ldx = MAX_IN0;
   extern __shared__ float4 smem4[];
   float* xb = reinterpret_cast<float*>(smem4);  // (TILE, ldx)  x0
   float* X = xb + TILE * ldx;                    // (TILE, ldX)  last trunk layer, h1 | h2, feat
   float* Y = X + TILE * ldX;                     // (TILE, ldY)  other trunk layers, xyzf, rgb hidden
-  const RaySmem m = ray_smem(Y + TILE * ldY, a.S);
+  const RaySmem m = ray_smem<FP>(Y + TILE * ldY, a.S);
 
   const int ray = blockIdx.x, S = a.S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -430,7 +442,7 @@ __global__ void __launch_bounds__(THREADS, 1) f32_kernel(const Net net, const Ra
   const bool rgb = a.flags & USE_RGB, feat = a.flags & OUT_FEAT, cand = a.flags & USE_CAND;
   const bool save = a.flags & SAVE_RES;
   float o[3], d[3];
-  load_ray(net, a, ray, o, d, m);
+  load_ray<FP>(net, a, ray, o, d, m);
   __syncthreads();
   const float* cond = rgb ? a.cond + (size_t)ray * HH : nullptr;
   int col_rgbh = (net.D + 1) * W, col_h1 = col_rgbh + (rgb ? HH : 0);
@@ -472,19 +484,19 @@ __global__ void __launch_bounds__(THREADS, 1) f32_kernel(const Net net, const Ra
       if (warp == 0) tile_weights(a, m, s0, cand);
       __syncthreads();
       if (cand)
-        dense_f32<F / 32>(X + HC, ldX, HC, nullptr, 0, 0, static_cast<const float*>(net.cfeat_w), net.cfeat_b,
-                          nullptr, 0, false, m.wc, m.fm);
+        dense_f32<FP / 32>(X + HC, ldX, HC, nullptr, 0, 0, static_cast<const float*>(net.cfeat_w), net.cfeat_b,
+                           nullptr, 0, false, m.wc, m.fm);
     }
-    dense_f32<F / 32>(Y, ldY, W, nullptr, 0, 0, static_cast<const float*>(net.feat_w), net.feat_b, rgb ? X : nullptr,
-                      ldX, false, feat ? m.wf : nullptr, feat ? m.fm : nullptr);
+    dense_f32<FP / 32>(Y, ldY, W, nullptr, 0, 0, static_cast<const float*>(net.feat_w), net.feat_b, rgb ? X : nullptr,
+                       ldX, false, feat ? m.wf : nullptr, feat ? m.fm : nullptr);
     if (rgb) {
-      dense_f32<HH / 32>(X, ldX, F, nullptr, 0, 0, static_cast<const float*>(net.rgb1_w), cond, Y, ldY, true);
+      dense_f32<HH / 32>(X, ldX, FP, nullptr, 0, 0, static_cast<const float*>(net.rgb1_w), cond, Y, ldY, true);
       if (save) store_chain<float>(a, ray, s0, Y, ldY, HH, col_rgbh, r0, RPW, lane, 32);
       rgb_head<float, float>(net, a, ray, Y, ldY, s0, m.rgb);
     }
   }
   __syncthreads();
-  finish_ray(a, ray, m);
+  finish_ray<F>(a, ray, m);
 }
 
 // ---------------------------------------------------------------------------
@@ -494,7 +506,8 @@ __global__ void __launch_bounds__(THREADS, 1) f32_kernel(const Net net, const Ra
 // 8x8 block in distinct bank groups (a row is 16 bytes off a 128-byte line).
 constexpr int K0P = 64;                      // x0 width padded to a multiple of 16
 constexpr int LDX0 = K0P + 8;
-constexpr int LDXB = (W > F ? W : F) + 8;    // X: last trunk layer, h1 | h2, feat
+template <int FP>
+__host__ __device__ constexpr int ldxb() { return (W > FP ? W : FP) + 8; }  // X: last trunk layer, h1 | h2, feat
 constexpr int LDYB = (W > HH ? W : HH) + 8;  // Y: other trunk layers, xyzf, rgb hidden
 
 // out[0:64, n] = act([a1 | a2] @ W + bias) as bf16 for 64 * NT columns from tile
@@ -559,19 +572,36 @@ __device__ __forceinline__ void dense_bf16(const bf16* a1, int lda1, int K1, con
   __syncthreads();
 }
 
+// The feat / c_feat layer of one tile over FP columns: two passes of FP / 2 columns
+// when FP is a multiple of 128 (F = 384: three 8-column tiles a warp each pass, within
+// the registers), else one pass of 64 (F = 32, 64).
+template <int FP, bool COLSUM>
+__device__ __forceinline__ void feat_layer(const bf16* a, int lda, int K, const void* Wp, const float* bias, bf16* out,
+                                           int ldo, const float* roww, float* colsum, bool round_sum) {
+  if constexpr (FP % 128 == 0) {
+    for (int half = 0; half < 2; ++half)
+      dense_bf16<FP / 128, COLSUM>(a, lda, K, nullptr, 0, 0, Wp, bias, out, ldo, false, half * FP / 16, roww, colsum,
+                                   round_sum);
+  } else {
+    dense_bf16<FP / 64, COLSUM>(a, lda, K, nullptr, 0, 0, Wp, bias, out, ldo, false, 0, roww, colsum, round_sum);
+  }
+}
+
+template <int F>
 __global__ void __launch_bounds__(THREADS, 2) bf16_kernel(const Net net, const Rays a) {
+  constexpr int FP = feat_pad<F, true>(), LDXB = ldxb<FP>();
   extern __shared__ float4 smem4[];
   bf16* xb = reinterpret_cast<bf16*>(smem4);     // (TILE, LDX0)  x0, column 63.. zero
   bf16* X = xb + TILE * LDX0;                    // (TILE, LDXB)
   bf16* Y = X + TILE * LDXB;                     // (TILE, LDYB)
-  const RaySmem m = ray_smem(reinterpret_cast<float*>(Y + TILE * LDYB), a.S);
+  const RaySmem m = ray_smem<FP>(reinterpret_cast<float*>(Y + TILE * LDYB), a.S);
 
   const int ray = blockIdx.x, S = a.S;
   const int warp = threadIdx.x >> 5;
   const bool rgb = a.flags & USE_RGB, feat = a.flags & OUT_FEAT, cand = a.flags & USE_CAND;
   const bool save = a.flags & SAVE_RES, round_sum = !(a.flags & STORE_F32);
   float o[3], d[3];
-  load_ray(net, a, ray, o, d, m);
+  load_ray<FP>(net, a, ray, o, d, m);
   __syncthreads();
   const float* cond = rgb ? a.cond + (size_t)ray * HH : nullptr;
   const int col_rgbh = (net.D + 1) * W, col_h1 = col_rgbh + (rgb ? HH : 0);
@@ -613,30 +643,22 @@ __global__ void __launch_bounds__(THREADS, 2) bf16_kernel(const Net net, const R
       __syncthreads();
       if (warp == 0) tile_weights(a, m, s0, cand);
       __syncthreads();
-      if (cand) {
-        dense_bf16<F / 128, true>(X + HC, LDXB, HC, nullptr, 0, 0, net.cfeat_w, net.cfeat_b, nullptr, 0, false, 0,
-                                  m.wc, m.fm, round_sum);
-        dense_bf16<F / 128, true>(X + HC, LDXB, HC, nullptr, 0, 0, net.cfeat_w, net.cfeat_b, nullptr, 0, false,
-                                  F / 16, m.wc, m.fm, round_sum);
-      }
+      if (cand) feat_layer<FP, true>(X + HC, LDXB, HC, net.cfeat_w, net.cfeat_b, nullptr, 0, m.wc, m.fm, round_sum);
     }
     bf16* fout = rgb ? X : nullptr;
     // the serving mode (no feature map) keeps the epilogue without the column sum
-    for (int half = 0; half < 2; ++half) {
-      if (feat)
-        dense_bf16<F / 128, true>(Y, LDYB, W, nullptr, 0, 0, net.feat_w, net.feat_b, fout, LDXB, false,
-                                  half * F / 16, m.wf, m.fm, round_sum);
-      else
-        dense_bf16<F / 128>(Y, LDYB, W, nullptr, 0, 0, net.feat_w, net.feat_b, fout, LDXB, false, half * F / 16);
-    }
+    if (feat)
+      feat_layer<FP, true>(Y, LDYB, W, net.feat_w, net.feat_b, fout, LDXB, m.wf, m.fm, round_sum);
+    else
+      feat_layer<FP, false>(Y, LDYB, W, net.feat_w, net.feat_b, fout, LDXB, nullptr, nullptr, false);
     if (rgb) {
-      dense_bf16<HH / 64>(X, LDXB, F, nullptr, 0, 0, net.rgb1_w, cond, Y, LDYB, true);
+      dense_bf16<HH / 64>(X, LDXB, FP, nullptr, 0, 0, net.rgb1_w, cond, Y, LDYB, true);
       if (save) store_chain<bf16>(a, ray, s0, Y, LDYB, HH, col_rgbh, 0, TILE, tid, THREADS);
       rgb_head<bf16, bf16>(net, a, ray, Y, LDYB, s0, m.rgb);
     }
   }
   __syncthreads();
-  finish_ray(a, ray, m);
+  finish_ray<F>(a, ray, m);
 }
 
 template <typename Kernel>
@@ -646,6 +668,20 @@ int launch(Kernel kernel, const Net& net, const Rays& a, long long smem_bytes, c
   if (err != cudaSuccess) return (int)err;
   kernel<<<a.R, THREADS, (int)smem_bytes, stream>>>(net, a);
   return (int)cudaGetLastError();
+}
+
+// The instance of feature width F: its shared memory from S and the mode.
+template <int F>
+int launch_width(const Net& net, const Rays& a, cudaStream_t st) {
+  if (a.flags & BF16) {
+    constexpr int FP = feat_pad<F, true>();
+    const long long bytes = (long long)TILE * (LDX0 + ldxb<FP>() + LDYB) * 2 + (long long)ray_smem_floats<FP>(a.S) * 4;
+    return launch(bf16_kernel<F>, net, a, bytes, st);
+  }
+  constexpr int FP = feat_pad<F, false>();
+  const long long bytes =
+      (long long)TILE * (MAX_IN0 + (W > FP ? W : FP) + (W > HH ? W : HH)) * 4 + (long long)ray_smem_floats<FP>(a.S) * 4;
+  return launch(f32_kernel<F>, net, a, bytes, st);
 }
 
 }  // namespace
@@ -662,10 +698,14 @@ extern "C" {
 // trunk, xyzf, feat, rgb1, c1x, c2 and cfeat matrices in bf16 packed in fragment
 // order (_pack_fragments), with the x0 rows of layer 0 and of the skip layers
 // zero-padded from 3 + 6L to 64; sigma, rgb2, csig and c1c stay (in, out), in bf16.
-// Biases are f32. flags: the Flag bits of render_common.cuh.
+// Biases are f32. The feature weights feat_w, rgb1_w, cfeat_w and the biases feat_b,
+// cfeat_b come zero-padded from F to the product width FP (render_common.cuh:
+// feat_pad) in both modes; feat_map has F columns. F: the feature width, one of the
+// built ones (render_common.cuh:feat_pad). flags: the Flag bits of
+// render_common.cuh.
 int upnerf_render_train_fwd(const void* const* ins, const void* const* trunk_w, const void* const* trunk_b, int D,
                             unsigned skip_mask, const void* const* heads, void* const* outs, int R, int S, int L,
-                            int C, int flags, void* stream) {
+                            int C, int F, int flags, void* stream) {
   const int in0 = 3 + 6 * L;
   if (R <= 0 || S <= 0 || L <= 0 || in0 > MAX_IN0 || D <= 0 || D > MAX_D || C < 0 || C > MAX_C) return BAD_SHAPE;
   if (!(flags & (USE_RGB | OUT_FEAT)) || ((flags & USE_CAND) && C == 0)) return BAD_MODE;
@@ -723,19 +763,18 @@ int upnerf_render_train_fwd(const void* const* ins, const void* const* trunk_w, 
   a.in0 = in0;
   a.flags = flags;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long per_ray = (long long)ray_smem_floats(S) * 4;
-  if (flags & BF16) {
-    const long long bytes = (long long)TILE * (LDX0 + LDXB + LDYB) * 2 + per_ray;
-    return launch(bf16_kernel, net, a, bytes, st);
+  switch (F) {
+    case 32: return launch_width<32>(net, a, st);
+    case 64: return launch_width<64>(net, a, st);
+    case 384: return launch_width<384>(net, a, st);
+    default: return BAD_SHAPE;
   }
-  const long long bytes = (long long)TILE * (MAX_IN0 + (W > F ? W : F) + (W > HH ? W : HH)) * 4 + per_ray;
-  return launch(f32_kernel, net, a, bytes, st);
 }
 
 const char* upnerf_error_string(int code) {
   switch (code) {
     case OK: return "ok";
-    case BAD_SHAPE: return "unsupported shape (W=256, F=384, HH=128, HC=128; 3 + 6L <= 64; D <= 16; C <= 32)";
+    case BAD_SHAPE: return "unsupported shape (W=256, F in {32, 64, 384}, HH=128, HC=128; 3 + 6L <= 64; D <= 16; C <= 32)";
     case BAD_SMEM: return "too many samples per ray for shared memory";
     case BAD_MODE:
       return "unsupported mode (needs use_rgb or out_feat; the candidate branch needs C > 0; the x0 mode is the"

@@ -3,7 +3,8 @@
 `NeRFField` is an nn.Module whose parameter names are the reference's
 NeRF state_dict keys (`xyz_encoding_1.0.weight`, ..., `share_sigma.0.*`,
 `rgb_share_layer.{0,2}.*`, `feat_share_layer.*`, `candidate_encoding.{0,2}.*`,
-`candidate_sigma.0.*`, `feat_candidate_layer.*`, `progress`), so a
+`candidate_sigma.0.*`, `feat_candidate_layer.*` or `rgb_candidate_layer.*`,
+`progress`), so a
 reference checkpoint loads with `load_state_dict(strict=True)`.
 
 Architecture:
@@ -23,6 +24,11 @@ its plain version fused_trunk_heads_plain (autograd); the rgb head in
 PyTorch. The unfused render path (`tpu.fused_train` off) trains through it.
 Its sigma-only mode (the probe of the fast serving render) runs the trunk
 through upnerf_torch.ops.mlp.fused_trunk, the CUDA trunk kernel on the card.
+The feature-less field (`nerf.feat_dim: 0`, the JAX package's RGB surrogate)
+runs its trunk through the same fused_trunk, differentiable (the trunk
+kernel's forward and backward), with fused_trunk on, and through the plain
+trunk without it; its heads in PyTorch: the static rgb head on xyz_final in
+every phase, and the candidate's c_rgb (no sigmoid) in place of c_feat.
 The fused render path runs the same math through upnerf_torch.ops.render_train.
 """
 
@@ -37,7 +43,7 @@ from torch import nn
 
 from upnerf_torch.ops.heads import fused_trunk_heads, fused_trunk_heads_plain
 from upnerf_torch.ops.linear import dense, init_linear_
-from upnerf_torch.ops.mlp import fused_trunk
+from upnerf_torch.ops.mlp import fused_trunk, fused_trunk_plain
 from upnerf_torch.ops.render_train import softplus
 
 
@@ -170,7 +176,7 @@ class NeRFField(nn.Module):
     def trunk_heads_weights(self, use_cand: bool):
         """(trunk, heads) in the interface of ops.heads (the JAX kernel's): (in,
         out) matrices; HEAD_KEYS, and CAND_KEYS with c1 unsplit (W + C, HC)."""
-        trunk = [(lay.weight.t(), lay.bias) for lay in self.trunk_layers()]
+        trunk = self.trunk_weights()
         heads = {
             "sigma_w": self.share_sigma[0].weight.t(), "sigma_b": self.share_sigma[0].bias,
             "xyzf_w": self.xyz_encoding_final.weight.t(), "xyzf_b": self.xyz_encoding_final.bias,
@@ -200,17 +206,16 @@ class NeRFField(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         """apply_nerf: s_sigma (...), s_feat (..., feat_dim); s_rgb (..., 3)
         in phases 1 and 2; c_sigma and c_feat in phases 0 and 1 with the
-        candidate branch. Per-ray `dirs`/`a_emb`/`c_emb` are broadcast over
-        the sample axis. sigma_only: s_sigma alone, the trunk through the
-        fused trunk kernel (`dirs` and `a_emb` are not read)."""
+        candidate branch. The feature-less field (encode_feat off): s_sigma and
+        s_rgb in every phase, c_sigma and c_rgb (..., 3) with the candidate
+        branch. Per-ray `dirs`/`a_emb`/`c_emb` are broadcast over the sample
+        axis. sigma_only: s_sigma alone, the trunk through the fused trunk
+        kernel (`dirs` and `a_emb` are not read)."""
         cfg = self.cfg
-        if not cfg.encode_feat:
-            raise NotImplementedError("the feature-less field is not ported")
         x0 = positional_encoding(xyz, cfg.xyz_L, band_weights(cfg, cfg.xyz_L, progress, xyz.device))
         if sigma_only:
             lin = self.share_sigma[0]
-            trunk = [(layer.weight.t(), layer.bias) for layer in self.trunk_layers()]
-            h = fused_trunk(x0.reshape(-1, x0.shape[-1]), trunk, cfg.skips, precision)
+            h = fused_trunk(x0.reshape(-1, x0.shape[-1]), self.trunk_weights(), cfg.skips, precision)
             h = h.reshape(*x0.shape[:-1], cfg.W)
             return {"s_sigma": softplus(dense(h, lin.weight, lin.bias, precision))[..., 0]}
         per_ray = dirs.dim() == xyz.dim() - 1
@@ -219,7 +224,16 @@ class NeRFField(nn.Module):
         def widen(p):
             return p[..., None, :].expand(*lead, p.shape[-1]) if per_ray else p
 
+        def rgb_head(base):
+            dir_pe = positional_encoding(dirs, cfg.dir_L, band_weights(cfg, cfg.dir_L, progress, dirs.device))
+            parts = [dir_pe] + ([a_emb] if cfg.encode_appearance else [])
+            l1, l2 = self.rgb_share_layer[0], self.rgb_share_layer[2]
+            rgbh = F_.relu(dense(torch.cat([base] + [widen(p) for p in parts], -1), l1.weight, l1.bias, precision))
+            return torch.sigmoid(dense(rgbh, l2.weight, l2.bias, precision))
+
         use_cand = cfg.encode_candidate and encode_candidate and phase < 2
+        if not cfg.encode_feat:
+            return self._featureless(x0, lead, widen, rgb_head, c_emb if use_cand else None, precision)
         # the candidate embedding goes in per sample, as the JAX package broadcasts it
         c_flat = widen(c_emb).reshape(-1, c_emb.shape[-1]) if use_cand else None
         trunk_heads = fused_trunk_heads if cfg.fused_trunk else fused_trunk_heads_plain
@@ -229,11 +243,30 @@ class NeRFField(nn.Module):
         if use_cand:
             out["c_sigma"] = outs[2].reshape(lead)
             out["c_feat"] = outs[3].reshape(*lead, cfg.feat_dim)
-        feat = out["s_feat"]
         if phase > 0:
-            dir_pe = positional_encoding(dirs, cfg.dir_L, band_weights(cfg, cfg.dir_L, progress, dirs.device))
-            parts = [dir_pe] + ([a_emb] if cfg.encode_appearance else [])
-            l1, l2 = self.rgb_share_layer[0], self.rgb_share_layer[2]
-            rgbh = F_.relu(dense(torch.cat([feat] + [widen(p) for p in parts], -1), l1.weight, l1.bias, precision))
-            out["s_rgb"] = torch.sigmoid(dense(rgbh, l2.weight, l2.bias, precision))
+            out["s_rgb"] = rgb_head(out["s_feat"])
+        return out
+
+    def trunk_weights(self):
+        """The trunk in the interface of ops.mlp: (in, out) matrices and biases."""
+        return [(lay.weight.t(), lay.bias) for lay in self.trunk_layers()]
+
+    def _featureless(self, x0, lead, widen, rgb_head, c_emb, precision: str) -> Dict[str, torch.Tensor]:
+        """The feature-less field (upnerf/models/nerf.py:304-367): the trunk
+        through ops.mlp.fused_trunk (fused_trunk on) or the plain trunk, then
+        s_sigma, xyz_final and s_rgb = rgb_head(xyz_final) in every phase; with
+        the candidate embedding c_emb, c_sigma and c_rgb = h2 W + b, no sigmoid."""
+        cfg = self.cfg
+        trunk = fused_trunk if cfg.fused_trunk else fused_trunk_plain
+        h = trunk(x0.reshape(-1, x0.shape[-1]), self.trunk_weights(), cfg.skips, precision).reshape(*lead, cfg.W)
+        lin = self.share_sigma[0]
+        xyz_final = dense(h, self.xyz_encoding_final.weight, self.xyz_encoding_final.bias, precision)
+        out = {"s_sigma": softplus(dense(h, lin.weight, lin.bias, precision))[..., 0], "s_rgb": rgb_head(xyz_final)}
+        if c_emb is not None:
+            c1, c2 = self.candidate_encoding[0], self.candidate_encoding[2]
+            h1 = F_.relu(dense(torch.cat([xyz_final, widen(c_emb)], -1), c1.weight, c1.bias, precision))
+            h2 = F_.relu(dense(h1, c2.weight, c2.bias, precision))
+            cs, cr = self.candidate_sigma[0], self.rgb_candidate_layer
+            out["c_sigma"] = softplus(dense(h2, cs.weight, cs.bias, precision))[..., 0]
+            out["c_rgb"] = dense(h2, cr.weight, cr.bias, precision)
         return out

@@ -33,13 +33,16 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from upnerf_torch.ops.linear import canonical_precision, matmul
-from upnerf_torch.ops.mlp import _layout, _padded_trunk, fused_trunk_plain, trunk_chain
-from upnerf_torch.ops.render_train import X0_PAD, _ptrs, _raise_on, softplus
+from upnerf_torch.ops.mlp import _layout, _padded_trunk, fused_trunk_plain, trunk_chain, trunk_walk_plain
+from upnerf_torch.ops.render_train import (
+    X0_PAD, _ptrs, _raise_on, check_feat_width, feat_pad, pad_feat, softplus, unpad_feat, unpad_trunk_grad,
+)
 
 HEAD_KEYS = ("sigma_w", "sigma_b", "xyzf_w", "xyzf_b", "feat_w", "feat_b")
 CAND_KEYS = ("c1_w", "c1_b", "c2_w", "c2_b", "csig_w", "csig_b", "cfeat_w", "cfeat_b")
-# The widths the CUDA kernels take (configs/brandenburg_gate.yaml); c_emb up to 64 columns.
-KERNEL_WIDTHS = {"W": 256, "F": 384, "HC": 128}
+# The widths the CUDA kernels take (configs/brandenburg_gate.yaml, configs/validation/;
+# F one of render_train.KERNEL_F); c_emb up to 64 columns.
+KERNEL_WIDTHS = {"W": 256, "HC": 128}
 MAX_C = 64
 MAX_D = 16
 
@@ -86,8 +89,6 @@ def fused_trunk_heads_bwd_plain(x0, c_emb, trunk, heads, skips, precision, cots)
     (dx0, dc_emb or None, [(dW, db)] per trunk layer, {head key: grad}). float64
     inputs run in float64 with precision float32 (chip_smoke.py's witness)."""
     prec = canonical_precision(precision)
-    D = len(trunk)
-    in0 = x0.shape[1]
     use_cand = c_emb is not None
 
     def dot(a, b):
@@ -129,19 +130,7 @@ def fused_trunk_heads_bwd_plain(x0, c_emb, trunk, heads, skips, precision, cots)
     dp["sigma_w"] = dot(h.t(), dpre_ss)
     dp["sigma_b"] = dpre_ss.sum(0)
     g = dh + dot(dpre_ss, heads["sigma_w"].t())
-    dx0 = torch.zeros_like(x0)
-    dtrunk = [None] * D
-    for k in reversed(range(D)):
-        g = g * (acts[k] > 0)
-        dtrunk[k] = (dot(inputs[k].t(), g), g.sum(0))
-        g_in = dot(g, trunk[k][0].t())
-        if k in skips and k > 0:
-            dx0 = dx0 + g_in[:, :in0]
-            g = g_in[:, in0:]
-        elif k == 0:
-            dx0 = dx0 + g_in
-        else:
-            g = g_in
+    dx0, dtrunk = trunk_walk_plain(x0, trunk, skips, prec, inputs, acts, g)
     return dx0, dc_emb, dtrunk, dp
 
 
@@ -154,7 +143,9 @@ def _check_args(x0, c_emb, trunk, heads, skips) -> None:
     what they do not take."""
     N, in0 = x0.shape
     D = len(trunk)
-    W, F, HC = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["F"], KERNEL_WIDTHS["HC"]
+    W, HC = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["HC"]
+    F = heads["feat_b"].shape[0]
+    check_feat_width(F)
     C = 0 if c_emb is None else c_emb.shape[1]
     if in0 > X0_PAD or not 0 < D <= MAX_D or C > MAX_C:
         raise ValueError(f"the CUDA heads kernels take 3 + 6L <= {X0_PAD}, D <= {MAX_D}, C <= {MAX_C};"
@@ -181,8 +172,9 @@ def _c1_padded(c1_w: torch.Tensor, W: int) -> torch.Tensor:
 def fused_trunk_heads_fwd(x0, c_emb, trunk, heads, skips, precision: str = "float32") -> Tuple[torch.Tensor, ...]:
     """Forward: the plain version for CPU tensors, the CUDA kernel for CUDA
     tensors; the same arguments and outputs either way, all f32. The kernel
-    takes W = 256, F = 384, HC = 128, 3 + 6L <= 64, D <= 16, C <= 64; it
-    computes no gradient (train through `fused_trunk_heads`)."""
+    takes W = 256, F in render_train.KERNEL_F, HC = 128, 3 + 6L <= 64,
+    D <= 16, C <= 64; it computes no gradient (train through
+    `fused_trunk_heads`)."""
     if x0.device.type == "cpu":
         return fused_trunk_heads_plain(x0, c_emb, trunk, heads, skips, precision)
     if x0.device.type != "cuda":
@@ -197,9 +189,10 @@ def fused_trunk_heads_fwd(x0, c_emb, trunk, heads, skips, precision: str = "floa
                            " or train through fused_trunk_heads")
     N, in0 = x0.shape
     C = 0 if c_emb is None else c_emb.shape[1]
-    W, F = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["F"]
+    W, F = KERNEL_WIDTHS["W"], heads["feat_b"].shape[0]
     bf16 = canonical_precision(precision) == "bfloat16"
     cdt = torch.bfloat16 if bf16 else torch.float32
+    heads = pad_feat(heads, feat_pad(F, bf16))
     tw = [_layout(w, bf16) for w in _padded_trunk(trunk, skips, in0)]
     tb = [b.contiguous() for _, b in trunk]
     hw = [heads["sigma_w"].reshape(-1).to(cdt).contiguous(), heads["sigma_b"].contiguous(),
@@ -222,7 +215,7 @@ def fused_trunk_heads_fwd(x0, c_emb, trunk, heads, skips, precision: str = "floa
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     with torch.cuda.device(x0.device):
         code = lib.upnerf_heads_fwd(x0.data_ptr(), ce.data_ptr() if C else None, _ptrs(tw), _ptrs(tb), len(trunk),
-                                    skip_mask, _ptrs(hw), _ptrs(outs + [None] * (4 - len(outs))), N, in0, C,
+                                    skip_mask, _ptrs(hw), _ptrs(outs + [None] * (4 - len(outs))), N, in0, C, F,
                                     int(bf16), stream)
     _raise_on(code, "heads_fwd", lib)
     launches += 1
@@ -244,11 +237,13 @@ def fused_trunk_heads_bwd(x0, c_emb, trunk, heads, skips, precision, cots):
     _check_args(x0, c_emb, trunk, heads, skips)
     N, in0 = x0.shape
     C = 0 if c_emb is None else c_emb.shape[1]
-    W, F, HC = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["F"], KERNEL_WIDTHS["HC"]
+    W, HC, F = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["HC"], heads["feat_b"].shape[0]
     D = len(trunk)
     dev = x0.device
     bf16 = canonical_precision(precision) == "bfloat16"
     cdt = torch.bfloat16 if bf16 else torch.float32
+    FP = feat_pad(F, bf16)
+    kh = pad_feat(heads, FP)  # the feature dimension zero-padded to the kernels' FP
     f32 = dict(dtype=torch.float32, device=dev)
     cot_shapes = [(N, 1), (N, F), (N, 1), (N, F)]
     cot_list = []
@@ -266,21 +261,21 @@ def fused_trunk_heads_bwd(x0, c_emb, trunk, heads, skips, precision, cots):
     if C:
         c1 = heads["c1_w"]
         cw = [_layout(_c1_padded(c1, W), bf16), _layout(c1[:W].t(), bf16), c1[W:].to(cdt).contiguous(),
-              _layout(heads["c2_w"], bf16), _layout(heads["c2_w"].t(), bf16), _layout(heads["cfeat_w"].t(), bf16)]
+              _layout(heads["c2_w"], bf16), _layout(heads["c2_w"].t(), bf16), _layout(kh["cfeat_w"].t(), bf16)]
         csig = heads["csig_w"].reshape(-1).to(cdt).contiguous()
         cb = [heads["c1_b"].contiguous(), heads["c2_b"].contiguous(), heads["csig_b"].contiguous()]
     else:
         cw, csig, cb = [None] * 6, None, [None] * 3
-    w = [_layout(heads["xyzf_w"], bf16), _layout(heads["xyzf_w"].t(), bf16), _layout(heads["feat_w"].t(), bf16),
+    w = [_layout(heads["xyzf_w"], bf16), _layout(heads["xyzf_w"].t(), bf16), _layout(kh["feat_w"].t(), bf16),
          *cw, heads["sigma_w"].reshape(-1).to(cdt).contiguous(), csig]
     b = [heads["xyzf_b"].contiguous(), heads["sigma_b"].contiguous(), *cb]
     dx0 = torch.empty((N, in0), **f32)
     dcemb = torch.empty((N, C), **f32) if C else None
     dtw = [torch.zeros(t.shape, **f32) for t in padded]
     dtb = [torch.zeros((W,), **f32) for _ in range(D)]
-    shapes = {"sigma_w": (W,), "sigma_b": (1,), "xyzf_w": (W, W), "xyzf_b": (W,), "feat_w": (W, F), "feat_b": (F,),
+    shapes = {"sigma_w": (W,), "sigma_b": (1,), "xyzf_w": (W, W), "xyzf_b": (W,), "feat_w": (W, FP), "feat_b": (FP,),
               "c1_w": (W + 64, HC), "c1_b": (HC,), "c2_w": (HC, HC), "c2_b": (HC,), "csig_w": (HC,), "csig_b": (1,),
-              "cfeat_w": (HC, F), "cfeat_b": (F,)}
+              "cfeat_w": (HC, FP), "cfeat_b": (FP,)}
     keys = HEAD_KEYS + (CAND_KEYS if C else ())
     dh = {k: torch.zeros(shapes[k], **f32) for k in keys}
     chain_w = (D + 1) * W + 2 * HC
@@ -295,19 +290,13 @@ def fused_trunk_heads_bwd(x0, c_emb, trunk, heads, skips, precision, cots):
         code = lib.upnerf_heads_bwd(
             x0.data_ptr(), ce.data_ptr() if C else None, _ptrs(cot_list), _ptrs(tw), _ptrs(tb), _ptrs(tT), D,
             skip_mask, _ptrs(w), _ptrs(b), _ptrs([dx0, dcemb]), _ptrs(dtw), _ptrs(dtb),
-            _ptrs([dh.get(k) for k in HEAD_KEYS + CAND_KEYS]), scratch.data_ptr(), N, in0, C, int(bf16), grid, stream,
+            _ptrs([dh.get(k) for k in HEAD_KEYS + CAND_KEYS]), scratch.data_ptr(), N, in0, C, F, int(bf16), grid,
+            stream,
         )
     _raise_on(code, "heads_bwd", lib)
     bwd_launches += 1
-    dtrunk = []
-    for i, (wt, _) in enumerate(trunk):
-        g = dtw[i]
-        if i == 0:
-            g = g[:in0]
-        elif i in skips:
-            g = torch.cat([g[:in0], g[X0_PAD:]], 0)
-        dtrunk.append((g, dtb[i]))
-    dp = {k: v.reshape(heads[k].shape) if k != "c1_w" else v[: W + C] for k, v in dh.items()}
+    dtrunk = [(unpad_trunk_grad(dtw[i], i, skips, in0), dtb[i]) for i in range(D)]
+    dp = {k: v.reshape(heads[k].shape) if k != "c1_w" else v[: W + C] for k, v in unpad_feat(dh, F).items()}
     return dx0, dcemb, dtrunk, dp
 
 

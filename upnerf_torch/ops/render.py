@@ -71,7 +71,8 @@ def _check_args(x0, z_vals, ray_cond, trunk, head, skips) -> int:
     R, S = z_vals.shape
     in0 = x0.shape[1]
     L = (in0 - 3) // 6
-    W, F, HH = rt.KERNEL_WIDTHS["W"], rt.KERNEL_WIDTHS["F"], rt.KERNEL_WIDTHS["HH"]
+    W, HH, F = rt.KERNEL_WIDTHS["W"], rt.KERNEL_WIDTHS["HH"], head["feat_b"].shape[0]
+    rt.check_feat_width(F)
     if in0 != 3 + 6 * L or in0 > rt.X0_PAD or not 0 < len(trunk) <= 16:
         raise ValueError(f"the CUDA render kernel takes x0 of 3 + 6L <= {rt.X0_PAD} columns and D <= 16;"
                          f" got {in0} columns, D = {len(trunk)}")
@@ -92,8 +93,8 @@ def _check_args(x0, z_vals, ray_cond, trunk, head, skips) -> int:
 def fused_static_render_fwd(x0, z_vals, ray_cond, trunk, head, skips, precision: str = "float32"):
     """(rgb_map (R, 3), depth (R, 1), weights (R, S)): the plain version for CPU
     tensors, the x0 mode of the CUDA render kernel for CUDA tensors. The kernel
-    takes W = 256, F = 384, HH = 128, 3 + 6L <= 64, D <= 16 and computes no
-    gradient (train through `fused_static_render`)."""
+    takes W = 256, F in render_train.KERNEL_F, HH = 128, 3 + 6L <= 64, D <= 16
+    and computes no gradient (train through `fused_static_render`)."""
     if x0.device.type == "cpu":
         return fused_static_render_plain(x0, z_vals, ray_cond, trunk, head, skips, precision)
     if x0.device.type != "cuda":
@@ -108,7 +109,9 @@ def fused_static_render_fwd(x0, z_vals, ray_cond, trunk, head, skips, precision:
                            " or through fused_static_render")
     R, S = z_vals.shape
     st = rt.RTStatic(D=len(trunk), skips=tuple(skips), xyz_L=L, precision=precision)
-    ktrunk, kheads = rt._kernel_weights(trunk, {k: head[k] for k in st.head_keys}, st)
+    F = head["feat_b"].shape[0]
+    FP = rt.feat_pad(F, canonical_precision(precision) == "bfloat16")
+    ktrunk, kheads = rt._kernel_weights(trunk, rt.pad_feat({k: head[k] for k in st.head_keys}, FP), st)
     dev = x0.device
     f32 = dict(dtype=torch.float32, device=dev)
     w, depth, rgb_map = torch.empty((R, S), **f32), torch.empty((R,), **f32), torch.empty((R, 3), **f32)
@@ -120,7 +123,7 @@ def fused_static_render_fwd(x0, z_vals, ray_cond, trunk, head, skips, precision:
     with torch.cuda.device(dev):
         code = lib.upnerf_render_train_fwd(
             rt._ptrs(ins), rt._ptrs([k for k, _ in ktrunk]), rt._ptrs([b for _, b in ktrunk]), len(trunk), skip_mask,
-            rt._ptrs([kheads.get(k) for k in rt.HEAD_KEYS]), rt._ptrs(outs), R, S, L, 0,
+            rt._ptrs([kheads.get(k) for k in rt.HEAD_KEYS]), rt._ptrs(outs), R, S, L, 0, F,
             rt._flags(st, False) | X0_IN, stream,
         )
     rt._raise_on(code, "render_train_fwd (x0 mode)", lib)

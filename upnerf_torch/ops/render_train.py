@@ -55,8 +55,10 @@ HEAD_RGB = ("rgb1_w", "rgb2_w", "rgb2_b")
 HEAD_CAND = ("c1x_w", "c1c_w", "c1_b", "c2_w", "c2_b", "csig_w", "csig_b", "cfeat_w", "cfeat_b")
 HEAD_KEYS = HEAD_BASE + HEAD_FEAT + HEAD_RGB + HEAD_CAND  # the kernels' pointer order
 X0_PAD = 64  # the kernels' x0 width: 3 + 6L padded to a multiple of 16
-# The widths the CUDA kernels take (configs/brandenburg_gate.yaml).
-KERNEL_WIDTHS = {"W": 256, "F": 384, "HH": 128, "HC": 128}
+# The widths the CUDA kernels take (configs/brandenburg_gate.yaml, configs/validation/),
+# and the feature widths they are built for (render_common.cuh:feat_pad).
+KERNEL_WIDTHS = {"W": 256, "HH": 128, "HC": 128}
+KERNEL_F = (32, 64, 384)
 MAX_C = 32  # candidate embedding width the kernels take
 
 # Kernel launches made in this process by render_train_rays_fwd / _bwd
@@ -455,6 +457,52 @@ def _pad_x0_rows(w: torch.Tensor, in0: int) -> torch.Tensor:
     return torch.cat([w[:in0], w.new_zeros(X0_PAD - in0, w.shape[1]), w[in0:]], 0)
 
 
+def unpad_trunk_grad(dw: torch.Tensor, i: int, skips, in0: int) -> torch.Tensor:
+    """A trunk layer's weight gradient in the kernels' padded layout (x0 rows up
+    to X0_PAD at layer 0 and the skip layers) -> the layer's (in, W)."""
+    if i == 0:
+        return dw[:in0]
+    if i in skips:
+        return torch.cat([dw[:in0], dw[X0_PAD:]], 0)
+    return dw
+
+
+def check_feat_width(F: int) -> None:
+    if F not in KERNEL_F:
+        raise ValueError(f"the CUDA kernels are built for feature widths {KERNEL_F}; got F = {F}")
+
+
+def feat_pad(F: int, bf16: bool) -> int:
+    """The kernels' width of the feature products for feature width F
+    (render_common.cuh:feat_pad): F rounded up to 64 in bfloat16 mode (the
+    tensor cores' column groups and k segments), to 128 in float32 mode (the
+    SIMT lanes' column stride)."""
+    m = 64 if bf16 else 128
+    return -(-F // m) * m
+
+
+# The feature dimension of each weight that has one, zero-padded to feat_pad.
+FEAT_DIMS = {"feat_w": 1, "feat_b": 0, "rgb1_w": 0, "cfeat_w": 1, "cfeat_b": 0}
+
+
+def pad_feat(heads: Dict[str, torch.Tensor], FP: int) -> Dict[str, torch.Tensor]:
+    """heads with their feature dimension (FEAT_DIMS) zero-padded to FP."""
+    out = {}
+    for k, v in heads.items():
+        d = FEAT_DIMS.get(k)
+        if d is not None and v.shape[d] < FP:
+            shape = list(v.shape)
+            shape[d] = FP - v.shape[d]
+            v = torch.cat([v, v.new_zeros(shape)], d)
+        out[k] = v
+    return out
+
+
+def unpad_feat(grads: Dict[str, torch.Tensor], F: int) -> Dict[str, torch.Tensor]:
+    """Weight gradients at the padded feature width -> F (views)."""
+    return {k: v.narrow(FEAT_DIMS[k], 0, F) if k in FEAT_DIMS else v for k, v in grads.items()}
+
+
 def pack_trunk_weight(w: torch.Tensor, in0: Optional[int]) -> torch.Tensor:
     """A trunk layer's (in, out) weight in the forward kernels' bf16 layout
     (the render's and the trunk kernel's): x0 rows padded to X0_PAD (in0
@@ -464,12 +512,14 @@ def pack_trunk_weight(w: torch.Tensor, in0: Optional[int]) -> torch.Tensor:
 
 def _kernel_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
     """Weights in the layout the forward kernel reads, each its own contiguous
-    (so 16-byte aligned) tensor. float32 mode: every matrix (in, out), f32.
+    (so 16-byte aligned) tensor; the callers zero-pad the feature dimension
+    to feat_pad first (pad_feat). float32 mode: every matrix (in, out), f32.
     bfloat16 mode: the trunk, xyzf, feat, rgb1, c1x, c2 and cfeat matrices
     packed by _pack_fragments, with the x0 rows of layer 0 and of the skip
-    layers zero-padded to X0_PAD; sigma, rgb2, csig and c1c (in, out) in bf16.
-    Biases f32."""
-    if canonical_precision(st.precision) == "float32":
+    layers zero-padded to X0_PAD; sigma, rgb2, csig and c1c (in, out) in
+    bf16. Biases f32."""
+    bf16 = canonical_precision(st.precision) == "bfloat16"
+    if not bf16:
         return [(w.contiguous(), b.contiguous()) for w, b in trunk], {k: v.contiguous() for k, v in heads.items()}
     in0 = 3 + 6 * st.xyz_L
     out = [(pack_trunk_weight(w, in0 if i == 0 or i in st.skips else None), b.contiguous())
@@ -494,15 +544,17 @@ _BWD_PRODUCT_WEIGHTS = ("xyzf_w^T", "feat_w", "feat_w^T", "rgb1_w^T", "c1x_w^T",
 def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
     """Weights in the layout the backward kernel reads: the trunk's
     transposes (out, in) with x0 padded to X0_PAD columns, and BWD_WEIGHTS
-    (None where the mode has no such head). float32 mode: every matrix f32,
-    row-major. bfloat16 mode: the matrices the walk's products read (the
-    trunk's, and _BWD_PRODUCT_WEIGHTS) packed in fragment order for the
-    tensor cores; rgb2_w^T, c1c_w and the "rm" copies row-major bf16.
+    (None where the mode has no such head), their feature dimension
+    zero-padded to feat_pad but for the "rm" copies. float32 mode: every
+    matrix f32, row-major. bfloat16 mode: the matrices the walk's products
+    read (the trunk's, and _BWD_PRODUCT_WEIGHTS) packed in fragment order for
+    the tensor cores; rgb2_w^T, c1c_w and the "rm" copies row-major bf16.
     sigma_w and csig_w are f32 columns (the JAX kernel keeps them f32: they
     enter rank-1 terms, not products), the biases f32."""
     cdt = _cdt(st)
     packed = cdt == torch.bfloat16
     in0 = 3 + 6 * st.xyz_L
+    padded = pad_feat(heads, feat_pad(heads["feat_b"].shape[0], packed))
     kt = []
     for i, (w, _) in enumerate(trunk):
         if i == 0 or i in st.skips:
@@ -511,7 +563,7 @@ def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
     out = []
     for name in BWD_WEIGHTS:
         key = name.split(" ")[0].removesuffix("^T")
-        v = heads.get(key) if key in st.head_keys else None
+        v = (heads if name.endswith(" rm") else padded).get(key) if key in st.head_keys else None
         if name == "feat_w" and not st.param_grads:
             v = None  # read only to re-derive feat for rgb1's dW
         if v is not None:
@@ -541,17 +593,18 @@ def _check_kernel_args(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, trunk, hea
     L, D = st.xyz_L, len(trunk)
     if D != st.D:
         raise ValueError(f"trunk has {D} layers, st.D is {st.D}")
-    W, F, HH, HC = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["F"], KERNEL_WIDTHS["HH"], KERNEL_WIDTHS["HC"]
-    got = (trunk[0][1].shape[0], heads["feat_b"].shape[0] if "feat_b" in heads else F,
-           ray_cond.shape[1] if st.use_rgb else HH, heads["c2_b"].shape[0] if st.use_cand else HC)
-    C = c_emb.shape[1] if st.use_cand else 0
-    if got != (W, F, HH, HC) or 3 + 6 * L > X0_PAD or D > 16 or C > MAX_C:
-        raise ValueError(
-            f"the CUDA kernels take W=256, F=384, HH=128, HC=128, 3+6L <= 64, D <= 16, C <= {MAX_C};"
-            f" got {(*got, L, D, C)}"
-        )
     if not st.use_feat:
         raise ValueError("the CUDA kernels need use_rgb or out_feat")
+    W, HH, HC = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["HH"], KERNEL_WIDTHS["HC"]
+    F = heads["feat_b"].shape[0]
+    check_feat_width(F)
+    got = (trunk[0][1].shape[0], ray_cond.shape[1] if st.use_rgb else HH, heads["c2_b"].shape[0] if st.use_cand else HC)
+    C = c_emb.shape[1] if st.use_cand else 0
+    if got != (W, HH, HC) or 3 + 6 * L > X0_PAD or D > 16 or C > MAX_C:
+        raise ValueError(
+            f"the CUDA kernels take W=256, HH=128, HC=128, 3+6L <= 64, D <= 16, C <= {MAX_C};"
+            f" got {(*got, L, D, C)}"
+        )
     in0 = 3 + 6 * L
     _check("rays_o", rays_o, (R, 3), dev)
     _check("rays_d", rays_d, (R, 3), dev)
@@ -602,8 +655,8 @@ def render_train_rays_fwd(
     CUDA tensors; the same arguments either way, all f32. Returns the
     outputs, and with save_res the residuals the backward reads.
 
-    The CUDA kernel takes the repo model's widths (W=256, F=384, HH=128,
-    HC=128), 3 + 6L <= 64 and D <= 16. It computes no gradient: inputs that
+    The CUDA kernel takes the repo models' widths (W=256, F in KERNEL_F,
+    HH=128, HC=128), 3 + 6L <= 64 and D <= 16. It computes no gradient: inputs that
     require grad are refused while grad mode is on (the training path goes
     through RenderTrainRays)."""
     if rays_o.device.type == "cpu":
@@ -623,9 +676,10 @@ def render_train_rays_fwd(
         raise NotImplementedError("the recompute backward (save_chain=False) is not ported")
     dev = rays_o.device
     ins = [t.contiguous() if t is not None else None for t in (rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb)]
-    ktrunk, kheads = _kernel_weights(trunk, {k: heads[k] for k in st.head_keys}, st)
+    F = heads["feat_b"].shape[0]
+    FP = feat_pad(F, canonical_precision(st.precision) == "bfloat16")
+    ktrunk, kheads = _kernel_weights(trunk, pad_feat({k: heads[k] for k in st.head_keys}, FP), st)
     f32 = dict(dtype=torch.float32, device=dev)
-    F = KERNEL_WIDTHS["F"]
     out = {"s_weights": torch.empty((R, S), **f32), "s_depth": torch.empty((R,), **f32)}
     if st.use_rgb:
         out["rgb_map"] = torch.empty((R, 3), **f32)
@@ -654,7 +708,7 @@ def render_train_rays_fwd(
     with torch.cuda.device(dev):
         code = lib.upnerf_render_train_fwd(
             _ptrs(ins), _ptrs([w for w, _ in ktrunk]), _ptrs([b for _, b in ktrunk]), st.D, skip_mask,
-            _ptrs([kheads.get(k) for k in HEAD_KEYS]), _ptrs(outs), R, S, st.xyz_L, C, _flags(st, save_res), stream,
+            _ptrs([kheads.get(k) for k in HEAD_KEYS]), _ptrs(outs), R, S, st.xyz_L, C, F, _flags(st, save_res), stream,
         )
     _raise_on(code, "render_train_fwd", lib)
     launches += 1
@@ -681,7 +735,8 @@ def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, 
     if not st.save_chain:
         raise NotImplementedError("the recompute backward (save_chain=False) is not ported")
     dev = rays_o.device
-    W, F, HH, HC = (KERNEL_WIDTHS[k] for k in ("W", "F", "HH", "HC"))
+    W, HH, HC = (KERNEL_WIDTHS[k] for k in ("W", "HH", "HC"))
+    F = heads["feat_b"].shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
     in0 = 3 + 6 * st.xyz_L
     ins = [t.contiguous() if t is not None else None for t in (rays_o, rays_d, z_vals, pe_w, c_emb)]
@@ -707,14 +762,15 @@ def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, 
     d_o, d_d = torch.empty((R, 3), **f32), torch.empty((R, 3), **f32)
     d_cond = torch.empty((R, HH), **f32) if st.use_rgb else None
     d_cemb = torch.empty((R, C), **f32) if st.use_cand else None
-    # weight gradients, accumulated by atomics: zero first; trunk in the padded layout
+    # weight gradients, accumulated by atomics: zero first; trunk and features in the padded layout
     dtw, dtb, dhd = [None] * st.D, [None] * st.D, {}
     if st.param_grads:
         for i in range(st.D):
             rows = (X0_PAD if i == 0 else (X0_PAD + W if i in st.skips else W))
             dtw[i] = torch.zeros((rows, W), **f32)
             dtb[i] = torch.zeros((W,), **f32)
-        dhd = {k: torch.zeros(heads[k].shape, **f32) for k in st.head_keys}
+        FP = feat_pad(F, _cdt(st) == torch.bfloat16)
+        dhd = {k: torch.zeros(v.shape, **f32) for k, v in pad_feat({k: heads[k] for k in st.head_keys}, FP).items()}
     lib = _build.library("render_train_bwd")
     skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -722,22 +778,15 @@ def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, 
         code = lib.upnerf_render_train_bwd(
             _ptrs(ins), _ptrs(cot_list), _ptrs(res_list), _ptrs(kt), st.D, skip_mask, _ptrs(kw),
             _ptrs([d_o, d_d, d_cond, d_cemb]), _ptrs(dtw), _ptrs(dtb), _ptrs([dhd.get(k) for k in HEAD_KEYS]),
-            R, S, st.xyz_L, C, _flags(st, True), stream,
+            R, S, st.xyz_L, C, F, _flags(st, True), stream,
         )
     _raise_on(code, "render_train_bwd", lib)
     if not st.param_grads:
         frozen_bwd_launches += 1
         return d_o, d_d, d_cond, d_cemb, None, None
     bwd_launches += 1
-    dtrunk = []
-    for i in range(st.D):
-        w = dtw[i]
-        if i == 0:
-            w = w[:in0]
-        elif i in st.skips:
-            w = torch.cat([w[:in0], w[X0_PAD:]], 0)
-        dtrunk.append((w, dtb[i]))
-    return d_o, d_d, d_cond, d_cemb, dtrunk, dhd
+    dtrunk = [(unpad_trunk_grad(dtw[i], i, st.skips, in0), dtb[i]) for i in range(st.D)]
+    return d_o, d_d, d_cond, d_cemb, dtrunk, unpad_feat(dhd, F)
 
 
 class RenderTrainRays(torch.autograd.Function):

@@ -12,11 +12,13 @@ merged samples) takes the JAX package's route for its configuration
 - otherwise, with fused_train on: the fused render of ops.render_train in the
   phase's mode (forward and backward kernels);
 - otherwise the field, NeRFField.forward (trunk and heads through
-  ops.heads.fused_trunk_heads with nerf's fused_trunk on), and the
-  compositing of volume.py; `remat` wraps the field in torch.utils.checkpoint.
+  ops.heads.fused_trunk_heads with nerf's fused_trunk on; the feature-less
+  field's trunk through ops.mlp.fused_trunk), and the compositing of
+  volume.py; `remat` wraps the field in torch.utils.checkpoint.
 Each emits the same result keys:
 - phases 0/1 with the candidate branch: c_weights_* (the joint weights),
-  c_depth_*, t_weight_*, feat_*; without it s_weights_*, feat_*;
+  c_depth_*, t_weight_*, feat_* (c_rgb_* for the feature-less field); without
+  it s_weights_*, feat_*;
 - phases 1/2: s_weights_*, s_rgb_*;
 - always s_depth_*.
 
@@ -210,6 +212,8 @@ def _field_path(results, field: NeRFField, typ, rays_o, rays_d, z_vals, a_emb, c
     only_s = volume.composite_weights(s_alphas)
     if phase < 2:
         if "c_sigma" not in out:
+            if not ncfg.encode_feat:
+                raise NotImplementedError("feature-less candidate-free phase<2 has no reference path")
             results[f"s_weights_{typ}"] = only_s
             results[f"feat_{typ}"] = volume.weighted_sum(only_s, out["s_feat"])
         else:
@@ -220,7 +224,8 @@ def _field_path(results, field: NeRFField, typ, rays_o, rays_d, z_vals, a_emb, c
             weights = joint * trans
             results[f"c_weights_{typ}"] = weights
             results[f"c_depth_{typ}"] = volume.depth_map(weights, z_vals)
-            results[f"feat_{typ}"] = volume.weighted_sum(s_w, out["s_feat"]) + volume.weighted_sum(c_w, out["c_feat"])
+            key, s_val, c_val = ("feat", "s_feat", "c_feat") if ncfg.encode_feat else ("c_rgb", "s_rgb", "c_rgb")
+            results[f"{key}_{typ}"] = volume.weighted_sum(s_w, out[s_val]) + volume.weighted_sum(c_w, out[c_val])
             results[f"t_weight_{typ}"] = c_w.sum(-1)
     if phase > 0:
         results[f"s_weights_{typ}"] = only_s
@@ -263,8 +268,6 @@ def _inference(
         _fused_train_path(results, field, typ, rays_o, rays_d, z_vals, a_emb, c_emb, phase=phase, use_cand=use_cand,
                           **kw)
         return
-    if not ncfg.encode_feat:
-        raise NotImplementedError("the feature-less field is not ported")
     _field_path(results, field, typ, rays_o, rays_d, z_vals, a_emb, c_emb, phase=phase,
                 encode_candidate=encode_candidate, **kw)
 

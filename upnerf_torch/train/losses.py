@@ -5,6 +5,8 @@ Terms (all means over the ray batch):
     l_depth_{c,f}: L1(s_depth, depth_prior) * (1 - t_weight).detach()
                    * depth_mult * (1 - sched)
     l_feat_{c,f} : L2(feat, dino_feat) * (1 - sched)
+    l_c_rgb_{c,f}: L2(c_rgb, rgb) * (1 - sched), in place of l_feat for the
+                   feature-less field (nerf.feat_dim 0)
   phase > 0:
     l_rgb_c : L2(s_rgb_coarse, rgb) * sched / 2
     l_rgb_f : L2(s_rgb_fine, rgb) / (2 beta^2) * sched
@@ -50,8 +52,6 @@ def compute_loss(
     phase: int,
 ) -> Dict[str, torch.Tensor]:
     """Per-term loss dict (sum it for the total)."""
-    if not cfg.encode_feat:
-        raise NotImplementedError("the feature-less loss is not ported")
     ret: Dict[str, torch.Tensor] = {}
 
     def depth_term(typ: str) -> torch.Tensor:
@@ -66,7 +66,10 @@ def compute_loss(
         c = typ[0]
         if phase < 2:
             ret[f"l_depth_{c}"] = depth_term(typ)
-            ret[f"l_feat_{c}"] = ((results[f"feat_{typ}"] - feat_targets) ** 2).mean() * (1.0 - sched_mult)
+            if cfg.encode_feat:
+                ret[f"l_feat_{c}"] = ((results[f"feat_{typ}"] - feat_targets) ** 2).mean() * (1.0 - sched_mult)
+            else:
+                ret[f"l_c_rgb_{c}"] = ((results[f"c_rgb_{typ}"] - rgb_targets) ** 2).mean() * (1.0 - sched_mult)
         if phase > 0 and typ == "coarse":
             ret["l_rgb_c"] = ((results["s_rgb_coarse"] - rgb_targets) ** 2).mean() * sched_mult / 2.0
     if cfg.fine and phase > 0:

@@ -166,6 +166,8 @@ def _loss_and_metrics(params: UPNeRF, pose_params: PoseTables, cfg: StepConfig, 
         metrics["mse"] = torch.ones((), device=loss.device)
     if phase < 2 and cfg.loss.encode_feat:
         per_ray = ((results[f"feat_{typ}"] - feats) ** 2).mean(-1)
+    elif phase == 0:  # the feature-less field composites no s_rgb in phase 0: its candidate rgb (ROADMAP.md §3)
+        per_ray = ((results[f"c_rgb_{typ}"] - batch["rgb"]) ** 2).mean(-1)
     else:
         per_ray = ((results[f"s_rgb_{typ}"] - batch["rgb"]) ** 2).mean(-1)
     per_ray = per_ray.detach()
