@@ -100,7 +100,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      --config configs/validation/synth_pose.yaml` for 12 steps (phases 0, 1,
      2): (a) the default flags, through the F = 32 instances of kernels 1 and
      2; (b) `tpu.fused_train false`, through those of kernels 5 and 4; each
-     run's launches and finite losses.
+     run's launches and finite losses;
+ 22. the recompute mode (save_chain=False) at 4096 rays x 256 samples, bf16
+     and f32, phases 0, 1, 2, F = 384 and 32: kernel 1's forward without a
+     chain (outputs and the sig / feat / c_feat / rgb residuals) against its
+     plain version; kernel 2's recompute train mode against the plain
+     recompute backward (data cotangents by RMS with a float64 witness,
+     weight gradients at REC_DW_TOL and by the witness) and against the
+     saved-chain kernel (everything at BWD_TOL); the frozen recompute mode
+     equal to the train mode bit for bit; then, in
+     turns at F = 384 bf16, each recompute kernel against its saved-chain
+     counterpart and its plain version;
+ 23. the memory-saving configuration: the flagship step with save_chain off
+     (ms and peak memory per phase beside phase 9's); the host prefetcher on
+     a memmapped store of 1.3e8 rays (gather ms, the step's wait, streaming
+     rays/s against the device-resident store); `cli.train` with
+     `tpu.save_chain false tpu.store_on_device false` on phase 18's scene
+     (12 steps, 2 + 2 recompute launches a step, the loop's rays/s); then
+     `cli.tto` (2 forwards + 1 frozen recompute backward a step) and
+     `cli.eval` on its checkpoint, and a TTO step's ms against phase 13's.
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -222,6 +240,13 @@ TRUNK_RMS_RATIO = 0.25
 HEADS_BWD_TOL = 2e-2
 HEADS_ROW_RMS_TOL = 2e-2
 HEADS_F64_RATIO = 2.0
+# The render backward's recompute mode against its plain version: the kernel
+# rebuilds the chain in the forward kernel's summation order, the plain version
+# in cuBLAS's, so ReLU masks flip between them as in kernel 5's backward; in f32
+# a flipped sample moves a weight gradient by up to ~4e-4 of its max at
+# 4096 x 256 (measured on the card), over BWD_TOL's 1e-4. Weight gradients
+# there: max |d| over max |g| <= REC_DW_TOL, and the float64 witness above.
+REC_DW_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
 PROBE_ROWS = CHUNK * 64  # the fast render's sigma-only probe: 4096 rays x 64 samples
 # Phase 13's scene: a ring of 8 train and 4 test cameras, PNGs of 128x96 that
 # the loader's img_downscale 2 (brandenburg_gate's) reads as 64x48, TTO in one
@@ -438,21 +463,10 @@ def fresh_state(cfg, n_images, dev, seed: int = 0):
     return make_train_state(model, init_pose_params(n_images), opt, pose_opt, seed=seed + 1, device=dev), opt, pose_opt
 
 
-def phase_train_step(dev, card: str, profile_dir=None):
-    """Phases 8 and 9 for the train step. Returns (launch counts, step times)."""
-    from upnerf_torch.ops import render_train as rt
-    from upnerf_torch.train import make_train_step
-    from upnerf_torch.train import step as tstep
-    from upnerf_torch.train.schedules import pe_progress, schedule_mult
-
-    cfg, scene, store, n_images = flagship_world(dev)
-    state, opt, pose_opt = fresh_state(cfg, n_images, dev)
-    step, _ = make_train_step(cfg, opt, pose_opt)
-    se3_0 = state.pose_params.se3_refine.weight.detach().clone()
-    ds_0 = state.pose_params.depth_scale.weight.detach().clone()
-
-    n_steps = 3
-    rt.launches = rt.bwd_launches = 0
+def time_steps(step, state, scene, store, dev, label: str, n_steps: int = 3):
+    """In each of STEP_PHASES: a warm-up step, then n_steps timed with CUDA
+    events, with the peak memory over them; finite losses checked. Returns
+    (state, {phase: ms a step}, {phase: peak bytes})."""
     times, peaks = {}, {}
     for phase in STEP_PHASES:
         state = state._replace(step=int(PHASE_PROGRESS[phase] * MAX_STEPS))
@@ -473,8 +487,28 @@ def phase_train_step(dev, card: str, profile_dir=None):
         check(all(np.isfinite(losses)), f"phase {phase}: loss not finite {losses}")
         times[phase] = ms
         terms = " ".join(f"{k[5:]} {float(v):.4g}" for k, v in m.items() if k.startswith("loss/"))
-        print(f"[8] phase {phase}: losses {['%.5g' % x for x in losses]} ({terms}); psnr {float(m['psnr']):.3f}",
+        print(f"[{label}] phase {phase}: losses {['%.5g' % x for x in losses]} ({terms}); psnr {float(m['psnr']):.3f}",
               flush=True)
+    return state, times, peaks
+
+
+def phase_train_step(dev, card: str, profile_dir=None):
+    """Phases 8 and 9 for the train step. Returns (launch counts, step times,
+    peak memory per phase)."""
+    from upnerf_torch.ops import render_train as rt
+    from upnerf_torch.train import make_train_step
+    from upnerf_torch.train import step as tstep
+    from upnerf_torch.train.schedules import pe_progress, schedule_mult
+
+    cfg, scene, store, n_images = flagship_world(dev)
+    state, opt, pose_opt = fresh_state(cfg, n_images, dev)
+    step, _ = make_train_step(cfg, opt, pose_opt)
+    se3_0 = state.pose_params.se3_refine.weight.detach().clone()
+    ds_0 = state.pose_params.depth_scale.weight.detach().clone()
+
+    n_steps = 3
+    rt.launches = rt.bwd_launches = 0
+    state, times, peaks = time_steps(step, state, scene, store, dev, "8", n_steps)
     steps = len(STEP_PHASES) * (n_steps + 1)
     launches = {"render_train_fwd": rt.launches, "render_train_bwd": rt.bwd_launches}
     print(f"[8] {steps} steps: forward launches {launches['render_train_fwd']}, backward launches"
@@ -539,7 +573,7 @@ def phase_train_step(dev, card: str, profile_dir=None):
             f.write(f"{card}\n{table}\n")
         prof.export_chrome_trace(os.path.join(profile_dir, "train_step_phase1.json"))
         print(f"[9] profile of one phase-1 step -> {profile_dir}", flush=True)
-    return launches, times
+    return launches, times, peaks
 
 
 def phase_bwd_timing(field, nerf_cfg, dev, card: str):
@@ -737,6 +771,19 @@ def render_macs(nerf_cfg, st) -> int:
     return macs
 
 
+def recompute_macs(nerf_cfg, st) -> int:
+    """Multiply-adds of the recompute backward's chain rebuild for one sample
+    in mode st: the trunk, xyzf, rgbh from the stored feat, h1 and h2 (the
+    sigmas, rgb, feat and c_feat come from the residuals)."""
+    W, F, HH, HC = nerf_cfg.W, nerf_cfg.feat_dim, nerf_cfg.W // 2, nerf_cfg.W // 2
+    return trunk_macs(nerf_cfg) + W * W + F * HH * st.use_rgb + (W * HC + HC * HC) * st.use_cand
+
+
+def feat_res_bytes(nerf_cfg, st, n_samples: int) -> int:
+    """Bytes of the recompute mode's feat / c_feat residuals (f32, store_f32)."""
+    return 4 * n_samples * nerf_cfg.feat_dim * (st.use_feat + (st.out_feat and st.use_cand))
+
+
 def chain_bytes(nerf_cfg, st, n_samples: int, kind: str) -> int:
     """Bytes of the saved walk chain in bf16: all of it written by the forward
     ("fwd"); read by the backward ("bwd"), which in the frozen mode without a
@@ -754,7 +801,9 @@ def render_bound(field, st, R: int, S: int, kind: str):
     "fwd" is the forward with residuals, "serve" the forward without them,
     "static" the x0 mode (kernel 4),
     "bwd" the backward in st's mode (the frozen mode does the walk's products
-    only and writes no dW)."""
+    only and writes no dW); with st.save_chain off the forward writes the feat /
+    c_feat residuals in place of the chain, and "recompute" is the backward
+    that reads them and rebuilds the chain (recompute_macs) besides the walk."""
     from upnerf_torch.render.render_rays import field_weights
 
     cfg = field.cfg
@@ -770,11 +819,16 @@ def render_bound(field, st, R: int, S: int, kind: str):
         return bound(2 * macs, 4 * (per_ray_in + M + outs) + 2 * n_w, "bfloat16")
     if kind == "static":  # the serving mode reading x0 (R*S, 3 + 6L) instead of o and d
         return bound(2 * macs, 4 * (per_ray_in - 6 * R + M * (1 + cfg.in_channels_xyz) + outs) + 2 * n_w, "bfloat16")
-    chain = chain_bytes(cfg, st, M, "bwd" if kind == "bwd" else "fwd")
+    if st.save_chain:
+        chain = chain_bytes(cfg, st, M, "bwd" if kind == "bwd" else "fwd")
+    else:
+        chain = feat_res_bytes(cfg, st, M)
     if kind == "fwd":
         return bound(2 * macs, 4 * (per_ray_in + M + outs + res) + 2 * n_w + chain, "bfloat16")
     grads = per_ray_in + (n_w if st.param_grads else 0)  # per-ray cotangents out, dW out
     flop = 2 * macs * (2 if st.param_grads else 1)
+    if kind == "recompute":
+        flop += 2 * recompute_macs(cfg, st) * M
     return bound(flop, 4 * (per_ray_in + M + outs + res + grads) + 2 * n_w + chain, "bfloat16")
 
 
@@ -1129,7 +1183,6 @@ def phase_tto_eval(dev, card: str, profile_dir=None):
     from upnerf_torch.data import load_scene_meta
     from upnerf_torch.evaluate import metrics
     from upnerf_torch.evaluate.render import make_pose_renderer, render_image
-    from upnerf_torch.evaluate.tto import TTOConfig, TTOGroup, TTORunner
     from upnerf_torch.geometry import procrustes, se3
     from upnerf_torch.models.nerf import NeRFConfig
     from upnerf_torch.ops import render_train as rt
@@ -1213,37 +1266,53 @@ def phase_tto_eval(dev, card: str, profile_dir=None):
         check(d_ssim <= SSIM_TOL, "SSIM on the card disagrees with the CPU")
 
         # a TTO step of group 4 x batch 1024, and an eval chunk (group 4 x 4096 rays), CUDA events
-        _, frozen, _, _ = tto_cli.load_trained(ckpt, dev)
-        rcfg = RenderConfig.from_hparams(hp)._replace(perturb=1.0, param_grads=False)
-        cfg = TTOConfig(nerf=NeRFConfig.from_hparams(hp), render=rcfg, batch_size=1024)
-        runner = TTORunner(frozen, cfg, hp["nerf.appearance_dim"], region_A=(64, 64), region_B=(64, 64))
-        gen = torch.Generator(device=dev).manual_seed(0)
-        group = TTOGroup(
-            Ks=torch.from_numpy(np.stack([meta.Ks[i] for i in meta.img_ids_test])).to(dev),
-            base_poses=gt_test.to(dev),
-            rgbs=torch.randint(0, 256, (TTO_TEST, 64, 64, 3), dtype=torch.uint8, device=dev, generator=gen),
-            wh=torch.tensor([[w, h]] * TTO_TEST, dtype=torch.int32, device=dev),
-            near_far=torch.tensor([[0.1, 5.0]] * TTO_TEST, device=dev),
-        )
-        trainables = {"fine_a": torch.randn((TTO_TEST, 48), generator=gen, device=dev).requires_grad_(True),
-                      "se3": torch.zeros((TTO_TEST, 6), device=dev, requires_grad=True)}
-        opt = runner.opt_A(trainables)
-        torch.cuda.reset_peak_memory_stats(dev)
-        step_ms = cuda_ms(lambda: runner.step_A(trainables, opt, group, gen), reps=5)
-        peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        chunk_ms = cuda_ms(lambda: runner.eval_A(trainables, group, 64, 64), reps=3)
+        Ks = np.stack([meta.Ks[i] for i in meta.img_ids_test])
+        step_ms, chunk_ms, peak, step_a = time_tto(ckpt, Ks, gt_test, dev)
         print(f"[13] TTO step ({TTO_TEST} x 1024 rays, phase A): {step_ms:.2f} ms, peak memory {peak:.2f} GiB; eval"
               f" chunk ({TTO_TEST} x {CHUNK} rays): {chunk_ms:.2f} ms, {chunk_ms / TTO_TEST:.2f} ms per {CHUNK} rays"
               f" ({card})", flush=True)
         if profile_dir:
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts) as prof:
-                runner.step_A(trainables, opt, group, gen)
+                step_a()
                 torch.cuda.synchronize()
             with open(os.path.join(profile_dir, "tto_step.txt"), "w") as f:
                 f.write(f"{card}\n{prof.key_averages().table(sort_by='cuda_time_total', row_limit=30)}\n")
             print(f"[13] profile of one TTO step -> {profile_dir}", flush=True)
     return launches["frozen"], step_ms, chunk_ms
+
+
+def time_tto(ckpt: str, Ks: np.ndarray, base_poses: torch.Tensor, dev):
+    """A TTO step of phase A (a group of len(Ks) images x batch 1024, on the
+    checkpoint's frozen model and render flags, 64 x 48 images) and an eval
+    chunk (the group x 4096 rays), CUDA events. Returns (step ms, chunk ms,
+    the step's peak GiB, a callable running one more step)."""
+    from upnerf_torch.cli import tto as tto_cli
+    from upnerf_torch.evaluate.tto import TTOConfig, TTOGroup, TTORunner
+    from upnerf_torch.models.nerf import NeRFConfig
+    from upnerf_torch.render.render_rays import RenderConfig
+
+    hp, frozen, _, _ = tto_cli.load_trained(ckpt, dev)
+    n, (w, h) = len(Ks), (TTO_PNG_WH[0] // 2, TTO_PNG_WH[1] // 2)
+    rcfg = RenderConfig.from_hparams(hp)._replace(perturb=1.0, param_grads=False)
+    cfg = TTOConfig(nerf=NeRFConfig.from_hparams(hp), render=rcfg, batch_size=1024)
+    runner = TTORunner(frozen, cfg, hp["nerf.appearance_dim"], region_A=(64, 64), region_B=(64, 64))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    group = TTOGroup(
+        Ks=torch.from_numpy(np.asarray(Ks, np.float32)).to(dev), base_poses=base_poses.to(dev),
+        rgbs=torch.randint(0, 256, (n, 64, 64, 3), dtype=torch.uint8, device=dev, generator=gen),
+        wh=torch.tensor([[w, h]] * n, dtype=torch.int32, device=dev),
+        near_far=torch.tensor([[0.1, 5.0]] * n, device=dev),
+    )
+    trainables = {"fine_a": torch.randn((n, hp["nerf.appearance_dim"]), generator=gen, device=dev).requires_grad_(True),
+                  "se3": torch.zeros((n, 6), device=dev, requires_grad=True)}
+    opt = runner.opt_A(trainables)
+    step_a = lambda: runner.step_A(trainables, opt, group, gen)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(step_a, reps=5)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    chunk_ms = cuda_ms(lambda: runner.eval_A(trainables, group, 64, 64), reps=3)
+    return step_ms, chunk_ms, peak, step_a
 
 
 def phase_fast_render(dev, card: str, frame_ms: float, pose: np.ndarray, profile_dir=None):
@@ -1344,12 +1413,14 @@ def _launch_counters():
 
     def zero():
         rt.launches = rt.bwd_launches = rt.frozen_bwd_launches = 0
+        rt.recompute_launches = rt.recompute_bwd_launches = rt.recompute_frozen_bwd_launches = 0
         hk.launches = hk.bwd_launches = srk.launches = mlp.launches = mlp.bwd_launches = 0
 
     def read():
         return {"render_fwd": rt.launches, "render_bwd": rt.bwd_launches, "render_frozen": rt.frozen_bwd_launches,
-                "heads_fwd": hk.launches, "heads_bwd": hk.bwd_launches, "static": srk.launches,
-                "trunk_fwd": mlp.launches, "trunk_bwd": mlp.bwd_launches}
+                "rec_fwd": rt.recompute_launches, "rec_bwd": rt.recompute_bwd_launches,
+                "rec_frozen": rt.recompute_frozen_bwd_launches, "heads_fwd": hk.launches, "heads_bwd": hk.bwd_launches,
+                "static": srk.launches, "trunk_fwd": mlp.launches, "trunk_bwd": mlp.bwd_launches}
 
     return zero, read
 
@@ -1635,8 +1706,329 @@ def phase_synth_pose(dev, card: str):
     return runs["a"][1], runs["b"][1]
 
 
+def plain_bwd_chunked(args, st, c_emb, res, cots, dtype=torch.float32, rays: int = 1024):
+    """render_train_rays_bwd_plain over chunks of rays (bounded memory), in
+    dtype: per-ray outputs concatenated, weight gradients summed."""
+    from upnerf_torch.ops import render_train as rt
+
+    o, d, z, pe_w, cond, trunk, heads = args[:7]
+    cv = lambda t: None if t is None else t.to(dtype)  # noqa: E731
+    R, S = z.shape
+    parts = []
+    for r0 in range(0, R, rays):
+        r = slice(r0, r0 + rays)
+        m = slice(r0 * S, (r0 + rays) * S)
+        rres = {k: cv(v[r] if k in ("sig_s", "sig_c") else v[m]) for k, v in res.items()}
+        rcots = {k: cv(v[r]) for k, v in cots.items()}
+        parts.append(rt.render_train_rays_bwd_plain(
+            cv(o[r]), cv(d[r]), cv(z[r]), cv(pe_w), cv(None if cond is None else cond[r]),
+            [(cv(w), cv(b)) for w, b in trunk], {k: cv(v) for k, v in heads.items()},
+            st._replace(precision="float32") if dtype == torch.float64 else st, cv(None if c_emb is None else c_emb[r]),
+            rres, rcots))
+    cat = lambda i: None if parts[0][i] is None else torch.cat([p[i] for p in parts])  # noqa: E731
+    out = [cat(i) for i in range(4)]
+    if not st.param_grads:
+        return (*out, None, None)
+    dtrunk = [(sum(p[4][i][0] for p in parts), sum(p[4][i][1] for p in parts)) for i in range(len(trunk))]
+    return (*out, dtrunk, {k: sum(p[5][k] for p in parts) for k in parts[0][5]})
+
+
+def phase_recompute_kernels(fields, dev, card: str):
+    """Phase 22: the recompute mode (save_chain=False) at 4096 rays x S = 256,
+    bf16 and f32, phases 0, 1, 2, at F = 384 and 32 (fields: (field, nerf_cfg)
+    pairs). Per case: kernel 1's forward without a chain against its plain
+    version (outputs at TOL; sig_s, sig_c, rgb at TOL and feat / c_feat at
+    CHAIN_TOL of their max); kernel 2's recompute train mode against the plain
+    recompute backward (per-ray data cotangents by RMS with the float64
+    witness, as phase 16; weight gradients at REC_DW_TOL and by the witness)
+    and against the saved-chain kernel on the same inputs (each on its own
+    forward's residuals); the frozen recompute mode's data cotangents against the train
+    mode's, bit for bit. The kernel rebuilds the forward kernel's chain bit for
+    bit, so against the saved-chain kernel every output holds at BWD_TOL by the
+    max; against the plain recompute, which sums in another order, ReLU masks
+    flip (REC_DW_TOL). Then, at F = 384 bf16, in turns: the recompute train
+    backward against the saved-chain one (phase 1), the recompute frozen
+    backward against the saved-chain frozen one (phase 2), the forward with
+    residuals in both modes (phase 1), and the plain versions. Returns
+    ({name: (kernel ms, plain ms, saved-chain ms)}, worst forward max |d|, worst backward max
+    |d| against plain, worst frozen max |d| against plain)."""
+    from upnerf_torch.ops import render_train as rt
+
+    rms = lambda t: t.double().pow(2).mean().sqrt().item()  # noqa: E731
+    worst_f = worst_b = worst_z = 0.0
+    for field, nerf_cfg in fields:
+        F = nerf_cfg.feat_dim
+        inputs = chunk_inputs(field, 256, seed=220 + F, dev=dev, R=CHUNK)
+        for prec in ("bfloat16", "float32"):
+            for phase in (0, 1, 2):
+                saved = train_static(nerf_cfg, prec, phase)
+                st = saved._replace(save_chain=False)
+                args, c_emb = mode_args(field, inputs, st)
+                with torch.no_grad():
+                    got, got_res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+                    want, want_res = rt.render_train_rays_plain(*args, c_emb=c_emb, save_res=True)
+                    _, saved_res = rt.render_train_rays_fwd(*args[:7], saved, c_emb=c_emb, save_res=True)
+                    g = torch.Generator(device=dev).manual_seed(22 + phase)
+                    cots = {k: torch.randn(want[k].shape, generator=g, device=dev) for k in st.out_keys}
+                    kb = rt.render_train_rays_bwd(*args[:7], st, c_emb, got_res, cots)
+                    kz = rt.render_train_rays_bwd(*args[:7], st._replace(param_grads=False), c_emb, got_res, cots)
+                    ks = rt.render_train_rays_bwd(*args[:7], saved, c_emb, saved_res, cots)
+                    pb = plain_bwd_chunked(args, st, c_emb, got_res, cots)
+                    p64 = plain_bwd_chunked(args, st, c_emb, got_res, cots, torch.float64)
+                torch.cuda.synchronize()
+                check(tuple(got_res) == st.res_keys, f"residuals {tuple(got_res)}, expected {st.res_keys}")
+                ef = {}
+                for k in st.out_keys:
+                    check(bool(torch.isfinite(got[k]).all()), f"[22] forward {k} not finite")
+                    diff = (got[k] - want[k]).abs()
+                    ef[k] = (diff / want[k].abs().clamp(min=1e-6)).max().item() if "depth" in k else diff.max().item()
+                er = {k: rel_err(got_res[k], want_res[k]) for k in st.res_keys}
+                worst_f = max([worst_f] + [v for k, v in ef.items() if "depth" not in k])
+                names = ["rays_o", "rays_d", "ray_cond", "c_emb"]
+                rows = [(n, i) for i, n in enumerate(names) if pb[i] is not None]
+                row_rms = {n: rms(kb[i] - pb[i]) / rms(pb[i]) for n, i in rows}
+                w64 = {n: rms(kb[i] - p64[i]) / rms(pb[i] - p64[i]) for n, i in rows}
+                flat = lambda b: torch.cat([t.double().flatten() for wb in b[4] for t in wb]  # noqa: E731
+                                           + [b[5][k].double().flatten() for k in st.head_keys])
+                w64["dW"] = rms(flat(kb) - flat(p64)) / rms(flat(pb) - flat(p64))
+                berr, serr = {}, {}
+                for i, ((kw_, kb_), (pw_, pb_), (sw_, sb_)) in enumerate(zip(kb[4], pb[4], ks[4])):
+                    berr[f"trunk{i}.w"], berr[f"trunk{i}.b"] = rel_err(kw_, pw_), rel_err(kb_, pb_)
+                    serr[f"trunk{i}.w"], serr[f"trunk{i}.b"] = rel_err(kw_, sw_), rel_err(kb_, sb_)
+                for k in st.head_keys:
+                    berr[k] = rel_err(kb[5][k], pb[5][k].reshape(kb[5][k].shape))
+                    serr[k] = rel_err(kb[5][k], ks[5][k])
+                for n, i in rows:
+                    serr[n] = rel_err(kb[i], ks[i])
+                same = {n: torch.equal(kz[i], kb[i]) for n, i in rows}
+                worst_b = max([worst_b] + [(kb[i] - pb[i]).abs().max().item() for _, i in rows])
+                worst_z = max([worst_z] + [(kz[i] - pb[i]).abs().max().item() for _, i in rows])
+                bw, sw = max(berr, key=berr.get), max(serr, key=serr.get)
+                print(f"[22] F={F} {prec} phase {phase}: forward worst {max(ef.values()):.3e} (tol {TOL[prec]:.0e}),"
+                      " residuals " + " ".join(f"{k} {v:.2e}" for k, v in er.items())
+                      + f" (feat/cfeat tol {CHAIN_TOL[prec]:.0e}); backward vs plain: dW worst {bw} {berr[bw]:.3e} (tol"
+                      f" {BWD_TOL[prec]:.0e}), per-ray RMS " + " ".join(f"{k} {v:.2e}" for k, v in row_rms.items())
+                      + f" (tol {HEADS_ROW_RMS_TOL:.0e}), float64 witness kernel / plain "
+                      + " ".join(f"{k} {v:.3f}" for k, v in w64.items()) + f" (limit {HEADS_F64_RATIO}); vs saved"
+                      f" chain, max |d| / max |g|: worst {sw} {serr[sw]:.3e} (tol {BWD_TOL[prec]:.0e}), "
+                      + " ".join(f"{n} {serr[n]:.2e}" for n, _ in rows) + f"; frozen == train bit for bit {same}",
+                      flush=True)
+                check(max(ef.values()) <= TOL[prec], f"[22] the no-chain forward disagrees: {ef}")
+                check(all(v <= (CHAIN_TOL if k in ("feat", "cfeat") else TOL)[prec] for k, v in er.items()),
+                      f"[22] the no-chain forward's residuals disagree: {er}")
+                check(berr[bw] <= REC_DW_TOL[prec], f"[22] recompute weight gradients vs plain: {berr}")
+                check(serr[sw] <= BWD_TOL[prec], f"[22] the recompute mode against the saved-chain mode: {serr}")
+                check(max(row_rms.values()) <= HEADS_ROW_RMS_TOL, f"[22] recompute data cotangents vs plain: {row_rms}")
+                check(max(w64.values()) <= HEADS_F64_RATIO, f"[22] further from float64 than the plain version: {w64}")
+                check(all(same.values()), f"[22] the frozen recompute mode differs from the train mode: {same}")
+                del got, got_res, want, want_res, saved_res, kb, kz, ks, pb, p64
+                torch.cuda.empty_cache()
+
+    # timings at F = 384, bf16, per 4096-ray chunk, in turns
+    field, nerf_cfg = fields[0]
+    inputs = chunk_inputs(field, 256, seed=9, dev=dev, R=CHUNK)
+    times = {}
+    for name, saved, plain_kind in (("bwd", train_static(nerf_cfg, "bfloat16", 1), "bwd"),
+                                    ("frozen", train_static(nerf_cfg, "bfloat16", 2)._replace(param_grads=False), "bwd"),
+                                    ("fwd", train_static(nerf_cfg, "bfloat16", 1), "fwd")):
+        st = saved._replace(save_chain=False)
+        args, c_emb = mode_args(field, inputs, st)
+        with torch.no_grad():
+            out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+            _, res_s = rt.render_train_rays_fwd(*args[:7], saved, c_emb=c_emb, save_res=True)
+            g = torch.Generator(device=dev).manual_seed(3)
+            cots = {k: torch.randn(v.shape, generator=g, device=dev) for k, v in out.items()}
+            if name == "fwd":
+                rec = lambda: rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)  # noqa: E731
+                old = lambda: rt.render_train_rays_fwd(*args[:7], saved, c_emb=c_emb, save_res=True)  # noqa: E731
+                plain = lambda: rt.render_train_rays_plain(*args, c_emb=c_emb, save_res=True)  # noqa: E731
+            else:
+                rec = lambda: rt.render_train_rays_bwd(*args[:7], st, c_emb, res, cots)  # noqa: E731
+                old = lambda: rt.render_train_rays_bwd(*args[:7], saved, c_emb, res_s, cots)  # noqa: E731
+                plain = lambda: rt.render_train_rays_bwd_plain(*args[:7], st, c_emb, res, cots)  # noqa: E731
+            s1, r1, r2, s2 = cuda_ms(old, 2), cuda_ms(rec, 2), cuda_ms(rec, 2), cuda_ms(old, 2)
+            p1 = cuda_ms(plain, 1)
+        times[name] = ((r1 + r2) / 2, p1, (s1 + s2) / 2)
+        print(f"[22] F={nerf_cfg.feat_dim} {name}, per {CHUNK}-ray chunk, S=256, bfloat16: recompute mode"
+              f" {times[name][0]:.2f} ms ({r1:.2f}, {r2:.2f}), saved chain {times[name][2]:.2f} ms ({s1:.2f},"
+              f" {s2:.2f}), plain recompute {p1:.2f} ms ({card})", flush=True)
+        del out, res, res_s
+        torch.cuda.empty_cache()
+    return times, worst_f, worst_b, worst_z
+
+
+STREAM_RAYS = 130_000_000  # phase 23's host ray store: a quarter of a downscale-1 store (docs/DESIGN.md:413-426)
+STREAM_STEPS = 20
+
+
+def write_ray_store(root: str, n: int, n_images: int, wh, seed: int = 0):
+    """A ray store of n rays as .npy files in the cache's dtypes (px, py uint16,
+    img_idx int32, rgb uint8 x 3, inv_depth float16; upnerf_torch/data/cache.py),
+    written in slices, then opened as memmaps as load_cache opens them."""
+    rng = np.random.RandomState(seed)
+    specs = {"px": ((n,), np.uint16), "py": ((n,), np.uint16), "img_idx": ((n,), np.int32),
+             "rgb": ((n, 3), np.uint8), "inv_depth": ((n,), np.float16)}
+    arrs = {k: np.lib.format.open_memmap(os.path.join(root, f"{k}.npy"), "w+", dt, shape) for k, (shape, dt) in
+            specs.items()}
+    step = 10_000_000
+    for i in range(0, n, step):
+        m = min(step, n - i)
+        arrs["px"][i:i + m] = rng.randint(0, wh[0], m)
+        arrs["py"][i:i + m] = rng.randint(0, wh[1], m)
+        arrs["img_idx"][i:i + m] = np.sort(rng.randint(0, n_images, m))
+        arrs["rgb"][i:i + m] = rng.randint(0, 256, (m, 3))
+        arrs["inv_depth"][i:i + m] = rng.uniform(0.2, 5.0, m)
+    for a in arrs.values():
+        a.flush()
+    del arrs
+    return {k: np.load(os.path.join(root, f"{k}.npy"), mmap_mode="r") for k in specs}
+
+
+def phase_memory_saving(dev, card: str, step_ms, step_peaks, tto_ms):
+    """Phase 23: the memory-saving configuration (tpu.save_chain false,
+    tpu.store_on_device false) end to end. (1) The flagship step of phase 8/9
+    with save_chain=False: ms and peak memory per phase beside phase 9's, 2
+    forward + 2 backward launches a step, all in the recompute mode. (2) The
+    prefetcher on a host memmap store of STREAM_RAYS rays: gather ms per
+    2048-ray batch, the step's wait for its batch (p50 / p95), and rays/s of
+    STREAM_STEPS phase-1 steps fed by it against as many from the
+    device-resident store. (3) cli.train on phase 18's scene with both keys,
+    12 steps with val renders and checkpoints: 2 + 2 recompute launches a
+    step; and the loop's rays/s (windows of 4 steps) against (1)'s phase-0
+    step. (4) cli.tto and cli.eval on its checkpoint: 2 forwards and 1 frozen
+    recompute backward a step, finite metrics; a TTO step's ms against phase
+    13's. Returns the launches of (3) and (4) and the step times of (1)."""
+    from upnerf_torch.cli import eval as eval_cli
+    from upnerf_torch.cli import tto as tto_cli
+    from upnerf_torch.data import prefetch
+    from upnerf_torch.train import make_train_step
+    from upnerf_torch.train.loop import Trainer
+
+    zero, read = _launch_counters()
+    none = {k: 0 for k in read()}
+    # (1) the flagship step
+    cfg, scene, store, n_images = flagship_world(dev)
+    cfg = cfg._replace(render=cfg.render._replace(save_chain=False))
+    state, opt, pose_opt = fresh_state(cfg, n_images, dev)
+    step, batch_step = make_train_step(cfg, opt, pose_opt)
+    zero()
+    n_steps = 3
+    state, times, peaks = time_steps(step, state, scene, store, dev, "23", n_steps)
+    steps = len(STEP_PHASES) * (n_steps + 1)
+    want = dict(none, rec_fwd=2 * steps, rec_bwd=2 * steps)
+    check(read() == want, f"[23] flagship step launches {read()}, expected {want}")
+    for phase in STEP_PHASES:
+        print(f"[23] train step phase {phase}, save_chain false: {times[phase]:.2f} ms, peak memory"
+              f" {peaks[phase] / 2**30:.2f} GiB; phase 9's saved chain {step_ms[phase]:.2f} ms,"
+              f" {step_peaks[phase] / 2**30:.2f} GiB ({card})", flush=True)
+    print(f"[23] {steps} steps: launches {read()} (2 forward + 2 recompute backward a step)", flush=True)
+
+    # (2) the prefetcher on a host memmap store, against the device-resident store, phase 1
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        host = write_ray_store(tmp, STREAM_RAYS, n_images, (256, 256))
+        nbytes = sum(a.nbytes for a in host.values())
+        print(f"[23] host ray store: {STREAM_RAYS} rays, {nbytes / 2**30:.2f} GiB of memmapped .npy written in"
+              f" {time.perf_counter() - t0:.1f} s", flush=True)
+        rng = np.random.RandomState(1)
+        gms = []
+        for _ in range(STREAM_STEPS):
+            idx = np.sort(rng.randint(0, STREAM_RAYS, TRAIN_RAYS))
+            t0 = time.perf_counter()
+            prefetch.gather(host, idx)
+            gms.append((time.perf_counter() - t0) * 1e3)
+        state = state._replace(step=int(PHASE_PROGRESS[1] * MAX_STEPS))
+        state, _ = step(state, scene, store, 1)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STREAM_STEPS):
+            state, _ = step(state, scene, store, 1)
+        torch.cuda.synchronize()
+        dev_rps = STREAM_STEPS * TRAIN_RAYS / (time.perf_counter() - t0)
+        pf = prefetch.BatchPrefetcher(host, TRAIN_RAYS, dev, seed=0)
+        try:
+            state, _ = batch_step(state, scene, next(pf), 1)  # warm-up
+            torch.cuda.synchronize()
+            waits = []
+            t0 = time.perf_counter()
+            for _ in range(STREAM_STEPS):
+                tw = time.perf_counter()
+                batch = next(pf)
+                waits.append((time.perf_counter() - tw) * 1e3)
+                state, _ = batch_step(state, scene, batch, 1)
+            torch.cuda.synchronize()
+            stream_rps = STREAM_STEPS * TRAIN_RAYS / (time.perf_counter() - t0)
+        finally:
+            pf.close()
+    p50, p95 = np.percentile(waits, 50), np.percentile(waits, 95)
+    print(f"[23] prefetcher: gather {np.median(gms):.2f} ms per {TRAIN_RAYS}-ray batch (median of {STREAM_STEPS};"
+          f" min {min(gms):.2f}, max {max(gms):.2f}; host clock); the step's wait for its batch p50 {p50:.3f} ms,"
+          f" p95 {p95:.3f} ms against a {times[1]:.2f} ms phase-1 step; {STREAM_STEPS} phase-1 steps: streaming"
+          f" {stream_rps:.0f} rays/s, device-resident store {dev_rps:.0f} rays/s ({card})", flush=True)
+    check(stream_rps > 0.5 * dev_rps, "[23] the streaming store halves the step rate")
+    del store, scene, state
+    torch.cuda.empty_cache()
+
+    # (3) cli.train, and (4) cli.tto + cli.eval on its checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        root, name = os.path.join(tmp, "scene"), "scene"
+        write_train_scene(root, name)
+        argv = ["--config", "configs/brandenburg_gate.yaml", "--device", "cuda", "root_dir", root, "scene_name", name,
+                "feat_dir", os.path.join(root, "DINO"), "depth_dir", os.path.join(root, "DPT"),
+                "out_dir", os.path.join(tmp, "out"), "max_steps", "12", "val.log_interval", "6",
+                "train.ckpt_interval", "6", "train.log_pose_interval", "6", "val.img_idx", "[0]",
+                "phototourism.use_cache", "False", "seed", "0", "exp_name", "memsave",
+                "tpu.save_chain", "false", "tpu.store_on_device", "false"]
+        # 12 steps x 2 passes with residuals and backward; a val render of 1 chunk x 2 passes at steps 6 and 12
+        want_train = dict(none, rec_fwd=2 * 12, rec_bwd=2 * 12, render_fwd=2 * 2)
+        tr = _run_train(argv, "23", zero, read, want_train)
+        check(tr.store is None and tr.prefetcher is None and not tr.cfg.render.save_chain,
+              "[23] the run did not stream its store through the prefetcher in the recompute mode")
+        ckpt = tr.ckpt.path(tr.ckpt.latest_step())
+        hp = dict(tr.hp, exp_name="loop", max_steps=MAX_STEPS)
+        hp.update({"val.log_interval": 10**9, "train.ckpt_interval": 10**9, "train.log_pose_interval": 0})
+        tl = Trainer(hp, device=dev)
+        tl.fit(log_every=4, max_steps=12)
+        with open(os.path.join(tl.save_dir, "metrics.jsonl")) as f:
+            rps = [json.loads(line)["rays_per_sec"] for line in f if "rays_per_sec" in line]
+        print(f"[23] the loop's rays/s, streaming + recompute, phase 0 (windows of 4 steps, host clock):"
+              f" {[round(r) for r in rps]}; the bare phase-0 step {times[0]:.2f} ms ="
+              f" {TRAIN_RAYS / times[0] * 1e3:.0f} rays/s ({card})", flush=True)
+
+        result_dir = os.path.join(tmp, "result")
+        zero()
+        t0 = time.perf_counter()
+        metrics_path = tto_cli.main(["--ckpt", ckpt, "--result_dir", result_dir, "--group_size", "2", "--batch_size",
+                                     "1024", "--pose_epochs", "1", "--appearance_epochs", "1", "--device", "cuda"])
+        torch.cuda.synchronize()
+        got = read()
+        w, h = TTO_PNG_WH[0] // 2, TTO_PNG_WH[1] // 2
+        steps_a = -(-w * h // 1024)  # the pose epoch's steps; the appearance epoch takes max(1, steps_a // 2)
+        steps_b = max(1, steps_a // 2)
+        # a step renders 2 passes, and the fine pass's backward runs; the coarse pass keeps residuals only where
+        # its input requires grad (the pose steps'); an eval chunk (one an epoch) renders 2 passes without them
+        want_tto = dict(none, rec_fwd=2 * steps_a + steps_b, rec_frozen=steps_a + steps_b, render_fwd=steps_b + 2 * 2)
+        print(f"[23] tto on the save_chain-false checkpoint, {steps_a + steps_b} steps in"
+              f" {time.perf_counter() - t0:.1f} s: launches {got} (expected {want_tto}: 2 forwards + 1 frozen"
+              " recompute backward a step, 2 forwards an eval chunk)", flush=True)
+        check(got == want_tto, f"[23] TTO launches {got}, expected {want_tto}")
+        with open(metrics_path) as f:
+            m = json.load(f)
+        check(len(m) == 2 and all(np.isfinite(v["psnr"]) and np.isfinite(v["ssim"]) for v in m.values()),
+              f"[23] TTO metrics {m}")
+        ev = eval_cli.main(["--ckpt", ckpt, "--result_dir", result_dir, "--device", "cuda"])
+        check(all(np.isfinite(v) for v in ev.values()), f"[23] eval printed non-finite numbers: {ev}")
+        print(f"[23] eval: {ev}", flush=True)
+        Ks = np.stack([tr.meta.Ks[i] for i in tr.meta.img_ids_train[:TTO_TEST]])
+        poses = torch.from_numpy(ring_poses(TTO_TEST).astype(np.float32))
+        rec_tto_ms, _, peak, _ = time_tto(ckpt, Ks, poses, dev)
+        print(f"[23] TTO step ({TTO_TEST} x 1024 rays, phase A), save_chain false: {rec_tto_ms:.2f} ms, peak memory"
+              f" {peak:.2f} GiB; phase 13's saved chain {tto_ms:.2f} ms ({card})", flush=True)
+    return {"train": want_train, "tto": want_tto}, times, rec_tto_ms
+
+
 def kernel_times(dev, card: str) -> dict:
-    """--kernel_times: the F = 384 kernels of phases 5, 9, 14, 16 and 17 alone,
+    """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16 and 17 alone,
     bf16, at those phases' shapes (CUDA events, 5 launches after a warm-up),
     with no checks: the numbers to compare two trees on one card. Uses only
     wrappers that trees with kernels 4 and 5 already had, so the script can be
@@ -1666,6 +2058,9 @@ def kernel_times(dev, card: str) -> dict:
     with torch.no_grad():
         out, res = rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, h1, st1, c_emb=c_emb, save_res=True)
         cots = {k: torch.randn(v.shape, generator=g, device=dev) for k, v in out.items()}
+        out2, res2 = rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, h2, st2, save_res=True)
+        cots2 = {k: torch.randn(v.shape, generator=g, device=dev) for k, v in out2.items()}
+        frozen = st2._replace(param_grads=False)
         hcots = [torch.randn(t.shape, generator=g, device=dev) for t in hk.fused_trunk_heads_fwd(*hargs)]
         calls = {
             "render_train_fwd, serving mode (phase 5)": lambda: rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, h2,
@@ -1674,6 +2069,8 @@ def kernel_times(dev, card: str) -> dict:
                                                                            c_emb=c_emb, save_res=True),
             "render_train_bwd (phase 9)": lambda: rt.render_train_rays_bwd(o, d, z, pe_w, cond, trunk, h1, st1, c_emb,
                                                                            res, cots),
+            "render_train_bwd_frozen (phase 12)": lambda: rt.render_train_rays_bwd(o, d, z, pe_w, cond, trunk, h2, frozen,
+                                                                                   None, res2, cots2),
             "trunk_fwd (phase 14)": lambda: mlp.fused_trunk(xr[:PROBE_ROWS], tp, nerf_cfg.skips, "bfloat16"),
             "heads_fwd (phase 16)": lambda: hk.fused_trunk_heads_fwd(*hargs),
             "heads_bwd (phase 16)": lambda: hk.fused_trunk_heads_bwd(*hargs, hcots),
@@ -1842,7 +2239,7 @@ def main() -> int:
     print(f"    phases 6-7: {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # 8 + 9. the flagship train step
-    launches, step_ms = phase_train_step(dev, card, args.profile)
+    launches, step_ms, step_peaks = phase_train_step(dev, card, args.profile)
     kt = phase_bwd_timing(field, nerf_cfg, dev, card)
     phase_bwd_timing(field32, nerf32, dev, card)
     print(f"    phases 8-9: {time.perf_counter() - t_start:.0f} s", flush=True)
@@ -1854,7 +2251,7 @@ def main() -> int:
 
     # 12-15. the frozen backward, TTO -> eval, the trunk kernel, fast serving renders
     frozen_err, frozen_ms, train_mode_ms, frozen_plain_ms = phase_frozen_bwd(field, nerf_cfg, dev, card)
-    frozen_launches, _, _ = phase_tto_eval(dev, card, args.profile)
+    frozen_launches, tto_ms, _ = phase_tto_eval(dev, card, args.profile)
     trunk_err, trunk_ms, trunk_plain_ms = phase_trunk_kernel(field, nerf_cfg, dev, card)
     trunk_launches, _ = phase_fast_render(dev, card, frame_ms, pose_np, args.profile)
     print(f"    phases 12-15: {time.perf_counter() - t_start:.0f} s", flush=True)
@@ -1876,6 +2273,12 @@ def main() -> int:
     phase_synth_pose(dev, card)
     print(f"    phases 19-21: {time.perf_counter() - t_start:.0f} s", flush=True)
 
+    # 22-23. the recompute mode (save_chain=False), and the memory-saving configuration end to end
+    rec_t, rec_fwd_err, rec_bwd_err, rec_frozen_err = phase_recompute_kernels([(field, nerf_cfg), (field32, nerf32)],
+                                                                              dev, card)
+    mem_launches, _, _ = phase_memory_saving(dev, card, step_ms, step_peaks, tto_ms)
+    print(f"    phases 22-23: {time.perf_counter() - t_start:.0f} s", flush=True)
+
     # the least time the card could take for each timed call, from its shapes
     st1 = train_static(nerf_cfg, "bfloat16", 1)
     st2 = train_static(nerf_cfg, "bfloat16", 2)._replace(param_grads=False)
@@ -1895,6 +2298,9 @@ def main() -> int:
     bounds["heads_bwd"] = heads_bound(field, nerf_cfg, heads_rows, True, "bwd")
     bounds["static_render"] = render_bound(field, st2, CHUNK, 256, "static")
     bounds["trunk_bwd"] = trunk_bwd_bound(field, nerf_cfg, TRAIN_RAYS * 256)
+    bounds["rec_fwd"] = render_bound(field, st1._replace(save_chain=False), CHUNK, 256, "fwd")
+    bounds["rec_bwd"] = render_bound(field, st1._replace(save_chain=False), CHUNK, 256, "recompute")
+    bounds["rec_frozen"] = render_bound(field, st2._replace(save_chain=False), CHUNK, 256, "recompute")
     st1_32 = train_static(nerf32, "bfloat16", 1)
     st2_32 = train_static(nerf32, "bfloat16", 2)._replace(param_grads=False)
     bounds.update({  # the F = 32 instances at the same shapes (printed only)
@@ -2023,6 +2429,45 @@ def main() -> int:
             "plain_ms": static_plain_ms,
             "bound_ms": bounds["static_render"][0],
             "bound_by": bounds["static_render"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "render_train_fwd, recompute mode (residuals without a chain)",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/render_train_fwd.cu",
+            "replaces": "upnerf/ops/pallas_render_train.py:555",
+            "launches": mem_launches["train"]["rec_fwd"],
+            "max_abs_err": rec_fwd_err,
+            "ms": rec_t["fwd"][0],
+            "plain_ms": rec_t["fwd"][1],
+            "bound_ms": bounds["rec_fwd"][0],
+            "bound_by": bounds["rec_fwd"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "render_train_bwd, recompute mode",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/render_train_bwd.cu",
+            "replaces": "upnerf/ops/pallas_render_train.py:671",
+            "launches": mem_launches["train"]["rec_bwd"],
+            "max_abs_err": rec_bwd_err,
+            "ms": rec_t["bwd"][0],
+            "plain_ms": rec_t["bwd"][1],
+            "bound_ms": bounds["rec_bwd"][0],
+            "bound_by": bounds["rec_bwd"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "render_train_bwd_frozen, recompute mode",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/render_train_bwd.cu",
+            "replaces": "upnerf/ops/pallas_render_train.py:671",
+            "launches": mem_launches["tto"]["rec_frozen"],
+            "max_abs_err": rec_frozen_err,
+            "ms": rec_t["frozen"][0],
+            "plain_ms": rec_t["frozen"][1],
+            "bound_ms": bounds["rec_frozen"][0],
+            "bound_by": bounds["rec_frozen"][1],
             "library_ms": None,
         },
     ]}), flush=True)

@@ -130,8 +130,8 @@ def test_render_and_field_flags_from_config():
     rc, nc = RenderConfig.from_hparams(hp), NeRFConfig.from_hparams(hp)
     assert not rc.fused_train and rc.fused_render and rc.remat and not nc.fused_trunk
     assert not RenderConfig.from_hparams(dict(hp, **{"tpu.save_chain": False})).save_chain  # unfused: unused
-    with pytest.raises(NotImplementedError, match="save_chain"):
-        RenderConfig.from_hparams(dict(hp, **{"tpu.fused_train": True, "tpu.save_chain": False}))
+    rc = RenderConfig.from_hparams(dict(hp, **{"tpu.fused_train": True, "tpu.save_chain": False}))
+    assert rc.fused_train and not rc.save_chain  # the fused backward's recompute mode
     assert WarpConfig.from_hparams(hp).mitigate == "none"
     with pytest.raises(NotImplementedError, match="multistart"):
         WarpConfig.from_hparams(dict(hp, **{"pose.warp.mitigate": "multistart"}))

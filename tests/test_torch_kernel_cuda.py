@@ -434,3 +434,148 @@ def test_static_render_kernel_matches_plain_and_serving_mode(cuda_device, precis
         torch.testing.assert_close(a, b, rtol=0, atol=tol)
     torch.testing.assert_close(dep, pdep, rtol=tol, atol=0)
     torch.testing.assert_close(dep[:, 0], serve["s_depth"], rtol=tol, atol=0)
+
+
+def recompute_inputs(R, S, device, phase, precision, seed, F=384, store_f32=True):
+    """A mode's inputs (phase 0/1 via train_inputs, phase 2 the rgb mode) with
+    RTStatic in the recompute mode (save_chain=False)."""
+    if phase == 2:
+        o, d, z, pe_w, cond, trunk, heads = make_inputs(R, S, device, seed, F)
+        st = rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision)
+        args, c_emb = (o, d, z, pe_w, cond, trunk, heads, st), None
+    else:
+        args, c_emb = train_inputs(R, S, device, phase, precision, seed, F)
+    st = args[-1]._replace(save_chain=False, store_f32=store_f32)
+    return (*args[:-1], st), c_emb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", WIDTHS)
+@pytest.mark.parametrize("precision,store_f32", [("float32", True), ("bfloat16", True), ("bfloat16", False)])
+@pytest.mark.parametrize("phase", [0, 1, 2])
+def test_recompute_forward_matches_plain(cuda_device, precision, store_f32, phase, F):
+    """The forward's residuals without a chain (sig_s, sig_c, feat, c_feat,
+    rgb) and its outputs against the plain version: outputs as
+    test_train_forward_matches_plain; feat / c_feat within 1e-5 (f32), 5e-3
+    (bf16 products, f32 store: the trunk's bf16 rounding flips reach a single
+    sample unaveraged) or 1e-2 (bf16 store: also one bf16 ulp of the value)
+    of their max (and rgb, which bf16 store also rounds)."""
+    args, c_emb = recompute_inputs(200, 100, cuda_device, phase, precision, seed=11, F=F, store_f32=store_f32)
+    st = args[-1]
+    before = (rt.launches, rt.recompute_launches)
+    with torch.no_grad():
+        got, got_res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+        want, want_res = rt.render_train_rays_plain(*args, c_emb=c_emb, save_res=True)
+    torch.cuda.synchronize()
+    assert (rt.launches, rt.recompute_launches) == (before[0], before[1] + 1)
+    assert tuple(got_res) == st.res_keys and "chain" not in got_res
+    tol = TOL[precision]
+    for k in st.out_keys:
+        torch.testing.assert_close(got[k], want[k], rtol=tol if "depth" in k else 0, atol=0 if "depth" in k else tol)
+    ftol = 1e-5 if precision == "float32" else (5e-3 if store_f32 else 1e-2)
+    for k in st.res_keys:
+        assert got_res[k].dtype == want_res[k].dtype and got_res[k].shape == want_res[k].shape, k
+        a, b = got_res[k].float(), want_res[k].float()
+        assert torch.isfinite(a).all(), k
+        if k in ("feat", "cfeat") or (k == "rgb" and not store_f32):  # rgb is rounded with feat
+            assert (a - b).abs().max() <= ftol * b.abs().max(), k
+        else:
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+
+def _rms(t):
+    return t.double().pow(2).mean().sqrt().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", WIDTHS)
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("phase", [0, 1, 2])
+def test_recompute_backward_matches_plain(cuda_device, precision, phase, F):
+    """The recompute backward (train mode) against the plain recompute
+    backward, and its frozen mode against the train mode. It rebuilds the
+    chain in its own summation order, so a ReLU pre-activation within
+    rounding of zero can flip against the plain version's, and one sample's
+    cotangent through that unit switches on or off (at 256 rays one flip moves
+    a trunk dW by ~1e-4 of its max in f32): weight gradients within 1e-3
+    (f32) / 1e-2 (bf16) of their max; the per-ray data cotangents by RMS
+    (within 2e-2 of their RMS); both no further from the float64 plain
+    backward than 2x the plain version's own distance. The frozen mode's data
+    cotangents equal the train mode's bit for bit."""
+    args, c_emb = recompute_inputs(256, 128, cuda_device, phase, precision, seed=13, F=F)
+    st = args[-1]
+    with torch.no_grad():
+        out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+        g = torch.Generator(device=cuda_device).manual_seed(2)
+        cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in out.items()}
+        counts = lambda: (rt.bwd_launches, rt.frozen_bwd_launches, rt.recompute_bwd_launches,  # noqa: E731
+                          rt.recompute_frozen_bwd_launches)
+        before = counts()
+        got = rt.render_train_rays_bwd(*args[:7], st, c_emb, res, cots)
+        frozen = rt.render_train_rays_bwd(*args[:7], st._replace(param_grads=False), c_emb, res, cots)
+        want = rt.render_train_rays_bwd_plain(*args[:7], st, c_emb, res, cots)
+        f64 = lambda t: None if t is None else t.double()  # noqa: E731
+        o, d, z, pe_w, cond, trunk, heads = args[:7]
+        p64 = rt.render_train_rays_bwd_plain(
+            f64(o), f64(d), f64(z), f64(pe_w), f64(cond), [(f64(w), f64(b)) for w, b in trunk],
+            {k: f64(v) for k, v in heads.items()}, st._replace(precision="float32"), f64(c_emb),
+            {k: f64(v) for k, v in res.items()}, {k: f64(v) for k, v in cots.items()})
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    tol = 1e-2 if precision == "bfloat16" else 1e-3
+    for (aw, ab), (bw, bb) in zip(got[4], want[4]):
+        for a, b in ((aw, bw), (ab, bb)):
+            assert torch.isfinite(a).all() and (a - b).abs().max() <= tol * b.abs().max()
+    for k in st.head_keys:
+        a, b = got[5][k], want[5][k].reshape(got[5][k].shape)
+        assert torch.isfinite(a).all() and (a - b).abs().max() <= tol * b.abs().max(), k
+    flat = lambda r: torch.cat([t.double().flatten() for wb in r[4] for t in wb]  # noqa: E731
+                               + [r[5][k].double().flatten() for k in st.head_keys])
+    assert _rms(flat(got) - flat(p64)) <= 2.0 * _rms(flat(want) - flat(p64))
+    assert frozen[4] is None and frozen[5] is None
+    for a, fz, b, b64 in zip(got[:4], frozen[:4], want[:4], p64[:4]):
+        if b is None:
+            assert a is None and fz is None
+            continue
+        assert torch.isfinite(a).all() and torch.equal(a, fz)
+        assert _rms(a - b) <= 2e-2 * _rms(b)
+        assert _rms(a - b64) <= 2.0 * max(_rms(b - b64), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("phase", [1, 2])
+def test_recompute_backward_matches_saved_chain_kernel(cuda_device, precision, phase):
+    """The recompute backward against the saved-chain backward on the same
+    inputs and cotangents (each on its own forward's residuals): the kernel
+    rebuilds the forward kernel's chain bit for bit, so every output is within
+    1e-4 (f32) / 1e-2 (bf16) of its max, as the saved-chain backward against
+    its plain version; and the recompute path through RenderTrainRays launches
+    one forward and one backward, each counted as the recompute mode's."""
+    args, c_emb = recompute_inputs(128, 128, cuda_device, phase, precision, seed=17)
+    st = args[-1]
+    saved_st = st._replace(save_chain=True)
+    with torch.no_grad():
+        out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+        out_s, res_s = rt.render_train_rays_fwd(*args[:7], saved_st, c_emb=c_emb, save_res=True)
+        for k in st.out_keys:  # one forward, two residual sets (f32 mode's feature map sums by atomics)
+            torch.testing.assert_close(out[k], out_s[k], rtol=1e-5, atol=1e-6)
+        g = torch.Generator(device=cuda_device).manual_seed(4)
+        cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in out.items()}
+        got = rt.render_train_rays_bwd(*args[:7], st, c_emb, res, cots)
+        ref = rt.render_train_rays_bwd(*args[:7], saved_st, c_emb, res_s, cots)
+    torch.cuda.synchronize()
+    tol = 1e-2 if precision == "bfloat16" else 1e-4
+    for a, b in zip(got[:4], ref[:4]):
+        if b is not None:
+            assert (a - b).abs().max() <= tol * b.abs().max()
+    for (aw, ab), (bw, bb) in zip(got[4], ref[4]):
+        assert (aw - bw).abs().max() <= tol * bw.abs().max() and (ab - bb).abs().max() <= tol * bb.abs().max()
+    o, d, z, pe_w, cond, trunk, heads = args[:7]
+    o = o.clone().requires_grad_()
+    before = (rt.recompute_launches, rt.recompute_bwd_launches)
+    outs = rt.render_train_rays(o, d, z, pe_w, cond, trunk, heads, st, c_emb=c_emb)
+    sum(v.sum() for v in outs.values()).backward()
+    torch.cuda.synchronize()
+    assert (rt.recompute_launches, rt.recompute_bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(o.grad).all() and o.grad.abs().max() > 0

@@ -51,8 +51,7 @@ namespace {
 
 using namespace upnerf;
 
-constexpr int CPAD = 64;           // c_emb columns as c1's operand, zero-padded
-constexpr int LDX0 = MAX_IN0 + 8;  // row stride of the x0 and c_emb operand buffers
+constexpr int CPAD = 64;  // c_emb columns as c1's operand, zero-padded (row stride LDX0, as x0's)
 
 // Row strides of a feature width's instance: the wide f32 tile buffer holds W or FP
 // columns (LDT); the wide operand buffers 8 more (LDA; + 16 bytes keeps ldmatrix rows
@@ -100,19 +99,6 @@ __device__ void load_rows(T* dst, int ldd, const T* chain, int chain_w, int col0
   }
 }
 
-// dst = act(G + bias) rounded to T, BT x N; also into the scratch chain at col0.
-template <typename T, int LDT, int LDA>
-__device__ void epilogue(T* dst, T* chain, int chain_w, int col0, const float* G, const float* bias, int N, bool relu) {
-  for (int i = threadIdx.x; i < BT * N; i += THREADS) {
-    const int r = i / N, n = i - r * N;
-    float v = G[r * LDT + n] + __ldg(bias + n);
-    if (relu) v = fmaxf(v, 0.f);
-    const T t = from_float<T>(v);
-    dst[r * LDA + n] = t;
-    chain[(size_t)r * chain_w + col0 + n] = t;
-  }
-}
-
 // out[r] = softplus(A[r] . w + b) for the tile's rows: a warp per row, lanes over k.
 template <typename T, int LDA>
 __device__ void sigma_rows(float* out, const T* A, int K, const void* w, const float* b) {
@@ -145,32 +131,6 @@ __device__ __forceinline__ void load_x0(const HB& a, int row0, T* X0, float* DX0
     X0[r * LDX0 + j] = from_float<T>((j < a.in0 && row < a.N) ? __ldg(a.x + (size_t)row * a.in0 + j) : 0.f);
     DX0[i] = 0.f;
   }
-}
-
-// The trunk's activations of the tile (heads_fwd.cu's computation) into the scratch
-// chain, columns [i W, (i + 1) W) for layer i, and in turns into A and B; returns the
-// buffer that holds the last one. Ends with a barrier.
-template <typename T, int LDT, int LDA>
-__device__ __forceinline__ T* recompute_trunk(const HB& a, const T* X0, T* A, T* B, float* GF, T* chain) {
-  T* cur = A;
-  T* nxt = B;
-  for (int i = 0; i < a.D; ++i) {
-    const bool skip = i > 0 && ((a.skips >> i) & 1u);
-    if (i == 0 || skip) {
-      const int ks = (skip ? MAX_IN0 + W : MAX_IN0) / 16;
-      mmw<T>(GF, LDT, false, X0, LDX0, MAX_IN0, a.tw[i], W, W, 0, ks, 0);
-      if (skip) mmw<T>(GF, LDT, true, cur, LDA, W, a.tw[i], W, W, 0, ks, MAX_IN0 / 16);
-    } else {
-      mmw<T>(GF, LDT, false, cur, LDA, W, a.tw[i], W, W, 0);
-    }
-    __syncthreads();
-    epilogue<T, LDT, LDA>(nxt, chain, a.chain_w, i * W, GF, a.tb[i], W, true);
-    __syncthreads();
-    T* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  return cur;
 }
 
 // The trunk's walk, last layer first: A holds act[D - 1] and GF its cotangent (before
@@ -247,7 +207,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const HB a) {
     __syncthreads();
 
     // ---- recompute the chain (heads_fwd.cu) ----------------------------------
-    T* cur = recompute_trunk<T, LDT, LDA>(a, X0, A, B, GF, chain);  // the last trunk layer
+    T* cur = recompute_trunk<T, LDT, LDA>(a, X0, A, B, GF, chain, a.chain_w);  // the last trunk layer
     T* nxt = cur == A ? B : A;
     sigma_rows<T, LDA>(ssig, cur, W, a.sigma_w, a.sigma_b);
     mmw<T>(GF, LDT, false, cur, LDA, W, a.xyzf_w, W, W, 0);
@@ -380,7 +340,7 @@ __global__ void __launch_bounds__(THREADS, 2) trunk_bwd_kernel(const HB a) {
     const int row0 = tile * BT;
     load_x0<T>(a, row0, X0, DX0);
     __syncthreads();
-    recompute_trunk<T, LDT, LDA>(a, X0, A, B, GF, chain);
+    recompute_trunk<T, LDT, LDA>(a, X0, A, B, GF, chain, a.chain_w);
     load_cot<LDT>(GF, a.g_h, row0, a.N, W, W);
     load_rows<T>(A, LDA, chain, a.chain_w, (a.D - 1) * W, W);
     walk_trunk<T, LDT, LDA>(a, X0, A, B, GF, DX0, chain);

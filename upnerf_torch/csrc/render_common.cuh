@@ -23,8 +23,12 @@ constexpr int W = 256, HH = 128, HC = 128;
 // Mode bits of the `flags` argument (upnerf_torch/ops/render_train.py:_flags).
 // NO_PARAM_GRADS: the backward's frozen-model mode (RTStatic.param_grads = False).
 // X0_IN: the forward reads pre-built PE rows x0 instead of building them from the rays.
+// RECOMPUTE: the recompute mode (RTStatic.save_chain = False): the forward's residuals
+// hold the per-sample feat and c_feat in place of the walk chain, and the backward
+// rebuilds the chain.
 enum Flag {
-  BF16 = 1, USE_RGB = 2, OUT_FEAT = 4, USE_CAND = 8, SAVE_RES = 16, STORE_F32 = 32, NO_PARAM_GRADS = 64, X0_IN = 128
+  BF16 = 1, USE_RGB = 2, OUT_FEAT = 4, USE_CAND = 8, SAVE_RES = 16, STORE_F32 = 32, NO_PARAM_GRADS = 64, X0_IN = 128,
+  RECOMPUTE = 256
 };
 enum Status { OK = 0, BAD_SHAPE = -1, BAD_SMEM = -2, BAD_MODE = -3 };
 

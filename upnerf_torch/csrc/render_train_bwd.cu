@@ -53,14 +53,29 @@
 // and d_rays_o / d_rays_d are summed over a tile's samples by one thread per
 // coordinate, in sample order. The frozen mode has no atomics at all; ~34 ms of the
 // train mode's ~62 ms per 4096-ray chunk were the dW products and their atomics.
+//
+// Recompute mode (flag RECOMPUTE, RTStatic.save_chain = False; the TPU kernel's branch
+// pallas_render_train.py:883-890), in both the train and the frozen mode: the forward
+// saved no chain, only the per-sample feat and c_feat (f32, or bf16 with store_f32
+// off) beside the sigmas and rgb. A tile's chain (5.4 KB a sample in bf16) does not fit
+// beside the walk's ~160 KB of shared memory, so, as heads_bwd.cu does, the kernel runs
+// persistent blocks (one an SM, each walking rays blockIdx.x, blockIdx.x + gridDim.x,
+// ...) and gives each block a scratch of BT rows in the chain's own column layout in
+// device memory (~172 KB a block in bf16, ~23 MB for 132 blocks: it stays in L2). Per
+// tile it rebuilds the trunk from the x0 of the tile (walk_common.cuh:recompute_trunk),
+// then xyzf, rgbh = relu(feat Wr1 + ray_cond) from the stored feat, h1 = relu(xyzf Wc1x
+// + c_emb Wc1c + bc1) and h2 into the scratch; the walk then reads the scratch where it
+// read the saved chain. p and q come from the stored feat and c_feat rows, and rgb1's
+// dW operand is the stored feat. The recompute sums in another order than the
+// forward's 64-row tiles, so a ReLU pre-activation within rounding of zero can flip its
+// mask against another recompute (ROADMAP.md §3): one sample's cotangent through that
+// unit then switches on or off.
 
 #include "walk_common.cuh"
 
 namespace {
 
 using namespace upnerf;
-
-constexpr int LDX0 = MAX_IN0 + 8;  // row stride of the x0 operand buffer
 
 // Row strides of a feature width's instance: the wide f32 tile buffer holds W or FP
 // columns; the wide operand buffers 8 more (+ 16 bytes keeps ldmatrix rows in distinct
@@ -79,11 +94,19 @@ enum Dh {
 };
 
 struct Bwd {
-  const float *o, *d, *z, *pe_w, *cemb;
+  const float *o, *d, *z, *pe_w, *cemb, *cond;
   const float *g_sw, *g_sdep, *g_rgbm, *g_feat, *g_jw, *g_cdep, *g_tw;  // cotangents, null = 0
   const float *sig_s, *sig_c, *rgb;                                     // residuals
-  const void* chain;
+  const void* chain;                     // saved chain (R*S, chain_w); null in the recompute mode
+  const void *feat_res, *cfeat_res;      // recompute mode: (R*S, F) f32, or bf16 with store_f32 off
   int chain_w;
+  // recompute mode: the forward's weights (f32 (in, out) | bf16 packed; trunk x0 rows
+  // padded to 64; rgb1_w's rows zero-padded to FP), and the per-block scratch chains
+  const void* tw[MAX_D];
+  const float* tb[MAX_D];
+  const void *xyzf_wf, *rgb1_wf, *c1x_wf, *c2_wf;
+  const float *xyzf_b, *c1_b, *c2_b;
+  void* scratch;  // gridDim.x x BT x chain_w in the compute dtype
   const void* tT[MAX_D];  // trunk W^T (W, in_pad), x0 padded to 64 columns
   const void *xyzf_wT, *feat_w, *feat_wT, *rgb1_wT, *rgb2_wT, *c1x_wT, *c1c_w, *c2_wT, *cfeat_wT;  // F padded to FP
   const float *sigma_w, *csig_w, *feat_b, *cfeat_b;  // feat_b, cfeat_b (FP,)
@@ -98,29 +121,55 @@ struct Bwd {
 };
 
 // Chain columns [col0, col0 + ncols) of tile s0 into dst (T); rows past the ray's end 0.
-template <typename T>
-__device__ void load_chain(T* dst, int ldd, const Bwd& a, int ray, int s0, int col0, int ncols) {
+// From the saved chain, or (blk non-null, the recompute mode) from the block's scratch
+// rows 0..BT-1 by plain loads: this launch writes them.
+template <typename T, bool REC>
+__device__ void load_chain(T* dst, int ldd, const Bwd& a, const T* blk, int ray, int s0, int col0, int ncols) {
   constexpr int V = 16 / sizeof(T);
   const T* chain = static_cast<const T*>(a.chain);
   const int vpr = ncols / V;
   for (int i = threadIdx.x; i < BT * vpr; i += THREADS) {
     const int r = i / vpr, v = i - r * vpr, s = s0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < a.S) val = __ldg(reinterpret_cast<const uint4*>(chain + ((size_t)ray * a.S + s) * a.chain_w + col0 + v * V));
+    if (s < a.S) {
+      if constexpr (REC)
+        val = *reinterpret_cast<const uint4*>(blk + (size_t)r * a.chain_w + col0 + v * V);
+      else
+        val = __ldg(reinterpret_cast<const uint4*>(chain + ((size_t)ray * a.S + s) * a.chain_w + col0 + v * V));
+    }
     *reinterpret_cast<uint4*>(dst + r * ldd + v * V) = val;
+  }
+}
+
+// Element (row, c) of a stored feat / c_feat residual (R*S, F), f32 or bf16.
+__device__ __forceinline__ float feat_at(const void* p, bool bf, size_t row, int F, int c) {
+  return bf ? load1(static_cast<const bf16*>(p) + row * F + c) : load1(static_cast<const float*>(p) + row * F + c);
+}
+
+// Rows s0.. of ray's stored feat into dst (T, FP columns: zero past F and past the ray's end).
+template <typename T>
+__device__ void load_feat(T* dst, int ldd, const Bwd& a, bool bf, int ray, int s0, int F, int FP) {
+  for (int i = threadIdx.x; i < BT * FP; i += THREADS) {
+    const int r = i / FP, n = i - r * FP, s = s0 + r;
+    dst[r * ldd + n] = from_float<T>(n < F && s < a.S ? feat_at(a.feat_res, bf, (size_t)ray * a.S + s, F, n) : 0.f);
   }
 }
 
 __device__ __forceinline__ float cot(const float* p, size_t i) { return p ? __ldg(p + i) : 0.f; }
 
-template <typename T, int F>
+// REC: the recompute mode's instance (flag RECOMPUTE); the saved-chain modes run the one
+// without it.
+template <typename T, int F, bool REC>
 __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   constexpr int FP = Widths<T, F>::FP, LDT = Widths<T, F>::LDT, LDA = Widths<T, F>::LDA;
-  const int ray = blockIdx.x, S = a.S, tid = threadIdx.x;
+  const int S = a.S, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const bool rgb = a.flags & USE_RGB, feat = a.flags & OUT_FEAT, cand = a.flags & USE_CAND;
   const bool pg = !(a.flags & NO_PARAM_GRADS);  // uniform over the block: barriers stay unconditional
+  constexpr bool rec = REC;
+  const bool res_bf = (a.flags & BF16) && !(a.flags & STORE_F32);  // feat / c_feat residuals in bf16
   const int col_xyzf = a.D * W, col_rgbh = (a.D + 1) * W, col_h1 = col_rgbh + (rgb ? HH : 0), col_h2 = col_h1 + HC;
+  T* blk = rec ? static_cast<T*>(a.scratch) + (size_t)blockIdx.x * BT * a.chain_w : nullptr;
 
   extern __shared__ float4 smem4[];
   T* X0 = reinterpret_cast<T*>(smem4);  // (BT, LDX0) x0, zero past in0
@@ -152,7 +201,11 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   float* cgw = cfw + S;
   float* crw = cgw + S;
   float* rgbs = crw + S;                // (S, 3)
+  float* ray1 = rgbs + 3 * S;           // (HC,) recompute mode: c_emb Wc1c + bc1
 
+  // one ray: the saved-chain mode launches a block a ray, the recompute mode a
+  // persistent block an SM that takes rays blockIdx.x, blockIdx.x + gridDim.x, ...
+  auto one_ray = [&](const int ray) {
   // ---- per-ray set-up -------------------------------------------------------
   float o[3], d[3];
 #pragma unroll
@@ -174,7 +227,14 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   if (tid < 16) misc[tid] = 0.f;
   __syncthreads();
   if (tid < 3 && rgb) misc[8 + tid] = cot(a.g_rgbm, (size_t)ray * 3 + tid);
-  if (feat) {
+  if (rec && cand)
+    for (int j = tid; j < HC; j += THREADS) {  // as the forward's load_ray: operands rounded like T
+      const T* c1c = static_cast<const T*>(a.c1c_w);  // (C, HC)
+      float acc = 0.f;
+      for (int k = 0; k < a.C; ++k) acc = fmaf(to_float(from_float<T>(cemb[k])), to_float(c1c[(size_t)k * HC + j]), acc);
+      ray1[j] = acc + __ldg(a.c1_b + j);
+    }
+  if (feat && !rec) {
     // vfeat[k] = sum_c Wf[k, c] g_feat[c]: a warp per row, lanes over c
     const T* wf = static_cast<const T*>(a.feat_w_rm);  // (W, F) row-major
     for (int k = warp; k < W; k += THREADS / 32) {
@@ -205,13 +265,19 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
     }
   }
   __syncthreads();
-  // per-sample inner products: a warp per sample
+  // per-sample inner products: a warp per sample; from the chain (xyzf (Wf g_feat) + bf
+  // g_feat), or from the stored feat and c_feat rows in the recompute mode
   {
     const T* chain = static_cast<const T*>(a.chain);
     for (int s = warp; s < S; s += THREADS / 32) {
-      const T* row = chain + ((size_t)ray * S + s) * a.chain_w;
       float p = 0.f, q = 0.f;
-      if (feat) {
+      if (feat && rec) {
+        const size_t i = (size_t)ray * S + s;
+        for (int c = lane; c < F; c += 32) p = fmaf(feat_at(a.feat_res, res_bf, i, F, c), gfeat[c], p);
+        if (cand)
+          for (int c = lane; c < F; c += 32) q = fmaf(feat_at(a.cfeat_res, res_bf, i, F, c), gfeat[c], q);
+      } else if (feat) {
+        const T* row = chain + ((size_t)ray * S + s) * a.chain_w;
         for (int k = lane; k < W; k += 32) p = fmaf(to_float(row[col_xyzf + k]), vfeat[k], p);
         if (cand)
           for (int k = lane; k < HC; k += 32) q = fmaf(to_float(row[col_h2 + k]), vcfeat[k], q);
@@ -313,14 +379,45 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       DX0[i] = 0.f;
     }
     auto row_coef = [&](const float* v, int r) { return s0 + r < S ? v[s0 + r] : 0.f; };
+    auto load = [&](T* dst, int col0, int ncols) { load_chain<T, REC>(dst, LDA, a, blk, ray, s0, col0, ncols); };
+
+    if constexpr (REC) {
+      // rebuild the tile's chain into the block's scratch: trunk, xyzf, rgbh from the stored
+      // feat, h1, h2 (the forward's computation, render_train_fwd.cu)
+      __syncthreads();
+      T* cur = recompute_trunk<T, LDT, LDA>(a, X0, A, B, GF, blk, a.chain_w);  // the last trunk layer
+      T* nxt = cur == A ? B : A;
+      mmw<T>(GF, LDT, false, cur, LDA, W, a.xyzf_wf, W, W, 0);
+      __syncthreads();
+      epilogue<T, LDT, LDA>(nxt, blk, a.chain_w, col_xyzf, GF, a.xyzf_b, W, false);
+      if (rgb) load_feat<T>(cur, LDA, a, res_bf, ray, s0, F, FP);
+      __syncthreads();
+      if (rgb) {
+        mmw<T>(GF, LDT, false, cur, LDA, FP, a.rgb1_wf, HH, HH, 0);
+        __syncthreads();
+        epilogue<T, LDT, LDA>(cur, blk, a.chain_w, col_rgbh, GF, a.cond + (size_t)ray * HH, HH, true);
+        __syncthreads();
+      }
+      if (cand) {
+        mmw<T>(GF, LDT, false, nxt, LDA, W, a.c1x_wf, HC, HC, 0);
+        __syncthreads();
+        epilogue<T, LDT, LDA>(cur, blk, a.chain_w, col_h1, GF, ray1, HC, true);
+        __syncthreads();
+        mmw<T>(GF, LDT, false, cur, LDA, HC, a.c2_wf, HC, HC, 0);
+        __syncthreads();
+        epilogue<T, LDT, LDA>(nxt, blk, a.chain_w, col_h2, GF, a.c2_b, HC, true);
+      }
+      __syncthreads();
+    }
 
     if (rgb) {
-      // feat_s = xyzf_s Wf + bf (the dW operand of rgb1), rounded
-      if (pg) load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
+      // feat_s, the dW operand of rgb1, rounded: stored (recompute mode), or xyzf_s Wf + bf
+      if (pg && rec) load_feat<T>(A, LDA, a, res_bf, ray, s0, F, FP);
+      if (pg && !rec) load(A, col_xyzf, W);
       __syncthreads();
-      if (pg) mmw<T>(GF, LDT, false, A, LDA, W, a.feat_w, FP, FP, 0);
+      if (pg && !rec) mmw<T>(GF, LDT, false, A, LDA, W, a.feat_w, FP, FP, 0);
       __syncthreads();
-      for (int i = tid; pg && i < BT * FP; i += THREADS) {
+      for (int i = tid; pg && !rec && i < BT * FP; i += THREADS) {
         const int r = i / FP, n = i - r * FP;
         A[r * LDA + n] = from_float<T>(GF[r * LDT + n] + __ldg(a.feat_b + n));
       }
@@ -332,7 +429,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         GU[r * 4 + n] = gu;
         GUT[r * 4 + n] = from_float<T>(gu);
       }
-      load_chain<T>(B, LDA, a, ray, s0, col_rgbh, HH);
+      load(B, col_rgbh, HH);
       __syncthreads();
       // dW rgb2 (HH, 3) += rgbh^T g_u; db rgb2
       for (int i = tid; pg && i < HH * 3; i += THREADS) {
@@ -370,7 +467,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
     __syncthreads();
     if (pg) colsum(GF, LDT, FP, a.dh[FEAT_B]);
     round_to<T>(B, LDA, GF, LDT, FP);
-    if (pg) load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
+    if (pg) load(A, col_xyzf, W);
     __syncthreads();
     if (pg) dww<T>(a.dh[FEAT_W], FP, A, LDA, W, B, LDA, FP);
     mmw<T>(GX, W, false, B, LDA, FP, a.feat_wT, W, W, 0);
@@ -381,7 +478,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         const int r = i / FP, n = i - r * FP;
         GF[r * LDT + n] = row_coef(cgw, r) * gfeat[n];
       }
-      load_chain<T>(A, LDA, a, ray, s0, col_h2, HC);
+      load(A, col_h2, HC);
       __syncthreads();
       if (pg) colsum(GF, LDT, FP, a.dh[CFEAT_B]);
       round_to<T>(B, LDA, GF, LDT, FP);
@@ -405,7 +502,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       __syncthreads();
       if (pg) colsum(GF, LDT, HC, a.dh[C2_B]);
       round_to<T>(B, LDA, GF, LDT, HC);
-      load_chain<T>(A, LDA, a, ray, s0, col_h1, HC);
+      load(A, col_h1, HC);
       __syncthreads();
       if (pg) dww<T>(a.dh[C2_W], HC, A, LDA, HC, B, LDA, HC);
       // g_h1 = (g_h2 Wc2^T) * (h1 > 0)
@@ -418,7 +515,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       __syncthreads();
       colsum(GF, LDT, HC, pg ? a.dh[C1_B] : nullptr, rayg1);
       round_to<T>(B, LDA, GF, LDT, HC);
-      if (pg) load_chain<T>(A, LDA, a, ray, s0, col_xyzf, W);
+      if (pg) load(A, col_xyzf, W);
       __syncthreads();
       if (pg) dww<T>(a.dh[C1X_W], HC, A, LDA, W, B, LDA, HC);
       mmw<T>(GX, W, true, B, LDA, HC, a.c1x_wT, W, W, 0);
@@ -426,7 +523,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
     }
 
     // sigma / xyzf: g_h = g_spre sigma_w + g_xyzf Wx^T
-    load_chain<T>(A, LDA, a, ray, s0, (a.D - 1) * W, W);
+    load(A, (a.D - 1) * W, W);
     if (tid < BT) GU[tid * 4 + 3] = row_coef(gsp, tid);
     __syncthreads();
     if (pg) colsum(GX, W, W, a.dh[XYZF_B]);
@@ -464,7 +561,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         mmw<T>(DX0, MAX_IN0, true, B, LDA, W, a.tT[i], in_pad, MAX_IN0, 0);
       }
       if (i > 0) {
-        load_chain<T>(A, LDA, a, ray, s0, (i - 1) * W, W);
+        load(A, (i - 1) * W, W);
         __syncthreads();
         if (pg) dww<T>(a.dtw[i] + (skip ? MAX_IN0 * W : 0), W, A, LDA, W, B, LDA, W);
         mmw<T>(GF, LDT, false, B, LDA, W, a.tT[i], in_pad, W, skip ? MAX_IN0 : 0);
@@ -520,23 +617,33 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       atomicAdd(a.dh[C1C_W] + i, to_float(from_float<T>(cemb[c])) * to_float(from_float<T>(rayg1[j])));
     }
   }
+  };
+  if constexpr (REC) {
+    for (int ray = blockIdx.x; ray < a.R; ray += gridDim.x) {
+      one_ray(ray);
+      __syncthreads();  // the next ray's set-up overwrites what the outputs read
+    }
+  } else {
+    one_ray(blockIdx.x);
+  }
 }
 
 template <typename T, int F>
 long long smem_bytes(int S) {
   using L = Widths<T, F>;
   const long long t = (long long)BT * (LDX0 + 2 * L::LDA + 4) * sizeof(T);
-  const long long f = (long long)BT * (MAX_IN0 + L::LDT + W + 4) + L::FP + W + 2 * HC + HH + MAX_C + 16 + 16LL * S;
+  const long long f = (long long)BT * (MAX_IN0 + L::LDT + W + 4) + L::FP + W + 3 * HC + HH + MAX_C + 16 + 16LL * S;
   return t + f * 4 + 16;
 }
 
 template <typename T, int F>
-int launch(const Bwd& a, cudaStream_t stream) {
+int launch(const Bwd& a, int grid, cudaStream_t stream) {
   const long long bytes = smem_bytes<T, F>(a.S);
   if (bytes > SMEM_LIMIT) return BAD_SMEM;
-  cudaError_t err = cudaFuncSetAttribute(bwd_kernel<T, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  auto kernel = (a.flags & RECOMPUTE) ? bwd_kernel<T, F, true> : bwd_kernel<T, F, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  bwd_kernel<T, F><<<a.R, THREADS, (int)bytes, stream>>>(a);
+  kernel<<<grid, THREADS, (int)bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -545,8 +652,10 @@ int launch(const Bwd& a, cudaStream_t stream) {
 extern "C" {
 
 // Returns 0, a cudaError_t (> 0) from the launch, or a negative Status.
-// ins: rays_o, rays_d, z_vals, pe_w, c_emb. cots: s_weights, s_depth, rgb_map,
-// feat_map, j_weights, c_depth, t_weight (null = zero). res: sig_s, sig_c, rgb, chain.
+// ins: rays_o, rays_d, z_vals, pe_w, c_emb, ray_cond. cots: s_weights, s_depth, rgb_map,
+// feat_map, j_weights, c_depth, t_weight (null = zero). res: sig_s, sig_c, rgb, chain,
+// feat, c_feat (the chain with the saved chain; feat, c_feat (R*S, F) in the store dtype
+// in the recompute mode, flag RECOMPUTE).
 // trunk_t: per layer W^T (W, in_pad) in the compute dtype, x0 padded to 64 columns.
 // w: xyzf_w^T, feat_w, feat_w^T, rgb1_w^T, rgb2_w^T, c1x_w^T, c1c_w, c2_w^T,
 // cfeat_w^T (compute dtype), sigma_w, csig_w, feat_b, cfeat_b (f32), then the
@@ -556,19 +665,29 @@ extern "C" {
 // (padded rows) and bias gradients, dh: head gradients in HEAD_KEYS order, feat_w,
 // feat_b, rgb1_w, cfeat_w and cfeat_b at FP; all f32 and zeroed by the caller, and
 // never touched (null allowed) when flags has NO_PARAM_GRADS. F: a built feature width.
+// Recompute mode: tw / tb the trunk in the forward's layout ((in_pad, W), x0 rows padded
+// to 64; bf16 packed in fragment order, or f32 row-major) and its biases; rw: xyzf_w,
+// xyzf_b, rgb1_w (FP rows), c1x_w, c1_b, c2_w, c2_b in the forward kernel's layout;
+// scratch: grid x 32 x chain_w elements of the compute dtype; grid: the persistent
+// blocks (at most one an SM is resident). The saved-chain mode takes tw, tb, rw and
+// scratch null and grid = R (a block a ray).
 int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, const void* const* res,
                             const void* const* trunk_t, int D, unsigned skip_mask, const void* const* w,
-                            void* const* outs, void* const* dtw, void* const* dtb, void* const* dh, int R, int S,
-                            int L, int C, int F, int flags, void* stream) {
+                            const void* const* tw, const void* const* tb, const void* const* rw, void* const* outs,
+                            void* const* dtw, void* const* dtb, void* const* dh, void* scratch, int R, int S, int L,
+                            int C, int F, int flags, int grid, void* stream) {
   const int in0 = 3 + 6 * L;
+  const bool rec = flags & RECOMPUTE;
   if (R <= 0 || S <= 0 || L <= 0 || in0 > MAX_IN0 || D <= 0 || D > MAX_D || C < 0 || C > MAX_C) return BAD_SHAPE;
   if (!(flags & (USE_RGB | OUT_FEAT)) || ((flags & USE_CAND) && C == 0)) return BAD_MODE;
-  Bwd a;
+  if (rec ? (!tw || !tb || !rw || !scratch || grid <= 0 || grid > R) : (grid != R || !res[3])) return BAD_MODE;
+  Bwd a = {};
   a.o = static_cast<const float*>(ins[0]);
   a.d = static_cast<const float*>(ins[1]);
   a.z = static_cast<const float*>(ins[2]);
   a.pe_w = static_cast<const float*>(ins[3]);
   a.cemb = static_cast<const float*>(ins[4]);
+  a.cond = static_cast<const float*>(ins[5]);
   a.g_sw = static_cast<const float*>(cots[0]);
   a.g_sdep = static_cast<const float*>(cots[1]);
   a.g_rgbm = static_cast<const float*>(cots[2]);
@@ -580,11 +699,27 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
   a.sig_c = static_cast<const float*>(res[1]);
   a.rgb = static_cast<const float*>(res[2]);
   a.chain = res[3];
+  a.feat_res = res[4];
+  a.cfeat_res = res[5];
   a.chain_w = (D + 1) * W + ((flags & USE_RGB) ? HH : 0) + ((flags & USE_CAND) ? 2 * HC : 0);
   for (int i = 0; i < D; ++i) {
     a.tT[i] = trunk_t[i];
     a.dtw[i] = static_cast<float*>(dtw[i]);
     a.dtb[i] = static_cast<float*>(dtb[i]);
+    if (rec) {
+      a.tw[i] = tw[i];
+      a.tb[i] = static_cast<const float*>(tb[i]);
+    }
+  }
+  if (rec) {
+    a.xyzf_wf = rw[0];
+    a.xyzf_b = static_cast<const float*>(rw[1]);
+    a.rgb1_wf = rw[2];
+    a.c1x_wf = rw[3];
+    a.c1_b = static_cast<const float*>(rw[4]);
+    a.c2_wf = rw[5];
+    a.c2_b = static_cast<const float*>(rw[6]);
+    a.scratch = scratch;
   }
   a.xyzf_wT = w[0];
   a.feat_w = w[1];
@@ -617,9 +752,9 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = flags & BF16;
   switch (F) {
-    case 32: return bf ? launch<bf16, 32>(a, st) : launch<float, 32>(a, st);
-    case 64: return bf ? launch<bf16, 64>(a, st) : launch<float, 64>(a, st);
-    case 384: return bf ? launch<bf16, 384>(a, st) : launch<float, 384>(a, st);
+    case 32: return bf ? launch<bf16, 32>(a, grid, st) : launch<float, 32>(a, grid, st);
+    case 64: return bf ? launch<bf16, 64>(a, grid, st) : launch<float, 64>(a, grid, st);
+    case 384: return bf ? launch<bf16, 384>(a, grid, st) : launch<float, 384>(a, grid, st);
     default: return BAD_SHAPE;
   }
 }
@@ -629,7 +764,9 @@ const char* upnerf_error_string(int code) {
     case OK: return "ok";
     case BAD_SHAPE: return "unsupported shape (W=256, F in {32, 64, 384}, HH=128, HC=128; 3 + 6L <= 64; D <= 16; C <= 32)";
     case BAD_SMEM: return "too many samples per ray for shared memory";
-    case BAD_MODE: return "unsupported mode (needs use_rgb or out_feat; the candidate branch needs C > 0)";
+    case BAD_MODE:
+      return "unsupported mode (needs use_rgb or out_feat; the candidate branch needs C > 0; the recompute mode"
+             " needs its weights, a scratch and 0 < grid <= R, the saved-chain mode the chain and grid = R)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

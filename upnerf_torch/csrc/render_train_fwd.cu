@@ -22,7 +22,11 @@
 //        feat_map = sum wf feat (+ sum cw c_feat), wf = sw with the candidate branch, ow
 //        without (OUT_FEAT), j_weights = jw, c_depth = sum jw z, t_weight = sum cw (USE_CAND)
 //   residuals (SAVE_RES): sig_s, sig_c (R,S) f32; rgb (R*S,3) f32; the walk chain
-//        (R*S, act0..act{D-1} | xyzf | rgbh | h1 | h2) in the compute dtype.
+//        (R*S, act0..act{D-1} | xyzf | rgbh | h1 | h2) in the compute dtype; or, with
+//        RECOMPUTE (the recompute mode, pallas_render_train.py:184-204), no chain but the
+//        per-sample feat and c_feat (R*S, F) in the store dtype (f32, or bf16 in bfloat16
+//        mode with store_f32 off), written from the f32 values of the epilogue that also
+//        reduces them into the feature map.
 //
 // What bounds it on the H100: arithmetic, then the weights' trips through L2. One
 // sample costs ~1.41 MFLOP in phase 2 (0.70 M multiply-adds: trunk 0.49 M, heads 0.21 M)
@@ -121,11 +125,40 @@ struct Rays {
   float* sig_c;            // (R, S) residual
   float* rgb_res;          // (R*S, 3) residual
   void* chain;             // (R*S, chain_w) residual, f32 or bf16
+  void* feat_res;          // (R*S, F) residual (RECOMPUTE), f32 or bf16
+  void* cfeat_res;         // (R*S, F) residual (RECOMPUTE, USE_CAND)
   int chain_w;
   int R, S, L, C;
   int in0;                 // 3 + 6L
   int flags;
 };
+
+// Where an epilogue writes its f32 values as a (R*S, F) residual (the recompute mode's
+// feat / c_feat): rows row0 .. row0 + nrows - 1 of the tile, columns below F.
+struct ResOut {
+  void* p = nullptr;
+  size_t row0 = 0;
+  int nrows = 0, F = 0;
+  bool bf = false;  // store bf16 (bfloat16 mode with store_f32 off), else f32
+  __device__ __forceinline__ void put(int row, int col, float v) const {
+    if (row >= nrows || col >= F) return;
+    const size_t i = (row0 + row) * F + col;
+    if (bf) static_cast<bf16*>(p)[i] = __float2bfloat16_rn(v);
+    else static_cast<float*>(p)[i] = v;
+  }
+};
+
+// The residual p of a feat / c_feat layer of tile s0 of ray.
+template <int F>
+__device__ __forceinline__ ResOut res_out(const Rays& a, void* p, int ray, int s0) {
+  ResOut ro;
+  ro.p = p;
+  ro.row0 = (size_t)ray * a.S + s0;
+  ro.nrows = a.S - s0;
+  ro.F = F;
+  ro.bf = (a.flags & BF16) && !(a.flags & STORE_F32);
+  return ro;
+}
 
 // Per-ray state in shared memory after the tile buffers.
 struct RaySmem {
@@ -387,11 +420,12 @@ __device__ __forceinline__ void store_chain(const Rays& a, int ray, int s0, cons
 
 // out = act([a1 | a2] @ w + bias) for this warp's rows, N = 32 * CPT columns (out may
 // be null). With colsum, also colsum[c] += sum_r roww[r] * value[r, c] (shared-memory
-// atomics across the warps), the value rounded to bf16 first when round_sum.
-template <int CPT>
+// atomics across the warps); with RES, the values also go to the residual ro.
+template <int CPT, bool RES = false>
 __device__ __forceinline__ void dense_f32(const float* a1, int lda1, int K1, const float* a2, int lda2, int K2,
                                           const float* __restrict__ w, const float* bias, float* out, int ldo,
-                                          bool relu, const float* roww = nullptr, float* colsum = nullptr) {
+                                          bool relu, const float* roww = nullptr, float* colsum = nullptr,
+                                          const ResOut& ro = ResOut()) {
   float acc[RPW][CPT];
 #pragma unroll
   for (int r = 0; r < RPW; ++r)
@@ -414,6 +448,7 @@ __device__ __forceinline__ void dense_f32(const float* a1, int lda1, int K1, con
       for (int e = 0; e < 4; ++e) {
         v[e] = relu ? fmaxf(acc[r][4 * j + e] + b[e], 0.f) : acc[r][4 * j + e] + b[e];
         if (colsum) cs[e] = fmaf(roww[warp * RPW + r], v[e], cs[e]);
+        if constexpr (RES) ro.put(warp * RPW + r, col + e, v[e]);
       }
       if (out) *reinterpret_cast<float4*>(out + (warp * RPW + r) * ldo + col) = make_float4(v[0], v[1], v[2], v[3]);
     }
@@ -424,7 +459,9 @@ __device__ __forceinline__ void dense_f32(const float* a1, int lda1, int K1, con
   __syncwarp();
 }
 
-template <int F>
+// REC: the instance of the recompute mode's forward with residuals (SAVE_RES with
+// RECOMPUTE: feat / c_feat residuals, no chain); every other mode runs the one without.
+template <int F, bool REC>
 __global__ void __launch_bounds__(THREADS, 1) f32_kernel(const Net net, const Rays a) {
   // A warp reads and writes only its own 8 rows, so the layers need no block barrier;
   // the tile's feature weights need all of its sigmas, hence the barriers there.
@@ -440,7 +477,7 @@ __global__ void __launch_bounds__(THREADS, 1) f32_kernel(const Net net, const Ra
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * RPW;
   const bool rgb = a.flags & USE_RGB, feat = a.flags & OUT_FEAT, cand = a.flags & USE_CAND;
-  const bool save = a.flags & SAVE_RES;
+  const bool save = !REC && (a.flags & SAVE_RES);  // the walk chain
   float o[3], d[3];
   load_ray<FP>(net, a, ray, o, d, m);
   __syncthreads();
@@ -484,11 +521,12 @@ __global__ void __launch_bounds__(THREADS, 1) f32_kernel(const Net net, const Ra
       if (warp == 0) tile_weights(a, m, s0, cand);
       __syncthreads();
       if (cand)
-        dense_f32<FP / 32>(X + HC, ldX, HC, nullptr, 0, 0, static_cast<const float*>(net.cfeat_w), net.cfeat_b,
-                           nullptr, 0, false, m.wc, m.fm);
+        dense_f32<FP / 32, REC>(X + HC, ldX, HC, nullptr, 0, 0, static_cast<const float*>(net.cfeat_w), net.cfeat_b,
+                                nullptr, 0, false, m.wc, m.fm, res_out<F>(a, a.cfeat_res, ray, s0));
     }
-    dense_f32<FP / 32>(Y, ldY, W, nullptr, 0, 0, static_cast<const float*>(net.feat_w), net.feat_b, rgb ? X : nullptr,
-                       ldX, false, feat ? m.wf : nullptr, feat ? m.fm : nullptr);
+    dense_f32<FP / 32, REC>(Y, ldY, W, nullptr, 0, 0, static_cast<const float*>(net.feat_w), net.feat_b,
+                            rgb ? X : nullptr, ldX, false, feat ? m.wf : nullptr, feat ? m.fm : nullptr,
+                            res_out<F>(a, a.feat_res, ray, s0));
     if (rgb) {
       dense_f32<HH / 32>(X, ldX, FP, nullptr, 0, 0, static_cast<const float*>(net.rgb1_w), cond, Y, ldY, true);
       if (save) store_chain<float>(a, ray, s0, Y, ldY, HH, col_rgbh, r0, RPW, lane, 32);
@@ -514,12 +552,14 @@ constexpr int LDYB = (W > HH ? W : HH) + 8;  // Y: other trunk layers, xyzf, rgb
 // nt_base on, split over the 8 warps; W (K1 + K2, N) packed in fragment order; out may
 // be null. With colsum, also colsum[c] += sum_r roww[r] * value[r, c] from the f32
 // values (rounded to bf16 first when round_sum); each warp owns its columns, so the
-// sum needs no atomics. Ends with a barrier.
-template <int NT, bool COLSUM = false>
+// sum needs no atomics. With RES, the f32 values also go to the residual ro (a
+// separate instance: the modes that keep no such residual run the code without it).
+// Ends with a barrier.
+template <int NT, bool COLSUM = false, bool RES = false>
 __device__ __forceinline__ void dense_bf16(const bf16* a1, int lda1, int K1, const bf16* a2, int lda2, int K2,
                                            const void* Wp, const float* bias, bf16* out, int ldo, bool relu,
                                            int nt_base = 0, const float* roww = nullptr, float* colsum = nullptr,
-                                           bool round_sum = false) {
+                                           bool round_sum = false, const ResOut& ro = ResOut()) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const uint2* wp = static_cast<const uint2*>(Wp);
   const int ksteps = (K1 + K2) / 16;
@@ -555,6 +595,10 @@ __device__ __forceinline__ void dense_bf16(const bf16* a1, int lda1, int K1, con
           cs1 = fmaf(wr, round_sum ? round_bf16(v1) : v1, cs1);
         }
         if (out) *reinterpret_cast<__nv_bfloat162*>(out + row * ldo + col) = __floats2bfloat162_rn(v0, v1);
+        if constexpr (RES) {
+          ro.put(row, col, v0);
+          ro.put(row, col + 1, v1);
+        }
       }
     if (COLSUM) {
       // lanes with the same t hold the same columns: reduce over g (lane bits 2-4)
@@ -575,19 +619,21 @@ __device__ __forceinline__ void dense_bf16(const bf16* a1, int lda1, int K1, con
 // The feat / c_feat layer of one tile over FP columns: two passes of FP / 2 columns
 // when FP is a multiple of 128 (F = 384: three 8-column tiles a warp each pass, within
 // the registers), else one pass of 64 (F = 32, 64).
-template <int FP, bool COLSUM>
+template <int FP, bool COLSUM, bool RES = false>
 __device__ __forceinline__ void feat_layer(const bf16* a, int lda, int K, const void* Wp, const float* bias, bf16* out,
-                                           int ldo, const float* roww, float* colsum, bool round_sum) {
+                                           int ldo, const float* roww, float* colsum, bool round_sum,
+                                           const ResOut& ro = ResOut()) {
   if constexpr (FP % 128 == 0) {
     for (int half = 0; half < 2; ++half)
-      dense_bf16<FP / 128, COLSUM>(a, lda, K, nullptr, 0, 0, Wp, bias, out, ldo, false, half * FP / 16, roww, colsum,
-                                   round_sum);
+      dense_bf16<FP / 128, COLSUM, RES>(a, lda, K, nullptr, 0, 0, Wp, bias, out, ldo, false, half * FP / 16, roww,
+                                        colsum, round_sum, ro);
   } else {
-    dense_bf16<FP / 64, COLSUM>(a, lda, K, nullptr, 0, 0, Wp, bias, out, ldo, false, 0, roww, colsum, round_sum);
+    dense_bf16<FP / 64, COLSUM, RES>(a, lda, K, nullptr, 0, 0, Wp, bias, out, ldo, false, 0, roww, colsum, round_sum,
+                                     ro);
   }
 }
 
-template <int F>
+template <int F, bool REC>
 __global__ void __launch_bounds__(THREADS, 2) bf16_kernel(const Net net, const Rays a) {
   constexpr int FP = feat_pad<F, true>(), LDXB = ldxb<FP>();
   extern __shared__ float4 smem4[];
@@ -599,7 +645,7 @@ __global__ void __launch_bounds__(THREADS, 2) bf16_kernel(const Net net, const R
   const int ray = blockIdx.x, S = a.S;
   const int warp = threadIdx.x >> 5;
   const bool rgb = a.flags & USE_RGB, feat = a.flags & OUT_FEAT, cand = a.flags & USE_CAND;
-  const bool save = a.flags & SAVE_RES, round_sum = !(a.flags & STORE_F32);
+  const bool save = !REC && (a.flags & SAVE_RES), round_sum = !(a.flags & STORE_F32);
   float o[3], d[3];
   load_ray<FP>(net, a, ray, o, d, m);
   __syncthreads();
@@ -643,14 +689,18 @@ __global__ void __launch_bounds__(THREADS, 2) bf16_kernel(const Net net, const R
       __syncthreads();
       if (warp == 0) tile_weights(a, m, s0, cand);
       __syncthreads();
-      if (cand) feat_layer<FP, true>(X + HC, LDXB, HC, net.cfeat_w, net.cfeat_b, nullptr, 0, m.wc, m.fm, round_sum);
+      if (cand)
+        feat_layer<FP, true, REC>(X + HC, LDXB, HC, net.cfeat_w, net.cfeat_b, nullptr, 0, m.wc, m.fm, round_sum,
+                                  res_out<F>(a, a.cfeat_res, ray, s0));
     }
     bf16* fout = rgb ? X : nullptr;
     // the serving mode (no feature map) keeps the epilogue without the column sum
     if (feat)
-      feat_layer<FP, true>(Y, LDYB, W, net.feat_w, net.feat_b, fout, LDXB, m.wf, m.fm, round_sum);
+      feat_layer<FP, true, REC>(Y, LDYB, W, net.feat_w, net.feat_b, fout, LDXB, m.wf, m.fm, round_sum,
+                                res_out<F>(a, a.feat_res, ray, s0));
     else
-      feat_layer<FP, false>(Y, LDYB, W, net.feat_w, net.feat_b, fout, LDXB, nullptr, nullptr, false);
+      feat_layer<FP, false, REC>(Y, LDYB, W, net.feat_w, net.feat_b, fout, LDXB, nullptr, nullptr, false,
+                                 res_out<F>(a, a.feat_res, ray, s0));
     if (rgb) {
       dense_bf16<HH / 64>(X, LDXB, FP, nullptr, 0, 0, net.rgb1_w, cond, Y, LDYB, true);
       if (save) store_chain<bf16>(a, ray, s0, Y, LDYB, HH, col_rgbh, 0, TILE, tid, THREADS);
@@ -673,15 +723,16 @@ int launch(Kernel kernel, const Net& net, const Rays& a, long long smem_bytes, c
 // The instance of feature width F: its shared memory from S and the mode.
 template <int F>
 int launch_width(const Net& net, const Rays& a, cudaStream_t st) {
+  const bool rec = (a.flags & SAVE_RES) && (a.flags & RECOMPUTE);
   if (a.flags & BF16) {
     constexpr int FP = feat_pad<F, true>();
     const long long bytes = (long long)TILE * (LDX0 + ldxb<FP>() + LDYB) * 2 + (long long)ray_smem_floats<FP>(a.S) * 4;
-    return launch(bf16_kernel<F>, net, a, bytes, st);
+    return launch(rec ? bf16_kernel<F, true> : bf16_kernel<F, false>, net, a, bytes, st);
   }
   constexpr int FP = feat_pad<F, false>();
   const long long bytes =
       (long long)TILE * (MAX_IN0 + (W > FP ? W : FP) + (W > HH ? W : HH)) * 4 + (long long)ray_smem_floats<FP>(a.S) * 4;
-  return launch(f32_kernel<F>, net, a, bytes, st);
+  return launch(rec ? f32_kernel<F, true> : f32_kernel<F, false>, net, a, bytes, st);
 }
 
 }  // namespace
@@ -693,7 +744,8 @@ extern "C" {
 // pe_w null in the x0 mode, x0 null otherwise). heads: the 18 head
 // tensors in upnerf_torch/ops/render_train.py:HEAD_KEYS order (null where the mode
 // reads none). outs: s_weights, s_depth, rgb_map, feat_map, j_weights, c_depth,
-// t_weight, then the residuals sig_s, sig_c, rgb, chain (null where unused). Weight
+// t_weight, then the residuals sig_s, sig_c, rgb, chain, feat, c_feat (null where
+// unused; the chain without RECOMPUTE, feat and c_feat with it). Weight
 // layouts: float32 mode takes every matrix (in, out) in f32. bfloat16 mode takes the
 // trunk, xyzf, feat, rgb1, c1x, c2 and cfeat matrices in bf16 packed in fragment
 // order (_pack_fragments), with the x0 rows of layer 0 and of the skip layers
@@ -710,6 +762,9 @@ int upnerf_render_train_fwd(const void* const* ins, const void* const* trunk_w, 
   if (R <= 0 || S <= 0 || L <= 0 || in0 > MAX_IN0 || D <= 0 || D > MAX_D || C < 0 || C > MAX_C) return BAD_SHAPE;
   if (!(flags & (USE_RGB | OUT_FEAT)) || ((flags & USE_CAND) && C == 0)) return BAD_MODE;
   if ((flags & X0_IN) && (!(flags & USE_RGB) || (flags & (OUT_FEAT | USE_CAND | SAVE_RES)) || !ins[6])) return BAD_MODE;
+  if ((flags & SAVE_RES) && ((flags & RECOMPUTE) ? !outs[11] || ((flags & USE_CAND) && (flags & OUT_FEAT) && !outs[12])
+                                                 : !outs[10]))
+    return BAD_MODE;
   Net net;
   for (int i = 0; i < D; ++i) {
     net.tw[i] = trunk_w[i];
@@ -755,6 +810,8 @@ int upnerf_render_train_fwd(const void* const* ins, const void* const* trunk_w, 
   a.sig_c = static_cast<float*>(outs[8]);
   a.rgb_res = static_cast<float*>(outs[9]);
   a.chain = outs[10];
+  a.feat_res = (flags & RECOMPUTE) ? outs[11] : nullptr;  // callers without it may pass 11 outputs
+  a.cfeat_res = (flags & RECOMPUTE) ? outs[12] : nullptr;
   a.chain_w = (D + 1) * W + ((flags & USE_RGB) ? HH : 0) + ((flags & USE_CAND) ? 2 * HC : 0);
   a.R = R;
   a.S = S;

@@ -11,6 +11,7 @@ namespace upnerf {
 
 constexpr int BT = 32;        // rows (samples) per walk tile
 constexpr int THREADS = 256;  // 8 warps
+constexpr int LDX0 = MAX_IN0 + 8;  // row stride of a tile's x0 operand buffer
 
 // Whether a weight-gradient sum v skips its add to device memory: never, except in a
 // build with UPNERF_SKIP_DW_ADDS, a timing variant (chip_smoke.py phase 16) that adds
@@ -37,11 +38,14 @@ __device__ __forceinline__ void load4<bf16>(const bf16* p, float (&v)[4]) {
   v[2] = __uint_as_float(t.y << 16); v[3] = __uint_as_float(t.y & 0xffff0000u);
 }
 
-// C[0:BT, 0:N] (f32, row stride ldc) = (accumulate ? C : 0) + A[0:BT, 0:K] @ B[0:K, 0:N].
-// A in shared memory (TA), B in device memory (TB, row stride ldb). A thread takes
-// 8 rows x 4 columns at a time; neighbouring threads take neighbouring columns.
+// C[0:BT, 0:N] (f32, row stride ldc) = (accumulate ? C : 0) + [A | A2][0:BT, 0:K + K2] @
+// B[0:K + K2, 0:N], the two operand segments summed in one accumulation (K2 = 0: A
+// alone). A, A2 in shared memory (TA), B in device memory (TB, row stride ldb). A
+// thread takes 8 rows x 4 columns at a time; neighbouring threads take neighbouring
+// columns.
 template <typename TA, typename TB>
-__device__ void mm(float* Cm, int ldc, bool accumulate, const TA* A, int lda, int K, const TB* B, int ldb, int N) {
+__device__ void mm(float* Cm, int ldc, bool accumulate, const TA* A, int lda, int K, const TB* B, int ldb, int N,
+                   const TA* A2 = nullptr, int lda2 = 0, int K2 = 0) {
   const int nq = N / 4, items = (BT / 8) * nq;
   for (int it = threadIdx.x; it < items; it += THREADS) {
     const int r0 = (it / nq) * 8, c0 = (it % nq) * 4;
@@ -50,16 +54,20 @@ __device__ void mm(float* Cm, int ldc, bool accumulate, const TA* A, int lda, in
     for (int r = 0; r < 8; ++r)
 #pragma unroll
       for (int e = 0; e < 4; ++e) c[r][e] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      float b[4];
-      load4<TB>(B + (size_t)k * ldb + c0, b);
+    auto segment = [&](const TA* As, int ld, int k0, int Ks) {
+      for (int k = 0; k < Ks; ++k) {
+        float b[4];
+        load4<TB>(B + (size_t)(k0 + k) * ldb + c0, b);
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float a = to_float(A[(r0 + r) * lda + k]);
+        for (int r = 0; r < 8; ++r) {
+          const float a = to_float(As[(r0 + r) * ld + k]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) c[r][e] = fmaf(a, b[e], c[r][e]);
+          for (int e = 0; e < 4; ++e) c[r][e] = fmaf(a, b[e], c[r][e]);
+        }
       }
-    }
+    };
+    segment(A, lda, 0, K);
+    if (K2 > 0) segment(A2, lda2, K, K2);
 #pragma unroll
     for (int r = 0; r < 8; ++r)
 #pragma unroll
@@ -117,9 +125,11 @@ __device__ void dw_col(float* dst, const T* X, int ldx, int K, const float* v, i
 // ldc) (=|+=) A[0:BT, 0:K] @ W[16 ks0 : 16 ks0 + K, n_off : n_off + N], W packed in
 // fragment order (_pack_fragments) over its whole depth of `ksteps` 16-deep k-steps;
 // the 8 warps split the N columns, each covers the BT rows (2 m-tiles).
-template <int NT>
+// CAT: a second operand segment A2 (K2 columns) continues the same accumulation over
+// W's next K2 rows (mmw_cat).
+template <int NT, bool CAT = false>
 __device__ void mm_tc_n(float* Cm, int ldc, bool accumulate, const bf16* A, int lda, int K, const void* Wp,
-                        int ksteps, int ks0, int nt_base) {
+                        int ksteps, int ks0, int nt_base, const bf16* A2 = nullptr, int lda2 = 0, int K2 = 0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float acc[2][NT][4];
 #pragma unroll
@@ -129,6 +139,8 @@ __device__ void mm_tc_n(float* Cm, int ldc, bool accumulate, const bf16* A, int 
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
   mma_accumulate<2, NT>(acc, A, lda, K, static_cast<const uint2*>(Wp), ksteps, ks0, nt_base + warp * NT);
+  if constexpr (CAT)
+    mma_accumulate<2, NT>(acc, A2, lda2, K2, static_cast<const uint2*>(Wp), ksteps, ks0 + K / 16, nt_base + warp * NT);
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const int col = (warp * NT + j) * 8 + t * 2;
@@ -211,6 +223,19 @@ __device__ void mmw(float* Cm, int ldc, bool accumulate, const T* A, int lda, in
   }
 }
 
+// C[0:BT, 0:W] = [A | A2] @ Wm[0:K + K2, 0:W] (layouts as mmw's), the two operand
+// segments in one accumulation: the order of the forward kernels' products over [x0, h]
+// at a skip layer.
+template <typename T>
+__device__ void mmw_cat(float* Cm, int ldc, const T* A, int lda, int K, const T* A2, int lda2, int K2,
+                        const void* Wm) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    mm_tc_n<W / 64, true>(Cm, ldc, false, A, lda, K, Wm, (K + K2) / 16, 0, 0, A2, lda2, K2);
+  } else {
+    mm<T, T>(Cm, ldc, false, A, lda, K, static_cast<const T*>(Wm), W, W, A2, lda2, K2);
+  }
+}
+
 template <typename T>
 __device__ void dww(float* dW, int ldw, const T* X, int ldx, int K, const T* G, int ldg, int N) {
   if constexpr (std::is_same<T, bf16>::value) {
@@ -229,6 +254,51 @@ __device__ void colsum(const float* G, int ldg, int N, float* dst_global, float*
     if (dst_global && !skip_dw_add(acc)) atomicAdd(dst_global + n, acc);
     if (dst_shared) dst_shared[n] += acc;
   }
+}
+
+// dst = act(G + bias) rounded to T, BT x N; also into the scratch chain at col0 (row
+// stride chain_w). bias by plain loads: device or shared memory.
+template <typename T, int LDT, int LDA>
+__device__ void epilogue(T* dst, T* chain, int chain_w, int col0, const float* G, const float* bias, int N, bool relu) {
+  for (int i = threadIdx.x; i < BT * N; i += THREADS) {
+    const int r = i / N, n = i - r * N;
+    float v = G[r * LDT + n] + bias[n];
+    if (relu) v = fmaxf(v, 0.f);
+    const T t = from_float<T>(v);
+    dst[r * LDA + n] = t;
+    chain[(size_t)r * chain_w + col0 + n] = t;
+  }
+}
+
+// The trunk's activations of a tile (the forward's computation; a.tw in the forward
+// layout (in_pad, W), x0 rows padded to 64, a.tb the biases, a.D layers, a.skips) into
+// the scratch chain, columns [i W, (i + 1) W) for layer i, and in turns into A and B;
+// returns the buffer that holds the last one. X0: the tile's x0 (row stride LDX0). Each
+// output sums its products in the render forward's order (a skip layer's [x0, h] in
+// one accumulation), so it rebuilds that kernel's activations bit for bit. Ends with a
+// barrier. Both backward walks that rebuild their chain call it.
+template <typename T, int LDT, int LDA, typename Args>
+__device__ __forceinline__ T* recompute_trunk(const Args& a, const T* X0, T* A, T* B, float* GF, T* chain,
+                                              int chain_w) {
+  T* cur = A;
+  T* nxt = B;
+  for (int i = 0; i < a.D; ++i) {
+    const bool skip = i > 0 && ((a.skips >> i) & 1u);
+    if (skip) {
+      mmw_cat<T>(GF, LDT, X0, LDX0, MAX_IN0, cur, LDA, W, a.tw[i]);
+    } else if (i == 0) {
+      mmw<T>(GF, LDT, false, X0, LDX0, MAX_IN0, a.tw[i], W, W, 0);
+    } else {
+      mmw<T>(GF, LDT, false, cur, LDA, W, a.tw[i], W, W, 0);
+    }
+    __syncthreads();
+    epilogue<T, LDT, LDA>(nxt, chain, chain_w, i * W, GF, a.tb[i], W, true);
+    __syncthreads();
+    T* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  return cur;
 }
 
 // dst (T) = G (f32) rounded to T, BT x N.

@@ -101,10 +101,10 @@ def build() -> Dict[str, BuildInfo]:
 _ARGTYPES = {
     # ins, trunk W, trunk b, D, skip mask, heads, outs, R, S, L, C, F, flags, stream
     "upnerf_render_train_fwd": ["pp", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "i", "p"],
-    # ins, cots, res, trunk W^T, D, skip mask, weights, outs, dW trunk, db trunk, d heads, R, S, L, C, F, flags,
-    # stream
-    "upnerf_render_train_bwd": ["pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "i", "i", "i", "i", "i",
-                                "i", "p"],
+    # ins, cots, res, trunk W^T, D, skip mask, weights, trunk W, trunk b, recompute heads (the last three null with
+    # the saved chain), outs, dW trunk, db trunk, d heads, scratch, R, S, L, C, F, flags, grid, stream
+    "upnerf_render_train_bwd": ["pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "pp", "pp", "pp", "p",
+                                "i", "i", "i", "i", "i", "i", "i", "p"],
     # q, k, v, o, G, N, hd, scale, use_bf16, stream
     "upnerf_flash_attn_fwd": ["p", "p", "p", "p", "i", "i", "i", "f", "i", "p"],
     # x0, c_emb, trunk W, trunk b, D, skip mask, heads (null: the trunk alone), outs, N, in0, C, F, use_bf16, stream

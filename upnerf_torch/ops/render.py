@@ -116,7 +116,7 @@ def fused_static_render_fwd(x0, z_vals, ray_cond, trunk, head, skips, precision:
     f32 = dict(dtype=torch.float32, device=dev)
     w, depth, rgb_map = torch.empty((R, S), **f32), torch.empty((R,), **f32), torch.empty((R, 3), **f32)
     ins = [None, None, z_vals.contiguous(), None, ray_cond.contiguous(), None, x0.contiguous()]
-    outs = [w, depth, rgb_map] + [None] * 8
+    outs = [w, depth, rgb_map] + [None] * 10
     lib = _build.library("render_train_fwd")
     skip_mask = sum(1 << i for i in skips if 0 < i < len(trunk))
     stream = torch.cuda.current_stream(dev).cuda_stream

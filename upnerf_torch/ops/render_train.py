@@ -11,18 +11,24 @@ rgb_map (R, 3), feat_map (R, F), j_weights (R, S), c_depth (R,), t_weight (R,).
 
 - `render_train_rays_plain` is the plain PyTorch forward (the JAX package's
   XLA twin `xla_render_train_rays`, compositing by cumprod). With
-  `save_res=True` it also returns the residuals the backward reads (the
-  kernel's `save_res`/`save_chain` mode): the sigmas (f32), the per-sample rgb
-  and the walk chain (trunk activations, xyzf, rgbh, h1, h2) in the compute
-  dtype.
+  `save_res=True` it also returns the residuals the backward reads, in
+  RTStatic.res_keys: the sigmas (f32), the per-sample rgb and, with
+  save_chain, the walk chain (trunk activations, xyzf, rgbh, h1, h2) in the
+  compute dtype; without it (the recompute mode) the per-sample feat and
+  c_feat in the store dtype instead.
 - `render_train_rays_bwd_plain` is the plain backward: `_bwd_kernel` step by
   step, with its division-free compositing formulas and its roundings (in
-  bf16 mode every product rounds both operands, the cotangent included).
+  bf16 mode every product rounds both operands, the cotangent included). In
+  the recompute mode it rebuilds the walk chain from the PE, with rgbh from
+  the stored feat.
 - `render_train_rays_fwd` / `render_train_rays_bwd` are the wrappers: on CPU
   tensors they run the plain versions; on CUDA tensors they launch the
   hand-written kernels (`csrc/render_train_fwd.cu`, `csrc/render_train_bwd.cu`)
   or raise. They count their launches in `launches`, `bwd_launches` and
-  (the backward's frozen-model mode) `frozen_bwd_launches`.
+  (the backward's frozen-model mode) `frozen_bwd_launches`; in the recompute
+  mode, the forward with residuals and both backward modes in
+  `recompute_launches`, `recompute_bwd_launches` and
+  `recompute_frozen_bwd_launches` instead.
 - `RenderTrainRays` is the autograd.Function of the training path: its
   forward runs the forward with residuals, its backward the backward. It
   returns gradients for rays_o, rays_d, ray_cond, c_emb and every weight, and
@@ -54,6 +60,9 @@ HEAD_FEAT = ("feat_w", "feat_b")
 HEAD_RGB = ("rgb1_w", "rgb2_w", "rgb2_b")
 HEAD_CAND = ("c1x_w", "c1c_w", "c1_b", "c2_w", "c2_b", "csig_w", "csig_b", "cfeat_w", "cfeat_b")
 HEAD_KEYS = HEAD_BASE + HEAD_FEAT + HEAD_RGB + HEAD_CAND  # the kernels' pointer order
+RES_ORDER = ("sig_s", "sig_c", "rgb", "chain", "feat", "cfeat")  # the kernels' residual pointer order
+# The forward-layout weights the recompute backward rebuilds the chain with (besides the trunk's).
+RECOMPUTE_KEYS = ("xyzf_w", "xyzf_b", "rgb1_w", "c1x_w", "c1_b", "c2_w", "c2_b")
 X0_PAD = 64  # the kernels' x0 width: 3 + 6L padded to a multiple of 16
 # The widths the CUDA kernels take (configs/brandenburg_gate.yaml, configs/validation/),
 # and the feature widths they are built for (render_common.cuh:feat_pad).
@@ -62,19 +71,25 @@ KERNEL_F = (32, 64, 384)
 MAX_C = 32  # candidate embedding width the kernels take
 
 # Kernel launches made in this process by render_train_rays_fwd / _bwd
-# (the backward's frozen-model mode counted on its own).
+# (the backward's frozen-model mode, and the recompute mode's launches, counted
+# on their own).
 launches = 0
 bwd_launches = 0
 frozen_bwd_launches = 0
+recompute_launches = 0
+recompute_bwd_launches = 0
+recompute_frozen_bwd_launches = 0
 
 
 class RTStatic(NamedTuple):
     """Static configuration: trunk depth, skip layers, PE bands of xyz, the
     matmul precision ('bfloat16' or 'float32'), the mode (use_cand, use_rgb,
     out_feat), store_f32 (per-sample rgb/feat kept in f32; False rounds them
-    to bf16 in bf16 mode), save_chain (the forward saves the walk chain and
-    the backward reads it; the backward needs it) and param_grads (False: the
-    backward skips every weight gradient, for a frozen model)."""
+    to bf16 in bf16 mode), save_chain (True: the forward saves the walk chain
+    and the backward reads it; False, the recompute mode: the forward saves
+    the per-sample feat / c_feat and the backward recomputes the chain) and
+    param_grads (False: the backward skips every weight gradient, for a
+    frozen model)."""
 
     D: int
     skips: Tuple[int, ...]
@@ -115,8 +130,13 @@ class RTStatic(NamedTuple):
 
     @property
     def res_keys(self) -> Tuple[str, ...]:
+        """The forward's residuals (pallas_render_train.py:184-204): with
+        save_chain the chain stands in for feat / c_feat."""
         keys = ["sig_s"] + (["sig_c"] if self.use_cand else [])
-        return tuple(keys + (["rgb"] if self.use_rgb else []) + ["chain"])
+        if not self.save_chain:
+            keys += (["feat"] if self.use_feat else []) + (["cfeat"] if self.out_feat and self.use_cand else [])
+        keys += ["rgb"] if self.use_rgb else []
+        return tuple(keys + (["chain"] if self.save_chain else []))
 
     def chain_cols(self, W: int, HH: int, HC: int) -> Tuple[Tuple[str, int], ...]:
         """(name, width) segments of the saved walk chain, concatenated along
@@ -139,12 +159,15 @@ def _cdt(st: RTStatic) -> torch.dtype:
     return torch.bfloat16 if canonical_precision(st.precision) == "bfloat16" else torch.float32
 
 
+def _store_dtype(st: RTStatic) -> torch.dtype:
+    """dtype of the per-sample feat / c_feat residuals (the JAX kernel's
+    _store_dtype): bf16 only in bf16 mode with store_f32 off."""
+    return torch.bfloat16 if _cdt(st) == torch.bfloat16 and not st.store_f32 else torch.float32
+
+
 def _stored(x: torch.Tensor, st: RTStatic) -> torch.Tensor:
-    """Per-sample rgb/feat as the kernel keeps them: rounded to bf16 only in
-    bf16 mode with store_f32 off."""
-    if _cdt(st) == torch.bfloat16 and not st.store_f32:
-        return x.bfloat16().float()
-    return x
+    """Per-sample rgb/feat as the kernel keeps them, in f32: rounded to the store dtype."""
+    return x.to(_store_dtype(st)).float()
 
 
 def _pe(rays_o, rays_d, z_vals, pe_w, L):
@@ -184,30 +207,15 @@ def render_train_rays_plain(
     prec = canonical_precision(st.precision)
     R, S = z_vals.shape
     x0, _ = _pe(rays_o, rays_d, z_vals, pe_w, st.xyz_L)
-    h, acts = x0, []
-    for i, (w, b) in enumerate(trunk):
-        if i in st.skips and i > 0:
-            h = torch.cat([x0, h], dim=-1)
-        h = torch.relu(matmul(h, w, prec) + b)
-        acts.append(h)
+    ch = _walk_chain(x0, R, trunk, heads, st, ray_cond, c_emb)
+    h = ch[f"act{st.D - 1}"]
     sig_s = softplus(matmul(h, heads["sigma_w"], prec) + heads["sigma_b"]).reshape(R, S)
-    xyzf = matmul(h, heads["xyzf_w"], prec) + heads["xyzf_b"]
-    chain = acts + [xyzf]
-    feat = rgb = sig_c = cfeat = None
-    if st.use_feat:
-        feat = matmul(xyzf, heads["feat_w"], prec) + heads["feat_b"]
+    feat, rgb, sig_c, cfeat = ch.get("feat"), None, None, None
     if st.use_rgb:
-        pre = matmul(feat, heads["rgb1_w"], prec).reshape(R, S, -1)
-        rgbh = torch.relu(pre + ray_cond[:, None, :]).reshape(R * S, -1)
-        rgb = _stored(torch.sigmoid(matmul(rgbh, heads["rgb2_w"], prec) + heads["rgb2_b"]), st)
-        chain.append(rgbh)
+        rgb = _stored(torch.sigmoid(matmul(ch["rgbh"], heads["rgb2_w"], prec) + heads["rgb2_b"]), st)
     if st.use_cand:
-        ray1 = matmul(c_emb, heads["c1c_w"], prec) + heads["c1_b"]
-        h1 = torch.relu(matmul(xyzf, heads["c1x_w"], prec).reshape(R, S, -1) + ray1[:, None, :]).reshape(R * S, -1)
-        h2 = torch.relu(matmul(h1, heads["c2_w"], prec) + heads["c2_b"])
-        sig_c = softplus(matmul(h2, heads["csig_w"], prec) + heads["csig_b"]).reshape(R, S)
-        cfeat = matmul(h2, heads["cfeat_w"], prec) + heads["cfeat_b"]
-        chain += [h1, h2]
+        sig_c = softplus(matmul(ch["h2"], heads["csig_w"], prec) + heads["csig_b"]).reshape(R, S)
+        cfeat = matmul(ch["h2"], heads["cfeat_w"], prec) + heads["cfeat_b"]
 
     delta = _deltas(z_vals)
     a_s = 1.0 - torch.exp(-delta * sig_s)
@@ -230,13 +238,37 @@ def render_train_rays_plain(
     out = {k: out[k] for k in st.out_keys}
     if not save_res:
         return out
-    res = {"sig_s": sig_s}
-    if st.use_cand:
-        res["sig_c"] = sig_c
+    res = {"sig_s": sig_s, "sig_c": sig_c, "feat": feat, "cfeat": cfeat, "rgb": rgb}
+    if st.save_chain:
+        res["chain"] = torch.cat([ch[name] for name, _ in st.chain_cols(0, 0, 0)], dim=-1).to(_cdt(st))
+    return out, {k: res[k].to(_store_dtype(st)) if k in ("feat", "cfeat") else res[k] for k in st.res_keys}
+
+
+def _walk_chain(x0, R: int, trunk, heads, st: RTStatic, ray_cond, c_emb, feat=None) -> Dict[str, torch.Tensor]:
+    """The forward's per-sample chain in f32, by the names of st.chain_cols:
+    act0..act{D-1}, xyzf, rgbh (use_rgb), h1, h2 (use_cand), and feat
+    (use_feat). feat: the stored residual that rgbh is rebuilt from (the
+    recompute backward, pallas_render_train.py:468-490); None computes it
+    from xyzf."""
+    prec = canonical_precision(st.precision)
+    h, ch = x0, {}
+    for i, (w, b) in enumerate(trunk):
+        if i in st.skips and i > 0:
+            h = torch.cat([x0, h], dim=-1)
+        h = torch.relu(matmul(h, w, prec) + b)
+        ch[f"act{i}"] = h
+    xyzf = ch["xyzf"] = matmul(h, heads["xyzf_w"], prec) + heads["xyzf_b"]
+    if st.use_feat:
+        ch["feat"] = matmul(xyzf, heads["feat_w"], prec) + heads["feat_b"] if feat is None else feat
     if st.use_rgb:
-        res["rgb"] = rgb
-    res["chain"] = torch.cat(chain, dim=-1).to(_cdt(st))
-    return out, res
+        pre = matmul(ch["feat"], heads["rgb1_w"], prec).reshape(R, -1, ray_cond.shape[1])
+        ch["rgbh"] = torch.relu(pre + ray_cond[:, None, :]).reshape(xyzf.shape[0], -1)
+    if st.use_cand:
+        ray1 = matmul(c_emb, heads["c1c_w"], prec) + heads["c1_b"]
+        pre1 = matmul(xyzf, heads["c1x_w"], prec).reshape(R, -1, ray1.shape[1])
+        ch["h1"] = torch.relu(pre1 + ray1[:, None, :]).reshape(xyzf.shape[0], -1)
+        ch["h2"] = torch.relu(matmul(ch["h1"], heads["c2_w"], prec) + heads["c2_b"])
+    return ch
 
 
 def _excl_prefix(x: torch.Tensor) -> torch.Tensor:
@@ -253,8 +285,10 @@ def render_train_rays_bwd_plain(
     rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res: Dict[str, torch.Tensor],
     cots: Dict[str, Optional[torch.Tensor]],
 ):
-    """Plain backward: upnerf/ops/pallas_render_train.py:_bwd_kernel in its
-    save_chain mode, written out step by step.
+    """Plain backward: upnerf/ops/pallas_render_train.py:_bwd_kernel, written
+    out step by step. With st.save_chain it reads the walk chain from res;
+    without (the recompute mode, :883-890) it rebuilds the chain from the PE,
+    rgbh from the stored feat, and takes feat, c_feat and rgb from res.
 
     cots: a cotangent for each of st.out_keys (None means zero). Returns
     (d_rays_o, d_rays_d, d_ray_cond or None, d_c_emb or None,
@@ -270,7 +304,7 @@ def render_train_rays_bwd_plain(
     HH = heads["rgb1_w"].shape[1] if st.use_rgb else 0
     HC = heads["c2_w"].shape[1] if st.use_cand else 0
     M = R * S
-    f32 = torch.float32
+    f32 = z_vals.dtype  # float32; float64 where the plain version serves as a float64 witness
 
     def dot(a, b):
         return matmul(a, b, prec)
@@ -279,22 +313,30 @@ def render_train_rays_bwd_plain(
         g = cots.get(k)
         return torch.zeros(shape, dtype=f32, device=z_vals.device) if g is None else g.to(f32)
 
-    cuts, col = {}, 0
-    for name, w in st.chain_cols(W, HH, HC):
-        cuts[name] = res["chain"][:, col : col + w].float()
-        col += w
-
+    x0, xyz = _pe(rays_o, rays_d, z_vals, pe_w, L)
     pg = st.param_grads
+    if st.save_chain:
+        cuts, col = {}, 0
+        for name, w in st.chain_cols(W, HH, HC):
+            cuts[name] = res["chain"][:, col : col + w].to(f32)
+            col += w
+        # feat feeds the feat_map inner products and rgb1's dW: without either, skip it
+        need_feat = st.out_feat or (st.use_rgb and pg)
+        feat = dot(cuts["xyzf"], heads["feat_w"]) + heads["feat_b"] if need_feat else None
+        if st.out_feat and st.use_cand:
+            cfeat = dot(cuts["h2"], heads["cfeat_w"]) + heads["cfeat_b"]
+    else:
+        feat = res["feat"].to(f32)
+        cuts = _walk_chain(x0, R, trunk, heads, st, ray_cond, c_emb, feat=feat)
+        if st.out_feat and st.use_cand:
+            cfeat = res["cfeat"].to(f32)
+
     g_feat = cot("feat_map", (R, heads["feat_b"].shape[0])) if st.out_feat else None
     g_rgbm = cot("rgb_map", (R, 3)) if st.use_rgb else None
-    # feat feeds the feat_map inner products and rgb1's dW: without either, skip it
-    need_feat = st.out_feat or (st.use_rgb and pg)
-    feat = dot(cuts["xyzf"], heads["feat_w"]) + heads["feat_b"] if need_feat else None
     p = q = rr = None
     if st.out_feat:
         p = (feat.reshape(R, S, -1) * g_feat[:, None, :]).sum(-1)
         if st.use_cand:
-            cfeat = dot(cuts["h2"], heads["cfeat_w"]) + heads["cfeat_b"]
             q = (cfeat.reshape(R, S, -1) * g_feat[:, None, :]).sum(-1)
     if st.use_rgb:
         rr = (res["rgb"].reshape(R, S, 3) * g_rgbm[:, None, :]).sum(-1)
@@ -337,7 +379,7 @@ def render_train_rays_bwd_plain(
         cf = ow
     g_spre = (gsig_s * (1.0 - torch.exp(-sig_s))).reshape(M, 1)
 
-    # reverse walk over the saved chain
+    # reverse walk over the chain
     dh: Dict[str, torch.Tensor] = {}
     g_xyzf = torch.zeros((M, W), dtype=f32, device=z_vals.device)
     g_f = None
@@ -394,7 +436,6 @@ def render_train_rays_bwd_plain(
         dh["xyzf_b"] = g_xyzf.sum(0)
     g = g_spre * heads["sigma_w"].reshape(1, -1) + dot(g_xyzf, heads["xyzf_w"].t())
 
-    x0, xyz = _pe(rays_o, rays_d, z_vals, pe_w, L)
     dx0 = torch.zeros((M, in0), dtype=f32, device=z_vals.device)
     dtrunk = [None] * st.D
     for i in reversed(range(st.D)):
@@ -543,23 +584,21 @@ _BWD_PRODUCT_WEIGHTS = ("xyzf_w^T", "feat_w", "feat_w^T", "rgb1_w^T", "c1x_w^T",
 
 def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
     """Weights in the layout the backward kernel reads: the trunk's
-    transposes (out, in) with x0 padded to X0_PAD columns, and BWD_WEIGHTS
+    transposes (out, in) with x0 padded to X0_PAD columns, BWD_WEIGHTS
     (None where the mode has no such head), their feature dimension
     zero-padded to feat_pad but for the "rm" copies. float32 mode: every
     matrix f32, row-major. bfloat16 mode: the matrices the walk's products
     read (the trunk's, and _BWD_PRODUCT_WEIGHTS) packed in fragment order for
     the tensor cores; rgb2_w^T, c1c_w and the "rm" copies row-major bf16.
     sigma_w and csig_w are f32 columns (the JAX kernel keeps them f32: they
-    enter rank-1 terms, not products), the biases f32."""
+    enter rank-1 terms, not products), the biases f32. Also returns the
+    trunk's (in, out) weights with the x0 rows padded to X0_PAD."""
     cdt = _cdt(st)
     packed = cdt == torch.bfloat16
     in0 = 3 + 6 * st.xyz_L
     padded = pad_feat(heads, feat_pad(heads["feat_b"].shape[0], packed))
-    kt = []
-    for i, (w, _) in enumerate(trunk):
-        if i == 0 or i in st.skips:
-            w = _pad_x0_rows(w, in0)
-        kt.append(_pack_fragments(w.t()) if packed else w.t().contiguous())
+    ptrunk = [_pad_x0_rows(w, in0) if i == 0 or i in st.skips else w for i, (w, _) in enumerate(trunk)]
+    kt = [_pack_fragments(w.t()) if packed else w.t().contiguous() for w in ptrunk]
     out = []
     for name in BWD_WEIGHTS:
         key = name.split(" ")[0].removesuffix("^T")
@@ -574,7 +613,7 @@ def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
                 v = _pack_fragments(v) if packed and name in _BWD_PRODUCT_WEIGHTS else v.to(cdt)
             v = v.contiguous()
         out.append(v)
-    return kt, out
+    return kt, out, ptrunk
 
 
 def _head_shapes(W, F, HH, HC, C):
@@ -628,10 +667,22 @@ def _ptrs(ts) -> ctypes.Array:
     return (ctypes.c_void_p * len(ts))(*[0 if t is None else t.data_ptr() for t in ts])
 
 
+RECOMPUTE = 256  # render_common.cuh:Flag: the residuals without a chain, and the backward that recomputes it
+
+
 def _flags(st: RTStatic, save_res: bool) -> int:
     bf16 = canonical_precision(st.precision) == "bfloat16"
     bits = (bf16, st.use_rgb, st.out_feat, st.use_cand, save_res, st.store_f32, not st.param_grads)
-    return sum(int(b) << i for i, b in enumerate(bits))
+    return sum(int(b) << i for i, b in enumerate(bits)) + (RECOMPUTE if save_res and not st.save_chain else 0)
+
+
+def _res_specs(st: RTStatic, R: int, S: int, F: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of each residual in st.res_keys, as the kernels read and write them."""
+    W, HH, HC = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["HH"], KERNEL_WIDTHS["HC"]
+    specs = {"sig_s": ((R, S), torch.float32), "sig_c": ((R, S), torch.float32), "rgb": ((R * S, 3), torch.float32),
+             "feat": ((R * S, F), _store_dtype(st)), "cfeat": ((R * S, F), _store_dtype(st)),
+             "chain": ((R * S, sum(w for _, w in st.chain_cols(W, HH, HC))), _cdt(st))}
+    return {k: specs[k] for k in st.res_keys}
 
 
 def _raise_on(code: int, name: str, lib) -> None:
@@ -664,7 +715,7 @@ def render_train_rays_fwd(
                                        c_emb=c_emb, save_res=save_res)
     if rays_o.device.type != "cuda":
         raise ValueError(f"no render kernel for device {rays_o.device}")
-    global launches
+    global launches, recompute_launches
     from upnerf_torch.ops import _build
 
     R, S, C = _check_kernel_args(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, trunk, heads, st)
@@ -672,8 +723,6 @@ def render_train_rays_fwd(
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError("the CUDA render kernel is forward-only: run it under torch.no_grad()"
                            " or train through RenderTrainRays")
-    if save_res and not st.save_chain:
-        raise NotImplementedError("the recompute backward (save_chain=False) is not ported")
     dev = rays_o.device
     ins = [t.contiguous() if t is not None else None for t in (rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb)]
     F = heads["feat_b"].shape[0]
@@ -691,17 +740,9 @@ def render_train_rays_fwd(
         out["t_weight"] = torch.empty((R,), **f32)
     res = {}
     if save_res:
-        res["sig_s"] = torch.empty((R, S), **f32)
-        if st.use_cand:
-            res["sig_c"] = torch.empty((R, S), **f32)
-        if st.use_rgb:
-            res["rgb"] = torch.empty((R * S, 3), **f32)
-        W, HH, HC = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["HH"], KERNEL_WIDTHS["HC"]
-        chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
-        res["chain"] = torch.empty((R * S, chain_w), dtype=_cdt(st), device=dev)
+        res = {k: torch.empty(shape, dtype=dt, device=dev) for k, (shape, dt) in _res_specs(st, R, S, F).items()}
     out_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
-    res_order = ("sig_s", "sig_c", "rgb", "chain")
-    outs = [out.get(k) for k in out_order] + [res.get(k) for k in res_order]
+    outs = [out.get(k) for k in out_order] + [res.get(k) for k in RES_ORDER]
     lib = _build.library("render_train_fwd")
     skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -711,7 +752,10 @@ def render_train_rays_fwd(
             _ptrs([kheads.get(k) for k in HEAD_KEYS]), _ptrs(outs), R, S, st.xyz_L, C, F, _flags(st, save_res), stream,
         )
     _raise_on(code, "render_train_fwd", lib)
-    launches += 1
+    if save_res and not st.save_chain:
+        recompute_launches += 1
+    else:
+        launches += 1
     return (out, res) if save_res else out
 
 
@@ -722,24 +766,25 @@ def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, 
     The kernel accumulates the weight gradients over all rays with f32
     atomic adds in device memory, so their last bits change from run to run.
     With st.param_grads off it computes the data cotangents only (the same
-    bits as the train mode's) and returns None for the weight gradients."""
+    bits as the train mode's) and returns None for the weight gradients. In
+    the recompute mode (st.save_chain off) it runs persistent blocks, one an
+    SM, each rebuilding a 32-sample tile's chain into its own slice of a
+    scratch buffer in device memory."""
     if rays_o.device.type == "cpu":
         return render_train_rays_bwd_plain(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st, c_emb, res,
                                            cots)
     if rays_o.device.type != "cuda":
         raise ValueError(f"no render kernel for device {rays_o.device}")
-    global bwd_launches, frozen_bwd_launches
+    global bwd_launches, frozen_bwd_launches, recompute_bwd_launches, recompute_frozen_bwd_launches
     from upnerf_torch.ops import _build
 
     R, S, C = _check_kernel_args(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, trunk, heads, st)
-    if not st.save_chain:
-        raise NotImplementedError("the recompute backward (save_chain=False) is not ported")
     dev = rays_o.device
     W, HH, HC = (KERNEL_WIDTHS[k] for k in ("W", "HH", "HC"))
     F = heads["feat_b"].shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
     in0 = 3 + 6 * st.xyz_L
-    ins = [t.contiguous() if t is not None else None for t in (rays_o, rays_d, z_vals, pe_w, c_emb)]
+    ins = [t.contiguous() if t is not None else None for t in (rays_o, rays_d, z_vals, pe_w, c_emb, ray_cond)]
     cot_shapes = {"s_weights": (R, S), "s_depth": (R,), "rgb_map": (R, 3), "feat_map": (R, F), "j_weights": (R, S),
                   "c_depth": (R,), "t_weight": (R,)}
     cot_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
@@ -750,15 +795,24 @@ def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, 
             _check(f"cotangent {k}", g, cot_shapes[k], dev)
             g = g.contiguous()
         cot_list.append(g)
-    res_shapes = {"sig_s": (R, S), "sig_c": (R, S), "rgb": (R * S, 3)}
-    for k in st.res_keys[:-1]:
-        _check(f"residual {k}", res[k], res_shapes[k], dev)
-    chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
-    chain = res["chain"]
-    if chain.device != dev or tuple(chain.shape) != (R * S, chain_w) or chain.dtype != _cdt(st):
-        raise ValueError("the chain residual does not match st")
-    res_list = [res[k].contiguous() if k in res else None for k in ("sig_s", "sig_c", "rgb")] + [chain.contiguous()]
-    kt, kw = _bwd_weights(trunk, heads, st)
+    for k, (shape, dt) in _res_specs(st, R, S, F).items():
+        t = res[k]
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"residual {k}: {t.device} {t.dtype} {tuple(t.shape)}; st needs {dev} {dt} {shape}")
+    res_list = [res[k].contiguous() if k in st.res_keys else None for k in RES_ORDER]
+    kt, kw, padded = _bwd_weights(trunk, heads, st)
+    grid, tw, tb, fw, scratch = R, None, None, None, None
+    if not st.save_chain:
+        # the recompute's forward-layout weights, and a scratch of 32 chain rows a persistent block
+        bf16 = _cdt(st) == torch.bfloat16
+        tw = [_pack_fragments(w) if bf16 else w.contiguous() for w in padded]
+        tb = [b.contiguous() for _, b in trunk]
+        _, kh = _kernel_weights([], pad_feat({k: heads[k] for k in RECOMPUTE_KEYS if k in st.head_keys},
+                                             feat_pad(F, bf16)), st)
+        fw = [kh.get(k) for k in RECOMPUTE_KEYS]
+        grid = min(R, torch.cuda.get_device_properties(dev).multi_processor_count)
+        chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
+        scratch = torch.empty((grid * 32 * chain_w,), dtype=_cdt(st), device=dev)
     d_o, d_d = torch.empty((R, 3), **f32), torch.empty((R, 3), **f32)
     d_cond = torch.empty((R, HH), **f32) if st.use_rgb else None
     d_cemb = torch.empty((R, C), **f32) if st.use_cand else None
@@ -774,17 +828,24 @@ def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, 
     lib = _build.library("render_train_bwd")
     skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    opt = lambda ts: None if ts is None else _ptrs(ts)  # noqa: E731
     with torch.cuda.device(dev):
         code = lib.upnerf_render_train_bwd(
-            _ptrs(ins), _ptrs(cot_list), _ptrs(res_list), _ptrs(kt), st.D, skip_mask, _ptrs(kw),
-            _ptrs([d_o, d_d, d_cond, d_cemb]), _ptrs(dtw), _ptrs(dtb), _ptrs([dhd.get(k) for k in HEAD_KEYS]),
-            R, S, st.xyz_L, C, F, _flags(st, True), stream,
+            _ptrs(ins), _ptrs(cot_list), _ptrs(res_list), _ptrs(kt), st.D, skip_mask, _ptrs(kw), opt(tw), opt(tb),
+            opt(fw), _ptrs([d_o, d_d, d_cond, d_cemb]), _ptrs(dtw), _ptrs(dtb), _ptrs([dhd.get(k) for k in HEAD_KEYS]),
+            None if scratch is None else scratch.data_ptr(), R, S, st.xyz_L, C, F, _flags(st, True), grid, stream,
         )
     _raise_on(code, "render_train_bwd", lib)
-    if not st.param_grads:
+    if st.save_chain and st.param_grads:
+        bwd_launches += 1
+    elif st.save_chain:
         frozen_bwd_launches += 1
+    elif st.param_grads:
+        recompute_bwd_launches += 1
+    else:
+        recompute_frozen_bwd_launches += 1
+    if not st.param_grads:
         return d_o, d_d, d_cond, d_cemb, None, None
-    bwd_launches += 1
     dtrunk = [(unpad_trunk_grad(dtw[i], i, st.skips, in0), dtb[i]) for i in range(st.D)]
     return d_o, d_d, d_cond, d_cemb, dtrunk, unpad_feat(dhd, F)
 

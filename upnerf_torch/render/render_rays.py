@@ -69,12 +69,12 @@ class RenderConfig(NamedTuple):
     param_grads: bool = True
     fused_render: bool = True  # deterministic phase-2 passes through a fused forward
     fused_train: bool = True  # every pass through ops.render_train, forward and backward
-    save_chain: bool = True  # the fused backward reads the forward's walk chain
+    save_chain: bool = True  # the fused backward reads the forward's walk chain; False: it recomputes it
     remat: bool = False  # recompute the unfused field in the backward (torch.utils.checkpoint)
 
     @classmethod
     def from_hparams(cls, hp: Dict[str, Any]) -> "RenderConfig":
-        cfg = cls(
+        return cls(
             N_samples=hp["nerf.N_samples"],
             N_importance=hp["nerf.N_importance"],
             use_disp=hp["nerf.use_disp"],
@@ -86,10 +86,6 @@ class RenderConfig(NamedTuple):
             save_chain=bool(hp.get("tpu.save_chain", True)),
             remat=bool(hp.get("tpu.remat", False)),
         )
-        if cfg.fused_train and not cfg.save_chain:
-            raise NotImplementedError("tpu.save_chain false (the fused backward's recompute mode) is not ported"
-                                      " (ROADMAP.md, kernel 2)")
-        return cfg
 
 
 def field_weights(field: NeRFField):

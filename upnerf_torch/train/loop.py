@@ -1,7 +1,10 @@
 """Host training loop (upnerf/train/loop.py), on one device.
 
 `Trainer(hparams, device)` builds the device-resident scene and ray store
-(load_training_data), the two modules and their Adam optimizers, the train
+(load_training_data) or, with `tpu.store_on_device` false, keeps the store on
+the host behind a `data.prefetch.BatchPrefetcher` (seeded with `seed`; its
+draws are not checkpointed, as in the JAX package), the two modules and their
+Adam optimizers, the train
 step and the val renderer; `fit()` drives the step with the schedule phase
 derived from progress, reads the metrics back only every `log_every` steps
 (the steps queue on the device in between), renders the val images, logs the
@@ -11,9 +14,8 @@ non-finite loss by restoring the latest checkpoint with a reseeded generator
 SIGTERM / SIGINT, and with `train.profile_at` traces `train.profile_steps`
 steps with torch.profiler. The GT-free pose-warp detector logs flagged images.
 
-Not ported: the mesh / multi-process branches (`tpu.n_devices` > 1, `dist.*`),
-the host prefetcher (`tpu.store_on_device` false) and the warp mitigations;
-each raises with its ROADMAP item.
+Not ported: the mesh / multi-process branches (`tpu.n_devices` > 1, `dist.*`)
+and the warp mitigations; each raises with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from upnerf_torch.data import SceneMeta, load_training_data
 from upnerf_torch.data.images import load_rgb_u8
+from upnerf_torch.data.prefetch import BatchPrefetcher
 from upnerf_torch.evaluate.metrics import psnr as psnr_fn
 from upnerf_torch.geometry import procrustes, se3
 from upnerf_torch.utils.ckpt import CheckpointManager
@@ -47,8 +50,6 @@ from .warp import WarpConfig, WarpDetector
 
 def check_supported(hp: Dict[str, Any]) -> None:
     """Raise on the JAX trainer's configurations the port does not run."""
-    if not bool(hp.get("tpu.store_on_device", True)):
-        raise NotImplementedError("tpu.store_on_device false (the host prefetcher) is not ported (ROADMAP.md)")
     if int(hp.get("tpu.n_devices", 0) or 0) > 1:
         raise NotImplementedError("tpu.n_devices > 1 needs torch.distributed, which is not ported (ROADMAP.md)")
     if any(k.startswith("dist.") and v not in (None, False, 0, "") for k, v in hp.items()):
@@ -76,9 +77,15 @@ class Trainer:
             scene_np["Ks"], scene_np["poses"], scene_np["near_far"], scene_np["wh"], scene_np["feat_maps"],
             self.device, feat_pyramid_sigma=pyr_sigma if hp.get("feat.c2f") else 0.0,
         )
-        self.store = make_ray_store(store_np["px"], store_np["py"], store_np["img_idx"], store_np["rgb"],
-                                    store_np["inv_depth"], self.device)
-        self.n_rays = self.store.n_rays
+        self.store_on_device = bool(hp.get("tpu.store_on_device", True))
+        self.store = self.store_np = self.prefetcher = None
+        if self.store_on_device:
+            self.store = make_ray_store(store_np["px"], store_np["py"], store_np["img_idx"], store_np["rgb"],
+                                        store_np["inv_depth"], self.device)
+        else:  # one process: the whole batch from one stream of draws
+            self.store_np = store_np
+            self._open_prefetcher()
+        self.n_rays = int(store_np["px"].shape[0])
 
         self.optimizer = make_optimizer(hp["optimizer.type"], hp["optimizer.lr"], hp["optimizer.scheduler.lr_end"],
                                         self.max_steps, hp["optimizer.scheduler.type"])
@@ -109,6 +116,10 @@ class Trainer:
             else None
         self.val_img_idx = list(hp.get("val.img_idx", (0,)))
         self._setup_val_scale()
+
+    def _open_prefetcher(self) -> None:
+        """The host store's prefetcher (a fit() after a fit() starts a new one, from the seed)."""
+        self.prefetcher = BatchPrefetcher(self.store_np, self.cfg.batch_size, self.device, seed=self.seed)
 
     def _setup_val_scale(self) -> None:
         """Val renders at downscale >= 2 even for scale-1 training (the
@@ -181,6 +192,8 @@ class Trainer:
             self._restore(self.ckpt.load())
             print(f"[upnerf_torch] resumed from step {self.state.step}", flush=True)
         max_steps = max_steps or self.max_steps
+        if self.store_np is not None and self.prefetcher is None:
+            self._open_prefetcher()
 
         t0 = time.time()
         window_rays = 0
@@ -193,7 +206,10 @@ class Trainer:
         try:
             while step < max_steps:
                 phase = schedule_phase(step / self.max_steps, self.cfg.candidate_schedule)
-                self.state, metrics = self.step_fn(self.state, self.scene, self.store, phase)
+                if self.store_on_device:
+                    self.state, metrics = self.step_fn(self.state, self.scene, self.store, phase)
+                else:
+                    self.state, metrics = self.batch_step_fn(self.state, self.scene, next(self.prefetcher), phase)
                 step += 1
                 window_rays += self.cfg.batch_size
 
@@ -245,6 +261,9 @@ class Trainer:
                 profiler.stop()
             for sig, old in restore_handlers.items():
                 signal.signal(sig, old)
+            if self.prefetcher is not None:
+                self.prefetcher.close()
+                self.prefetcher = None
         return self.state
 
     def _start_profile(self):
@@ -335,6 +354,12 @@ class Trainer:
         }
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}, n
 
+    def _store_rows(self, key: str, lo: int, hi: int) -> np.ndarray:
+        """Rows [lo, hi) of one store array, from the device store or the host one."""
+        if self.store_np is not None:
+            return np.asarray(self.store_np[key][lo:hi])
+        return getattr(self.store, key)[lo:hi].cpu().numpy()
+
     def render_image(self, img_i: int):
         """Render one train image at the current state: (results cropped to
         its pixels, as numpy, (W, H))."""
@@ -346,9 +371,9 @@ class Trainer:
             scene = self.val_data["scene"]
         else:
             lo, hi = int(self.ray_offsets[img_i]), int(self.ray_offsets[img_i + 1])
-            s = self.store
-            batch, n = self._pixels(s.px[lo:hi].cpu().numpy(), s.py[lo:hi].cpu().numpy(),
-                                    s.inv_depth[lo:hi].float().cpu().numpy(), img_i)
+            px, py, invd = self._store_rows("px", lo, hi), self._store_rows("py", lo, hi), \
+                self._store_rows("inv_depth", lo, hi)
+            batch, n = self._pixels(px, py, invd.astype(np.float32), img_i)
             scene = self.scene
         step = self.state.step
         progress = pe_progress(step, self.max_steps)
@@ -366,7 +391,7 @@ class Trainer:
                 rgb_gt = self.val_data["rgbs"][img_i].reshape(-1, 3).astype(np.float32) / 255.0
             else:
                 lo, hi = int(self.ray_offsets[img_i]), int(self.ray_offsets[img_i + 1])
-                rgb_gt = self.store.rgb[lo:hi].cpu().numpy().astype(np.float32) / 255.0
+                rgb_gt = self._store_rows("rgb", lo, hi).astype(np.float32) / 255.0
             # val PSNR on the transient-composited rgb where there is one
             typ = "fine" if self.cfg.loss.fine else "coarse"
             key = next((k for k in (f"rgb_{typ}", f"s_rgb_{typ}") if k in out), None)
