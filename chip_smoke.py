@@ -118,7 +118,26 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      `tpu.save_chain false tpu.store_on_device false` on phase 18's scene
      (12 steps, 2 + 2 recompute launches a step, the loop's rays/s); then
      `cli.tto` (2 forwards + 1 frozen recompute backward a step) and
-     `cli.eval` on its checkpoint, and a TTO step's ms against phase 13's.
+     `cli.eval` on its checkpoint, and a TTO step's ms against phase 13's;
+ 24. kernel 1b, the fused render from pre-built PE rows (the X0_IN mode of
+     both render kernels, `ops.render_train.render_train_fwd` /
+     `render_train_bwd`) at 4096 rays x 256 samples, F = 384 and 32, bf16 and
+     f32, phases 0, 1, 2, the saved chain and the recompute mode, on the PE
+     rows of seeded rays (in0 = 63) and at F = 384 phase 1 on rows of width
+     40: the forward with residuals against its plain version and the rays
+     mode's kernel; the d_x0 backward's train and frozen modes against the
+     plain backward (by the max on the saved chain; by RMS with the float64
+     witness in the recompute mode), frozen equal to train bit for bit; both
+     kernels timed in turns with the rays mode's and the plain versions at
+     4096 x 256 and 2048 x 384; then `upnerf_torch.scripts.
+     bench_render_train_kernel` at its defaults with 3 steps (4 forward and 4
+     backward launches);
+ 25. the matrix-unit probe (`ops.mxu_probe`, csrc/mxu_probe.cu) at the JAX
+     probe's shapes (M 2048, W 256, L 16, 64 copies): the pure / epi / int8
+     chains against their plain versions (int8 bit for bit, bf16 by RMS),
+     then `upnerf_torch.scripts.bench_mxu_probe` at its defaults (31
+     launches a chain): ms, TFLOP/s or TOPS, share of the dense peak, the
+     plain version's and the library products' ms.
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -266,7 +285,7 @@ TTO_POSE_DEG = 0.5
 EVAL_POSE_DEG = 0.1
 SSIM_TOL = 1e-5  # SSIM card vs CPU: the same f32 operations, sums in another order
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them; HBM3.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -796,14 +815,17 @@ def chain_bytes(nerf_cfg, st, n_samples: int, kind: str) -> int:
     return 2 * n_samples * sum(w for _, w in cols)
 
 
-def render_bound(field, st, R: int, S: int, kind: str):
+def render_bound(field, st, R: int, S: int, kind: str, x0_in0: int = 0):
     """bound() of one fused-render call on R rays x S samples in bf16: kind
     "fwd" is the forward with residuals, "serve" the forward without them,
     "static" the x0 mode (kernel 4),
     "bwd" the backward in st's mode (the frozen mode does the walk's products
     only and writes no dW); with st.save_chain off the forward writes the feat /
     c_feat residuals in place of the chain, and "recompute" is the backward
-    that reads them and rebuilds the chain (recompute_macs) besides the walk."""
+    that reads them and rebuilds the chain (recompute_macs) besides the walk.
+    x0_in0: the x0 frontend (kernel 1b) in the fwd / bwd / recompute kinds: the
+    PE rows (R*S, x0_in0) read in place of the rays, and the backward writes
+    d_x0 of the same size in place of d_rays_o / d_rays_d."""
     from upnerf_torch.render.render_rays import field_weights
 
     cfg = field.cfg
@@ -813,7 +835,8 @@ def render_bound(field, st, R: int, S: int, kind: str):
     per_ray = {"s_depth": 1, "rgb_map": 3, "feat_map": cfg.feat_dim, "c_depth": 1, "t_weight": 1}
     outs = sum(M if k in ("s_weights", "j_weights") else R * per_ray[k] for k in st.out_keys)
     res = M * (1 + st.use_cand + 3 * st.use_rgb)  # sig_s, sig_c, rgb in f32
-    per_ray_in = R * (6 + cfg.W // 2 * st.use_rgb + cfg.candidate_dim * st.use_cand)  # o, d, ray_cond, c_emb
+    front = M * x0_in0 if x0_in0 else 6 * R  # x0, or o and d (and the backward's cotangents of them)
+    per_ray_in = front + R * (cfg.W // 2 * st.use_rgb + cfg.candidate_dim * st.use_cand)  # + ray_cond, c_emb
     macs = render_macs(cfg, st) * M
     if kind == "serve":
         return bound(2 * macs, 4 * (per_ray_in + M + outs) + 2 * n_w, "bfloat16")
@@ -1408,19 +1431,25 @@ def _launch_counters():
     """(zero, read) over every kernel wrapper's launch counts."""
     from upnerf_torch.ops import heads as hk
     from upnerf_torch.ops import mlp
+    from upnerf_torch.ops import mxu_probe as mp
     from upnerf_torch.ops import render as srk
     from upnerf_torch.ops import render_train as rt
 
     def zero():
         rt.launches = rt.bwd_launches = rt.frozen_bwd_launches = 0
         rt.recompute_launches = rt.recompute_bwd_launches = rt.recompute_frozen_bwd_launches = 0
+        rt.x0_launches = rt.x0_bwd_launches = 0
         hk.launches = hk.bwd_launches = srk.launches = mlp.launches = mlp.bwd_launches = 0
+        for c in mp.CHAINS:
+            mp.launches[c] = 0
 
     def read():
         return {"render_fwd": rt.launches, "render_bwd": rt.bwd_launches, "render_frozen": rt.frozen_bwd_launches,
                 "rec_fwd": rt.recompute_launches, "rec_bwd": rt.recompute_bwd_launches,
                 "rec_frozen": rt.recompute_frozen_bwd_launches, "heads_fwd": hk.launches, "heads_bwd": hk.bwd_launches,
-                "static": srk.launches, "trunk_fwd": mlp.launches, "trunk_bwd": mlp.bwd_launches}
+                "static": srk.launches, "trunk_fwd": mlp.launches, "trunk_bwd": mlp.bwd_launches,
+                "x0_fwd": rt.x0_launches, "x0_bwd": rt.x0_bwd_launches,
+                **{f"probe_{c}": mp.launches[c] for c in mp.CHAINS}}
 
     return zero, read
 
@@ -1708,29 +1737,14 @@ def phase_synth_pose(dev, card: str):
 
 def plain_bwd_chunked(args, st, c_emb, res, cots, dtype=torch.float32, rays: int = 1024):
     """render_train_rays_bwd_plain over chunks of rays (bounded memory), in
-    dtype: per-ray outputs concatenated, weight gradients summed."""
+    dtype: the PE rows, plain_x0_bwd_chunked, the PE backward."""
     from upnerf_torch.ops import render_train as rt
 
     o, d, z, pe_w, cond, trunk, heads = args[:7]
-    cv = lambda t: None if t is None else t.to(dtype)  # noqa: E731
-    R, S = z.shape
-    parts = []
-    for r0 in range(0, R, rays):
-        r = slice(r0, r0 + rays)
-        m = slice(r0 * S, (r0 + rays) * S)
-        rres = {k: cv(v[r] if k in ("sig_s", "sig_c") else v[m]) for k, v in res.items()}
-        rcots = {k: cv(v[r]) for k, v in cots.items()}
-        parts.append(rt.render_train_rays_bwd_plain(
-            cv(o[r]), cv(d[r]), cv(z[r]), cv(pe_w), cv(None if cond is None else cond[r]),
-            [(cv(w), cv(b)) for w, b in trunk], {k: cv(v) for k, v in heads.items()},
-            st._replace(precision="float32") if dtype == torch.float64 else st, cv(None if c_emb is None else c_emb[r]),
-            rres, rcots))
-    cat = lambda i: None if parts[0][i] is None else torch.cat([p[i] for p in parts])  # noqa: E731
-    out = [cat(i) for i in range(4)]
-    if not st.param_grads:
-        return (*out, None, None)
-    dtrunk = [(sum(p[4][i][0] for p in parts), sum(p[4][i][1] for p in parts)) for i in range(len(trunk))]
-    return (*out, dtrunk, {k: sum(p[5][k] for p in parts) for k in parts[0][5]})
+    x0, xyz = rt._pe(o.to(dtype), d.to(dtype), z.to(dtype), pe_w.to(dtype), st.xyz_L)
+    d_x0, d_cond, d_cemb, dtrunk, dh = plain_x0_bwd_chunked((x0, z, cond, trunk, heads, st), c_emb, res, cots, dtype,
+                                                            rays)
+    return (*rt._pe_bwd(d_x0, xyz, z.to(dtype), pe_w.to(dtype), st.xyz_L), d_cond, d_cemb, dtrunk, dh)
 
 
 def phase_recompute_kernels(fields, dev, card: str):
@@ -2027,6 +2041,311 @@ def phase_memory_saving(dev, card: str, step_ms, step_peaks, tto_ms):
     return {"train": want_train, "tto": want_tto}, times, rec_tto_ms
 
 
+X0_ODD_IN0 = 40  # phase 24's x0 width that is not 3 + 6L
+# The probe's bf16 chains against their plain versions (phase 25). One layer
+# (L = 1): the same roundings of the same f32 sums of exact bf16 products, taken
+# in another order. In pure an output differs only where its f32 sum lies within
+# the sums' rounding (~1e-7 relative) of a bf16 rounding boundary, and then by
+# one bf16 ulp, or, where the sum cancels to near zero, by the sums' own
+# rounding (TOL["float32"] of the max value): PROBE_FLIP_SHARE bounds the share
+# of such outputs (1.5e-4 measured on the card). epi's f32 outputs differ by
+# the sums' rounding (TOL["float32"] of the max). 16 layers: a flipped value moves the next layer's sums by ~w 2^-8 of
+# itself, far above their rounding, and so flips more of them, down the chain:
+# the chains' RMS distance reached 2.6e-3 of the RMS in pure (measured on the
+# card; 1e-3 at L = 6), against the ~9.4e-3 that both are from the f32 chain, in
+# which no operand is rounded. PROBE_RMS_TOL bounds the distance; a kernel that
+# skipped a rounding would be about as far from the plain chain as from the f32
+# chain, and PROBE_RMS_RATIO bounds that share. The int8 chain is exact.
+PROBE_FLIP_SHARE = 1e-3
+PROBE_RMS_TOL = 1e-2
+PROBE_RMS_RATIO = 0.5
+PROBE_SHAPE = (2048, 256, 16, 64)  # M, W, L, copies: scripts/bench_mxu_probe.py's defaults
+# Phase 24's weight gradients against the plain backward, max |d| over max |g|
+# per leaf, in both save_chain modes. The recompute mode flips ReLU masks as
+# phase 22 does (REC_DW_TOL). With the saved chain nothing flips, but phase 24
+# sums over 1M samples of random-signed cotangents: a (1,) bias gradient such
+# as sigma_b is one sum that cancels to a small share of its terms, and the
+# kernel accumulates it as 32,768 tile sums by atomic adds; in f32 its rounding
+# reached 4.2e-4 of the sum (F = 384, phase 0, measured on the card), over
+# BWD_TOL.
+X0_DW_TOL = REC_DW_TOL
+
+
+def x0_mode_args(field, inputs, st, in0: int = 0, seed: int = 0):
+    """Kernel 1b's arguments (x0, z, ray_cond, trunk, heads, st) and c_emb for
+    mode st: the PE rows of the chunk's rays, or (in0 > 0) seeded rows of
+    width in0 with the trunk's x0 rows cut to it (layer 0 and the skips)."""
+    from upnerf_torch.ops import render_train as rt
+
+    args, c_emb = mode_args(field, inputs, st)
+    o, d, z, pe_w, cond, trunk, heads, _ = args
+    x0 = rt._pe(o, d, z, pe_w, st.xyz_L)[0].contiguous()
+    if in0:
+        g = torch.Generator(device=x0.device).manual_seed(seed)
+        x0 = torch.randn((x0.shape[0], in0), generator=g, device=x0.device) * 0.5
+        full = 3 + 6 * st.xyz_L
+        trunk = [(w[:in0].contiguous() if i == 0 else torch.cat([w[:in0], w[full:]]) if i in st.skips else w, b)
+                 for i, (w, b) in enumerate(trunk)]
+    return (x0, z, cond, trunk, heads, st._replace(xyz_L=0)), c_emb
+
+
+def plain_x0_bwd_chunked(args, c_emb, res, cots, dtype=torch.float32, rays: int = 1024):
+    """render_train_bwd_plain over chunks of rays (bounded memory), in dtype:
+    d_x0 and the per-ray outputs concatenated, weight gradients summed."""
+    from upnerf_torch.ops import render_train as rt
+
+    x0, z, cond, trunk, heads, st = args
+    cv = lambda t: None if t is None else t.to(dtype)  # noqa: E731
+    R, S = z.shape
+    parts = []
+    for r0 in range(0, R, rays):
+        r, m = slice(r0, r0 + rays), slice(r0 * S, (r0 + rays) * S)
+        rres = {k: cv(v[r] if k in ("sig_s", "sig_c") else v[m]) for k, v in res.items()}
+        parts.append(rt.render_train_bwd_plain(
+            cv(x0[m]), cv(z[r]), cv(None if cond is None else cond[r]), [(cv(w), cv(b)) for w, b in trunk],
+            {k: cv(v) for k, v in heads.items()}, st._replace(precision="float32") if dtype == torch.float64 else st,
+            cv(None if c_emb is None else c_emb[r]), rres, {k: cv(v[r]) for k, v in cots.items()}))
+    out = [None if parts[0][i] is None else torch.cat([p[i] for p in parts]) for i in range(3)]
+    if not st.param_grads:
+        return (*out, None, None)
+    dtrunk = [(sum(p[3][i][0] for p in parts), sum(p[3][i][1] for p in parts)) for i in range(len(trunk))]
+    return (*out, dtrunk, {k: sum(p[4][k] for p in parts) for k in parts[0][4]})
+
+
+def phase_x0_kernels(fields, dev, card: str):
+    """Phase 24: kernel 1b, the fused render from PE rows (ops/render_train.py:
+    render_train_fwd / render_train_bwd, the X0_IN mode of both kernels), at
+    4096 rays x 256 samples, F = 384 and 32, bf16 and f32, phases 0, 1, 2, the
+    saved chain and the recompute mode, on the PE rows of seeded rays (in0 =
+    63), and at F = 384 phase 1 on rows of width X0_ODD_IN0. Per case: the
+    forward with residuals against its plain version (outputs at TOL,
+    residuals at TOL / CHAIN_TOL) and, on the PE rows, against the rays mode's
+    kernel; the backward's train and frozen modes against the plain backward:
+    the data cotangents d_x0, d_ray_cond, d_c_emb at BWD_TOL by the max on
+    the saved chain, by RMS in the recompute mode (ReLU masks flip against
+    the plain recompute, as in phase 22); the weight gradients at X0_DW_TOL;
+    in the recompute mode all of them also by the float64 witness (printed for
+    the saved chain); the frozen mode's data cotangents equal to the train
+    mode's bit for bit. Then, at F = 384 bf16 phase 1 with
+    the saved chain, in turns: each kernel against the rays mode's and the plain version, per
+    4096 x 256 chunk and at the benchmark's 2048 x 384; and
+    `upnerf_torch.scripts.bench_render_train_kernel` at its defaults with 3
+    steps, launches counted. Returns ({"fwd", "bwd"}: (ms, plain ms, rays ms),
+    worst forward max |d|, worst backward max |d| on the saved chain, the
+    script's launches and results)."""
+    from upnerf_torch.ops import render_train as rt
+    from upnerf_torch.scripts import bench_render_train_kernel as bench
+
+    rms = lambda t: t.double().pow(2).mean().sqrt().item()  # noqa: E731
+    worst_f = worst_b = 0.0
+    cases = [(fi, prec, phase, chain, 0) for fi in range(len(fields)) for prec in ("bfloat16", "float32")
+             for phase in (0, 1, 2) for chain in (True, False)]
+    cases += [(0, prec, 1, chain, X0_ODD_IN0) for prec in ("bfloat16", "float32") for chain in (True, False)]
+    inputs = {}
+    for fi, prec, phase, save_chain, in0 in cases:
+        field, nerf_cfg = fields[fi]
+        F = nerf_cfg.feat_dim
+        if fi not in inputs:
+            inputs = {fi: chunk_inputs(field, 256, seed=240 + F, dev=dev, R=CHUNK)}
+        rays_st = train_static(nerf_cfg, prec, phase)._replace(save_chain=save_chain)
+        args, c_emb = x0_mode_args(field, inputs[fi], rays_st, in0, seed=24)
+        st = args[-1]
+        with torch.no_grad():
+            got, got_res = rt.render_train_fwd(*args, c_emb=c_emb, save_res=True)
+            want, want_res = rt.render_train_plain(*args, c_emb=c_emb, save_res=True)
+            rays = None if in0 else rt.render_train_rays_fwd(*mode_args(field, inputs[fi], rays_st)[0],
+                                                             c_emb=c_emb)
+            g = torch.Generator(device=dev).manual_seed(24 + phase)
+            cots = {k: torch.randn(want[k].shape, generator=g, device=dev) for k in st.out_keys}
+            kb = rt.render_train_bwd(*args[:5], st, c_emb, got_res, cots)
+            kz = rt.render_train_bwd(*args[:5], st._replace(param_grads=False), c_emb, got_res, cots)
+            pb = plain_x0_bwd_chunked(args, c_emb, got_res, cots)
+            p64 = plain_x0_bwd_chunked(args, c_emb, got_res, cots, torch.float64)
+        torch.cuda.synchronize()
+        check(tuple(got_res) == st.res_keys, f"[24] residuals {tuple(got_res)}, expected {st.res_keys}")
+        ef, er = {}, {}
+        for k in st.out_keys:
+            check(bool(torch.isfinite(got[k]).all()), f"[24] forward {k} not finite")
+            for name, ref in (("plain", want), ("rays", rays)):
+                if ref is not None:
+                    diff = (got[k] - ref[k]).abs()
+                    ef[f"{k} vs {name}"] = ((diff / ref[k].abs().clamp(min=1e-6)).max().item() if "depth" in k
+                                            else diff.max().item())
+        for k in st.res_keys:
+            er[k] = rel_err(got_res[k], want_res[k])
+        worst_f = max([worst_f] + [v for k, v in ef.items() if "depth" not in k])
+        names = ["x0", "ray_cond", "c_emb"]
+        rows = [(n, i) for i, n in enumerate(names) if pb[i] is not None]
+        same = {n: torch.equal(kz[i], kb[i]) for n, i in rows}
+        check(kz[3] is None and kz[4] is None and kb[0].shape == args[0].shape, "[24] backward outputs")
+        leaves = {}
+        for i, ((kw_, kbb), (pw_, pbb), (qw_, qbb)) in enumerate(zip(kb[3], pb[3], p64[3])):
+            leaves[f"trunk{i}.w"], leaves[f"trunk{i}.b"] = (kw_, pw_, qw_), (kbb, pbb, qbb)
+        for k in st.head_keys:
+            leaves[k] = (kb[4][k], pb[4][k].reshape(kb[4][k].shape), p64[4][k].reshape(kb[4][k].shape))
+        berr = {k: rel_err(a_, p_) for k, (a_, p_, _) in leaves.items()}
+        for k, v in berr.items():
+            check(np.isfinite(v), f"[24] backward {k} not finite")
+        bw = max(berr, key=berr.get)
+        d64 = [rms(leaves[bw][i] - leaves[bw][2]) / max(rms(leaves[bw][2]), 1e-30) for i in (0, 1)]
+        row_err = {n: rel_err(kb[i], pb[i]) for n, i in rows}
+        row_rms = {n: rms(kb[i] - pb[i]) / rms(pb[i]) for n, i in rows}
+        w64 = {n: rms(kb[i] - p64[i]) / max(rms(pb[i] - p64[i]), 1e-30) for n, i in rows}
+        flat = lambda b: torch.cat([t.double().flatten() for wb in b[3] for t in wb]  # noqa: E731
+                                   + [b[4][k].double().flatten() for k in st.head_keys])
+        w64["dW"] = rms(flat(kb) - flat(p64)) / rms(flat(pb) - flat(p64))
+        tag = f"[24] F={F} in0={in0 or 3 + 6 * nerf_cfg.xyz_L} {prec} phase {phase} {'chain' if save_chain else 'recompute'}"
+        print(f"{tag}: forward worst {max(ef.values()):.3e} (tol {TOL[prec]:.0e}), residuals "
+              + " ".join(f"{k} {v:.2e}" for k, v in er.items()) + "; backward max |d| / max |g| "
+              + " ".join(f"{k} {v:.2e}" for k, v in row_err.items()) + ", per-row RMS "
+              + " ".join(f"{k} {v:.2e}" for k, v in row_rms.items()) + ", float64 witness kernel / plain "
+              + " ".join(f"{k} {v:.3f}" for k, v in w64.items()) + f" (limit {HEADS_F64_RATIO}), dW worst {bw}"
+              f" {berr[bw]:.3e} (tol {X0_DW_TOL[prec]:.0e}; RMS to float64 kernel {d64[0]:.2e}, plain {d64[1]:.2e});"
+              f" frozen == train {same}", flush=True)
+        check(max(ef.values()) <= TOL[prec], f"{tag}: the forward disagrees: {ef}")
+        check(all(v <= (CHAIN_TOL if k in ("chain", "feat", "cfeat") else TOL)[prec] for k, v in er.items()),
+              f"{tag}: the residuals disagree: {er}")
+        check(all(same.values()), f"{tag}: the frozen mode differs from the train mode: {same}")
+        check(berr[bw] <= X0_DW_TOL[prec], f"{tag}: the weight gradients disagree: {berr}")
+        if save_chain:  # one chain, read by both: no flips, the data cotangents by the max
+            check(max(row_err.values()) <= BWD_TOL[prec], f"{tag}: the data cotangents disagree: {row_err}")
+            worst_b = max([worst_b] + [(kb[i] - pb[i]).abs().max().item() for _, i in rows])
+        else:
+            check(max(row_rms.values()) <= HEADS_ROW_RMS_TOL, f"{tag}: the data cotangents disagree: {row_rms}")
+            check(max(w64.values()) <= HEADS_F64_RATIO, f"{tag}: further from float64 than the plain version: {w64}")
+        del got, got_res, want, want_res, rays, kb, kz, pb, p64
+        torch.cuda.empty_cache()
+
+    # timings at F = 384, bf16, phase 1, saved chain, in turns with the rays mode's kernels and the plain versions
+    field, nerf_cfg = fields[0]
+    times = {}
+    for R, S in ((CHUNK, 256), (TRAIN_RAYS, 384)):
+        rays_st = train_static(nerf_cfg, "bfloat16", 1)
+        inp = chunk_inputs(field, S, seed=9, dev=dev, R=R)
+        rargs, c_emb = mode_args(field, inp, rays_st)
+        args, _ = x0_mode_args(field, inp, rays_st)
+        st = args[-1]
+        with torch.no_grad():
+            out, res = rt.render_train_fwd(*args, c_emb=c_emb, save_res=True)
+            _, rres = rt.render_train_rays_fwd(*rargs, c_emb=c_emb, save_res=True)
+            g = torch.Generator(device=dev).manual_seed(3)
+            cots = {k: torch.randn(v.shape, generator=g, device=dev) for k, v in out.items()}
+            calls = {
+                "fwd": (lambda: rt.render_train_fwd(*args, c_emb=c_emb, save_res=True),
+                        lambda: rt.render_train_rays_fwd(*rargs, c_emb=c_emb, save_res=True),
+                        lambda: rt.render_train_plain(*args, c_emb=c_emb, save_res=True)),
+                "bwd": (lambda: rt.render_train_bwd(*args[:5], st, c_emb, res, cots),
+                        lambda: rt.render_train_rays_bwd(*rargs[:7], rays_st, c_emb, rres, cots),
+                        lambda: plain_x0_bwd_chunked(args, c_emb, res, cots)),
+            }
+            for name, (kern, rays_k, plain) in calls.items():
+                r1, k1, k2, r2 = cuda_ms(rays_k, 2), cuda_ms(kern, 2), cuda_ms(kern, 2), cuda_ms(rays_k, 2)
+                p1 = cuda_ms(plain, 1)
+                times[(name, R, S)] = ((k1 + k2) / 2, p1, (r1 + r2) / 2)
+                print(f"[24] x0 {name} F={nerf_cfg.feat_dim}, {R} x {S}, phase 1, bfloat16, saved chain: kernel"
+                      f" {times[(name, R, S)][0]:.2f} ms ({k1:.2f}, {k2:.2f}), rays mode {times[(name, R, S)][2]:.2f} ms"
+                      f" ({r1:.2f}, {r2:.2f}), plain {p1:.2f} ms ({card})", flush=True)
+        del out, res, rres, cots, calls
+        torch.cuda.empty_cache()
+
+    # the benchmark script at its defaults (2048 rays x 384 samples, bf16, the recompute mode), 3 steps
+    zero, read = _launch_counters()
+    zero()
+    result = bench.main(["--steps", "3"])
+    torch.cuda.synchronize()
+    got = read()
+    want = dict({k: 0 for k in got}, x0_fwd=4, x0_bwd=4)
+    print(f"[24] bench_render_train_kernel: launches {got} (expected {want}); {result}", flush=True)
+    check(got == want, f"[24] the benchmark's launches {got}, expected {want}")
+    # the kernels' recompute against autograd's: ReLU masks flip between the two orders, so d_x0 by RMS
+    check(result["loss_rel"] <= 1e-3 and result["dx0_rms"] <= HEADS_ROW_RMS_TOL,
+          f"[24] the benchmark's routes disagree: {result}")
+    torch.cuda.empty_cache()
+    return times, worst_f, worst_b, got, result
+
+
+def probe_bound(M: int, W: int, L: int, copies: int, chain: str):
+    """bound() of one probe call: 2 M W^2 L copies operations at the tensor
+    cores' peak for the chain's type (the epilogues' f32 operations run on
+    other units in parallel and take less time: they do not raise it); x read
+    once, the packed weights (and the epi bias) read once, the output written
+    once."""
+    dtype = "int8" if chain == "int8" else "bfloat16"
+    nbytes = 4 * M * W * 2 + L * W * W * (1 if chain == "int8" else 2) + (4 * W if chain == "epi" else 0)
+    return bound(2.0 * M * W * W * L * copies, nbytes, dtype)
+
+
+def phase_mxu_probe(dev, card: str):
+    """Phase 25: the matrix-unit probe (ops/mxu_probe.py, csrc/mxu_probe.cu) at
+    the JAX probe's shapes (M 2048, W 256, L 16, 64 copies): each chain's
+    kernel against its plain version (int8 bit for bit; bf16 by RMS at
+    PROBE_RMS_TOL, and under PROBE_RMS_RATIO of its RMS distance to the f32
+    chain; one layer of each bf16 chain by PROBE_FLIP_SHARE / TOL), then
+    `upnerf_torch.scripts.bench_mxu_probe` at its defaults (launches counted). Returns ({chain: max |d|}, the script's launches and
+    results)."""
+    from upnerf_torch.ops import mxu_probe as mp
+    from upnerf_torch.scripts import bench_mxu_probe as bench
+
+    M, W, L, G = PROBE_SHAPE
+    x, ws, b, ws_i8 = (torch.from_numpy(a).to(dev) for a in mp.probe_inputs(M, W, L, seed=0))
+    rms = lambda t: t.double().pow(2).mean().sqrt().item()  # noqa: E731
+    errs = {}
+    with torch.no_grad():
+        for chain in ("pure", "epi"):  # one layer: bit for bit but for rare one-ulp flips
+            got, want = mp.mxu_probe(x, ws[:1], b, chain, G), mp.mxu_probe_plain(x, ws[:1], b, chain)
+            torch.cuda.synchronize()
+            d = (got - want).abs()
+            if chain == "pure":
+                ulp = torch.ldexp(torch.ones_like(want), torch.floor(torch.log2(want.abs().clamp(min=1e-30))).int() - 7)
+                share = (d > 0).float().mean().item()
+                big = d > ulp  # sums that cancel: their f32 rounding is more than an ulp of the value
+                sums = TOL["float32"] * want.abs().max().item()
+                far = d[big].max().item() if bool(big.any()) else 0.0
+                print(f"[25] {chain}, one layer: {share:.2e} of the outputs differ (limit {PROBE_FLIP_SHARE:.0e}); beyond"
+                      f" one bf16 ulp {int(big.sum())}, by at most {far:.2e} at |value| <="
+                      f" {want.abs()[big].max().item() if bool(big.any()) else 0.0:.2e} (limit {sums:.2e}: the sums'"
+                      f" rounding)", flush=True)
+                check(share <= PROBE_FLIP_SHARE and far <= sums, f"[25] one pure layer disagrees: {share} {far}")
+            else:
+                e = d.max().item() / want.abs().max().item()
+                print(f"[25] {chain}, one layer: max |d| / max |value| {e:.2e} (tol {TOL['float32']:.0e})", flush=True)
+                check(e <= TOL["float32"], f"[25] one epi layer disagrees: {e}")
+        for chain in mp.CHAINS:
+            w = ws_i8 if chain == "int8" else ws
+            got = mp.mxu_probe(x, w, b, chain, G)
+            want = mp.mxu_probe_plain(x, w, b, chain)
+            torch.cuda.synchronize()
+            check(got.shape == (M, W) and bool(torch.isfinite(got).all()), f"[25] {chain}: output not finite")
+            errs[chain] = (got - want).abs().max().item()
+            if chain == "int8":
+                print(f"[25] {chain}: kernel == plain bit for bit: {torch.equal(got, want)}; nonzero share"
+                      f" {(want != 0).float().mean().item():.3f}", flush=True)
+                check(torch.equal(got, want), f"[25] the int8 chain differs from its plain version ({errs[chain]})")
+                continue
+            h = x
+            for wi in ws:
+                h = h @ wi if chain == "pure" else torch.relu(h @ wi + b)
+            d, d32 = rms(got - want) / rms(want), rms(got - h) / rms(h)
+            print(f"[25] {chain}: RMS(kernel - plain) / RMS(plain) {d:.3e} (tol {PROBE_RMS_TOL:.0e}), to the f32"
+                  f" chain {d32:.3e} (ratio limit {PROBE_RMS_RATIO}), max |d| {errs[chain]:.3e}, RMS {rms(want):.3e}",
+                  flush=True)
+            check(d <= PROBE_RMS_TOL and d <= PROBE_RMS_RATIO * d32, f"[25] the {chain} chain disagrees: {d} {d32}")
+    zero, read = _launch_counters()
+    zero()
+    result = bench.main([])
+    torch.cuda.synchronize()
+    got = read()
+    want = dict({k: 0 for k in got}, **{f"probe_{c}": 31 for c in mp.CHAINS})  # a warm-up and 30 steps
+    print(f"[25] bench_mxu_probe: launches {got} (expected {want})", flush=True)
+    check(got == want, f"[25] the probe's launches {got}, expected {want}")
+    for chain in mp.CHAINS:
+        bms, by = probe_bound(M, W, L, G, chain)
+        print(f"[25] {chain}: {result[chain]['ms']:.3f} ms against a bound of {bms:.3f} ms ({by}); plain"
+              f" {result[chain]['plain_ms']:.3f} ms; library products {result[chain]['library_ms']} ms ({card})",
+              flush=True)
+    return errs, got, result
+
+
 def kernel_times(dev, card: str) -> dict:
     """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16 and 17 alone,
     bf16, at those phases' shapes (CUDA events, 5 launches after a warm-up),
@@ -2279,6 +2598,11 @@ def main() -> int:
     mem_launches, _, _ = phase_memory_saving(dev, card, step_ms, step_peaks, tto_ms)
     print(f"    phases 22-23: {time.perf_counter() - t_start:.0f} s", flush=True)
 
+    # 24-25. kernel 1b (the fused render from PE rows, training modes and d_x0) and the matrix-unit probe
+    x0_t, x0_fwd_err, x0_bwd_err, x0_launches, _ = phase_x0_kernels([(field, nerf_cfg), (field32, nerf32)], dev, card)
+    probe_err, probe_launches, probe = phase_mxu_probe(dev, card)
+    print(f"    phases 24-25: {time.perf_counter() - t_start:.0f} s", flush=True)
+
     # the least time the card could take for each timed call, from its shapes
     st1 = train_static(nerf_cfg, "bfloat16", 1)
     st2 = train_static(nerf_cfg, "bfloat16", 2)._replace(param_grads=False)
@@ -2301,6 +2625,11 @@ def main() -> int:
     bounds["rec_fwd"] = render_bound(field, st1._replace(save_chain=False), CHUNK, 256, "fwd")
     bounds["rec_bwd"] = render_bound(field, st1._replace(save_chain=False), CHUNK, 256, "recompute")
     bounds["rec_frozen"] = render_bound(field, st2._replace(save_chain=False), CHUNK, 256, "recompute")
+    in0 = nerf_cfg.in_channels_xyz
+    bounds["x0_fwd"] = render_bound(field, st1, CHUNK, 256, "fwd", x0_in0=in0)
+    bounds["x0_bwd"] = render_bound(field, st1, CHUNK, 256, "bwd", x0_in0=in0)
+    for chain in ("pure", "epi", "int8"):
+        bounds[f"probe_{chain}"] = probe_bound(*PROBE_SHAPE, chain)
     st1_32 = train_static(nerf32, "bfloat16", 1)
     st2_32 = train_static(nerf32, "bfloat16", 2)._replace(param_grads=False)
     bounds.update({  # the F = 32 instances at the same shapes (printed only)
@@ -2309,6 +2638,9 @@ def main() -> int:
         "heads_fwd, F=32": heads_bound(field32, nerf32, heads_rows, True, "fwd"),
         "heads_bwd, F=32": heads_bound(field32, nerf32, heads_rows, True, "bwd"),
         "static_render, F=32": render_bound(field32, st2_32, CHUNK, 256, "static"),
+        # kernel 1b at the benchmark's 2048 x 384, the saved chain (printed only)
+        "x0_fwd, 2048 x 384": render_bound(field, st1, TRAIN_RAYS, 384, "fwd", x0_in0=in0),
+        "x0_bwd, 2048 x 384": render_bound(field, st1, TRAIN_RAYS, 384, "bwd", x0_in0=in0),
     })
     for name, (ms, by) in bounds.items():
         print(f"    bound of {name}: {ms:.3f} ms ({by})", flush=True)
@@ -2470,6 +2802,47 @@ def main() -> int:
             "bound_by": bounds["rec_frozen"][1],
             "library_ms": None,
         },
+        {
+            "name": "render_train_x0_fwd",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/render_train_fwd.cu",
+            "replaces": "upnerf/ops/pallas_render_train.py:555",
+            "launches": x0_launches["x0_fwd"],
+            "max_abs_err": x0_fwd_err,
+            "ms": x0_t[("fwd", CHUNK, 256)][0],
+            "plain_ms": x0_t[("fwd", CHUNK, 256)][1],
+            "bound_ms": bounds["x0_fwd"][0],
+            "bound_by": bounds["x0_fwd"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "render_train_x0_bwd",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/render_train_bwd.cu",
+            "replaces": "upnerf/ops/pallas_render_train.py:671",
+            "launches": x0_launches["x0_bwd"],
+            "max_abs_err": x0_bwd_err,
+            "ms": x0_t[("bwd", CHUNK, 256)][0],
+            "plain_ms": x0_t[("bwd", CHUNK, 256)][1],
+            "bound_ms": bounds["x0_bwd"][0],
+            "bound_by": bounds["x0_bwd"][1],
+            "library_ms": None,
+        },
+    ] + [
+        {
+            "name": f"mxu_probe_{label}",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/mxu_probe.cu",
+            "replaces": f"scripts/bench_mxu_probe.py:{line}",
+            "launches": probe_launches[f"probe_{chain}"],
+            "max_abs_err": probe_err[chain],
+            "ms": probe[chain]["ms"],
+            "plain_ms": probe[chain]["plain_ms"],
+            "bound_ms": bounds[f"probe_{chain}"][0],
+            "bound_by": bounds[f"probe_{chain}"][1],
+            "library_ms": None,
+        }
+        for chain, label, line in (("pure", "bf16", 48), ("epi", "epi", 58), ("int8", "int8", 98))
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

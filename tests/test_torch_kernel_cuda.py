@@ -3,9 +3,11 @@ on the card, at the brandenburg_gate width (D=8, W=256, skip 4, F=384, HH=128,
 L=10) and at the validation configs' feature widths (F=32, 64): the fused
 forward render, its backward in the train and frozen-model modes, the trunk
 kernel of the fast render's probe and its backward (the feature-less field's),
-the trunk + heads kernels (forward and backward) and the static render from
-PE rows (the x0 mode). Every test here needs an NVIDIA card: it carries the
-`cuda` marker and skips without one.
+the trunk + heads kernels (forward and backward), the static render from
+PE rows (the x0 mode), the fused render from PE rows in every training mode
+with its d_x0 backward (kernel 1b), and the matrix-unit probe's three chains.
+Every test here needs an NVIDIA card: it carries the `cuda` marker and skips
+without one.
 
 This file imports no JAX, so it also runs on a GPU machine without it:
 
@@ -579,3 +581,173 @@ def test_recompute_backward_matches_saved_chain_kernel(cuda_device, precision, p
     torch.cuda.synchronize()
     assert (rt.recompute_launches, rt.recompute_bwd_launches) == (before[0] + 1, before[1] + 1)
     assert torch.isfinite(o.grad).all() and o.grad.abs().max() > 0
+
+
+def x0_args(args, in0=None, seed=0):
+    """The x0 frontend's arguments (x0, z, ray_cond, trunk, heads, st) from a
+    rays mode's: the PE rows of the rays (in0 = 3 + 6L), or seeded rows of
+    width in0 with the trunk's x0 rows cut to it (layer 0 and the skips)."""
+    o, d, z, pe_w, cond, trunk, heads, st = args
+    x0 = rt._pe(o, d, z, pe_w, L)[0].contiguous()
+    if in0 is not None:
+        g = torch.Generator(device=x0.device).manual_seed(seed)
+        x0 = torch.randn((x0.shape[0], in0), generator=g, device=x0.device) * 0.5
+        full = 3 + 6 * L
+        trunk = [(w[:in0].contiguous() if i == 0 else torch.cat([w[:in0], w[full:]]) if i in SKIPS else w, b)
+                 for i, (w, b) in enumerate(trunk)]
+    return x0, z, cond, trunk, heads, st._replace(xyz_L=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in0", [None, 40], ids=["pe", "in0_40"])
+@pytest.mark.parametrize("save_chain", [True, False], ids=["chain", "recompute"])
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("phase", [0, 1, 2])
+def test_x0_forward_and_backward_match_plain(cuda_device, phase, precision, save_chain, in0):
+    """Kernel 1b: the forward with residuals and the d_x0 backward (train and
+    frozen modes) from PE rows, against render_train_plain /
+    render_train_bwd_plain, at the PE width 63 and at in0 = 40 (not 3 + 6L).
+    Forward and residuals as the rays modes; the backward on the saved chain
+    within 1e-4 (f32) / 1e-2 (bf16) of each output's max; the recompute
+    backward against the plain recompute by the float64 witness (weight
+    gradients together; per-row d_x0 and the per-ray cotangents each, with
+    their RMS within 2e-2): ReLU masks flip between the two summation orders,
+    and at 256 x 128 samples one flip moves a bf16 weight gradient by up to
+    ~1.8e-2 of its max, while the witness reads 0.98-1.02 (measured on the
+    card); its weight gradients against the saved-chain kernel's by the max
+    at the saved chain's tolerance (the kernel rebuilds the forward kernel's
+    chain bit for bit: 1e-6 to 3e-4 there). The frozen mode's data cotangents
+    equal the train mode's bit for bit. The saved chain runs at S = 100, a ragged last tile of the
+    d_x0 store. With the PE rows, the outputs also meet the rays mode's
+    kernel."""
+    S = 100 if save_chain else 128
+    if phase == 2:
+        args, c_emb = (*make_inputs(256, S, cuda_device, seed=21), rt.RTStatic(D=D, skips=SKIPS, xyz_L=L,
+                                                                                  precision=precision)), None
+    else:
+        args, c_emb = train_inputs(256, S, cuda_device, phase, precision, seed=21)
+    args = (*args[:-1], args[-1]._replace(save_chain=save_chain))
+    x0, z, cond, trunk, heads, st = x0_args(args, in0, seed=22)
+    before = (rt.x0_launches, rt.x0_bwd_launches, rt.launches, rt.bwd_launches)
+    with torch.no_grad():
+        got, got_res = rt.render_train_fwd(x0, z, cond, trunk, heads, st, c_emb=c_emb, save_res=True)
+        want, want_res = rt.render_train_plain(x0, z, cond, trunk, heads, st, c_emb=c_emb, save_res=True)
+        g = torch.Generator(device=cuda_device).manual_seed(23)
+        cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in want.items()}
+        kb = rt.render_train_bwd(x0, z, cond, trunk, heads, st, c_emb, got_res, cots)
+        kz = rt.render_train_bwd(x0, z, cond, trunk, heads, st._replace(param_grads=False), c_emb, got_res, cots)
+        pb = rt.render_train_bwd_plain(x0, z, cond, trunk, heads, st, c_emb, got_res, cots)
+        f64 = lambda t: None if t is None else t.double()  # noqa: E731
+        p64 = rt.render_train_bwd_plain(f64(x0), f64(z), f64(cond), [(f64(w), f64(b)) for w, b in trunk],
+                                        {k: f64(v) for k, v in heads.items()}, st._replace(precision="float32"),
+                                        f64(c_emb), {k: f64(v) for k, v in got_res.items()},
+                                        {k: f64(v) for k, v in cots.items()})
+        rays = rt.render_train_rays_fwd(*args, c_emb=c_emb) if in0 is None else None
+    torch.cuda.synchronize()
+    assert (rt.x0_launches, rt.x0_bwd_launches, rt.launches, rt.bwd_launches) == (
+        before[0] + 1, before[1] + 2, before[2] + (in0 is None), before[3])  # the plain versions launch nothing
+    tol = TOL[precision]
+    for k in st.out_keys:
+        assert torch.isfinite(got[k]).all(), k
+        if "depth" in k:
+            torch.testing.assert_close(got[k], want[k], rtol=tol, atol=0)
+        else:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=tol)
+        if rays is not None:
+            torch.testing.assert_close(got[k], rays[k], rtol=tol, atol=tol)
+    store_tol = 1e-2 if precision == "bfloat16" else 1e-5  # the chain, feat, c_feat: stored rounded in bf16
+    for k in st.res_keys:
+        rtol = store_tol if k in ("chain", "feat", "cfeat") else tol
+        assert (got_res[k].float() - want_res[k].float()).abs().max() <= rtol * want_res[k].float().abs().max(), k
+    assert kb[0].shape == x0.shape and kz[3] is None and kz[4] is None
+    for a, fz in zip(kb[:3], kz[:3]):
+        assert (a is None and fz is None) or torch.equal(a, fz)
+    btol = 1e-2 if precision == "bfloat16" else 1e-4
+    if not save_chain:  # the weight gradients against the saved-chain kernel's
+        with torch.no_grad():
+            sst = st._replace(save_chain=True)
+            _, sres = rt.render_train_fwd(x0, z, cond, trunk, heads, sst, c_emb=c_emb, save_res=True)
+            ref = rt.render_train_bwd(x0, z, cond, trunk, heads, sst, c_emb, sres, cots)
+    else:
+        ref = pb
+    for (aw, ab), (bw, bb) in zip(kb[3], ref[3]):
+        for a, b in ((aw, bw), (ab, bb)):
+            assert torch.isfinite(a).all() and (a - b).abs().max() <= btol * b.abs().max()
+    for k in st.head_keys:
+        a, b = kb[4][k], ref[4][k].reshape(kb[4][k].shape)
+        assert torch.isfinite(a).all() and (a - b).abs().max() <= btol * b.abs().max(), k
+    if not save_chain:
+        flat = lambda r: torch.cat([t.double().flatten() for wb in r[3] for t in wb]  # noqa: E731
+                                   + [r[4][k].double().flatten() for k in st.head_keys])
+        assert _rms(flat(kb) - flat(p64)) <= 2.0 * _rms(flat(pb) - flat(p64))
+    for a, b, b64 in zip(kb[:3], pb[:3], p64[:3]):
+        if b is None:
+            assert a is None
+            continue
+        assert torch.isfinite(a).all()
+        if save_chain:
+            assert (a - b).abs().max() <= btol * b.abs().max()
+        else:
+            assert _rms(a - b) <= 2e-2 * _rms(b)
+            assert _rms(a - b64) <= 2.0 * max(_rms(b - b64), 1e-12)
+
+
+@pytest.mark.cuda
+def test_render_train_function_launches_both_x0_kernels(cuda_device):
+    args, c_emb = train_inputs(64, 128, cuda_device, 1, "bfloat16", seed=25)
+    x0, z, cond, trunk, heads, st = x0_args(args)
+    x0 = x0.requires_grad_()
+    leaves = [x0, cond.requires_grad_(), trunk[0][0].requires_grad_(), heads["c1c_w"].requires_grad_()]
+    before = (rt.x0_launches, rt.x0_bwd_launches)
+    out = rt.render_train(x0, z, cond, trunk, heads, st, c_emb=c_emb)
+    (out["feat_map"].sum() + out["rgb_map"].sum() + out["s_depth"].sum()).backward()
+    torch.cuda.synchronize()
+    assert (rt.x0_launches, rt.x0_bwd_launches) == (before[0] + 1, before[1] + 1)
+    for t in leaves:
+        assert t.grad is not None and torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+    with pytest.raises(ValueError, match="x0 width"):
+        rt.render_train_fwd(torch.zeros((x0.shape[0], 65), device=cuda_device), z, cond, trunk, heads, st,
+                            c_emb=c_emb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_static_render_kernel_takes_any_x0_width(cuda_device, precision):
+    """Kernel 4 at in0 = 8 (not 3 + 6L) against its plain version."""
+    from upnerf_torch.ops import render as srk
+
+    args = (*make_inputs(96, 128, cuda_device, seed=27), rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision))
+    x0, z, cond, trunk, heads, _ = x0_args(args, in0=8, seed=28)
+    before = srk.launches
+    with torch.no_grad():
+        got = srk.fused_static_render_fwd(x0, z, cond, trunk, heads, SKIPS, precision)
+        want = srk.fused_static_render_plain(x0, z, cond, trunk, heads, SKIPS, precision)
+    torch.cuda.synchronize()
+    assert srk.launches == before + 1
+    tol = TOL[precision]
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=tol)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=tol)
+    torch.testing.assert_close(got[1], want[1], rtol=tol, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["pure", "epi", "int8"])
+def test_mxu_probe_kernel_matches_plain(cuda_device, chain):
+    """The probe's chains at a ragged M (300 rows, 5 tiles), L = 6, 3 copies:
+    int8 bit for bit (exact int32 sums, the same requantisation); bf16 by RMS
+    within 1e-3 of the plain chain's RMS (another summation order flips a
+    rare bf16 rounding, which the next layers carry)."""
+    from upnerf_torch.ops import mxu_probe as mp
+
+    x, ws, b, ws_i8 = (torch.from_numpy(a).to(cuda_device) for a in mp.probe_inputs(300, 256, 6, seed=1))
+    w = ws_i8 if chain == "int8" else ws
+    before = mp.launches[chain]
+    with torch.no_grad():
+        got = mp.mxu_probe(x, w, b, chain, copies=3)
+        want = mp.mxu_probe_plain(x, w, b, chain)
+    torch.cuda.synchronize()
+    assert mp.launches[chain] == before + 1 and got.shape == (300, 256) and torch.isfinite(got).all()
+    if chain == "int8":
+        assert torch.equal(got, want)
+    else:
+        assert _rms(got - want) <= 1e-3 * _rms(want)

@@ -4,7 +4,12 @@
 // through fused_render_train_rays's VJP _vjp_bwd_rays -> _bwd_impl -> pl.pallas_call)
 // with the rays frontend and save_chain (the forward saved the walk chain: trunk
 // activations, xyzf, rgbh, h1, h2), in its training mode (param_grads) and its
-// frozen-model mode (below). Per ray it computes:
+// frozen-model mode (below); and, as its x0 mode (flag X0_IN, every mode), the same
+// kernel behind fused_render_train's VJP (_vjp_bwd -> _bwd_impl): the tile's x0 rows
+// are read from the pre-built PE rows (R*S, in0) where the rays frontend builds them,
+// and step 4 below is replaced by a store of the tile's d_x0 rows (both of x0's
+// segments, layer 0's and the skip layers', summed in DX0), whole rows of in0 floats
+// at consecutive addresses; no d_rays_o / d_rays_d. Per ray it computes:
 //   1. the per-sample inner products p = <feat_s, g_feat>, q = <c_feat_s, g_feat>,
 //      rr = <rgb_s, g_rgb_map>, with feat_s = xyzf_s Wf + bf re-derived from the chain
 //      (as p = xyzf_s (Wf g_feat) + bf g_feat: the same bf16 operands, f32 sums);
@@ -95,6 +100,7 @@ enum Dh {
 
 struct Bwd {
   const float *o, *d, *z, *pe_w, *cemb, *cond;
+  const float* x0;                       // X0_IN: (R*S, in0) PE rows; the rays are null
   const float *g_sw, *g_sdep, *g_rgbm, *g_feat, *g_jw, *g_cdep, *g_tw;  // cotangents, null = 0
   const float *sig_s, *sig_c, *rgb;                                     // residuals
   const void* chain;                     // saved chain (R*S, chain_w); null in the recompute mode
@@ -112,6 +118,7 @@ struct Bwd {
   const float *sigma_w, *csig_w, *feat_b, *cfeat_b;  // feat_b, cfeat_b (FP,)
   const void *feat_w_rm, *cfeat_wT_rm;  // row-major copies for the per-ray vectors, (W, F) and (F, HC)
   float *d_o, *d_d, *d_cond, *d_cemb;
+  float* d_x0;                           // X0_IN: (R*S, in0)
   float* dtw[MAX_D];
   float* dtb[MAX_D];
   float* dh[N_DH];
@@ -168,6 +175,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   const bool pg = !(a.flags & NO_PARAM_GRADS);  // uniform over the block: barriers stay unconditional
   constexpr bool rec = REC;
   const bool res_bf = (a.flags & BF16) && !(a.flags & STORE_F32);  // feat / c_feat residuals in bf16
+  const bool x0_in = a.flags & X0_IN;
   const int col_xyzf = a.D * W, col_rgbh = (a.D + 1) * W, col_h1 = col_rgbh + (rgb ? HH : 0), col_h2 = col_h1 + HC;
   T* blk = rec ? static_cast<T*>(a.scratch) + (size_t)blockIdx.x * BT * a.chain_w : nullptr;
 
@@ -210,8 +218,8 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   float o[3], d[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    o[c] = __ldg(a.o + ray * 3 + c);
-    d[c] = __ldg(a.d + ray * 3 + c);
+    o[c] = x0_in ? 0.f : __ldg(a.o + ray * 3 + c);
+    d[c] = x0_in ? 0.f : __ldg(a.d + ray * 3 + c);
   }
   for (int s = tid; s < S; s += THREADS) {
     const size_t i = (size_t)ray * S + s;
@@ -372,11 +380,22 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
 
   // ---- reverse walk over the saved chain, BT samples at a time ----------------
   for (int s0 = 0; s0 < S; s0 += BT) {
-    // x0 of the tile (rounded as the forward's operand), zero past in0 and the ray's end
-    for (int i = tid; i < BT * MAX_IN0; i += THREADS) {
-      const int r = i / MAX_IN0, j = i - r * MAX_IN0, s = s0 + r;
-      X0[r * LDX0 + j] = from_float<T>((j < a.in0 && s < S) ? pe_value(o, d, zs[s], j, a.L, a.pe_w) : 0.f);
-      DX0[i] = 0.f;
+    // x0 of the tile (rounded as the forward's operand), zero past in0 and the ray's end:
+    // read from the PE rows in the x0 mode, built from the ray otherwise. One loop for
+    // each: a branch inside one loop cost the bf16 F = 384 saved-chain instance 8 bytes
+    // of register spills in its walk (ptxas), and its frozen mode ~4% (measured on one H100).
+    if (x0_in) {
+      for (int i = tid; i < BT * MAX_IN0; i += THREADS) {
+        const int r = i / MAX_IN0, j = i - r * MAX_IN0, s = s0 + r;
+        X0[r * LDX0 + j] = from_float<T>(j < a.in0 && s < S ? __ldg(a.x0 + ((size_t)ray * S + s) * a.in0 + j) : 0.f);
+        DX0[i] = 0.f;
+      }
+    } else {
+      for (int i = tid; i < BT * MAX_IN0; i += THREADS) {
+        const int r = i / MAX_IN0, j = i - r * MAX_IN0, s = s0 + r;
+        X0[r * LDX0 + j] = from_float<T>((j < a.in0 && s < S) ? pe_value(o, d, zs[s], j, a.L, a.pe_w) : 0.f);
+        DX0[i] = 0.f;
+      }
     }
     auto row_coef = [&](const float* v, int r) { return s0 + r < S ? v[s0 + r] : 0.f; };
     auto load = [&](T* dst, int col0, int ncols) { load_chain<T, REC>(dst, LDA, a, blk, ray, s0, col0, ncols); };
@@ -569,6 +588,18 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
     }
     __syncthreads();
 
+    if (x0_in) {
+      // the tile's d_x0 rows past the ray's end are not stored; consecutive threads take
+      // consecutive floats of the tile's contiguous rows
+      const int n = min(BT, S - s0) * a.in0;
+      float* dst = a.d_x0 + ((size_t)ray * S + s0) * a.in0;
+      for (int i = tid; i < n; i += THREADS) {
+        const int r = i / a.in0, j = i - r * a.in0;
+        dst[i] = DX0[r * MAX_IN0 + j];
+      }
+      __syncthreads();  // the next tile zeroes DX0
+      continue;
+    }
     // PE backward: dx0 -> dxyz per sample (into GX, free here), then d_o += dxyz and
     // d_d += dxyz z summed in sample order by one thread per output (no atomics)
     if (tid < BT * 3) {
@@ -597,7 +628,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   }
 
   // ---- per-ray outputs ------------------------------------------------------
-  if (tid < 3) {
+  if (tid < 3 && !x0_in) {
     a.d_o[ray * 3 + tid] = misc[tid];
     a.d_d[ray * 3 + tid] = misc[3 + tid];
   }
@@ -652,16 +683,19 @@ int launch(const Bwd& a, int grid, cudaStream_t stream) {
 extern "C" {
 
 // Returns 0, a cudaError_t (> 0) from the launch, or a negative Status.
-// ins: rays_o, rays_d, z_vals, pe_w, c_emb, ray_cond. cots: s_weights, s_depth, rgb_map,
+// ins: rays_o, rays_d, z_vals, pe_w, c_emb, ray_cond, x0 (the rays and pe_w null in the
+// x0 mode, flag X0_IN; x0 null otherwise). L: the PE bands of the rays frontend (in0 =
+// 3 + 6L); in0: x0's width, 1..64 in the x0 mode (L is not read there). cots: s_weights, s_depth, rgb_map,
 // feat_map, j_weights, c_depth, t_weight (null = zero). res: sig_s, sig_c, rgb, chain,
 // feat, c_feat (the chain with the saved chain; feat, c_feat (R*S, F) in the store dtype
 // in the recompute mode, flag RECOMPUTE).
-// trunk_t: per layer W^T (W, in_pad) in the compute dtype, x0 padded to 64 columns.
+// trunk_t: per layer W^T (W, in_pad) in the compute dtype, x0's in0 columns padded to 64.
 // w: xyzf_w^T, feat_w, feat_w^T, rgb1_w^T, rgb2_w^T, c1x_w^T, c1c_w, c2_w^T,
 // cfeat_w^T (compute dtype), sigma_w, csig_w, feat_b, cfeat_b (f32), then the
 // row-major feat_w (W, F) and cfeat_w^T (F, HC); the feature dimension of the product
 // matrices and of feat_b, cfeat_b zero-padded from F to FP (render_common.cuh:
-// feat_pad). outs: d_rays_o, d_rays_d, d_ray_cond, d_c_emb. dtw / dtb: trunk weight
+// feat_pad). outs: d_rays_o, d_rays_d, d_ray_cond, d_c_emb, d_x0 (d_rays null in the x0 mode, d_x0
+// otherwise). dtw / dtb: trunk weight
 // (padded rows) and bias gradients, dh: head gradients in HEAD_KEYS order, feat_w,
 // feat_b, rgb1_w, cfeat_w and cfeat_b at FP; all f32 and zeroed by the caller, and
 // never touched (null allowed) when flags has NO_PARAM_GRADS. F: a built feature width.
@@ -675,11 +709,13 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
                             const void* const* trunk_t, int D, unsigned skip_mask, const void* const* w,
                             const void* const* tw, const void* const* tb, const void* const* rw, void* const* outs,
                             void* const* dtw, void* const* dtb, void* const* dh, void* scratch, int R, int S, int L,
-                            int C, int F, int flags, int grid, void* stream) {
-  const int in0 = 3 + 6 * L;
-  const bool rec = flags & RECOMPUTE;
-  if (R <= 0 || S <= 0 || L <= 0 || in0 > MAX_IN0 || D <= 0 || D > MAX_D || C < 0 || C > MAX_C) return BAD_SHAPE;
+                            int in0, int C, int F, int flags, int grid, void* stream) {
+  const bool rec = flags & RECOMPUTE, x0_in = flags & X0_IN;
+  if (R <= 0 || S <= 0 || (x0_in ? in0 <= 0 : (L <= 0 || in0 != 3 + 6 * L)) || in0 > MAX_IN0 || D <= 0 ||
+      D > MAX_D || C < 0 || C > MAX_C)
+    return BAD_SHAPE;
   if (!(flags & (USE_RGB | OUT_FEAT)) || ((flags & USE_CAND) && C == 0)) return BAD_MODE;
+  if (x0_in ? (!ins[6] || !outs[4]) : (!ins[0] || !ins[1] || !ins[3] || !outs[0] || !outs[1])) return BAD_MODE;
   if (rec ? (!tw || !tb || !rw || !scratch || grid <= 0 || grid > R) : (grid != R || !res[3])) return BAD_MODE;
   Bwd a = {};
   a.o = static_cast<const float*>(ins[0]);
@@ -688,6 +724,7 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
   a.pe_w = static_cast<const float*>(ins[3]);
   a.cemb = static_cast<const float*>(ins[4]);
   a.cond = static_cast<const float*>(ins[5]);
+  a.x0 = static_cast<const float*>(ins[6]);
   a.g_sw = static_cast<const float*>(cots[0]);
   a.g_sdep = static_cast<const float*>(cots[1]);
   a.g_rgbm = static_cast<const float*>(cots[2]);
@@ -740,6 +777,7 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
   a.d_d = static_cast<float*>(outs[1]);
   a.d_cond = static_cast<float*>(outs[2]);
   a.d_cemb = static_cast<float*>(outs[3]);
+  a.d_x0 = static_cast<float*>(outs[4]);
   for (int k = 0; k < N_DH; ++k) a.dh[k] = static_cast<float*>(dh[k]);
   a.D = D;
   a.skips = skip_mask & ~1u;
@@ -762,11 +800,14 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
 const char* upnerf_error_string(int code) {
   switch (code) {
     case OK: return "ok";
-    case BAD_SHAPE: return "unsupported shape (W=256, F in {32, 64, 384}, HH=128, HC=128; 3 + 6L <= 64; D <= 16; C <= 32)";
+    case BAD_SHAPE:
+      return "unsupported shape (W=256, F in {32, 64, 384}, HH=128, HC=128; x0 width 3 + 6L from rays, 1..64 read;"
+             " D <= 16; C <= 32)";
     case BAD_SMEM: return "too many samples per ray for shared memory";
     case BAD_MODE:
       return "unsupported mode (needs use_rgb or out_feat; the candidate branch needs C > 0; the recompute mode"
-             " needs its weights, a scratch and 0 < grid <= R, the saved-chain mode the chain and grid = R)";
+             " needs its weights, a scratch and 0 < grid <= R, the saved-chain mode the chain and grid = R; the x0"
+             " mode needs x0 and d_x0, the rays mode the rays, pe_w, d_rays_o and d_rays_d)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -2,11 +2,12 @@
 //
 // Replaces the TPU kernel upnerf/ops/pallas_render_train.py:_fwd_kernel (reached
 // through fused_render_train_rays -> _fwd_impl -> pl.pallas_call), rays frontend
-// (xyz_L > 0), and, as its x0 mode (flag X0_IN), the TPU kernel
-// upnerf/ops/pallas_render.py:_fwd_kernel (fused_static_render -> _render_impl ->
-// pl.pallas_call): the phase-2 static render from pre-built PE rows x0 (R*S, 3 + 6L),
-// which the kernel reads in place of building them; everything after the frontend is
-// the serving mode (USE_RGB alone). Per ray r and sample s:
+// (xyz_L > 0), and, as its x0 mode (flag X0_IN), the same TPU kernel's x0 frontend
+// (fused_render_train -> _fwd_impl, every training mode, with or without residuals)
+// and upnerf/ops/pallas_render.py:_fwd_kernel (fused_static_render -> _render_impl ->
+// pl.pallas_call, the phase-2 static render): the kernel reads pre-built PE rows x0
+// (R*S, in0), in0 <= 64 the caller's width, in place of building them; everything
+// after the frontend is the same. Per ray r and sample s:
 //
 //   xyz  = o + d * z_s
 //   x0   = [xyz, sin(2^l pi x_c) w_l .. , cos(2^l pi x_c) w_l ..]   (per coordinate c)
@@ -55,7 +56,7 @@
 // memory as bf16 (in this mode every stored tile is read only as a matmul operand,
 // so rounding at the store is the rounding JAX's dot(bf16, bf16,
 // preferred_element_type=f32) applies); weights arrive as bf16 packed in the order
-// the tensor-core fragments read them, with x0's 3 + 6L columns padded to 64. Each
+// the tensor-core fragments read them, with x0's in0 columns padded to 64. Each
 // layer is mma.sync m16n8k16 with f32 accumulation: the 8 warps split the output
 // columns, each warp covers all 64 rows (A fragments by ldmatrix, B fragments
 // straight from L2 as one coalesced 64-bit load each, 3 k-steps ahead). ~100 KB of
@@ -129,7 +130,7 @@ struct Rays {
   void* cfeat_res;         // (R*S, F) residual (RECOMPUTE, USE_CAND)
   int chain_w;
   int R, S, L, C;
-  int in0;                 // 3 + 6L
+  int in0;                 // x0 columns: 3 + 6L from rays, the caller's width with X0_IN
   int flags;
 };
 
@@ -741,7 +742,8 @@ extern "C" {
 
 // Returns 0, a cudaError_t (> 0) from the launch, or a negative Status.
 // ins: rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, x0 (f32; rays_o, rays_d and
-// pe_w null in the x0 mode, x0 null otherwise). heads: the 18 head
+// pe_w null in the x0 mode, x0 null otherwise). L: the PE bands of the rays frontend
+// (in0 = 3 + 6L); in0: x0's width, 1..64 in the x0 mode (L is not read there). heads: the 18 head
 // tensors in upnerf_torch/ops/render_train.py:HEAD_KEYS order (null where the mode
 // reads none). outs: s_weights, s_depth, rgb_map, feat_map, j_weights, c_depth,
 // t_weight, then the residuals sig_s, sig_c, rgb, chain, feat, c_feat (null where
@@ -749,7 +751,7 @@ extern "C" {
 // layouts: float32 mode takes every matrix (in, out) in f32. bfloat16 mode takes the
 // trunk, xyzf, feat, rgb1, c1x, c2 and cfeat matrices in bf16 packed in fragment
 // order (_pack_fragments), with the x0 rows of layer 0 and of the skip layers
-// zero-padded from 3 + 6L to 64; sigma, rgb2, csig and c1c stay (in, out), in bf16.
+// zero-padded from in0 to 64; sigma, rgb2, csig and c1c stay (in, out), in bf16.
 // Biases are f32. The feature weights feat_w, rgb1_w, cfeat_w and the biases feat_b,
 // cfeat_b come zero-padded from F to the product width FP (render_common.cuh:
 // feat_pad) in both modes; feat_map has F columns. F: the feature width, one of the
@@ -757,11 +759,13 @@ extern "C" {
 // render_common.cuh.
 int upnerf_render_train_fwd(const void* const* ins, const void* const* trunk_w, const void* const* trunk_b, int D,
                             unsigned skip_mask, const void* const* heads, void* const* outs, int R, int S, int L,
-                            int C, int F, int flags, void* stream) {
-  const int in0 = 3 + 6 * L;
-  if (R <= 0 || S <= 0 || L <= 0 || in0 > MAX_IN0 || D <= 0 || D > MAX_D || C < 0 || C > MAX_C) return BAD_SHAPE;
+                            int in0, int C, int F, int flags, void* stream) {
+  const bool x0_in = flags & X0_IN;
+  if (R <= 0 || S <= 0 || (x0_in ? in0 <= 0 : (L <= 0 || in0 != 3 + 6 * L)) || in0 > MAX_IN0 || D <= 0 ||
+      D > MAX_D || C < 0 || C > MAX_C)
+    return BAD_SHAPE;
   if (!(flags & (USE_RGB | OUT_FEAT)) || ((flags & USE_CAND) && C == 0)) return BAD_MODE;
-  if ((flags & X0_IN) && (!(flags & USE_RGB) || (flags & (OUT_FEAT | USE_CAND | SAVE_RES)) || !ins[6])) return BAD_MODE;
+  if (x0_in ? !ins[6] : (!ins[0] || !ins[1] || !ins[3])) return BAD_MODE;
   if ((flags & SAVE_RES) && ((flags & RECOMPUTE) ? !outs[11] || ((flags & USE_CAND) && (flags & OUT_FEAT) && !outs[12])
                                                  : !outs[10]))
     return BAD_MODE;
@@ -831,11 +835,13 @@ int upnerf_render_train_fwd(const void* const* ins, const void* const* trunk_w, 
 const char* upnerf_error_string(int code) {
   switch (code) {
     case OK: return "ok";
-    case BAD_SHAPE: return "unsupported shape (W=256, F in {32, 64, 384}, HH=128, HC=128; 3 + 6L <= 64; D <= 16; C <= 32)";
+    case BAD_SHAPE:
+      return "unsupported shape (W=256, F in {32, 64, 384}, HH=128, HC=128; x0 width 3 + 6L from rays, 1..64 read;"
+             " D <= 16; C <= 32)";
     case BAD_SMEM: return "too many samples per ray for shared memory";
     case BAD_MODE:
-      return "unsupported mode (needs use_rgb or out_feat; the candidate branch needs C > 0; the x0 mode is the"
-             " serving mode)";
+      return "unsupported mode (needs use_rgb or out_feat; the candidate branch needs C > 0; the x0 mode needs x0,"
+             " the rays mode rays_o, rays_d and pe_w)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd", "heads_fwd", "heads_bwd")
+KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd", "heads_fwd", "heads_bwd", "mxu_probe")
 # name: (source, nvcc flags). heads_bwd without its weight-gradient atomic adds
 # (walk_common.cuh:skip_dw_add): chip_smoke.py phase 16 times the adds' share.
 VARIANTS = {"heads_bwd_no_dw_adds": ("heads_bwd", ("-DUPNERF_SKIP_DW_ADDS",))}
@@ -99,12 +99,12 @@ def build() -> Dict[str, BuildInfo]:
 
 
 _ARGTYPES = {
-    # ins, trunk W, trunk b, D, skip mask, heads, outs, R, S, L, C, F, flags, stream
-    "upnerf_render_train_fwd": ["pp", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "i", "p"],
+    # ins, trunk W, trunk b, D, skip mask, heads, outs, R, S, L, in0, C, F, flags, stream
+    "upnerf_render_train_fwd": ["pp", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "i", "i", "p"],
     # ins, cots, res, trunk W^T, D, skip mask, weights, trunk W, trunk b, recompute heads (the last three null with
-    # the saved chain), outs, dW trunk, db trunk, d heads, scratch, R, S, L, C, F, flags, grid, stream
+    # the saved chain), outs, dW trunk, db trunk, d heads, scratch, R, S, L, in0, C, F, flags, grid, stream
     "upnerf_render_train_bwd": ["pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "pp", "pp", "pp", "p",
-                                "i", "i", "i", "i", "i", "i", "i", "p"],
+                                "i", "i", "i", "i", "i", "i", "i", "i", "p"],
     # q, k, v, o, G, N, hd, scale, use_bf16, stream
     "upnerf_flash_attn_fwd": ["p", "p", "p", "p", "i", "i", "i", "f", "i", "p"],
     # x0, c_emb, trunk W, trunk b, D, skip mask, heads (null: the trunk alone), outs, N, in0, C, F, use_bf16, stream
@@ -113,6 +113,8 @@ _ARGTYPES = {
     # dW trunk, db trunk, d heads, scratch, N, in0, C, F, use_bf16, grid, stream
     "upnerf_heads_bwd": ["p", "p", "pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "pp", "p", "i", "i",
                          "i", "i", "i", "i", "p"],
+    # x, packed weights (L layers), bias, out, M, W, L, copies, chain, stream
+    "upnerf_mxu_probe": ["p", "p", "p", "p", "i", "i", "i", "i", "i", "p"],
 }
 
 

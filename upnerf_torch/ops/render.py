@@ -1,7 +1,7 @@
 """Fused phase-2 static render from pre-built PE rows
 (upnerf/ops/pallas_render.py:fused_static_render).
 
-Per ray r and sample s, from x0 (R*S, 3 + 6L):
+Per ray r and sample s, from x0 (R*S, in0):
   h = trunk(x0), sigma = softplus(h Ws + bs), feat = (h Wx + bx) Wf + bf,
   rgb = sigmoid(relu(feat Wr1 + ray_cond_r) Wr2 + br2),
   alpha = 1 - exp(-delta sigma) (last delta 1e2), w = alpha T,
@@ -13,7 +13,8 @@ Per ray r and sample s, from x0 (R*S, 3 + 6L):
 - `fused_static_render_fwd` is the wrapper: on CPU tensors the plain version,
   on CUDA tensors the x0 mode of the fused render kernel
   (`csrc/render_train_fwd.cu`, flag X0_IN: the serving mode with the PE rows
-  read instead of built) or an error. The kernel builds T as
+  read instead of built; any width in0 <= 64, as pallas_render.py:200 takes
+  x0.shape[1]) or an error. The kernel builds T as
   exp(-sum_{t<s} delta_t sigma_t), the TPU kernel as
   exp(excl_cumsum(log(max(1 - alpha, 1e-24)))); the two agree until
   delta sigma passes ~55, where T is 0 to f32 in both. Launches are counted in
@@ -39,7 +40,6 @@ from upnerf_torch.ops.linear import canonical_precision, matmul
 from upnerf_torch.ops.mlp import fused_trunk_plain
 
 HEAD_KEYS = ("sigma_w", "sigma_b", "xyzf_w", "xyzf_b", "feat_w", "feat_b", "rgb1_w", "rgb2_w", "rgb2_b")
-X0_IN = 128  # render_common.cuh:Flag
 
 # Kernel launches made in this process by fused_static_render_fwd.
 launches = 0
@@ -66,69 +66,26 @@ def fused_static_render_plain(
     return (w[..., None] * rgb).sum(1), (w * z_vals).sum(1, keepdim=True), w
 
 
-def _check_args(x0, z_vals, ray_cond, trunk, head, skips) -> int:
-    """Device, dtype and shape checks of what the kernel reads; returns L."""
-    R, S = z_vals.shape
-    in0 = x0.shape[1]
-    L = (in0 - 3) // 6
-    W, HH, F = rt.KERNEL_WIDTHS["W"], rt.KERNEL_WIDTHS["HH"], head["feat_b"].shape[0]
-    rt.check_feat_width(F)
-    if in0 != 3 + 6 * L or in0 > rt.X0_PAD or not 0 < len(trunk) <= 16:
-        raise ValueError(f"the CUDA render kernel takes x0 of 3 + 6L <= {rt.X0_PAD} columns and D <= 16;"
-                         f" got {in0} columns, D = {len(trunk)}")
-    shapes = {"sigma_w": (W, 1), "sigma_b": (1,), "xyzf_w": (W, W), "xyzf_b": (W,), "feat_w": (W, F),
-              "feat_b": (F,), "rgb1_w": (F, HH), "rgb2_w": (HH, 3), "rgb2_b": (3,)}
-    named = [("x0", x0, (R * S, in0)), ("z_vals", z_vals, (R, S)), ("ray_cond", ray_cond, (R, HH))]
-    for i, (w, b) in enumerate(trunk):
-        fan_in = in0 if i == 0 else (in0 + W if i in skips else W)
-        named += [(f"trunk[{i}].w", w, (fan_in, W)), (f"trunk[{i}].b", b, (W,))]
-    named += [(k, head[k], shapes[k]) for k in HEAD_KEYS]
-    for name, t, shape in named:
-        if t.device != x0.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {t.device} {t.dtype} {tuple(t.shape)}; the kernel takes {x0.device}"
-                             f" torch.float32 {shape} (W = {W}, F = {F}, HH = {HH})")
-    return L
-
-
 def fused_static_render_fwd(x0, z_vals, ray_cond, trunk, head, skips, precision: str = "float32"):
     """(rgb_map (R, 3), depth (R, 1), weights (R, S)): the plain version for CPU
-    tensors, the x0 mode of the CUDA render kernel for CUDA tensors. The kernel
-    takes W = 256, F in render_train.KERNEL_F, HH = 128, 3 + 6L <= 64, D <= 16
-    and computes no gradient (train through `fused_static_render`)."""
+    tensors, the x0 mode of the CUDA render kernel for CUDA tensors (the serving
+    mode of render_train's x0 frontend). The kernel takes W = 256, F in
+    render_train.KERNEL_F, HH = 128, in0 <= 64, D <= 16 and computes no
+    gradient (train through `fused_static_render`)."""
     if x0.device.type == "cpu":
         return fused_static_render_plain(x0, z_vals, ray_cond, trunk, head, skips, precision)
     if x0.device.type != "cuda":
         raise ValueError(f"no render kernel for device {x0.device}")
     global launches
-    from upnerf_torch.ops import _build
-
-    L = _check_args(x0, z_vals, ray_cond, trunk, head, skips)
-    tensors = [x0, ray_cond, *head.values()] + [t for wb in trunk for t in wb]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("the CUDA render kernel is forward-only: run it under torch.no_grad()"
-                           " or through fused_static_render")
     R, S = z_vals.shape
-    st = rt.RTStatic(D=len(trunk), skips=tuple(skips), xyz_L=L, precision=precision)
-    F = head["feat_b"].shape[0]
-    FP = rt.feat_pad(F, canonical_precision(precision) == "bfloat16")
-    ktrunk, kheads = rt._kernel_weights(trunk, rt.pad_feat({k: head[k] for k in st.head_keys}, FP), st)
-    dev = x0.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    w, depth, rgb_map = torch.empty((R, S), **f32), torch.empty((R,), **f32), torch.empty((R, 3), **f32)
-    ins = [None, None, z_vals.contiguous(), None, ray_cond.contiguous(), None, x0.contiguous()]
-    outs = [w, depth, rgb_map] + [None] * 10
-    lib = _build.library("render_train_fwd")
-    skip_mask = sum(1 << i for i in skips if 0 < i < len(trunk))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        code = lib.upnerf_render_train_fwd(
-            rt._ptrs(ins), rt._ptrs([k for k, _ in ktrunk]), rt._ptrs([b for _, b in ktrunk]), len(trunk), skip_mask,
-            rt._ptrs([kheads.get(k) for k in rt.HEAD_KEYS]), rt._ptrs(outs), R, S, L, 0, F,
-            rt._flags(st, False) | X0_IN, stream,
-        )
-    rt._raise_on(code, "render_train_fwd (x0 mode)", lib)
+    in0 = x0.shape[1]
+    st = rt.RTStatic(D=len(trunk), skips=tuple(skips), xyz_L=0, precision=precision)
+    rt._check_kernel_args({"x0": (x0, (R * S, in0))}, in0, z_vals, ray_cond, None, trunk, head, st)
+    rt._refuse_grad([x0, ray_cond, *head.values()] + [t for wb in trunk for t in wb], "fused_static_render")
+    out, _ = rt._launch_fwd([None, None, z_vals, None, ray_cond, None, x0], in0, 0, z_vals, ray_cond, trunk, head, st,
+                            None, False, True)
     launches += 1
-    return rgb_map, depth[:, None], w
+    return out["rgb_map"], out["s_depth"][:, None], out["s_weights"]
 
 
 class FusedStaticRender(torch.autograd.Function):

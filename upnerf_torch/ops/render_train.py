@@ -1,39 +1,46 @@
 """Fused render of one NeRF pass, forward and backward
-(upnerf/ops/pallas_render_train.py, rays frontend).
+(upnerf/ops/pallas_render_train.py), from rays or from pre-built PE rows.
 
-Per ray: xyz = o + d z and the annealed PE, the D-layer trunk, the sigma /
-xyz_final / feat / rgb heads, the candidate branch (h1 = relu(xyzf @ c1x_w +
-c_emb @ c1c_w + c1_b), h2, c_sigma, c_feat) and both compositing branches
-(s-only and joint). RTStatic selects the mode, as in the JAX kernel:
+Per ray: xyz = o + d z and the annealed PE (the rays frontend; the x0
+frontend reads the PE rows x0 (R*S, in0) instead), the D-layer trunk, the
+sigma / xyz_final / feat / rgb heads, the candidate branch (h1 = relu(xyzf @
+c1x_w + c_emb @ c1c_w + c1_b), h2, c_sigma, c_feat) and both compositing
+branches (s-only and joint). RTStatic selects the mode, as in the JAX kernel:
 phase 0 (use_cand, out_feat), phase 1 (use_cand, use_rgb, out_feat), phase 2
 (use_rgb). Outputs, in RTStatic.out_keys: s_weights (R, S), s_depth (R,),
 rgb_map (R, 3), feat_map (R, F), j_weights (R, S), c_depth (R,), t_weight (R,).
 
-- `render_train_rays_plain` is the plain PyTorch forward (the JAX package's
-  XLA twin `xla_render_train_rays`, compositing by cumprod). With
-  `save_res=True` it also returns the residuals the backward reads, in
-  RTStatic.res_keys: the sigmas (f32), the per-sample rgb and, with
-  save_chain, the walk chain (trunk activations, xyzf, rgbh, h1, h2) in the
-  compute dtype; without it (the recompute mode) the per-sample feat and
-  c_feat in the store dtype instead.
-- `render_train_rays_bwd_plain` is the plain backward: `_bwd_kernel` step by
-  step, with its division-free compositing formulas and its roundings (in
-  bf16 mode every product rounds both operands, the cotangent included). In
-  the recompute mode it rebuilds the walk chain from the PE, with rgbh from
-  the stored feat.
-- `render_train_rays_fwd` / `render_train_rays_bwd` are the wrappers: on CPU
-  tensors they run the plain versions; on CUDA tensors they launch the
-  hand-written kernels (`csrc/render_train_fwd.cu`, `csrc/render_train_bwd.cu`)
-  or raise. They count their launches in `launches`, `bwd_launches` and
-  (the backward's frozen-model mode) `frozen_bwd_launches`; in the recompute
-  mode, the forward with residuals and both backward modes in
-  `recompute_launches`, `recompute_bwd_launches` and
-  `recompute_frozen_bwd_launches` instead.
-- `RenderTrainRays` is the autograd.Function of the training path: its
-  forward runs the forward with residuals, its backward the backward. It
-  returns gradients for rays_o, rays_d, ray_cond, c_emb and every weight, and
-  None for z_vals and pe_w (neither has a trainable ancestor in training).
-  With RTStatic.param_grads = False (the frozen-model mode that test-time
+- `render_train_plain` is the plain PyTorch forward from x0 (the JAX
+  package's XLA twin `xla_render_train`, compositing by cumprod), and
+  `render_train_rays_plain` the same behind the PE of the rays
+  (`xla_render_train_rays`). With `save_res=True` they also return the
+  residuals the backward reads, in RTStatic.res_keys: the sigmas (f32), the
+  per-sample rgb and, with save_chain, the walk chain (trunk activations,
+  xyzf, rgbh, h1, h2) in the compute dtype; without it (the recompute mode)
+  the per-sample feat and c_feat in the store dtype instead.
+- `render_train_bwd_plain` is the plain backward down to d_x0 (R*S, in0):
+  `_bwd_kernel` step by step, with its division-free compositing formulas and
+  its roundings (in bf16 mode every product rounds both operands, the
+  cotangent included). In the recompute mode it rebuilds the walk chain from
+  x0, with rgbh from the stored feat. `render_train_rays_bwd_plain` is it on
+  the PE rows followed by the PE backward (`_pe_bwd`) down to d_rays_o /
+  d_rays_d.
+- `render_train_rays_fwd` / `render_train_rays_bwd` and `render_train_fwd` /
+  `render_train_bwd` are the wrappers of the two frontends: on CPU tensors
+  they run the plain versions; on CUDA tensors they launch the hand-written
+  kernels (`csrc/render_train_fwd.cu`, `csrc/render_train_bwd.cu`; the x0
+  frontend is their X0_IN mode, any in0 <= 64) or raise. The rays frontend
+  counts its launches in `launches`, `bwd_launches` and (the backward's
+  frozen-model mode) `frozen_bwd_launches`; in the recompute mode, the
+  forward with residuals and both backward modes in `recompute_launches`,
+  `recompute_bwd_launches` and `recompute_frozen_bwd_launches` instead. The x0
+  frontend counts every mode's in `x0_launches` and `x0_bwd_launches`.
+- `RenderTrainRays` and `RenderTrain` are the autograd.Functions of the two
+  frontends (the JAX kernel's custom VJPs): the forward runs the forward with
+  residuals, the backward the backward. They return gradients for rays_o and
+  rays_d, or x0, and for ray_cond, c_emb and every weight, and None for z_vals
+  and pe_w (neither has a trainable ancestor in training). With
+  RTStatic.param_grads = False (the frozen-model mode that test-time
   optimization runs) the backward computes the data cotangents only and
   returns None for every weight; a weight that requires grad is refused.
 
@@ -63,7 +70,7 @@ HEAD_KEYS = HEAD_BASE + HEAD_FEAT + HEAD_RGB + HEAD_CAND  # the kernels' pointer
 RES_ORDER = ("sig_s", "sig_c", "rgb", "chain", "feat", "cfeat")  # the kernels' residual pointer order
 # The forward-layout weights the recompute backward rebuilds the chain with (besides the trunk's).
 RECOMPUTE_KEYS = ("xyzf_w", "xyzf_b", "rgb1_w", "c1x_w", "c1_b", "c2_w", "c2_b")
-X0_PAD = 64  # the kernels' x0 width: 3 + 6L padded to a multiple of 16
+X0_PAD = 64  # the kernels' x0 width: in0 (3 + 6L from rays) padded to a multiple of 16
 # The widths the CUDA kernels take (configs/brandenburg_gate.yaml, configs/validation/),
 # and the feature widths they are built for (render_common.cuh:feat_pad).
 KERNEL_WIDTHS = {"W": 256, "HH": 128, "HC": 128}
@@ -79,6 +86,9 @@ frozen_bwd_launches = 0
 recompute_launches = 0
 recompute_bwd_launches = 0
 recompute_frozen_bwd_launches = 0
+# Kernel launches made by render_train_fwd / render_train_bwd (the x0 frontend), in every mode.
+x0_launches = 0
+x0_bwd_launches = 0
 
 
 class RTStatic(NamedTuple):
@@ -190,11 +200,9 @@ def _cumprod_weights(alphas: torch.Tensor):
     return T, alphas * T
 
 
-def render_train_rays_plain(
-    rays_o: torch.Tensor,  # (R, 3)
-    rays_d: torch.Tensor,  # (R, 3)
+def render_train_plain(
+    x0: torch.Tensor,  # (R*S, in0) PE rows, ray-major
     z_vals: torch.Tensor,  # (R, S)
-    pe_w: torch.Tensor,  # (L,) annealed band weights
     ray_cond: Optional[torch.Tensor],  # (R, HH) per-ray rgb conditioning incl. bias (use_rgb)
     trunk: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     heads: Dict[str, torch.Tensor],
@@ -202,11 +210,11 @@ def render_train_rays_plain(
     c_emb: Optional[torch.Tensor] = None,  # (R, C) candidate embedding (use_cand)
     save_res: bool = False,
 ):
-    """Plain PyTorch forward (xla_render_train_rays + xla_render_train).
-    Returns the outputs, and with save_res the residuals as a second dict."""
+    """Plain PyTorch forward from pre-built PE rows (xla_render_train; st.xyz_L
+    is not read). Returns the outputs, and with save_res the residuals as a
+    second dict."""
     prec = canonical_precision(st.precision)
     R, S = z_vals.shape
-    x0, _ = _pe(rays_o, rays_d, z_vals, pe_w, st.xyz_L)
     ch = _walk_chain(x0, R, trunk, heads, st, ray_cond, c_emb)
     h = ch[f"act{st.D - 1}"]
     sig_s = softplus(matmul(h, heads["sigma_w"], prec) + heads["sigma_b"]).reshape(R, S)
@@ -242,6 +250,24 @@ def render_train_rays_plain(
     if st.save_chain:
         res["chain"] = torch.cat([ch[name] for name, _ in st.chain_cols(0, 0, 0)], dim=-1).to(_cdt(st))
     return out, {k: res[k].to(_store_dtype(st)) if k in ("feat", "cfeat") else res[k] for k in st.res_keys}
+
+
+def render_train_rays_plain(
+    rays_o: torch.Tensor,  # (R, 3)
+    rays_d: torch.Tensor,  # (R, 3)
+    z_vals: torch.Tensor,  # (R, S)
+    pe_w: torch.Tensor,  # (L,) annealed band weights
+    ray_cond: Optional[torch.Tensor],
+    trunk: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    heads: Dict[str, torch.Tensor],
+    st: RTStatic,
+    c_emb: Optional[torch.Tensor] = None,
+    save_res: bool = False,
+):
+    """Plain PyTorch forward from rays (xla_render_train_rays): the PE rows,
+    then render_train_plain."""
+    x0, _ = _pe(rays_o, rays_d, z_vals, pe_w, st.xyz_L)
+    return render_train_plain(x0, z_vals, ray_cond, trunk, heads, st, c_emb=c_emb, save_res=save_res)
 
 
 def _walk_chain(x0, R: int, trunk, heads, st: RTStatic, ray_cond, c_emb, feat=None) -> Dict[str, torch.Tensor]:
@@ -281,25 +307,26 @@ def _excl_suffix(x: torch.Tensor) -> torch.Tensor:
     return torch.flip(_excl_prefix(torch.flip(x, [-1])), [-1])
 
 
-def render_train_rays_bwd_plain(
-    rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res: Dict[str, torch.Tensor],
+def render_train_bwd_plain(
+    x0, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res: Dict[str, torch.Tensor],
     cots: Dict[str, Optional[torch.Tensor]],
 ):
-    """Plain backward: upnerf/ops/pallas_render_train.py:_bwd_kernel, written
-    out step by step. With st.save_chain it reads the walk chain from res;
-    without (the recompute mode, :883-890) it rebuilds the chain from the PE,
-    rgbh from the stored feat, and takes feat, c_feat and rgb from res.
+    """Plain backward from pre-built PE rows x0 (R*S, in0):
+    upnerf/ops/pallas_render_train.py:_bwd_kernel, written out step by step.
+    With st.save_chain it reads the walk chain from res; without (the
+    recompute mode, :883-890) it rebuilds the chain from x0, rgbh from the
+    stored feat, and takes feat, c_feat and rgb from res.
 
     cots: a cotangent for each of st.out_keys (None means zero). Returns
-    (d_rays_o, d_rays_d, d_ray_cond or None, d_c_emb or None,
-    [(dW, db)] per trunk layer, {head key: grad}); with st.param_grads off the
-    weight gradients are not computed and the last two are None. In bf16 mode
-    every product rounds both operands to bf16 and accumulates in f32, as the
-    kernel's `_dot` does; bias sums and the rank-1 sigma terms stay f32."""
+    (d_x0 (R*S, in0), d_ray_cond or None, d_c_emb or None, [(dW, db)] per
+    trunk layer, {head key: grad}), as _vjp_bwd (:1372); with st.param_grads
+    off the weight gradients are not computed and the last two are None. In
+    bf16 mode every product rounds both operands to bf16 and accumulates in
+    f32, as the kernel's `_dot` does (x0 included); bias sums and the rank-1
+    sigma terms stay f32."""
     prec = canonical_precision(st.precision)
     R, S = z_vals.shape
-    L = st.xyz_L
-    in0 = 3 + 6 * L
+    in0 = x0.shape[1]
     W = trunk[0][1].shape[0]
     HH = heads["rgb1_w"].shape[1] if st.use_rgb else 0
     HC = heads["c2_w"].shape[1] if st.use_cand else 0
@@ -313,7 +340,6 @@ def render_train_rays_bwd_plain(
         g = cots.get(k)
         return torch.zeros(shape, dtype=f32, device=z_vals.device) if g is None else g.to(f32)
 
-    x0, xyz = _pe(rays_o, rays_d, z_vals, pe_w, L)
     pg = st.param_grads
     if st.save_chain:
         cuts, col = {}, 0
@@ -457,16 +483,35 @@ def render_train_rays_bwd_plain(
         else:
             g = g_in
 
-    # PE backward: d sin(x f) = cos(x f) f dx, d cos(x f) = -sin(x f) f dx
-    freq = 2.0 ** torch.arange(L, dtype=f32, device=z_vals.device) * math.pi
+    if not pg:
+        return dx0, d_cond, d_cemb, None, None
+    return dx0, d_cond, d_cemb, dtrunk, dh
+
+
+def _pe_bwd(dx0, xyz, z_vals, pe_w, L: int):
+    """The PE backward (pallas_render_train.py:_pe_backward, :1024-1031): d_x0
+    (R*S, 3 + 6L) -> (d_rays_o, d_rays_d) (R, 3), with d sin(x f) = cos(x f) f
+    dx and d cos(x f) = -sin(x f) f dx."""
+    R, S = z_vals.shape
+    M = R * S
+    freq = 2.0 ** torch.arange(L, dtype=dx0.dtype, device=dx0.device) * math.pi
     sp = xyz[:, :, None] * freq  # (M, 3, L)
     denc = dx0[:, 3:].reshape(M, 3, 2, L) * pe_w
     dxyz = dx0[:, :3] + (denc[:, :, 0] * torch.cos(sp) * freq - denc[:, :, 1] * torch.sin(sp) * freq).sum(-1)
     dxyz = dxyz.reshape(R, S, 3)
-    d_o = dxyz.sum(1)
-    d_d = (dxyz * z_vals[..., None]).sum(1)
-    if not pg:
-        return d_o, d_d, d_cond, d_cemb, None, None
+    return dxyz.sum(1), (dxyz * z_vals[..., None]).sum(1)
+
+
+def render_train_rays_bwd_plain(
+    rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res: Dict[str, torch.Tensor],
+    cots: Dict[str, Optional[torch.Tensor]],
+):
+    """Plain backward from rays: render_train_bwd_plain on the PE rows, then
+    the PE backward. Returns (d_rays_o, d_rays_d, d_ray_cond or None, d_c_emb
+    or None, [(dW, db)] per trunk layer or None, {head key: grad} or None)."""
+    x0, xyz = _pe(rays_o, rays_d, z_vals, pe_w, st.xyz_L)
+    dx0, d_cond, d_cemb, dtrunk, dh = render_train_bwd_plain(x0, z_vals, ray_cond, trunk, heads, st, c_emb, res, cots)
+    d_o, d_d = _pe_bwd(dx0, xyz, z_vals, pe_w, st.xyz_L)
     return d_o, d_d, d_cond, d_cemb, dtrunk, dh
 
 
@@ -494,7 +539,7 @@ def _pack_fragments(w: torch.Tensor) -> torch.Tensor:
 
 
 def _pad_x0_rows(w: torch.Tensor, in0: int) -> torch.Tensor:
-    """Zero rows after the 3 + 6L x0 rows of a layer-0 or skip weight, up to X0_PAD."""
+    """Zero rows after the in0 x0 rows of a layer-0 or skip weight, up to X0_PAD."""
     return torch.cat([w[:in0], w.new_zeros(X0_PAD - in0, w.shape[1]), w[in0:]], 0)
 
 
@@ -551,18 +596,18 @@ def pack_trunk_weight(w: torch.Tensor, in0: Optional[int]) -> torch.Tensor:
     return _pack_fragments(w if in0 is None else _pad_x0_rows(w, in0))
 
 
-def _kernel_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
+def _kernel_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic, in0: Optional[int] = None):
     """Weights in the layout the forward kernel reads, each its own contiguous
     (so 16-byte aligned) tensor; the callers zero-pad the feature dimension
     to feat_pad first (pad_feat). float32 mode: every matrix (in, out), f32.
     bfloat16 mode: the trunk, xyzf, feat, rgb1, c1x, c2 and cfeat matrices
-    packed by _pack_fragments, with the x0 rows of layer 0 and of the skip
-    layers zero-padded to X0_PAD; sigma, rgb2, csig and c1c (in, out) in
-    bf16. Biases f32."""
+    packed by _pack_fragments, with the in0 x0 rows (3 + 6 st.xyz_L unless
+    given) of layer 0 and of the skip layers zero-padded to X0_PAD; sigma,
+    rgb2, csig and c1c (in, out) in bf16. Biases f32."""
     bf16 = canonical_precision(st.precision) == "bfloat16"
     if not bf16:
         return [(w.contiguous(), b.contiguous()) for w, b in trunk], {k: v.contiguous() for k, v in heads.items()}
-    in0 = 3 + 6 * st.xyz_L
+    in0 = 3 + 6 * st.xyz_L if in0 is None else in0
     out = [(pack_trunk_weight(w, in0 if i == 0 or i in st.skips else None), b.contiguous())
            for i, (w, b) in enumerate(trunk)]
     kheads = {}
@@ -582,7 +627,7 @@ BWD_WEIGHTS = ("xyzf_w^T", "feat_w", "feat_w^T", "rgb1_w^T", "rgb2_w^T", "c1x_w^
 _BWD_PRODUCT_WEIGHTS = ("xyzf_w^T", "feat_w", "feat_w^T", "rgb1_w^T", "c1x_w^T", "c2_w^T", "cfeat_w^T")
 
 
-def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
+def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic, in0: int):
     """Weights in the layout the backward kernel reads: the trunk's
     transposes (out, in) with x0 padded to X0_PAD columns, BWD_WEIGHTS
     (None where the mode has no such head), their feature dimension
@@ -592,10 +637,9 @@ def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic):
     the tensor cores; rgb2_w^T, c1c_w and the "rm" copies row-major bf16.
     sigma_w and csig_w are f32 columns (the JAX kernel keeps them f32: they
     enter rank-1 terms, not products), the biases f32. Also returns the
-    trunk's (in, out) weights with the x0 rows padded to X0_PAD."""
+    trunk's (in, out) weights with the in0 x0 rows padded to X0_PAD."""
     cdt = _cdt(st)
     packed = cdt == torch.bfloat16
-    in0 = 3 + 6 * st.xyz_L
     padded = pad_feat(heads, feat_pad(heads["feat_b"].shape[0], packed))
     ptrunk = [_pad_x0_rows(w, in0) if i == 0 or i in st.skips else w for i, (w, _) in enumerate(trunk)]
     kt = [_pack_fragments(w.t()) if packed else w.t().contiguous() for w in ptrunk]
@@ -624,12 +668,13 @@ def _head_shapes(W, F, HH, HC, C):
     }
 
 
-def _check_kernel_args(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, trunk, heads, st: RTStatic):
-    """Device, dtype and shape checks of everything a kernel reads; returns
-    (R, S, C). Raises on what the kernels do not take."""
-    dev = rays_o.device
+def _check_kernel_args(front, in0: int, z_vals, ray_cond, c_emb, trunk, heads, st: RTStatic):
+    """Device, dtype and shape checks of everything a kernel reads; front:
+    {name: (tensor, shape)} of the frontend's inputs (the rays or x0), in0 the
+    trunk's x0 width. Returns (R, S, C). Raises on what the kernels do not take."""
+    dev = z_vals.device
     R, S = z_vals.shape
-    L, D = st.xyz_L, len(trunk)
+    D = len(trunk)
     if D != st.D:
         raise ValueError(f"trunk has {D} layers, st.D is {st.D}")
     if not st.use_feat:
@@ -639,16 +684,14 @@ def _check_kernel_args(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, trunk, hea
     check_feat_width(F)
     got = (trunk[0][1].shape[0], ray_cond.shape[1] if st.use_rgb else HH, heads["c2_b"].shape[0] if st.use_cand else HC)
     C = c_emb.shape[1] if st.use_cand else 0
-    if got != (W, HH, HC) or 3 + 6 * L > X0_PAD or D > 16 or C > MAX_C:
+    if got != (W, HH, HC) or not 0 < in0 <= X0_PAD or D > 16 or C > MAX_C:
         raise ValueError(
-            f"the CUDA kernels take W=256, HH=128, HC=128, 3+6L <= 64, D <= 16, C <= {MAX_C};"
-            f" got {(*got, L, D, C)}"
+            f"the CUDA kernels take W=256, HH=128, HC=128, an x0 width of 1..64 (3 + 6L from rays), D <= 16,"
+            f" C <= {MAX_C}; got {(*got, in0, D, C)}"
         )
-    in0 = 3 + 6 * L
-    _check("rays_o", rays_o, (R, 3), dev)
-    _check("rays_d", rays_d, (R, 3), dev)
+    for name, (t, shape) in front.items():
+        _check(name, t, shape, dev)
     _check("z_vals", z_vals, (R, S), dev)
-    _check("pe_w", pe_w, (L,), dev)
     if st.use_rgb:
         _check("ray_cond", ray_cond, (R, HH), dev)
     if st.use_cand:
@@ -667,6 +710,7 @@ def _ptrs(ts) -> ctypes.Array:
     return (ctypes.c_void_p * len(ts))(*[0 if t is None else t.data_ptr() for t in ts])
 
 
+X0_IN = 128  # render_common.cuh:Flag: the kernels read pre-built PE rows x0 in place of building them
 RECOMPUTE = 256  # render_common.cuh:Flag: the residuals without a chain, and the backward that recomputes it
 
 
@@ -688,6 +732,54 @@ def _res_specs(st: RTStatic, R: int, S: int, F: int) -> Dict[str, Tuple[Tuple[in
 def _raise_on(code: int, name: str, lib) -> None:
     if code != 0:
         raise RuntimeError(f"{name} kernel failed ({code}): {lib.upnerf_error_string(code).decode()}")
+
+
+def _refuse_grad(tensors, entry: str) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"the CUDA render kernel is forward-only: run it under torch.no_grad() or train through"
+                           f" {entry}")
+
+
+def _launch_fwd(ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, save_res: bool,
+                x0_mode: bool):
+    """One launch of csrc/render_train_fwd.cu on checked arguments. ins:
+    rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, x0 (None where the frontend
+    has none). Returns (outputs, residuals)."""
+    from upnerf_torch.ops import _build
+
+    R, S = z_vals.shape
+    dev = z_vals.device
+    C = c_emb.shape[1] if st.use_cand else 0
+    ins = [t.contiguous() if t is not None else None for t in ins]
+    F = heads["feat_b"].shape[0]
+    FP = feat_pad(F, canonical_precision(st.precision) == "bfloat16")
+    ktrunk, kheads = _kernel_weights(trunk, pad_feat({k: heads[k] for k in st.head_keys}, FP), st, in0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {"s_weights": torch.empty((R, S), **f32), "s_depth": torch.empty((R,), **f32)}
+    if st.use_rgb:
+        out["rgb_map"] = torch.empty((R, 3), **f32)
+    if st.out_feat:
+        out["feat_map"] = torch.empty((R, F), **f32)
+    if st.use_cand:
+        out["j_weights"] = torch.empty((R, S), **f32)
+        out["c_depth"] = torch.empty((R,), **f32)
+        out["t_weight"] = torch.empty((R,), **f32)
+    res = {}
+    if save_res:
+        res = {k: torch.empty(shape, dtype=dt, device=dev) for k, (shape, dt) in _res_specs(st, R, S, F).items()}
+    out_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
+    outs = [out.get(k) for k in out_order] + [res.get(k) for k in RES_ORDER]
+    lib = _build.library("render_train_fwd")
+    skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = lib.upnerf_render_train_fwd(
+            _ptrs(ins), _ptrs([w for w, _ in ktrunk]), _ptrs([b for _, b in ktrunk]), st.D, skip_mask,
+            _ptrs([kheads.get(k) for k in HEAD_KEYS]), _ptrs(outs), R, S, L, in0, C, F,
+            _flags(st, save_res) | (X0_IN if x0_mode else 0), stream,
+        )
+    _raise_on(code, "render_train_fwd (x0 mode)" if x0_mode else "render_train_fwd", lib)
+    return out, res
 
 
 def render_train_rays_fwd(
@@ -716,47 +808,123 @@ def render_train_rays_fwd(
     if rays_o.device.type != "cuda":
         raise ValueError(f"no render kernel for device {rays_o.device}")
     global launches, recompute_launches
-    from upnerf_torch.ops import _build
-
-    R, S, C = _check_kernel_args(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, trunk, heads, st)
-    tensors = [rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, *heads.values()] + [t for wb in trunk for t in wb]
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError("the CUDA render kernel is forward-only: run it under torch.no_grad()"
-                           " or train through RenderTrainRays")
-    dev = rays_o.device
-    ins = [t.contiguous() if t is not None else None for t in (rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb)]
-    F = heads["feat_b"].shape[0]
-    FP = feat_pad(F, canonical_precision(st.precision) == "bfloat16")
-    ktrunk, kheads = _kernel_weights(trunk, pad_feat({k: heads[k] for k in st.head_keys}, FP), st)
-    f32 = dict(dtype=torch.float32, device=dev)
-    out = {"s_weights": torch.empty((R, S), **f32), "s_depth": torch.empty((R,), **f32)}
-    if st.use_rgb:
-        out["rgb_map"] = torch.empty((R, 3), **f32)
-    if st.out_feat:
-        out["feat_map"] = torch.empty((R, F), **f32)
-    if st.use_cand:
-        out["j_weights"] = torch.empty((R, S), **f32)
-        out["c_depth"] = torch.empty((R,), **f32)
-        out["t_weight"] = torch.empty((R,), **f32)
-    res = {}
-    if save_res:
-        res = {k: torch.empty(shape, dtype=dt, device=dev) for k, (shape, dt) in _res_specs(st, R, S, F).items()}
-    out_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
-    outs = [out.get(k) for k in out_order] + [res.get(k) for k in RES_ORDER]
-    lib = _build.library("render_train_fwd")
-    skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        code = lib.upnerf_render_train_fwd(
-            _ptrs(ins), _ptrs([w for w, _ in ktrunk]), _ptrs([b for _, b in ktrunk]), st.D, skip_mask,
-            _ptrs([kheads.get(k) for k in HEAD_KEYS]), _ptrs(outs), R, S, st.xyz_L, C, F, _flags(st, save_res), stream,
-        )
-    _raise_on(code, "render_train_fwd", lib)
+    R, S = z_vals.shape
+    L = st.xyz_L
+    front = {"rays_o": (rays_o, (R, 3)), "rays_d": (rays_d, (R, 3)), "pe_w": (pe_w, (L,))}
+    _check_kernel_args(front, 3 + 6 * L, z_vals, ray_cond, c_emb, trunk, heads, st)
+    _refuse_grad([rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, *heads.values()] + [t for wb in trunk for t in wb],
+                 "RenderTrainRays")
+    out, res = _launch_fwd([rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, None], 3 + 6 * L, L, z_vals, ray_cond,
+                           trunk, heads, st, c_emb, save_res, False)
     if save_res and not st.save_chain:
         recompute_launches += 1
     else:
         launches += 1
     return (out, res) if save_res else out
+
+
+def render_train_fwd(
+    x0: torch.Tensor,
+    z_vals: torch.Tensor,
+    ray_cond: Optional[torch.Tensor],
+    trunk: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    heads: Dict[str, torch.Tensor],
+    st: RTStatic,
+    c_emb: Optional[torch.Tensor] = None,
+    save_res: bool = False,
+):
+    """Forward render from pre-built PE rows x0 (R*S, in0), every mode (the
+    JAX package's fused_render_train): `render_train_plain` for CPU tensors,
+    the X0_IN mode of the CUDA kernel for CUDA tensors (in0 <= 64, the widths
+    of render_train_rays_fwd; st.xyz_L is not read). Counts its launches in
+    `x0_launches`."""
+    if x0.device.type == "cpu":
+        return render_train_plain(x0, z_vals, ray_cond, trunk, heads, st, c_emb=c_emb, save_res=save_res)
+    if x0.device.type != "cuda":
+        raise ValueError(f"no render kernel for device {x0.device}")
+    global x0_launches
+    R, S = z_vals.shape
+    in0 = x0.shape[1]
+    _check_kernel_args({"x0": (x0, (R * S, in0))}, in0, z_vals, ray_cond, c_emb, trunk, heads, st)
+    _refuse_grad([x0, z_vals, ray_cond, c_emb, *heads.values()] + [t for wb in trunk for t in wb], "RenderTrain")
+    out, res = _launch_fwd([None, None, z_vals, None, ray_cond, c_emb, x0], in0, 0, z_vals, ray_cond, trunk, heads,
+                           st, c_emb, save_res, True)
+    x0_launches += 1
+    return (out, res) if save_res else out
+
+
+def _launch_bwd(ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots,
+                x0_mode: bool):
+    """One launch of csrc/render_train_bwd.cu on checked arguments (ins as
+    _launch_fwd's). Returns (d_front, d_ray_cond, d_c_emb, dtrunk, dheads):
+    d_front is [d_x0] in the x0 mode, [d_rays_o, d_rays_d] otherwise."""
+    from upnerf_torch.ops import _build
+
+    R, S = z_vals.shape
+    dev = z_vals.device
+    C = c_emb.shape[1] if st.use_cand else 0
+    W, HH, HC = (KERNEL_WIDTHS[k] for k in ("W", "HH", "HC"))
+    F = heads["feat_b"].shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    ins = [t.contiguous() if t is not None else None for t in ins]
+    ins = [ins[i] for i in (0, 1, 2, 3, 5, 4, 6)]  # the backward reads c_emb before ray_cond
+    cot_shapes = {"s_weights": (R, S), "s_depth": (R,), "rgb_map": (R, 3), "feat_map": (R, F), "j_weights": (R, S),
+                  "c_depth": (R,), "t_weight": (R,)}
+    cot_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
+    cot_list = []
+    for k in cot_order:
+        g = cots.get(k) if k in st.out_keys else None
+        if g is not None:
+            _check(f"cotangent {k}", g, cot_shapes[k], dev)
+            g = g.contiguous()
+        cot_list.append(g)
+    for k, (shape, dt) in _res_specs(st, R, S, F).items():
+        t = res[k]
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"residual {k}: {t.device} {t.dtype} {tuple(t.shape)}; st needs {dev} {dt} {shape}")
+    res_list = [res[k].contiguous() if k in st.res_keys else None for k in RES_ORDER]
+    kt, kw, padded = _bwd_weights(trunk, heads, st, in0)
+    grid, tw, tb, fw, scratch = R, None, None, None, None
+    if not st.save_chain:
+        # the recompute's forward-layout weights, and a scratch of 32 chain rows a persistent block
+        bf16 = _cdt(st) == torch.bfloat16
+        tw = [_pack_fragments(w) if bf16 else w.contiguous() for w in padded]
+        tb = [b.contiguous() for _, b in trunk]
+        _, kh = _kernel_weights([], pad_feat({k: heads[k] for k in RECOMPUTE_KEYS if k in st.head_keys},
+                                             feat_pad(F, bf16)), st, in0)
+        fw = [kh.get(k) for k in RECOMPUTE_KEYS]
+        grid = min(R, torch.cuda.get_device_properties(dev).multi_processor_count)
+        chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
+        scratch = torch.empty((grid * 32 * chain_w,), dtype=_cdt(st), device=dev)
+    d_front = [torch.empty((R * S, in0), **f32)] if x0_mode else [torch.empty((R, 3), **f32), torch.empty((R, 3), **f32)]
+    d_cond = torch.empty((R, HH), **f32) if st.use_rgb else None
+    d_cemb = torch.empty((R, C), **f32) if st.use_cand else None
+    # weight gradients, accumulated by atomics: zero first; trunk and features in the padded layout
+    dtw, dtb, dhd = [None] * st.D, [None] * st.D, {}
+    if st.param_grads:
+        for i in range(st.D):
+            rows = (X0_PAD if i == 0 else (X0_PAD + W if i in st.skips else W))
+            dtw[i] = torch.zeros((rows, W), **f32)
+            dtb[i] = torch.zeros((W,), **f32)
+        FP = feat_pad(F, _cdt(st) == torch.bfloat16)
+        dhd = {k: torch.zeros(v.shape, **f32) for k, v in pad_feat({k: heads[k] for k in st.head_keys}, FP).items()}
+    outs = [None, None, d_cond, d_cemb, d_front[0]] if x0_mode else [*d_front, d_cond, d_cemb, None]
+    lib = _build.library("render_train_bwd")
+    skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    opt = lambda ts: None if ts is None else _ptrs(ts)  # noqa: E731
+    with torch.cuda.device(dev):
+        code = lib.upnerf_render_train_bwd(
+            _ptrs(ins), _ptrs(cot_list), _ptrs(res_list), _ptrs(kt), st.D, skip_mask, _ptrs(kw), opt(tw), opt(tb),
+            opt(fw), _ptrs(outs), _ptrs(dtw), _ptrs(dtb), _ptrs([dhd.get(k) for k in HEAD_KEYS]),
+            None if scratch is None else scratch.data_ptr(), R, S, L, in0, C, F,
+            _flags(st, True) | (X0_IN if x0_mode else 0), grid, stream,
+        )
+    _raise_on(code, "render_train_bwd (x0 mode)" if x0_mode else "render_train_bwd", lib)
+    if not st.param_grads:
+        return d_front, d_cond, d_cemb, None, None
+    dtrunk = [(unpad_trunk_grad(dtw[i], i, st.skips, in0), dtb[i]) for i in range(st.D)]
+    return d_front, d_cond, d_cemb, dtrunk, unpad_feat(dhd, F)
 
 
 def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots):
@@ -776,66 +944,13 @@ def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, 
     if rays_o.device.type != "cuda":
         raise ValueError(f"no render kernel for device {rays_o.device}")
     global bwd_launches, frozen_bwd_launches, recompute_bwd_launches, recompute_frozen_bwd_launches
-    from upnerf_torch.ops import _build
-
-    R, S, C = _check_kernel_args(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, trunk, heads, st)
-    dev = rays_o.device
-    W, HH, HC = (KERNEL_WIDTHS[k] for k in ("W", "HH", "HC"))
-    F = heads["feat_b"].shape[0]
-    f32 = dict(dtype=torch.float32, device=dev)
-    in0 = 3 + 6 * st.xyz_L
-    ins = [t.contiguous() if t is not None else None for t in (rays_o, rays_d, z_vals, pe_w, c_emb, ray_cond)]
-    cot_shapes = {"s_weights": (R, S), "s_depth": (R,), "rgb_map": (R, 3), "feat_map": (R, F), "j_weights": (R, S),
-                  "c_depth": (R,), "t_weight": (R,)}
-    cot_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
-    cot_list = []
-    for k in cot_order:
-        g = cots.get(k) if k in st.out_keys else None
-        if g is not None:
-            _check(f"cotangent {k}", g, cot_shapes[k], dev)
-            g = g.contiguous()
-        cot_list.append(g)
-    for k, (shape, dt) in _res_specs(st, R, S, F).items():
-        t = res[k]
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"residual {k}: {t.device} {t.dtype} {tuple(t.shape)}; st needs {dev} {dt} {shape}")
-    res_list = [res[k].contiguous() if k in st.res_keys else None for k in RES_ORDER]
-    kt, kw, padded = _bwd_weights(trunk, heads, st)
-    grid, tw, tb, fw, scratch = R, None, None, None, None
-    if not st.save_chain:
-        # the recompute's forward-layout weights, and a scratch of 32 chain rows a persistent block
-        bf16 = _cdt(st) == torch.bfloat16
-        tw = [_pack_fragments(w) if bf16 else w.contiguous() for w in padded]
-        tb = [b.contiguous() for _, b in trunk]
-        _, kh = _kernel_weights([], pad_feat({k: heads[k] for k in RECOMPUTE_KEYS if k in st.head_keys},
-                                             feat_pad(F, bf16)), st)
-        fw = [kh.get(k) for k in RECOMPUTE_KEYS]
-        grid = min(R, torch.cuda.get_device_properties(dev).multi_processor_count)
-        chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
-        scratch = torch.empty((grid * 32 * chain_w,), dtype=_cdt(st), device=dev)
-    d_o, d_d = torch.empty((R, 3), **f32), torch.empty((R, 3), **f32)
-    d_cond = torch.empty((R, HH), **f32) if st.use_rgb else None
-    d_cemb = torch.empty((R, C), **f32) if st.use_cand else None
-    # weight gradients, accumulated by atomics: zero first; trunk and features in the padded layout
-    dtw, dtb, dhd = [None] * st.D, [None] * st.D, {}
-    if st.param_grads:
-        for i in range(st.D):
-            rows = (X0_PAD if i == 0 else (X0_PAD + W if i in st.skips else W))
-            dtw[i] = torch.zeros((rows, W), **f32)
-            dtb[i] = torch.zeros((W,), **f32)
-        FP = feat_pad(F, _cdt(st) == torch.bfloat16)
-        dhd = {k: torch.zeros(v.shape, **f32) for k, v in pad_feat({k: heads[k] for k in st.head_keys}, FP).items()}
-    lib = _build.library("render_train_bwd")
-    skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    opt = lambda ts: None if ts is None else _ptrs(ts)  # noqa: E731
-    with torch.cuda.device(dev):
-        code = lib.upnerf_render_train_bwd(
-            _ptrs(ins), _ptrs(cot_list), _ptrs(res_list), _ptrs(kt), st.D, skip_mask, _ptrs(kw), opt(tw), opt(tb),
-            opt(fw), _ptrs([d_o, d_d, d_cond, d_cemb]), _ptrs(dtw), _ptrs(dtb), _ptrs([dhd.get(k) for k in HEAD_KEYS]),
-            None if scratch is None else scratch.data_ptr(), R, S, st.xyz_L, C, F, _flags(st, True), grid, stream,
-        )
-    _raise_on(code, "render_train_bwd", lib)
+    R, S = z_vals.shape
+    L = st.xyz_L
+    front = {"rays_o": (rays_o, (R, 3)), "rays_d": (rays_d, (R, 3)), "pe_w": (pe_w, (L,))}
+    _check_kernel_args(front, 3 + 6 * L, z_vals, ray_cond, c_emb, trunk, heads, st)
+    (d_o, d_d), d_cond, d_cemb, dtrunk, dh = _launch_bwd(
+        [rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, None], 3 + 6 * L, L, z_vals, ray_cond, trunk, heads, st,
+        c_emb, res, cots, False)
     if st.save_chain and st.param_grads:
         bwd_launches += 1
     elif st.save_chain:
@@ -844,10 +959,41 @@ def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, 
         recompute_bwd_launches += 1
     else:
         recompute_frozen_bwd_launches += 1
+    return d_o, d_d, d_cond, d_cemb, dtrunk, dh
+
+
+def render_train_bwd(x0, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots):
+    """Backward render from pre-built PE rows (the JAX package's _vjp_bwd):
+    `render_train_bwd_plain` for CPU tensors, the X0_IN mode of the CUDA
+    kernel for CUDA tensors, in every mode of render_train_rays_bwd. Returns
+    (d_x0 (R*S, in0), d_ray_cond, d_c_emb, dtrunk, dheads); the kernel writes
+    each tile's d_x0 rows where the rays frontend runs the PE backward.
+    Counts its launches in `x0_bwd_launches`."""
+    if x0.device.type == "cpu":
+        return render_train_bwd_plain(x0, z_vals, ray_cond, trunk, heads, st, c_emb, res, cots)
+    if x0.device.type != "cuda":
+        raise ValueError(f"no render kernel for device {x0.device}")
+    global x0_bwd_launches
+    R, S = z_vals.shape
+    in0 = x0.shape[1]
+    _check_kernel_args({"x0": (x0, (R * S, in0))}, in0, z_vals, ray_cond, c_emb, trunk, heads, st)
+    (d_x0,), d_cond, d_cemb, dtrunk, dh = _launch_bwd([None, None, z_vals, None, ray_cond, c_emb, x0], in0, 0, z_vals,
+                                                      ray_cond, trunk, heads, st, c_emb, res, cots, True)
+    x0_bwd_launches += 1
+    return d_x0, d_cond, d_cemb, dtrunk, dh
+
+
+def _check_frozen(st: RTStatic, weights) -> None:
+    if not st.param_grads and any(w.requires_grad for w in weights):
+        raise RuntimeError("param_grads=False computes no weight gradient, but a weight requires grad:"
+                           " freeze the model (requires_grad_(False)) or set param_grads=True")
+
+
+def _weight_grads(st: RTStatic, names, heads, dtrunk, dh, nw: int):
+    """The backward's weight gradients in the Functions' flat order (None for each in the frozen mode)."""
     if not st.param_grads:
-        return d_o, d_d, d_cond, d_cemb, None, None
-    dtrunk = [(unpad_trunk_grad(dtw[i], i, st.skips, in0), dtb[i]) for i in range(st.D)]
-    return d_o, d_d, d_cond, d_cemb, dtrunk, unpad_feat(dhd, F)
+        return [None] * nw
+    return [t for wb in dtrunk for t in wb] + [dh[k].reshape(heads[k].shape) for k in names]
 
 
 class RenderTrainRays(torch.autograd.Function):
@@ -858,9 +1004,7 @@ class RenderTrainRays(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, st, head_names, *weights):
-        if not st.param_grads and any(w.requires_grad for w in weights):
-            raise RuntimeError("param_grads=False computes no weight gradient, but a weight requires grad:"
-                               " freeze the model (requires_grad_(False)) or set param_grads=True")
+        _check_frozen(st, weights)
         D = st.D
         trunk = [(weights[2 * i], weights[2 * i + 1]) for i in range(D)]
         heads = dict(zip(head_names, weights[2 * D :]))
@@ -885,10 +1029,7 @@ class RenderTrainRays(torch.autograd.Function):
         d_o, d_d, d_cond, d_cemb, dtrunk, dh = render_train_rays_bwd(
             rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st, c_emb, res, cots
         )
-        if not st.param_grads:
-            return (d_o, d_d, None, None, d_cond, d_cemb, None, None, *[None] * nw)
-        flat = [t for wb in dtrunk for t in wb] + [dh[k].reshape(heads[k].shape) for k in names]
-        return (d_o, d_d, None, None, d_cond, d_cemb, None, None, *flat)
+        return (d_o, d_d, None, None, d_cond, d_cemb, None, None, *_weight_grads(st, names, heads, dtrunk, dh, nw))
 
 
 def render_train_rays(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb=None):
@@ -896,4 +1037,48 @@ def render_train_rays(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: 
     names = st.head_keys
     flat = [t for wb in trunk for t in wb] + [heads[k] for k in names]
     outs = RenderTrainRays.apply(rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, st, names, *flat)
+    return dict(zip(st.out_keys, outs))
+
+
+class RenderTrain(torch.autograd.Function):
+    """Differentiable fused render from pre-built PE rows (the JAX package's
+    fused_render_train and its custom VJP, :1255 / :1372).
+
+    apply(x0, z_vals, ray_cond, c_emb, st, head_names, *trunk_flat,
+    *head_tensors) -> the outputs in st.out_keys order. Returns gradients for
+    x0, ray_cond, c_emb and every weight (None for the weights with
+    st.param_grads off), and None for z_vals."""
+
+    @staticmethod
+    def forward(ctx, x0, z_vals, ray_cond, c_emb, st, head_names, *weights):
+        _check_frozen(st, weights)
+        D = st.D
+        trunk = [(weights[2 * i], weights[2 * i + 1]) for i in range(D)]
+        heads = dict(zip(head_names, weights[2 * D :]))
+        out, res = render_train_fwd(x0, z_vals, ray_cond, trunk, heads, st, c_emb=c_emb, save_res=True)
+        ctx.st, ctx.head_names = st, head_names
+        ctx.res_keys = tuple(res)
+        ctx.save_for_backward(x0, z_vals, ray_cond, c_emb, *weights, *res.values())
+        return tuple(out[k] for k in st.out_keys)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        st, names = ctx.st, ctx.head_names
+        saved = ctx.saved_tensors
+        x0, z_vals, ray_cond, c_emb = saved[:4]
+        nw = 2 * st.D + len(names)
+        weights = saved[4 : 4 + nw]
+        res = dict(zip(ctx.res_keys, saved[4 + nw :]))
+        trunk = [(weights[2 * i], weights[2 * i + 1]) for i in range(st.D)]
+        heads = dict(zip(names, weights[2 * st.D :]))
+        d_x0, d_cond, d_cemb, dtrunk, dh = render_train_bwd(x0, z_vals, ray_cond, trunk, heads, st, c_emb, res,
+                                                            dict(zip(st.out_keys, grads)))
+        return (d_x0, None, d_cond, d_cemb, None, None, *_weight_grads(st, names, heads, dtrunk, dh, nw))
+
+
+def render_train(x0, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb=None):
+    """Differentiable forward from PE rows x0 (R*S, in0): the outputs dict, through RenderTrain."""
+    names = st.head_keys
+    flat = [t for wb in trunk for t in wb] + [heads[k] for k in names]
+    outs = RenderTrain.apply(x0, z_vals, ray_cond, c_emb, st, names, *flat)
     return dict(zip(st.out_keys, outs))
