@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (upnerf_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py --kernel_times [--profile DIR]
 
 Phases, each of which must pass (the script exits non-zero otherwise):
   1. the card: name and power limit from nvidia-smi;
@@ -38,7 +39,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
  10. the flash-attention kernel against its plain PyTorch version at the
      DINO extractor's shape (6 heads x 12,322 tokens x 64), bfloat16 and
      float32, unit-normal and logits x 20, and at N = 300 (ragged tiles);
-     ms of each at N = 12,322 bfloat16, in turns;
+     ms of each at N = 12,322 bfloat16, in turns (plain, kernel, kernel,
+     plain, then F.scaled_dot_product_attention), with the kernel's TFLOP/s,
+     its share of the bound (tensor cores, SFU exponentials, bytes) and its
+     L2 read estimate;
  11. the offline extractors through `upnerf_torch.cli.preprocess.main` at
      full width (DINO ViT-S/8 at 448 stride 4, DPT-Large at 384) on two PNGs
      of 500x375 and 640x480, from seeded npz weights: the files, their
@@ -149,6 +153,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -620,9 +625,21 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
     return t
 
 
+def flash_l2_bytes(G: int, N: int) -> float:
+    """The bf16 kernel's L2 reads in one call, from its tiling
+    (csrc/flash_attn_fwd.cu): each block of BLOCK_Q query rows reads its
+    group's bf16 k and v once, plus its own q tile."""
+    from upnerf_torch.ops import attention
+
+    blocks = -(-N // attention.BLOCK_Q) * G
+    kv_rows = -(-N // attention.BLOCK_K) * attention.BLOCK_K
+    return blocks * (2 * kv_rows + attention.BLOCK_Q) * 64 * 2
+
+
 def phase_flash_kernel(dev, card: str):
     """Phase 10: the flash-attention kernel against its plain version.
-    Returns (worst max |d|, kernel ms, plain ms) at N = 12,322 bfloat16."""
+    Returns (worst max |d|, kernel ms, plain ms, SDPA ms) at N = 12,322
+    bfloat16."""
     from upnerf_torch.ops import attention
 
     worst = 0.0
@@ -654,9 +671,14 @@ def phase_flash_kernel(dev, card: str):
         p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern, 10), cuda_ms(kern, 10), cuda_ms(plain)
         lms = cuda_ms(lib, 10)
     kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+    terms = flash_bound_terms(DINO_HEADS, DINO_TOKENS)
+    bms, by = max(terms.values()), max(terms, key=terms.get)
     flop = 4.0 * DINO_HEADS * DINO_TOKENS**2 * 64
-    print(f"[10] attention G={DINO_HEADS} N={DINO_TOKENS} bfloat16: kernel {kms:.3f} ms ({flop / kms / 1e9:.0f} TFLOP/s),"
-          f" plain {pms:.3f} ms, F.scaled_dot_product_attention (bf16 in, bf16 out) {lms:.3f} ms ({card})", flush=True)
+    print(f"[10] attention G={DINO_HEADS} N={DINO_TOKENS} bfloat16: kernel {kms:.4f} ms ({k1:.4f}, {k2:.4f}; "
+          f"{flop / kms / 1e9:.0f} TFLOP/s, {bms / kms:.1%} of the {bms:.4f} ms bound), plain {pms:.3f} ms, "
+          f"F.scaled_dot_product_attention (bf16 in, bf16 out) {lms:.4f} ms ({card})", flush=True)
+    print("[10] bound terms: " + ", ".join(f"{name} {ms:.4f} ms" for name, ms in terms.items())
+          + f" ({by} binds); L2 reads ~{flash_l2_bytes(DINO_HEADS, DINO_TOKENS) / 1e9:.2f} GB a call", flush=True)
     return worst, kms, pms, lms
 
 
@@ -769,6 +791,28 @@ def bound(flop: float, nbytes: float, dtype: str):
     t_ops = flop / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+@functools.lru_cache(maxsize=None)
+def sfu_rate() -> float:
+    """Exponentials a second: 16 a clock per SM (ex2 on the special-function
+    units) x the SMs x the card's maximum SM clock (nvidia-smi)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return 16.0 * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
+def flash_bound_terms(G: int, N: int) -> dict:
+    """The three lower bounds (ms) of one bf16 flash-attention call: its
+    4 G N^2 64 product FLOPs at the bf16 peak, its G N^2 exponentials at
+    sfu_rate(), and q, k, v read and o written once in f32. The call's bound
+    is the largest; "bytes" binds only if that term does."""
+    return {
+        "tensor cores": 4.0 * G * N**2 * 64 / PEAK_FLOPS["bfloat16"] * 1e3,
+        "SFU": G * N**2 / sfu_rate() * 1e3,
+        "bytes": 4 * 4 * G * N * 64 / PEAK_BYTES * 1e3,
+    }
 
 
 def trunk_macs(nerf_cfg) -> int:
@@ -2346,13 +2390,17 @@ def phase_mxu_probe(dev, card: str):
     return errs, got, result
 
 
-def kernel_times(dev, card: str) -> dict:
-    """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16 and 17 alone,
-    bf16, at those phases' shapes (CUDA events, 5 launches after a warm-up),
-    with no checks: the numbers to compare two trees on one card. Uses only
-    wrappers that trees with kernels 4 and 5 already had, so the script can be
-    copied into an older tree's root and run there, the trees in turns."""
+def kernel_times(dev, card: str, profile_dir=None) -> dict:
+    """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16 and 17 and
+    the flash-attention kernel of phase 10 alone, bf16, at those phases' shapes
+    (CUDA events, 5 launches after a warm-up; 20 for flash attention), with no
+    checks: the numbers to compare two trees on one card. Uses only wrappers
+    that trees with kernels 4 and 5 already had, so the script can be copied
+    into an older tree's root and run there, the trees in turns. With
+    profile_dir, then a torch.profiler table of 5 flash-attention calls there,
+    and each of its kernels' device ms per call printed."""
     from upnerf_torch.models.nerf import NeRFConfig, NeRFField, positional_encoding
+    from upnerf_torch.ops import attention
     from upnerf_torch.ops import heads as hk
     from upnerf_torch.ops import mlp
     from upnerf_torch.ops import render as srk
@@ -2397,14 +2445,27 @@ def kernel_times(dev, card: str) -> dict:
                                                                              "bfloat16"),
         }
         times = {name: cuda_ms(fn, 5) for name, fn in calls.items()}
+        qa, ka, va = (torch.randn(DINO_HEADS, DINO_TOKENS, 64, generator=g, device=dev) for _ in range(3))
+        times["flash_attn_fwd (phase 10)"] = cuda_ms(lambda: attention.flash_attention(qa, ka, va, scale=0.125), 20)
     print(json.dumps({"kernel_times_ms": times, "card": card}), flush=True)
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        with torch.no_grad(), torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                attention.flash_attention(qa, ka, va, scale=0.125)
+            torch.cuda.synchronize()
+        with open(os.path.join(profile_dir, "flash_attn_fwd.txt"), "w") as f:
+            f.write(f"{card}\n{prof.key_averages().table(sort_by='cuda_time_total', row_limit=10)}\n")
+        per_call = {e.key: e.device_time_total / 5 / 1e3 for e in prof.key_averages() if e.device_time_total > 0}
+        print(json.dumps({"flash_attn_fwd_kernels_ms_per_call": per_call, "card": card}), flush=True)
     return times
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of upnerf_torch on one NVIDIA GPU.")
     parser.add_argument("--profile", default=None,
-                        help="write torch.profiler tables of one phase-1 step, one TTO step and one fast frame here")
+                        help="write torch.profiler tables of one phase-1 step, one TTO step and one fast frame here"
+                             " (with --kernel_times: of 5 flash-attention calls)")
     parser.add_argument("--kernel_times", action="store_true",
                         help="only time the F = 384 kernels (no checks) and print them as one JSON line; to compare"
                              " two trees on one card, copy this script into each tree's root and run them in turns")
@@ -2414,7 +2475,7 @@ def main() -> int:
         return 2
     import upnerf_torch  # noqa: F401  (fails here when run outside the repository)
     if args.kernel_times:
-        kernel_times(torch.device("cuda:0"), card_line())
+        kernel_times(torch.device("cuda:0"), card_line(), args.profile)
         return 0
     from upnerf_torch.cli import render_video
     from upnerf_torch.evaluate.render import make_pose_renderer, render_image
@@ -2604,6 +2665,7 @@ def main() -> int:
     print(f"    phases 24-25: {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # the least time the card could take for each timed call, from its shapes
+    flash_terms = flash_bound_terms(DINO_HEADS, DINO_TOKENS)
     st1 = train_static(nerf_cfg, "bfloat16", 1)
     st2 = train_static(nerf_cfg, "bfloat16", 2)._replace(param_grads=False)
     bounds = {
@@ -2611,8 +2673,8 @@ def main() -> int:
         "render_train_fwd, serving mode (phase 5)": render_bound(field, st2, CHUNK, 256, "serve"),
         "render_train_bwd": render_bound(field, st1, CHUNK, 256, "bwd"),
         "render_train_bwd_frozen": render_bound(field, st2, CHUNK, 256, "bwd"),
-        "flash_attn_fwd": bound(4.0 * DINO_HEADS * DINO_TOKENS**2 * 64, 4 * 4 * DINO_HEADS * DINO_TOKENS * 64,
-                                "bfloat16"),
+        "flash_attn_fwd": (max(flash_terms.values()),
+                           "bytes" if max(flash_terms, key=flash_terms.get) == "bytes" else "operations"),
         "trunk_fwd": bound(2.0 * trunk_macs(nerf_cfg) * PROBE_ROWS,
                          4 * PROBE_ROWS * (nerf_cfg.in_channels_xyz + nerf_cfg.W)
                          + 2 * sum(lay.weight.numel() + lay.bias.numel() for lay in field.trunk_layers()), "bfloat16"),

@@ -13,6 +13,9 @@ Tolerances (absolute, on outputs that are weighted means of unit-normal v):
   boundary, a p or a q moves by one bf16 ulp (2^-8 relative).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +25,7 @@ import torch
 from upnerf.features import vit as jvit
 from upnerf.ops import pallas_attention
 from upnerf_torch.features import vit
-from upnerf_torch.ops import attention
+from upnerf_torch.ops import _build, attention
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -43,11 +46,14 @@ def make_qkv(G, N, hd=64, seed=0):
 
 # (G, N, block_q, block_k, logit scale): a ragged N (key and query tiles
 # padded), an exact fit of several key tiles, and logits x 20 (the online
-# max subtraction must not overflow).
+# max subtraction must not overflow); then the CUDA kernel's own tiles
+# (BLOCK_Q query rows, BLOCK_K keys) at an N that is a multiple of neither.
 CASES = {
     "ragged_300": (3, 300, 128, 128, 1.0),
     "tiles_256": (2, 256, 64, 64, 1.0),
     "logits_x20": (1, 160, 64, 64, 20.0),
+    "kernel_tiles_331": (2, 331, attention.BLOCK_Q, attention.BLOCK_K, 1.0),
+    "kernel_tiles_x20": (1, 200, attention.BLOCK_Q, attention.BLOCK_K, 20.0),
 }
 
 
@@ -102,6 +108,46 @@ def test_wrapper_on_cpu_is_the_plain_version_at_the_kernel_tile():
     assert attention.launches == before  # the CPU path launches no kernel
     with pytest.raises(ValueError):
         attention.flash_attention(q, k, v, scale=0.125, compute_dtype=torch.float16)
+
+
+def _cuda_source():
+    return (Path(attention.__file__).resolve().parent.parent / "csrc" / "flash_attn_fwd.cu").read_text()
+
+
+def test_tiles_are_the_cuda_kernels():
+    """BLOCK_K and BLOCK_Q name the bf16 kernel's key tile and query rows a
+    block (csrc/flash_attn_fwd.cu), and the C entry point takes as many
+    arguments as the ctypes binding passes."""
+    src = _cuda_source()
+    consumers = int(re.search(r"constexpr int CONSUMERS = (\d+);", src).group(1))
+    assert attention.BLOCK_K == int(re.search(r"constexpr int WS_BN = (\d+);", src).group(1)) == 128
+    assert attention.BLOCK_Q == 64 * consumers
+    sig = re.search(r"int upnerf_flash_attn_fwd\(([^)]*)\)", src).group(1)
+    assert len(sig.split(",")) == len(_build._ARGTYPES["upnerf_flash_attn_fwd"]) == 13
+
+
+def test_wrapper_on_cpu_runs_the_new_key_tile():
+    """On the CPU the wrapper is the plain version at block_k = 128, which in
+    bf16 differs from the old 64-key tile in the last bits (p is rounded per
+    tile) and stays near dense f32 (2e-2, as above)."""
+    q, k, v = (torch.from_numpy(a) for a in make_qkv(2, 300, seed=4))
+    got = attention.flash_attention(q, k, v, scale=0.125)
+    assert torch.equal(got, attention.flash_attention_plain(q, k, v, scale=0.125, block_k=128))
+    assert not torch.equal(got, attention.flash_attention_plain(q, k, v, scale=0.125, block_k=64))
+    dense = torch.softmax(q @ k.transpose(1, 2) * 0.125, -1) @ v
+    torch.testing.assert_close(got, dense, rtol=0, atol=2e-2)
+
+
+def test_inputs_are_copied_when_strided_or_unaligned():
+    """The CUDA path reads 16 bytes a thread: a contiguous, 16-byte aligned
+    input goes through as it is; a strided or unaligned one is copied."""
+    x = torch.randn(2, 10, 64)
+    assert attention._dense_aligned(x) is x
+    wide = torch.randn(2, 10, 128)[..., :64]
+    off = torch.randn(2 * 10 * 64 + 1)[1:].view(2, 10, 64)
+    for t in (wide, off):
+        y = attention._dense_aligned(t)
+        assert y.is_contiguous() and y.data_ptr() % 16 == 0 and torch.equal(y, t)
 
 
 def _attn_params(D, seed):

@@ -105,8 +105,8 @@ _ARGTYPES = {
     # the saved chain), outs, dW trunk, db trunk, d heads, scratch, R, S, L, in0, C, F, flags, grid, stream
     "upnerf_render_train_bwd": ["pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "pp", "pp", "pp", "p",
                                 "i", "i", "i", "i", "i", "i", "i", "i", "p"],
-    # q, k, v, o, G, N, hd, scale, use_bf16, stream
-    "upnerf_flash_attn_fwd": ["p", "p", "p", "p", "i", "i", "i", "f", "i", "p"],
+    # q, k, v, o, bf16 scratch q * scale, k, v (null in float32 mode), G, N, hd, scale, use_bf16, stream
+    "upnerf_flash_attn_fwd": ["p", "p", "p", "p", "p", "p", "p", "i", "i", "i", "f", "i", "p"],
     # x0, c_emb, trunk W, trunk b, D, skip mask, heads (null: the trunk alone), outs, N, in0, C, F, use_bf16, stream
     "upnerf_heads_fwd": ["p", "p", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "p"],
     # x0, c_emb, cots, trunk W, trunk b, trunk W^T, D, skip mask, weights (null: the trunk alone), biases, outs,

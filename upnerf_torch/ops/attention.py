@@ -13,9 +13,29 @@ running row max m, row sum l and the value accumulator in float32.
   product while l sums the float32 p. The result therefore depends on the
   key-tile size: p is rounded relative to the running max at its tile.
 - `flash_attention` is the wrapper: on CPU tensors it runs the plain version
-  at the kernel's tile (BLOCK_K); on CUDA tensors it launches the CUDA kernel
-  (`csrc/flash_attn_fwd.cu`) on the current stream, or raises. It counts its
-  launches in `launches`.
+  at the kernel's key tile (BLOCK_K); on CUDA tensors it launches the CUDA
+  kernel (`csrc/flash_attn_fwd.cu`) on the current stream, or raises. It
+  counts its calls in `launches`.
+
+The CUDA kernel replaces the TPU kernel `_flash_kernel`
+(upnerf/ops/pallas_attention.py:41, reached through `flash_attention`
+:102). At the DINO extractor's shape (6 heads x 12,322 tokens x 64) a call
+is 233 GFLOP of products (0.236 ms at the H100's 989 TFLOP/s bf16 peak)
+and 911 M exponentials (~0.22 ms at the SFU's 16 a clock per SM), so both
+the tensor cores and the SFUs bound it. In bfloat16 mode one call is two
+kernels, counted as one launch of this function:
+- a pre-pass writes q * scale, k and v rounded to bf16 into three scratch
+  tensors allocated here (28 MB at the DINO shape), as `_bf16` rounds them,
+  so that no block reads or converts f32 k and v;
+- a warp-specialised kernel: a producer warp streams the block's q tile and
+  128-key tiles of k and v by TMA into a ring of shared-memory stages, and
+  three consumer warpgroups (64 query rows each, 192 a block) run
+  S = Q K^T and O += P V as wgmma products with P from registers, issuing
+  the next tile's S with the previous tile's P V so that the softmax
+  (exponentials on the SFUs) overlaps the products. Each block reads its
+  group's bf16 k and v once from L2: ~1.2 GB a call, 390 blocks in 2.95
+  waves at the DINO shape.
+The float32 mode is a SIMT kernel (no TF32).
 
 There is no VJP: the extractors are offline inference, as in the JAX
 package.
@@ -26,10 +46,12 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30  # finite: exp(NEG_INF - m) == 0 with no inf - inf
-BLOCK_K = 64  # the CUDA kernel's key tile
+BLOCK_K = 128  # the CUDA kernel's key tile in bfloat16 mode (csrc/flash_attn_fwd.cu:WS_BN)
+BLOCK_Q = 192  # its query rows a block: 3 consumer warpgroups x 64 (csrc/flash_attn_fwd.cu:WS_BM)
 HEAD_DIM = 64  # the head width the CUDA kernel takes
 
-# Kernel launches made in this process by flash_attention.
+# Calls of the CUDA kernel made in this process by flash_attention (in
+# bfloat16 mode each is the pre-pass and the main kernel).
 launches = 0
 
 
@@ -89,6 +111,40 @@ def _check(name: str, t: torch.Tensor, shape) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def _dense_aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself if it is contiguous with a 16-byte aligned data pointer (the
+    kernels read 16 bytes a thread), else a fresh contiguous copy."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, bf16: bool):
+    """One call of the CUDA kernel on (G, N, 64) float32 CUDA tensors that
+    `flash_attention` has checked; returns (out, (qb, kb, vb)), the bf16
+    scratch that the pre-pass wrote (None in float32 mode)."""
+    from upnerf_torch.ops import _build
+
+    G, N, hd = q.shape
+    q, k, v = _dense_aligned(q), _dense_aligned(k), _dense_aligned(v)
+    out = torch.empty_like(q)
+    scratch = None
+    ptrs = (None, None, None)
+    if bf16:
+        scratch = tuple(torch.empty((G, N, hd), dtype=torch.bfloat16, device=q.device) for _ in range(3))
+        ptrs = tuple(t.data_ptr() for t in scratch)
+        if any(p % 16 for p in ptrs):  # TMA reads 16-byte aligned bases; the caching allocator gives 512
+            raise RuntimeError("bf16 scratch of the attention kernel is not 16-byte aligned")
+    lib = _build.library("flash_attn_fwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        code = lib.upnerf_flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *ptrs, G, N, hd,
+                                         float(scale), int(bf16), stream)
+    if code != 0:
+        raise RuntimeError(f"flash_attn_fwd kernel failed ({code}): {lib.upnerf_error_string(code).decode()}")
+    return out, scratch
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -101,14 +157,13 @@ def flash_attention(
     (G, N, hd) out. Products in bfloat16 (default) or float32.
 
     CPU tensors: `flash_attention_plain` at block_k = BLOCK_K. CUDA tensors:
-    the CUDA kernel, which takes hd = 64 and G, N < 2^31."""
+    the CUDA kernel, which takes hd = 64, G <= 65535 and N < 2^31; inputs
+    that are not contiguous or not 16-byte aligned are copied first."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, compute_dtype=compute_dtype, block_k=BLOCK_K)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     global launches
-    from upnerf_torch.ops import _build
-
     bf16 = _is_bf16(compute_dtype)
     G, N, hd = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -117,14 +172,6 @@ def flash_attention(
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("the CUDA attention kernel is forward-only: run it under torch.no_grad()")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    lib = _build.library("flash_attn_fwd")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        code = lib.upnerf_flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), G, N, hd,
-                                         float(scale), int(bf16), stream)
-    if code != 0:
-        raise RuntimeError(f"flash_attn_fwd kernel failed ({code}): {lib.upnerf_error_string(code).decode()}")
+    out, _ = _launch(q, k, v, scale, bf16)
     launches += 1
     return out
