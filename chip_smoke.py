@@ -28,12 +28,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      an in-memory scene as the JAX package's benchmark builds it (16 images
      of 256x256, 55x55x384 bf16 features, batch 2048, 128 + 128 samples,
      bfloat16): 1 warm-up and 3 steps in each of phases 0, 1 and 2, each
-     step 2 forward and 2 backward kernel launches; then one phase-1 step of
+     step 2 forward and 2 backward kernel launches (each backward a walk and
+     a dW kernel launch per slab of rays); then one phase-1 step of
      256 rays on the card (kernels) against the same step on the CPU (plain
      versions), on the loss terms and every gradient;
   9. step ms and rays/s per phase (CUDA events), the backward kernel against
      the plain backward per 4096-ray chunk (F = 384 and 32), the step's peak
-     memory; with
+     memory; the backward's pieces per chunk in turns (the walk with its
+     operand stores and the dW kernel over all slabs, the frozen walk, the
+     parent design with and without its dW atomic adds), the call's peak
+     memory, its bound and the design's byte floor; the dW kernel against its
+     plain version at full width (DW_TOL), and two dW calls and two backward
+     calls bit for bit; with
      --profile, a torch.profiler table of one phase-1 step into DIR (and of
      one fast frame, phase 15);
  10. the flash-attention kernel against its plain PyTorch version at the
@@ -271,6 +277,10 @@ HEADS_F64_RATIO = 2.0
 # 4096 x 256 (measured on the card), over BWD_TOL's 1e-4. Weight gradients
 # there: max |d| over max |g| <= REC_DW_TOL, and the float64 witness above.
 REC_DW_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+# The dW kernel (csrc/dw_gemm.cu) against its plain version on the same stored bf16
+# operands, per weight gradient and the biases, max |d| over max |g|: both sum the
+# same exact products in f32, in another order, over ~100,000 samples a slab.
+DW_TOL = 1e-4
 PROBE_ROWS = CHUNK * 64  # the fast render's sigma-only probe: 4096 rays x 64 samples
 # Phase 13's scene: a ring of 8 train and 4 test cameras, PNGs of 128x96 that
 # the loader's img_downscale 2 (brandenburg_gate's) reads as 64x48, TTO in one
@@ -519,6 +529,7 @@ def time_steps(step, state, scene, store, dev, label: str, n_steps: int = 3):
 def phase_train_step(dev, card: str, profile_dir=None):
     """Phases 8 and 9 for the train step. Returns (launch counts, step times,
     peak memory per phase)."""
+    from upnerf_torch.ops import dw_gemm as dg
     from upnerf_torch.ops import render_train as rt
     from upnerf_torch.train import make_train_step
     from upnerf_torch.train import step as tstep
@@ -531,14 +542,16 @@ def phase_train_step(dev, card: str, profile_dir=None):
     ds_0 = state.pose_params.depth_scale.weight.detach().clone()
 
     n_steps = 3
-    rt.launches = rt.bwd_launches = 0
+    rt.launches = rt.bwd_launches = dg.dw_launches = 0
     state, times, peaks = time_steps(step, state, scene, store, dev, "8", n_steps)
     steps = len(STEP_PHASES) * (n_steps + 1)
-    launches = {"render_train_fwd": rt.launches, "render_train_bwd": rt.bwd_launches}
+    launches = {"render_train_fwd": rt.launches, "render_train_bwd": rt.bwd_launches, "dw_gemm": dg.dw_launches}
     print(f"[8] {steps} steps: forward launches {launches['render_train_fwd']}, backward launches"
-          f" {launches['render_train_bwd']} (expected {2 * steps} each)", flush=True)
+          f" {launches['render_train_bwd']} (expected {2 * steps} each); dW kernel launches {launches['dw_gemm']}"
+          f" (one a slab of rays, at least {2 * steps})", flush=True)
     check(launches["render_train_fwd"] == 2 * steps and launches["render_train_bwd"] == 2 * steps,
           "the train step did not make 2 forward + 2 backward kernel launches a step")
+    check(launches["dw_gemm"] >= 2 * steps, "the train step's backward did not launch the dW kernel")
     d_se3 = (state.pose_params.se3_refine.weight.detach() - se3_0).abs().max().item()
     d_ds = (state.pose_params.depth_scale.weight.detach() - ds_0).abs().max().item()
     print(f"[8] pose tables moved: max |d se3| {d_se3:.3e}, max |d depth_scale| {d_ds:.3e}", flush=True)
@@ -600,14 +613,39 @@ def phase_train_step(dev, card: str, profile_dir=None):
     return launches, times, peaks
 
 
+def dw_work(lay, R: int, S: int):
+    """(FLOPs, bytes) of the dW kernel's products and sums over R rays x S
+    samples: each job's kept outputs over its rows, and its operands (the
+    saved chain, the operand buffer, the per-ray operands and bias rows) read
+    once, the result written once."""
+    from upnerf_torch.ops import render_train as rt
+
+    flop = sum(2 * j.m_out * j.n_out * (R if j.x_src == rt.SRC_RAY else R * S) for j in lay.jobs)
+    chain_w = max(j.x_col + j.x_cols for j in lay.jobs if j.x_src == rt.SRC_CHAIN)
+    nbytes = 2 * R * S * (chain_w + lay.ops_w) + 2 * R * lay.ray_w + 4 * R * lay.nb + 4 * (lay.n_dw + lay.nb)
+    return flop, nbytes
+
+
 def phase_bwd_timing(field, nerf_cfg, dev, card: str):
-    """Backward kernel against the plain backward per 4096-ray chunk, S = 256,
-    phase 1, bfloat16, in turns (plain, kernel, kernel, plain)."""
+    """Phase 9's backward per 4096-ray chunk, S = 256, phase 1, bfloat16: the
+    call (walk per slab + the dW kernel) against the plain backward, and the
+    forward with residuals against its plain version, in turns (plain,
+    kernel, kernel, plain); then the design's pieces in turns: the walk with
+    its operand stores over all slabs, the dW kernel over all slabs, the walk
+    in the frozen mode, and the parent design (one launch that adds every
+    weight gradient with atomics) with and without its adds; the call's
+    peak memory above what was allocated before it; the dW kernel against its
+    plain version on the first slab's operands (DW_TOL of each gradient's
+    max), two dW calls and two whole calls bit for bit. Returns ({"bwd",
+    "fwd", "dw": (kernel ms, plain ms)}, dW max |d|, the layout)."""
+    from upnerf_torch.ops import dw_gemm as dg
     from upnerf_torch.ops import render_train as rt
 
     st = train_static(nerf_cfg, "bfloat16", 1)
+    frozen = st._replace(param_grads=False)
     inputs = chunk_inputs(field, 256, seed=9, dev=dev, R=CHUNK)
     args, c_emb = mode_args(field, inputs, st)
+    F = nerf_cfg.feat_dim
     with torch.no_grad():
         out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
         g = torch.Generator(device=dev).manual_seed(3)
@@ -618,11 +656,88 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
         fwd_p = lambda: rt.render_train_rays_plain(*args, c_emb=c_emb, save_res=True)  # noqa: E731
         p1, k1, k2, p2 = cuda_ms(plain, 2), cuda_ms(kern, 2), cuda_ms(kern, 2), cuda_ms(plain, 2)
         fp1, fk1, fk2, fp2 = cuda_ms(fwd_p, 2), cuda_ms(fwd_k, 2), cuda_ms(fwd_k, 2), cuda_ms(fwd_p, 2)
-    t = {"bwd": ((k1 + k2) / 2, (p1 + p2) / 2), "fwd": ((fk1 + fk2) / 2, (fp1 + fp2) / 2)}
-    print(f"[9] F={nerf_cfg.feat_dim}, per {CHUNK}-ray chunk, S=256, phase 1, bfloat16: backward kernel {t['bwd'][0]:.2f} ms, plain"
-          f" {t['bwd'][1]:.2f} ms; forward with residuals kernel {t['fwd'][0]:.2f} ms, plain {t['fwd'][1]:.2f} ms"
-          f" ({card})", flush=True)
-    return t
+
+        # the call's peak memory, and two calls bit for bit
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        a = kern()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        b = kern()
+        def outputs(r):
+            return [t for t in r[:4] if t is not None] + [t for wb in r[4] for t in wb] + list(r[5].values())
+
+        same = all(torch.equal(x, y) for x, y in zip(outputs(a), outputs(b)))
+        check(same, "two calls of the bf16 train backward differ")
+        del a, b
+
+        # the pieces of the design
+        call = rt.render_train_rays_bwd_launch(*args[:7], st, c_emb, res, cots)
+        slabs = [(r0, min(CHUNK, r0 + call.slab)) for r0 in range(0, CHUNK, call.slab)]
+        walk = lambda: [call.walk(r0, r1) for r0, r1 in slabs]  # noqa: E731
+        dwk = lambda: [call.dw(r0, r1) for r0, r1 in slabs]  # noqa: E731
+        zcall = rt.render_train_rays_bwd_launch(*args[:7], frozen, c_emb, res, cots)
+        adds = rt.render_train_rays_bwd_launch(*args[:7], st, c_emb, res, cots, design="adds")
+        no_adds = rt.render_train_rays_bwd_launch(*args[:7], st, c_emb, res, cots, design="no_adds")
+        lay = call.lay
+        ops, ray, rows = call.bufs
+        chain = res["chain"]
+
+        def dw_plain_chunk():  # the plain dW over the chunk's slabs, on the buffers as they stand
+            for r0, r1 in slabs:
+                n = r1 - r0
+                dg.dw_gemm_plain([chain[r0 * 256 : r1 * 256], ops[: n * 256], None if ray is None else ray[:n]],
+                                 lay.jobs, call.flat, lay.n_dw, rows[:n], r0 > 0)
+
+        t = {}
+        for name, fn in (("adds", adds.run), ("no_adds", no_adds.run), ("frozen", zcall.run), ("walk", walk),
+                         ("dw", dwk), ("dw_plain", dw_plain_chunk)):
+            t[name] = [cuda_ms(fn, 2)]
+        for name, fn in (("dw_plain", dw_plain_chunk), ("dw", dwk), ("walk", walk), ("frozen", zcall.run),
+                         ("no_adds", no_adds.run), ("adds", adds.run)):
+            t[name].append(cuda_ms(fn, 2))
+        t = {k: sum(v) / 2 for k, v in t.items()}
+
+        # the dW kernel against its plain version on the first slab's operands, and twice bit for bit
+        r1 = slabs[0][1]
+        srcs = [chain[: r1 * 256], ops[: r1 * 256], None if ray is None else ray[:r1]]
+        call.walk(0, r1)
+        got = [dg.dw_gemm(srcs, lay.jobs, torch.empty_like(call.flat), lay.n_dw, rows[:r1], False) for _ in range(2)]
+        want = dg.dw_gemm_plain(srcs, lay.jobs, torch.empty_like(call.flat), lay.n_dw, rows[:r1], False)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], got[1]), "two calls of the dW kernel differ")
+        errs = {}
+        for name, (off, (r, c)) in lay.outs.items():
+            errs[name] = rel_err(got[0][off : off + r * c], want[off : off + r * c])
+        errs["biases"] = rel_err(got[0][lay.n_dw :], want[lay.n_dw :])
+        dw_abs = (got[0] - want).abs().max().item()
+        worst = max(errs, key=errs.get)
+        del got, want
+    flop, nbytes = dw_work(lay, CHUNK, 256)
+    dw_bound = bound(flop, nbytes, "bfloat16")
+    bwd_bound = render_bound(field, st, CHUNK, 256, "bwd")
+    chain_bytes_ = res["chain"].numel() * 2
+    floor = (2 * chain_bytes_ + 2 * 2 * CHUNK * 256 * lay.ops_w) / PEAK_BYTES * 1e3
+    ops_gib = call.bufs[0].numel() * 2 / 2**30
+    print(f"[9] F={F}, per {CHUNK}-ray chunk, S=256, phase 1, bfloat16: backward {(k1 + k2) / 2:.2f} ms ({k1:.2f},"
+          f" {k2:.2f}), plain {(p1 + p2) / 2:.2f} ms; forward with residuals kernel {(fk1 + fk2) / 2:.2f} ms, plain"
+          f" {(fp1 + fp2) / 2:.2f} ms ({card})", flush=True)
+    print(f"[9] F={F} the design, per chunk in turns: walk with its operand stores {t['walk']:.2f} ms over"
+          f" {len(slabs)} slabs of {call.slab} rays, dW kernel {t['dw']:.2f} ms (plain {t['dw_plain']:.2f} ms), walk"
+          f" frozen {t['frozen']:.2f} ms; the parent design: with its dW adds {t['adds']:.2f} ms, without them"
+          f" {t['no_adds']:.2f} ms ({card})", flush=True)
+    print(f"[9] F={F} backward call peak memory {peak / 2**30:.3f} GiB above its inputs (operand buffer"
+          f" {ops_gib:.3f} GiB, {lay.ops_w} columns); bound {bwd_bound[0]:.3f} ms ({bwd_bound[1]}); this design's byte"
+          f" floor (chain read twice, operand buffer written and read once) {floor:.3f} ms; dW kernel bound"
+          f" {dw_bound[0]:.3f} ms ({dw_bound[1]}: {flop / 1e12:.3f} TFLOP, {nbytes / 1e9:.2f} GB), "
+          f"{flop / t['dw'] / 1e9:.0f} TFLOP/s", flush=True)
+    print(f"[9] F={F} dW kernel vs plain on the first slab ({r1} rays): worst {worst} {errs[worst]:.3e} (tol"
+          f" {DW_TOL:.0e}), max |d| {dw_abs:.3e}; two dW calls and two backward calls bit for bit: {same}", flush=True)
+    check(errs[worst] <= DW_TOL, f"the dW kernel disagrees with its plain version: {errs}")
+    check(ops_gib <= 1.0, "the operand buffer exceeds 1 GiB")
+    return ({"bwd": ((k1 + k2) / 2, (p1 + p2) / 2), "fwd": ((fk1 + fk2) / 2, (fp1 + fp2) / 2),
+             "dw": (t["dw"], t["dw_plain"])}, dw_abs, lay)
 
 
 def flash_l2_bytes(G: int, N: int) -> float:
@@ -2620,8 +2735,8 @@ def main() -> int:
 
     # 8 + 9. the flagship train step
     launches, step_ms, step_peaks = phase_train_step(dev, card, args.profile)
-    kt = phase_bwd_timing(field, nerf_cfg, dev, card)
-    phase_bwd_timing(field32, nerf32, dev, card)
+    kt, dw_err, dw_lay = phase_bwd_timing(field, nerf_cfg, dev, card)
+    dw_err = max(dw_err, phase_bwd_timing(field32, nerf32, dev, card)[1])
     print(f"    phases 8-9: {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # 10 + 11. the flash-attention kernel and the offline extractors
@@ -2672,6 +2787,7 @@ def main() -> int:
         "render_train_fwd": render_bound(field, st1, CHUNK, 256, "fwd"),
         "render_train_fwd, serving mode (phase 5)": render_bound(field, st2, CHUNK, 256, "serve"),
         "render_train_bwd": render_bound(field, st1, CHUNK, 256, "bwd"),
+        "dw_gemm": bound(*dw_work(dw_lay, CHUNK, 256), "bfloat16"),
         "render_train_bwd_frozen": render_bound(field, st2, CHUNK, 256, "bwd"),
         "flash_attn_fwd": (max(flash_terms.values()),
                            "bytes" if max(flash_terms, key=flash_terms.get) == "bytes" else "operations"),
@@ -2732,6 +2848,19 @@ def main() -> int:
             "plain_ms": kt["bwd"][1],
             "bound_ms": bounds["render_train_bwd"][0],
             "bound_by": bounds["render_train_bwd"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "dw_gemm",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/dw_gemm.cu",
+            "replaces": "upnerf/ops/pallas_render_train.py:822",
+            "launches": launches["dw_gemm"],
+            "max_abs_err": dw_err,
+            "ms": kt["dw"][0],
+            "plain_ms": kt["dw"][1],
+            "bound_ms": bounds["dw_gemm"][0],
+            "bound_by": bounds["dw_gemm"][1],
             "library_ms": None,
         },
         {

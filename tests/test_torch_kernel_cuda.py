@@ -751,3 +751,112 @@ def test_mxu_probe_kernel_matches_plain(cuda_device, chain):
         assert torch.equal(got, want)
     else:
         assert _rms(got - want) <= 1e-3 * _rms(want)
+
+
+# The weight-gradient kernel (csrc/dw_gemm.cu) and the two-kernel bf16 train backward.
+DW_TOL = 1e-5  # f32 sums of the same bf16 products in another order, over up to 70,001 rows: of the max |dW|
+
+
+def _dw_sources(rows, widths, device, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(rows, w).astype(np.float32)).to(device).bfloat16() for w in widths]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [100, 1000, 70001])
+@pytest.mark.parametrize("k_in", [64, 128, 256, 384])
+def test_dw_gemm_matches_plain_and_repeats_bit_for_bit(cuda_device, k_in, rows):
+    """Every (K_in, N) the backward gives the kernel: X strips of 64-384
+    columns against G strips of 128, 256 and 384 columns and the narrow
+    cotangents (3 or 1 columns of a 64-column block), with a source of 1,280
+    columns as the saved chain (strips at offsets), sample counts that are not
+    multiples of 64 or 128 (rows past the end load as zeros), bias rows, and a
+    second call that adds to the first; against the plain version, and two
+    calls bit for bit."""
+    from upnerf_torch.ops import dw_gemm as dg
+
+    chain, ops = _dw_sources(rows, (1280, 1024), cuda_device, seed=k_in + rows)
+    jobs, off = [], 0
+    for g_col, g_cols, g0, n_out in ((0, 128, 0, 128), (128, 256, 0, 256), (384, 384, 0, 384), (768, 64, 0, 3),
+                                     (768, 64, 3, 1), (768, 64, 4, 1)):
+        jobs.append(dg.DwJob(0, 256, k_in, 1, g_col, g_cols, g0, n_out, k_in, off, n_out))
+        off += k_in * n_out
+    jobs.append(dg.DwJob(1, 832, 64, 0, 0, 256, 0, 256, 40, off, 256))  # x from the operand source, 40 rows kept
+    n_dw = off + 40 * 256
+    nb = 777
+    bias = torch.from_numpy(np.random.RandomState(rows).randn(300, nb).astype(np.float32)).to(cuda_device)
+    outs = []
+    before = dg.dw_launches
+    for _ in range(2):
+        out = torch.empty(n_dw + nb, device=cuda_device)
+        dg.dw_gemm([chain, ops, None], jobs, out, n_dw, bias, False)
+        dg.dw_gemm([chain, ops, None], jobs, out, n_dw, bias, True)
+        outs.append(out)
+    want = dg.dw_gemm_plain([chain, ops, None], jobs, torch.empty(n_dw + nb, device=cuda_device), n_dw, bias, False)
+    torch.cuda.synchronize()
+    assert dg.dw_launches == before + 4
+    assert torch.equal(outs[0], outs[1])
+    got = outs[0] / 2
+    assert torch.isfinite(got).all()
+    for j in jobs:
+        a = got[j.out_off : j.out_off + j.m_out * j.ldo]
+        b = want[j.out_off : j.out_off + j.m_out * j.ldo]
+        assert (a - b).abs().max() <= DW_TOL * b.abs().max(), j
+    assert (got[n_dw:] - want[n_dw:]).abs().max() <= DW_TOL * want[n_dw:].abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x0_mode", [False, True], ids=["rays", "x0"])
+@pytest.mark.parametrize("F", WIDTHS)
+@pytest.mark.parametrize("phase", [0, 1, 2])
+def test_bf16_train_backward_in_slabs_repeats_bit_for_bit(cuda_device, phase, F, x0_mode, monkeypatch):
+    """The bf16 saved-chain train backward at 256 rays in slabs of 100 (the
+    operand budget cut to force three, the last ragged): two calls give the
+    same bits in every output, dW included; the walk's data cotangents equal
+    the one-slab call's and the frozen mode's bit for bit; and every output
+    meets the plain backward within 1e-2 of its max, as
+    test_backward_matches_plain holds the one-slab call."""
+    if phase == 2:
+        o, d, z, pe_w, cond, trunk, heads = make_inputs(256, 128, cuda_device, seed=13, F=F)
+        args, c_emb = (o, d, z, pe_w, cond, trunk, heads, rt.RTStatic(D=D, skips=SKIPS, xyz_L=L,
+                                                                      precision="bfloat16")), None
+    else:
+        args, c_emb = train_inputs(256, 128, cuda_device, phase, "bfloat16", seed=13, F=F)
+    o, d, z, pe_w, cond, trunk, heads, st = args
+    x0 = rt._pe(o, d, z, pe_w, L)[0].contiguous()
+    with torch.no_grad():
+        out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+        g = torch.Generator(device=cuda_device).manual_seed(2)
+        cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in out.items()}
+
+        def call(s):
+            if x0_mode:
+                return rt.render_train_bwd(x0, z, cond, trunk, heads, s, c_emb, res, cots)
+            return rt.render_train_rays_bwd(o, d, z, pe_w, cond, trunk, heads, s, c_emb, res, cots)
+
+        one = call(st)
+        lay = rt.dw_layout(st, W, rt.feat_pad(F, True), HH, 128, 16)
+        monkeypatch.setattr(rt, "DW_BUFFER_BYTES", 100 * (128 * lay.ops_w * 2 + lay.ray_w * 2 + lay.nb * 4))
+        assert rt.dw_slab_rays(lay, 128, 132) == 100
+        from upnerf_torch.ops import dw_gemm as dg
+
+        before = dg.dw_launches
+        a, b = call(st), call(st)
+        frozen = call(st._replace(param_grads=False))
+        if x0_mode:
+            want = rt.render_train_bwd_plain(x0, z, cond, trunk, heads, st, c_emb, res, cots)
+        else:
+            want = rt.render_train_rays_bwd_plain(o, d, z, pe_w, cond, trunk, heads, st, c_emb, res, cots)
+    torch.cuda.synchronize()
+    assert dg.dw_launches == before + 6
+
+    def flat(r):
+        return [t for t in r[:-2] if t is not None] + [t for wb in r[-2] for t in wb] + [r[-1][k] for k in st.head_keys]
+
+    for x, y in zip(flat(a), flat(b)):
+        assert torch.equal(x, y)
+    n_data = len([t for t in a[:-2] if t is not None])
+    for x, y, f in zip(flat(a)[:n_data], flat(one)[:n_data], [t for t in frozen[:-2] if t is not None]):
+        assert torch.equal(x, y) and torch.equal(x, f)
+    for x, w in zip(flat(a), flat(want)):
+        assert torch.isfinite(x).all() and (x - w.reshape(x.shape)).abs().max() <= 1e-2 * w.abs().max()

@@ -26,9 +26,11 @@ constexpr int W = 256, HH = 128, HC = 128;
 // RECOMPUTE: the recompute mode (RTStatic.save_chain = False): the forward's residuals
 // hold the per-sample feat and c_feat in place of the walk chain, and the backward
 // rebuilds the chain.
+// DW_OPS: the bf16 saved-chain backward's train mode stores the operands of its weight
+// gradients for dw_gemm.cu in place of adding the gradients itself.
 enum Flag {
   BF16 = 1, USE_RGB = 2, OUT_FEAT = 4, USE_CAND = 8, SAVE_RES = 16, STORE_F32 = 32, NO_PARAM_GRADS = 64, X0_IN = 128,
-  RECOMPUTE = 256
+  RECOMPUTE = 256, DW_OPS = 512
 };
 enum Status { OK = 0, BAD_SHAPE = -1, BAD_SMEM = -2, BAD_MODE = -3 };
 

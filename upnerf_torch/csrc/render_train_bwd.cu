@@ -24,7 +24,9 @@
 //      the trunk, with ReLU masks from the stored activations;
 //   4. the PE backward down to d_rays_o and d_rays_d (d sin(x f) = cos(x f) f,
 //      d cos(x f) = -sin(x f) f, with the forward's non-contracted arguments);
-//   5. every dW = x^T dy and db = sum dy.
+//   5. every dW = x^T dy and db = sum dy: in the bf16 saved-chain train mode (flag
+//      DW_OPS, below) by dw_gemm.cu from the operands this kernel stores; in the
+//      other train modes here.
 // In bfloat16 mode every product rounds both operands to bf16 and sums in f32, the
 // cotangent included, as the TPU kernel's _dot does; bias sums and the rank-1 sigma
 // terms stay f32. upnerf_torch/ops/render_train.py:render_train_rays_bwd_plain is the
@@ -33,18 +35,36 @@
 // What bounds it on the H100: ~2.8 MFLOP a sample (the walk's data path and the dW
 // products, ~1.4 M each) and the dW accumulation. Blocks run in parallel, so the
 // weight gradients (0.81 M values with the candidate branch) cannot stay resident as
-// on the TPU's sequential grid; they are too large for a block's shared memory. Each
-// block adds its 32-sample tile's dW into one f32 copy in device memory with vector
-// atomic adds: no partial buffers and no second launch, and the 3.2 MB target stays
-// in the 50 MB L2. The price is an order of the sums that changes from run to run
-// (last bits only). One block of 256 threads per ray. bfloat16 mode: the walk's
-// products (g W^T, and dW = x^T g) run on the tensor cores with mma.sync m16n8k16,
-// the weights packed in fragment order as in the forward kernel, x and g taken from
-// shared memory by ldmatrix (.trans for the dW operands). float32 mode: SIMT FMAs.
-// ~160 KB of shared memory in bfloat16 mode, ~210 KB in float32 mode at 256
-// samples a ray: one block per SM. One instance per built feature width (32, 64, 384);
-// below 384 the feature products run at the zero-padded width FP of the forward
-// (render_common.cuh:feat_pad), and the padded columns carry exact zeros throughout.
+// on the TPU's sequential grid (pallas_render_train.py:1318-1326); they are too large
+// for a block's shared memory. One block of 256 threads per ray. bfloat16 mode: the
+// walk's products (g W^T) run on the tensor cores with mma.sync m16n8k16, the weights
+// packed in fragment order as in the forward kernel. float32 mode: SIMT FMAs. ~160
+// KB of shared memory in bfloat16 mode (~173 KB with DW_OPS's bias sums), ~210 KB in
+// float32 mode at 256 samples a ray: one block per SM. One instance per built
+// feature width (32, 64, 384); below 384 the feature products run at the zero-padded
+// width FP of the forward (render_common.cuh:feat_pad), and the padded columns carry
+// exact zeros throughout.
+//
+// DW_OPS, the bf16 saved-chain train mode's weight gradients: the walk adds none. For
+// each tile it stores the rounded operands that the products read and that are not
+// in the saved chain, 16 bytes a thread, into a dW operand buffer in device memory
+// (rows = the launch's samples; columns from upnerf_torch/ops/render_train.py:
+// dw_layout, passed in `lay`): every cotangent G (g_rgbh, g_feat, g_cfeat, g_h2,
+// g_h1, g_xyzf, each trunk layer's g_act; g_u, g_spre and g_cpre in one shared
+// column block), the re-derived feat (rgb1's X) and the tile's x0; per ray, rayg1 and
+// c_emb (c1c_w's operands) and a row of f32 bias sums, each column owned by one thread
+// across the ray's tiles, in tile order. dw_gemm.cu then sums every dW = X^T G over
+// the samples (X from the saved chain or the buffer) and the bias rows over the rays,
+// in a fixed order: the result's bits do not change from run to run. The wrapper runs
+// the walk and dw_gemm per slab of rays, the buffer under 1 GiB (~7.9 KB a sample at
+// F = 384, phase 1). The stores, ~8 GB a 4096 x 256 chunk, and the chain's loads are
+// streaming (evict-first): with default caching they pushed out of L2 the weights that
+// every tile's products re-read, and the walk took ~37.7 ms a chunk instead of ~30
+// (one H100, PERF.md §6). In the float32 and the recompute modes each block adds its
+// 32-sample tile's dW into one f32 copy in device memory with vector atomic adds,
+// x and g taken from shared memory by ldmatrix (.trans) into mma.sync in bf16, so
+// their last bits change from run to run; ~34 ms of the bf16 train mode's ~62 ms per
+// 4096-ray chunk went to those products and adds before DW_OPS.
 //
 // Frozen-model mode (flag NO_PARAM_GRADS, RTStatic.param_grads = False; the JAX
 // kernel's param_grads=False, pallas_render_train.py:131-138, which test-time
@@ -56,8 +76,7 @@
 // results are bit for bit the train mode's. No per-ray output is summed with atomics:
 // d_ray_cond and the per-ray sum of d h1 are column sums each owned by one thread,
 // and d_rays_o / d_rays_d are summed over a tile's samples by one thread per
-// coordinate, in sample order. The frozen mode has no atomics at all; ~34 ms of the
-// train mode's ~62 ms per 4096-ray chunk were the dW products and their atomics.
+// coordinate, in sample order. The frozen mode has no atomics at all.
 //
 // Recompute mode (flag RECOMPUTE, RTStatic.save_chain = False; the TPU kernel's branch
 // pallas_render_train.py:883-890), in both the train and the frozen mode: the forward
@@ -82,6 +101,8 @@ namespace {
 
 using namespace upnerf;
 
+constexpr int OPS_BLOCK = 64;  // DW_OPS: the column block of dw_gemm.cu's strips (c_emb is padded to it)
+
 // Row strides of a feature width's instance: the wide f32 tile buffer holds W or FP
 // columns; the wide operand buffers 8 more (+ 16 bytes keeps ldmatrix rows in distinct
 // bank groups).
@@ -96,6 +117,16 @@ struct Widths {
 enum Dh {
   XYZF_W, XYZF_B, SIGMA_W, SIGMA_B, FEAT_W, FEAT_B, RGB1_W, RGB2_W, RGB2_B,
   C1X_W, C1C_W, C1_B, C2_W, C2_B, CSIG_W, CSIG_B, CFEAT_W, CFEAT_B, N_DH
+};
+
+// Slots of the DW_OPS layout, in upnerf_torch/ops/render_train.py:WALK_LAYOUT order:
+// the buffers' row widths and the bias count, then the column of each operand in the
+// operand buffer (x0, feat and the cotangents, g_act{i} per trunk layer), in the per-ray
+// operands (ray_g1, c_emb) and in a ray's bias row (per bias); -1 where the mode has none.
+enum Lay {
+  L_OPS_W, L_RAY_W, L_NB, L_X0, L_FEAT, L_G_U, L_G_RGBH, L_G_FEAT, L_G_CFEAT, L_G_CPRE, L_G_H2, L_G_H1, L_G_SPRE,
+  L_G_XYZF, L_RAY_G1, L_C_EMB, L_RGB2_B, L_FEAT_B, L_CFEAT_B, L_CSIG_B, L_C2_B, L_C1_B, L_SIGMA_B, L_XYZF_B,
+  L_G_ACT0, L_TRUNK_B0 = L_G_ACT0 + MAX_D, N_LAY = L_TRUNK_B0 + MAX_D
 };
 
 struct Bwd {
@@ -122,14 +153,20 @@ struct Bwd {
   float* dtw[MAX_D];
   float* dtb[MAX_D];
   float* dh[N_DH];
+  // flag DW_OPS: the dW operand buffer (rows: the launch's samples), the per-ray operands
+  // (rows: its rays) and the per-ray bias sums (f32), columns as lay says
+  bf16 *ops, *ray_ops;
+  float* bias_rows;
+  int lay[N_LAY];
   int D;
   unsigned skips;
   int R, S, L, C, in0, flags;
 };
 
 // Chain columns [col0, col0 + ncols) of tile s0 into dst (T); rows past the ray's end 0.
-// From the saved chain, or (blk non-null, the recompute mode) from the block's scratch
-// rows 0..BT-1 by plain loads: this launch writes them.
+// From the saved chain, by streaming loads (evict-first: each row is read once, and the
+// weights that every tile re-reads keep L2), or (blk non-null, the recompute mode) from
+// the block's scratch rows 0..BT-1 by plain loads: this launch writes them.
 template <typename T, bool REC>
 __device__ void load_chain(T* dst, int ldd, const Bwd& a, const T* blk, int ray, int s0, int col0, int ncols) {
   constexpr int V = 16 / sizeof(T);
@@ -142,7 +179,7 @@ __device__ void load_chain(T* dst, int ldd, const Bwd& a, const T* blk, int ray,
       if constexpr (REC)
         val = *reinterpret_cast<const uint4*>(blk + (size_t)r * a.chain_w + col0 + v * V);
       else
-        val = __ldg(reinterpret_cast<const uint4*>(chain + ((size_t)ray * a.S + s) * a.chain_w + col0 + v * V));
+        val = __ldcs(reinterpret_cast<const uint4*>(chain + ((size_t)ray * a.S + s) * a.chain_w + col0 + v * V));
     }
     *reinterpret_cast<uint4*>(dst + r * ldd + v * V) = val;
   }
@@ -164,6 +201,29 @@ __device__ void load_feat(T* dst, int ldd, const Bwd& a, bool bf, int ray, int s
 
 __device__ __forceinline__ float cot(const float* p, size_t i) { return p ? __ldg(p + i) : 0.f; }
 
+// DW_OPS: columns [0, N) of a tile's rounded operand src (BT rows, row stride ld, in
+// shared memory) into the operand buffer at column lay[slot], 16 bytes a thread at a
+// time, as streaming stores (evict-first, as the chain's loads); rows past the ray's end
+// are not stored. The bf16 instance only.
+template <typename T>
+__device__ void store_ops(const Bwd& a, int ray, int s0, const T* src, int ld, int slot, int N) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int n8 = N / 8, rows = min(BT, a.S - s0);
+    bf16* dst = a.ops + ((size_t)ray * a.S + s0) * a.lay[L_OPS_W] + a.lay[slot];
+    for (int i = threadIdx.x; i < rows * n8; i += THREADS) {
+      const int r = i / n8, v = i - r * n8;
+      __stcs(reinterpret_cast<uint4*>(dst + (size_t)r * a.lay[L_OPS_W] + v * 8),
+             *reinterpret_cast<const uint4*>(src + r * ld + v * 8));
+    }
+  }
+}
+
+// DW_OPS: one operand value of sample s, rounded to bf16, into the operand buffer at
+// column lay[slot] + j.
+__device__ __forceinline__ void put_op(const Bwd& a, int ray, int s, int slot, int j, float v) {
+  if (s < a.S) a.ops[((size_t)ray * a.S + s) * a.lay[L_OPS_W] + a.lay[slot] + j] = __float2bfloat16_rn(v);
+}
+
 // REC: the recompute mode's instance (flag RECOMPUTE); the saved-chain modes run the one
 // without it.
 template <typename T, int F, bool REC>
@@ -174,6 +234,10 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   const bool rgb = a.flags & USE_RGB, feat = a.flags & OUT_FEAT, cand = a.flags & USE_CAND;
   const bool pg = !(a.flags & NO_PARAM_GRADS);  // uniform over the block: barriers stay unconditional
   constexpr bool rec = REC;
+  // DW_OPS (the bf16 saved-chain train mode): store the weight gradients' operands for
+  // dw_gemm.cu; otherwise (float32, the recompute mode) add the gradients here (adds)
+  const bool dw_ops = !REC && std::is_same<T, bf16>::value && (a.flags & DW_OPS);
+  const bool adds = pg && !dw_ops;
   const bool res_bf = (a.flags & BF16) && !(a.flags & STORE_F32);  // feat / c_feat residuals in bf16
   const bool x0_in = a.flags & X0_IN;
   const int col_xyzf = a.D * W, col_rgbh = (a.D + 1) * W, col_h1 = col_rgbh + (rgb ? HH : 0), col_h2 = col_h1 + HC;
@@ -210,6 +274,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   float* crw = cgw + S;
   float* rgbs = crw + S;                // (S, 3)
   float* ray1 = rgbs + 3 * S;           // (HC,) recompute mode: c_emb Wc1c + bc1
+  float* bacc = ray1 + HC;              // (lay[L_NB],) DW_OPS: the ray's bias-gradient sums
 
   // one ray: the saved-chain mode launches a block a ray, the recompute mode a
   // persistent block an SM that takes rays blockIdx.x, blockIdx.x + gridDim.x, ...
@@ -231,6 +296,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   for (int j = tid; j < FP; j += THREADS) gfeat[j] = feat && j < F ? cot(a.g_feat, (size_t)ray * F + j) : 0.f;
   for (int j = tid; j < HH; j += THREADS) dcond[j] = 0.f;
   for (int j = tid; j < HC; j += THREADS) rayg1[j] = 0.f;
+  for (int j = tid; dw_ops && j < a.lay[L_NB]; j += THREADS) bacc[j] = 0.f;
   for (int j = tid; j < a.C; j += THREADS) cemb[j] = __ldg(a.cemb + (size_t)ray * a.C + j);
   if (tid < 16) misc[tid] = 0.f;
   __syncthreads();
@@ -447,20 +513,24 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         const float gu = c * misc[8 + n] * v * (1.f - v);
         GU[r * 4 + n] = gu;
         GUT[r * 4 + n] = from_float<T>(gu);
+        if (dw_ops) put_op(a, ray, s0 + r, L_G_U, n, gu);
       }
       load(B, col_rgbh, HH);
       __syncthreads();
       // dW rgb2 (HH, 3) += rgbh^T g_u; db rgb2
-      for (int i = tid; pg && i < HH * 3; i += THREADS) {
+      for (int i = tid; adds && i < HH * 3; i += THREADS) {
         const int k = i / 3, n = i - k * 3;
         float acc = 0.f;
         for (int r = 0; r < BT; ++r) acc = fmaf(to_float(B[r * LDA + k]), to_float(GUT[r * 4 + n]), acc);
-        atomicAdd(a.dh[RGB2_W] + k * 3 + n, acc);
+        if (!skip_dw_add(acc)) atomicAdd(a.dh[RGB2_W] + k * 3 + n, acc);
       }
       if (pg && tid < 3) {
         float acc = 0.f;
         for (int r = 0; r < BT; ++r) acc += GU[r * 4 + tid];
-        atomicAdd(a.dh[RGB2_B] + tid, acc);
+        if (dw_ops)
+          bacc[a.lay[L_RGB2_B] + tid] += acc;
+        else if (!skip_dw_add(acc))
+          atomicAdd(a.dh[RGB2_B] + tid, acc);
       }
       // g_rgbh = (g_u Wr2^T) * (rgbh > 0)
       mm<T, T>(GF, LDT, false, GUT, 4, 3, static_cast<const T*>(a.rgb2_wT), HH, HH);
@@ -473,7 +543,11 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       colsum(GF, LDT, HH, nullptr, dcond);
       round_to<T>(B, LDA, GF, LDT, HH);
       __syncthreads();
-      if (pg) dww<T>(a.dh[RGB1_W], HH, A, LDA, FP, B, LDA, HH);
+      if (adds) dww<T>(a.dh[RGB1_W], HH, A, LDA, FP, B, LDA, HH);
+      if (dw_ops) {
+        store_ops(a, ray, s0, A, LDA, L_FEAT, FP);
+        store_ops(a, ray, s0, B, LDA, L_G_RGBH, HH);
+      }
       // g_f = cf g_feat + g_rgbh Wr1^T
       mmw<T>(GF, LDT, false, B, LDA, HH, a.rgb1_wT, FP, FP, 0);
       __syncthreads();
@@ -484,11 +558,12 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       GF[r * LDT + n] = rgb ? GF[r * LDT + n] + v : v;
     }
     __syncthreads();
-    if (pg) colsum(GF, LDT, FP, a.dh[FEAT_B]);
+    if (pg) colsum(GF, LDT, FP, adds ? a.dh[FEAT_B] : nullptr, dw_ops ? bacc + a.lay[L_FEAT_B] : nullptr);
     round_to<T>(B, LDA, GF, LDT, FP);
-    if (pg) load(A, col_xyzf, W);
+    if (adds) load(A, col_xyzf, W);
     __syncthreads();
-    if (pg) dww<T>(a.dh[FEAT_W], FP, A, LDA, W, B, LDA, FP);
+    if (adds) dww<T>(a.dh[FEAT_W], FP, A, LDA, W, B, LDA, FP);
+    if (dw_ops) store_ops(a, ray, s0, B, LDA, L_G_FEAT, FP);
     mmw<T>(GX, W, false, B, LDA, FP, a.feat_wT, W, W, 0);
     __syncthreads();
 
@@ -499,10 +574,11 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       }
       load(A, col_h2, HC);
       __syncthreads();
-      if (pg) colsum(GF, LDT, FP, a.dh[CFEAT_B]);
+      if (pg) colsum(GF, LDT, FP, adds ? a.dh[CFEAT_B] : nullptr, dw_ops ? bacc + a.lay[L_CFEAT_B] : nullptr);
       round_to<T>(B, LDA, GF, LDT, FP);
       __syncthreads();
-      if (pg) dww<T>(a.dh[CFEAT_W], FP, A, LDA, HC, B, LDA, FP);
+      if (adds) dww<T>(a.dh[CFEAT_W], FP, A, LDA, HC, B, LDA, FP);
+      if (dw_ops) store_ops(a, ray, s0, B, LDA, L_G_CFEAT, FP);
       // g_h2 = (g_cf Wcf^T + g_cpre csig_w) * (h2 > 0); dW / db of c_sig
       mmw<T>(GF, LDT, false, B, LDA, FP, a.cfeat_wT, HC, HC, 0);
       if (tid < BT) GU[tid * 4 + 3] = row_coef(gcp, tid);
@@ -515,15 +591,20 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       if (pg && tid == 0) {
         float acc = 0.f;
         for (int r = 0; r < BT; ++r) acc += GU[r * 4 + 3];
-        atomicAdd(a.dh[CSIG_B], acc);
+        if (dw_ops)
+          bacc[a.lay[L_CSIG_B]] += acc;
+        else if (!skip_dw_add(acc))
+          atomicAdd(a.dh[CSIG_B], acc);
       }
-      if (pg) dw_col<T>(a.dh[CSIG_W], A, LDA, HC, GU + 3, 4);
+      if (adds) dw_col<T>(a.dh[CSIG_W], A, LDA, HC, GU + 3, 4);
+      if (dw_ops && tid < BT) put_op(a, ray, s0 + tid, L_G_CPRE, 0, GU[tid * 4 + 3]);
       __syncthreads();
-      if (pg) colsum(GF, LDT, HC, a.dh[C2_B]);
+      if (pg) colsum(GF, LDT, HC, adds ? a.dh[C2_B] : nullptr, dw_ops ? bacc + a.lay[L_C2_B] : nullptr);
       round_to<T>(B, LDA, GF, LDT, HC);
       load(A, col_h1, HC);
       __syncthreads();
-      if (pg) dww<T>(a.dh[C2_W], HC, A, LDA, HC, B, LDA, HC);
+      if (adds) dww<T>(a.dh[C2_W], HC, A, LDA, HC, B, LDA, HC);
+      if (dw_ops) store_ops(a, ray, s0, B, LDA, L_G_H2, HC);
       // g_h1 = (g_h2 Wc2^T) * (h1 > 0)
       mmw<T>(GF, LDT, false, B, LDA, HC, a.c2_wT, HC, HC, 0);
       __syncthreads();
@@ -532,11 +613,12 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         if (!(to_float(A[r * LDA + n]) > 0.f)) GF[r * LDT + n] = 0.f;
       }
       __syncthreads();
-      colsum(GF, LDT, HC, pg ? a.dh[C1_B] : nullptr, rayg1);
+      colsum(GF, LDT, HC, adds ? a.dh[C1_B] : nullptr, rayg1);  // DW_OPS: c1_b's ray sum is rayg1
       round_to<T>(B, LDA, GF, LDT, HC);
-      if (pg) load(A, col_xyzf, W);
+      if (adds) load(A, col_xyzf, W);
       __syncthreads();
-      if (pg) dww<T>(a.dh[C1X_W], HC, A, LDA, W, B, LDA, HC);
+      if (adds) dww<T>(a.dh[C1X_W], HC, A, LDA, W, B, LDA, HC);
+      if (dw_ops) store_ops(a, ray, s0, B, LDA, L_G_H1, HC);
       mmw<T>(GX, W, true, B, LDA, HC, a.c1x_wT, W, W, 0);
       __syncthreads();
     }
@@ -545,16 +627,21 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
     load(A, (a.D - 1) * W, W);
     if (tid < BT) GU[tid * 4 + 3] = row_coef(gsp, tid);
     __syncthreads();
-    if (pg) colsum(GX, W, W, a.dh[XYZF_B]);
+    if (pg) colsum(GX, W, W, adds ? a.dh[XYZF_B] : nullptr, dw_ops ? bacc + a.lay[L_XYZF_B] : nullptr);
     round_to<T>(B, LDA, GX, W, W);
     if (pg && tid == 0) {
       float acc = 0.f;
       for (int r = 0; r < BT; ++r) acc += GU[r * 4 + 3];
-      atomicAdd(a.dh[SIGMA_B], acc);
+      if (dw_ops)
+        bacc[a.lay[L_SIGMA_B]] += acc;
+      else if (!skip_dw_add(acc))
+        atomicAdd(a.dh[SIGMA_B], acc);
     }
-    if (pg) dw_col<T>(a.dh[SIGMA_W], A, LDA, W, GU + 3, 4);
+    if (adds) dw_col<T>(a.dh[SIGMA_W], A, LDA, W, GU + 3, 4);
+    if (dw_ops && tid < BT) put_op(a, ray, s0 + tid, L_G_SPRE, 0, GU[tid * 4 + 3]);
     __syncthreads();
-    if (pg) dww<T>(a.dh[XYZF_W], W, A, LDA, W, B, LDA, W);
+    if (adds) dww<T>(a.dh[XYZF_W], W, A, LDA, W, B, LDA, W);
+    if (dw_ops) store_ops(a, ray, s0, B, LDA, L_G_XYZF, W);
     mmw<T>(GF, LDT, false, B, LDA, W, a.xyzf_wT, W, W, 0);
     __syncthreads();
     for (int i = tid; i < BT * W; i += THREADS) {
@@ -570,19 +657,23 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         if (!(to_float(A[r * LDA + n]) > 0.f)) GF[r * LDT + n] = 0.f;
       }
       __syncthreads();
-      if (pg) colsum(GF, LDT, W, a.dtb[i]);
+      if (pg) colsum(GF, LDT, W, adds ? a.dtb[i] : nullptr, dw_ops ? bacc + a.lay[L_TRUNK_B0 + i] : nullptr);
       round_to<T>(B, LDA, GF, LDT, W);
       __syncthreads();
       const bool skip = i > 0 && ((a.skips >> i) & 1u);
       const int in_pad = i == 0 ? MAX_IN0 : (skip ? MAX_IN0 + W : W);
+      if (dw_ops) {
+        store_ops(a, ray, s0, B, LDA, L_G_ACT0 + i, W);
+        if (i == 0) store_ops(a, ray, s0, X0, LDX0, L_X0, MAX_IN0);
+      }
       if (i == 0 || skip) {
-        if (pg) dww<T>(a.dtw[i], W, X0, LDX0, MAX_IN0, B, LDA, W);
+        if (adds) dww<T>(a.dtw[i], W, X0, LDX0, MAX_IN0, B, LDA, W);
         mmw<T>(DX0, MAX_IN0, true, B, LDA, W, a.tT[i], in_pad, MAX_IN0, 0);
       }
       if (i > 0) {
         load(A, (i - 1) * W, W);
         __syncthreads();
-        if (pg) dww<T>(a.dtw[i] + (skip ? MAX_IN0 * W : 0), W, A, LDA, W, B, LDA, W);
+        if (adds) dww<T>(a.dtw[i] + (skip ? MAX_IN0 * W : 0), W, A, LDA, W, B, LDA, W);
         mmw<T>(GF, LDT, false, B, LDA, W, a.tT[i], in_pad, W, skip ? MAX_IN0 : 0);
       }
     }
@@ -643,10 +734,22 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       acc = warp_sum(acc);
       if (lane == 0) a.d_cemb[(size_t)ray * a.C + c] = acc;
     }
-    for (int i = tid; pg && i < a.C * HC; i += THREADS) {
+    for (int i = tid; adds && i < a.C * HC; i += THREADS) {
       const int c = i / HC, j = i - c * HC;
-      atomicAdd(a.dh[C1C_W] + i, to_float(from_float<T>(cemb[c])) * to_float(from_float<T>(rayg1[j])));
+      const float v = to_float(from_float<T>(cemb[c])) * to_float(from_float<T>(rayg1[j]));
+      if (!skip_dw_add(v)) atomicAdd(a.dh[C1C_W] + i, v);
     }
+    if (dw_ops) {  // c1c_w's operands: rayg1 and c_emb (zero past C), rounded as above
+      bf16* row = a.ray_ops + (size_t)ray * a.lay[L_RAY_W];
+      for (int j = tid; j < HC; j += THREADS) row[a.lay[L_RAY_G1] + j] = __float2bfloat16_rn(rayg1[j]);
+      for (int c = tid; c < OPS_BLOCK; c += THREADS)
+        row[a.lay[L_C_EMB] + c] = __float2bfloat16_rn(c < a.C ? cemb[c] : 0.f);
+    }
+  }
+  if (dw_ops) {  // the ray's bias sums; c1_b's is rayg1
+    const int nb = a.lay[L_NB], c1b = cand ? a.lay[L_C1_B] : nb;
+    float* row = a.bias_rows + (size_t)ray * nb;
+    for (int j = tid; j < nb; j += THREADS) row[j] = j >= c1b && j < c1b + HC ? rayg1[j - c1b] : bacc[j];
   }
   };
   if constexpr (REC) {
@@ -659,17 +762,19 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   }
 }
 
+// nb: the DW_OPS mode's bias sums (0 otherwise).
 template <typename T, int F>
-long long smem_bytes(int S) {
+long long smem_bytes(int S, int nb) {
   using L = Widths<T, F>;
   const long long t = (long long)BT * (LDX0 + 2 * L::LDA + 4) * sizeof(T);
-  const long long f = (long long)BT * (MAX_IN0 + L::LDT + W + 4) + L::FP + W + 3 * HC + HH + MAX_C + 16 + 16LL * S;
+  const long long f =
+      (long long)BT * (MAX_IN0 + L::LDT + W + 4) + L::FP + W + 3 * HC + HH + MAX_C + 16 + 16LL * S + nb;
   return t + f * 4 + 16;
 }
 
 template <typename T, int F>
 int launch(const Bwd& a, int grid, cudaStream_t stream) {
-  const long long bytes = smem_bytes<T, F>(a.S);
+  const long long bytes = smem_bytes<T, F>(a.S, (a.flags & DW_OPS) ? a.lay[L_NB] : 0);
   if (bytes > SMEM_LIMIT) return BAD_SMEM;
   auto kernel = (a.flags & RECOMPUTE) ? bwd_kernel<T, F, true> : bwd_kernel<T, F, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -705,11 +810,17 @@ extern "C" {
 // scratch: grid x 32 x chain_w elements of the compute dtype; grid: the persistent
 // blocks (at most one an SM is resident). The saved-chain mode takes tw, tb, rw and
 // scratch null and grid = R (a block a ray).
+// DW_OPS (bf16, the saved chain, train mode): dtw, dtb and dh are not read; dwbuf holds
+// the operand buffer (R*S rows), the per-ray operands (R rows; null without the
+// candidate branch) and the bias rows (R x nb f32), and layout (N_LAY ints,
+// upnerf_torch/ops/render_train.py:WALK_LAYOUT) their columns: row widths and operand
+// columns multiples of 8. Both are null in the other modes.
 int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, const void* const* res,
                             const void* const* trunk_t, int D, unsigned skip_mask, const void* const* w,
                             const void* const* tw, const void* const* tb, const void* const* rw, void* const* outs,
-                            void* const* dtw, void* const* dtb, void* const* dh, void* scratch, int R, int S, int L,
-                            int in0, int C, int F, int flags, int grid, void* stream) {
+                            void* const* dtw, void* const* dtb, void* const* dh, void* scratch,
+                            void* const* dwbuf, const int* layout, int R, int S, int L, int in0, int C, int F,
+                            int flags, int grid, void* stream) {
   const bool rec = flags & RECOMPUTE, x0_in = flags & X0_IN;
   if (R <= 0 || S <= 0 || (x0_in ? in0 <= 0 : (L <= 0 || in0 != 3 + 6 * L)) || in0 > MAX_IN0 || D <= 0 ||
       D > MAX_D || C < 0 || C > MAX_C)
@@ -718,6 +829,20 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
   if (x0_in ? (!ins[6] || !outs[4]) : (!ins[0] || !ins[1] || !ins[3] || !outs[0] || !outs[1])) return BAD_MODE;
   if (rec ? (!tw || !tb || !rw || !scratch || grid <= 0 || grid > R) : (grid != R || !res[3])) return BAD_MODE;
   Bwd a = {};
+  if (flags & DW_OPS) {
+    if (!(flags & BF16) || rec || (flags & NO_PARAM_GRADS) || !dwbuf || !layout || !dwbuf[0] || !dwbuf[2] ||
+        ((flags & USE_CAND) && !dwbuf[1]) || (reinterpret_cast<uintptr_t>(dwbuf[0]) & 15) || layout[L_NB] <= 0)
+      return BAD_MODE;
+    for (int i = 0; i < N_LAY; ++i) {
+      const bool col = i == L_OPS_W || (i >= L_X0 && i < L_RAY_G1 && i != L_G_U && i != L_G_CPRE && i != L_G_SPRE) ||
+                       (i >= L_G_ACT0 && i < L_TRUNK_B0);
+      if (col && layout[i] >= 0 && layout[i] % 8) return BAD_MODE;
+      a.lay[i] = layout[i];
+    }
+    a.ops = static_cast<bf16*>(dwbuf[0]);
+    a.ray_ops = static_cast<bf16*>(dwbuf[1]);
+    a.bias_rows = static_cast<float*>(dwbuf[2]);
+  }
   a.o = static_cast<const float*>(ins[0]);
   a.d = static_cast<const float*>(ins[1]);
   a.z = static_cast<const float*>(ins[2]);
@@ -807,7 +932,8 @@ const char* upnerf_error_string(int code) {
     case BAD_MODE:
       return "unsupported mode (needs use_rgb or out_feat; the candidate branch needs C > 0; the recompute mode"
              " needs its weights, a scratch and 0 < grid <= R, the saved-chain mode the chain and grid = R; the x0"
-             " mode needs x0 and d_x0, the rays mode the rays, pe_w, d_rays_o and d_rays_d)";
+             " mode needs x0 and d_x0, the rays mode the rays, pe_w, d_rays_o and d_rays_d; DW_OPS needs bf16, the"
+             " saved chain, the train mode, its buffers (16-byte aligned) and a layout of 16-byte columns)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -30,10 +30,13 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd", "heads_fwd", "heads_bwd", "mxu_probe")
-# name: (source, nvcc flags). heads_bwd without its weight-gradient atomic adds
-# (walk_common.cuh:skip_dw_add): chip_smoke.py phase 16 times the adds' share.
-VARIANTS = {"heads_bwd_no_dw_adds": ("heads_bwd", ("-DUPNERF_SKIP_DW_ADDS",))}
+KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd", "heads_fwd", "heads_bwd", "mxu_probe",
+           "dw_gemm")
+# name: (source, nvcc flags). heads_bwd and render_train_bwd without their in-walk
+# weight-gradient atomic adds (walk_common.cuh:skip_dw_add): chip_smoke.py phases 16
+# and 9 time the adds' share.
+VARIANTS = {"heads_bwd_no_dw_adds": ("heads_bwd", ("-DUPNERF_SKIP_DW_ADDS",)),
+            "render_train_bwd_no_dw_adds": ("render_train_bwd", ("-DUPNERF_SKIP_DW_ADDS",))}
 
 
 class BuildInfo(NamedTuple):
@@ -102,9 +105,13 @@ _ARGTYPES = {
     # ins, trunk W, trunk b, D, skip mask, heads, outs, R, S, L, in0, C, F, flags, stream
     "upnerf_render_train_fwd": ["pp", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "i", "i", "p"],
     # ins, cots, res, trunk W^T, D, skip mask, weights, trunk W, trunk b, recompute heads (the last three null with
-    # the saved chain), outs, dW trunk, db trunk, d heads, scratch, R, S, L, in0, C, F, flags, grid, stream
+    # the saved chain), outs, dW trunk, db trunk, d heads, scratch, dW operand buffers, their layout (the last two
+    # null but with DW_OPS), R, S, L, in0, C, F, flags, grid, stream
     "upnerf_render_train_bwd": ["pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "pp", "pp", "pp", "p",
-                                "i", "i", "i", "i", "i", "i", "i", "i", "p"],
+                                "pp", "ip", "i", "i", "i", "i", "i", "i", "i", "i", "p"],
+    # sources, their rows, their columns, jobs (11 ints each), job count, workspace, splits, out, weight floats,
+    # bias rows, their count, bias floats, accumulate, stream
+    "upnerf_dw_gemm": ["pp", "ip", "ip", "ip", "i", "p", "i", "p", "i", "p", "i", "i", "i", "p"],
     # q, k, v, o, bf16 scratch q * scale, k, v (null in float32 mode), G, N, hd, scale, use_bf16, stream
     "upnerf_flash_attn_fwd": ["p", "p", "p", "p", "p", "p", "p", "i", "i", "i", "f", "i", "p"],
     # x0, c_emb, trunk W, trunk b, D, skip mask, heads (null: the trunk alone), outs, N, in0, C, F, use_bf16, stream
@@ -125,7 +132,7 @@ def library(name: str) -> ctypes.CDLL:
     pointers as 32-bit ints)."""
     lib = ctypes.CDLL(str(build()[name].path))
     kinds = {"p": ctypes.c_void_p, "pp": ctypes.POINTER(ctypes.c_void_p), "i": ctypes.c_int, "u": ctypes.c_uint,
-             "f": ctypes.c_float}
+             "f": ctypes.c_float, "ip": ctypes.POINTER(ctypes.c_int)}
     fn_name = f"upnerf_{_source(name)[0]}"
     fn = getattr(lib, fn_name)
     fn.argtypes = [kinds[k] for k in _ARGTYPES[fn_name]]

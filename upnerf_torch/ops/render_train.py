@@ -25,11 +25,17 @@ rgb_map (R, 3), feat_map (R, F), j_weights (R, S), c_depth (R,), t_weight (R,).
   x0, with rgbh from the stored feat. `render_train_rays_bwd_plain` is it on
   the PE rows followed by the PE backward (`_pe_bwd`) down to d_rays_o /
   d_rays_d.
+- `render_train_bwd_dw_plain` / `render_train_rays_bwd_dw_plain` are the
+  bf16 saved-chain train backward as its CUDA route splits it: per slab of
+  rays, the walk fills the dW operand buffers of `dw_layout`, then the plain
+  dW (`dw_gemm.dw_gemm_plain`) adds the slab's weight and bias gradients.
 - `render_train_rays_fwd` / `render_train_rays_bwd` and `render_train_fwd` /
   `render_train_bwd` are the wrappers of the two frontends: on CPU tensors
   they run the plain versions; on CUDA tensors they launch the hand-written
   kernels (`csrc/render_train_fwd.cu`, `csrc/render_train_bwd.cu`; the x0
-  frontend is their X0_IN mode, any in0 <= 64) or raise. The rays frontend
+  frontend is their X0_IN mode, any in0 <= 64; the bf16 saved-chain train
+  backward also `csrc/dw_gemm.cu`, counted in `dw_gemm.dw_launches`) or
+  raise. The rays frontend
   counts its launches in `launches`, `bwd_launches` and (the backward's
   frozen-model mode) `frozen_bwd_launches`; in the recompute mode, the
   forward with residuals and both backward modes in `recompute_launches`,
@@ -58,6 +64,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from upnerf_torch.ops import dw_gemm
 from upnerf_torch.ops.linear import canonical_precision, matmul
 
 LAST_DELTA = 1e2  # the last interval is quasi-infinite, as in render/volume.py
@@ -307,23 +314,18 @@ def _excl_suffix(x: torch.Tensor) -> torch.Tensor:
     return torch.flip(_excl_prefix(torch.flip(x, [-1])), [-1])
 
 
-def render_train_bwd_plain(
+def _bwd_walk_plain(
     x0, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res: Dict[str, torch.Tensor],
     cots: Dict[str, Optional[torch.Tensor]],
 ):
-    """Plain backward from pre-built PE rows x0 (R*S, in0):
-    upnerf/ops/pallas_render_train.py:_bwd_kernel, written out step by step.
-    With st.save_chain it reads the walk chain from res; without (the
-    recompute mode, :883-890) it rebuilds the chain from x0, rgbh from the
-    stored feat, and takes feat, c_feat and rgb from res.
-
-    cots: a cotangent for each of st.out_keys (None means zero). Returns
-    (d_x0 (R*S, in0), d_ray_cond or None, d_c_emb or None, [(dW, db)] per
-    trunk layer, {head key: grad}), as _vjp_bwd (:1372); with st.param_grads
-    off the weight gradients are not computed and the last two are None. In
-    bf16 mode every product rounds both operands to bf16 and accumulates in
-    f32, as the kernel's `_dot` does (x0 included); bias sums and the rank-1
-    sigma terms stay f32."""
+    """The backward's walk (render_train_bwd_plain without its weight
+    gradients). Returns (d_x0, d_ray_cond or None, d_c_emb or None, ops):
+    with st.param_grads, ops holds by name every operand of the weight
+    gradients (dw_products, dw_biases), unrounded in the working float dtype:
+    the X operands x0, act{i}, xyzf, rgbh, h1, h2, feat, c_emb and the
+    cotangents g_act{i}, g_xyzf, g_spre, g_feat, g_rgbh, g_u, g_cfeat, g_cpre,
+    g_h2, g_h1 (rows: samples) and ray_g1 (rows: rays); None in the frozen
+    mode."""
     prec = canonical_precision(st.precision)
     R, S = z_vals.shape
     in0 = x0.shape[1]
@@ -406,7 +408,7 @@ def render_train_bwd_plain(
     g_spre = (gsig_s * (1.0 - torch.exp(-sig_s))).reshape(M, 1)
 
     # reverse walk over the chain
-    dh: Dict[str, torch.Tensor] = {}
+    ops: Dict[str, torch.Tensor] = {"x0": x0, "feat": feat, "c_emb": c_emb, **cuts}
     g_xyzf = torch.zeros((M, W), dtype=f32, device=z_vals.device)
     g_f = None
     if st.out_feat:
@@ -417,19 +419,13 @@ def render_train_bwd_plain(
         rgb = res["rgb"]
         g_u = g_rgb * rgb * (1.0 - rgb)
         rgbh = cuts["rgbh"]
-        if pg:
-            dh["rgb2_w"] = dot(rgbh.t(), g_u)
-            dh["rgb2_b"] = g_u.sum(0)
         g_rgbh = dot(g_u, heads["rgb2_w"].t()) * (rgbh > 0)
-        if pg:
-            dh["rgb1_w"] = dot(feat.t(), g_rgbh)
+        ops.update(g_u=g_u, g_rgbh=g_rgbh)
         d_cond = g_rgbh.reshape(R, S, -1).sum(1)
         g_from_rgb = dot(g_rgbh, heads["rgb1_w"].t())
         g_f = g_from_rgb if g_f is None else g_f + g_from_rgb
     if st.use_feat:
-        if pg:
-            dh["feat_w"] = dot(cuts["xyzf"].t(), g_f)
-            dh["feat_b"] = g_f.sum(0)
+        ops["g_feat"] = g_f
         g_xyzf = g_xyzf + dot(g_f, heads["feat_w"].t())
     if st.use_cand:
         h1, h2 = cuts["h1"], cuts["h2"]
@@ -442,38 +438,16 @@ def render_train_bwd_plain(
         g_h2 = (g_h2 + g_cpre * heads["csig_w"].reshape(1, -1)) * (h2 > 0)
         g_h1 = dot(g_h2, heads["c2_w"].t()) * (h1 > 0)
         ray_g1 = g_h1.reshape(R, S, -1).sum(1)
-        if pg:
-            dh["cfeat_w"] = dot(h2.t(), g_cf)
-            dh["cfeat_b"] = g_cf.sum(0)
-            dh["csig_w"] = dot(h2.t(), g_cpre)
-            dh["csig_b"] = g_cpre.sum(0)
-            dh["c2_w"] = dot(h1.t(), g_h2)
-            dh["c2_b"] = g_h2.sum(0)
-            dh["c1x_w"] = dot(cuts["xyzf"].t(), g_h1)
-            dh["c1_b"] = g_h1.sum(0)
-            dh["c1c_w"] = dot(c_emb.t(), ray_g1)
+        ops.update(g_cfeat=g_cf, g_cpre=g_cpre, g_h2=g_h2, g_h1=g_h1, ray_g1=ray_g1)
         d_cemb = dot(ray_g1, heads["c1c_w"].t())
         g_xyzf = g_xyzf + dot(g_h1, heads["c1x_w"].t())
-    h = cuts[f"act{st.D - 1}"]
-    if pg:
-        dh["sigma_w"] = dot(h.t(), g_spre)
-        dh["sigma_b"] = g_spre.sum(0)
-        dh["xyzf_w"] = dot(h.t(), g_xyzf)
-        dh["xyzf_b"] = g_xyzf.sum(0)
+    ops.update(g_spre=g_spre, g_xyzf=g_xyzf)
     g = g_spre * heads["sigma_w"].reshape(1, -1) + dot(g_xyzf, heads["xyzf_w"].t())
 
     dx0 = torch.zeros((M, in0), dtype=f32, device=z_vals.device)
-    dtrunk = [None] * st.D
     for i in reversed(range(st.D)):
         g = g * (cuts[f"act{i}"] > 0)
-        if pg:
-            if i == 0:
-                inp = x0
-            elif i in st.skips:
-                inp = torch.cat([x0, cuts[f"act{i - 1}"]], -1)
-            else:
-                inp = cuts[f"act{i - 1}"]
-            dtrunk[i] = (dot(inp.t(), g), g.sum(0))
+        ops[f"g_act{i}"] = g
         g_in = dot(g, trunk[i][0].t())
         if i in st.skips and i > 0:
             dx0 = dx0 + g_in[:, :in0]
@@ -483,9 +457,77 @@ def render_train_bwd_plain(
         else:
             g = g_in
 
-    if not pg:
+    return dx0, d_cond, d_cemb, ops if pg else None
+
+
+def dw_products(st: RTStatic) -> Tuple[Tuple[str, Tuple[str, ...], str], ...]:
+    """The backward's weight gradients as (name, X operands, G operand): the
+    gradient is X^T G over the operands' rows (_bwd_walk_plain's names; the
+    rows are samples, rays for c1c_w), with a skip layer's X [x0, act] side
+    by side. In _dot's precision: bf16 operands, f32 sums."""
+    out = []
+    for i in range(st.D):
+        xs = ("x0",) if i == 0 else (("x0", f"act{i - 1}") if i in st.skips else (f"act{i - 1}",))
+        out.append((f"trunk{i}_w", xs, f"g_act{i}"))
+    h = f"act{st.D - 1}"
+    out += [("xyzf_w", (h,), "g_xyzf"), ("sigma_w", (h,), "g_spre")]
+    if st.use_feat:
+        out.append(("feat_w", ("xyzf",), "g_feat"))
+    if st.use_rgb:
+        out += [("rgb1_w", ("feat",), "g_rgbh"), ("rgb2_w", ("rgbh",), "g_u")]
+    if st.use_cand:
+        out += [("cfeat_w", ("h2",), "g_cfeat"), ("csig_w", ("h2",), "g_cpre"), ("c2_w", ("h1",), "g_h2"),
+                ("c1x_w", ("xyzf",), "g_h1"), ("c1c_w", ("c_emb",), "ray_g1")]
+    return tuple(out)
+
+
+def dw_biases(st: RTStatic) -> Tuple[Tuple[str, str], ...]:
+    """The backward's bias gradients as (name, G operand): the column sums of
+    G over the samples, in f32 (unrounded)."""
+    out = [(f"trunk{i}_b", f"g_act{i}") for i in range(st.D)] + [("xyzf_b", "g_xyzf"), ("sigma_b", "g_spre")]
+    if st.use_feat:
+        out.append(("feat_b", "g_feat"))
+    if st.use_rgb:
+        out.append(("rgb2_b", "g_u"))
+    if st.use_cand:
+        out += [("cfeat_b", "g_cfeat"), ("csig_b", "g_cpre"), ("c2_b", "g_h2"), ("c1_b", "g_h1")]
+    return tuple(out)
+
+
+def _split_grads(grads: Dict[str, torch.Tensor], st: RTStatic):
+    """{name: grad} -> ([(dW, db)] per trunk layer, {head key: grad})."""
+    dtrunk = [(grads[f"trunk{i}_w"], grads[f"trunk{i}_b"]) for i in range(st.D)]
+    return dtrunk, {k: grads[k] for k in st.head_keys}
+
+
+def render_train_bwd_plain(
+    x0, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res: Dict[str, torch.Tensor],
+    cots: Dict[str, Optional[torch.Tensor]],
+):
+    """Plain backward from pre-built PE rows x0 (R*S, in0):
+    upnerf/ops/pallas_render_train.py:_bwd_kernel, written out step by step.
+    With st.save_chain it reads the walk chain from res; without (the
+    recompute mode, :883-890) it rebuilds the chain from x0, rgbh from the
+    stored feat, and takes feat, c_feat and rgb from res.
+
+    cots: a cotangent for each of st.out_keys (None means zero). Returns
+    (d_x0 (R*S, in0), d_ray_cond or None, d_c_emb or None, [(dW, db)] per
+    trunk layer, {head key: grad}), as _vjp_bwd (:1372); with st.param_grads
+    off the weight gradients are not computed and the last two are None. In
+    bf16 mode every product rounds both operands to bf16 and accumulates in
+    f32, as the kernel's `_dot` does (x0 included); bias sums and the rank-1
+    sigma terms stay f32."""
+    dx0, d_cond, d_cemb, ops = _bwd_walk_plain(x0, z_vals, ray_cond, trunk, heads, st, c_emb, res, cots)
+    if ops is None:
         return dx0, d_cond, d_cemb, None, None
-    return dx0, d_cond, d_cemb, dtrunk, dh
+    prec = canonical_precision(st.precision)
+    grads = {}
+    for name, xs, g in dw_products(st):
+        x = ops[xs[0]] if len(xs) == 1 else torch.cat([ops[k] for k in xs], -1)
+        grads[name] = matmul(x.t(), ops[g], prec)
+    for name, g in dw_biases(st):
+        grads[name] = ops[g].sum(0)
+    return (dx0, d_cond, d_cemb, *_split_grads(grads, st))
 
 
 def _pe_bwd(dx0, xyz, z_vals, pe_w, L: int):
@@ -511,6 +553,197 @@ def render_train_rays_bwd_plain(
     or None, [(dW, db)] per trunk layer or None, {head key: grad} or None)."""
     x0, xyz = _pe(rays_o, rays_d, z_vals, pe_w, st.xyz_L)
     dx0, d_cond, d_cemb, dtrunk, dh = render_train_bwd_plain(x0, z_vals, ray_cond, trunk, heads, st, c_emb, res, cots)
+    d_o, d_d = _pe_bwd(dx0, xyz, z_vals, pe_w, st.xyz_L)
+    return d_o, d_d, d_cond, d_cemb, dtrunk, dh
+
+
+# ---------------------------------------------------------------------------
+# The bf16 saved-chain train backward as two kernels: the walk stores the operands
+# of the weight gradients into buffers laid out by dw_layout, then
+# csrc/dw_gemm.cu (ops/dw_gemm.py) computes every dW = X^T G and db = sum G from
+# them and the saved chain, per slab of rays, adding the slabs in order.
+
+SRC_CHAIN, SRC_OPS, SRC_RAY = 0, 1, 2  # dw_gemm's sources: the saved chain, the operand buffer, the per-ray operands
+DW_BUFFER_BYTES = 1 << 30  # the operand buffers of one slab of rays, at most
+MAX_D = 16  # trunk layers the kernels take
+# The walk's layout slots (csrc/render_train_bwd.cu:Lay), in order: the buffers' row
+# widths and the bias count; each operand's column in the operand buffer or the
+# per-ray operands; each bias's offset in a ray's bias row; then per trunk layer
+# (MAX_D of them) its cotangent's column, then its bias's offset. -1: not in the mode.
+WALK_LAYOUT = ("ops_w", "ray_w", "nb", "x0", "feat", "g_u", "g_rgbh", "g_feat", "g_cfeat", "g_cpre", "g_h2", "g_h1",
+               "g_spre", "g_xyzf", "ray_g1", "c_emb", "rgb2_b", "feat_b", "cfeat_b", "csig_b", "c2_b", "c1_b",
+               "sigma_b", "xyzf_b")
+NARROW = {"g_u": 0, "g_spre": 3, "g_cpre": 4}  # the 1- and 3-column cotangents share one column block
+
+
+class DwLayout(NamedTuple):
+    """The buffers the walk fills for dw_gemm (dw_layout) and the jobs that read them."""
+
+    ops: Dict[str, int]  # operand -> its first column in the operand buffer (rows: samples)
+    ops_w: int
+    ray: Dict[str, int]  # operand -> its first column in the per-ray operands (rows: rays)
+    ray_w: int
+    bias: Dict[str, Tuple[int, int]]  # bias -> (offset, width) of its sum in a ray's f32 bias row
+    nb: int
+    outs: Dict[str, Tuple[int, Tuple[int, int]]]  # weight gradient -> (offset, padded shape) in the flat result
+    n_dw: int  # weight floats of the flat result; the bias sums follow in bias-row order
+    jobs: Tuple[dw_gemm.DwJob, ...]
+
+
+def dw_layout(st: RTStatic, W: int, FP: int, HH: int, HC: int, C: int) -> DwLayout:
+    """The column layout of the bf16 saved-chain train backward's dW operands
+    for mode st (trunk width W, padded feature width FP, head widths HH, HC,
+    candidate embedding width C), defined here once and passed to both
+    kernels. The operand buffer holds, per sample, the X operands that are not
+    in the saved chain (x0 at X0_PAD columns, feat at FP) and every cotangent
+    G of dw_products, each at whole 64-column blocks (dw_gemm.BLOCK); g_u,
+    g_spre and g_cpre share one block (NARROW). The per-ray operands hold
+    ray_g1 and c_emb (zero-padded to a block); a ray's bias row the f32 sums
+    over its samples of each bias's cotangent (dw_biases). The flat result
+    holds each weight gradient in the kernels' padded layout (trunk x0 rows
+    at X0_PAD, features at FP), then the biases."""
+    blk = dw_gemm.BLOCK
+    up = lambda n: -(-n // blk) * blk  # noqa: E731
+    widths = {"x0": X0_PAD, "feat": FP, "g_xyzf": W, "g_feat": FP, "g_rgbh": HH, "g_cfeat": FP, "g_h2": HC,
+              "g_h1": HC, "ray_g1": HC, "c_emb": C, "g_u": 3, "g_spre": 1, "g_cpre": 1,
+              **{f"g_act{i}": W for i in range(st.D)}}
+    names = ["x0"] + (["feat", "g_rgbh"] if st.use_rgb else []) + (["g_feat"] if st.use_feat else [])
+    names += (["g_cfeat", "g_h2", "g_h1"] if st.use_cand else []) + ["g_xyzf"] + [f"g_act{i}" for i in range(st.D)]
+    ops, col = {}, 0
+    for name in names:
+        ops[name] = col
+        col += up(widths[name])
+    present = {"g_u": st.use_rgb, "g_spre": True, "g_cpre": st.use_cand}
+    ops.update({k: col + c for k, c in NARROW.items() if present[k]})
+    ops_w = col + blk
+    ray = {"ray_g1": 0, "c_emb": up(HC)} if st.use_cand else {}
+    ray_w = up(HC) + blk if st.use_cand else 0
+    bias, nb = {}, 0
+    for name, g in dw_biases(st):
+        bias[name] = (nb, widths[g])
+        nb += widths[g]
+    shapes = _head_shapes(W, FP, HH, HC, C)
+    outs, n_dw = {}, 0
+    for name, xs, _ in dw_products(st):
+        if name.startswith("trunk"):
+            shape = (X0_PAD * ("x0" in xs) + W * (len(xs) - ("x0" in xs)), W)
+        else:
+            shape = shapes[name]
+        outs[name] = (n_dw, shape)
+        n_dw += shape[0] * shape[1]
+    chain, col = {}, 0
+    for name, w in st.chain_cols(W, HH, HC):
+        chain[name] = (SRC_CHAIN, col, w)
+        col += w
+    where = {**chain, "x0": (SRC_OPS, ops["x0"], X0_PAD), "c_emb": (SRC_RAY, ray.get("c_emb"), C)}
+    if st.use_rgb:
+        where["feat"] = (SRC_OPS, ops["feat"], FP)
+    jobs = []
+    for name, xs, g in dw_products(st):
+        off, (_, ldo) = outs[name]
+        if g in NARROW:
+            g_src, g_col, g_cols, g0 = SRC_OPS, ops[g] - NARROW[g], blk, NARROW[g]
+        else:
+            g_src, g_col, g_cols, g0 = (SRC_RAY, ray[g], up(HC), 0) if g == "ray_g1" else (SRC_OPS, ops[g],
+                                                                                         up(widths[g]), 0)
+        row0 = 0
+        for x in xs:
+            x_src, x_col, x_w = where[x]
+            jobs.append(dw_gemm.DwJob(x_src, x_col, up(x_w), g_src, g_col, g_cols, g0, widths[g], x_w,
+                                      off + row0 * ldo, ldo))
+            row0 += x_w
+    return DwLayout(ops, ops_w, ray, ray_w, bias, nb, outs, n_dw, tuple(jobs))
+
+
+def walk_layout(lay: DwLayout, st: RTStatic) -> list:
+    """The walk's layout slots (WALK_LAYOUT, then the trunk's) of lay."""
+    cols = {"ops_w": lay.ops_w, "ray_w": lay.ray_w, "nb": lay.nb, **lay.ops, **lay.ray,
+            **{k: off for k, (off, _) in lay.bias.items()}}
+    trunk_g = [lay.ops.get(f"g_act{i}", -1) for i in range(MAX_D)]
+    trunk_b = [lay.bias[f"trunk{i}_b"][0] if i < st.D else -1 for i in range(MAX_D)]
+    return [cols.get(k, -1) for k in WALK_LAYOUT] + trunk_g + trunk_b
+
+
+def dw_slab_rays(lay: DwLayout, S: int, n_sm: int = 0) -> int:
+    """Rays a slab of the two-kernel backward: as many as keep its buffers
+    (operands, per-ray operands, bias rows) within DW_BUFFER_BYTES, rounded
+    down to a multiple of n_sm (the card's SMs: the walk runs a block a ray)
+    where that leaves one."""
+    rays = max(1, DW_BUFFER_BYTES // (S * lay.ops_w * 2 + lay.ray_w * 2 + lay.nb * 4))
+    return rays - rays % n_sm if n_sm and rays >= n_sm else rays
+
+
+def dw_operands_plain(ops: Dict[str, torch.Tensor], lay: DwLayout, st: RTStatic, n: int, S: int, dtype):
+    """The walk's stores for n rays of S samples, in plain PyTorch: from
+    _bwd_walk_plain's operands, the operand buffer (n S, lay.ops_w) and the
+    per-ray operands (n, lay.ray_w) rounded to dtype (zero where no operand
+    lies), and the f32 bias rows (n, lay.nb)."""
+    dev = ops["x0"].device
+    buf = torch.zeros((n * S, lay.ops_w), dtype=dtype, device=dev)
+    for name, col in lay.ops.items():
+        buf[:, col : col + ops[name].shape[1]] = ops[name].to(dtype)
+    ray = torch.zeros((n, lay.ray_w), dtype=dtype, device=dev) if lay.ray_w else None
+    for name, col in lay.ray.items():
+        ray[:, col : col + ops[name].shape[1]] = ops[name].to(dtype)
+    rows = torch.zeros((n, lay.nb), dtype=torch.float32, device=dev)
+    for name, g in dw_biases(st):
+        off = lay.bias[name][0]
+        rows[:, off : off + ops[g].shape[1]] = ops[g].reshape(n, S, -1).sum(1)
+    return buf, ray, rows
+
+
+def dw_result(flat: torch.Tensor, lay: DwLayout, st: RTStatic, in0: int, F: int):
+    """The flat result of the two-kernel backward -> ([(dW, db)] per trunk
+    layer, {head key: grad}) at the layer's and the heads' own widths (views)."""
+    grads = {k: flat[off : off + r * c].view(r, c) for k, (off, (r, c)) in lay.outs.items()}
+    grads.update({k: flat[lay.n_dw + off : lay.n_dw + off + w] for k, (off, w) in lay.bias.items()})
+    grads.update({f"trunk{i}_w": unpad_trunk_grad(grads[f"trunk{i}_w"], i, st.skips, in0) for i in range(st.D)})
+    dtrunk, dh = _split_grads(grads, st)
+    return dtrunk, unpad_feat(dh, F)
+
+
+def render_train_bwd_dw_plain(x0, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots,
+                              slab_rays: Optional[int] = None, flat_out: bool = False):
+    """The train backward (st.param_grads, st.save_chain) as the CUDA route
+    splits it, in plain PyTorch: per slab of slab_rays rays (dw_slab_rays by
+    default), the walk (_bwd_walk_plain) fills the operand buffers of
+    dw_layout (dw_operands_plain), then dw_gemm.dw_gemm_plain writes the
+    slab's weight gradients and bias sums into a flat result, or adds them to
+    it after the first slab. Returns as render_train_bwd_plain; with flat_out,
+    also the flat result and the layout."""
+    R, S = z_vals.shape
+    dtype = _cdt(st)
+    W, F = trunk[0][1].shape[0], heads["feat_b"].shape[0]
+    HH = heads["rgb1_w"].shape[1] if st.use_rgb else 0
+    HC = heads["c2_w"].shape[1] if st.use_cand else 0
+    C = c_emb.shape[1] if st.use_cand else 0
+    lay = dw_layout(st, W, feat_pad(F, dtype == torch.bfloat16), HH, HC, C)
+    slab = slab_rays or dw_slab_rays(lay, S)
+    flat = torch.empty((lay.n_dw + lay.nb,), dtype=torch.float32, device=z_vals.device)
+    dx0, d_cond, d_cemb = [], [], []
+    for r0 in range(0, R, slab):
+        r1 = min(R, r0 + slab)
+        cut = lambda t, per=1: None if t is None else t[r0 * per : r1 * per]  # noqa: E731
+        sres = {k: cut(v, S if k in ("rgb", "chain") else 1) for k, v in res.items()}
+        d, dc, de, ops = _bwd_walk_plain(cut(x0, S), cut(z_vals), cut(ray_cond), trunk, heads, st, cut(c_emb), sres,
+                                         {k: cut(v) for k, v in cots.items()})
+        buf, ray, rows = dw_operands_plain(ops, lay, st, r1 - r0, S, dtype)
+        dw_gemm.dw_gemm_plain([sres["chain"], buf, ray], lay.jobs, flat, lay.n_dw, rows, r0 > 0)
+        dx0.append(d)
+        d_cond.append(dc)
+        d_cemb.append(de)
+    cat = lambda ts: None if ts[0] is None else torch.cat(ts)  # noqa: E731
+    out = (cat(dx0), cat(d_cond), cat(d_cemb), *dw_result(flat, lay, st, x0.shape[1], F))
+    return (*out, flat, lay) if flat_out else out
+
+
+def render_train_rays_bwd_dw_plain(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res,
+                                   cots, slab_rays: Optional[int] = None):
+    """render_train_bwd_dw_plain behind the PE of the rays: returns as
+    render_train_rays_bwd_plain."""
+    x0, xyz = _pe(rays_o, rays_d, z_vals, pe_w, st.xyz_L)
+    dx0, d_cond, d_cemb, dtrunk, dh = render_train_bwd_dw_plain(x0, z_vals, ray_cond, trunk, heads, st, c_emb, res,
+                                                                cots, slab_rays)
     d_o, d_d = _pe_bwd(dx0, xyz, z_vals, pe_w, st.xyz_L)
     return d_o, d_d, d_cond, d_cemb, dtrunk, dh
 
@@ -853,91 +1086,203 @@ def render_train_fwd(
     return (out, res) if save_res else out
 
 
+DW_OPS = 512  # render_common.cuh:Flag: the walk stores the weight gradients' operands for dw_gemm.cu
+BWD_DESIGNS = ("stores", "adds", "no_adds")
+# Per-ray (1) or per-sample (S) rows of the backward's pointer lists, for cutting them into slabs of rays; None:
+# not cut. ins (the backward's order: rays_o, rays_d, z_vals, pe_w, c_emb, ray_cond, x0), cots (all per ray),
+# res (RES_ORDER), outs (d_rays_o, d_rays_d, d_ray_cond, d_c_emb, d_x0).
+_INS_ROWS = (1, 1, 1, None, 1, 1, "S")
+_RES_ROWS = (1, 1, "S", "S", "S", "S")
+_OUT_ROWS = (1, 1, 1, 1, "S")
+
+
+class BwdLaunch:
+    """One backward call of csrc/render_train_bwd.cu on checked arguments,
+    prepared (weights, outputs, buffers) but not launched; `run()` launches
+    it. ins as _launch_fwd's.
+
+    In the bf16 saved-chain train mode (design "stores", the port's) the call
+    runs per slab of `slab` rays (dw_slab_rays): the walk with DW_OPS, which
+    stores the weight gradients' operands (dw_layout) and adds none, then
+    dw_gemm on them, which writes (first slab) or adds the slab's weight and
+    bias gradients in a fixed order. `walk(r0, r1)` and `dw(r0, r1)` launch
+    one slab's kernels on their own, for timing. Designs "adds" and "no_adds"
+    run that mode as the walk did before the dW kernel, one launch that adds
+    every gradient with atomics, and the same built without the adds
+    (_build.VARIANTS): timing only (chip_smoke.py phase 9). The float32, the
+    recompute and the frozen modes run one launch in every design."""
+
+    def __init__(self, ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots,
+                 x0_mode: bool, design: str = "stores"):
+        from upnerf_torch.ops import _build
+
+        if design not in BWD_DESIGNS:
+            raise ValueError(f"design must be one of {BWD_DESIGNS}, got {design!r}")
+        R, S = z_vals.shape
+        dev = z_vals.device
+        C = c_emb.shape[1] if st.use_cand else 0
+        W, HH, HC = (KERNEL_WIDTHS[k] for k in ("W", "HH", "HC"))
+        F = heads["feat_b"].shape[0]
+        bf16 = _cdt(st) == torch.bfloat16
+        FP = feat_pad(F, bf16)
+        f32 = dict(dtype=torch.float32, device=dev)
+        ins = [t.contiguous() if t is not None else None for t in ins]
+        ins = [ins[i] for i in (0, 1, 2, 3, 5, 4, 6)]  # the backward reads c_emb before ray_cond
+        cot_shapes = {"s_weights": (R, S), "s_depth": (R,), "rgb_map": (R, 3), "feat_map": (R, F),
+                      "j_weights": (R, S), "c_depth": (R,), "t_weight": (R,)}
+        cot_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
+        cot_list = []
+        for k in cot_order:
+            g = cots.get(k) if k in st.out_keys else None
+            if g is not None:
+                _check(f"cotangent {k}", g, cot_shapes[k], dev)
+                g = g.contiguous()
+            cot_list.append(g)
+        for k, (shape, dt) in _res_specs(st, R, S, F).items():
+            t = res[k]
+            if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
+                raise ValueError(f"residual {k}: {t.device} {t.dtype} {tuple(t.shape)}; st needs {dev} {dt} {shape}")
+        res_list = [res[k].contiguous() if k in st.res_keys else None for k in RES_ORDER]
+        kt, kw, padded = _bwd_weights(trunk, heads, st, in0)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.grid, tw, tb, fw, scratch = None, None, None, None, None
+        if not st.save_chain:
+            # the recompute's forward-layout weights, and a scratch of 32 chain rows a persistent block
+            tw = [_pack_fragments(w) if bf16 else w.contiguous() for w in padded]
+            tb = [b.contiguous() for _, b in trunk]
+            _, kh = _kernel_weights([], pad_feat({k: heads[k] for k in RECOMPUTE_KEYS if k in st.head_keys}, FP), st,
+                                    in0)
+            fw = [kh.get(k) for k in RECOMPUTE_KEYS]
+            self.grid = min(R, n_sm)
+            chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
+            scratch = torch.empty((self.grid * 32 * chain_w,), dtype=_cdt(st), device=dev)
+        d_front = [torch.empty((R * S, in0), **f32)] if x0_mode else [torch.empty((R, 3), **f32),
+                                                                      torch.empty((R, 3), **f32)]
+        d_cond = torch.empty((R, HH), **f32) if st.use_rgb else None
+        d_cemb = torch.empty((R, C), **f32) if st.use_cand else None
+        self.stores = st.param_grads and st.save_chain and bf16 and design == "stores"
+        dtw, dtb, dhd = [None] * st.D, [None] * st.D, {}
+        self.slab, self.lay, layout, self.bufs = R, None, None, None
+        if self.stores:
+            self.lay = dw_layout(st, W, FP, HH, HC, C)
+            self.slab = min(R, dw_slab_rays(self.lay, S, n_sm))
+            n = self.slab
+            self.bufs = (torch.empty((n * S, self.lay.ops_w), dtype=torch.bfloat16, device=dev),
+                         torch.empty((n, self.lay.ray_w), dtype=torch.bfloat16, device=dev) if self.lay.ray_w else None,
+                         torch.empty((n, self.lay.nb), **f32))
+            self.flat = torch.empty((self.lay.n_dw + self.lay.nb,), **f32)
+            layout = (ctypes.c_int * (len(WALK_LAYOUT) + 2 * MAX_D))(*walk_layout(self.lay, st))
+        elif st.param_grads:
+            # weight gradients accumulated by atomics: zero first; trunk and features in the padded layout
+            for i in range(st.D):
+                rows = (X0_PAD if i == 0 else (X0_PAD + W if i in st.skips else W))
+                dtw[i] = torch.zeros((rows, W), **f32)
+                dtb[i] = torch.zeros((W,), **f32)
+            dhd = {k: torch.zeros(v.shape, **f32) for k, v in pad_feat({k: heads[k] for k in st.head_keys},
+                                                                         FP).items()}
+        outs = [None, None, d_cond, d_cemb, d_front[0]] if x0_mode else [*d_front, d_cond, d_cemb, None]
+        self.lib = _build.library("render_train_bwd_no_dw_adds" if design == "no_adds" else "render_train_bwd")
+        self.name = "render_train_bwd (x0 mode)" if x0_mode else "render_train_bwd"
+        flags = _flags(st, True) | (X0_IN if x0_mode else 0) | (DW_OPS if self.stores else 0)
+        skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
+        opt = lambda ts: None if ts is None else _ptrs(ts)  # noqa: E731
+        fixed = (_ptrs(kt), st.D, skip_mask, _ptrs(kw), opt(tw), opt(tb), opt(fw))
+        grads = (_ptrs(dtw), _ptrs(dtb), _ptrs([dhd.get(k) for k in HEAD_KEYS]),
+                 None if scratch is None else scratch.data_ptr(), None if self.bufs is None else _ptrs(self.bufs),
+                 layout)
+        shape = (S, L, in0, C, F, flags)
+        self._lists = (ins, cot_list, res_list, outs)
+        self._args = (fixed, grads, shape)
+        self._keep = (kt, kw, tw, tb, fw, scratch, dtw, dtb, dhd, layout)  # what the pointers point at
+        self.R, self.S, self.dev, self.st, self.in0, self.F = R, S, dev, st, in0, F
+        self.result = (d_front, d_cond, d_cemb, dtw, dtb, dhd)
+
+    def walk(self, r0: int, r1: int) -> None:
+        """The walk over rays [r0, r1): one launch."""
+        S = self.S
+
+        def cut(ts, rows):
+            return [t if t is None or per is None else t[r0 * (S if per == "S" else 1) : r1 * (S if per == "S" else 1)]
+                    for t, per in zip(ts, rows)]
+
+        ins, cot_list, res_list, outs = self._lists
+        (kt, D, skip_mask, kw, tw, tb, fw), (dtw, dtb, dh, scratch, bufs, layout), (_, L, in0, C, F, flags) = \
+            self._args
+        stream = torch.cuda.current_stream(self.dev).cuda_stream
+        with torch.cuda.device(self.dev):
+            code = self.lib.upnerf_render_train_bwd(
+                _ptrs(cut(ins, _INS_ROWS)), _ptrs(cut(cot_list, (1,) * 7)), _ptrs(cut(res_list, _RES_ROWS)), kt, D,
+                skip_mask, kw, tw, tb, fw, _ptrs(cut(outs, _OUT_ROWS)), dtw, dtb, dh, scratch, bufs, layout,
+                r1 - r0, S, L, in0, C, F, flags, self.grid or r1 - r0, stream,
+            )
+        _raise_on(code, self.name, self.lib)
+
+    def dw(self, r0: int, r1: int) -> None:
+        """dw_gemm on the operands the walk over rays [r0, r1) stored: the
+        slab's weight and bias gradients written into the flat result (r0 =
+        0) or added to it."""
+        S, (ops, ray, rows) = self.S, self.bufs
+        n = r1 - r0
+        chain = self._lists[2][RES_ORDER.index("chain")][r0 * S : r1 * S]
+        dw_gemm.dw_gemm([chain, ops[: n * S], None if ray is None else ray[:n]], self.lay.jobs, self.flat,
+                        self.lay.n_dw, rows[:n], r0 > 0)
+
+    def run(self):
+        """The whole call. Returns (d_front, d_ray_cond, d_c_emb, dtrunk,
+        dheads): d_front is [d_x0] in the x0 mode, [d_rays_o, d_rays_d]
+        otherwise; the last two None in the frozen mode."""
+        for r0 in range(0, self.R, self.slab):
+            r1 = min(self.R, r0 + self.slab)
+            self.walk(r0, r1)
+            if self.stores:
+                self.dw(r0, r1)
+        d_front, d_cond, d_cemb, dtw, dtb, dhd = self.result
+        st = self.st
+        if not st.param_grads:
+            return d_front, d_cond, d_cemb, None, None
+        if self.stores:
+            return (d_front, d_cond, d_cemb, *dw_result(self.flat, self.lay, st, self.in0, self.F))
+        dtrunk = [(unpad_trunk_grad(dtw[i], i, st.skips, self.in0), dtb[i]) for i in range(st.D)]
+        return d_front, d_cond, d_cemb, dtrunk, unpad_feat(dhd, self.F)
+
+
 def _launch_bwd(ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots,
                 x0_mode: bool):
-    """One launch of csrc/render_train_bwd.cu on checked arguments (ins as
-    _launch_fwd's). Returns (d_front, d_ray_cond, d_c_emb, dtrunk, dheads):
-    d_front is [d_x0] in the x0 mode, [d_rays_o, d_rays_d] otherwise."""
-    from upnerf_torch.ops import _build
+    """One backward call of csrc/render_train_bwd.cu (and, in the bf16
+    saved-chain train mode, csrc/dw_gemm.cu) on checked arguments: BwdLaunch's
+    run()."""
+    return BwdLaunch(ins, in0, L, z_vals, ray_cond, trunk, heads, st, c_emb, res, cots, x0_mode).run()
 
+
+def render_train_rays_bwd_launch(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res,
+                                 cots, design: str = "stores") -> BwdLaunch:
+    """render_train_rays_bwd's CUDA call, checked and prepared but not
+    launched, in one of BWD_DESIGNS: to time its pieces (chip_smoke.py phase
+    9). Counts no launch."""
     R, S = z_vals.shape
-    dev = z_vals.device
-    C = c_emb.shape[1] if st.use_cand else 0
-    W, HH, HC = (KERNEL_WIDTHS[k] for k in ("W", "HH", "HC"))
-    F = heads["feat_b"].shape[0]
-    f32 = dict(dtype=torch.float32, device=dev)
-    ins = [t.contiguous() if t is not None else None for t in ins]
-    ins = [ins[i] for i in (0, 1, 2, 3, 5, 4, 6)]  # the backward reads c_emb before ray_cond
-    cot_shapes = {"s_weights": (R, S), "s_depth": (R,), "rgb_map": (R, 3), "feat_map": (R, F), "j_weights": (R, S),
-                  "c_depth": (R,), "t_weight": (R,)}
-    cot_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
-    cot_list = []
-    for k in cot_order:
-        g = cots.get(k) if k in st.out_keys else None
-        if g is not None:
-            _check(f"cotangent {k}", g, cot_shapes[k], dev)
-            g = g.contiguous()
-        cot_list.append(g)
-    for k, (shape, dt) in _res_specs(st, R, S, F).items():
-        t = res[k]
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"residual {k}: {t.device} {t.dtype} {tuple(t.shape)}; st needs {dev} {dt} {shape}")
-    res_list = [res[k].contiguous() if k in st.res_keys else None for k in RES_ORDER]
-    kt, kw, padded = _bwd_weights(trunk, heads, st, in0)
-    grid, tw, tb, fw, scratch = R, None, None, None, None
-    if not st.save_chain:
-        # the recompute's forward-layout weights, and a scratch of 32 chain rows a persistent block
-        bf16 = _cdt(st) == torch.bfloat16
-        tw = [_pack_fragments(w) if bf16 else w.contiguous() for w in padded]
-        tb = [b.contiguous() for _, b in trunk]
-        _, kh = _kernel_weights([], pad_feat({k: heads[k] for k in RECOMPUTE_KEYS if k in st.head_keys},
-                                             feat_pad(F, bf16)), st, in0)
-        fw = [kh.get(k) for k in RECOMPUTE_KEYS]
-        grid = min(R, torch.cuda.get_device_properties(dev).multi_processor_count)
-        chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
-        scratch = torch.empty((grid * 32 * chain_w,), dtype=_cdt(st), device=dev)
-    d_front = [torch.empty((R * S, in0), **f32)] if x0_mode else [torch.empty((R, 3), **f32), torch.empty((R, 3), **f32)]
-    d_cond = torch.empty((R, HH), **f32) if st.use_rgb else None
-    d_cemb = torch.empty((R, C), **f32) if st.use_cand else None
-    # weight gradients, accumulated by atomics: zero first; trunk and features in the padded layout
-    dtw, dtb, dhd = [None] * st.D, [None] * st.D, {}
-    if st.param_grads:
-        for i in range(st.D):
-            rows = (X0_PAD if i == 0 else (X0_PAD + W if i in st.skips else W))
-            dtw[i] = torch.zeros((rows, W), **f32)
-            dtb[i] = torch.zeros((W,), **f32)
-        FP = feat_pad(F, _cdt(st) == torch.bfloat16)
-        dhd = {k: torch.zeros(v.shape, **f32) for k, v in pad_feat({k: heads[k] for k in st.head_keys}, FP).items()}
-    outs = [None, None, d_cond, d_cemb, d_front[0]] if x0_mode else [*d_front, d_cond, d_cemb, None]
-    lib = _build.library("render_train_bwd")
-    skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    opt = lambda ts: None if ts is None else _ptrs(ts)  # noqa: E731
-    with torch.cuda.device(dev):
-        code = lib.upnerf_render_train_bwd(
-            _ptrs(ins), _ptrs(cot_list), _ptrs(res_list), _ptrs(kt), st.D, skip_mask, _ptrs(kw), opt(tw), opt(tb),
-            opt(fw), _ptrs(outs), _ptrs(dtw), _ptrs(dtb), _ptrs([dhd.get(k) for k in HEAD_KEYS]),
-            None if scratch is None else scratch.data_ptr(), R, S, L, in0, C, F,
-            _flags(st, True) | (X0_IN if x0_mode else 0), grid, stream,
-        )
-    _raise_on(code, "render_train_bwd (x0 mode)" if x0_mode else "render_train_bwd", lib)
-    if not st.param_grads:
-        return d_front, d_cond, d_cemb, None, None
-    dtrunk = [(unpad_trunk_grad(dtw[i], i, st.skips, in0), dtb[i]) for i in range(st.D)]
-    return d_front, d_cond, d_cemb, dtrunk, unpad_feat(dhd, F)
+    L = st.xyz_L
+    front = {"rays_o": (rays_o, (R, 3)), "rays_d": (rays_d, (R, 3)), "pe_w": (pe_w, (L,))}
+    _check_kernel_args(front, 3 + 6 * L, z_vals, ray_cond, c_emb, trunk, heads, st)
+    return BwdLaunch([rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, None], 3 + 6 * L, L, z_vals, ray_cond, trunk,
+                     heads, st, c_emb, res, cots, False, design)
 
 
 def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots):
     """Backward render: `render_train_rays_bwd_plain` for CPU tensors, the
-    CUDA kernel for CUDA tensors, with the same arguments and results.
+    CUDA kernels for CUDA tensors, with the same arguments and results.
 
-    The kernel accumulates the weight gradients over all rays with f32
-    atomic adds in device memory, so their last bits change from run to run.
-    With st.param_grads off it computes the data cotangents only (the same
-    bits as the train mode's) and returns None for the weight gradients. In
-    the recompute mode (st.save_chain off) it runs persistent blocks, one an
-    SM, each rebuilding a 32-sample tile's chain into its own slice of a
-    scratch buffer in device memory."""
+    In the bf16 saved-chain train mode the call runs, per slab of rays
+    (dw_slab_rays, its buffers under 1 GiB), the walk, which stores the
+    weight gradients' operands (dw_layout), then the dW kernel
+    (ops/dw_gemm.py), which sums them in a fixed order: two calls on the same
+    inputs give the same bits. In the float32 and the recompute train modes
+    the walk accumulates the weight gradients over all rays with f32 atomic
+    adds in device memory, so their last bits change from run to run. With
+    st.param_grads off it computes the data cotangents only (the same bits as
+    the train mode's) and returns None for the weight gradients. In the
+    recompute mode (st.save_chain off) it runs persistent blocks, one an SM,
+    each rebuilding a 32-sample tile's chain into its own slice of a scratch
+    buffer in device memory."""
     if rays_o.device.type == "cpu":
         return render_train_rays_bwd_plain(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st, c_emb, res,
                                            cots)
