@@ -9,18 +9,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   2. build: nvcc compiles upnerf_torch/csrc/*.cu for sm_90a, one process per
      source (and per timing variant), all at once;
   3. the forward kernel's serving mode against its plain PyTorch version on
-     one 4096-ray chunk at the brandenburg_gate width, S = 128 and 256
-     samples, float32 and bfloat16;
+     one 4096-ray chunk at the brandenburg_gate width, S = 64, 100, 128 and
+     256 samples, float32 and bfloat16, and two calls bit for bit;
   4. the serving path: a seeded checkpoint at that width is rendered for 2
      frames at 128x128 by `upnerf_torch.cli.render_video.main`, every
      coarse and fine pass through the kernel; then rays of frame 0 rendered
      on the card are held against the same rays rendered on the CPU;
   5. timings of the serving kernel and the plain version per chunk and per
-     frame;
+     frame; then (5b) the forward's two bf16 designs per 4096 x 256 chunk
+     in turns (the route's wgmma kernel and the mma.sync design it replaced;
+     render_train.FWD_DESIGNS) in
+     the serving, phase-1 and phase-0 residual, recompute residual, kernel-4
+     and F = 32 modes: ms, TFLOP/s, share of the bound, L2 weight bytes, the
+     designs against each other and two calls bit for bit;
   6. the forward kernel in the phase-0 and phase-1 training modes, with the
      residuals the backward reads, against its plain version at the train
-     batch (2048 rays), S = 128 and 256, float32 and bfloat16; and at the
-     validation configs' feature width F = 32 (S = 256);
+     batch (2048 rays), S = 64, 100, 128 and 256, float32 and bfloat16; and
+     at the validation configs' feature width F = 32 (S = 256);
   7. the backward kernel against `render_train_rays_bwd_plain` on the same
      inputs and residuals and random cotangents, every cotangent (F = 384
      and 32);
@@ -147,7 +152,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      chains against their plain versions (int8 bit for bit, bf16 by RMS),
      then `upnerf_torch.scripts.bench_mxu_probe` at its defaults (31
      launches a chain): ms, TFLOP/s or TOPS, share of the dense peak, the
-     plain version's and the library products' ms.
+     plain version's and the library products' ms;
+ 26. run-to-run bits: each mode twice on the same inputs (the render
+     kernels at 2048 x 256; kernels 5 and 6 at 524,288 rows), how many
+     outputs differ and by how much; same bits required of the forward (bf16
+     and f32, saved chain and recompute), the bf16 saved-chain train backward
+     and the frozen mode; measured for the modes that add with atomics
+     (kernel 2's f32 and recompute train modes, kernels 5 and 6's backward).
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -385,6 +396,85 @@ def mode_args(field, inputs, st):
     trunk, heads = field_weights(field)
     heads = {k: heads[k] for k in st.head_keys}
     return (o, d, z, pe_w, cond if st.use_rgb else None, trunk, heads, st), (c_emb if st.use_cand else None)
+
+
+def fwd_call(design: str, args, c_emb=None, save_res: bool = False, x0=None):
+    """One launch of the forward kernel in one of render_train.FWD_DESIGNS on a
+    mode's arguments (mode_args): the rays frontend, or with x0 the x0
+    frontend. The designs other than "wgmma" are timing variants that no route
+    reaches; this counts no launch."""
+    from upnerf_torch.ops import render_train as rt
+
+    o, d, z, pe_w, cond, trunk, heads, st = args
+    if x0 is None:
+        return rt._launch_fwd([o, d, z, pe_w, cond, c_emb, None], 3 + 6 * st.xyz_L, st.xyz_L, z, cond, trunk, heads,
+                              st, c_emb, save_res, False, design)
+    return rt._launch_fwd([None, None, z, None, cond, c_emb, x0], x0.shape[1], 0, z, cond, trunk, heads, st, c_emb,
+                          save_res, True, design)
+
+
+def fwd_l2_weight_bytes(args, design: str, R: int, S: int) -> float:
+    """Bytes of weights a forward call reads from L2, from its tiles and its
+    weight stream: the network's packed bf16 matrices once per tile of 64
+    samples (the mma.sync design) or 128 (the wgmma design); the narrow
+    heads, resident per block, left out."""
+    from upnerf_torch.ops import render_train as rt
+
+    o, d, z, pe_w, cond, trunk, heads, st = args
+    FP = rt.feat_pad(heads["feat_b"].shape[0], True)
+    _, sched = rt.wgmma_weights(trunk, rt.pad_feat(heads, FP), st, 3 + 6 * st.xyz_L)
+    net = sum(b for _, b in sched[:-1])
+    tile = 64 if design == "mma_sync" else 128
+    return net * R * -(-S // tile)
+
+
+def phase_fwd_designs(fields, dev, card: str):
+    """Phase 5b: the forward kernel's two designs (render_train.FWD_DESIGNS:
+    the route's wgmma kernel and the mma.sync design it replaced) per 4096 x
+    256 chunk, bf16, in turns (a, b, b, a), in each mode the port runs: serving (phase 5's), phase-1 and
+    phase-0 residuals (the train step's), recompute residuals, kernel 4 (the
+    x0 mode, static render), and F = 32 phase-1 residuals: ms, TFLOP/s, share
+    of the bound, L2 weight bytes; each variant's outputs against the
+    route's (TOL) and two calls of the route's kernel bit for bit. Returns
+    {mode: {design: ms}}."""
+    from upnerf_torch.ops import render_train as rt
+
+    (field, cfg), (field32, cfg32) = fields
+    out = {}
+    for label, fld, c, phase, save, rec, x0m in (
+            ("serving", field, cfg, 2, False, False, False),
+            ("residuals phase 1", field, cfg, 1, True, False, False),
+            ("residuals phase 0", field, cfg, 0, True, False, False),
+            ("recompute residuals phase 1", field, cfg, 1, True, True, False),
+            ("kernel 4 (x0 mode, static render)", field, cfg, 2, False, False, True),
+            ("F=32 residuals phase 1", field32, cfg32, 1, True, False, False)):
+        st = train_static(c, "bfloat16", phase)._replace(save_chain=not rec)
+        inputs = chunk_inputs(fld, 256, seed=51, dev=dev)
+        args, c_emb = mode_args(fld, inputs, st)
+        x0 = rt._pe(*inputs[:4], c.xyz_L)[0].contiguous() if x0m else None
+        with torch.no_grad():
+            got = {des: fwd_call(des, args, c_emb, save, x0)[0] for des in rt.FWD_DESIGNS}
+            again = fwd_call("wgmma", args, c_emb, save, x0)[0]
+            torch.cuda.synchronize()
+            same = all(torch.equal(got["wgmma"][k], again[k]) for k in again)
+            agree = max((got[des][k] - got["wgmma"][k]).abs().max().item() for des in rt.FWD_DESIGNS for k in again
+                        if "depth" not in k)
+            check(same, f"[5b] {label}: two calls of the forward kernel differ")
+            check(agree <= TOL["bfloat16"], f"[5b] {label}: the designs disagree by {agree}")
+            runs = {des: [] for des in rt.FWD_DESIGNS}
+            for des in list(rt.FWD_DESIGNS) + list(reversed(rt.FWD_DESIGNS)):
+                runs[des].append(cuda_ms(lambda: fwd_call(des, args, c_emb, save, x0), 3))
+        ms = {des: sum(v) / len(v) for des, v in runs.items()}
+        kind = "static" if x0m else ("fwd" if save else "serve")
+        b_ms, b_by = render_bound(fld, st, CHUNK, 256, kind)
+        flop = 2.0 * render_macs(c, st) * CHUNK * 256
+        print(f"[5b] {label}, per {CHUNK}x256 chunk bf16, in turns: " + "; ".join(
+            f"{des} {ms[des]:.3f} ms ({' '.join(f'{v:.3f}' for v in runs[des])}; {flop / ms[des] / 1e9:.0f} TFLOP/s,"
+            f" {b_ms / ms[des]:.2f} of the bound, L2 weights {fwd_l2_weight_bytes(args, des, CHUNK, 256) / 1e9:.1f} GB)"
+            for des in rt.FWD_DESIGNS) + f"; bound {b_ms:.3f} ms ({b_by}); designs agree to {agree:.2e}, two calls"
+            f" bit for bit: {same} ({card})", flush=True)
+        out[label] = ms
+    return out
 
 
 def phase_train_kernels(field, nerf_cfg, dev, samples=(128, 256)):
@@ -2505,11 +2595,95 @@ def phase_mxu_probe(dev, card: str):
     return errs, got, result
 
 
+def flat_tensors(x) -> list:
+    """The tensors of a nested result (tuples, lists, dicts; None skipped), in order."""
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in flat_tensors(v)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in flat_tensors(v)]
+    return []
+
+
+def run_twice(fn):
+    """(elements that differ, elements, worst max |d| over max |value| of an
+    output) between two calls of fn on the same inputs."""
+    a, b = flat_tensors(fn()), flat_tensors(fn())
+    torch.cuda.synchronize()
+    n_diff = sum(int((x != y).sum().item()) for x, y in zip(a, b))
+    worst = max([(x.float() - y.float()).abs().max().item() / max(x.float().abs().max().item(), 1e-30)
+                 for x, y in zip(a, b)] + [0.0])
+    return n_diff, sum(x.numel() for x in a), worst
+
+
+def phase_run_to_run(field, nerf_cfg, dev):
+    """Phase 26: run-to-run bits. Each mode twice on the same inputs (the render
+    kernels at 2048 rays x 256 samples, phase 1 unless said; kernels 5 and 6
+    at 524,288 rows): how many outputs differ and by how much. Same bits are
+    required of the forward (bf16 and f32, saved chain and recompute: its
+    column sums run in a fixed order), the bf16 saved-chain train backward (a
+    walk and the dW kernel) and the frozen mode (no weight gradients); the modes
+    that add weight gradients with atomics (kernel 2's f32 train and recompute
+    train modes, kernels 5 and 6's backward) are measured. Returns {mode:
+    (differ, elements, worst)}."""
+    from upnerf_torch.models.nerf import positional_encoding
+    from upnerf_torch.ops import heads as hk
+    from upnerf_torch.ops import mlp
+    from upnerf_torch.ops import render_train as rt
+
+    out = {}
+    inputs = chunk_inputs(field, 256, seed=26, dev=dev, R=TRAIN_RAYS)
+    g = torch.Generator(device=dev).manual_seed(26)
+    with torch.no_grad():
+        for prec in ("bfloat16", "float32"):
+            for chain in (True, False):
+                st = train_static(nerf_cfg, prec, 1)._replace(save_chain=chain)
+                args, c_emb = mode_args(field, inputs, st)
+                name = f"forward {prec} " + ("saved chain" if chain else "recompute")
+                out[name] = run_twice(lambda: rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True))
+                o_, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+                cots = {k: torch.randn(v.shape, generator=g, device=dev) for k, v in o_.items()}
+                kind = "train" if chain else "recompute train"
+                out[f"backward {prec} {kind}"] = run_twice(
+                    lambda: rt.render_train_rays_bwd(*args[:7], st, c_emb, res, cots))
+                del res
+            st2 = train_static(nerf_cfg, prec, 2)._replace(param_grads=False)
+            args, _ = mode_args(field, inputs, st2)
+            o_, res = rt.render_train_rays_fwd(*args, save_res=True)
+            cots = {k: torch.randn(v.shape, generator=g, device=dev) for k, v in o_.items()}
+            out[f"backward {prec} frozen (phase 2)"] = run_twice(lambda: rt.render_train_rays_bwd(*args[:7], st2, None,
+                                                                                                  res, cots))
+            del res
+            n = TRAIN_RAYS * 256
+            x0 = positional_encoding(torch.randn((n, 3), generator=g, device=dev), nerf_cfg.xyz_L).contiguous()
+            c_emb = torch.randn((n, nerf_cfg.candidate_dim), generator=g, device=dev)
+            trunk, heads = field.trunk_heads_weights(True)
+            hcots = [torch.randn(t.shape, generator=g, device=dev)
+                     for t in hk.fused_trunk_heads_fwd(x0, c_emb, trunk, heads, nerf_cfg.skips, prec)]
+            out[f"kernel 5 backward {prec}"] = run_twice(
+                lambda: hk.fused_trunk_heads_bwd(x0, c_emb, trunk, heads, nerf_cfg.skips, prec, hcots))
+            tcot = torch.randn((n, nerf_cfg.W), generator=g, device=dev)
+            out[f"kernel 6 backward {prec}"] = run_twice(
+                lambda: mlp.fused_trunk_bwd(x0, field.trunk_weights(), nerf_cfg.skips, prec, tcot))
+            torch.cuda.empty_cache()
+    for name, (n_diff, n_el, worst) in out.items():
+        print(f"[26] {name}: {n_diff} of {n_el} outputs differ between two calls, worst {worst:.3e} of an output's"
+              f" max", flush=True)
+    for name in out:
+        if name.startswith("forward") or name.endswith(" frozen (phase 2)") or name == "backward bfloat16 train":
+            check(out[name][0] == 0, f"[26] {name}: two calls differ")
+    return out
+
+
 def kernel_times(dev, card: str, profile_dir=None) -> dict:
     """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16 and 17 and
     the flash-attention kernel of phase 10 alone, bf16, at those phases' shapes
     (CUDA events, 5 launches after a warm-up; 20 for flash attention), with no
-    checks: the numbers to compare two trees on one card. Uses only wrappers
+    checks: the numbers to compare two trees on one card. In a tree that has
+    the forward's timing variants (render_train.FWD_DESIGNS), the forward of
+    phases 5, 9 and 17 also in the variant's design (the mma.sync design the
+    wgmma kernel replaced). Uses only wrappers
     that trees with kernels 4 and 5 already had, so the script can be copied
     into an older tree's root and run there, the trees in turns. With
     profile_dir, then a torch.profiler table of 5 flash-attention calls there,
@@ -2559,6 +2733,16 @@ def kernel_times(dev, card: str, profile_dir=None) -> dict:
             "static_render (phase 17)": lambda: srk.fused_static_render_fwd(x0, z, cond, trunk, hs, nerf_cfg.skips,
                                                                              "bfloat16"),
         }
+        if hasattr(rt, "FWD_DESIGNS"):  # a tree with the forward's timing variants: time them too
+            sargs = (o, d, z, pe_w, cond, trunk, h2, st2)
+            fargs = (o, d, z, pe_w, cond, trunk, h1, st1)
+            for des in rt.FWD_DESIGNS[1:]:
+                calls[f"render_train_fwd, serving mode (phase 5), {des} design"] = (
+                    lambda des=des: fwd_call(des, sargs))
+                calls[f"render_train_fwd (phase 9), {des} design"] = (
+                    lambda des=des: fwd_call(des, fargs, c_emb, True))
+                calls[f"static_render (phase 17), {des} design"] = (
+                    lambda des=des: fwd_call(des, (o, d, z, pe_w, cond, trunk, hs, st2), x0=x0))
         times = {name: cuda_ms(fn, 5) for name, fn in calls.items()}
         qa, ka, va = (torch.randn(DINO_HEADS, DINO_TOKENS, 64, generator=g, device=dev) for _ in range(3))
         times["flash_attn_fwd (phase 10)"] = cuda_ms(lambda: attention.flash_attention(qa, ka, va, scale=0.125), 20)
@@ -2628,7 +2812,7 @@ def main() -> int:
     nerf32 = nerf_cfg._replace(feat_dim=32)
     field32 = NeRFField(nerf32, generator=torch.Generator().manual_seed(32)).to(dev).requires_grad_(False)
     errs, inputs = {}, {}
-    for S in (128, 256):
+    for S in (64, 100, 128, 256):
         inputs[S] = chunk_inputs(field, S, seed=S, dev=dev)[:5]
         for prec in ("float32", "bfloat16"):
             st = rt.RTStatic(D=nerf_cfg.D, skips=nerf_cfg.skips, xyz_L=nerf_cfg.xyz_L, precision=prec)
@@ -2636,7 +2820,9 @@ def main() -> int:
             with torch.no_grad():
                 got = rt.render_train_rays_fwd(*inputs[S], trunk, heads, st)
                 want = rt.render_train_rays_plain(*inputs[S], trunk, heads, st)
+                again = rt.render_train_rays_fwd(*inputs[S], trunk, heads, st)
             torch.cuda.synchronize()
+            check(all(torch.equal(got[k], again[k]) for k in got), f"two calls of the kernel differ (S={S} {prec})")
             for k, v in got.items():
                 check(bool(torch.isfinite(v).all()), f"kernel output {k} not finite (S={S}, {prec})")
             e = {
@@ -2725,10 +2911,11 @@ def main() -> int:
     frame_ms = (time.perf_counter() - t0) / reps * 1e3
     print(f"[5] frame {FRAME_WH[0]}x{FRAME_WH[1]} end to end (render_image, bfloat16): {frame_ms:.1f} ms"
           f" ({FRAME_WH[0] * FRAME_WH[1] / frame_ms * 1e3:.0f} rays/s) ({card})", flush=True)
+    fwd_designs = phase_fwd_designs([(field, nerf_cfg), (field32, nerf32)], dev, card)
     print(f"    phases 1-5: {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # 6 + 7. training modes of the forward kernel, and the backward kernel, at F = 384 and 32
-    fwd_err, _, bwd_abs = phase_train_kernels(field, nerf_cfg, dev)
+    fwd_err, _, bwd_abs = phase_train_kernels(field, nerf_cfg, dev, samples=(64, 100, 128, 256))
     fwd_err32, _, bwd_abs32 = phase_train_kernels(field32, nerf32, dev, samples=(256,))
     fwd_err, bwd_abs = max(fwd_err, fwd_err32), max(bwd_abs, bwd_abs32)
     print(f"    phases 6-7: {time.perf_counter() - t_start:.0f} s", flush=True)
@@ -2777,7 +2964,8 @@ def main() -> int:
     # 24-25. kernel 1b (the fused render from PE rows, training modes and d_x0) and the matrix-unit probe
     x0_t, x0_fwd_err, x0_bwd_err, x0_launches, _ = phase_x0_kernels([(field, nerf_cfg), (field32, nerf32)], dev, card)
     probe_err, probe_launches, probe = phase_mxu_probe(dev, card)
-    print(f"    phases 24-25: {time.perf_counter() - t_start:.0f} s", flush=True)
+    phase_run_to_run(field, nerf_cfg, dev)
+    print(f"    phases 24-26: {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # the least time the card could take for each timed call, from its shapes
     flash_terms = flash_bound_terms(DINO_HEADS, DINO_TOKENS)
@@ -2825,7 +3013,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         {
-            "name": "render_train_fwd",
+            "name": "render_train_fwd (wg_kernel: wgmma, weights staged by TMA)",
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_fwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:555",
@@ -2942,7 +3130,7 @@ def main() -> int:
             "library_ms": None,
         },
         {
-            "name": "render_train_fwd, x0 mode (static render)",
+            "name": "render_train_fwd, x0 mode (static render; wg_kernel)",
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_fwd.cu",
             "replaces": "upnerf/ops/pallas_render.py:118",
@@ -2955,7 +3143,7 @@ def main() -> int:
             "library_ms": None,
         },
         {
-            "name": "render_train_fwd, recompute mode (residuals without a chain)",
+            "name": "render_train_fwd, recompute mode (residuals without a chain; wg_kernel)",
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_fwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:555",
@@ -2994,7 +3182,7 @@ def main() -> int:
             "library_ms": None,
         },
         {
-            "name": "render_train_x0_fwd",
+            "name": "render_train_x0_fwd (wg_kernel)",
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_fwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:555",

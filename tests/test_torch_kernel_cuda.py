@@ -28,6 +28,9 @@ from upnerf_torch.ops import render_train as rt
 TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 D, SKIPS, W, HH, L = 8, (4,), 256, 128, 10
 WIDTHS = [384, 32, 64]  # the built feature widths (render_train.KERNEL_F)
+# The forward kernel's tile plans: two rays a tile, ragged (48: the validation configs' coarse pass) and full;
+# one ray a tile, ragged (96: their fine pass, 100) and full; two tiles.
+SAMPLES = [48, 64, 96, 100, 128, 256]
 
 
 @pytest.fixture
@@ -37,7 +40,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def make_inputs(R, S, device, seed=0, F=384):
+def make_inputs(R, S, device, seed=0, F=384, depth=D, skips=SKIPS):
     """Rays, sorted depths in [0.1, 5], band weights, ray_cond and a
     torch-default-initialised network in the (in, out) interface."""
     rng = np.random.RandomState(seed)
@@ -53,7 +56,7 @@ def make_inputs(R, S, device, seed=0, F=384):
     d = rng.randn(R, 3)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     z = np.sort(rng.uniform(0.1, 5.0, (R, S)), -1)
-    trunk = [lin(in0 if i == 0 else (in0 + W if i in SKIPS else W), W) for i in range(D)]
+    trunk = [lin(in0 if i == 0 else (in0 + W if i in skips else W), W) for i in range(depth)]
     heads = {}
     heads["xyzf_w"], heads["xyzf_b"] = lin(W, W)
     heads["sigma_w"], heads["sigma_b"] = lin(W, 1)
@@ -67,7 +70,7 @@ def make_inputs(R, S, device, seed=0, F=384):
 @pytest.mark.cuda
 @pytest.mark.parametrize("F", WIDTHS)
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S", [128, 256, 100])
+@pytest.mark.parametrize("S", SAMPLES)
 def test_kernel_matches_plain(cuda_device, precision, S, F):
     inputs = make_inputs(300, S, cuda_device, F=F)
     st = rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision)
@@ -119,13 +122,14 @@ def add_candidate(heads, device, seed=1, C=16, HC=128, F=384):
     return heads
 
 
-def train_inputs(R, S, device, phase, precision, seed=0, F=384):
+def train_inputs(R, S, device, phase, precision, seed=0, F=384, depth=D, skips=SKIPS):
     """Inputs of one training mode (phase 0: candidate + feature map; phase 1:
     also rgb) and its RTStatic."""
-    o, d, z, pe_w, cond, trunk, heads = make_inputs(R, S, device, seed, F)
+    o, d, z, pe_w, cond, trunk, heads = make_inputs(R, S, device, seed, F, depth, skips)
     heads = add_candidate(heads, device, seed + 1, F=F)
     c_emb = torch.from_numpy(np.random.RandomState(seed + 2).randn(R, 16).astype(np.float32)).to(device)
-    st = rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision, use_cand=True, use_rgb=phase > 0, out_feat=True)
+    st = rt.RTStatic(D=depth, skips=skips, xyz_L=L, precision=precision, use_cand=True, use_rgb=phase > 0,
+                     out_feat=True)
     heads = {k: heads[k] for k in st.head_keys}
     return (o, d, z, pe_w, cond if st.use_rgb else None, trunk, heads, st), c_emb
 
@@ -134,11 +138,18 @@ def train_inputs(R, S, device, phase, precision, seed=0, F=384):
 @pytest.mark.parametrize("F", WIDTHS)
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
 @pytest.mark.parametrize("phase", [0, 1])
-@pytest.mark.parametrize("S", [128, 100])
+@pytest.mark.parametrize("S", SAMPLES)
 def test_train_forward_matches_plain(cuda_device, precision, phase, S, F):
     """Forward kernel with residuals in the phase-0/1 modes; residuals too (the
     bf16 chain is stored rounded: 1e-2 of its max for a rounding flip)."""
     args, c_emb = train_inputs(256, S, cuda_device, phase, precision, F=F)
+    check_train_forward(args, c_emb, precision)
+
+
+def check_train_forward(args, c_emb, precision):
+    """The forward kernel with residuals (one launch) against its plain version:
+    outputs at TOL, sig_s, sig_c and rgb at TOL, the chain at 1e-2 of its max in
+    bf16 (a rounding flip), 1e-5 in f32."""
     before = rt.launches
     with torch.no_grad():
         got, got_res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
@@ -157,6 +168,55 @@ def test_train_forward_matches_plain(cuda_device, precision, phase, S, F):
     chain_tol = 1e-2 if precision == "bfloat16" else 1e-5
     scale = want_res["chain"].float().abs().max()
     assert (got_res["chain"].float() - want_res["chain"].float()).abs().max() <= chain_tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [48, 64])
+@pytest.mark.parametrize("mode", ["serving", "phase1"])
+def test_bf16_forward_at_an_odd_ray_count_matches_plain(cuda_device, mode, S):
+    """R = 151, S <= 64: two rays a tile, and the last tile's second ray does
+    not exist (computed on the last ray's inputs, written nowhere)."""
+    if mode == "serving":
+        inputs = make_inputs(151, S, cuda_device, seed=41)
+        st = rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision="bfloat16")
+        with torch.no_grad():
+            got = rt.render_train_rays_fwd(*inputs, st)
+            want = rt.render_train_rays_plain(*inputs, st)
+        for k in ("rgb_map", "s_weights"):
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=TOL["bfloat16"])
+        torch.testing.assert_close(got["s_depth"], want["s_depth"], rtol=TOL["bfloat16"], atol=0)
+    else:
+        args, c_emb = train_inputs(151, S, cuda_device, 1, "bfloat16", seed=41)
+        check_train_forward(args, c_emb, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_train_forward_at_the_deepest_trunk_matches_plain(cuda_device, precision):
+    """D = MAX_D (16) with every layer past the first a skip layer, phase 1 at
+    F = 384: the longest weight stream a tile of the bf16 kernel reads."""
+    args, c_emb = train_inputs(64, 128, cuda_device, 1, precision, seed=43, depth=rt.MAX_D,
+                               skips=tuple(range(1, rt.MAX_D)))
+    check_train_forward(args, c_emb, precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["serving", "phase1"])
+def test_bf16_forward_at_5600_samples_a_ray_matches_plain(cuda_device, mode):
+    """S = 5600 (near the most the mma.sync design's shared memory took) at an
+    odd R: the bf16 kernel keeps no per-sample state in shared memory."""
+    if mode == "serving":
+        inputs = make_inputs(3, 5600, cuda_device, seed=45)
+        st = rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision="bfloat16")
+        with torch.no_grad():
+            got = rt.render_train_rays_fwd(*inputs, st)
+            want = rt.render_train_rays_plain(*inputs, st)
+        for k in ("rgb_map", "s_weights"):
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=TOL["bfloat16"])
+        torch.testing.assert_close(got["s_depth"], want["s_depth"], rtol=TOL["bfloat16"], atol=0)
+    else:
+        args, c_emb = train_inputs(3, 5600, cuda_device, 1, "bfloat16", seed=45)
+        check_train_forward(args, c_emb, "bfloat16")
 
 
 @pytest.mark.cuda
@@ -413,15 +473,16 @@ def test_heads_function_launches_both_kernels(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", SAMPLES)
 @pytest.mark.parametrize("F", WIDTHS)
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
-def test_static_render_kernel_matches_plain_and_serving_mode(cuda_device, precision, F):
+def test_static_render_kernel_matches_plain_and_serving_mode(cuda_device, precision, F, S):
     """Kernel 4 (the x0 mode of csrc/render_train_fwd.cu) against its plain
     version (cumprod transmittance) and against the serving mode on the same
     rays (PE built in the kernel), with the serving tolerances above."""
     from upnerf_torch.ops import render as srk
 
-    o, d, z, pe_w, cond, trunk, heads = make_inputs(296, 128, cuda_device, seed=5, F=F)
+    o, d, z, pe_w, cond, trunk, heads = make_inputs(296, S, cuda_device, seed=5, F=F)
     st = rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision)
     x0, _ = rt._pe(o, d, z, pe_w, L)
     before = (srk.launches, rt.launches)
@@ -455,14 +516,15 @@ def recompute_inputs(R, S, device, phase, precision, seed, F=384, store_f32=True
 @pytest.mark.parametrize("F", WIDTHS)
 @pytest.mark.parametrize("precision,store_f32", [("float32", True), ("bfloat16", True), ("bfloat16", False)])
 @pytest.mark.parametrize("phase", [0, 1, 2])
-def test_recompute_forward_matches_plain(cuda_device, precision, store_f32, phase, F):
+@pytest.mark.parametrize("S", SAMPLES)
+def test_recompute_forward_matches_plain(cuda_device, precision, store_f32, phase, F, S):
     """The forward's residuals without a chain (sig_s, sig_c, feat, c_feat,
     rgb) and its outputs against the plain version: outputs as
     test_train_forward_matches_plain; feat / c_feat within 1e-5 (f32), 5e-3
     (bf16 products, f32 store: the trunk's bf16 rounding flips reach a single
     sample unaveraged) or 1e-2 (bf16 store: also one bf16 ulp of the value)
     of their max (and rgb, which bf16 store also rounds)."""
-    args, c_emb = recompute_inputs(200, 100, cuda_device, phase, precision, seed=11, F=F, store_f32=store_f32)
+    args, c_emb = recompute_inputs(200, S, cuda_device, phase, precision, seed=11, F=F, store_f32=store_f32)
     st = args[-1]
     before = (rt.launches, rt.recompute_launches)
     with torch.no_grad():
@@ -603,7 +665,8 @@ def x0_args(args, in0=None, seed=0):
 @pytest.mark.parametrize("save_chain", [True, False], ids=["chain", "recompute"])
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
 @pytest.mark.parametrize("phase", [0, 1, 2])
-def test_x0_forward_and_backward_match_plain(cuda_device, phase, precision, save_chain, in0):
+@pytest.mark.parametrize("S", SAMPLES)
+def test_x0_forward_and_backward_match_plain(cuda_device, phase, precision, save_chain, in0, S):
     """Kernel 1b: the forward with residuals and the d_x0 backward (train and
     frozen modes) from PE rows, against render_train_plain /
     render_train_bwd_plain, at the PE width 63 and at in0 = 40 (not 3 + 6L).
@@ -617,10 +680,17 @@ def test_x0_forward_and_backward_match_plain(cuda_device, phase, precision, save
     card); its weight gradients against the saved-chain kernel's by the max
     at the saved chain's tolerance (the kernel rebuilds the forward kernel's
     chain bit for bit: 1e-6 to 3e-4 there). The frozen mode's data cotangents
-    equal the train mode's bit for bit. The saved chain runs at S = 100, a ragged last tile of the
-    d_x0 store. With the PE rows, the outputs also meet the rays mode's
-    kernel."""
-    S = 100 if save_chain else 128
+    equal the train mode's bit for bit. The forward runs at every S of
+    SAMPLES (S = 100: a ragged last tile); the backward at S = 100 on the saved
+    chain (a ragged last tile of the d_x0 store) and 128 in the recompute mode,
+    where these checks were made: the float64 witness compares the kernel's
+    f32 chain and PyTorch's, and where a ReLU mask flips between the two (at S
+    = 100 in f32, in the candidate branch) the kernel reads 7-9x the plain
+    version's distance from float64 while it equals the saved-chain kernel
+    within run-to-run noise (test_f32_recompute_backward_at_a_ragged_s_is_the_
+    saved_chain_kernels). With the PE rows, the outputs also meet the rays
+    mode's kernel."""
+    with_bwd = S == (100 if save_chain else 128)
     if phase == 2:
         args, c_emb = (*make_inputs(256, S, cuda_device, seed=21), rt.RTStatic(D=D, skips=SKIPS, xyz_L=L,
                                                                                   precision=precision)), None
@@ -632,20 +702,8 @@ def test_x0_forward_and_backward_match_plain(cuda_device, phase, precision, save
     with torch.no_grad():
         got, got_res = rt.render_train_fwd(x0, z, cond, trunk, heads, st, c_emb=c_emb, save_res=True)
         want, want_res = rt.render_train_plain(x0, z, cond, trunk, heads, st, c_emb=c_emb, save_res=True)
-        g = torch.Generator(device=cuda_device).manual_seed(23)
-        cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in want.items()}
-        kb = rt.render_train_bwd(x0, z, cond, trunk, heads, st, c_emb, got_res, cots)
-        kz = rt.render_train_bwd(x0, z, cond, trunk, heads, st._replace(param_grads=False), c_emb, got_res, cots)
-        pb = rt.render_train_bwd_plain(x0, z, cond, trunk, heads, st, c_emb, got_res, cots)
-        f64 = lambda t: None if t is None else t.double()  # noqa: E731
-        p64 = rt.render_train_bwd_plain(f64(x0), f64(z), f64(cond), [(f64(w), f64(b)) for w, b in trunk],
-                                        {k: f64(v) for k, v in heads.items()}, st._replace(precision="float32"),
-                                        f64(c_emb), {k: f64(v) for k, v in got_res.items()},
-                                        {k: f64(v) for k, v in cots.items()})
         rays = rt.render_train_rays_fwd(*args, c_emb=c_emb) if in0 is None else None
     torch.cuda.synchronize()
-    assert (rt.x0_launches, rt.x0_bwd_launches, rt.launches, rt.bwd_launches) == (
-        before[0] + 1, before[1] + 2, before[2] + (in0 is None), before[3])  # the plain versions launch nothing
     tol = TOL[precision]
     for k in st.out_keys:
         assert torch.isfinite(got[k]).all(), k
@@ -659,6 +717,23 @@ def test_x0_forward_and_backward_match_plain(cuda_device, phase, precision, save
     for k in st.res_keys:
         rtol = store_tol if k in ("chain", "feat", "cfeat") else tol
         assert (got_res[k].float() - want_res[k].float()).abs().max() <= rtol * want_res[k].float().abs().max(), k
+    if not with_bwd:
+        assert (rt.x0_launches, rt.x0_bwd_launches) == (before[0] + 1, before[1])
+        return
+    with torch.no_grad():
+        g = torch.Generator(device=cuda_device).manual_seed(23)
+        cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in want.items()}
+        kb = rt.render_train_bwd(x0, z, cond, trunk, heads, st, c_emb, got_res, cots)
+        kz = rt.render_train_bwd(x0, z, cond, trunk, heads, st._replace(param_grads=False), c_emb, got_res, cots)
+        pb = rt.render_train_bwd_plain(x0, z, cond, trunk, heads, st, c_emb, got_res, cots)
+        f64 = lambda t: None if t is None else t.double()  # noqa: E731
+        p64 = rt.render_train_bwd_plain(f64(x0), f64(z), f64(cond), [(f64(w), f64(b)) for w, b in trunk],
+                                        {k: f64(v) for k, v in heads.items()}, st._replace(precision="float32"),
+                                        f64(c_emb), {k: f64(v) for k, v in got_res.items()},
+                                        {k: f64(v) for k, v in cots.items()})
+    torch.cuda.synchronize()
+    assert (rt.x0_launches, rt.x0_bwd_launches, rt.launches, rt.bwd_launches) == (
+        before[0] + 1, before[1] + 2, before[2] + (in0 is None), before[3])  # the plain versions launch nothing
     assert kb[0].shape == x0.shape and kz[3] is None and kz[4] is None
     for a, fz in zip(kb[:3], kz[:3]):
         assert (a is None and fz is None) or torch.equal(a, fz)
@@ -693,6 +768,42 @@ def test_x0_forward_and_backward_match_plain(cuda_device, phase, precision, save
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("phase", [0, 1])
+def test_f32_recompute_backward_at_a_ragged_s_is_the_saved_chain_kernels(cuda_device, phase):
+    """At S = 100 (a ragged last tile) the f32 recompute backward's gradients
+    equal the saved-chain backward's to within the run-to-run noise of their
+    atomic adds (1e-6 of the gradients' RMS; measured ~3e-7), so its larger
+    distance from the float64 witness there is the witness's (a ReLU mask
+    that flips between the kernel's f32 chain and PyTorch's), not a masking
+    fault of the ragged tile. Prints the distances."""
+    args, c_emb = train_inputs(256, 100, cuda_device, phase, "float32", seed=21)
+    grads, flats = {}, {}
+    for chain in (False, True):
+        x0, z, cond, trunk, heads, st = x0_args((*args[:-1], args[-1]._replace(save_chain=chain)), 40, seed=22)
+        with torch.no_grad():
+            _, res = rt.render_train_fwd(x0, z, cond, trunk, heads, st, c_emb=c_emb, save_res=True)
+            want, _ = rt.render_train_plain(x0, z, cond, trunk, heads, st, c_emb=c_emb, save_res=True)
+            g = torch.Generator(device=cuda_device).manual_seed(23)
+            cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in want.items()}
+            grads[chain] = [rt.render_train_bwd(x0, z, cond, trunk, heads, st, c_emb, res, cots) for _ in range(2)]
+            grads[chain].append(rt.render_train_bwd_plain(x0, z, cond, trunk, heads, st, c_emb, res, cots))
+            f64 = lambda t: None if t is None else t.double()  # noqa: E731
+            grads[chain].append(rt.render_train_bwd_plain(
+                f64(x0), f64(z), f64(cond), [(f64(w), f64(b)) for w, b in trunk], {k: f64(v) for k, v in heads.items()},
+                st, f64(c_emb), {k: f64(v) for k, v in res.items()}, {k: f64(v) for k, v in cots.items()}))
+        flats[chain] = [torch.cat([t.double().flatten() for wb in r[3] for t in wb]
+                                  + [r[4][k].double().flatten() for k in st.head_keys]) for r in grads[chain]]
+    torch.cuda.synchronize()
+    for chain in (False, True):
+        k1, k2, p, p64 = flats[chain]
+        print(f"f32 phase {phase} S=100 {'saved chain' if chain else 'recompute'}: kernel - f64 {_rms(k1 - p64):.3e},"
+              f" plain - f64 {_rms(p - p64):.3e}, run to run {_rms(k1 - k2):.3e}")
+    gap = _rms(flats[False][0] - flats[True][0])
+    print(f"f32 phase {phase} S=100: recompute - saved chain {gap:.3e} of RMS {_rms(flats[True][3]):.3e}")
+    assert gap <= 1e-6 * _rms(flats[True][3])
+
+
+@pytest.mark.cuda
 def test_render_train_function_launches_both_x0_kernels(cuda_device):
     args, c_emb = train_inputs(64, 128, cuda_device, 1, "bfloat16", seed=25)
     x0, z, cond, trunk, heads, st = x0_args(args)
@@ -711,12 +822,13 @@ def test_render_train_function_launches_both_x0_kernels(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", SAMPLES)
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
-def test_static_render_kernel_takes_any_x0_width(cuda_device, precision):
+def test_static_render_kernel_takes_any_x0_width(cuda_device, precision, S):
     """Kernel 4 at in0 = 8 (not 3 + 6L) against its plain version."""
     from upnerf_torch.ops import render as srk
 
-    args = (*make_inputs(96, 128, cuda_device, seed=27), rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision))
+    args = (*make_inputs(96, S, cuda_device, seed=27), rt.RTStatic(D=D, skips=SKIPS, xyz_L=L, precision=precision))
     x0, z, cond, trunk, heads, _ = x0_args(args, in0=8, seed=28)
     before = srk.launches
     with torch.no_grad():
@@ -860,3 +972,97 @@ def test_bf16_train_backward_in_slabs_repeats_bit_for_bit(cuda_device, phase, F,
         assert torch.equal(x, y) and torch.equal(x, f)
     for x, w in zip(flat(a), flat(want)):
         assert torch.isfinite(x).all() and (x - w.reshape(x.shape)).abs().max() <= 1e-2 * w.abs().max()
+
+
+def _outputs(x):
+    """The tensors of a nested result (tuples, lists, dicts; None skipped), in order."""
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _outputs(v)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _outputs(v)]
+    return []
+
+
+def _run_twice(fn):
+    """(outputs that differ, outputs, worst max |d| over an output's max) of two calls."""
+    a, b = _outputs(fn()), _outputs(fn())
+    torch.cuda.synchronize()
+    n_diff = sum(int((x != y).sum()) for x, y in zip(a, b))
+    worst = max([(x.float() - y.float()).abs().max().item() / max(x.float().abs().max().item(), 1e-30)
+                 for x, y in zip(a, b)] + [0.0])
+    return n_diff, sum(x.numel() for x in a), worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", SAMPLES)
+@pytest.mark.parametrize("mode", ["serving", "phase0", "phase1", "recompute", "x0"])
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_forward_repeats_bit_for_bit(cuda_device, precision, mode, S):
+    """Two calls of the forward kernel on the same inputs give the same bits in
+    every output and residual: the feature map's column sums run in a fixed
+    order in both precisions (no atomics). R = 151 is odd: at S <= 64 the last
+    tile holds one ray."""
+    if mode in ("serving", "x0"):
+        o, d, z, pe_w, cond, trunk, heads = make_inputs(151, S, cuda_device, seed=31)
+        args, c_emb = (o, d, z, pe_w, cond, trunk, heads, rt.RTStatic(D=D, skips=SKIPS, xyz_L=L,
+                                                                      precision=precision)), None
+    else:
+        args, c_emb = train_inputs(151, S, cuda_device, 0 if mode == "phase0" else 1, precision, seed=31)
+        if mode == "recompute":
+            args = (*args[:-1], args[-1]._replace(save_chain=False))
+    save = mode != "serving" and mode != "x0"
+    with torch.no_grad():
+        if mode == "x0":
+            x0, z, cond, trunk, heads, st = x0_args(args)
+            n_diff, n, _ = _run_twice(lambda: rt.render_train_fwd(x0, z, cond, trunk, heads, st))
+        else:
+            n_diff, n, _ = _run_twice(lambda: rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=save))
+    assert n > 0 and n_diff == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_run_to_run_bits_of_every_mode(cuda_device, precision):
+    """Each mode twice on the same inputs: the forward (saved chain and
+    recompute), kernel 2's train, recompute train and frozen modes, kernels 5
+    and 6's backward. Prints how many outputs differ and by how much; asserts
+    same bits where the design promises them (the forward in both precisions,
+    the bf16 saved-chain train backward, the frozen mode). The modes that add
+    weight gradients with atomics (kernel 2's f32 and recompute train modes,
+    kernels 5 and 6's backward) are measured, not held."""
+    from upnerf_torch.ops import heads as hk
+    from upnerf_torch.ops import mlp
+
+    found = {}
+    with torch.no_grad():
+        for chain in (True, False):
+            args, c_emb = train_inputs(128, 128, cuda_device, 1, precision, seed=33)
+            st = args[-1]._replace(save_chain=chain)
+            args = (*args[:-1], st)
+            tag = "saved chain" if chain else "recompute"
+            found[f"forward {tag}"] = _run_twice(lambda: rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True))
+            out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+            g = torch.Generator(device=cuda_device).manual_seed(34)
+            cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in out.items()}
+            found[f"backward train, {tag}"] = _run_twice(lambda: rt.render_train_rays_bwd(*args[:7], st, c_emb, res,
+                                                                                           cots))
+            frozen = st._replace(param_grads=False)
+            found[f"backward frozen, {tag}"] = _run_twice(lambda: rt.render_train_rays_bwd(*args[:7], frozen, c_emb,
+                                                                                            res, cots))
+        x0, c_rows, trunk, heads = heads_inputs(4096, cuda_device, True)
+        g = torch.Generator(device=cuda_device).manual_seed(35)
+        hcots = [torch.randn(t.shape, generator=g, device=cuda_device)
+                 for t in hk.fused_trunk_heads_fwd(x0, c_rows, trunk, heads, SKIPS, precision)]
+        found["kernel 5 backward"] = _run_twice(lambda: hk.fused_trunk_heads_bwd(x0, c_rows, trunk, heads, SKIPS,
+                                                                                 precision, hcots))
+        tcot = torch.randn((x0.shape[0], W), generator=g, device=cuda_device)
+        found["kernel 6 backward"] = _run_twice(lambda: mlp.fused_trunk_bwd(x0, trunk, SKIPS, precision, tcot))
+    for name, (n_diff, n, worst) in found.items():
+        print(f"{precision} {name}: {n_diff} of {n} outputs differ, worst {worst:.3e} of an output's max")
+    same = ["forward saved chain", "forward recompute", "backward frozen, saved chain", "backward frozen, recompute"]
+    if precision == "bfloat16":
+        same.append("backward train, saved chain")
+    for name in same:
+        assert found[name][0] == 0, name

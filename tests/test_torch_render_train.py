@@ -13,13 +13,16 @@ The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_kernel_cuda.py, which imports no JAX.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from upnerf.ops import pallas_render_train as jrt
-from upnerf_torch.ops import linear
+from upnerf_torch.ops import _build, linear
 from upnerf_torch.ops import render_train as rt
 
 D, SKIPS, W, F, HH, R, S, L = 4, (2,), 32, 16, 16, 8, 16, 4
@@ -198,3 +201,129 @@ def test_kernel_weights_bf16_pads_x0_rows():
     assert kheads["sigma_w"].dtype == torch.bfloat16 and kheads["sigma_w"].shape == (W, 1)
     f32_trunk, _ = rt._kernel_weights(trunk, heads, st._replace(precision="float32"))
     assert all(torch.equal(a[0], b[0]) for a, b in zip(f32_trunk, trunk))
+
+
+def sw128_strip(block: np.ndarray) -> np.ndarray:
+    """(64, nb) rows K x columns N of one K-strip -> its nb x 64 elements as the
+    128-byte-swizzle K-major layout stores them: row n holds W[:, n], its
+    16-byte chunk c (k = 8c .. 8c + 7) at chunk position c ^ (n % 8)."""
+    nb = block.shape[1]
+    out = np.zeros((nb, 64), block.dtype)
+    for n in range(nb):
+        for c in range(8):
+            out[n, 8 * (c ^ (n % 8)) : 8 * (c ^ (n % 8)) + 8] = block[8 * c : 8 * c + 8, n]
+    return out.reshape(-1)
+
+
+@pytest.mark.parametrize("K,N,nb", [(128, 32, 16), (64, 24, 8), (192, 256, 128)])
+def test_pack_wgmma_is_the_sw128_k_strip_layout(K, N, nb):
+    """pack_wgmma: per column block b (outer) and 64-row K-strip ks (inner),
+    W[64ks : 64ks + 64, nb b : nb b + nb]^T in nb rows of 64 elements, the
+    8-element chunk c of row n at position c ^ (n % 8); strip (b, ks) at element
+    (b K / 64 + ks) 64 nb; the dtype kept (wgmma_weights gathers by it)."""
+    w = torch.from_numpy(np.random.RandomState(K + N).randn(K, N).astype(np.float32))
+    packed = rt.pack_wgmma(w, nb)
+    assert packed.dtype == w.dtype and packed.shape == (K * N,)
+    wb = w.numpy()
+    got = packed.numpy()
+    for b in range(N // nb):
+        for ks in range(K // 64):
+            start = (b * (K // 64) + ks) * 64 * nb
+            want = sw128_strip(wb[64 * ks : 64 * ks + 64, nb * b : nb * b + nb])
+            np.testing.assert_array_equal(got[start : start + 64 * nb], want)
+
+
+def kernel_net(F, seed=3, C=16, in0=63, D=8, skips=(4,)):
+    """A network at the CUDA kernels' widths (W 256, HH = HC = 128)."""
+    rng = np.random.RandomState(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    Wk = rt.KERNEL_WIDTHS["W"]
+    trunk = [(t(in0 if i == 0 else (in0 + Wk if i in skips else Wk), Wk), t(Wk)) for i in range(D)]
+    heads = {k: t(*shape) for k, shape in rt._head_shapes(Wk, F, 128, 128, C).items()}
+    return trunk, heads
+
+
+@pytest.mark.parametrize("F", [384, 32])
+@pytest.mark.parametrize("phase", [0, 1, 2])
+def test_wgmma_weights_stream_is_each_strip_once_in_the_kernels_order(phase, F):
+    """wgmma_weights: the schedule names every K-strip of the packed tensor once,
+    in the order a tile of csrc/render_train_fwd.cu:wg_kernel consumes them
+    (trunk layers with x0 rows padded to 64 and xyzf, each in two halves of 128
+    columns, c1x, c2, cfeat's passes,
+    then per feat pass its 4 strips and rgb1's strips of its columns), each
+    strip holding its matrix's rows and columns in the SW128 layout; the last
+    pair is the 8 KB of narrow heads (sigma, csig, rgb2 padded to 8 columns)."""
+    in0, skips = 63, (4,)
+    trunk, heads = kernel_net(F)
+    st = rt.RTStatic(D=8, skips=skips, xyz_L=10, precision="bfloat16", use_cand=phase < 2, use_rgb=phase > 0,
+                     out_feat=phase < 2)
+    FP = rt.feat_pad(F, True)
+    FB = rt.WG_FEAT_BLOCK
+    padded = rt.pad_feat({k: heads[k] for k in st.head_keys}, FP)
+    flat, sched = rt.wgmma_weights(trunk, padded, st, in0)
+    got = flat.float().numpy()
+    b16 = {k: v.bfloat16().float().numpy() for k, v in padded.items()}
+    want = []  # (matrix, nb, block, ks)
+    for i, (w, _) in enumerate(trunk):
+        wp = rt._pad_x0_rows(w, in0) if i == 0 or i in skips else w
+        want += [(wp.bfloat16().float().numpy(), 128, b, ks) for b in range(2) for ks in range(wp.shape[0] // 64)]
+    want += [(b16["xyzf_w"], 128, b, ks) for b in range(2) for ks in range(4)]
+    if st.use_cand:
+        want += [(b16["c1x_w"], 128, 0, ks) for ks in range(4)] + [(b16["c2_w"], 128, 0, ks) for ks in range(2)]
+        want += [(b16["cfeat_w"], FB, b, ks) for b in range(FP // FB) for ks in range(2)]
+    for b in range(FP // FB):
+        want += [(b16["feat_w"], FB, b, ks) for ks in range(4)]
+        if st.use_rgb:
+            want += [(b16["rgb1_w"], 128, 0, ks) for ks in range(b * FB // 64, (b + 1) * FB // 64)]
+    assert len(sched) == len(want) + 1
+    spans = []
+    for (off, nbytes), (w, nb, b, ks) in zip(sched, want):
+        assert off % 1024 == 0 and nbytes == 128 * nb
+        seg = got[off // 2 : (off + nbytes) // 2]
+        np.testing.assert_array_equal(seg, sw128_strip(w[64 * ks : 64 * ks + 64, nb * b : nb * b + nb]))
+        spans.append((off, off + nbytes))
+    heads_off, heads_bytes = sched[-1]
+    assert heads_bytes == 8192 and heads_off + heads_bytes == 2 * flat.numel()
+    spans.sort()
+    assert spans[0][0] == 0 and spans[-1][1] == heads_off
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))  # every strip once, no gaps
+    narrow = got[heads_off // 2 :]
+    for k, K, at in (("sigma_w", 256, 0), ("csig_w", 128, 2048), ("rgb2_w", 128, 3072)):
+        w = np.zeros((K, 8), np.float32)
+        if k in b16:
+            w[:, : b16[k].shape[1]] = b16[k]
+        for ks in range(K // 64):
+            np.testing.assert_array_equal(narrow[at + 512 * ks : at + 512 * (ks + 1)],
+                                          sw128_strip(w[64 * ks : 64 * ks + 64]))
+
+
+def _fwd_source() -> str:
+    return (Path(rt.__file__).resolve().parent.parent / "csrc" / "render_train_fwd.cu").read_text()
+
+
+@pytest.mark.parametrize("F", [384, 32])
+@pytest.mark.parametrize("phase", [0, 1, 2])
+@pytest.mark.parametrize("D", [1, rt.MAX_D])
+def test_wgmma_stream_fits_the_kernel_at_every_depth(D, phase, F):
+    """A tile's weight stream (wgmma_weights) stays within the K-strips the
+    kernel's parameters hold (csrc/render_train_fwd.cu:wg::MAX_CHUNKS) at every
+    depth the kernels take, with every layer past the first a skip layer (the
+    longest stream): at MAX_D, phase 1 and F = 384 it is exactly that long. The
+    C entry point takes as many arguments as the ctypes binding passes."""
+    src = _fwd_source()
+    max_chunks = int(re.search(r"constexpr int MAX_CHUNKS = (\d+);", src).group(1))
+    sig = re.search(r"int upnerf_render_train_fwd\(([^)]*)\)", src).group(1)
+    assert len(sig.split(",")) == len(_build._ARGTYPES["upnerf_render_train_fwd"])
+    skips = tuple(range(1, D))
+    trunk, heads = kernel_net(F, D=D, skips=skips)
+    st = rt.RTStatic(D=D, skips=skips, xyz_L=10, precision="bfloat16", use_cand=phase < 2, use_rgb=phase > 0,
+                     out_feat=phase < 2)
+    padded = rt.pad_feat({k: heads[k] for k in st.head_keys}, rt.feat_pad(F, True))
+    _, sched = rt.wgmma_weights(trunk, padded, st, 63)
+    n_strips = len(sched) - 1  # the last pair: the narrow heads
+    assert 0 < n_strips <= max_chunks
+    if (D, phase, F) == (rt.MAX_D, 1, 384):
+        assert n_strips == max_chunks

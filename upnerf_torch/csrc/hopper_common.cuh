@@ -1,7 +1,8 @@
 // Hopper (sm_90a) machinery shared by the kernels of this directory: mbarriers,
-// TMA tensor copies, wgmma shared-memory descriptors and products, register
-// reallocation between warpgroups, and the host helper that encodes a TMA
-// tensor map. Nothing here knows about a particular kernel.
+// TMA tensor and bulk copies (with L2 cache policies), named barriers, wgmma
+// shared-memory descriptors and products, register reallocation between
+// warpgroups, and the host helper that encodes a TMA tensor map. Nothing here
+// knows about a particular kernel.
 //
 // The pieces fit together as a warp-specialised pipeline:
 // - a producer thread asks TMA for a tile (tma_load_2d / tma_load_3d) and
@@ -113,11 +114,49 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* tmap, uint32_t s
 
 __device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 
+// L2 cache policies for the copies below: evict_last for data that every block
+// reads again (weights), evict_first for streams written once (residuals).
+__device__ __forceinline__ uint64_t l2_policy_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t l2_policy_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+// tma_store_3d with an L2 cache policy.
+__device__ __forceinline__ void tma_store_3d_hint(const CUtensorMap* tmap, uint32_t src, int c0, int c1, int c2,
+                                                  uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%2, %3, %4}], [%1], %5;\n" ::"l"(
+          reinterpret_cast<uint64_t>(tmap)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+
+// TMA bulk copy of `bytes` contiguous bytes (a multiple of 16, both addresses
+// 16-byte aligned) from global memory into this block's shared memory,
+// completing on the mbarrier `bar` like tma_load_2d.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
 // Waits until at most N committed store groups still read shared memory.
 template <int N>
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
+
+// Waits until every committed store group has completed (its writes are done).
+__device__ __forceinline__ void tma_store_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
 // ---------------------------------------------------------------------------
 // wgmma: a warpgroup (4 warps, 128 threads) multiplies a 64-row A tile by B
@@ -168,9 +207,19 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[K][R]) {
   for (int k = 0; k < K; ++k) fence_regs(r[k]);
 }
 
-// d (+)= A B, m64nNk16, N = 2 * (size of d): 64, 128 or 256. wgmma_ss reads A
+// d (+)= A B, m64nNk16, N = 2 * (size of d): 8, 64, 128 or 256. wgmma_ss reads A
 // and B through descriptors, wgmma_rs A from registers. TA / TB: 1 for an
 // MN-major (transposed) operand. scale_d = 0 overwrites d.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -315,6 +364,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
 }
 
+
+// Barrier `id` (1..15; 0 is __syncthreads) for `threads` threads, a multiple of 32:
+// synchronises a subset of the block's warps, e.g. the consumer warpgroups.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrival on barrier `id` without waiting: lets the threads that bar.sync on it go
+// once `threads` have arrived in all.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // ---------------------------------------------------------------------------
 // Register reallocation between warpgroups (setmaxnreg): a producer warpgroup

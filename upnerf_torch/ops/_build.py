@@ -34,9 +34,12 @@ KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd", "heads_fwd"
            "dw_gemm")
 # name: (source, nvcc flags). heads_bwd and render_train_bwd without their in-walk
 # weight-gradient atomic adds (walk_common.cuh:skip_dw_add): chip_smoke.py phases 16
-# and 9 time the adds' share.
+# and 9 time the adds' share. render_train_fwd with the mma.sync bfloat16 design that
+# wg_kernel replaced: chip_smoke.py (phase 5b and --kernel_times) times both designs
+# in turns (render_train.py:FWD_DESIGNS).
 VARIANTS = {"heads_bwd_no_dw_adds": ("heads_bwd", ("-DUPNERF_SKIP_DW_ADDS",)),
-            "render_train_bwd_no_dw_adds": ("render_train_bwd", ("-DUPNERF_SKIP_DW_ADDS",))}
+            "render_train_bwd_no_dw_adds": ("render_train_bwd", ("-DUPNERF_SKIP_DW_ADDS",)),
+            "render_train_fwd_mma_sync": ("render_train_fwd", ("-DUPNERF_FWD_MMA_SYNC",))}
 
 
 class BuildInfo(NamedTuple):
@@ -102,8 +105,10 @@ def build() -> Dict[str, BuildInfo]:
 
 
 _ARGTYPES = {
-    # ins, trunk W, trunk b, D, skip mask, heads, outs, R, S, L, in0, C, F, flags, stream
-    "upnerf_render_train_fwd": ["pp", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "i", "i", "p"],
+    # ins, trunk W, trunk b, D, skip mask, heads, outs, R, S, L, in0, C, F, flags, packed weights (bf16), their
+    # schedule ((offset, bytes) pairs), its K-strips, stream
+    "upnerf_render_train_fwd": ["pp", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "i", "i", "p", "ip",
+                                "i", "p"],
     # ins, cots, res, trunk W^T, D, skip mask, weights, trunk W, trunk b, recompute heads (the last three null with
     # the saved chain), outs, dW trunk, db trunk, d heads, scratch, dW operand buffers, their layout (the last two
     # null but with DW_OPS), R, S, L, in0, C, F, flags, grid, stream

@@ -14,7 +14,9 @@ Per ray r and sample s, from x0 (R*S, in0):
   on CUDA tensors the x0 mode of the fused render kernel
   (`csrc/render_train_fwd.cu`, flag X0_IN: the serving mode with the PE rows
   read instead of built; any width in0 <= 64, as pallas_render.py:200 takes
-  x0.shape[1]) or an error. The kernel builds T as
+  x0.shape[1]) or an error. In bf16 it runs the kernel's Hopper design: a
+  first pass rounds the rows to bf16, zero-padded to 64 columns, into a
+  scratch whose tiles the main kernel's producer loads by TMA. The kernel builds T as
   exp(-sum_{t<s} delta_t sigma_t), the TPU kernel as
   exp(excl_cumsum(log(max(1 - alpha, 1e-24)))); the two agree until
   delta sigma passes ~55, where T is 0 to f32 in both. Launches are counted in

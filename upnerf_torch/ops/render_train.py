@@ -59,6 +59,7 @@ c1x_w, c1c_w, c1_b, c2_w/b, csig_w/b, cfeat_w/b, as RTStatic.head_keys says.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -853,6 +854,134 @@ def _kernel_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic, in0: Op
     return out, kheads
 
 
+# The Hopper forward (csrc/render_train_fwd.cu:wg_kernel): its tile and weight stream.
+WG_NARROW = 8  # the narrow heads' columns (sigma, c_sigma, rgb), zero-padded: wgmma's smallest N
+# Feature columns a pass of the feat / c_feat layers: the pass's accumulators and bf16
+# columns fit the registers beside rgb1's, so F = 384 runs 6 passes, F = 32, 64 one.
+WG_FEAT_BLOCK = 64
+WG_HEADS = ("sigma_w", "csig_w", "rgb2_w")  # resident in each block, in this order, 256 x 8 then 128 x 8 twice
+FWD_DESIGNS = ("wgmma", "mma_sync")
+# The library of each forward design: the route's, and the timing variant of the design it replaced
+# (_build.VARIANTS).
+FWD_LIBS = {"wgmma": "render_train_fwd", "mma_sync": "render_train_fwd_mma_sync"}
+
+
+def pack_wgmma(w: torch.Tensor, nb: int) -> torch.Tensor:
+    """(K, N) weight, K a multiple of 64 and N of nb -> the flat K-strips (in w's
+    dtype) that wgmma reads as a K-major B operand through a 128-byte-swizzle
+    descriptor once they are bf16: for each block b of nb output columns (outer)
+    and each 64-row K-strip ks (inner), the (nb, 64) transpose W[64 ks : 64 ks +
+    64, nb b : nb b + nb]^T as nb rows of 64 elements (128 bytes), the 8-element
+    (16-byte) chunk c of row n (its k = 8 c .. 8 c + 7) stored at chunk position
+    c ^ (n % 8). Strip (b, ks) starts at element (b K / 64 + ks) 64 nb."""
+    K, N = w.shape
+    t = w.reshape(K // 64, 64, N // nb, nb).permute(2, 0, 3, 1)  # (b, ks, n, k)
+    t = t.reshape(N // nb, K // 64, nb, 8, 8)  # k = 8 chunk + e
+    n = torch.arange(nb, device=w.device)
+    chunk = torch.arange(8, device=w.device)[None, :] ^ (n[:, None] % 8)  # position p holds chunk p ^ (n % 8)
+    return t[:, :, n[:, None], chunk].reshape(-1).contiguous()
+
+
+def _wgmma_matrices(st: RTStatic):
+    """The matrices of the Hopper forward's stream, in order: (name, nb), where
+    a name is ("trunk", i) or a head key."""
+    FB = WG_FEAT_BLOCK
+    mats = [(("trunk", i), 128) for i in range(st.D)] + [("xyzf_w", 128)]
+    if st.use_cand:
+        mats += [("c1x_w", 128), ("c2_w", 128)] + ([("cfeat_w", FB)] if st.out_feat else [])
+    mats += [("feat_w", FB)] + ([("rgb1_w", 128)] if st.use_rgb else [])
+    return mats
+
+
+@functools.lru_cache(maxsize=64)
+def _wgmma_plan(st: RTStatic, in0: int, shapes: Tuple[Tuple[str, Tuple[int, int]], ...]):
+    """The gather that packs a mode's weights, and its schedule (wgmma_weights),
+    from the matrices' shapes alone: (index, sched). index (int64, CPU) maps
+    each packed element to its source in the flat concatenation [0, matrix of
+    _wgmma_matrices ..., the narrow heads present ...] (0: a padded zero)."""
+    W = KERNEL_WIDTHS["W"]
+    shape = dict(shapes)
+    src = {}  # name -> (K, N) tensor of source positions (1-based)
+    at = 1
+    for name, _ in shapes:
+        K, N = shape[name]
+        src[name] = torch.arange(at, at + K * N, dtype=torch.int64).reshape(K, N)
+        at += K * N
+    parts, sched = [], []
+    size = 0  # elements so far
+
+    def add(idx, nb) -> int:
+        nonlocal size
+        parts.append(pack_wgmma(idx, nb))
+        size += parts[-1].numel()
+        return size - parts[-1].numel()
+
+    def strips(start, K, nb, blocks, kss):
+        return [(2 * (start + (b * (K // 64) + ks) * 64 * nb), 128 * nb) for b in blocks for ks in kss]
+
+    starts = {}
+    for name, nb in _wgmma_matrices(st):
+        idx = src[str(name)]
+        if isinstance(name, tuple) and (name[1] == 0 or name[1] in st.skips):
+            idx = _pad_x0_rows(idx, in0)
+        starts[name] = (add(idx, nb), idx.shape[0], nb)
+    FP = shape["feat_w"][1]
+    FB = WG_FEAT_BLOCK
+    for name, _ in _wgmma_matrices(st):
+        start, K, nb = starts[name]
+        if name in ("cfeat_w", "feat_w", "rgb1_w"):
+            continue
+        sched += strips(start, K, nb, range(shape[str(name)][1] // nb), range(K // 64))
+        if name == "c2_w" and st.out_feat:
+            start, K, nb = starts["cfeat_w"]
+            sched += strips(start, K, nb, range(FP // FB), range(K // 64))
+    for b in range(FP // FB):  # feat's pass b, then rgb1's K-strips of the pass's columns
+        start, K, nb = starts["feat_w"]
+        sched += strips(start, K, nb, [b], range(K // 64))
+        if st.use_rgb:
+            start, K, nb = starts["rgb1_w"]
+            sched += strips(start, K, nb, [0], range(b * FB // 64, (b + 1) * FB // 64))
+    narrow = []
+    for k, K in zip(WG_HEADS, (W, 128, 128)):
+        idx = src[k] if k in src else torch.zeros((K, 1), dtype=torch.int64)
+        narrow.append(pack_wgmma(torch.cat([idx, idx.new_zeros(K, WG_NARROW - idx.shape[1])], 1), WG_NARROW))
+    heads_off = 2 * size
+    index = torch.cat(parts + narrow)
+    return index, tuple(sched) + ((heads_off, 2 * sum(t.numel() for t in narrow)),)
+
+
+_WG_INDEX: Dict[tuple, torch.Tensor] = {}  # _wgmma_plan's index on each device
+
+
+def wgmma_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic, in0: int):
+    """The bf16 weights of the Hopper forward as one flat tensor, and the stream
+    its producer copies for every tile. heads come zero-padded to FP (pad_feat).
+    Every matrix is laid out by pack_wgmma, with the x0 rows of layer 0 and of
+    the skip layers padded to X0_PAD: the trunk's, xyzf, c1x, c2 and rgb1 in
+    blocks of 128 columns (a W-wide layer runs as two halves), feat and cfeat of
+    WG_FEAT_BLOCK (a block is a pass), sigma, csig and rgb2 (WG_HEADS)
+    zero-padded to WG_NARROW columns. Returns (flat, sched): sched lists (byte
+    offset, bytes) of each K-strip (at most 16 KB) in the order a tile
+    consumes it (one strip a stage of the kernel's ring): the trunk's layers
+    and xyzf, each half by half, then with use_cand c1x, c2 and (out_feat)
+    cfeat's passes, then feat's passes, each followed by rgb1's K-strips of the
+    pass's columns (use_rgb); and last the 8 KB of the narrow heads, which every
+    block keeps resident (absent heads as zeros). The layout is a gather planned
+    once per mode and shapes (_wgmma_plan), so a call runs one concatenation,
+    one gather and one rounding on the device."""
+    tensors = {("trunk", i): w for i, (w, _) in enumerate(trunk)}
+    tensors.update(heads)
+    names = [name for name, _ in _wgmma_matrices(st)] + [k for k in WG_HEADS if k in heads]
+    shapes = tuple((str(n), tuple(tensors[n].shape)) for n in names)
+    index, sched = _wgmma_plan(st, in0, shapes)
+    dev = heads["xyzf_w"].device
+    key = (st, in0, shapes, dev)
+    if key not in _WG_INDEX:
+        _WG_INDEX[key] = index.to(dev)
+    flat = torch.cat([heads["xyzf_w"].new_zeros(1)] + [tensors[n].reshape(-1) for n in names])
+    return flat[_WG_INDEX[key]].to(torch.bfloat16), list(sched)
+
+
 # The backward kernel's weight pointers, in order. "^T" marks a transpose; "rm" a
 # row-major copy the kernel reads outside its products.
 BWD_WEIGHTS = ("xyzf_w^T", "feat_w", "feat_w^T", "rgb1_w^T", "rgb2_w^T", "c1x_w^T", "c1c_w", "c2_w^T", "cfeat_w^T",
@@ -974,19 +1103,38 @@ def _refuse_grad(tensors, entry: str) -> None:
 
 
 def _launch_fwd(ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, save_res: bool,
-                x0_mode: bool):
+                x0_mode: bool, design: str = "wgmma"):
     """One launch of csrc/render_train_fwd.cu on checked arguments. ins:
     rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, x0 (None where the frontend
-    has none). Returns (outputs, residuals)."""
+    has none). design, one of FWD_DESIGNS, picks the bfloat16 kernel: "wgmma"
+    (the route's), or, for timing only, the mma.sync design it replaced
+    (_build.VARIANTS; the float32 kernel is the same in both). Returns
+    (outputs, residuals)."""
     from upnerf_torch.ops import _build
 
+    if design not in FWD_DESIGNS:
+        raise ValueError(f"design must be one of {FWD_DESIGNS}, got {design!r}")
     R, S = z_vals.shape
     dev = z_vals.device
     C = c_emb.shape[1] if st.use_cand else 0
     ins = [t.contiguous() if t is not None else None for t in ins]
     F = heads["feat_b"].shape[0]
-    FP = feat_pad(F, canonical_precision(st.precision) == "bfloat16")
-    ktrunk, kheads = _kernel_weights(trunk, pad_feat({k: heads[k] for k in st.head_keys}, FP), st, in0)
+    bf16 = canonical_precision(st.precision) == "bfloat16"
+    FP = feat_pad(F, bf16)
+    padded = pad_feat({k: heads[k] for k in st.head_keys}, FP)
+    wpack, sched, scratch = None, [], [None, None]
+    if bf16 and design != "mma_sync":
+        # the matrices in one packed stream; the kernel reads the biases and c1c (in, out) beside it, its x0 rows
+        # in bf16 from a scratch its first pass writes, and keeps each sample's sigma, c_sigma and rgb in a second
+        # (one spare ray: the second of the last pair where two rays share a tile and R is odd)
+        wpack, sched = wgmma_weights(trunk, padded, st, in0)
+        scratch = [torch.empty((R * S, X0_PAD), dtype=torch.bfloat16, device=dev),
+                   torch.empty((R + 1, 5 * S), dtype=torch.float32, device=dev)]
+        ktrunk = [(None, b.contiguous()) for _, b in trunk]
+        kheads = {k: (v.to(torch.bfloat16) if k == "c1c_w" else v).contiguous() for k, v in padded.items()
+                  if k == "c1c_w" or "_b" in k}
+    else:
+        ktrunk, kheads = _kernel_weights(trunk, padded, st, in0)
     f32 = dict(dtype=torch.float32, device=dev)
     out = {"s_weights": torch.empty((R, S), **f32), "s_depth": torch.empty((R,), **f32)}
     if st.use_rgb:
@@ -1002,14 +1150,16 @@ def _launch_fwd(ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTSta
         res = {k: torch.empty(shape, dtype=dt, device=dev) for k, (shape, dt) in _res_specs(st, R, S, F).items()}
     out_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
     outs = [out.get(k) for k in out_order] + [res.get(k) for k in RES_ORDER]
-    lib = _build.library("render_train_fwd")
+    lib = _build.library(FWD_LIBS[design])
     skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    sched_c = (ctypes.c_int * (2 * len(sched)))(*[v for pair in sched for v in pair])
     with torch.cuda.device(dev):
         code = lib.upnerf_render_train_fwd(
-            _ptrs(ins), _ptrs([w for w, _ in ktrunk]), _ptrs([b for _, b in ktrunk]), st.D, skip_mask,
+            _ptrs(ins + scratch), _ptrs([w for w, _ in ktrunk]), _ptrs([b for _, b in ktrunk]), st.D, skip_mask,
             _ptrs([kheads.get(k) for k in HEAD_KEYS]), _ptrs(outs), R, S, L, in0, C, F,
-            _flags(st, save_res) | (X0_IN if x0_mode else 0), stream,
+            _flags(st, save_res) | (X0_IN if x0_mode else 0), None if wpack is None else wpack.data_ptr(), sched_c,
+            max(len(sched) - 1, 0), stream,
         )
     _raise_on(code, "render_train_fwd (x0 mode)" if x0_mode else "render_train_fwd", lib)
     return out, res
