@@ -125,9 +125,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      saved-chain kernel (everything at BWD_TOL); the frozen recompute mode
      equal to the train mode bit for bit; then, in
      turns at F = 384 bf16, each recompute kernel against its saved-chain
-     counterpart and its plain version;
+     counterpart and its plain version, and the recompute backward's route
+     in pieces over the chunk's slabs (the chain rebuilt by the forward
+     kernel, the walk, the dW kernel) beside the whole call;
  23. the memory-saving configuration: the flagship step with save_chain off
-     (ms and peak memory per phase beside phase 9's); the host prefetcher on
+     (ms and peak memory per phase beside phase 9's, the peak within
+     REC_STEP_PEAK_GIB, the backward's chain rebuilds); the host prefetcher on
      a memmapped store of 1.3e8 rays (gather ms, the step's wait, streaming
      rays/s against the device-resident store); `cli.train` with
      `tpu.save_chain false tpu.store_on_device false` on phase 18's scene
@@ -156,9 +159,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
  26. run-to-run bits: each mode twice on the same inputs (the render
      kernels at 2048 x 256; kernels 5 and 6 at 524,288 rows), how many
      outputs differ and by how much; same bits required of the forward (bf16
-     and f32, saved chain and recompute), the bf16 saved-chain train backward
-     and the frozen mode; measured for the modes that add with atomics
-     (kernel 2's f32 and recompute train modes, kernels 5 and 6's backward).
+     and f32, saved chain and recompute), the bf16 train backward (saved
+     chain and recompute) and the frozen mode; measured for the modes that
+     add with atomics (kernel 2's f32 train modes, kernels 5 and 6's
+     backward).
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -288,6 +292,10 @@ HEADS_F64_RATIO = 2.0
 # 4096 x 256 (measured on the card), over BWD_TOL's 1e-4. Weight gradients
 # there: max |d| over max |g| <= REC_DW_TOL, and the float64 witness above.
 REC_DW_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+# The memory-saving step's peak (phase 23 (1)): the recompute mode exists to save memory (the saved chain's step
+# peaks at ~5 GiB); its slab buffers (render_train.REC_BUFFER_BYTES) add at most 0.5 GiB to the ~2.6 GiB the step
+# held with a per-block scratch in their place (measured on one H100).
+REC_STEP_PEAK_GIB = 3.2
 # The dW kernel (csrc/dw_gemm.cu) against its plain version on the same stored bf16
 # operands, per weight gradient and the biases, max |d| over max |g|: both sum the
 # same exact products in f32, in another order, over ~100,000 samples a slab.
@@ -1677,7 +1685,9 @@ def write_train_scene(root: str, name: str, seed: int = 0) -> None:
 
 
 def _launch_counters():
-    """(zero, read) over every kernel wrapper's launch counts."""
+    """(zero, read) over every kernel wrapper's launch counts (zero also
+    zeroes the recompute backward's rebuilds, rt.rebuild_launches, which read
+    leaves out: a recompute backward call launches one a slab)."""
     from upnerf_torch.ops import heads as hk
     from upnerf_torch.ops import mlp
     from upnerf_torch.ops import mxu_probe as mp
@@ -1687,7 +1697,7 @@ def _launch_counters():
     def zero():
         rt.launches = rt.bwd_launches = rt.frozen_bwd_launches = 0
         rt.recompute_launches = rt.recompute_bwd_launches = rt.recompute_frozen_bwd_launches = 0
-        rt.x0_launches = rt.x0_bwd_launches = 0
+        rt.rebuild_launches = rt.x0_launches = rt.x0_bwd_launches = 0
         hk.launches = hk.bwd_launches = srk.launches = mlp.launches = mlp.bwd_launches = 0
         for c in mp.CHAINS:
             mp.launches[c] = 0
@@ -2006,13 +2016,15 @@ def phase_recompute_kernels(fields, dev, card: str):
     witness, as phase 16; weight gradients at REC_DW_TOL and by the witness)
     and against the saved-chain kernel on the same inputs (each on its own
     forward's residuals); the frozen recompute mode's data cotangents against the train
-    mode's, bit for bit. The kernel rebuilds the forward kernel's chain bit for
-    bit, so against the saved-chain kernel every output holds at BWD_TOL by the
-    max; against the plain recompute, which sums in another order, ReLU masks
-    flip (REC_DW_TOL). Then, at F = 384 bf16, in turns: the recompute train
-    backward against the saved-chain one (phase 1), the recompute frozen
-    backward against the saved-chain frozen one (phase 2), the forward with
-    residuals in both modes (phase 1), and the plain versions. Returns
+    mode's, bit for bit. The route rebuilds each slab's chain with the forward
+    kernel itself, so against the saved-chain kernel every output holds at
+    BWD_TOL by the max; against the plain recompute, which sums in another
+    order, ReLU masks flip (REC_DW_TOL). Then, at F = 384 bf16, in turns: the
+    recompute train backward against the saved-chain one (phase 1), the
+    recompute frozen backward against the saved-chain frozen one (phase 2),
+    the forward with residuals in both modes (phase 1), and the plain
+    versions; and each recompute backward's pieces over the chunk's slabs in
+    turns (the whole call, the rebuilds, the walks, the dW kernel). Returns
     ({name: (kernel ms, plain ms, saved-chain ms)}, worst forward max |d|, worst backward max
     |d| against plain, worst frozen max |d| against plain)."""
     from upnerf_torch.ops import render_train as rt
@@ -2087,13 +2099,13 @@ def phase_recompute_kernels(fields, dev, card: str):
                 del got, got_res, want, want_res, saved_res, kb, kz, ks, pb, p64
                 torch.cuda.empty_cache()
 
-    # timings at F = 384, bf16, per 4096-ray chunk, in turns
-    field, nerf_cfg = fields[0]
-    inputs = chunk_inputs(field, 256, seed=9, dev=dev, R=CHUNK)
-    times = {}
-    for name, saved, plain_kind in (("bwd", train_static(nerf_cfg, "bfloat16", 1), "bwd"),
-                                    ("frozen", train_static(nerf_cfg, "bfloat16", 2)._replace(param_grads=False), "bwd"),
-                                    ("fwd", train_static(nerf_cfg, "bfloat16", 1), "fwd")):
+    # timings per 4096-ray chunk, bf16, in turns: F = 384 (the kernels line's), and the backward at F = 32
+    times, pieces = {}, {}
+    cases = [(fields[0], "bwd", 1, False), (fields[0], "frozen", 2, True), (fields[0], "fwd", 1, False)]
+    cases += [(fields[1], "bwd, F=32", 1, False), (fields[1], "frozen, F=32", 2, True)]
+    for (field, nerf_cfg), name, phase, frozen in cases:
+        inputs = chunk_inputs(field, 256, seed=9, dev=dev, R=CHUNK)
+        saved = train_static(nerf_cfg, "bfloat16", phase)._replace(param_grads=not frozen)
         st = saved._replace(save_chain=False)
         args, c_emb = mode_args(field, inputs, st)
         with torch.no_grad():
@@ -2111,11 +2123,37 @@ def phase_recompute_kernels(fields, dev, card: str):
                 plain = lambda: rt.render_train_rays_bwd_plain(*args[:7], st, c_emb, res, cots)  # noqa: E731
             s1, r1, r2, s2 = cuda_ms(old, 2), cuda_ms(rec, 2), cuda_ms(rec, 2), cuda_ms(old, 2)
             p1 = cuda_ms(plain, 1)
+            if name != "fwd":  # the route's pieces over the chunk's slabs, in turns with the whole call (the walks
+                # and dW launches alone read the chain the slab buffer holds, the last slab's: the same work)
+                call = rt.render_train_rays_bwd_launch(*args[:7], st, c_emb, res, cots)
+                slabs = [(r0, min(CHUNK, r0 + call.slab)) for r0 in range(0, CHUNK, call.slab)]
+                fns = {"call": call.run, "rebuild": lambda: [call.rebuild(*sl) for sl in slabs],
+                       "walk": lambda: [call.walk(*sl) for sl in slabs]}
+                if call.stores:
+                    fns["dw"] = lambda: [call.dw(*sl) for sl in slabs]
+                t = {k: [cuda_ms(fn, 2)] for k, fn in fns.items()}
+                for k, fn in reversed(list(fns.items())):
+                    t[k].append(cuda_ms(fn, 2))
+                pieces[name] = {k: sum(v) / 2 for k, v in t.items()}
+                pieces[name]["slabs"] = (len(slabs), call.slab)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call.run()  # the host's time to issue a call's launches, against the card's time for them
+                pieces[name]["host"] = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+                del call
         times[name] = ((r1 + r2) / 2, p1, (s1 + s2) / 2)
         print(f"[22] F={nerf_cfg.feat_dim} {name}, per {CHUNK}-ray chunk, S=256, bfloat16: recompute mode"
               f" {times[name][0]:.2f} ms ({r1:.2f}, {r2:.2f}), saved chain {times[name][2]:.2f} ms ({s1:.2f},"
               f" {s2:.2f}), plain recompute {p1:.2f} ms ({card})", flush=True)
-        del out, res, res_s
+        if name in pieces:
+            pc = pieces[name]
+            print(f"[22] F={nerf_cfg.feat_dim} {name}, the route's pieces over {pc['slabs'][0]} slabs of"
+                  f" {pc['slabs'][1]} rays, in turns: whole call {pc['call']:.2f} ms, rebuild (wg_kernel)"
+                  f" {pc['rebuild']:.2f} ms, walk {pc['walk']:.2f} ms"
+                  + (f", dW kernel {pc['dw']:.2f} ms" if "dw" in pc else "")
+                  + f"; the host issues a call's launches in {pc['host']:.2f} ms ({card})", flush=True)
+        del out, res, res_s, inputs
         torch.cuda.empty_cache()
     return times, worst_f, worst_b, worst_z
 
@@ -2164,6 +2202,7 @@ def phase_memory_saving(dev, card: str, step_ms, step_peaks, tto_ms):
     from upnerf_torch.cli import eval as eval_cli
     from upnerf_torch.cli import tto as tto_cli
     from upnerf_torch.data import prefetch
+    from upnerf_torch.ops import render_train as rt
     from upnerf_torch.train import make_train_step
     from upnerf_torch.train.loop import Trainer
 
@@ -2182,9 +2221,13 @@ def phase_memory_saving(dev, card: str, step_ms, step_peaks, tto_ms):
     check(read() == want, f"[23] flagship step launches {read()}, expected {want}")
     for phase in STEP_PHASES:
         print(f"[23] train step phase {phase}, save_chain false: {times[phase]:.2f} ms, peak memory"
-              f" {peaks[phase] / 2**30:.2f} GiB; phase 9's saved chain {step_ms[phase]:.2f} ms,"
-              f" {step_peaks[phase] / 2**30:.2f} GiB ({card})", flush=True)
-    print(f"[23] {steps} steps: launches {read()} (2 forward + 2 recompute backward a step)", flush=True)
+              f" {peaks[phase] / 2**30:.2f} GiB (budget {REC_STEP_PEAK_GIB} GiB); phase 9's saved chain"
+              f" {step_ms[phase]:.2f} ms, {step_peaks[phase] / 2**30:.2f} GiB ({card})", flush=True)
+    print(f"[23] {steps} steps: launches {read()} (2 forward + 2 recompute backward a step), chain rebuilds"
+          f" {rt.rebuild_launches} (one a slab of each backward)", flush=True)
+    check(rt.rebuild_launches >= 2 * steps, "[23] the recompute backward did not rebuild its chain")
+    check(max(peaks.values()) <= REC_STEP_PEAK_GIB * 2**30,
+          f"[23] the memory-saving step peaks above {REC_STEP_PEAK_GIB} GiB: {peaks}")
 
     # (2) the prefetcher on a host memmap store, against the device-resident store, phase 1
     with tempfile.TemporaryDirectory() as tmp:
@@ -2622,10 +2665,12 @@ def phase_run_to_run(field, nerf_cfg, dev):
     kernels at 2048 rays x 256 samples, phase 1 unless said; kernels 5 and 6
     at 524,288 rows): how many outputs differ and by how much. Same bits are
     required of the forward (bf16 and f32, saved chain and recompute: its
-    column sums run in a fixed order), the bf16 saved-chain train backward (a
-    walk and the dW kernel) and the frozen mode (no weight gradients); the modes
-    that add weight gradients with atomics (kernel 2's f32 train and recompute
-    train modes, kernels 5 and 6's backward) are measured. Returns {mode:
+    column sums run in a fixed order), the bf16 train backward with the saved
+    chain and in the recompute mode (a walk and the dW kernel a slab; the
+    recompute mode's rebuilds are the forward's) and the frozen mode (no
+    weight gradients); the modes that add weight gradients with atomics
+    (kernel 2's f32 train modes, kernels 5 and 6's backward) are measured.
+    Returns {mode:
     (differ, elements, worst)}."""
     from upnerf_torch.models.nerf import positional_encoding
     from upnerf_torch.ops import heads as hk
@@ -2671,14 +2716,16 @@ def phase_run_to_run(field, nerf_cfg, dev):
         print(f"[26] {name}: {n_diff} of {n_el} outputs differ between two calls, worst {worst:.3e} of an output's"
               f" max", flush=True)
     for name in out:
-        if name.startswith("forward") or name.endswith(" frozen (phase 2)") or name == "backward bfloat16 train":
+        if name.startswith("forward") or name.endswith(" frozen (phase 2)") or name in (
+                "backward bfloat16 train", "backward bfloat16 recompute train"):
             check(out[name][0] == 0, f"[26] {name}: two calls differ")
     return out
 
 
 def kernel_times(dev, card: str, profile_dir=None) -> dict:
-    """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16 and 17 and
-    the flash-attention kernel of phase 10 alone, bf16, at those phases' shapes
+    """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16 and 17,
+    the recompute train (phase 1) and frozen (phase 2) backward of phase 22,
+    and the flash-attention kernel of phase 10 alone, bf16, at those phases' shapes
     (CUDA events, 5 launches after a warm-up; 20 for flash attention), with no
     checks: the numbers to compare two trees on one card. In a tree that has
     the forward's timing variants (render_train.FWD_DESIGNS), the forward of
@@ -2717,6 +2764,11 @@ def kernel_times(dev, card: str, profile_dir=None) -> dict:
         out2, res2 = rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, h2, st2, save_res=True)
         cots2 = {k: torch.randn(v.shape, generator=g, device=dev) for k, v in out2.items()}
         frozen = st2._replace(param_grads=False)
+        # the recompute mode (phase 22's timings): its own forward's residuals, the same cotangents
+        st1r, st2r = st1._replace(save_chain=False), st2._replace(save_chain=False)
+        _, res_r = rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, h1, st1r, c_emb=c_emb, save_res=True)
+        _, res2_r = rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, h2, st2r, save_res=True)
+        frozen_r = st2r._replace(param_grads=False)
         hcots = [torch.randn(t.shape, generator=g, device=dev) for t in hk.fused_trunk_heads_fwd(*hargs)]
         calls = {
             "render_train_fwd, serving mode (phase 5)": lambda: rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, h2,
@@ -2727,6 +2779,10 @@ def kernel_times(dev, card: str, profile_dir=None) -> dict:
                                                                            res, cots),
             "render_train_bwd_frozen (phase 12)": lambda: rt.render_train_rays_bwd(o, d, z, pe_w, cond, trunk, h2, frozen,
                                                                                    None, res2, cots2),
+            "render_train_bwd, recompute mode (phase 22)": lambda: rt.render_train_rays_bwd(
+                o, d, z, pe_w, cond, trunk, h1, st1r, c_emb, res_r, cots),
+            "render_train_bwd_frozen, recompute mode (phase 22)": lambda: rt.render_train_rays_bwd(
+                o, d, z, pe_w, cond, trunk, h2, frozen_r, None, res2_r, cots2),
             "trunk_fwd (phase 14)": lambda: mlp.fused_trunk(xr[:PROBE_ROWS], tp, nerf_cfg.skips, "bfloat16"),
             "heads_fwd (phase 16)": lambda: hk.fused_trunk_heads_fwd(*hargs),
             "heads_bwd (phase 16)": lambda: hk.fused_trunk_heads_bwd(*hargs, hcots),
@@ -3156,7 +3212,7 @@ def main() -> int:
             "library_ms": None,
         },
         {
-            "name": "render_train_bwd, recompute mode",
+            "name": "render_train_bwd, recompute mode (per slab: wg_kernel rebuild + walk + dw_gemm)",
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_bwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:671",
@@ -3169,7 +3225,7 @@ def main() -> int:
             "library_ms": None,
         },
         {
-            "name": "render_train_bwd_frozen, recompute mode",
+            "name": "render_train_bwd_frozen, recompute mode (per slab: wg_kernel rebuild + walk)",
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_bwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:671",

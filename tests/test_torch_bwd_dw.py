@@ -227,3 +227,47 @@ def test_dw_gemm_plain_matches_products(accumulate):
     tail = slice(128 * 128, 128 * 128 + 100)
     torch.testing.assert_close(out[tail].view(50, 2), base[tail].view(50, 2) + want2)
     torch.testing.assert_close(out[n_dw:], base[n_dw:] + rows.sum(0))
+
+
+@pytest.mark.parametrize("F", rt.KERNEL_F)
+@pytest.mark.parametrize("combo", COMBOS, ids=IDS)
+def test_rec_slab_rays_under_their_budget(combo, F):
+    """The recompute mode's slabs at the kernels' widths: bf16 train (the
+    rebuilt chain and the operand buffers), bf16 frozen and f32 train (the
+    chain alone), at S from 48 to 5600 and an SM count of 132 or 114: the
+    slab's buffers within REC_BUFFER_BYTES, its ray count even and a multiple
+    of the SM count where the budget holds that many, and the largest such
+    count. Phase 1 at F = 384 in bf16: 132 rays at S = 256, 264 at S = 128."""
+    W, HH, HC, C = 256, 128, 128, 16
+    for precision, lay_kind in (("bfloat16", "train"), ("bfloat16", "frozen"), ("float32", "train")):
+        st = rt.RTStatic(D=8, skips=(4,), xyz_L=10, precision=precision, use_cand=combo[0], use_rgb=combo[1],
+                         out_feat=combo[2])
+        bf16 = precision == "bfloat16"
+        lay = rt.dw_layout(st, W, rt.feat_pad(F, True), HH, HC, C) if bf16 and lay_kind == "train" else None
+        chain_bytes = sum(w for _, w in st.chain_cols(W, HH, HC)) * (2 if bf16 else 4)
+        for S in (48, 64, 128, 256, 384, 5600):
+            per_ray = S * chain_bytes + (0 if lay is None else S * lay.ops_w * 2 + lay.ray_w * 2 + lay.nb * 4)
+            for n_sm in (132, 114):
+                n = rt.dw_slab_rays(lay, S, n_sm, chain_bytes)
+                fit = rt.REC_BUFFER_BYTES // per_ray
+                step = n_sm if fit >= n_sm else 2
+                assert n >= 1 and (n * per_ray <= rt.REC_BUFFER_BYTES or fit == 0), (S, n_sm)
+                assert n % step == 0 and (n + step) * per_ray > rt.REC_BUFFER_BYTES or fit < 2, (S, n_sm, n)
+                if combo == COMBOS[0] and F == 384 and lay is not None and n_sm == 132 and S in (128, 256):
+                    assert n == {128: 264, 256: 132}[S]
+
+
+def test_bwd_entry_takes_the_bindings_arguments():
+    """The backward's C entry point takes as many arguments as the ctypes
+    binding passes (the recompute mode's weights, scratch and grid are
+    gone), and the kernel has no recompute instance of its own."""
+    import re
+    from pathlib import Path
+
+    from upnerf_torch.ops import _build
+
+    src = (Path(rt.__file__).resolve().parent.parent / "csrc" / "render_train_bwd.cu").read_text()
+    sig = re.search(r"int upnerf_render_train_bwd\(([^)]*)\)", src).group(1)
+    assert len(sig.split(",")) == len(_build._ARGTYPES["upnerf_render_train_bwd"]) == 21
+    assert re.search(r"template <typename T, int F>\s*__global__ void __launch_bounds__\(THREADS, 1\) bwd_kernel",
+                     src)

@@ -31,6 +31,10 @@ WIDTHS = [384, 32, 64]  # the built feature widths (render_train.KERNEL_F)
 # The forward kernel's tile plans: two rays a tile, ragged (48: the validation configs' coarse pass) and full;
 # one ray a tile, ragged (96: their fine pass, 100) and full; two tiles.
 SAMPLES = [48, 64, 96, 100, 128, 256]
+# What a recompute backward call allocates besides one slab's buffers and its outputs: both kernels' packed
+# weights (with the forward's gather index, kept per mode), the dW kernel's split sums (~16 MB at 132 rays x 256
+# samples, phase 1), the forward's per-slab x0 and state scratch and its dropped outputs (~6 MB).
+REC_EXTRA_BYTES = 96 << 20
 
 
 @pytest.fixture
@@ -645,6 +649,102 @@ def test_recompute_backward_matches_saved_chain_kernel(cuda_device, precision, p
     assert torch.isfinite(o.grad).all() and o.grad.abs().max() > 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("S", [48, 64, 128])
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_train_forward_at_one_and_three_rays_matches_plain(cuda_device, precision, S, R):
+    """The forward with the chain at the ray counts of the recompute route's
+    smallest slabs: one ray (fewer than the grid's blocks; at S <= 64 a tile
+    whose second ray does not exist) and three (an odd count)."""
+    args, c_emb = train_inputs(R, S, cuda_device, 1, precision, seed=47)
+    check_train_forward(args, c_emb, precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 128])
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_recompute_route_in_slabs_equals_one_slab(cuda_device, precision, S):
+    """The recompute backward (phase 1) at 256 rays as its route runs it with
+    slabs of 1, 3 and 100 rays (the last ragged): each slab's chain rebuilt by
+    the forward, walked, and its dW summed (bf16) or added (f32). The data
+    cotangents equal the one-slab call's bit for bit (every ray is walked
+    alone, on the same chain rows), and the frozen mode's equal the train
+    mode's; the weight gradients, the same products summed in another order,
+    are within 1e-4 of each one's max of the one-slab call's (BWD_TOL's f32
+    bound), and in bf16 two calls at a slab size give the same bits. The
+    plain recompute backward holds the one-slab call
+    (test_recompute_backward_matches_plain)."""
+    from upnerf_torch.ops import dw_gemm as dg
+
+    args, c_emb = recompute_inputs(256, S, cuda_device, 1, precision, seed=49)
+    st = args[-1]
+    o, d, z, pe_w, cond, trunk, heads = args[:7]
+    with torch.no_grad():
+        out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+        g = torch.Generator(device=cuda_device).manual_seed(50)
+        cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in out.items()}
+        one = rt.render_train_rays_bwd(o, d, z, pe_w, cond, trunk, heads, st, c_emb, res, cots)
+
+        def route(s, slab):
+            call = rt.render_train_rays_bwd_launch(o, d, z, pe_w, cond, trunk, heads, s, c_emb, res, cots)
+            assert call.slab == 256 and slab <= call.slab  # the buffers hold the default slab
+            call.slab = slab
+            (d_o, d_d), *rest = call.run()
+            return d_o, d_d, *rest
+
+        got = {}
+        for slab in (1, 3, 100):
+            before = (rt.rebuild_launches, dg.dw_launches)
+            got[slab] = [route(st, slab), route(st._replace(param_grads=False), slab)]
+            n = -(-256 // slab)
+            assert (rt.rebuild_launches - before[0], dg.dw_launches - before[1]) == (
+                2 * n, n if precision == "bfloat16" else 0)
+            if precision == "bfloat16":
+                got[slab].append(route(st, slab))
+    torch.cuda.synchronize()
+    for slab, (train, frozen, *again) in got.items():
+        for a, b, fz in zip(train[:4], one[:4], frozen[:4]):
+            if b is None:
+                assert a is None and fz is None
+            else:
+                assert torch.equal(a, b) and torch.equal(a, fz), slab
+        flat = [t for wb in train[4] for t in wb] + [train[5][k] for k in st.head_keys]
+        ref = [t for wb in one[4] for t in wb] + [one[5][k] for k in st.head_keys]
+        for a, b in zip(flat, ref):
+            assert torch.isfinite(a).all() and (a - b).abs().max() <= 1e-4 * b.abs().max(), slab
+        if again:
+            assert all(torch.equal(x, y) for x, y in zip(_outputs(train), _outputs(again[0]))), slab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", [1, 2])
+def test_recompute_backward_peak_memory_within_its_budget(cuda_device, phase):
+    """At 1024 rays x 256 samples (several slabs), bf16: a recompute backward
+    call allocates, above its inputs, at most REC_BUFFER_BYTES (one slab's
+    rebuilt chain and operand buffers) plus its outputs and REC_EXTRA_BYTES
+    (both kernels' packed weights, the dW kernel's split sums, the forward's
+    per-slab scratch and dropped outputs)."""
+    args, c_emb = recompute_inputs(1024, 256, cuda_device, phase, "bfloat16", seed=51)
+    st = args[-1]
+    with torch.no_grad():
+        out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+        g = torch.Generator(device=cuda_device).manual_seed(52)
+        cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in out.items()}
+        for s in (st, st._replace(param_grads=False)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(cuda_device)
+            torch.cuda.reset_peak_memory_stats(cuda_device)
+            got = rt.render_train_rays_bwd(*args[:7], s, c_emb, res, cots)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(cuda_device) - base
+            outs = sum(t.numel() * t.element_size() for t in _outputs(got))
+            print(f"phase {phase} {'train' if s.param_grads else 'frozen'}: peak {peak / 2**20:.1f} MiB above the"
+                  f" inputs, outputs {outs / 2**20:.1f} MiB")
+            assert peak <= rt.REC_BUFFER_BYTES + outs + REC_EXTRA_BYTES
+            del got
+
+
 def x0_args(args, in0=None, seed=0):
     """The x0 frontend's arguments (x0, z, ray_cond, trunk, heads, st) from a
     rays mode's: the PE rows of the rays (in0 = 3 + 6L), or seeded rows of
@@ -1029,9 +1129,10 @@ def test_run_to_run_bits_of_every_mode(cuda_device, precision):
     recompute), kernel 2's train, recompute train and frozen modes, kernels 5
     and 6's backward. Prints how many outputs differ and by how much; asserts
     same bits where the design promises them (the forward in both precisions,
-    the bf16 saved-chain train backward, the frozen mode). The modes that add
-    weight gradients with atomics (kernel 2's f32 and recompute train modes,
-    kernels 5 and 6's backward) are measured, not held."""
+    the bf16 train backward with the saved chain and in the recompute mode,
+    the frozen mode). The modes that add weight gradients with atomics
+    (kernel 2's f32 train modes, kernels 5 and 6's backward) are measured,
+    not held."""
     from upnerf_torch.ops import heads as hk
     from upnerf_torch.ops import mlp
 
@@ -1063,6 +1164,6 @@ def test_run_to_run_bits_of_every_mode(cuda_device, precision):
         print(f"{precision} {name}: {n_diff} of {n} outputs differ, worst {worst:.3e} of an output's max")
     same = ["forward saved chain", "forward recompute", "backward frozen, saved chain", "backward frozen, recompute"]
     if precision == "bfloat16":
-        same.append("backward train, saved chain")
+        same += ["backward train, saved chain", "backward train, recompute"]
     for name in same:
         assert found[name][0] == 0, name

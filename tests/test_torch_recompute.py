@@ -41,6 +41,7 @@ from upnerf.ops import pallas_render_train as jrt
 from upnerf_torch.data.prefetch import BatchPrefetcher
 from upnerf_torch.ops import render_train as rt
 
+import test_torch_bwd_dw as bd
 import test_torch_train_kernel as tk
 import test_torch_train_step as ts
 from test_torch_train_step import world  # noqa: F401  (the teacher-forcing fixture)
@@ -252,3 +253,122 @@ def test_streaming_recompute_trainer_checkpoints_and_resumes(hp):  # noqa: F811
     tr2 = trainer_of(hp, **over)
     assert tr2.fit(log_every=5, max_steps=14).step == 14
     assert tr2.ckpt.latest_step() == 14
+
+
+# ---------------------------------------------------------------------------
+# The recompute backward as its CUDA route runs it (render_train_bwd_rec_plain):
+# per slab of rays, the chain rebuilt by the forward with save_chain on, the walk
+# on it with the stored feat / c_feat, then the operand stores and the dW sums.
+
+ROUTE_TOL = 1e-6
+FEATS = (32, 384)
+
+
+def rec_route_case(combo, precision, param_grads, F, frontend, seed):
+    """(st, jst, numpy inputs, the plain backward's args (x0 or rays first), c_emb, residuals, cotangents) at
+    the small sizes with feature width F; frontend "x0": seeded PE rows of width 40 and a trunk that reads them."""
+    st, jst = statics(combo, precision, param_grads=param_grads)
+    inputs = bd.with_feat(tk.make_inputs(st, seed=seed), F, seed)
+    o, d, z, pe_w, cond, cemb, trunk, heads = tk.to_torch(inputs)
+    rng = np.random.RandomState(seed + 1)
+    shapes = {"s_weights": (tk.R, tk.S), "s_depth": (tk.R,), "rgb_map": (tk.R, 3), "feat_map": (tk.R, F),
+              "j_weights": (tk.R, tk.S), "c_depth": (tk.R,), "t_weight": (tk.R,)}
+    cots = {k: torch.from_numpy(rng.randn(*shapes[k]).astype(np.float32)) for k in st.out_keys}
+    if frontend == "x0":
+        in0 = 40
+        x0 = torch.from_numpy((rng.randn(tk.R * tk.S, in0) * 0.5).astype(np.float32))
+        fans = [in0] + [in0 + tk.W if i in tk.SKIPS else tk.W for i in range(1, tk.D)]
+        trunk = [(torch.from_numpy((rng.randn(fan, tk.W) * 0.2).astype(np.float32)), b)
+                 for fan, (_, b) in zip(fans, trunk)]
+        _, res = rt.render_train_plain(x0, z, cond, trunk, heads, st, c_emb=cemb, save_res=True)
+        return st, jst, inputs, (x0, z, cond, trunk, heads), cemb, res, cots
+    _, res = rt.render_train_rays_plain(o, d, z, pe_w, cond, trunk, heads, st, c_emb=cemb, save_res=True)
+    return st, jst, inputs, (o, d, z, pe_w, cond, trunk, heads), cemb, res, cots
+
+
+def rec_route(args, st, cemb, res, cots, slab):
+    fn = rt.render_train_bwd_rec_plain if len(args) == 5 else rt.render_train_rays_bwd_rec_plain
+    return fn(*args, st, cemb, res, cots, slab_rays=slab)
+
+
+def plain_rec(args, st, cemb, res, cots):
+    fn = rt.render_train_bwd_plain if len(args) == 5 else rt.render_train_rays_bwd_plain
+    return fn(*args, st, cemb, res, cots)
+
+
+def assert_rec_route_close(got, want, args, st, cemb, res, cots):
+    """Data cotangents within ROUTE_TOL of each leaf's max; weight gradients
+    too, biases within ROUTE_TOL of the sum of |terms| of their largest
+    column (test_torch_bwd_dw.py's measure); None where want has None."""
+    n_data = len(got) - 2
+    for i in range(n_data):
+        if want[i] is None:
+            assert got[i] is None, i
+        else:
+            tk.assert_leaf_close(got[i].numpy(), want[i].numpy(), ROUTE_TOL, f"data cotangent {i}")
+    if want[-1] is None:
+        assert got[-2] is None and got[-1] is None
+        return
+    x0, z, cond, trunk, heads = args if len(args) == 5 else (rt._pe(*args[:4], st.xyz_L)[0], args[2], *args[4:])
+    scales = bd.bias_scales(x0, z, cond, trunk, heads, st, cemb, res, cots)
+    for i, ((gw, gb), (ww, wb)) in enumerate(zip(got[-2], want[-2])):
+        tk.assert_leaf_close(gw.numpy(), ww.numpy(), ROUTE_TOL, f"trunk{i}.w")
+        scale = scales[f"trunk{i}_b"]
+        np.testing.assert_allclose(gb.numpy() / scale, wb.numpy() / scale, rtol=0, atol=ROUTE_TOL,
+                                   err_msg=f"trunk{i}.b")
+    assert set(got[-1]) == set(st.head_keys)
+    for k in st.head_keys:
+        g, w = got[-1][k].reshape(want[-1][k].shape).numpy(), want[-1][k].numpy()
+        if k in scales:
+            np.testing.assert_allclose(g / scales[k], w / scales[k], rtol=0, atol=ROUTE_TOL, err_msg=k)
+        else:
+            tk.assert_leaf_close(g, w, ROUTE_TOL, k)
+
+
+@pytest.mark.parametrize("F", FEATS)
+@pytest.mark.parametrize("frontend", ["rays", "x0"])
+@pytest.mark.parametrize("param_grads", [True, False], ids=["train", "frozen"])
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("combo", COMBOS, ids=IDS)
+def test_rec_route_matches_plain_recompute(combo, precision, param_grads, frontend, F):
+    """The route in slabs of 3 rays (R = 8: a ragged last slab of 2) against
+    the plain recompute backward, which rebuilds the whole chain at once."""
+    st, _, _, args, cemb, res, cots = rec_route_case(combo, precision, param_grads, F, frontend, seed=31)
+    got = rec_route(args, st, cemb, res, cots, 3)
+    assert_rec_route_close(got, plain_rec(args, st, cemb, res, cots), args, st, cemb, res, cots)
+
+
+@pytest.mark.parametrize("slab", [1, 2, 3])
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_rec_route_slabs_match_one_slab(precision, slab):
+    """Phase 1 at F = 384: slabs of 1, 2 and 3 rays against one slab of all 8."""
+    st, _, _, args, cemb, res, cots = rec_route_case(COMBOS[0], precision, True, 384, "rays", seed=33)
+    one = rec_route(args, st, cemb, res, cots, None)
+    assert_rec_route_close(rec_route(args, st, cemb, res, cots, slab), one, args, st, cemb, res, cots)
+
+
+@pytest.mark.parametrize("combo,precision", [(c, "float32") for c in COMBOS] + [(COMBOS[0], "bfloat16"),
+                                                                                (COMBOS[2], "bfloat16")],
+                         ids=[f"{i}-float32" for i in IDS] + ["phase1-bfloat16", "phase2-bfloat16"])
+@pytest.mark.parametrize("param_grads", [True, False], ids=["train", "frozen"])
+def test_rec_route_matches_pallas_vjp(combo, precision, param_grads, monkeypatch):
+    """The route in slabs of 5 rays against jax.vjp of the Pallas kernel with
+    save_chain=False in the interpreter, at
+    test_plain_recompute_backward_matches_pallas_vjp's tolerances (1e-4 of
+    each leaf's max in f32, 1e-3 in bf16)."""
+    monkeypatch.setattr(jrt, "INTERPRET", True)
+    st, jst, inputs, args, cemb, res, cots = rec_route_case(combo, precision, param_grads, tk.F, "rays", seed=35)
+    got = rec_route(args, st, cemb, res, cots, 5)
+    want = tk.jax_vjp(inputs, jst, {k: v.numpy() for k, v in cots.items()})
+    tol = 1e-4 if precision == "float32" else 1e-3
+    if param_grads:
+        tk.compare_grads(got, want, st, tol)
+    else:
+        assert got[4] is None and got[5] is None
+        compare_data_cots(got, want, tol)
+
+
+def test_rec_route_refuses_the_saved_chain():
+    st, _, _, args, cemb, res, cots = rec_route_case(COMBOS[0], "float32", True, tk.F, "rays", seed=37)
+    with pytest.raises(ValueError, match="save_chain"):
+        rec_route(args, st._replace(save_chain=True), cemb, res, cots, 3)

@@ -24,10 +24,11 @@ constexpr int W = 256, HH = 128, HC = 128;
 // NO_PARAM_GRADS: the backward's frozen-model mode (RTStatic.param_grads = False).
 // X0_IN: the forward reads pre-built PE rows x0 instead of building them from the rays.
 // RECOMPUTE: the recompute mode (RTStatic.save_chain = False): the forward's residuals
-// hold the per-sample feat and c_feat in place of the walk chain, and the backward
-// rebuilds the chain.
-// DW_OPS: the bf16 saved-chain backward's train mode stores the operands of its weight
-// gradients for dw_gemm.cu in place of adding the gradients itself.
+// hold the per-sample feat and c_feat in place of the walk chain; the backward walks a
+// chain the forward kernel rebuilt per slab of rays, and reads p, q and rgb1's dW
+// operand from the stored feat and c_feat.
+// DW_OPS: the bf16 backward's train mode stores the operands of its weight gradients
+// for dw_gemm.cu in place of adding the gradients itself.
 enum Flag {
   BF16 = 1, USE_RGB = 2, OUT_FEAT = 4, USE_CAND = 8, SAVE_RES = 16, STORE_F32 = 32, NO_PARAM_GRADS = 64, X0_IN = 128,
   RECOMPUTE = 256, DW_OPS = 512

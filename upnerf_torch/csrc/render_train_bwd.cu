@@ -2,9 +2,9 @@
 //
 // Replaces the TPU kernel upnerf/ops/pallas_render_train.py:_bwd_kernel (reached
 // through fused_render_train_rays's VJP _vjp_bwd_rays -> _bwd_impl -> pl.pallas_call)
-// with the rays frontend and save_chain (the forward saved the walk chain: trunk
-// activations, xyzf, rgbh, h1, h2), in its training mode (param_grads) and its
-// frozen-model mode (below); and, as its x0 mode (flag X0_IN, every mode), the same
+// with the rays frontend, walking a chain (trunk activations, xyzf, rgbh, h1, h2) that
+// the forward saved or, in the recompute mode (below), rebuilt, in its training mode
+// (param_grads) and its frozen-model mode (below); and, as its x0 mode (flag X0_IN, every mode), the same
 // kernel behind fused_render_train's VJP (_vjp_bwd -> _bwd_impl): the tile's x0 rows
 // are read from the pre-built PE rows (R*S, in0) where the rays frontend builds them,
 // and step 4 below is replaced by a store of the tile's d_x0 rows (both of x0's
@@ -12,21 +12,21 @@
 // at consecutive addresses; no d_rays_o / d_rays_d. Per ray it computes:
 //   1. the per-sample inner products p = <feat_s, g_feat>, q = <c_feat_s, g_feat>,
 //      rr = <rgb_s, g_rgb_map>, with feat_s = xyzf_s Wf + bf re-derived from the chain
-//      (as p = xyzf_s (Wf g_feat) + bf g_feat: the same bf16 operands, f32 sums);
+//      (as p = xyzf_s (Wf g_feat) + bf g_feat: the same bf16 operands, f32 sums), or
+//      read from the stored feat / c_feat in the recompute mode;
 //   2. the division-free compositing backward (pallas_render_train.py:34-37):
 //        d sig_s = delta [e_s T_s g_ow - sum_{t>s} g_ow,t ow_t]
 //                + delta [e^a T_j g_sw + e^j T_j g_jw - sum_{t>s} m_t]      (candidate)
 //        d sig_c = delta [e^b T_j g_cw + e^j T_j g_jw - sum_{t>s} m_t]
 //      with a warp scan for the exclusive prefix sums and a reverse one for the
 //      exclusive suffix sums, then softplus' = 1 - exp(-sig);
-//   3. the reverse walk over the saved chain, 32 samples at a time: rgb2, rgb1
+//   3. the reverse walk over the chain, 32 samples at a time: rgb2, rgb1
 //      (-> d_ray_cond), feat, c_feat / c_sig / c2 / c1 (-> d_c_emb), sigma / xyzf and
 //      the trunk, with ReLU masks from the stored activations;
 //   4. the PE backward down to d_rays_o and d_rays_d (d sin(x f) = cos(x f) f,
 //      d cos(x f) = -sin(x f) f, with the forward's non-contracted arguments);
-//   5. every dW = x^T dy and db = sum dy: in the bf16 saved-chain train mode (flag
-//      DW_OPS, below) by dw_gemm.cu from the operands this kernel stores; in the
-//      other train modes here.
+//   5. every dW = x^T dy and db = sum dy: in the bf16 train mode (flag DW_OPS, below)
+//      by dw_gemm.cu from the operands this kernel stores; in float32 mode here.
 // In bfloat16 mode every product rounds both operands to bf16 and sums in f32, the
 // cotangent included, as the TPU kernel's _dot does; bias sums and the rank-1 sigma
 // terms stay f32. upnerf_torch/ops/render_train.py:render_train_rays_bwd_plain is the
@@ -45,23 +45,22 @@
 // width FP of the forward (render_common.cuh:feat_pad), and the padded columns carry
 // exact zeros throughout.
 //
-// DW_OPS, the bf16 saved-chain train mode's weight gradients: the walk adds none. For
-// each tile it stores the rounded operands that the products read and that are not
-// in the saved chain, 16 bytes a thread, into a dW operand buffer in device memory
-// (rows = the launch's samples; columns from upnerf_torch/ops/render_train.py:
-// dw_layout, passed in `lay`): every cotangent G (g_rgbh, g_feat, g_cfeat, g_h2,
-// g_h1, g_xyzf, each trunk layer's g_act; g_u, g_spre and g_cpre in one shared
-// column block), the re-derived feat (rgb1's X) and the tile's x0; per ray, rayg1 and
-// c_emb (c1c_w's operands) and a row of f32 bias sums, each column owned by one thread
-// across the ray's tiles, in tile order. dw_gemm.cu then sums every dW = X^T G over
-// the samples (X from the saved chain or the buffer) and the bias rows over the rays,
-// in a fixed order: the result's bits do not change from run to run. The wrapper runs
-// the walk and dw_gemm per slab of rays, the buffer under 1 GiB (~7.9 KB a sample at
-// F = 384, phase 1). The stores, ~8 GB a 4096 x 256 chunk, and the chain's loads are
-// streaming (evict-first): with default caching they pushed out of L2 the weights that
-// every tile's products re-read, and the walk took ~37.7 ms a chunk instead of ~30
-// (one H100, PERF.md §6). In the float32 and the recompute modes each block adds its
-// 32-sample tile's dW into one f32 copy in device memory with vector atomic adds,
+// DW_OPS, the bf16 train mode's weight gradients: the walk adds none. For each tile it
+// stores the rounded operands that the products read and that are not in the chain,
+// 16 bytes a thread, into a dW operand buffer in device memory (rows = the launch's
+// samples; columns from upnerf_torch/ops/render_train.py:dw_layout, passed in `lay`):
+// every cotangent G (g_rgbh, g_feat, g_cfeat, g_h2, g_h1, g_xyzf, each trunk layer's
+// g_act; g_u, g_spre and g_cpre in one shared column block), feat (rgb1's X) and the
+// tile's x0; per ray, rayg1 and c_emb (c1c_w's operands) and a row of f32 bias sums,
+// each column owned by one thread across the ray's tiles, in tile order. dw_gemm.cu
+// then sums every dW = X^T G over the samples (X from the chain or the buffer) and the
+// bias rows over the rays, in a fixed order: the result's bits do not change from run
+// to run. The wrapper runs the walk and dw_gemm per slab of rays, the buffer under 1
+// GiB (~7.9 KB a sample at F = 384, phase 1). The stores, ~8 GB a 4096 x 256 chunk,
+// and the chain's loads are streaming (evict-first): with default caching they pushed
+// out of L2 the weights that every tile's products re-read, and the walk took ~37.7 ms
+// a chunk instead of ~30 (one H100, PERF.md §6). In the float32 mode each block adds
+// its 32-sample tile's dW into one f32 copy in device memory with vector atomic adds,
 // x and g taken from shared memory by ldmatrix (.trans) into mma.sync in bf16, so
 // their last bits change from run to run; ~34 ms of the bf16 train mode's ~62 ms per
 // 4096-ray chunk went to those products and adds before DW_OPS.
@@ -81,19 +80,11 @@
 // Recompute mode (flag RECOMPUTE, RTStatic.save_chain = False; the TPU kernel's branch
 // pallas_render_train.py:883-890), in both the train and the frozen mode: the forward
 // saved no chain, only the per-sample feat and c_feat (f32, or bf16 with store_f32
-// off) beside the sigmas and rgb. A tile's chain (5.4 KB a sample in bf16) does not fit
-// beside the walk's ~160 KB of shared memory, so, as heads_bwd.cu does, the kernel runs
-// persistent blocks (one an SM, each walking rays blockIdx.x, blockIdx.x + gridDim.x,
-// ...) and gives each block a scratch of BT rows in the chain's own column layout in
-// device memory (~172 KB a block in bf16, ~23 MB for 132 blocks: it stays in L2). Per
-// tile it rebuilds the trunk from the x0 of the tile (walk_common.cuh:recompute_trunk),
-// then xyzf, rgbh = relu(feat Wr1 + ray_cond) from the stored feat, h1 = relu(xyzf Wc1x
-// + c_emb Wc1c + bc1) and h2 into the scratch; the walk then reads the scratch where it
-// read the saved chain. p and q come from the stored feat and c_feat rows, and rgb1's
-// dW operand is the stored feat. The recompute sums in another order than the
-// forward's 64-row tiles, so a ReLU pre-activation within rounding of zero can flip its
-// mask against another recompute (ROADMAP.md §3): one sample's cotangent through that
-// unit then switches on or off.
+// off) beside the sigmas and rgb. The wrapper rebuilds the chain per slab of rays with
+// the forward kernel (render_train_fwd.cu in its saved-chain residual mode, into a
+// slab buffer) and runs this kernel on it with the flag, which keeps the recompute
+// mode's own reads (pallas_render_train.py:733-747): p and q come from the stored feat
+// and c_feat rows, not from the chain, and rgb1's dW operand is the stored feat.
 
 #include "walk_common.cuh"
 
@@ -130,20 +121,13 @@ enum Lay {
 };
 
 struct Bwd {
-  const float *o, *d, *z, *pe_w, *cemb, *cond;
+  const float *o, *d, *z, *pe_w, *cemb;
   const float* x0;                       // X0_IN: (R*S, in0) PE rows; the rays are null
   const float *g_sw, *g_sdep, *g_rgbm, *g_feat, *g_jw, *g_cdep, *g_tw;  // cotangents, null = 0
   const float *sig_s, *sig_c, *rgb;                                     // residuals
-  const void* chain;                     // saved chain (R*S, chain_w); null in the recompute mode
+  const void* chain;                     // the walk chain (R*S, chain_w), saved or rebuilt
   const void *feat_res, *cfeat_res;      // recompute mode: (R*S, F) f32, or bf16 with store_f32 off
   int chain_w;
-  // recompute mode: the forward's weights (f32 (in, out) | bf16 packed; trunk x0 rows
-  // padded to 64; rgb1_w's rows zero-padded to FP), and the per-block scratch chains
-  const void* tw[MAX_D];
-  const float* tb[MAX_D];
-  const void *xyzf_wf, *rgb1_wf, *c1x_wf, *c2_wf;
-  const float *xyzf_b, *c1_b, *c2_b;
-  void* scratch;  // gridDim.x x BT x chain_w in the compute dtype
   const void* tT[MAX_D];  // trunk W^T (W, in_pad), x0 padded to 64 columns
   const void *xyzf_wT, *feat_w, *feat_wT, *rgb1_wT, *rgb2_wT, *c1x_wT, *c1c_w, *c2_wT, *cfeat_wT;  // F padded to FP
   const float *sigma_w, *csig_w, *feat_b, *cfeat_b;  // feat_b, cfeat_b (FP,)
@@ -164,38 +148,61 @@ struct Bwd {
 };
 
 // Chain columns [col0, col0 + ncols) of tile s0 into dst (T); rows past the ray's end 0.
-// From the saved chain, by streaming loads (evict-first: each row is read once, and the
-// weights that every tile re-reads keep L2), or (blk non-null, the recompute mode) from
-// the block's scratch rows 0..BT-1 by plain loads: this launch writes them.
-template <typename T, bool REC>
-__device__ void load_chain(T* dst, int ldd, const Bwd& a, const T* blk, int ray, int s0, int col0, int ncols) {
+// By streaming loads (evict-first: each row is read once, and the weights that every
+// tile re-reads keep L2).
+template <typename T>
+__device__ void load_chain(T* dst, int ldd, const Bwd& a, int ray, int s0, int col0, int ncols) {
   constexpr int V = 16 / sizeof(T);
   const T* chain = static_cast<const T*>(a.chain);
   const int vpr = ncols / V;
   for (int i = threadIdx.x; i < BT * vpr; i += THREADS) {
     const int r = i / vpr, v = i - r * vpr, s = s0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < a.S) {
-      if constexpr (REC)
-        val = *reinterpret_cast<const uint4*>(blk + (size_t)r * a.chain_w + col0 + v * V);
-      else
-        val = __ldcs(reinterpret_cast<const uint4*>(chain + ((size_t)ray * a.S + s) * a.chain_w + col0 + v * V));
-    }
+    if (s < a.S) val = __ldcs(reinterpret_cast<const uint4*>(chain + ((size_t)ray * a.S + s) * a.chain_w + col0 + v * V));
     *reinterpret_cast<uint4*>(dst + r * ldd + v * V) = val;
   }
 }
 
-// Element (row, c) of a stored feat / c_feat residual (R*S, F), f32 or bf16.
-__device__ __forceinline__ float feat_at(const void* p, bool bf, size_t row, int F, int c) {
-  return bf ? load1(static_cast<const bf16*>(p) + row * F + c) : load1(static_cast<const float*>(p) + row * F + c);
+// Elements (row, c .. c + 3) of a stored feat / c_feat residual (R*S, F), f32 or bf16,
+// in one 16- or 8-byte load (F and c multiples of 4).
+__device__ __forceinline__ void feat4_at(const void* p, bool bf, size_t row, int F, int c, float (&v)[4]) {
+  if (bf) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(static_cast<const bf16*>(p) + row * F + c));
+    v[0] = bf16_bits_to_float(u.x & 0xffffu);
+    v[1] = bf16_bits_to_float(u.x >> 16);
+    v[2] = bf16_bits_to_float(u.y & 0xffffu);
+    v[3] = bf16_bits_to_float(u.y >> 16);
+  } else {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(p) + row * F + c));
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  }
+}
+
+// <row of a stored feat / c_feat residual, g> over its F columns, summed by the 32 lanes of a warp.
+__device__ __forceinline__ float feat_dot(const void* p, bool bf, size_t row, int F, const float* g) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f, v[4];
+  for (int c = 4 * lane; c < F; c += 128) {
+    feat4_at(p, bf, row, F, c, v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc = fmaf(v[e], g[c + e], acc);
+  }
+  return warp_sum(acc);
 }
 
 // Rows s0.. of ray's stored feat into dst (T, FP columns: zero past F and past the ray's end).
 template <typename T>
 __device__ void load_feat(T* dst, int ldd, const Bwd& a, bool bf, int ray, int s0, int F, int FP) {
-  for (int i = threadIdx.x; i < BT * FP; i += THREADS) {
-    const int r = i / FP, n = i - r * FP, s = s0 + r;
-    dst[r * ldd + n] = from_float<T>(n < F && s < a.S ? feat_at(a.feat_res, bf, (size_t)ray * a.S + s, F, n) : 0.f);
+  const int q = FP / 4;
+  for (int i = threadIdx.x; i < BT * q; i += THREADS) {
+    const int r = i / q, n = 4 * (i - r * q), s = s0 + r;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (n < F && s < a.S) feat4_at(a.feat_res, bf, (size_t)ray * a.S + s, F, n, v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[r * ldd + n + e] = from_float<T>(v[e]);
   }
 }
 
@@ -224,24 +231,22 @@ __device__ __forceinline__ void put_op(const Bwd& a, int ray, int s, int slot, i
   if (s < a.S) a.ops[((size_t)ray * a.S + s) * a.lay[L_OPS_W] + a.lay[slot] + j] = __float2bfloat16_rn(v);
 }
 
-// REC: the recompute mode's instance (flag RECOMPUTE); the saved-chain modes run the one
-// without it.
-template <typename T, int F, bool REC>
+// One block a ray.
+template <typename T, int F>
 __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   constexpr int FP = Widths<T, F>::FP, LDT = Widths<T, F>::LDT, LDA = Widths<T, F>::LDA;
-  const int S = a.S, tid = threadIdx.x;
+  const int S = a.S, tid = threadIdx.x, ray = blockIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const bool rgb = a.flags & USE_RGB, feat = a.flags & OUT_FEAT, cand = a.flags & USE_CAND;
   const bool pg = !(a.flags & NO_PARAM_GRADS);  // uniform over the block: barriers stay unconditional
-  constexpr bool rec = REC;
-  // DW_OPS (the bf16 saved-chain train mode): store the weight gradients' operands for
-  // dw_gemm.cu; otherwise (float32, the recompute mode) add the gradients here (adds)
-  const bool dw_ops = !REC && std::is_same<T, bf16>::value && (a.flags & DW_OPS);
+  const bool rec = a.flags & RECOMPUTE;  // p, q and rgb1's dW operand from the stored feat / c_feat
+  // DW_OPS (the bf16 train mode): store the weight gradients' operands for dw_gemm.cu;
+  // otherwise (float32) add the gradients here (adds)
+  const bool dw_ops = std::is_same<T, bf16>::value && (a.flags & DW_OPS);
   const bool adds = pg && !dw_ops;
   const bool res_bf = (a.flags & BF16) && !(a.flags & STORE_F32);  // feat / c_feat residuals in bf16
   const bool x0_in = a.flags & X0_IN;
   const int col_xyzf = a.D * W, col_rgbh = (a.D + 1) * W, col_h1 = col_rgbh + (rgb ? HH : 0), col_h2 = col_h1 + HC;
-  T* blk = rec ? static_cast<T*>(a.scratch) + (size_t)blockIdx.x * BT * a.chain_w : nullptr;
 
   extern __shared__ float4 smem4[];
   T* X0 = reinterpret_cast<T*>(smem4);  // (BT, LDX0) x0, zero past in0
@@ -273,12 +278,8 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   float* cgw = cfw + S;
   float* crw = cgw + S;
   float* rgbs = crw + S;                // (S, 3)
-  float* ray1 = rgbs + 3 * S;           // (HC,) recompute mode: c_emb Wc1c + bc1
-  float* bacc = ray1 + HC;              // (lay[L_NB],) DW_OPS: the ray's bias-gradient sums
+  float* bacc = rgbs + 3 * S;           // (lay[L_NB],) DW_OPS: the ray's bias-gradient sums
 
-  // one ray: the saved-chain mode launches a block a ray, the recompute mode a
-  // persistent block an SM that takes rays blockIdx.x, blockIdx.x + gridDim.x, ...
-  auto one_ray = [&](const int ray) {
   // ---- per-ray set-up -------------------------------------------------------
   float o[3], d[3];
 #pragma unroll
@@ -301,13 +302,6 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   if (tid < 16) misc[tid] = 0.f;
   __syncthreads();
   if (tid < 3 && rgb) misc[8 + tid] = cot(a.g_rgbm, (size_t)ray * 3 + tid);
-  if (rec && cand)
-    for (int j = tid; j < HC; j += THREADS) {  // as the forward's load_ray: operands rounded like T
-      const T* c1c = static_cast<const T*>(a.c1c_w);  // (C, HC)
-      float acc = 0.f;
-      for (int k = 0; k < a.C; ++k) acc = fmaf(to_float(from_float<T>(cemb[k])), to_float(c1c[(size_t)k * HC + j]), acc);
-      ray1[j] = acc + __ldg(a.c1_b + j);
-    }
   if (feat && !rec) {
     // vfeat[k] = sum_c Wf[k, c] g_feat[c]: a warp per row, lanes over c
     const T* wf = static_cast<const T*>(a.feat_w_rm);  // (W, F) row-major
@@ -347,17 +341,16 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       float p = 0.f, q = 0.f;
       if (feat && rec) {
         const size_t i = (size_t)ray * S + s;
-        for (int c = lane; c < F; c += 32) p = fmaf(feat_at(a.feat_res, res_bf, i, F, c), gfeat[c], p);
-        if (cand)
-          for (int c = lane; c < F; c += 32) q = fmaf(feat_at(a.cfeat_res, res_bf, i, F, c), gfeat[c], q);
+        p = feat_dot(a.feat_res, res_bf, i, F, gfeat);
+        if (cand) q = feat_dot(a.cfeat_res, res_bf, i, F, gfeat);
       } else if (feat) {
         const T* row = chain + ((size_t)ray * S + s) * a.chain_w;
         for (int k = lane; k < W; k += 32) p = fmaf(to_float(row[col_xyzf + k]), vfeat[k], p);
         if (cand)
           for (int k = lane; k < HC; k += 32) q = fmaf(to_float(row[col_h2 + k]), vcfeat[k], q);
+        p = warp_sum(p);
+        q = warp_sum(q);
       }
-      p = warp_sum(p);
-      q = warp_sum(q);
       if (lane == 0) {
         pp[s] = p + misc[6];
         qq[s] = q + misc[7];
@@ -464,36 +457,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       }
     }
     auto row_coef = [&](const float* v, int r) { return s0 + r < S ? v[s0 + r] : 0.f; };
-    auto load = [&](T* dst, int col0, int ncols) { load_chain<T, REC>(dst, LDA, a, blk, ray, s0, col0, ncols); };
-
-    if constexpr (REC) {
-      // rebuild the tile's chain into the block's scratch: trunk, xyzf, rgbh from the stored
-      // feat, h1, h2 (the forward's computation, render_train_fwd.cu)
-      __syncthreads();
-      T* cur = recompute_trunk<T, LDT, LDA>(a, X0, A, B, GF, blk, a.chain_w);  // the last trunk layer
-      T* nxt = cur == A ? B : A;
-      mmw<T>(GF, LDT, false, cur, LDA, W, a.xyzf_wf, W, W, 0);
-      __syncthreads();
-      epilogue<T, LDT, LDA>(nxt, blk, a.chain_w, col_xyzf, GF, a.xyzf_b, W, false);
-      if (rgb) load_feat<T>(cur, LDA, a, res_bf, ray, s0, F, FP);
-      __syncthreads();
-      if (rgb) {
-        mmw<T>(GF, LDT, false, cur, LDA, FP, a.rgb1_wf, HH, HH, 0);
-        __syncthreads();
-        epilogue<T, LDT, LDA>(cur, blk, a.chain_w, col_rgbh, GF, a.cond + (size_t)ray * HH, HH, true);
-        __syncthreads();
-      }
-      if (cand) {
-        mmw<T>(GF, LDT, false, nxt, LDA, W, a.c1x_wf, HC, HC, 0);
-        __syncthreads();
-        epilogue<T, LDT, LDA>(cur, blk, a.chain_w, col_h1, GF, ray1, HC, true);
-        __syncthreads();
-        mmw<T>(GF, LDT, false, cur, LDA, HC, a.c2_wf, HC, HC, 0);
-        __syncthreads();
-        epilogue<T, LDT, LDA>(nxt, blk, a.chain_w, col_h2, GF, a.c2_b, HC, true);
-      }
-      __syncthreads();
-    }
+    auto load = [&](T* dst, int col0, int ncols) { load_chain<T>(dst, LDA, a, ray, s0, col0, ncols); };
 
     if (rgb) {
       // feat_s, the dW operand of rgb1, rounded: stored (recompute mode), or xyzf_s Wf + bf
@@ -751,15 +715,6 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
     float* row = a.bias_rows + (size_t)ray * nb;
     for (int j = tid; j < nb; j += THREADS) row[j] = j >= c1b && j < c1b + HC ? rayg1[j - c1b] : bacc[j];
   }
-  };
-  if constexpr (REC) {
-    for (int ray = blockIdx.x; ray < a.R; ray += gridDim.x) {
-      one_ray(ray);
-      __syncthreads();  // the next ray's set-up overwrites what the outputs read
-    }
-  } else {
-    one_ray(blockIdx.x);
-  }
 }
 
 // nb: the DW_OPS mode's bias sums (0 otherwise).
@@ -768,18 +723,18 @@ long long smem_bytes(int S, int nb) {
   using L = Widths<T, F>;
   const long long t = (long long)BT * (LDX0 + 2 * L::LDA + 4) * sizeof(T);
   const long long f =
-      (long long)BT * (MAX_IN0 + L::LDT + W + 4) + L::FP + W + 3 * HC + HH + MAX_C + 16 + 16LL * S + nb;
+      (long long)BT * (MAX_IN0 + L::LDT + W + 4) + L::FP + W + 2 * HC + HH + MAX_C + 16 + 16LL * S + nb;
   return t + f * 4 + 16;
 }
 
 template <typename T, int F>
-int launch(const Bwd& a, int grid, cudaStream_t stream) {
+int launch(const Bwd& a, cudaStream_t stream) {
   const long long bytes = smem_bytes<T, F>(a.S, (a.flags & DW_OPS) ? a.lay[L_NB] : 0);
   if (bytes > SMEM_LIMIT) return BAD_SMEM;
-  auto kernel = (a.flags & RECOMPUTE) ? bwd_kernel<T, F, true> : bwd_kernel<T, F, false>;
+  auto kernel = bwd_kernel<T, F>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, (int)bytes, stream>>>(a);
+  kernel<<<a.R, THREADS, (int)bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -788,12 +743,12 @@ int launch(const Bwd& a, int grid, cudaStream_t stream) {
 extern "C" {
 
 // Returns 0, a cudaError_t (> 0) from the launch, or a negative Status.
-// ins: rays_o, rays_d, z_vals, pe_w, c_emb, ray_cond, x0 (the rays and pe_w null in the
-// x0 mode, flag X0_IN; x0 null otherwise). L: the PE bands of the rays frontend (in0 =
+// ins: rays_o, rays_d, z_vals, pe_w, c_emb, ray_cond (not read), x0 (the rays and pe_w
+// null in the x0 mode, flag X0_IN; x0 null otherwise). L: the PE bands of the rays frontend (in0 =
 // 3 + 6L); in0: x0's width, 1..64 in the x0 mode (L is not read there). cots: s_weights, s_depth, rgb_map,
 // feat_map, j_weights, c_depth, t_weight (null = zero). res: sig_s, sig_c, rgb, chain,
-// feat, c_feat (the chain with the saved chain; feat, c_feat (R*S, F) in the store dtype
-// in the recompute mode, flag RECOMPUTE).
+// feat, c_feat (the chain, saved or rebuilt, always; feat and c_feat (R*S, F) in the
+// store dtype in the recompute mode, flag RECOMPUTE, where its reads need them).
 // trunk_t: per layer W^T (W, in_pad) in the compute dtype, x0's in0 columns padded to 64.
 // w: xyzf_w^T, feat_w, feat_w^T, rgb1_w^T, rgb2_w^T, c1x_w^T, c1c_w, c2_w^T,
 // cfeat_w^T (compute dtype), sigma_w, csig_w, feat_b, cfeat_b (f32), then the
@@ -804,33 +759,28 @@ extern "C" {
 // (padded rows) and bias gradients, dh: head gradients in HEAD_KEYS order, feat_w,
 // feat_b, rgb1_w, cfeat_w and cfeat_b at FP; all f32 and zeroed by the caller, and
 // never touched (null allowed) when flags has NO_PARAM_GRADS. F: a built feature width.
-// Recompute mode: tw / tb the trunk in the forward's layout ((in_pad, W), x0 rows padded
-// to 64; bf16 packed in fragment order, or f32 row-major) and its biases; rw: xyzf_w,
-// xyzf_b, rgb1_w (FP rows), c1x_w, c1_b, c2_w, c2_b in the forward kernel's layout;
-// scratch: grid x 32 x chain_w elements of the compute dtype; grid: the persistent
-// blocks (at most one an SM is resident). The saved-chain mode takes tw, tb, rw and
-// scratch null and grid = R (a block a ray).
-// DW_OPS (bf16, the saved chain, train mode): dtw, dtb and dh are not read; dwbuf holds
+// DW_OPS (bf16, train mode): dtw, dtb and dh are not read; dwbuf holds
 // the operand buffer (R*S rows), the per-ray operands (R rows; null without the
 // candidate branch) and the bias rows (R x nb f32), and layout (N_LAY ints,
 // upnerf_torch/ops/render_train.py:WALK_LAYOUT) their columns: row widths and operand
 // columns multiples of 8. Both are null in the other modes.
 int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, const void* const* res,
                             const void* const* trunk_t, int D, unsigned skip_mask, const void* const* w,
-                            const void* const* tw, const void* const* tb, const void* const* rw, void* const* outs,
-                            void* const* dtw, void* const* dtb, void* const* dh, void* scratch,
+                            void* const* outs, void* const* dtw, void* const* dtb, void* const* dh,
                             void* const* dwbuf, const int* layout, int R, int S, int L, int in0, int C, int F,
-                            int flags, int grid, void* stream) {
+                            int flags, void* stream) {
   const bool rec = flags & RECOMPUTE, x0_in = flags & X0_IN;
   if (R <= 0 || S <= 0 || (x0_in ? in0 <= 0 : (L <= 0 || in0 != 3 + 6 * L)) || in0 > MAX_IN0 || D <= 0 ||
       D > MAX_D || C < 0 || C > MAX_C)
     return BAD_SHAPE;
   if (!(flags & (USE_RGB | OUT_FEAT)) || ((flags & USE_CAND) && C == 0)) return BAD_MODE;
   if (x0_in ? (!ins[6] || !outs[4]) : (!ins[0] || !ins[1] || !ins[3] || !outs[0] || !outs[1])) return BAD_MODE;
-  if (rec ? (!tw || !tb || !rw || !scratch || grid <= 0 || grid > R) : (grid != R || !res[3])) return BAD_MODE;
+  const bool feat_read = (flags & OUT_FEAT) || ((flags & USE_RGB) && !(flags & NO_PARAM_GRADS));
+  if (!res[3] || (rec && ((feat_read && !res[4]) || ((flags & OUT_FEAT) && (flags & USE_CAND) && !res[5]))))
+    return BAD_MODE;
   Bwd a = {};
   if (flags & DW_OPS) {
-    if (!(flags & BF16) || rec || (flags & NO_PARAM_GRADS) || !dwbuf || !layout || !dwbuf[0] || !dwbuf[2] ||
+    if (!(flags & BF16) || (flags & NO_PARAM_GRADS) || !dwbuf || !layout || !dwbuf[0] || !dwbuf[2] ||
         ((flags & USE_CAND) && !dwbuf[1]) || (reinterpret_cast<uintptr_t>(dwbuf[0]) & 15) || layout[L_NB] <= 0)
       return BAD_MODE;
     for (int i = 0; i < N_LAY; ++i) {
@@ -848,7 +798,6 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
   a.z = static_cast<const float*>(ins[2]);
   a.pe_w = static_cast<const float*>(ins[3]);
   a.cemb = static_cast<const float*>(ins[4]);
-  a.cond = static_cast<const float*>(ins[5]);
   a.x0 = static_cast<const float*>(ins[6]);
   a.g_sw = static_cast<const float*>(cots[0]);
   a.g_sdep = static_cast<const float*>(cots[1]);
@@ -868,20 +817,6 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
     a.tT[i] = trunk_t[i];
     a.dtw[i] = static_cast<float*>(dtw[i]);
     a.dtb[i] = static_cast<float*>(dtb[i]);
-    if (rec) {
-      a.tw[i] = tw[i];
-      a.tb[i] = static_cast<const float*>(tb[i]);
-    }
-  }
-  if (rec) {
-    a.xyzf_wf = rw[0];
-    a.xyzf_b = static_cast<const float*>(rw[1]);
-    a.rgb1_wf = rw[2];
-    a.c1x_wf = rw[3];
-    a.c1_b = static_cast<const float*>(rw[4]);
-    a.c2_wf = rw[5];
-    a.c2_b = static_cast<const float*>(rw[6]);
-    a.scratch = scratch;
   }
   a.xyzf_wT = w[0];
   a.feat_w = w[1];
@@ -915,9 +850,9 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = flags & BF16;
   switch (F) {
-    case 32: return bf ? launch<bf16, 32>(a, grid, st) : launch<float, 32>(a, grid, st);
-    case 64: return bf ? launch<bf16, 64>(a, grid, st) : launch<float, 64>(a, grid, st);
-    case 384: return bf ? launch<bf16, 384>(a, grid, st) : launch<float, 384>(a, grid, st);
+    case 32: return bf ? launch<bf16, 32>(a, st) : launch<float, 32>(a, st);
+    case 64: return bf ? launch<bf16, 64>(a, st) : launch<float, 64>(a, st);
+    case 384: return bf ? launch<bf16, 384>(a, st) : launch<float, 384>(a, st);
     default: return BAD_SHAPE;
   }
 }
@@ -930,10 +865,10 @@ const char* upnerf_error_string(int code) {
              " D <= 16; C <= 32)";
     case BAD_SMEM: return "too many samples per ray for shared memory";
     case BAD_MODE:
-      return "unsupported mode (needs use_rgb or out_feat; the candidate branch needs C > 0; the recompute mode"
-             " needs its weights, a scratch and 0 < grid <= R, the saved-chain mode the chain and grid = R; the x0"
-             " mode needs x0 and d_x0, the rays mode the rays, pe_w, d_rays_o and d_rays_d; DW_OPS needs bf16, the"
-             " saved chain, the train mode, its buffers (16-byte aligned) and a layout of 16-byte columns)";
+      return "unsupported mode (needs use_rgb or out_feat and the chain; the candidate branch needs C > 0; the"
+             " recompute mode the stored feat / c_feat it reads; the x0 mode needs x0 and d_x0, the rays mode the"
+             " rays, pe_w, d_rays_o and d_rays_d; DW_OPS needs bf16, the train mode, its buffers (16-byte aligned)"
+             " and a layout of 16-byte columns)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

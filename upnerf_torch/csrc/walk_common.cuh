@@ -276,7 +276,7 @@ __device__ void epilogue(T* dst, T* chain, int chain_w, int col0, const float* G
 // returns the buffer that holds the last one. X0: the tile's x0 (row stride LDX0). Each
 // output sums its products in the render forward's order (a skip layer's [x0, h] in
 // one accumulation), so it rebuilds that kernel's activations bit for bit. Ends with a
-// barrier. Both backward walks that rebuild their chain call it.
+// barrier. heads_bwd.cu's walks, which rebuild their chain per tile, call it.
 template <typename T, int LDT, int LDA, typename Args>
 __device__ __forceinline__ T* recompute_trunk(const Args& a, const T* X0, T* A, T* B, float* GF, T* chain,
                                               int chain_w) {

@@ -109,11 +109,10 @@ _ARGTYPES = {
     # schedule ((offset, bytes) pairs), its K-strips, stream
     "upnerf_render_train_fwd": ["pp", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "i", "i", "p", "ip",
                                 "i", "p"],
-    # ins, cots, res, trunk W^T, D, skip mask, weights, trunk W, trunk b, recompute heads (the last three null with
-    # the saved chain), outs, dW trunk, db trunk, d heads, scratch, dW operand buffers, their layout (the last two
-    # null but with DW_OPS), R, S, L, in0, C, F, flags, grid, stream
-    "upnerf_render_train_bwd": ["pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "pp", "pp", "pp", "p",
-                                "pp", "ip", "i", "i", "i", "i", "i", "i", "i", "i", "p"],
+    # ins, cots, res, trunk W^T, D, skip mask, weights, outs, dW trunk, db trunk, d heads, dW operand buffers, their
+    # layout (the last two null but with DW_OPS), R, S, L, in0, C, F, flags, stream
+    "upnerf_render_train_bwd": ["pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "pp", "ip", "i", "i",
+                                "i", "i", "i", "i", "i", "p"],
     # sources, their rows, their columns, jobs (11 ints each), job count, workspace, splits, out, weight floats,
     # bias rows, their count, bias floats, accumulate, stream
     "upnerf_dw_gemm": ["pp", "ip", "ip", "ip", "i", "p", "i", "p", "i", "p", "i", "i", "i", "p"],

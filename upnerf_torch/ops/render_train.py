@@ -26,21 +26,25 @@ rgb_map (R, 3), feat_map (R, F), j_weights (R, S), c_depth (R,), t_weight (R,).
   the PE rows followed by the PE backward (`_pe_bwd`) down to d_rays_o /
   d_rays_d.
 - `render_train_bwd_dw_plain` / `render_train_rays_bwd_dw_plain` are the
-  bf16 saved-chain train backward as its CUDA route splits it: per slab of
-  rays, the walk fills the dW operand buffers of `dw_layout`, then the plain
-  dW (`dw_gemm.dw_gemm_plain`) adds the slab's weight and bias gradients.
+  backward as its CUDA route splits it: per slab of rays, the walk fills the
+  dW operand buffers of `dw_layout`, then the plain dW
+  (`dw_gemm.dw_gemm_plain`) adds the slab's weight and bias gradients; in
+  the recompute mode each slab's chain is first rebuilt by the plain
+  forward with save_chain on (`render_train_bwd_rec_plain` /
+  `render_train_rays_bwd_rec_plain`).
 - `render_train_rays_fwd` / `render_train_rays_bwd` and `render_train_fwd` /
   `render_train_bwd` are the wrappers of the two frontends: on CPU tensors
   they run the plain versions; on CUDA tensors they launch the hand-written
   kernels (`csrc/render_train_fwd.cu`, `csrc/render_train_bwd.cu`; the x0
-  frontend is their X0_IN mode, any in0 <= 64; the bf16 saved-chain train
-  backward also `csrc/dw_gemm.cu`, counted in `dw_gemm.dw_launches`) or
-  raise. The rays frontend
-  counts its launches in `launches`, `bwd_launches` and (the backward's
-  frozen-model mode) `frozen_bwd_launches`; in the recompute mode, the
-  forward with residuals and both backward modes in `recompute_launches`,
-  `recompute_bwd_launches` and `recompute_frozen_bwd_launches` instead. The x0
-  frontend counts every mode's in `x0_launches` and `x0_bwd_launches`.
+  frontend is their X0_IN mode, any in0 <= 64; the bf16 train backward also
+  `csrc/dw_gemm.cu`, counted in `dw_gemm.dw_launches`; the recompute
+  backward also the forward kernel, which rebuilds each slab's chain,
+  counted in `rebuild_launches`) or raise. The rays frontend counts its
+  launches in `launches`, `bwd_launches` and (the backward's frozen-model
+  mode) `frozen_bwd_launches`; in the recompute mode, the forward with
+  residuals and both backward modes (one a call) in `recompute_launches`,
+  `recompute_bwd_launches` and `recompute_frozen_bwd_launches` instead. The
+  x0 frontend counts every mode's in `x0_launches` and `x0_bwd_launches`.
 - `RenderTrainRays` and `RenderTrain` are the autograd.Functions of the two
   frontends (the JAX kernel's custom VJPs): the forward runs the forward with
   residuals, the backward the backward. They return gradients for rays_o and
@@ -76,8 +80,6 @@ HEAD_RGB = ("rgb1_w", "rgb2_w", "rgb2_b")
 HEAD_CAND = ("c1x_w", "c1c_w", "c1_b", "c2_w", "c2_b", "csig_w", "csig_b", "cfeat_w", "cfeat_b")
 HEAD_KEYS = HEAD_BASE + HEAD_FEAT + HEAD_RGB + HEAD_CAND  # the kernels' pointer order
 RES_ORDER = ("sig_s", "sig_c", "rgb", "chain", "feat", "cfeat")  # the kernels' residual pointer order
-# The forward-layout weights the recompute backward rebuilds the chain with (besides the trunk's).
-RECOMPUTE_KEYS = ("xyzf_w", "xyzf_b", "rgb1_w", "c1x_w", "c1_b", "c2_w", "c2_b")
 X0_PAD = 64  # the kernels' x0 width: in0 (3 + 6L from rays) padded to a multiple of 16
 # The widths the CUDA kernels take (configs/brandenburg_gate.yaml, configs/validation/),
 # and the feature widths they are built for (render_common.cuh:feat_pad).
@@ -94,6 +96,8 @@ frozen_bwd_launches = 0
 recompute_launches = 0
 recompute_bwd_launches = 0
 recompute_frozen_bwd_launches = 0
+# Forward launches of the recompute mode's backward, each rebuilding one slab's chain.
+rebuild_launches = 0
 # Kernel launches made by render_train_fwd / render_train_bwd (the x0 frontend), in every mode.
 x0_launches = 0
 x0_bwd_launches = 0
@@ -320,7 +324,10 @@ def _bwd_walk_plain(
     cots: Dict[str, Optional[torch.Tensor]],
 ):
     """The backward's walk (render_train_bwd_plain without its weight
-    gradients). Returns (d_x0, d_ray_cond or None, d_c_emb or None, ops):
+    gradients). In the recompute mode it reads the chain from res where res
+    holds one (the recompute route's rebuilt chain), else it rebuilds it; p,
+    q and rgb1's dW operand come from the stored feat / c_feat either way.
+    Returns (d_x0, d_ray_cond or None, d_c_emb or None, ops):
     with st.param_grads, ops holds by name every operand of the weight
     gradients (dw_products, dw_biases), unrounded in the working float dtype:
     the X operands x0, act{i}, xyzf, rgbh, h1, h2, feat, c_emb and the
@@ -344,11 +351,12 @@ def _bwd_walk_plain(
         return torch.zeros(shape, dtype=f32, device=z_vals.device) if g is None else g.to(f32)
 
     pg = st.param_grads
-    if st.save_chain:
-        cuts, col = {}, 0
+    cuts, col = {}, 0
+    if "chain" in res:
         for name, w in st.chain_cols(W, HH, HC):
             cuts[name] = res["chain"][:, col : col + w].to(f32)
             col += w
+    if st.save_chain:
         # feat feeds the feat_map inner products and rgb1's dW: without either, skip it
         need_feat = st.out_feat or (st.use_rgb and pg)
         feat = dot(cuts["xyzf"], heads["feat_w"]) + heads["feat_b"] if need_feat else None
@@ -356,7 +364,8 @@ def _bwd_walk_plain(
             cfeat = dot(cuts["h2"], heads["cfeat_w"]) + heads["cfeat_b"]
     else:
         feat = res["feat"].to(f32)
-        cuts = _walk_chain(x0, R, trunk, heads, st, ray_cond, c_emb, feat=feat)
+        if not cuts:
+            cuts = _walk_chain(x0, R, trunk, heads, st, ray_cond, c_emb, feat=feat)
         if st.out_feat and st.use_cand:
             cfeat = res["cfeat"].to(f32)
 
@@ -559,13 +568,15 @@ def render_train_rays_bwd_plain(
 
 
 # ---------------------------------------------------------------------------
-# The bf16 saved-chain train backward as two kernels: the walk stores the operands
-# of the weight gradients into buffers laid out by dw_layout, then
-# csrc/dw_gemm.cu (ops/dw_gemm.py) computes every dW = X^T G and db = sum G from
-# them and the saved chain, per slab of rays, adding the slabs in order.
+# The bf16 train backward as two kernels: the walk stores the operands of the
+# weight gradients into buffers laid out by dw_layout, then csrc/dw_gemm.cu
+# (ops/dw_gemm.py) computes every dW = X^T G and db = sum G from them and the
+# chain, per slab of rays, adding the slabs in order. In the recompute mode each
+# slab's chain is first rebuilt by the forward kernel in its saved-chain mode.
 
-SRC_CHAIN, SRC_OPS, SRC_RAY = 0, 1, 2  # dw_gemm's sources: the saved chain, the operand buffer, the per-ray operands
+SRC_CHAIN, SRC_OPS, SRC_RAY = 0, 1, 2  # dw_gemm's sources: the chain, the operand buffer, the per-ray operands
 DW_BUFFER_BYTES = 1 << 30  # the operand buffers of one slab of rays, at most
+REC_BUFFER_BYTES = 1 << 29  # the recompute mode: one slab's rebuilt chain and operand buffers, at most
 MAX_D = 16  # trunk layers the kernels take
 # The walk's layout slots (csrc/render_train_bwd.cu:Lay), in order: the buffers' row
 # widths and the bias count; each operand's column in the operand buffer or the
@@ -665,13 +676,25 @@ def walk_layout(lay: DwLayout, st: RTStatic) -> list:
     return [cols.get(k, -1) for k in WALK_LAYOUT] + trunk_g + trunk_b
 
 
-def dw_slab_rays(lay: DwLayout, S: int, n_sm: int = 0) -> int:
-    """Rays a slab of the two-kernel backward: as many as keep its buffers
-    (operands, per-ray operands, bias rows) within DW_BUFFER_BYTES, rounded
-    down to a multiple of n_sm (the card's SMs: the walk runs a block a ray)
-    where that leaves one."""
-    rays = max(1, DW_BUFFER_BYTES // (S * lay.ops_w * 2 + lay.ray_w * 2 + lay.nb * 4))
-    return rays - rays % n_sm if n_sm and rays >= n_sm else rays
+def dw_slab_rays(lay: Optional[DwLayout], S: int, n_sm: int = 0, chain_bytes: int = 0) -> int:
+    """Rays a slab of the backward. The saved chain's two-kernel train
+    backward (chain_bytes 0): as many as keep the buffers of lay (operands,
+    per-ray operands, bias rows) within DW_BUFFER_BYTES, rounded down to a
+    multiple of n_sm (the card's SMs: the walk runs a block a ray) where that
+    leaves one. The recompute mode (chain_bytes: the rebuilt chain's bytes a
+    sample; lay None in the modes that store no operands): as many as keep the
+    slab's chain and lay's buffers within REC_BUFFER_BYTES, rounded down to a
+    multiple of n_sm, and to an even count (the forward pairs two rays in a
+    tile at S <= 64), where that leaves one."""
+    ops = 0 if lay is None else S * lay.ops_w * 2 + lay.ray_w * 2 + lay.nb * 4
+    if not chain_bytes:
+        rays = max(1, DW_BUFFER_BYTES // ops)
+        return rays - rays % n_sm if n_sm and rays >= n_sm else rays
+    rays = max(1, REC_BUFFER_BYTES // (S * chain_bytes + ops))
+    for step in (n_sm * (1 + n_sm % 2), 2):  # an even multiple of n_sm, else an even count
+        if step and rays >= step:
+            return rays - rays % step
+    return rays
 
 
 def dw_operands_plain(ops: Dict[str, torch.Tensor], lay: DwLayout, st: RTStatic, n: int, S: int, dtype):
@@ -705,37 +728,47 @@ def dw_result(flat: torch.Tensor, lay: DwLayout, st: RTStatic, in0: int, F: int)
 
 def render_train_bwd_dw_plain(x0, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots,
                               slab_rays: Optional[int] = None, flat_out: bool = False):
-    """The train backward (st.param_grads, st.save_chain) as the CUDA route
-    splits it, in plain PyTorch: per slab of slab_rays rays (dw_slab_rays by
-    default), the walk (_bwd_walk_plain) fills the operand buffers of
-    dw_layout (dw_operands_plain), then dw_gemm.dw_gemm_plain writes the
+    """The backward as the CUDA route splits it, in plain PyTorch: per slab
+    of slab_rays rays (dw_slab_rays by default), in the recompute mode
+    (st.save_chain off) first the slab's chain rebuilt by the plain forward
+    with save_chain on (render_train_plain); then the walk (_bwd_walk_plain,
+    which in the recompute mode reads the stored feat / c_feat beside that
+    chain); then, with st.param_grads, its stores into the operand buffers of
+    dw_layout (dw_operands_plain) and dw_gemm.dw_gemm_plain, which writes the
     slab's weight gradients and bias sums into a flat result, or adds them to
-    it after the first slab. Returns as render_train_bwd_plain; with flat_out,
-    also the flat result and the layout."""
+    it after the first slab. Returns as render_train_bwd_plain; with
+    flat_out, also the flat result and the layout (None in the frozen mode)."""
     R, S = z_vals.shape
     dtype = _cdt(st)
     W, F = trunk[0][1].shape[0], heads["feat_b"].shape[0]
     HH = heads["rgb1_w"].shape[1] if st.use_rgb else 0
     HC = heads["c2_w"].shape[1] if st.use_cand else 0
     C = c_emb.shape[1] if st.use_cand else 0
+    pg = st.param_grads
     lay = dw_layout(st, W, feat_pad(F, dtype == torch.bfloat16), HH, HC, C)
-    slab = slab_rays or dw_slab_rays(lay, S)
-    flat = torch.empty((lay.n_dw + lay.nb,), dtype=torch.float32, device=z_vals.device)
+    chain_bytes = 0 if st.save_chain else sum(w for _, w in st.chain_cols(W, HH, HC)) * dtype.itemsize
+    slab = slab_rays or (R if not (pg or chain_bytes) else dw_slab_rays(lay if pg else None, S, 0, chain_bytes))
+    flat = torch.empty((lay.n_dw + lay.nb,), dtype=torch.float32, device=z_vals.device) if pg else None
     dx0, d_cond, d_cemb = [], [], []
     for r0 in range(0, R, slab):
         r1 = min(R, r0 + slab)
         cut = lambda t, per=1: None if t is None else t[r0 * per : r1 * per]  # noqa: E731
-        sres = {k: cut(v, S if k in ("rgb", "chain") else 1) for k, v in res.items()}
+        sres = {k: cut(v, S if k in ("rgb", "chain", "feat", "cfeat") else 1) for k, v in res.items()}
+        if not st.save_chain:
+            sres["chain"] = render_train_plain(cut(x0, S), cut(z_vals), cut(ray_cond), trunk, heads,
+                                               st._replace(save_chain=True), c_emb=cut(c_emb), save_res=True)[1]["chain"]
         d, dc, de, ops = _bwd_walk_plain(cut(x0, S), cut(z_vals), cut(ray_cond), trunk, heads, st, cut(c_emb), sres,
                                          {k: cut(v) for k, v in cots.items()})
-        buf, ray, rows = dw_operands_plain(ops, lay, st, r1 - r0, S, dtype)
-        dw_gemm.dw_gemm_plain([sres["chain"], buf, ray], lay.jobs, flat, lay.n_dw, rows, r0 > 0)
+        if pg:
+            buf, ray, rows = dw_operands_plain(ops, lay, st, r1 - r0, S, dtype)
+            dw_gemm.dw_gemm_plain([sres["chain"], buf, ray], lay.jobs, flat, lay.n_dw, rows, r0 > 0)
         dx0.append(d)
         d_cond.append(dc)
         d_cemb.append(de)
     cat = lambda ts: None if ts[0] is None else torch.cat(ts)  # noqa: E731
-    out = (cat(dx0), cat(d_cond), cat(d_cemb), *dw_result(flat, lay, st, x0.shape[1], F))
-    return (*out, flat, lay) if flat_out else out
+    grads = dw_result(flat, lay, st, x0.shape[1], F) if pg else (None, None)
+    out = (cat(dx0), cat(d_cond), cat(d_cemb), *grads)
+    return (*out, flat, lay if pg else None) if flat_out else out
 
 
 def render_train_rays_bwd_dw_plain(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res,
@@ -747,6 +780,31 @@ def render_train_rays_bwd_dw_plain(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk
                                                                 cots, slab_rays)
     d_o, d_d = _pe_bwd(dx0, xyz, z_vals, pe_w, st.xyz_L)
     return d_o, d_d, d_cond, d_cemb, dtrunk, dh
+
+
+def _require_recompute(st: RTStatic) -> None:
+    if st.save_chain:
+        raise ValueError("the recompute route runs with st.save_chain off")
+
+
+def render_train_bwd_rec_plain(x0, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots,
+                               slab_rays: Optional[int] = None):
+    """The recompute mode's backward (st.save_chain off; train or frozen) as
+    its CUDA route runs it, in plain PyTorch: per slab, the chain rebuilt by
+    the forward with save_chain on, the walk on it with the stored feat /
+    c_feat, then the train mode's operand stores and dW sums
+    (render_train_bwd_dw_plain). Returns as render_train_bwd_plain."""
+    _require_recompute(st)
+    return render_train_bwd_dw_plain(x0, z_vals, ray_cond, trunk, heads, st, c_emb, res, cots, slab_rays)
+
+
+def render_train_rays_bwd_rec_plain(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res,
+                                    cots, slab_rays: Optional[int] = None):
+    """render_train_bwd_rec_plain behind the PE of the rays: returns as
+    render_train_rays_bwd_plain."""
+    _require_recompute(st)
+    return render_train_rays_bwd_dw_plain(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st, c_emb, res, cots,
+                                          slab_rays)
 
 
 # ---------------------------------------------------------------------------
@@ -998,8 +1056,7 @@ def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic, in0: int):
     read (the trunk's, and _BWD_PRODUCT_WEIGHTS) packed in fragment order for
     the tensor cores; rgb2_w^T, c1c_w and the "rm" copies row-major bf16.
     sigma_w and csig_w are f32 columns (the JAX kernel keeps them f32: they
-    enter rank-1 terms, not products), the biases f32. Also returns the
-    trunk's (in, out) weights with the in0 x0 rows padded to X0_PAD."""
+    enter rank-1 terms, not products), the biases f32."""
     cdt = _cdt(st)
     packed = cdt == torch.bfloat16
     padded = pad_feat(heads, feat_pad(heads["feat_b"].shape[0], packed))
@@ -1019,7 +1076,7 @@ def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic, in0: int):
                 v = _pack_fragments(v) if packed and name in _BWD_PRODUCT_WEIGHTS else v.to(cdt)
             v = v.contiguous()
         out.append(v)
-    return kt, out, ptrunk
+    return kt, out
 
 
 def _head_shapes(W, F, HH, HC, C):
@@ -1102,39 +1159,52 @@ def _refuse_grad(tensors, entry: str) -> None:
                            f" {entry}")
 
 
-def _launch_fwd(ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, save_res: bool,
-                x0_mode: bool, design: str = "wgmma"):
-    """One launch of csrc/render_train_fwd.cu on checked arguments. ins:
-    rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, x0 (None where the frontend
-    has none). design, one of FWD_DESIGNS, picks the bfloat16 kernel: "wgmma"
-    (the route's), or, for timing only, the mma.sync design it replaced
-    (_build.VARIANTS; the float32 kernel is the same in both). Returns
-    (outputs, residuals)."""
-    from upnerf_torch.ops import _build
-
+def _fwd_weights(trunk, heads, st: RTStatic, in0: int, design: str = "wgmma"):
+    """The forward kernel's weights for mode st, packed once for any number
+    of launches: (the packed stream or None, its schedule as the C ints and
+    their pair count, the trunk's (W, b) pointers' tensors, the heads by
+    key). design, one of FWD_DESIGNS, picks the bfloat16 kernel: "wgmma" (the
+    route's), or, for timing only, the mma.sync design it replaced
+    (_build.VARIANTS; the float32 kernel is the same in both)."""
     if design not in FWD_DESIGNS:
         raise ValueError(f"design must be one of {FWD_DESIGNS}, got {design!r}")
-    R, S = z_vals.shape
-    dev = z_vals.device
-    C = c_emb.shape[1] if st.use_cand else 0
-    ins = [t.contiguous() if t is not None else None for t in ins]
-    F = heads["feat_b"].shape[0]
     bf16 = canonical_precision(st.precision) == "bfloat16"
-    FP = feat_pad(F, bf16)
-    padded = pad_feat({k: heads[k] for k in st.head_keys}, FP)
-    wpack, sched, scratch = None, [], [None, None]
+    padded = pad_feat({k: heads[k] for k in st.head_keys}, feat_pad(heads["feat_b"].shape[0], bf16))
+    wpack, sched = None, []
     if bf16 and design != "mma_sync":
-        # the matrices in one packed stream; the kernel reads the biases and c1c (in, out) beside it, its x0 rows
-        # in bf16 from a scratch its first pass writes, and keeps each sample's sigma, c_sigma and rgb in a second
-        # (one spare ray: the second of the last pair where two rays share a tile and R is odd)
+        # the matrices in one packed stream; the kernel reads the biases and c1c (in, out) beside it
         wpack, sched = wgmma_weights(trunk, padded, st, in0)
-        scratch = [torch.empty((R * S, X0_PAD), dtype=torch.bfloat16, device=dev),
-                   torch.empty((R + 1, 5 * S), dtype=torch.float32, device=dev)]
         ktrunk = [(None, b.contiguous()) for _, b in trunk]
         kheads = {k: (v.to(torch.bfloat16) if k == "c1c_w" else v).contiguous() for k, v in padded.items()
                   if k == "c1c_w" or "_b" in k}
     else:
         ktrunk, kheads = _kernel_weights(trunk, padded, st, in0)
+    sched_c = (ctypes.c_int * (2 * len(sched)))(*[v for pair in sched for v in pair])
+    return wpack, sched_c, max(len(sched) - 1, 0), ktrunk, kheads
+
+
+def _launch_fwd(ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, save_res: bool,
+                x0_mode: bool, design: str = "wgmma", weights=None, chain: Optional[torch.Tensor] = None):
+    """One launch of csrc/render_train_fwd.cu on checked arguments. ins:
+    rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, x0 (None where the frontend
+    has none). design: as _fwd_weights'; weights: _fwd_weights' result for
+    this mode and design, packed here when None. chain: the tensor the chain
+    residual is written into (st.save_chain; allocated here when None).
+    Returns (outputs, residuals)."""
+    from upnerf_torch.ops import _build
+
+    R, S = z_vals.shape
+    dev = z_vals.device
+    C = c_emb.shape[1] if st.use_cand else 0
+    ins = [t.contiguous() if t is not None else None for t in ins]
+    F = heads["feat_b"].shape[0]
+    wpack, sched_c, n_sched, ktrunk, kheads = weights or _fwd_weights(trunk, heads, st, in0, design)
+    scratch = [None, None]
+    if wpack is not None:
+        # its x0 rows in bf16 from a scratch its first pass writes, and each sample's sigma, c_sigma and rgb in a
+        # second (one spare ray: the second of the last pair where two rays share a tile and R is odd)
+        scratch = [torch.empty((R * S, X0_PAD), dtype=torch.bfloat16, device=dev),
+                   torch.empty((R + 1, 5 * S), dtype=torch.float32, device=dev)]
     f32 = dict(dtype=torch.float32, device=dev)
     out = {"s_weights": torch.empty((R, S), **f32), "s_depth": torch.empty((R,), **f32)}
     if st.use_rgb:
@@ -1147,19 +1217,19 @@ def _launch_fwd(ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTSta
         out["t_weight"] = torch.empty((R,), **f32)
     res = {}
     if save_res:
-        res = {k: torch.empty(shape, dtype=dt, device=dev) for k, (shape, dt) in _res_specs(st, R, S, F).items()}
+        res = {k: chain if k == "chain" and chain is not None else torch.empty(shape, dtype=dt, device=dev)
+               for k, (shape, dt) in _res_specs(st, R, S, F).items()}
     out_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
     outs = [out.get(k) for k in out_order] + [res.get(k) for k in RES_ORDER]
     lib = _build.library(FWD_LIBS[design])
     skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    sched_c = (ctypes.c_int * (2 * len(sched)))(*[v for pair in sched for v in pair])
     with torch.cuda.device(dev):
         code = lib.upnerf_render_train_fwd(
             _ptrs(ins + scratch), _ptrs([w for w, _ in ktrunk]), _ptrs([b for _, b in ktrunk]), st.D, skip_mask,
             _ptrs([kheads.get(k) for k in HEAD_KEYS]), _ptrs(outs), R, S, L, in0, C, F,
             _flags(st, save_res) | (X0_IN if x0_mode else 0), None if wpack is None else wpack.data_ptr(), sched_c,
-            max(len(sched) - 1, 0), stream,
+            n_sched, stream,
         )
     _raise_on(code, "render_train_fwd (x0 mode)" if x0_mode else "render_train_fwd", lib)
     return out, res
@@ -1240,10 +1310,16 @@ DW_OPS = 512  # render_common.cuh:Flag: the walk stores the weight gradients' op
 BWD_DESIGNS = ("stores", "adds", "no_adds")
 # Per-ray (1) or per-sample (S) rows of the backward's pointer lists, for cutting them into slabs of rays; None:
 # not cut. ins (the backward's order: rays_o, rays_d, z_vals, pe_w, c_emb, ray_cond, x0), cots (all per ray),
-# res (RES_ORDER), outs (d_rays_o, d_rays_d, d_ray_cond, d_c_emb, d_x0).
+# res (RES_ORDER), outs (d_rays_o, d_rays_d, d_ray_cond, d_c_emb, d_x0). _INS_ROWS also cuts the forward's ins.
 _INS_ROWS = (1, 1, 1, None, 1, 1, "S")
 _RES_ROWS = (1, 1, "S", "S", "S", "S")
 _OUT_ROWS = (1, 1, 1, 1, "S")
+
+
+def _cut(ts, rows, r0: int, r1: int, S: int) -> list:
+    """The rows of rays [r0, r1) of each tensor of ts (rows as _INS_ROWS)."""
+    return [t if t is None or per is None else t[r0 * (S if per == "S" else 1) : r1 * (S if per == "S" else 1)]
+            for t, per in zip(ts, rows)]
 
 
 class BwdLaunch:
@@ -1251,16 +1327,23 @@ class BwdLaunch:
     prepared (weights, outputs, buffers) but not launched; `run()` launches
     it. ins as _launch_fwd's.
 
-    In the bf16 saved-chain train mode (design "stores", the port's) the call
-    runs per slab of `slab` rays (dw_slab_rays): the walk with DW_OPS, which
-    stores the weight gradients' operands (dw_layout) and adds none, then
-    dw_gemm on them, which writes (first slab) or adds the slab's weight and
-    bias gradients in a fixed order. `walk(r0, r1)` and `dw(r0, r1)` launch
-    one slab's kernels on their own, for timing. Designs "adds" and "no_adds"
-    run that mode as the walk did before the dW kernel, one launch that adds
-    every gradient with atomics, and the same built without the adds
-    (_build.VARIANTS): timing only (chip_smoke.py phase 9). The float32, the
-    recompute and the frozen modes run one launch in every design."""
+    The call runs per slab of `slab` rays. In the recompute mode (st.save_chain
+    off) `rebuild(r0, r1)` first writes the slab's chain into a slab buffer
+    with the forward kernel in its saved-chain residual mode (its weights
+    packed once a call; counted in `rebuild_launches`), and the walk reads
+    that chain with the stored feat / c_feat. In the bf16 train mode (design
+    "stores", the port's) the walk (DW_OPS) stores the weight gradients'
+    operands (dw_layout) and adds none, then dw_gemm on them writes (first
+    slab) or adds the slab's weight and bias gradients in a fixed order.
+    `rebuild`, `walk(r0, r1)` and `dw(r0, r1)` launch one slab's kernels on
+    their own, for timing. Slabs: with the saved chain, dw_slab_rays under
+    DW_BUFFER_BYTES in the bf16 train mode and one slab otherwise; in the
+    recompute mode, dw_slab_rays of the rebuilt chain and the operand
+    buffers under REC_BUFFER_BYTES. Designs "adds" and "no_adds" run the
+    bf16 train mode as the walk did before the dW kernel, adding every
+    gradient with atomics, and the same built without the adds
+    (_build.VARIANTS): timing only (chip_smoke.py phase 9). The float32 and
+    the frozen modes run no dW kernel in every design."""
 
     def __init__(self, ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots,
                  x0_mode: bool, design: str = "stores"):
@@ -1273,11 +1356,12 @@ class BwdLaunch:
         C = c_emb.shape[1] if st.use_cand else 0
         W, HH, HC = (KERNEL_WIDTHS[k] for k in ("W", "HH", "HC"))
         F = heads["feat_b"].shape[0]
-        bf16 = _cdt(st) == torch.bfloat16
+        cdt = _cdt(st)
+        bf16 = cdt == torch.bfloat16
         FP = feat_pad(F, bf16)
         f32 = dict(dtype=torch.float32, device=dev)
-        ins = [t.contiguous() if t is not None else None for t in ins]
-        ins = [ins[i] for i in (0, 1, 2, 3, 5, 4, 6)]  # the backward reads c_emb before ray_cond
+        fwd_ins = [t.contiguous() if t is not None else None for t in ins]
+        ins = [fwd_ins[i] for i in (0, 1, 2, 3, 5, 4, 6)]  # the backward reads c_emb before ray_cond
         cot_shapes = {"s_weights": (R, S), "s_depth": (R,), "rgb_map": (R, 3), "feat_map": (R, F),
                       "j_weights": (R, S), "c_depth": (R,), "t_weight": (R,)}
         cot_order = ("s_weights", "s_depth", "rgb_map", "feat_map", "j_weights", "c_depth", "t_weight")
@@ -1293,34 +1377,18 @@ class BwdLaunch:
             if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
                 raise ValueError(f"residual {k}: {t.device} {t.dtype} {tuple(t.shape)}; st needs {dev} {dt} {shape}")
         res_list = [res[k].contiguous() if k in st.res_keys else None for k in RES_ORDER]
-        kt, kw, padded = _bwd_weights(trunk, heads, st, in0)
+        kt, kw = _bwd_weights(trunk, heads, st, in0)
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        self.grid, tw, tb, fw, scratch = None, None, None, None, None
-        if not st.save_chain:
-            # the recompute's forward-layout weights, and a scratch of 32 chain rows a persistent block
-            tw = [_pack_fragments(w) if bf16 else w.contiguous() for w in padded]
-            tb = [b.contiguous() for _, b in trunk]
-            _, kh = _kernel_weights([], pad_feat({k: heads[k] for k in RECOMPUTE_KEYS if k in st.head_keys}, FP), st,
-                                    in0)
-            fw = [kh.get(k) for k in RECOMPUTE_KEYS]
-            self.grid = min(R, n_sm)
-            chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
-            scratch = torch.empty((self.grid * 32 * chain_w,), dtype=_cdt(st), device=dev)
         d_front = [torch.empty((R * S, in0), **f32)] if x0_mode else [torch.empty((R, 3), **f32),
                                                                       torch.empty((R, 3), **f32)]
         d_cond = torch.empty((R, HH), **f32) if st.use_rgb else None
         d_cemb = torch.empty((R, C), **f32) if st.use_cand else None
-        self.stores = st.param_grads and st.save_chain and bf16 and design == "stores"
+        self.rec = not st.save_chain
+        self.stores = st.param_grads and bf16 and design == "stores"
         dtw, dtb, dhd = [None] * st.D, [None] * st.D, {}
-        self.slab, self.lay, layout, self.bufs = R, None, None, None
+        self.lay, layout, self.bufs = None, None, None
         if self.stores:
             self.lay = dw_layout(st, W, FP, HH, HC, C)
-            self.slab = min(R, dw_slab_rays(self.lay, S, n_sm))
-            n = self.slab
-            self.bufs = (torch.empty((n * S, self.lay.ops_w), dtype=torch.bfloat16, device=dev),
-                         torch.empty((n, self.lay.ray_w), dtype=torch.bfloat16, device=dev) if self.lay.ray_w else None,
-                         torch.empty((n, self.lay.nb), **f32))
-            self.flat = torch.empty((self.lay.n_dw + self.lay.nb,), **f32)
             layout = (ctypes.c_int * (len(WALK_LAYOUT) + 2 * MAX_D))(*walk_layout(self.lay, st))
         elif st.param_grads:
             # weight gradients accumulated by atomics: zero first; trunk and features in the padded layout
@@ -1330,52 +1398,77 @@ class BwdLaunch:
                 dtb[i] = torch.zeros((W,), **f32)
             dhd = {k: torch.zeros(v.shape, **f32) for k, v in pad_feat({k: heads[k] for k in st.head_keys},
                                                                          FP).items()}
+        chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
+        if self.rec:
+            self.slab = min(R, dw_slab_rays(self.lay, S, n_sm, chain_w * cdt.itemsize))
+            # the rebuild: the forward in the saved-chain residual mode, its weights packed once, into a slab buffer
+            self.fwd_st = st._replace(save_chain=True)
+            self.fwd_w = _fwd_weights(trunk, heads, self.fwd_st, in0)
+            self.chain = torch.empty((self.slab * S, chain_w), dtype=cdt, device=dev)
+            self._fwd = (fwd_ins, trunk, heads)
+        else:
+            self.slab = min(R, dw_slab_rays(self.lay, S, n_sm)) if self.stores else R
+        if self.stores:
+            n = self.slab
+            self.bufs = (torch.empty((n * S, self.lay.ops_w), dtype=torch.bfloat16, device=dev),
+                         torch.empty((n, self.lay.ray_w), dtype=torch.bfloat16, device=dev) if self.lay.ray_w else None,
+                         torch.empty((n, self.lay.nb), **f32))
+            self.flat = torch.empty((self.lay.n_dw + self.lay.nb,), **f32)
         outs = [None, None, d_cond, d_cemb, d_front[0]] if x0_mode else [*d_front, d_cond, d_cemb, None]
         self.lib = _build.library("render_train_bwd_no_dw_adds" if design == "no_adds" else "render_train_bwd")
         self.name = "render_train_bwd (x0 mode)" if x0_mode else "render_train_bwd"
-        flags = _flags(st, True) | (X0_IN if x0_mode else 0) | (DW_OPS if self.stores else 0)
-        skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
-        opt = lambda ts: None if ts is None else _ptrs(ts)  # noqa: E731
-        fixed = (_ptrs(kt), st.D, skip_mask, _ptrs(kw), opt(tw), opt(tb), opt(fw))
-        grads = (_ptrs(dtw), _ptrs(dtb), _ptrs([dhd.get(k) for k in HEAD_KEYS]),
-                 None if scratch is None else scratch.data_ptr(), None if self.bufs is None else _ptrs(self.bufs),
-                 layout)
-        shape = (S, L, in0, C, F, flags)
+        self.flags = _flags(st, True) | (X0_IN if x0_mode else 0) | (DW_OPS if self.stores else 0)
+        self.skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
         self._lists = (ins, cot_list, res_list, outs)
-        self._args = (fixed, grads, shape)
-        self._keep = (kt, kw, tw, tb, fw, scratch, dtw, dtb, dhd, layout)  # what the pointers point at
-        self.R, self.S, self.dev, self.st, self.in0, self.F = R, S, dev, st, in0, F
+        self._weights = (_ptrs(kt), _ptrs(kw))
+        self._grads = (_ptrs(dtw), _ptrs(dtb), _ptrs([dhd.get(k) for k in HEAD_KEYS]))
+        self._bufs = None if self.bufs is None else _ptrs(self.bufs)
+        self._keep = (kt, kw, dtw, dtb, dhd)  # what the pointers point at
+        self.layout = layout
+        self.R, self.S, self.L, self.C, self.dev, self.st, self.in0, self.F = R, S, L, C, dev, st, in0, F
+        self.x0_mode = x0_mode
         self.result = (d_front, d_cond, d_cemb, dtw, dtb, dhd)
+
+    def rebuild(self, r0: int, r1: int) -> None:
+        """The recompute mode: the chain of rays [r0, r1) into the slab
+        buffer, by the forward kernel in its saved-chain residual mode (one
+        launch; its outputs and other residuals are dropped)."""
+        global rebuild_launches
+        fwd_ins, trunk, heads = self._fwd
+        ins = _cut(fwd_ins, _INS_ROWS, r0, r1, self.S)
+        _launch_fwd(ins, self.in0, self.L, ins[2], ins[4], trunk, heads, self.fwd_st, ins[5], True, self.x0_mode,
+                    weights=self.fwd_w, chain=self.chain[: (r1 - r0) * self.S])
+        rebuild_launches += 1
+
+    def _chain(self, r0: int, r1: int) -> torch.Tensor:
+        """The chain of rays [r0, r1): the slab buffer's (the recompute mode), or the saved one's rows."""
+        S = self.S
+        return self.chain[: (r1 - r0) * S] if self.rec else self._lists[2][RES_ORDER.index("chain")][r0 * S : r1 * S]
 
     def walk(self, r0: int, r1: int) -> None:
         """The walk over rays [r0, r1): one launch."""
         S = self.S
-
-        def cut(ts, rows):
-            return [t if t is None or per is None else t[r0 * (S if per == "S" else 1) : r1 * (S if per == "S" else 1)]
-                    for t, per in zip(ts, rows)]
-
         ins, cot_list, res_list, outs = self._lists
-        (kt, D, skip_mask, kw, tw, tb, fw), (dtw, dtb, dh, scratch, bufs, layout), (_, L, in0, C, F, flags) = \
-            self._args
+        res = _cut(res_list, _RES_ROWS, r0, r1, S)
+        res[RES_ORDER.index("chain")] = self._chain(r0, r1)
         stream = torch.cuda.current_stream(self.dev).cuda_stream
         with torch.cuda.device(self.dev):
             code = self.lib.upnerf_render_train_bwd(
-                _ptrs(cut(ins, _INS_ROWS)), _ptrs(cut(cot_list, (1,) * 7)), _ptrs(cut(res_list, _RES_ROWS)), kt, D,
-                skip_mask, kw, tw, tb, fw, _ptrs(cut(outs, _OUT_ROWS)), dtw, dtb, dh, scratch, bufs, layout,
-                r1 - r0, S, L, in0, C, F, flags, self.grid or r1 - r0, stream,
+                _ptrs(_cut(ins, _INS_ROWS, r0, r1, S)), _ptrs(_cut(cot_list, (1,) * 7, r0, r1, S)), _ptrs(res),
+                self._weights[0], self.st.D, self.skip_mask, self._weights[1], _ptrs(_cut(outs, _OUT_ROWS, r0, r1, S)),
+                *self._grads, self._bufs, self.layout, r1 - r0, S, self.L, self.in0, self.C, self.F, self.flags,
+                stream,
             )
         _raise_on(code, self.name, self.lib)
 
     def dw(self, r0: int, r1: int) -> None:
-        """dw_gemm on the operands the walk over rays [r0, r1) stored: the
-        slab's weight and bias gradients written into the flat result (r0 =
-        0) or added to it."""
+        """dw_gemm on the operands the walk over rays [r0, r1) stored and on
+        their chain: the slab's weight and bias gradients written into the
+        flat result (r0 = 0) or added to it."""
         S, (ops, ray, rows) = self.S, self.bufs
         n = r1 - r0
-        chain = self._lists[2][RES_ORDER.index("chain")][r0 * S : r1 * S]
-        dw_gemm.dw_gemm([chain, ops[: n * S], None if ray is None else ray[:n]], self.lay.jobs, self.flat,
-                        self.lay.n_dw, rows[:n], r0 > 0)
+        dw_gemm.dw_gemm([self._chain(r0, r1), ops[: n * S], None if ray is None else ray[:n]], self.lay.jobs,
+                        self.flat, self.lay.n_dw, rows[:n], r0 > 0)
 
     def run(self):
         """The whole call. Returns (d_front, d_ray_cond, d_c_emb, dtrunk,
@@ -1383,6 +1476,8 @@ class BwdLaunch:
         otherwise; the last two None in the frozen mode."""
         for r0 in range(0, self.R, self.slab):
             r1 = min(self.R, r0 + self.slab)
+            if self.rec:
+                self.rebuild(r0, r1)
             self.walk(r0, r1)
             if self.stores:
                 self.dw(r0, r1)
@@ -1398,9 +1493,9 @@ class BwdLaunch:
 
 def _launch_bwd(ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots,
                 x0_mode: bool):
-    """One backward call of csrc/render_train_bwd.cu (and, in the bf16
-    saved-chain train mode, csrc/dw_gemm.cu) on checked arguments: BwdLaunch's
-    run()."""
+    """One backward call of csrc/render_train_bwd.cu (and, in the recompute
+    mode, csrc/render_train_fwd.cu's rebuilds; in the bf16 train mode
+    csrc/dw_gemm.cu) on checked arguments: BwdLaunch's run()."""
     return BwdLaunch(ins, in0, L, z_vals, ray_cond, trunk, heads, st, c_emb, res, cots, x0_mode).run()
 
 
@@ -1421,18 +1516,17 @@ def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, 
     """Backward render: `render_train_rays_bwd_plain` for CPU tensors, the
     CUDA kernels for CUDA tensors, with the same arguments and results.
 
-    In the bf16 saved-chain train mode the call runs, per slab of rays
-    (dw_slab_rays, its buffers under 1 GiB), the walk, which stores the
-    weight gradients' operands (dw_layout), then the dW kernel
-    (ops/dw_gemm.py), which sums them in a fixed order: two calls on the same
-    inputs give the same bits. In the float32 and the recompute train modes
+    In the bf16 train mode the call runs, per slab of rays (dw_slab_rays),
+    the walk, which stores the weight gradients' operands (dw_layout), then
+    the dW kernel (ops/dw_gemm.py), which sums them in a fixed order: two
+    calls on the same inputs give the same bits. In the float32 train mode
     the walk accumulates the weight gradients over all rays with f32 atomic
     adds in device memory, so their last bits change from run to run. With
     st.param_grads off it computes the data cotangents only (the same bits as
     the train mode's) and returns None for the weight gradients. In the
-    recompute mode (st.save_chain off) it runs persistent blocks, one an SM,
-    each rebuilding a 32-sample tile's chain into its own slice of a scratch
-    buffer in device memory."""
+    recompute mode (st.save_chain off) the forward kernel first rebuilds
+    each slab's chain into a slab buffer (the slab's chain and operand
+    buffers within REC_BUFFER_BYTES), and the walk reads it."""
     if rays_o.device.type == "cpu":
         return render_train_rays_bwd_plain(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st, c_emb, res,
                                            cots)
