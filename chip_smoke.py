@@ -40,9 +40,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   9. step ms and rays/s per phase (CUDA events), the backward kernel against
      the plain backward per 4096-ray chunk (F = 384 and 32), the step's peak
      memory; the backward's pieces per chunk in turns (the walk with its
-     operand stores and the dW kernel over all slabs, the frozen walk, the
-     parent design with and without its dW atomic adds), the call's peak
-     memory, its bound and the design's byte floor; the dW kernel against its
+     operand stores and the dW kernel over all slabs, the frozen walk), the
+     call's peak memory, its bound and the design's byte floor; the dW kernel against its
      plain version at full width (DW_TOL), and two dW calls and two backward
      calls bit for bit; with
      --profile, a torch.profiler table of one phase-1 step into DIR (and of
@@ -83,8 +82,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      backward output, at 524,288 rows (2048 rays x 256 samples) in bf16 with
      and without the candidate branch and in f32 at 65,536 rows and a ragged
      N, the backward also against its plain version in float64; forward and
-     backward timed in turns, and the backward without its dW atomic adds;
-     then the F = 32 instances (524,288 rows bf16, 65,536 and 1,037 rows f32),
+     backward timed in turns, and the backward's route in pieces (the Hopper
+     walk with its operand stores, the dW kernel, per slab of rows) with the
+     call's peak memory; then the F = 32 instances (524,288 rows bf16, 65,536 and 1,037 rows f32),
      timed in turns;
  17. the static render from PE rows (kernel 4: the x0 mode of the render
      forward, `ops.render`) against its plain version and against the
@@ -158,11 +158,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      plain version's and the library products' ms;
  26. run-to-run bits: each mode twice on the same inputs (the render
      kernels at 2048 x 256; kernels 5 and 6 at 524,288 rows), how many
-     outputs differ and by how much; same bits required of the forward (bf16
-     and f32, saved chain and recompute), the bf16 train backward (saved
-     chain and recompute) and the frozen mode; measured for the modes that
-     add with atomics (kernel 2's f32 train modes, kernels 5 and 6's
-     backward).
+     outputs differ and by how much; same bits required of every mode in bf16
+     and f32: the forward (saved chain and recompute), kernel 2's train
+     backward (saved chain and recompute), the frozen mode, and kernels 5 and
+     6's backward (no backward adds a weight gradient with atomics).
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -220,8 +219,8 @@ TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 # are stored rounded, so a rounding flip is one bf16 ulp (2^-8) of the value.
 CHAIN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # Backward kernel against the plain backward, per cotangent, max |d| over the
-# leaf's max |g|: f32 sums in another order (atomics in an order that changes
-# from run to run) over up to 2048 x 256 samples; bf16 also rounds every
+# leaf's max |g|: f32 sums in another order (the dW kernel's fixed order
+# against cuBLAS's) over up to 2048 x 256 samples; bf16 also rounds every
 # cotangent to bf16 before each product, where one flip is 2^-8 of a term.
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # A frame's rays on the card (kernel) against the CPU (plain version):
@@ -729,10 +728,9 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
     call (walk per slab + the dW kernel) against the plain backward, and the
     forward with residuals against its plain version, in turns (plain,
     kernel, kernel, plain); then the design's pieces in turns: the walk with
-    its operand stores over all slabs, the dW kernel over all slabs, the walk
-    in the frozen mode, and the parent design (one launch that adds every
-    weight gradient with atomics) with and without its adds; the call's
-    peak memory above what was allocated before it; the dW kernel against its
+    its operand stores over all slabs, the dW kernel over all slabs (and its
+    plain version), the walk in the frozen mode; the call's peak memory above
+    what was allocated before it; the dW kernel against its
     plain version on the first slab's operands (DW_TOL of each gradient's
     max), two dW calls and two whole calls bit for bit. Returns ({"bwd",
     "fwd", "dw": (kernel ms, plain ms)}, dW max |d|, the layout)."""
@@ -776,8 +774,6 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
         walk = lambda: [call.walk(r0, r1) for r0, r1 in slabs]  # noqa: E731
         dwk = lambda: [call.dw(r0, r1) for r0, r1 in slabs]  # noqa: E731
         zcall = rt.render_train_rays_bwd_launch(*args[:7], frozen, c_emb, res, cots)
-        adds = rt.render_train_rays_bwd_launch(*args[:7], st, c_emb, res, cots, design="adds")
-        no_adds = rt.render_train_rays_bwd_launch(*args[:7], st, c_emb, res, cots, design="no_adds")
         lay = call.lay
         ops, ray, rows = call.bufs
         chain = res["chain"]
@@ -789,11 +785,9 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
                                  lay.jobs, call.flat, lay.n_dw, rows[:n], r0 > 0)
 
         t = {}
-        for name, fn in (("adds", adds.run), ("no_adds", no_adds.run), ("frozen", zcall.run), ("walk", walk),
-                         ("dw", dwk), ("dw_plain", dw_plain_chunk)):
+        for name, fn in (("frozen", zcall.run), ("walk", walk), ("dw", dwk), ("dw_plain", dw_plain_chunk)):
             t[name] = [cuda_ms(fn, 2)]
-        for name, fn in (("dw_plain", dw_plain_chunk), ("dw", dwk), ("walk", walk), ("frozen", zcall.run),
-                         ("no_adds", no_adds.run), ("adds", adds.run)):
+        for name, fn in (("dw_plain", dw_plain_chunk), ("dw", dwk), ("walk", walk), ("frozen", zcall.run)):
             t[name].append(cuda_ms(fn, 2))
         t = {k: sum(v) / 2 for k, v in t.items()}
 
@@ -823,8 +817,7 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
           f" {(fp1 + fp2) / 2:.2f} ms ({card})", flush=True)
     print(f"[9] F={F} the design, per chunk in turns: walk with its operand stores {t['walk']:.2f} ms over"
           f" {len(slabs)} slabs of {call.slab} rays, dW kernel {t['dw']:.2f} ms (plain {t['dw_plain']:.2f} ms), walk"
-          f" frozen {t['frozen']:.2f} ms; the parent design: with its dW adds {t['adds']:.2f} ms, without them"
-          f" {t['no_adds']:.2f} ms ({card})", flush=True)
+          f" frozen {t['frozen']:.2f} ms ({card})", flush=True)
     print(f"[9] F={F} backward call peak memory {peak / 2**30:.3f} GiB above its inputs (operand buffer"
           f" {ops_gib:.3f} GiB, {lay.ops_w} columns); bound {bwd_bound[0]:.3f} ms ({bwd_bound[1]}); this design's byte"
           f" floor (chain read twice, operand buffer written and read once) {floor:.3f} ms; dW kernel bound"
@@ -1240,22 +1233,20 @@ def heads_bound(field, nerf_cfg, n: int, cand: bool, kind: str):
     return bound(6 * macs, 4 * n * (2 * rows_in + rows_out) + 2 * n_w + 4 * n_w, "bfloat16")
 
 
-def phase_heads_kernel(field, nerf_cfg, dev, card: str, cases=None, adds_split: bool = True):
+def phase_heads_kernel(field, nerf_cfg, dev, card: str, cases=None, pieces: bool = True):
     """Phase 16: kernel 5 (trunk + heads, csrc/heads_fwd.cu and heads_bwd.cu)
     against its plain versions, forward and every backward output: N = 524,288
     rows (2048 rays x 256 fine samples, a train step's fine pass) in bf16, with
     the candidate branch (phase 1) and without (phase 2); f32 at 65,536 rows and
     a ragged N; the backward also against the plain backward in float64. Then
     forward and backward timed in turns at 524,288 rows, bf16, with the
-    candidate branch, and the backward against its build without the weight
-    gradients' atomic adds (the adds' share of its time; adds_split). cases:
-    (rows, precision, candidate) to check, by default the above. Returns
-    (worst fwd max |d|, worst bwd max |d|, times {fwd, bwd}: (kernel ms,
-    plain ms))."""
-    from unittest import mock
-
+    candidate branch, and (pieces) the backward's route in turns: the Hopper
+    walk with its operand stores over the slabs, the dW kernel over them; and
+    the call's peak memory above its inputs (one slab's operand buffer within
+    render_train.DW_BUFFER_BYTES). cases: (rows, precision, candidate) to check, by
+    default the above. Returns (worst fwd max |d|, worst bwd max |d|, times
+    {fwd, bwd}: (kernel ms, plain ms), with pieces also walk and dw ms)."""
     from upnerf_torch.models.nerf import positional_encoding
-    from upnerf_torch.ops import _build
     from upnerf_torch.ops import heads as hk
 
     worst_f = worst_b = 0.0
@@ -1336,23 +1327,38 @@ def phase_heads_kernel(field, nerf_cfg, dev, card: str, cases=None, adds_split: 
             times[kind] = ((k1 + k2) / 2, (p1 + p2) / 2)
             print(f"[16] heads F={F} {kind} N={n} bfloat16 candidate: kernel {times[kind][0]:.2f} ms ({k1:.2f}, {k2:.2f}),"
                   f" plain {times[kind][1]:.2f} ms ({p1:.2f}, {p2:.2f}) ({card})", flush=True)
-        if not adds_split:
+        if not pieces:
             return worst_f, worst_b, times
-        # the same backward from the build that leaves out the dW atomic adds (wrong sums, same products)
-        real_library = _build.library
-        no_adds = lambda name: real_library("heads_bwd_no_dw_adds" if name == "heads_bwd" else name)  # noqa: E731
-        kern = lambda: hk.fused_trunk_heads_bwd(*args, cots)  # noqa: E731
-
-        def kern_no_adds():
-            with mock.patch.object(_build, "library", no_adds):
-                kern()
-
-        a1, n1, n2, a2 = cuda_ms(kern, 3), cuda_ms(kern_no_adds, 3), cuda_ms(kern_no_adds, 3), cuda_ms(kern, 3)
-    full, bare = (a1 + a2) / 2, (n1 + n2) / 2
-    print(f"[16] heads bwd N={n} bfloat16 candidate: {full:.2f} ms ({a1:.2f}, {a2:.2f}); without the dW atomic adds"
-          f" {bare:.2f} ms ({n1:.2f}, {n2:.2f}): the adds take {full - bare:.2f} ms, {(full - bare) / full:.0%}"
-          f" ({card})", flush=True)
+        times.update(bwd_pieces(hk.fused_trunk_heads_bwd_launch(*args, cots), lambda: hk.fused_trunk_heads_bwd(
+            *args, cots), "16", f"heads bwd N={n} bfloat16 candidate", dev, card))
     return worst_f, worst_b, times
+
+
+def bwd_pieces(call, whole, label: str, what: str, dev, card: str) -> dict:
+    """Kernels 5 and 6's backward route (a heads.BwdCall) in pieces, in turns:
+    the walk over its slabs (the Hopper kernel with its operand stores), the
+    dW kernel over them; and one whole call's peak memory above its inputs.
+    Returns {walk, dw: ms}."""
+    from upnerf_torch.ops import render_train as rt
+
+    slabs = [(r0, min(call.N, r0 + call.slab)) for r0 in range(0, call.N, call.slab)]
+    walk = lambda: [call.walk(r0, r1) for r0, r1 in slabs]  # noqa: E731
+    dwk = lambda: [call.dw(r0, r1) for r0, r1 in slabs]  # noqa: E731
+    w1, d1, d2, w2 = cuda_ms(walk, 3), cuda_ms(dwk, 3), cuda_ms(dwk, 3), cuda_ms(walk, 3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = whole()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    outs = sum(t.numel() * t.element_size() for t in flat_tensors(out))
+    ops = call.ops.numel() * call.ops.element_size() + call.bias_rows.numel() * 4
+    print(f"[{label}] {what}, the route in turns: walk {(w1 + w2) / 2:.2f} ms ({w1:.2f}, {w2:.2f}) over {len(slabs)}"
+          f" slabs of {call.slab} rows, dW kernel {(d1 + d2) / 2:.2f} ms ({d1:.2f}, {d2:.2f}); call peak memory"
+          f" {peak / 2**30:.3f} GiB above its inputs (slab buffers {ops / 2**30:.3f} GiB, {call.lay.ops_w} columns;"
+          f" outputs {outs / 2**30:.3f} GiB) ({card})", flush=True)
+    check(ops <= rt.DW_BUFFER_BYTES, "a slab's operand buffer and bias rows exceed their budget")
+    return {"walk": (w1 + w2) / 2, "dw": (d1 + d2) / 2}
 
 
 def phase_static_render(field, nerf_cfg, dev, card: str):
@@ -1686,8 +1692,10 @@ def write_train_scene(root: str, name: str, seed: int = 0) -> None:
 
 def _launch_counters():
     """(zero, read) over every kernel wrapper's launch counts (zero also
-    zeroes the recompute backward's rebuilds, rt.rebuild_launches, which read
-    leaves out: a recompute backward call launches one a slab)."""
+    zeroes the recompute backward's rebuilds, rt.rebuild_launches, and the dW
+    kernel's, dw_gemm.dw_launches, which read leaves out: a backward call
+    launches one of each a slab)."""
+    from upnerf_torch.ops import dw_gemm as dg
     from upnerf_torch.ops import heads as hk
     from upnerf_torch.ops import mlp
     from upnerf_torch.ops import mxu_probe as mp
@@ -1697,7 +1705,7 @@ def _launch_counters():
     def zero():
         rt.launches = rt.bwd_launches = rt.frozen_bwd_launches = 0
         rt.recompute_launches = rt.recompute_bwd_launches = rt.recompute_frozen_bwd_launches = 0
-        rt.rebuild_launches = rt.x0_launches = rt.x0_bwd_launches = 0
+        rt.rebuild_launches = rt.x0_launches = rt.x0_bwd_launches = dg.dw_launches = 0
         hk.launches = hk.bwd_launches = srk.launches = mlp.launches = mlp.bwd_launches = 0
         for c in mp.CHAINS:
             mp.launches[c] = 0
@@ -1715,9 +1723,11 @@ def _launch_counters():
 
 def _run_train(argv, label: str, zero, read, want):
     """cli.train.main(argv) with the launch counts zeroed just before and read
-    just after; checks them against `want`, finite losses and val PSNR.
-    Returns the Trainer."""
+    just after; checks them against `want`, at least one dW kernel launch
+    for each train-mode backward call, finite losses and val PSNR. Returns
+    the Trainer."""
     from upnerf_torch.cli import train as train_cli
+    from upnerf_torch.ops import dw_gemm as dg
 
     zero()
     t0 = time.perf_counter()
@@ -1731,6 +1741,9 @@ def _run_train(argv, label: str, zero, read, want):
     print(f"[{label}] {tr.state.step} steps in {time.perf_counter() - t0:.1f} s, launches {got} (expected {want});"
           f" losses {losses}, val psnr {psnrs}; checkpoints {tr.ckpt.all_steps()}", flush=True)
     check(got == want, f"[{label}] kernel launches {got}, expected {want}")
+    bwd = sum(got[k] for k in ("render_bwd", "rec_bwd", "x0_bwd", "heads_bwd", "trunk_bwd"))
+    print(f"[{label}] dW kernel launches {dg.dw_launches} for {bwd} train-mode backward calls", flush=True)
+    check(dg.dw_launches >= bwd, f"[{label}] a backward call launched no dW kernel")
     check(bool(losses) and all(np.isfinite(losses)) and bool(psnrs) and all(np.isfinite(psnrs)),
           f"[{label}] losses {losses}, val psnr {psnrs}")
     return tr
@@ -1831,7 +1844,7 @@ def phase_trunk_bwd(field, nerf_cfg, dev, card: str):
     f32 and a ragged N. Then timed in turns with the plain version at
     524,288 rows, bf16. Returns (worst dx0 max |d|, kernel ms, plain ms)."""
     from upnerf_torch.models.nerf import positional_encoding
-    from upnerf_torch.ops import mlp
+    from upnerf_torch.ops import heads, mlp
 
     trunk = field.trunk_weights()
     skips = nerf_cfg.skips
@@ -1880,10 +1893,12 @@ def phase_trunk_bwd(field, nerf_cfg, dev, card: str):
         kern = lambda: mlp.fused_trunk_bwd(x0, trunk, skips, "bfloat16", cot)  # noqa: E731
         plain = lambda: mlp.fused_trunk_bwd_plain(x0, trunk, skips, "bfloat16", cot)  # noqa: E731
         p1, k1, k2, p2 = cuda_ms(plain, 2), cuda_ms(kern, 3), cuda_ms(kern, 3), cuda_ms(plain, 2)
-    kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
-    flop = 6.0 * trunk_macs(nerf_cfg) * n_full
-    print(f"[19] trunk backward N={n_full} bfloat16: kernel {kms:.2f} ms ({k1:.2f}, {k2:.2f}; {flop / kms / 1e9:.0f}"
-          f" TFLOP/s), plain {pms:.2f} ms ({p1:.2f}, {p2:.2f}) ({card})", flush=True)
+        kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+        flop = 6.0 * trunk_macs(nerf_cfg) * n_full
+        print(f"[19] trunk backward N={n_full} bfloat16: kernel {kms:.2f} ms ({k1:.2f}, {k2:.2f};"
+              f" {flop / kms / 1e9:.0f} TFLOP/s), plain {pms:.2f} ms ({p1:.2f}, {p2:.2f}) ({card})", flush=True)
+        bwd_pieces(heads.BwdCall(x0, None, trunk, None, skips, "bfloat16", [cot]), kern, "19",
+                   f"trunk backward N={n_full} bfloat16", dev, card)
     return worst, kms, pms
 
 
@@ -2357,8 +2372,9 @@ PROBE_SHAPE = (2048, 256, 16, 64)  # M, W, L, copies: scripts/bench_mxu_probe.py
 # phase 22 does (REC_DW_TOL). With the saved chain nothing flips, but phase 24
 # sums over 1M samples of random-signed cotangents: a (1,) bias gradient such
 # as sigma_b is one sum that cancels to a small share of its terms, and the
-# kernel accumulates it as 32,768 tile sums by atomic adds; in f32 its rounding
-# reached 4.2e-4 of the sum (F = 384, phase 0, measured on the card), over
+# kernel accumulated it as 32,768 tile sums in another order than the plain
+# version's; in f32 its rounding reached 4.2e-4 of the sum (F = 384, phase 0,
+# measured on the card, when the f32 walk still added it with atomics), over
 # BWD_TOL.
 X0_DW_TOL = REC_DW_TOL
 
@@ -2664,13 +2680,10 @@ def phase_run_to_run(field, nerf_cfg, dev):
     """Phase 26: run-to-run bits. Each mode twice on the same inputs (the render
     kernels at 2048 rays x 256 samples, phase 1 unless said; kernels 5 and 6
     at 524,288 rows): how many outputs differ and by how much. Same bits are
-    required of the forward (bf16 and f32, saved chain and recompute: its
-    column sums run in a fixed order), the bf16 train backward with the saved
-    chain and in the recompute mode (a walk and the dW kernel a slab; the
-    recompute mode's rebuilds are the forward's) and the frozen mode (no
-    weight gradients); the modes that add weight gradients with atomics
-    (kernel 2's f32 train modes, kernels 5 and 6's backward) are measured.
-    Returns {mode:
+    required of every mode in both precisions: the forward (its column sums
+    run in a fixed order), every backward (no weight gradient is added with
+    atomics: each walk stores its operands and the dW kernel sums them in a
+    fixed order, a slab at a time) and the frozen mode. Returns {mode:
     (differ, elements, worst)}."""
     from upnerf_torch.models.nerf import positional_encoding
     from upnerf_torch.ops import heads as hk
@@ -2715,18 +2728,18 @@ def phase_run_to_run(field, nerf_cfg, dev):
     for name, (n_diff, n_el, worst) in out.items():
         print(f"[26] {name}: {n_diff} of {n_el} outputs differ between two calls, worst {worst:.3e} of an output's"
               f" max", flush=True)
-    for name in out:
-        if name.startswith("forward") or name.endswith(" frozen (phase 2)") or name in (
-                "backward bfloat16 train", "backward bfloat16 recompute train"):
-            check(out[name][0] == 0, f"[26] {name}: two calls differ")
+    for name, (n_diff, n_el, _) in out.items():
+        check(n_el > 0 and n_diff == 0, f"[26] {name}: two calls differ")
     return out
 
 
 def kernel_times(dev, card: str, profile_dir=None) -> dict:
-    """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16 and 17,
-    the recompute train (phase 1) and frozen (phase 2) backward of phase 22,
-    and the flash-attention kernel of phase 10 alone, bf16, at those phases' shapes
-    (CUDA events, 5 launches after a warm-up; 20 for flash attention), with no
+    """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16, 17 and
+    19, the recompute train (phase 1) and frozen (phase 2) backward of phase
+    22, and the flash-attention kernel of phase 10 alone, bf16, at those
+    phases' shapes; and the float32 backward of kernels 5 and 6 (524,288 rows)
+    and kernel 2's float32 train modes, saved chain and recompute (2048 x 256,
+    phase 1) (CUDA events, 5 launches after a warm-up; 20 for flash attention), with no
     checks: the numbers to compare two trees on one card. In a tree that has
     the forward's timing variants (render_train.FWD_DESIGNS), the forward of
     phases 5, 9 and 17 also in the variant's design (the mma.sync design the
@@ -2770,6 +2783,15 @@ def kernel_times(dev, card: str, profile_dir=None) -> dict:
         _, res2_r = rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, h2, st2r, save_res=True)
         frozen_r = st2r._replace(param_grads=False)
         hcots = [torch.randn(t.shape, generator=g, device=dev) for t in hk.fused_trunk_heads_fwd(*hargs)]
+        tcot = torch.randn((n, nerf_cfg.W), generator=g, device=dev)
+        # kernel 2's float32 train modes at phase 26's 2048 x 256, phase 1
+        o2, d2, z2, pe2, cond2, ce2 = chunk_inputs(field, 256, seed=26, dev=dev, R=TRAIN_RAYS)
+        st1f = train_static(nerf_cfg, "float32", 1)
+        st1fr = st1f._replace(save_chain=False)
+        f_args = (o2, d2, z2, pe2, cond2, trunk, h1)
+        out_f, res_f = rt.render_train_rays_fwd(*f_args, st1f, c_emb=ce2, save_res=True)
+        _, res_fr = rt.render_train_rays_fwd(*f_args, st1fr, c_emb=ce2, save_res=True)
+        cots_f = {k: torch.randn(v.shape, generator=g, device=dev) for k, v in out_f.items()}
         calls = {
             "render_train_fwd, serving mode (phase 5)": lambda: rt.render_train_rays_fwd(o, d, z, pe_w, cond, trunk, h2,
                                                                                          st2),
@@ -2786,6 +2808,13 @@ def kernel_times(dev, card: str, profile_dir=None) -> dict:
             "trunk_fwd (phase 14)": lambda: mlp.fused_trunk(xr[:PROBE_ROWS], tp, nerf_cfg.skips, "bfloat16"),
             "heads_fwd (phase 16)": lambda: hk.fused_trunk_heads_fwd(*hargs),
             "heads_bwd (phase 16)": lambda: hk.fused_trunk_heads_bwd(*hargs, hcots),
+            "trunk_bwd (phase 19)": lambda: mlp.fused_trunk_bwd(xr, tk, nerf_cfg.skips, "bfloat16", tcot),
+            "heads_bwd float32 (phase 16)": lambda: hk.fused_trunk_heads_bwd(*hargs[:5], "float32", hcots),
+            "trunk_bwd float32 (phase 19)": lambda: mlp.fused_trunk_bwd(xr, tk, nerf_cfg.skips, "float32", tcot),
+            "render_train_bwd float32, 2048 x 256 (phase 26)": lambda: rt.render_train_rays_bwd(
+                *f_args, st1f, ce2, res_f, cots_f),
+            "render_train_bwd float32, recompute mode, 2048 x 256 (phase 26)": lambda: rt.render_train_rays_bwd(
+                *f_args, st1fr, ce2, res_fr, cots_f),
             "static_render (phase 17)": lambda: srk.fused_static_render_fwd(x0, z, cond, trunk, hs, nerf_cfg.skips,
                                                                              "bfloat16"),
         }
@@ -2996,7 +3025,7 @@ def main() -> int:
 
     # 16-18. kernel 5 (trunk + heads), kernel 4 (the static render from PE rows), the train CLI; 16, 17 at F = 32 too
     heads_fwd_err, heads_bwd_err, heads_t = phase_heads_kernel(field, nerf_cfg, dev, card)
-    e32 = phase_heads_kernel(field32, nerf32, dev, card, adds_split=False,
+    e32 = phase_heads_kernel(field32, nerf32, dev, card, pieces=False,
                              cases=[(TRAIN_RAYS * 256, "bfloat16", True), (65536, "float32", True),
                                     (1037, "float32", False)])
     heads_fwd_err, heads_bwd_err = max(heads_fwd_err, e32[0]), max(heads_bwd_err, e32[1])

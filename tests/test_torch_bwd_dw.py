@@ -260,7 +260,8 @@ def test_rec_slab_rays_under_their_budget(combo, F):
 def test_bwd_entry_takes_the_bindings_arguments():
     """The backward's C entry point takes as many arguments as the ctypes
     binding passes (the recompute mode's weights, scratch and grid are
-    gone), and the kernel has no recompute instance of its own."""
+    gone, and so are the weight-gradient pointers the walk once added
+    into), and the kernel has no recompute instance of its own."""
     import re
     from pathlib import Path
 
@@ -268,6 +269,6 @@ def test_bwd_entry_takes_the_bindings_arguments():
 
     src = (Path(rt.__file__).resolve().parent.parent / "csrc" / "render_train_bwd.cu").read_text()
     sig = re.search(r"int upnerf_render_train_bwd\(([^)]*)\)", src).group(1)
-    assert len(sig.split(",")) == len(_build._ARGTYPES["upnerf_render_train_bwd"]) == 21
+    assert len(sig.split(",")) == len(_build._ARGTYPES["upnerf_render_train_bwd"]) == 18
     assert re.search(r"template <typename T, int F>\s*__global__ void __launch_bounds__\(THREADS, 1\) bwd_kernel",
                      src)

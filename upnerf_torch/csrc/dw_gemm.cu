@@ -39,6 +39,14 @@
 // bias rows over the rays, in a fixed order, and writes (or, for a later slab of
 // rays, adds) them into the result. No atomic touches a gradient: two calls on the
 // same inputs give the same bits.
+//
+// The float32 instance (f32_kernel), for the walks' float32 modes: the same jobs,
+// tiles, splits and reduce_rows over f32 sources, with SIMT FMAs in f32 (wgmma has
+// no f32 operands, and TF32 would round them: no tensor cores). A block of 256
+// threads computes one (tile, split): 16-row k-chunks of X's and G's strips into
+// shared memory, each thread 8 output rows x 4 NB columns, summed over its split's
+// rows in row order. It is a correctness mode: the float32 backward, off the
+// default bf16 path.
 
 #include "hopper_common.cuh"
 #include "render_common.cuh"
@@ -78,6 +86,8 @@ struct Tile {
 struct DwParams {
   CUtensorMap maps[N_SRC];  // bf16 (cols, rows), 64 x 64 boxes, 128-byte swizzle
   Tile tiles[MAX_TILES];
+  const float* f32_srcs[N_SRC];  // the float32 instance: the sources, row-major
+  int rows[N_SRC], cols[N_SRC];
   int kblocks[N_SRC];       // 64-row k-blocks of each source
   int n_tiles, splits;
   int n_dw;                 // floats of one split's partial (the result's weight part)
@@ -181,6 +191,78 @@ __global__ void __launch_bounds__(THREADS, 1) dw_kernel(const __grid_constant__ 
   }
 }
 
+// The float32 instance: tile (blockIdx.x % n_tiles) over split (blockIdx.x / n_tiles)'s
+// rows, as dw_kernel's split of 64-row k-blocks. Thread (ty, tx) = (tid / 16, tid % 16)
+// owns output rows 8 ty .. 8 ty + 7 and columns 64 j + 4 tx .. + 3 (j < the tile's nb);
+// each of its sums runs over the split's rows in order.
+constexpr int F32_THREADS = 256;
+constexpr int F32_KC = 16;  // rows a k-chunk
+constexpr int NB = MAX_NB;
+
+__global__ void __launch_bounds__(F32_THREADS) f32_kernel(const __grid_constant__ DwParams p) {
+  __shared__ __align__(16) float xs[F32_KC][64 * MAX_MB];
+  __shared__ __align__(16) float gs[F32_KC][64 * NB];
+  const int split = blockIdx.x / p.n_tiles;
+  const Tile& tile = p.tiles[blockIdx.x % p.n_tiles];
+  const int rows = p.rows[tile.x_src];
+  const int kb = p.kblocks[tile.x_src];
+  const int r0 = (int)((long long)kb * split / p.splits) * BK;
+  const int r1 = min(rows, (int)((long long)kb * (split + 1) / p.splits) * BK);
+  const float* X = p.f32_srcs[tile.x_src];
+  const float* G = p.f32_srcs[tile.g_src];
+  const size_t ldx = (size_t)p.cols[tile.x_src], ldg = (size_t)p.cols[tile.g_src];
+  const int xw = 64 * tile.mb, gw = 64 * tile.nb, tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  float acc[8][4 * NB];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NB; ++j) acc[i][j] = 0.f;
+  for (int k0 = r0; k0 < r1; k0 += F32_KC) {
+    __syncthreads();
+    for (int i = tid; i < F32_KC * xw / 4; i += F32_THREADS) {
+      const int r = i / (xw / 4), c = 4 * (i - r * (xw / 4)), row = k0 + r;
+      *reinterpret_cast<float4*>(&xs[r][c]) =
+          row < r1 ? __ldg(reinterpret_cast<const float4*>(X + row * ldx + tile.x_col + c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int i = tid; i < F32_KC * gw / 4; i += F32_THREADS) {
+      const int r = i / (gw / 4), c = 4 * (i - r * (gw / 4)), row = k0 + r;
+      *reinterpret_cast<float4*>(&gs[r][c]) =
+          row < r1 ? __ldg(reinterpret_cast<const float4*>(G + row * ldg + tile.g_col + c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+    if (8 * ty < xw) {
+#pragma unroll 4
+      for (int r = 0; r < F32_KC; ++r) {
+        float x[8], g[4 * NB];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] = xs[r][8 * ty + i];
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(&gs[r][64 * j + 4 * tx]);
+          g[4 * j] = v.x;
+          g[4 * j + 1] = v.y;
+          g[4 * j + 2] = v.z;
+          g[4 * j + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4 * NB; ++j) acc[i][j] = fmaf(x[i], g[j], acc[i][j]);
+      }
+    }
+  }
+  float* dst = p.ws + (size_t)split * p.n_dw + tile.out_off;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * ty + i;
+#pragma unroll
+    for (int j = 0; j < 4 * NB; ++j) {
+      const int col = 64 * (j / 4) + 4 * tx + (j % 4) + tile.n_shift;
+      if (j / 4 < tile.nb && r < tile.m_lim && col >= 0 && col < tile.n_out) dst[(size_t)r * tile.ldo + col] = acc[i][j];
+    }
+  }
+}
+
 // out[c] = (accumulate ? out[c] : 0) + sum_{r < rows} src[r ld + c] for c < cols, in a
 // fixed order: thread group g sums rows g, g + 8, ... in row order, then the 8 group
 // sums are added in group order.
@@ -215,17 +297,18 @@ enum DwStatus { BAD_JOB = -20, BAD_TENSOR_MAP = -21, TOO_MANY_TILES = -22, BAD_A
 
 extern "C" {
 
-// One slab of a backward call. srcs: three bf16 row-major sources (null where no job
-// reads one) with rows[i] rows of cols[i] columns (cols a multiple of 8, the base
-// 16-byte aligned); jobs: n_jobs x 11 ints (x_src, x_col, x_cols, g_src, g_col,
-// g_cols, g0, n_out, m_out, out_off, ldo), X and G of a job from sources with the same
-// rows; ws: splits x n_dw f32 of workspace. out (n_dw + nb f32): the weight part
-// [0, n_dw) gets the jobs' products, the bias part [n_dw, n_dw + nb) the column sums
-// of bias_rows (n_bias_rows x nb f32); written when accumulate is 0, added to
-// otherwise. Returns 0, a cudaError_t (> 0) from a launch, or a negative status.
+// One slab of a backward call. srcs: three row-major sources (null where no job reads
+// one), bf16 or, with f32, float32 (the float32 instance), with rows[i] rows of
+// cols[i] columns (cols a multiple of 8, the base 16-byte aligned); jobs: n_jobs x 11
+// ints (x_src, x_col, x_cols, g_src, g_col, g_cols, g0, n_out, m_out, out_off, ldo), X
+// and G of a job from sources with the same rows; ws: splits x n_dw f32 of workspace.
+// out (n_dw + nb f32): the weight part [0, n_dw) gets the jobs' products, the bias
+// part [n_dw, n_dw + nb) the column sums of bias_rows (n_bias_rows x nb f32); written
+// when accumulate is 0, added to otherwise. Returns 0, a cudaError_t (> 0) from a
+// launch, or a negative status.
 int upnerf_dw_gemm(const void* const* srcs, const int* rows, const int* cols, const int* jobs, int n_jobs, void* ws,
                    int splits, void* out, int n_dw, const void* bias_rows, int n_bias_rows, int nb, int accumulate,
-                   void* stream) {
+                   int f32, void* stream) {
   if (n_jobs < 0 || splits <= 0 || n_dw < 0 || nb < 0 || (nb > 0 && (bias_rows == nullptr || n_bias_rows <= 0)))
     return BAD_SHAPE;
   DwParams p = {};
@@ -269,13 +352,17 @@ int upnerf_dw_gemm(const void* const* srcs, const int* rows, const int* cols, co
   for (int i = 0; i < N_SRC; ++i) {
     if (!used[i]) continue;
     if ((reinterpret_cast<uintptr_t>(srcs[i]) & 15) || cols[i] % 8) return BAD_ALIGN;
+    p.f32_srcs[i] = static_cast<const float*>(srcs[i]);
+    p.rows[i] = rows[i];
+    p.cols[i] = cols[i];
+    p.kblocks[i] = (rows[i] + BK - 1) / BK;
+    if (f32) continue;
     const uint64_t dims[2] = {(uint64_t)cols[i], (uint64_t)rows[i]};
     const uint64_t strides[1] = {(uint64_t)cols[i] * 2};
     const uint32_t box[2] = {BOX, BK};
     if (!encode_tensor_map(&p.maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, srcs[i], dims, strides, box,
                            CU_TENSOR_MAP_SWIZZLE_128B))
       return BAD_TENSOR_MAP;
-    p.kblocks[i] = (rows[i] + BK - 1) / BK;
   }
   p.n_tiles = n_tiles;
   p.splits = splits;
@@ -285,9 +372,14 @@ int upnerf_dw_gemm(const void* const* srcs, const int* rows, const int* cols, co
   float* o = static_cast<float*>(out);
   if (n_tiles > 0) {
     if (ws == nullptr) return BAD_SHAPE;
-    cudaError_t err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return (int)err;
-    dw_kernel<<<n_tiles * splits, THREADS, SMEM, st>>>(p);
+    cudaError_t err;
+    if (f32) {
+      f32_kernel<<<n_tiles * splits, F32_THREADS, 0, st>>>(p);
+    } else {
+      err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      if (err != cudaSuccess) return (int)err;
+      dw_kernel<<<n_tiles * splits, THREADS, SMEM, st>>>(p);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = launch_reduce(o, static_cast<const float*>(ws), splits, n_dw, n_dw, accumulate, st);

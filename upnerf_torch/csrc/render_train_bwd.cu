@@ -25,18 +25,19 @@
 //      the trunk, with ReLU masks from the stored activations;
 //   4. the PE backward down to d_rays_o and d_rays_d (d sin(x f) = cos(x f) f,
 //      d cos(x f) = -sin(x f) f, with the forward's non-contracted arguments);
-//   5. every dW = x^T dy and db = sum dy: in the bf16 train mode (flag DW_OPS, below)
-//      by dw_gemm.cu from the operands this kernel stores; in float32 mode here.
+//   5. every dW = x^T dy and db = sum dy: in the train mode (flag DW_OPS, below), in
+//      both precisions, by dw_gemm.cu from the operands this kernel stores.
 // In bfloat16 mode every product rounds both operands to bf16 and sums in f32, the
 // cotangent included, as the TPU kernel's _dot does; bias sums and the rank-1 sigma
 // terms stay f32. upnerf_torch/ops/render_train.py:render_train_rays_bwd_plain is the
 // same computation written out in PyTorch.
 //
 // What bounds it on the H100: ~2.8 MFLOP a sample (the walk's data path and the dW
-// products, ~1.4 M each) and the dW accumulation. Blocks run in parallel, so the
-// weight gradients (0.81 M values with the candidate branch) cannot stay resident as
-// on the TPU's sequential grid (pallas_render_train.py:1318-1326); they are too large
-// for a block's shared memory. One block of 256 threads per ray. bfloat16 mode: the
+// products, ~1.4 M each). Blocks run in parallel, so the weight gradients (0.81 M
+// values with the candidate branch) cannot stay resident as on the TPU's sequential
+// grid (pallas_render_train.py:1318-1326); they are too large for a block's shared
+// memory, so the walk stores their operands and dw_gemm.cu sums them (DW_OPS). One
+// block of 256 threads per ray. bfloat16 mode: the
 // walk's products (g W^T) run on the tensor cores with mma.sync m16n8k16, the weights
 // packed in fragment order as in the forward kernel. float32 mode: SIMT FMAs. ~160
 // KB of shared memory in bfloat16 mode (~173 KB with DW_OPS's bias sums), ~210 KB in
@@ -45,10 +46,11 @@
 // width FP of the forward (render_common.cuh:feat_pad), and the padded columns carry
 // exact zeros throughout.
 //
-// DW_OPS, the bf16 train mode's weight gradients: the walk adds none. For each tile it
-// stores the rounded operands that the products read and that are not in the chain,
-// 16 bytes a thread, into a dW operand buffer in device memory (rows = the launch's
-// samples; columns from upnerf_torch/ops/render_train.py:dw_layout, passed in `lay`):
+// DW_OPS, the train mode's weight gradients (both precisions): the walk adds none. For
+// each tile it stores the operands (rounded to the compute dtype) that the products
+// read and that are not in the chain, 16 bytes a thread, into a dW operand buffer in
+// device memory of the compute dtype (rows = the launch's samples; columns from
+// upnerf_torch/ops/render_train.py:dw_layout, passed in `lay`):
 // every cotangent G (g_rgbh, g_feat, g_cfeat, g_h2, g_h1, g_xyzf, each trunk layer's
 // g_act; g_u, g_spre and g_cpre in one shared column block), feat (rgb1's X) and the
 // tile's x0; per ray, rayg1 and c_emb (c1c_w's operands) and a row of f32 bias sums,
@@ -56,26 +58,24 @@
 // then sums every dW = X^T G over the samples (X from the chain or the buffer) and the
 // bias rows over the rays, in a fixed order: the result's bits do not change from run
 // to run. The wrapper runs the walk and dw_gemm per slab of rays, the buffer under 1
-// GiB (~7.9 KB a sample at F = 384, phase 1). The stores, ~8 GB a 4096 x 256 chunk,
-// and the chain's loads are streaming (evict-first): with default caching they pushed
-// out of L2 the weights that every tile's products re-read, and the walk took ~37.7 ms
-// a chunk instead of ~30 (one H100, PERF.md §6). In the float32 mode each block adds
-// its 32-sample tile's dW into one f32 copy in device memory with vector atomic adds,
-// x and g taken from shared memory by ldmatrix (.trans) into mma.sync in bf16, so
-// their last bits change from run to run; ~34 ms of the bf16 train mode's ~62 ms per
-// 4096-ray chunk went to those products and adds before DW_OPS.
+// GiB (~7.9 KB a sample at F = 384, phase 1, in bf16; twice that in f32). The stores,
+// ~8 GB a 4096 x 256 chunk in bf16, and the chain's loads are streaming (evict-first):
+// with default caching they pushed out of L2 the weights that every tile's products
+// re-read, and the walk took ~37.7 ms a chunk instead of ~30 (one H100, PERF.md §6).
+// The float32 instance keeps a ray's bias sums in its row of the bias rows in device
+// memory (its shared memory has no room for them at S = 256), each column owned by
+// one thread, in tile order as in shared memory.
 //
 // Frozen-model mode (flag NO_PARAM_GRADS, RTStatic.param_grads = False; the JAX
 // kernel's param_grads=False, pallas_render_train.py:131-138, which test-time
 // optimization runs): only the data cotangents d_rays_o, d_rays_d, d_ray_cond and
-// d_c_emb. Every dW product, bias column sum and atomic add into dtw / dtb / dh is
-// skipped, and so is the re-derivation of feat = xyzf Wf + bf whose only consumer is
-// rgb1's dW (pallas_render_train.py:733-736); the gradient pointers may be null. The
-// data path runs the same instructions in the same order in both modes, so its
-// results are bit for bit the train mode's. No per-ray output is summed with atomics:
-// d_ray_cond and the per-ray sum of d h1 are column sums each owned by one thread,
-// and d_rays_o / d_rays_d are summed over a tile's samples by one thread per
-// coordinate, in sample order. The frozen mode has no atomics at all.
+// d_c_emb. Every operand store and bias column sum of DW_OPS is skipped, and so is
+// the re-derivation of feat = xyzf Wf + bf whose only consumer is rgb1's dW
+// (pallas_render_train.py:733-736). The data path runs the same instructions in the
+// same order in both modes, so its results are bit for bit the train mode's. No
+// output is summed with atomics in any mode: d_ray_cond and the per-ray sum of d h1
+// are column sums each owned by one thread, and d_rays_o / d_rays_d are summed over
+// a tile's samples by one thread per coordinate, in sample order.
 //
 // Recompute mode (flag RECOMPUTE, RTStatic.save_chain = False; the TPU kernel's branch
 // pallas_render_train.py:883-890), in both the train and the frozen mode: the forward
@@ -104,12 +104,6 @@ struct Widths {
   static constexpr int LDA = LDT + 8;
 };
 
-// Head-gradient slots, in upnerf_torch/ops/render_train.py:HEAD_KEYS order.
-enum Dh {
-  XYZF_W, XYZF_B, SIGMA_W, SIGMA_B, FEAT_W, FEAT_B, RGB1_W, RGB2_W, RGB2_B,
-  C1X_W, C1C_W, C1_B, C2_W, C2_B, CSIG_W, CSIG_B, CFEAT_W, CFEAT_B, N_DH
-};
-
 // Slots of the DW_OPS layout, in upnerf_torch/ops/render_train.py:WALK_LAYOUT order:
 // the buffers' row widths and the bias count, then the column of each operand in the
 // operand buffer (x0, feat and the cotangents, g_act{i} per trunk layer), in the per-ray
@@ -134,12 +128,10 @@ struct Bwd {
   const void *feat_w_rm, *cfeat_wT_rm;  // row-major copies for the per-ray vectors, (W, F) and (F, HC)
   float *d_o, *d_d, *d_cond, *d_cemb;
   float* d_x0;                           // X0_IN: (R*S, in0)
-  float* dtw[MAX_D];
-  float* dtb[MAX_D];
-  float* dh[N_DH];
   // flag DW_OPS: the dW operand buffer (rows: the launch's samples), the per-ray operands
-  // (rows: its rays) and the per-ray bias sums (f32), columns as lay says
-  bf16 *ops, *ray_ops;
+  // (rows: its rays), both of the compute dtype, and the per-ray bias sums (f32),
+  // columns as lay says
+  void *ops, *ray_ops;
   float* bias_rows;
   int lay[N_LAY];
   int D;
@@ -211,24 +203,24 @@ __device__ __forceinline__ float cot(const float* p, size_t i) { return p ? __ld
 // DW_OPS: columns [0, N) of a tile's rounded operand src (BT rows, row stride ld, in
 // shared memory) into the operand buffer at column lay[slot], 16 bytes a thread at a
 // time, as streaming stores (evict-first, as the chain's loads); rows past the ray's end
-// are not stored. The bf16 instance only.
+// are not stored.
 template <typename T>
 __device__ void store_ops(const Bwd& a, int ray, int s0, const T* src, int ld, int slot, int N) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    const int n8 = N / 8, rows = min(BT, a.S - s0);
-    bf16* dst = a.ops + ((size_t)ray * a.S + s0) * a.lay[L_OPS_W] + a.lay[slot];
-    for (int i = threadIdx.x; i < rows * n8; i += THREADS) {
-      const int r = i / n8, v = i - r * n8;
-      __stcs(reinterpret_cast<uint4*>(dst + (size_t)r * a.lay[L_OPS_W] + v * 8),
-             *reinterpret_cast<const uint4*>(src + r * ld + v * 8));
-    }
+  constexpr int V = 16 / sizeof(T);
+  const int nv = N / V, rows = min(BT, a.S - s0);
+  T* dst = static_cast<T*>(a.ops) + ((size_t)ray * a.S + s0) * a.lay[L_OPS_W] + a.lay[slot];
+  for (int i = threadIdx.x; i < rows * nv; i += THREADS) {
+    const int r = i / nv, v = i - r * nv;
+    __stcs(reinterpret_cast<uint4*>(dst + (size_t)r * a.lay[L_OPS_W] + v * V),
+           *reinterpret_cast<const uint4*>(src + r * ld + v * V));
   }
 }
 
-// DW_OPS: one operand value of sample s, rounded to bf16, into the operand buffer at
+// DW_OPS: one operand value of sample s, rounded to T, into the operand buffer at
 // column lay[slot] + j.
+template <typename T>
 __device__ __forceinline__ void put_op(const Bwd& a, int ray, int s, int slot, int j, float v) {
-  if (s < a.S) a.ops[((size_t)ray * a.S + s) * a.lay[L_OPS_W] + a.lay[slot] + j] = __float2bfloat16_rn(v);
+  if (s < a.S) static_cast<T*>(a.ops)[((size_t)ray * a.S + s) * a.lay[L_OPS_W] + a.lay[slot] + j] = from_float<T>(v);
 }
 
 // One block a ray.
@@ -240,10 +232,8 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   const bool rgb = a.flags & USE_RGB, feat = a.flags & OUT_FEAT, cand = a.flags & USE_CAND;
   const bool pg = !(a.flags & NO_PARAM_GRADS);  // uniform over the block: barriers stay unconditional
   const bool rec = a.flags & RECOMPUTE;  // p, q and rgb1's dW operand from the stored feat / c_feat
-  // DW_OPS (the bf16 train mode): store the weight gradients' operands for dw_gemm.cu;
-  // otherwise (float32) add the gradients here (adds)
-  const bool dw_ops = std::is_same<T, bf16>::value && (a.flags & DW_OPS);
-  const bool adds = pg && !dw_ops;
+  // DW_OPS (the train mode): store the weight gradients' operands for dw_gemm.cu
+  const bool dw_ops = a.flags & DW_OPS;
   const bool res_bf = (a.flags & BF16) && !(a.flags & STORE_F32);  // feat / c_feat residuals in bf16
   const bool x0_in = a.flags & X0_IN;
   const int col_xyzf = a.D * W, col_rgbh = (a.D + 1) * W, col_h1 = col_rgbh + (rgb ? HH : 0), col_h2 = col_h1 + HC;
@@ -278,7 +268,8 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
   float* cgw = cfw + S;
   float* crw = cgw + S;
   float* rgbs = crw + S;                // (S, 3)
-  float* bacc = rgbs + 3 * S;           // (lay[L_NB],) DW_OPS: the ray's bias-gradient sums
+  // (lay[L_NB],) DW_OPS: the ray's bias-gradient sums; the float32 instance's in its bias row
+  float* bacc = std::is_same<T, bf16>::value ? rgbs + 3 * S : a.bias_rows + (size_t)ray * (dw_ops ? a.lay[L_NB] : 0);
 
   // ---- per-ray set-up -------------------------------------------------------
   float o[3], d[3];
@@ -477,24 +468,15 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         const float gu = c * misc[8 + n] * v * (1.f - v);
         GU[r * 4 + n] = gu;
         GUT[r * 4 + n] = from_float<T>(gu);
-        if (dw_ops) put_op(a, ray, s0 + r, L_G_U, n, gu);
+        if (dw_ops) put_op<T>(a, ray, s0 + r, L_G_U, n, gu);
       }
       load(B, col_rgbh, HH);
       __syncthreads();
-      // dW rgb2 (HH, 3) += rgbh^T g_u; db rgb2
-      for (int i = tid; adds && i < HH * 3; i += THREADS) {
-        const int k = i / 3, n = i - k * 3;
-        float acc = 0.f;
-        for (int r = 0; r < BT; ++r) acc = fmaf(to_float(B[r * LDA + k]), to_float(GUT[r * 4 + n]), acc);
-        if (!skip_dw_add(acc)) atomicAdd(a.dh[RGB2_W] + k * 3 + n, acc);
-      }
-      if (pg && tid < 3) {
+      // db rgb2; its dW = rgbh^T g_u is dw_gemm's
+      if (dw_ops && tid < 3) {
         float acc = 0.f;
         for (int r = 0; r < BT; ++r) acc += GU[r * 4 + tid];
-        if (dw_ops)
-          bacc[a.lay[L_RGB2_B] + tid] += acc;
-        else if (!skip_dw_add(acc))
-          atomicAdd(a.dh[RGB2_B] + tid, acc);
+        bacc[a.lay[L_RGB2_B] + tid] += acc;
       }
       // g_rgbh = (g_u Wr2^T) * (rgbh > 0)
       mm<T, T>(GF, LDT, false, GUT, 4, 3, static_cast<const T*>(a.rgb2_wT), HH, HH);
@@ -504,10 +486,9 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         if (!(to_float(B[r * LDA + n]) > 0.f)) GF[r * LDT + n] = 0.f;
       }
       __syncthreads();
-      colsum(GF, LDT, HH, nullptr, dcond);
+      colsum(GF, LDT, HH, dcond);
       round_to<T>(B, LDA, GF, LDT, HH);
       __syncthreads();
-      if (adds) dww<T>(a.dh[RGB1_W], HH, A, LDA, FP, B, LDA, HH);
       if (dw_ops) {
         store_ops(a, ray, s0, A, LDA, L_FEAT, FP);
         store_ops(a, ray, s0, B, LDA, L_G_RGBH, HH);
@@ -522,11 +503,9 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       GF[r * LDT + n] = rgb ? GF[r * LDT + n] + v : v;
     }
     __syncthreads();
-    if (pg) colsum(GF, LDT, FP, adds ? a.dh[FEAT_B] : nullptr, dw_ops ? bacc + a.lay[L_FEAT_B] : nullptr);
+    if (dw_ops) colsum(GF, LDT, FP, bacc + a.lay[L_FEAT_B]);
     round_to<T>(B, LDA, GF, LDT, FP);
-    if (adds) load(A, col_xyzf, W);
     __syncthreads();
-    if (adds) dww<T>(a.dh[FEAT_W], FP, A, LDA, W, B, LDA, FP);
     if (dw_ops) store_ops(a, ray, s0, B, LDA, L_G_FEAT, FP);
     mmw<T>(GX, W, false, B, LDA, FP, a.feat_wT, W, W, 0);
     __syncthreads();
@@ -538,10 +517,9 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       }
       load(A, col_h2, HC);
       __syncthreads();
-      if (pg) colsum(GF, LDT, FP, adds ? a.dh[CFEAT_B] : nullptr, dw_ops ? bacc + a.lay[L_CFEAT_B] : nullptr);
+      if (dw_ops) colsum(GF, LDT, FP, bacc + a.lay[L_CFEAT_B]);
       round_to<T>(B, LDA, GF, LDT, FP);
       __syncthreads();
-      if (adds) dww<T>(a.dh[CFEAT_W], FP, A, LDA, HC, B, LDA, FP);
       if (dw_ops) store_ops(a, ray, s0, B, LDA, L_G_CFEAT, FP);
       // g_h2 = (g_cf Wcf^T + g_cpre csig_w) * (h2 > 0); dW / db of c_sig
       mmw<T>(GF, LDT, false, B, LDA, FP, a.cfeat_wT, HC, HC, 0);
@@ -552,22 +530,17 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         const float v = GF[r * LDT + n] + GU[r * 4 + 3] * __ldg(a.csig_w + n);
         GF[r * LDT + n] = to_float(A[r * LDA + n]) > 0.f ? v : 0.f;
       }
-      if (pg && tid == 0) {
+      if (dw_ops && tid == 0) {
         float acc = 0.f;
         for (int r = 0; r < BT; ++r) acc += GU[r * 4 + 3];
-        if (dw_ops)
-          bacc[a.lay[L_CSIG_B]] += acc;
-        else if (!skip_dw_add(acc))
-          atomicAdd(a.dh[CSIG_B], acc);
+        bacc[a.lay[L_CSIG_B]] += acc;
       }
-      if (adds) dw_col<T>(a.dh[CSIG_W], A, LDA, HC, GU + 3, 4);
-      if (dw_ops && tid < BT) put_op(a, ray, s0 + tid, L_G_CPRE, 0, GU[tid * 4 + 3]);
+      if (dw_ops && tid < BT) put_op<T>(a, ray, s0 + tid, L_G_CPRE, 0, GU[tid * 4 + 3]);
       __syncthreads();
-      if (pg) colsum(GF, LDT, HC, adds ? a.dh[C2_B] : nullptr, dw_ops ? bacc + a.lay[L_C2_B] : nullptr);
+      if (dw_ops) colsum(GF, LDT, HC, bacc + a.lay[L_C2_B]);
       round_to<T>(B, LDA, GF, LDT, HC);
       load(A, col_h1, HC);
       __syncthreads();
-      if (adds) dww<T>(a.dh[C2_W], HC, A, LDA, HC, B, LDA, HC);
       if (dw_ops) store_ops(a, ray, s0, B, LDA, L_G_H2, HC);
       // g_h1 = (g_h2 Wc2^T) * (h1 > 0)
       mmw<T>(GF, LDT, false, B, LDA, HC, a.c2_wT, HC, HC, 0);
@@ -577,11 +550,9 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         if (!(to_float(A[r * LDA + n]) > 0.f)) GF[r * LDT + n] = 0.f;
       }
       __syncthreads();
-      colsum(GF, LDT, HC, adds ? a.dh[C1_B] : nullptr, rayg1);  // DW_OPS: c1_b's ray sum is rayg1
+      colsum(GF, LDT, HC, rayg1);  // c1_b's ray sum is rayg1
       round_to<T>(B, LDA, GF, LDT, HC);
-      if (adds) load(A, col_xyzf, W);
       __syncthreads();
-      if (adds) dww<T>(a.dh[C1X_W], HC, A, LDA, W, B, LDA, HC);
       if (dw_ops) store_ops(a, ray, s0, B, LDA, L_G_H1, HC);
       mmw<T>(GX, W, true, B, LDA, HC, a.c1x_wT, W, W, 0);
       __syncthreads();
@@ -591,20 +562,15 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
     load(A, (a.D - 1) * W, W);
     if (tid < BT) GU[tid * 4 + 3] = row_coef(gsp, tid);
     __syncthreads();
-    if (pg) colsum(GX, W, W, adds ? a.dh[XYZF_B] : nullptr, dw_ops ? bacc + a.lay[L_XYZF_B] : nullptr);
+    if (dw_ops) colsum(GX, W, W, bacc + a.lay[L_XYZF_B]);
     round_to<T>(B, LDA, GX, W, W);
-    if (pg && tid == 0) {
+    if (dw_ops && tid == 0) {
       float acc = 0.f;
       for (int r = 0; r < BT; ++r) acc += GU[r * 4 + 3];
-      if (dw_ops)
-        bacc[a.lay[L_SIGMA_B]] += acc;
-      else if (!skip_dw_add(acc))
-        atomicAdd(a.dh[SIGMA_B], acc);
+      bacc[a.lay[L_SIGMA_B]] += acc;
     }
-    if (adds) dw_col<T>(a.dh[SIGMA_W], A, LDA, W, GU + 3, 4);
-    if (dw_ops && tid < BT) put_op(a, ray, s0 + tid, L_G_SPRE, 0, GU[tid * 4 + 3]);
+    if (dw_ops && tid < BT) put_op<T>(a, ray, s0 + tid, L_G_SPRE, 0, GU[tid * 4 + 3]);
     __syncthreads();
-    if (adds) dww<T>(a.dh[XYZF_W], W, A, LDA, W, B, LDA, W);
     if (dw_ops) store_ops(a, ray, s0, B, LDA, L_G_XYZF, W);
     mmw<T>(GF, LDT, false, B, LDA, W, a.xyzf_wT, W, W, 0);
     __syncthreads();
@@ -621,7 +587,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         if (!(to_float(A[r * LDA + n]) > 0.f)) GF[r * LDT + n] = 0.f;
       }
       __syncthreads();
-      if (pg) colsum(GF, LDT, W, adds ? a.dtb[i] : nullptr, dw_ops ? bacc + a.lay[L_TRUNK_B0 + i] : nullptr);
+      if (dw_ops) colsum(GF, LDT, W, bacc + a.lay[L_TRUNK_B0 + i]);
       round_to<T>(B, LDA, GF, LDT, W);
       __syncthreads();
       const bool skip = i > 0 && ((a.skips >> i) & 1u);
@@ -630,14 +596,10 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
         store_ops(a, ray, s0, B, LDA, L_G_ACT0 + i, W);
         if (i == 0) store_ops(a, ray, s0, X0, LDX0, L_X0, MAX_IN0);
       }
-      if (i == 0 || skip) {
-        if (adds) dww<T>(a.dtw[i], W, X0, LDX0, MAX_IN0, B, LDA, W);
-        mmw<T>(DX0, MAX_IN0, true, B, LDA, W, a.tT[i], in_pad, MAX_IN0, 0);
-      }
+      if (i == 0 || skip) mmw<T>(DX0, MAX_IN0, true, B, LDA, W, a.tT[i], in_pad, MAX_IN0, 0);
       if (i > 0) {
         load(A, (i - 1) * W, W);
         __syncthreads();
-        if (adds) dww<T>(a.dtw[i] + (skip ? MAX_IN0 * W : 0), W, A, LDA, W, B, LDA, W);
         mmw<T>(GF, LDT, false, B, LDA, W, a.tT[i], in_pad, W, skip ? MAX_IN0 : 0);
       }
     }
@@ -698,26 +660,24 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const Bwd a) {
       acc = warp_sum(acc);
       if (lane == 0) a.d_cemb[(size_t)ray * a.C + c] = acc;
     }
-    for (int i = tid; adds && i < a.C * HC; i += THREADS) {
-      const int c = i / HC, j = i - c * HC;
-      const float v = to_float(from_float<T>(cemb[c])) * to_float(from_float<T>(rayg1[j]));
-      if (!skip_dw_add(v)) atomicAdd(a.dh[C1C_W] + i, v);
-    }
-    if (dw_ops) {  // c1c_w's operands: rayg1 and c_emb (zero past C), rounded as above
-      bf16* row = a.ray_ops + (size_t)ray * a.lay[L_RAY_W];
-      for (int j = tid; j < HC; j += THREADS) row[a.lay[L_RAY_G1] + j] = __float2bfloat16_rn(rayg1[j]);
-      for (int c = tid; c < OPS_BLOCK; c += THREADS)
-        row[a.lay[L_C_EMB] + c] = __float2bfloat16_rn(c < a.C ? cemb[c] : 0.f);
+    if (dw_ops) {  // c1c_w's operands: rayg1 and c_emb (zero past C), rounded to T
+      T* row = static_cast<T*>(a.ray_ops) + (size_t)ray * a.lay[L_RAY_W];
+      for (int j = tid; j < HC; j += THREADS) row[a.lay[L_RAY_G1] + j] = from_float<T>(rayg1[j]);
+      for (int c = tid; c < OPS_BLOCK; c += THREADS) row[a.lay[L_C_EMB] + c] = from_float<T>(c < a.C ? cemb[c] : 0.f);
     }
   }
-  if (dw_ops) {  // the ray's bias sums; c1_b's is rayg1
+  if (dw_ops) {  // the ray's bias sums (where bacc is not already the row); c1_b's is rayg1
     const int nb = a.lay[L_NB], c1b = cand ? a.lay[L_C1_B] : nb;
     float* row = a.bias_rows + (size_t)ray * nb;
-    for (int j = tid; j < nb; j += THREADS) row[j] = j >= c1b && j < c1b + HC ? rayg1[j - c1b] : bacc[j];
+    for (int j = tid; j < nb; j += THREADS)
+      if (j >= c1b && j < c1b + HC)
+        row[j] = rayg1[j - c1b];
+      else if (bacc != row)
+        row[j] = bacc[j];
   }
 }
 
-// nb: the DW_OPS mode's bias sums (0 otherwise).
+// nb: the DW_OPS mode's bias sums in shared memory (the bf16 instance; 0 otherwise).
 template <typename T, int F>
 long long smem_bytes(int S, int nb) {
   using L = Widths<T, F>;
@@ -729,7 +689,7 @@ long long smem_bytes(int S, int nb) {
 
 template <typename T, int F>
 int launch(const Bwd& a, cudaStream_t stream) {
-  const long long bytes = smem_bytes<T, F>(a.S, (a.flags & DW_OPS) ? a.lay[L_NB] : 0);
+  const long long bytes = smem_bytes<T, F>(a.S, std::is_same<T, bf16>::value && (a.flags & DW_OPS) ? a.lay[L_NB] : 0);
   if (bytes > SMEM_LIMIT) return BAD_SMEM;
   auto kernel = bwd_kernel<T, F>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -755,20 +715,16 @@ extern "C" {
 // row-major feat_w (W, F) and cfeat_w^T (F, HC); the feature dimension of the product
 // matrices and of feat_b, cfeat_b zero-padded from F to FP (render_common.cuh:
 // feat_pad). outs: d_rays_o, d_rays_d, d_ray_cond, d_c_emb, d_x0 (d_rays null in the x0 mode, d_x0
-// otherwise). dtw / dtb: trunk weight
-// (padded rows) and bias gradients, dh: head gradients in HEAD_KEYS order, feat_w,
-// feat_b, rgb1_w, cfeat_w and cfeat_b at FP; all f32 and zeroed by the caller, and
-// never touched (null allowed) when flags has NO_PARAM_GRADS. F: a built feature width.
-// DW_OPS (bf16, train mode): dtw, dtb and dh are not read; dwbuf holds
-// the operand buffer (R*S rows), the per-ray operands (R rows; null without the
-// candidate branch) and the bias rows (R x nb f32), and layout (N_LAY ints,
-// upnerf_torch/ops/render_train.py:WALK_LAYOUT) their columns: row widths and operand
-// columns multiples of 8. Both are null in the other modes.
+// otherwise). F: a built feature width. The train mode (no NO_PARAM_GRADS) needs
+// DW_OPS: dwbuf holds the operand buffer (R*S rows) and the per-ray operands (R rows;
+// null without the candidate branch), both of the compute dtype, and the bias rows (R x
+// nb f32), and layout (N_LAY ints, upnerf_torch/ops/render_train.py:WALK_LAYOUT) their
+// columns: row widths and operand columns multiples of 8. Both are null in the frozen
+// mode.
 int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, const void* const* res,
                             const void* const* trunk_t, int D, unsigned skip_mask, const void* const* w,
-                            void* const* outs, void* const* dtw, void* const* dtb, void* const* dh,
-                            void* const* dwbuf, const int* layout, int R, int S, int L, int in0, int C, int F,
-                            int flags, void* stream) {
+                            void* const* outs, void* const* dwbuf, const int* layout, int R, int S, int L, int in0,
+                            int C, int F, int flags, void* stream) {
   const bool rec = flags & RECOMPUTE, x0_in = flags & X0_IN;
   if (R <= 0 || S <= 0 || (x0_in ? in0 <= 0 : (L <= 0 || in0 != 3 + 6 * L)) || in0 > MAX_IN0 || D <= 0 ||
       D > MAX_D || C < 0 || C > MAX_C)
@@ -779,8 +735,9 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
   if (!res[3] || (rec && ((feat_read && !res[4]) || ((flags & OUT_FEAT) && (flags & USE_CAND) && !res[5]))))
     return BAD_MODE;
   Bwd a = {};
+  if (!(flags & NO_PARAM_GRADS) != !!(flags & DW_OPS)) return BAD_MODE;
   if (flags & DW_OPS) {
-    if (!(flags & BF16) || (flags & NO_PARAM_GRADS) || !dwbuf || !layout || !dwbuf[0] || !dwbuf[2] ||
+    if (!dwbuf || !layout || !dwbuf[0] || !dwbuf[2] ||
         ((flags & USE_CAND) && !dwbuf[1]) || (reinterpret_cast<uintptr_t>(dwbuf[0]) & 15) || layout[L_NB] <= 0)
       return BAD_MODE;
     for (int i = 0; i < N_LAY; ++i) {
@@ -789,8 +746,8 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
       if (col && layout[i] >= 0 && layout[i] % 8) return BAD_MODE;
       a.lay[i] = layout[i];
     }
-    a.ops = static_cast<bf16*>(dwbuf[0]);
-    a.ray_ops = static_cast<bf16*>(dwbuf[1]);
+    a.ops = dwbuf[0];
+    a.ray_ops = dwbuf[1];
     a.bias_rows = static_cast<float*>(dwbuf[2]);
   }
   a.o = static_cast<const float*>(ins[0]);
@@ -815,8 +772,6 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
   a.chain_w = (D + 1) * W + ((flags & USE_RGB) ? HH : 0) + ((flags & USE_CAND) ? 2 * HC : 0);
   for (int i = 0; i < D; ++i) {
     a.tT[i] = trunk_t[i];
-    a.dtw[i] = static_cast<float*>(dtw[i]);
-    a.dtb[i] = static_cast<float*>(dtb[i]);
   }
   a.xyzf_wT = w[0];
   a.feat_w = w[1];
@@ -838,7 +793,6 @@ int upnerf_render_train_bwd(const void* const* ins, const void* const* cots, con
   a.d_cond = static_cast<float*>(outs[2]);
   a.d_cemb = static_cast<float*>(outs[3]);
   a.d_x0 = static_cast<float*>(outs[4]);
-  for (int k = 0; k < N_DH; ++k) a.dh[k] = static_cast<float*>(dh[k]);
   a.D = D;
   a.skips = skip_mask & ~1u;
   a.R = R;
@@ -867,8 +821,8 @@ const char* upnerf_error_string(int code) {
     case BAD_MODE:
       return "unsupported mode (needs use_rgb or out_feat and the chain; the candidate branch needs C > 0; the"
              " recompute mode the stored feat / c_feat it reads; the x0 mode needs x0 and d_x0, the rays mode the"
-             " rays, pe_w, d_rays_o and d_rays_d; DW_OPS needs bf16, the train mode, its buffers (16-byte aligned)"
-             " and a layout of 16-byte columns)";
+             " rays, pe_w, d_rays_o and d_rays_d; the train mode needs DW_OPS, which needs its buffers (16-byte"
+             " aligned) and a layout of 16-byte columns)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -32,14 +32,10 @@ NVCC_FLAGS = (
 )
 KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd", "heads_fwd", "heads_bwd", "mxu_probe",
            "dw_gemm")
-# name: (source, nvcc flags). heads_bwd and render_train_bwd without their in-walk
-# weight-gradient atomic adds (walk_common.cuh:skip_dw_add): chip_smoke.py phases 16
-# and 9 time the adds' share. render_train_fwd with the mma.sync bfloat16 design that
+# name: (source, nvcc flags). render_train_fwd with the mma.sync bfloat16 design that
 # wg_kernel replaced: chip_smoke.py (phase 5b and --kernel_times) times both designs
 # in turns (render_train.py:FWD_DESIGNS).
-VARIANTS = {"heads_bwd_no_dw_adds": ("heads_bwd", ("-DUPNERF_SKIP_DW_ADDS",)),
-            "render_train_bwd_no_dw_adds": ("render_train_bwd", ("-DUPNERF_SKIP_DW_ADDS",)),
-            "render_train_fwd_mma_sync": ("render_train_fwd", ("-DUPNERF_FWD_MMA_SYNC",))}
+VARIANTS = {"render_train_fwd_mma_sync": ("render_train_fwd", ("-DUPNERF_FWD_MMA_SYNC",))}
 
 
 class BuildInfo(NamedTuple):
@@ -109,21 +105,22 @@ _ARGTYPES = {
     # schedule ((offset, bytes) pairs), its K-strips, stream
     "upnerf_render_train_fwd": ["pp", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "i", "i", "p", "ip",
                                 "i", "p"],
-    # ins, cots, res, trunk W^T, D, skip mask, weights, outs, dW trunk, db trunk, d heads, dW operand buffers, their
-    # layout (the last two null but with DW_OPS), R, S, L, in0, C, F, flags, stream
-    "upnerf_render_train_bwd": ["pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "pp", "ip", "i", "i",
-                                "i", "i", "i", "i", "i", "p"],
+    # ins, cots, res, trunk W^T, D, skip mask, weights, outs, dW operand buffers, their layout (both null but in the
+    # train mode, DW_OPS), R, S, L, in0, C, F, flags, stream
+    "upnerf_render_train_bwd": ["pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "ip", "i", "i", "i", "i", "i",
+                                "i", "i", "p"],
     # sources, their rows, their columns, jobs (11 ints each), job count, workspace, splits, out, weight floats,
-    # bias rows, their count, bias floats, accumulate, stream
-    "upnerf_dw_gemm": ["pp", "ip", "ip", "ip", "i", "p", "i", "p", "i", "p", "i", "i", "i", "p"],
+    # bias rows, their count, bias floats, accumulate, f32 sources, stream
+    "upnerf_dw_gemm": ["pp", "ip", "ip", "ip", "i", "p", "i", "p", "i", "p", "i", "i", "i", "i", "p"],
     # q, k, v, o, bf16 scratch q * scale, k, v (null in float32 mode), G, N, hd, scale, use_bf16, stream
     "upnerf_flash_attn_fwd": ["p", "p", "p", "p", "p", "p", "p", "i", "i", "i", "f", "i", "p"],
     # x0, c_emb, trunk W, trunk b, D, skip mask, heads (null: the trunk alone), outs, N, in0, C, F, use_bf16, stream
     "upnerf_heads_fwd": ["p", "p", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "p"],
-    # x0, c_emb, cots, trunk W, trunk b, trunk W^T, D, skip mask, weights (null: the trunk alone), biases, outs,
-    # dW trunk, db trunk, d heads, scratch, N, in0, C, F, use_bf16, grid, stream
-    "upnerf_heads_bwd": ["p", "p", "pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "pp", "pp", "pp", "p", "i", "i",
-                         "i", "i", "i", "i", "p"],
+    # x0, c_emb, cots, trunk W, trunk b, trunk W^T (the trunk's matrices null in bf16 mode), D, skip mask,
+    # weights, biases, packed weights (bf16), their schedule ((offset, bytes) pairs), its K-strips, outs, dW operand
+    # buffer, its layout, bias rows, N, in0, C, F, use_bf16, heads, stream
+    "upnerf_heads_bwd": ["p", "p", "pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "p", "ip", "i", "pp", "p", "ip", "p",
+                         "i", "i", "i", "i", "i", "i", "p"],
     # x, packed weights (L layers), bias, out, M, W, L, copies, chain, stream
     "upnerf_mxu_probe": ["p", "p", "p", "p", "i", "i", "i", "i", "i", "p"],
 }

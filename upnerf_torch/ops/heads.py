@@ -17,7 +17,11 @@ interface: the caller broadcasts it, autograd sums its gradient back per ray).
 - `fused_trunk_heads_fwd` / `fused_trunk_heads_bwd` are the wrappers: on CPU
   tensors they run the plain versions, on CUDA tensors they launch the
   hand-written kernels (`csrc/heads_fwd.cu`, `csrc/heads_bwd.cu`) or raise.
-  They count their launches in `launches` and `bwd_launches`.
+  They count their launches in `launches` and `bwd_launches`. The backward
+  runs per slab of rows: the kernel stores the operands of every weight
+  gradient into a buffer laid out by `heads_dw_layout`, and `dw_gemm`
+  (csrc/dw_gemm.cu) sums them in a fixed order, so two calls give the same
+  bits. `fused_trunk_heads_bwd_dw_plain` is that route in plain PyTorch.
 - `fused_trunk_heads` is the differentiable entry (the JAX custom VJP): an
   autograd.Function whose backward recomputes the chain, as the JAX one does.
 
@@ -28,14 +32,18 @@ c1_w unsplit (W + C, HC).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from upnerf_torch.ops import dw_gemm, render_train
 from upnerf_torch.ops.linear import canonical_precision, matmul
 from upnerf_torch.ops.mlp import _layout, _padded_trunk, fused_trunk_plain, trunk_chain, trunk_walk_plain
 from upnerf_torch.ops.render_train import (
-    X0_PAD, _ptrs, _raise_on, check_feat_width, feat_pad, pad_feat, softplus, unpad_feat, unpad_trunk_grad,
+    X0_PAD, DwLayout, _pad_x0_rows, _ptrs, _raise_on, check_feat_width, feat_pad, pack_wgmma, pad_feat, softplus,
+    unpad_feat, unpad_trunk_grad,
 )
 
 HEAD_KEYS = ("sigma_w", "sigma_b", "xyzf_w", "xyzf_b", "feat_w", "feat_b")
@@ -83,11 +91,13 @@ def fused_trunk_heads_plain(
     return _outputs(_heads_fwd(h, c_emb, heads, canonical_precision(precision)), c_emb is not None)
 
 
-def fused_trunk_heads_bwd_plain(x0, c_emb, trunk, heads, skips, precision, cots):
+def fused_trunk_heads_bwd_plain(x0, c_emb, trunk, heads, skips, precision, cots, ops=None):
     """Plain backward (pallas_heads.py:_bwd_kernel, recomputing the chain).
     cots: the outputs' cotangents in forward order (None means zero). Returns
     (dx0, dc_emb or None, [(dW, db)] per trunk layer, {head key: grad}). float64
-    inputs run in float64 with precision float32 (chip_smoke.py's witness)."""
+    inputs run in float64 with precision float32 (chip_smoke.py's witness).
+    ops: a dict that receives the weight gradients' operands, unrounded
+    (heads_dw_products' names)."""
     prec = canonical_precision(precision)
     use_cand = c_emb is not None
 
@@ -102,6 +112,8 @@ def fused_trunk_heads_bwd_plain(x0, c_emb, trunk, heads, skips, precision, cots)
     h = acts[-1]
     f = _heads_fwd(h, c_emb, heads, prec)
     g_ss, g_sf = cot(0, f["s_sigma"]), cot(1, f["s_feat"])
+    if ops is not None:
+        ops.update({"x0": x0, "xyzf": f["xyzf"], "g_feat": g_sf, **{f"act{i}": a for i, a in enumerate(acts)}})
     dp = {"feat_w": dot(f["xyzf"].t(), g_sf), "feat_b": g_sf.sum(0)}
     dxyzf = dot(g_sf, heads["feat_w"].t())
     dc_emb = None
@@ -119,6 +131,9 @@ def fused_trunk_heads_bwd_plain(x0, c_emb, trunk, heads, skips, precision, cots)
         dh1 = dot(dh2, heads["c2_w"].t()) * (f["h1"] > 0)
         dp["c1_w"] = dot(f["cin"].t(), dh1)
         dp["c1_b"] = dh1.sum(0)
+        if ops is not None:
+            ops.update({"c_emb": c_emb, "h1": f["h1"], "h2": f["h2"], "g_cfeat": g_cf, "g_cpre": dpre_cs, "g_h2": dh2,
+                        "g_h1": dh1})
         dcin = dot(dh1, heads["c1_w"].t())
         W = heads["xyzf_w"].shape[1]
         dxyzf = dxyzf + dcin[:, :W]
@@ -130,8 +145,328 @@ def fused_trunk_heads_bwd_plain(x0, c_emb, trunk, heads, skips, precision, cots)
     dp["sigma_w"] = dot(h.t(), dpre_ss)
     dp["sigma_b"] = dpre_ss.sum(0)
     g = dh + dot(dpre_ss, heads["sigma_w"].t())
-    dx0, dtrunk = trunk_walk_plain(x0, trunk, skips, prec, inputs, acts, g)
+    if ops is not None:
+        ops.update({"g_xyzf": dxyzf, "g_spre": dpre_ss})
+    dx0, dtrunk = trunk_walk_plain(x0, trunk, skips, prec, inputs, acts, g, ops)
     return dx0, dc_emb, dtrunk, dp
+
+
+# ---------------------------------------------------------------------------
+# The backward's weight gradients: per slab of rows, the kernel (or its plain
+# route) stores every dW = X^T G's operands into one buffer laid out by
+# heads_dw_layout and a row of bias sums a tile, then dw_gemm (csrc/dw_gemm.cu)
+# sums them in a fixed order, writing the first slab's result and adding the
+# others'.
+
+# Rows a bias row sums: a consumer warpgroup's tile of the Hopper kernel (bf16), the
+# SIMT kernel's tile (f32).
+BWD_TILE = {"bfloat16": 64, "float32": 32}
+SLAB_ALIGN = 128  # slab rows a multiple of the Hopper kernel's tile pair
+# The kernel's layout slots (csrc/heads_bwd.cu:Lay), in order: the buffer's row width
+# and the bias count, each operand's first column (the trunk's at i W from act0 /
+# g_act0, g_spre and g_cpre at columns 0 and 1 of g_narrow), each bias's offset in a
+# tile's row (the trunk's at i W from trunk0_b). -1: not in the mode.
+HEADS_LAYOUT = ("ops_w", "nb", "x0", "c_emb", "act0", "xyzf", "h1", "h2", "g_act0", "g_xyzf", "g_feat", "g_cfeat",
+                "g_h2", "g_h1", "g_narrow", "trunk0_b", "xyzf_b", "sigma_b", "feat_b", "cfeat_b", "csig_b", "c2_b",
+                "c1_b")
+NARROW = {"g_spre": 0, "g_cpre": 1}  # the 1-column cotangents share one column block
+
+
+def heads_dw_products(D: int, skips, heads: bool, cand: bool):
+    """The backward's weight gradients as (name, X operands, G operand), in
+    the plain backward's names (fused_trunk_heads_bwd_plain's ops): the
+    gradient is X^T G over the rows, a skip layer's X [x0, act] and c1's
+    [xyzf, c_emb] side by side. Trunk-only (heads False): the trunk's."""
+    out = []
+    for i in range(D):
+        xs = ("x0",) if i == 0 else (("x0", f"act{i - 1}") if i in skips else (f"act{i - 1}",))
+        out.append((f"trunk{i}_w", xs, f"g_act{i}"))
+    if heads:
+        h = f"act{D - 1}"
+        out += [("sigma_w", (h,), "g_spre"), ("xyzf_w", (h,), "g_xyzf"), ("feat_w", ("xyzf",), "g_feat")]
+        if cand:
+            out += [("c1_w", ("xyzf", "c_emb"), "g_h1"), ("c2_w", ("h1",), "g_h2"), ("csig_w", ("h2",), "g_cpre"),
+                    ("cfeat_w", ("h2",), "g_cfeat")]
+    return tuple(out)
+
+
+def heads_dw_biases(D: int, heads: bool, cand: bool):
+    """The bias gradients as (name, G operand): column sums of G over the rows, in f32 (unrounded)."""
+    out = [(f"trunk{i}_b", f"g_act{i}") for i in range(D)]
+    if heads:
+        out += [("xyzf_b", "g_xyzf"), ("sigma_b", "g_spre"), ("feat_b", "g_feat")]
+        if cand:
+            out += [("cfeat_b", "g_cfeat"), ("csig_b", "g_cpre"), ("c2_b", "g_h2"), ("c1_b", "g_h1")]
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def heads_dw_layout(D: int, skips: Tuple[int, ...], W: int, FP: int, HC: int, C: int, heads: bool = True) -> DwLayout:
+    """The backward's dW operand layout for a trunk of D layers of width W
+    (skips), the padded feature width FP, candidate width HC and embedding
+    width C (0: no candidate branch); heads False: the trunk-only mode (ops/
+    mlp.py), whose layout is the trunk's subset. One buffer (rows = the slab's
+    rows) holds every X operand (x0 at X0_PAD columns, c_emb zero-padded to a
+    block, each trunk activation, xyzf, h1, h2) and every rounded cotangent G
+    of heads_dw_products, each at whole 64-column blocks (dw_gemm.BLOCK);
+    g_spre and g_cpre share one block (NARROW). A tile's bias row holds the
+    f32 sums of each bias's cotangent (heads_dw_biases). The flat result
+    holds each weight gradient (trunk x0 rows at X0_PAD, feature columns at
+    FP, c1_w at W + C rows), then the biases. The jobs all read source 0."""
+    cand = heads and C > 0
+    blk = dw_gemm.BLOCK
+    up = lambda n: -(-n // blk) * blk  # noqa: E731
+    widths = {"x0": X0_PAD, "c_emb": C, "xyzf": W, "h1": HC, "h2": HC, "g_xyzf": W, "g_feat": FP, "g_cfeat": FP,
+              "g_h2": HC, "g_h1": HC, "g_spre": 1, "g_cpre": 1,
+              **{f"act{i}": W for i in range(D)}, **{f"g_act{i}": W for i in range(D)}}
+    names = ["x0"] + (["c_emb"] if cand else []) + [f"act{i}" for i in range(D)] + (["xyzf"] if heads else [])
+    names += (["h1", "h2"] if cand else []) + [f"g_act{i}" for i in range(D)] + (["g_xyzf", "g_feat"] if heads else [])
+    names += ["g_cfeat", "g_h2", "g_h1"] if cand else []
+    ops, col = {}, 0
+    for name in names:
+        ops[name] = col
+        col += up(widths[name])
+    if heads:
+        ops.update({k: col + c for k, c in NARROW.items() if k == "g_spre" or cand})
+        col += blk
+    bias, nb = {}, 0
+    for name, g in heads_dw_biases(D, heads, cand):
+        bias[name] = (nb, widths[g])
+        nb += widths[g]
+    shapes = {"sigma_w": (W, 1), "xyzf_w": (W, W), "feat_w": (W, FP), "c1_w": (W + C, HC), "c2_w": (HC, HC),
+              "csig_w": (HC, 1), "cfeat_w": (HC, FP)}
+    outs, n_dw, jobs = {}, 0, []
+    for name, xs, g in heads_dw_products(D, skips, heads, cand):
+        shape = (sum(widths[x] for x in xs), W) if name.startswith("trunk") else shapes[name]
+        outs[name] = (n_dw, shape)
+        if g in NARROW:
+            g_col, g_cols, g0 = ops[g] - NARROW[g], blk, NARROW[g]
+        else:
+            g_col, g_cols, g0 = ops[g], up(widths[g]), 0
+        row0 = 0
+        for x in xs:
+            jobs.append(dw_gemm.DwJob(0, ops[x], up(widths[x]), 0, g_col, g_cols, g0, widths[g], widths[x],
+                                      n_dw + row0 * shape[1], shape[1]))
+            row0 += widths[x]
+        n_dw += shape[0] * shape[1]
+    return DwLayout(ops, col, {}, 0, bias, nb, outs, n_dw, tuple(jobs))
+
+
+def heads_layout_slots(lay: DwLayout) -> list:
+    """The kernel's layout slots (HEADS_LAYOUT) of lay."""
+    cols = {"ops_w": lay.ops_w, "nb": lay.nb, **lay.ops, **{k: off for k, (off, _) in lay.bias.items()},
+            "g_narrow": lay.ops["g_spre"] if "g_spre" in lay.ops else -1}
+    return [cols.get(k, -1) for k in HEADS_LAYOUT]
+
+
+def heads_slab_rows(lay: DwLayout, N: int, esize: int) -> int:
+    """Rows a slab of the backward: as many as keep its operand buffer (esize
+    bytes an element) and bias rows within render_train.DW_BUFFER_BYTES (the
+    render backward's budget), a multiple of SLAB_ALIGN, at most N rounded up
+    to it."""
+    per_row = lay.ops_w * esize + lay.nb * 4 / min(BWD_TILE.values())
+    rows = max(SLAB_ALIGN, int(render_train.DW_BUFFER_BYTES // per_row) // SLAB_ALIGN * SLAB_ALIGN)
+    return min(rows, -(-N // SLAB_ALIGN) * SLAB_ALIGN)
+
+
+def heads_operands_plain(ops: Dict[str, torch.Tensor], lay: DwLayout, n: int, tile: int, dtype, biases):
+    """The kernel's stores for n rows, in plain PyTorch: from the plain
+    backward's operands, the operand buffer (n, lay.ops_w) rounded to dtype
+    (zero where no operand lies), and the f32 bias rows of each tile of tile
+    rows (ceil(n / tile), lay.nb); biases: heads_dw_biases."""
+    buf = torch.zeros((n, lay.ops_w), dtype=dtype, device=ops["x0"].device)
+    for name, col in lay.ops.items():
+        v = ops[name].reshape(n, -1)
+        buf[:, col : col + v.shape[1]] = v.to(dtype)
+    nt = -(-n // tile)
+    rows = torch.zeros((nt, lay.nb), dtype=torch.float32, device=buf.device)
+    for name, g in biases:
+        off = lay.bias[name][0]
+        v = ops[g].reshape(n, -1).float()
+        v = torch.cat([v, v.new_zeros(nt * tile - n, v.shape[1])])
+        rows[:, off : off + v.shape[1]] = v.reshape(nt, tile, -1).sum(1)
+    return buf, rows
+
+
+def heads_dw_result(flat: torch.Tensor, lay: DwLayout, D: int, skips, in0: int, F: int, heads: Dict):
+    """The flat result -> ([(dW, db)] per trunk layer, {head key: grad}) at the
+    layers' and the heads' own shapes (heads: the head tensors, for their
+    shapes; feature columns cut from FP to F)."""
+    grads = {k: flat[off : off + r * c].view(r, c) for k, (off, (r, c)) in lay.outs.items()}
+    grads.update({k: flat[lay.n_dw + off : lay.n_dw + off + w] for k, (off, w) in lay.bias.items()})
+    dtrunk = [(unpad_trunk_grad(grads[f"trunk{i}_w"], i, skips, in0), grads[f"trunk{i}_b"]) for i in range(D)]
+    dp = unpad_feat({k: grads[k] for k in heads}, F)
+    return dtrunk, {k: v.reshape(heads[k].shape) for k, v in dp.items()}
+
+
+def _bwd_dw_plain(walk, x0, lay: DwLayout, biases, n_cut, slab_rows: Optional[int], precision: str):
+    """Per slab of rows (slab_rows, heads_slab_rows by default): walk(r0, r1,
+    ops) runs the plain backward on the rows [r0, r1) and fills ops;
+    heads_operands_plain stores them, dw_gemm_plain sums them into the flat
+    result (written by the first slab, added to by the others). Returns (the
+    walk's per-row outputs concatenated, the flat result)."""
+    prec = canonical_precision(precision)
+    dtype = torch.bfloat16 if prec == "bfloat16" else torch.float32
+    N = x0.shape[0]
+    slab = slab_rows or heads_slab_rows(lay, N, dtype.itemsize)
+    flat = torch.empty((lay.n_dw + lay.nb,), dtype=torch.float32, device=x0.device)
+    outs = []
+    for r0 in range(0, N, slab):
+        r1 = min(N, r0 + slab)
+        ops = {}
+        outs.append(walk(r0, r1, ops))
+        buf, rows = heads_operands_plain(ops, lay, r1 - r0, BWD_TILE[prec], dtype, biases)
+        dw_gemm.dw_gemm_plain([buf], lay.jobs, flat, lay.n_dw, rows, r0 > 0)
+    cat = [None if parts[0] is None else torch.cat(parts) for parts in list(zip(*outs))[:n_cut]]
+    return cat, flat
+
+
+def fused_trunk_heads_bwd_dw_plain(x0, c_emb, trunk, heads, skips, precision, cots, slab_rows: Optional[int] = None):
+    """The backward as the CUDA route splits it, in plain PyTorch: per slab
+    of rows, the plain backward (fused_trunk_heads_bwd_plain) with its
+    operands stored into the buffers of heads_dw_layout (rounded to the
+    compute dtype; a bias row a tile of BWD_TILE rows) and dw_gemm_plain on
+    them. Returns as fused_trunk_heads_bwd_plain."""
+    D, W, F = len(trunk), trunk[0][1].shape[0], heads["feat_b"].shape[0]
+    C = 0 if c_emb is None else c_emb.shape[1]
+    HC = heads["c2_w"].shape[1] if C else 0
+    bf16 = canonical_precision(precision) == "bfloat16"
+    lay = heads_dw_layout(D, tuple(skips), W, feat_pad(F, bf16), HC, C)
+    cut = lambda t, r0, r1: None if t is None else t[r0:r1]  # noqa: E731
+
+    def walk(r0, r1, ops):
+        cs = [cut(c, r0, r1) for c in cots]
+        return fused_trunk_heads_bwd_plain(x0[r0:r1], cut(c_emb, r0, r1), trunk, heads, skips, precision, cs, ops)
+
+    names = HEAD_KEYS + (CAND_KEYS if C else ())
+    (dx0, dc_emb), flat = _bwd_dw_plain(walk, x0, lay, heads_dw_biases(D, True, C > 0), 2, slab_rows, precision)
+    return (dx0, dc_emb, *heads_dw_result(flat, lay, D, skips, x0.shape[1], F, {k: heads[k] for k in names}))
+
+
+# The Hopper backward's weight stream (csrc/heads_bwd.cu:wg_bwd_kernel): one tile's
+# K-strips in the order its consumers read them, packed by pack_wgmma.
+WG_NARROW = 8  # the sigma heads' columns, zero-padded: wgmma's smallest N
+WG_HEADS_BYTES = 8192
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_wgmma_plan(D: int, skips: Tuple[int, ...], in0: int, W: int, FP: int, HC: int, C: int, F: int):
+    """The gather that packs the backward's weights (bf16) and its schedule,
+    from the shapes alone: (index, sched). index (int64, CPU) maps each
+    packed element to its source in the flat concatenation [0, the trunk's
+    weights, then (C >= 0: the heads) sigma_w, xyzf_w, feat_w, and with C > 0
+    c1_w, c2_w, csig_w, cfeat_w] (0: a padded zero). C = -1: the trunk-only
+    mode. sched: (byte offset, bytes) of each K-strip, then of the narrow
+    heads' 8 KB (with the heads)."""
+    heads, cand = C >= 0, C > 0
+    src, at = {}, 1
+    sizes = [(f"t{i}", (in0 if i == 0 else (in0 + W if i in skips else W), W)) for i in range(D)]
+    if heads:
+        sizes += [("sigma_w", (W, 1)), ("xyzf_w", (W, W)), ("feat_w", (W, F))]
+    if cand:
+        sizes += [("c1_w", (W + C, HC)), ("c2_w", (HC, HC)), ("csig_w", (HC, 1)), ("cfeat_w", (HC, F))]
+    for name, (k, n) in sizes:
+        src[name] = torch.arange(at, at + k * n, dtype=torch.int64).reshape(k, n)
+        at += k * n
+    zeros = lambda k, n: torch.zeros((k, n), dtype=torch.int64)  # noqa: E731
+    cols = lambda t, n: torch.cat([t, zeros(t.shape[0], n - t.shape[1])], 1)  # noqa: E731
+    parts, pieces, size = [], {}, 0
+
+    def add(key, idx, nb):
+        nonlocal size
+        parts.append(pack_wgmma(idx, nb))
+        pieces[key] = (size, idx.shape[0], idx.shape[1] // nb, nb)
+        size += parts[-1].numel()
+
+    trunk = [_pad_x0_rows(src[f"t{i}"], in0) if i == 0 or i in skips else src[f"t{i}"] for i in range(D)]
+    for i in range(D):
+        add(("fwd", i), trunk[i], 128)
+    if heads:
+        add("xyzf", src["xyzf_w"], 128)
+        feat_t = cols(src["feat_w"], FP).t()
+    if cand:
+        c1 = src["c1_w"]
+        cpad = torch.cat([c1[W:], zeros(X0_PAD - C, HC)])
+        add("c1", torch.cat([cpad, c1[:W]]), 128)
+        add("c2", src["c2_w"], 128)
+        add("cfeat_t", cols(src["cfeat_w"], FP).t(), 128)
+        add("c2_t", src["c2_w"].t(), 128)
+        add("c1c_t", cpad.t(), 64)
+        add("c1x_t", c1[:W].t(), 128)
+    if heads:
+        add("feat_t", feat_t, 128)
+        add("xyzf_t", src["xyzf_w"].t(), 128)
+    for i in range(D):
+        wt = trunk[i].t()
+        if i == 0 or i in skips:
+            add(("x0_t", i), wt[:, :X0_PAD], 64)
+        if i > 0:
+            add(("h_t", i), wt[:, X0_PAD:] if i in skips else wt, 128)
+
+    sched = []
+
+    def strips(key, blocks=None):
+        start, K, n_blocks, nb = pieces[key]
+        for b in range(n_blocks) if blocks is None else blocks:
+            for ks in range(K // 64):
+                sched.append((2 * (start + (b * (K // 64) + ks) * 64 * nb), 128 * nb))
+
+    for i in range(D):  # the rebuild: each layer half by half
+        strips(("fwd", i))
+    if heads:
+        strips("xyzf")
+    if cand:
+        strips("c1")
+        strips("c2")
+        strips("cfeat_t")  # the walk: the candidate branch
+        strips("c2_t")
+        strips("c1c_t")
+    if heads:
+        for b in range(W // 128):  # g_xyzf's halves: feat, then c1's xyzf part
+            strips("feat_t", [b])
+            if cand:
+                strips("c1x_t", [b])
+        strips("xyzf_t")
+    for i in reversed(range(D)):  # the trunk, last layer first: x0's columns, then the halves
+        if i == 0 or i in skips:
+            strips(("x0_t", i))
+        if i > 0:
+            strips(("h_t", i))
+    if heads:
+        narrow = [pack_wgmma(cols(src["sigma_w"], WG_NARROW), WG_NARROW)]
+        narrow.append(pack_wgmma(cols(src["csig_w"], WG_NARROW) if cand else zeros(HC, WG_NARROW), WG_NARROW))
+        filled = sum(t.numel() for t in narrow)
+        narrow.append(torch.zeros((WG_HEADS_BYTES // 2 - filled,), dtype=torch.int64))
+        sched.append((2 * size, WG_HEADS_BYTES))
+        parts += narrow
+    return torch.cat(parts), tuple(sched)
+
+
+_BWD_INDEX: Dict[tuple, torch.Tensor] = {}  # _bwd_wgmma_plan's index on each device
+
+
+def _bwd_wgmma_weights(trunk, heads: Optional[Dict[str, torch.Tensor]], skips, in0: int, C: int):
+    """The bf16 weights of the Hopper backward as one flat tensor, and the
+    schedule its producer streams for every tile (_bwd_wgmma_plan); heads
+    None: the trunk-only mode. A call runs one concatenation, one gather and
+    one rounding on the device."""
+    W = trunk[0][1].shape[0]
+    mats = [w for w, _ in trunk]
+    F, FP, HC = 0, 64, 0
+    if heads is not None:
+        F = heads["feat_b"].shape[0]
+        FP = feat_pad(F, True)
+        mats += [heads[k] for k in ("sigma_w", "xyzf_w", "feat_w")]
+        if C:
+            HC = heads["c2_w"].shape[1]
+            mats += [heads[k] for k in ("c1_w", "c2_w", "csig_w", "cfeat_w")]
+    key = (len(trunk), tuple(skips), in0, W, FP, HC, C if heads is not None else -1, F)
+    index, sched = _bwd_wgmma_plan(*key)
+    dev = trunk[0][0].device
+    if (key, dev) not in _BWD_INDEX:
+        _BWD_INDEX[(key, dev)] = index.to(dev)
+    flat = torch.cat([mats[0].new_zeros(1)] + [m.reshape(-1) for m in mats])
+    return flat[_BWD_INDEX[(key, dev)]].to(torch.bfloat16), list(sched)
 
 
 # ---------------------------------------------------------------------------
@@ -222,82 +557,157 @@ def fused_trunk_heads_fwd(x0, c_emb, trunk, heads, skips, precision: str = "floa
     return tuple(outs)
 
 
+class BwdCall:
+    """One backward call of csrc/heads_bwd.cu on checked arguments: kernel 5's
+    (the trunk + heads), or with heads None the trunk-only mode (kernel 6's,
+    cots [g (N, W)]); prepared (weights, buffers) but not launched. `run()`
+    launches it: per slab of rows (heads_slab_rows), the kernel stores the
+    slab's dW operands and bias rows (heads_dw_layout), then dw_gemm sums
+    them into the flat result, the first slab writing it and the others
+    adding to it. `walk(r0, r1)` and `dw(r0, r1)` launch one slab's kernels
+    on their own, for timing. bfloat16 mode streams the weights packed once a
+    call (_bwd_wgmma_weights); float32 mode reads them row-major."""
+
+    def __init__(self, x0, c_emb, trunk, heads, skips, precision, cots):
+        from upnerf_torch.ops import _build
+
+        N, in0 = x0.shape
+        D, W, dev = len(trunk), KERNEL_WIDTHS["W"], x0.device
+        C = 0 if c_emb is None else c_emb.shape[1]
+        HC = KERNEL_WIDTHS["HC"]
+        F = 0 if heads is None else heads["feat_b"].shape[0]
+        self.prec = canonical_precision(precision)
+        bf16 = self.prec == "bfloat16"
+        cdt = torch.bfloat16 if bf16 else torch.float32
+        FP = feat_pad(F, bf16) if heads is not None else 64
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.lay = heads_dw_layout(D, tuple(skips), W, FP, HC if C else 0, C, heads is not None)
+        ops = self.lay.ops
+        assert all(ops[f"act{i}"] == ops["act0"] + i * W and ops[f"g_act{i}"] == ops["g_act0"] + i * W
+                   for i in range(D)), "the kernel reads the trunk's operands at i W from the first"
+        self.slab = heads_slab_rows(self.lay, N, cdt.itemsize)
+        self.tile = BWD_TILE[self.prec]
+        padded = _padded_trunk(trunk, skips, in0)
+        tb = [b.contiguous() for _, b in trunk]
+        if bf16:
+            self.wpack, sched = _bwd_wgmma_weights(trunk, heads, skips, in0, C)
+            self.sched = (ctypes.c_int * (2 * len(sched)))(*[v for pair in sched for v in pair])
+            self.n_sched = len(sched) - (heads is not None)
+            tw = tT = None
+        else:
+            self.wpack, self.sched, self.n_sched = None, None, 0
+            tw = [w.contiguous() for w in padded]
+            tT = [w.t().contiguous() for w in padded]
+        w, b = [], []
+        if heads is not None:
+            kh = pad_feat(heads, FP)
+            rnd = (lambda t: t.reshape(-1).bfloat16().float().contiguous()) if bf16 else (  # noqa: E731
+                lambda t: t.reshape(-1).contiguous())
+            w = [rnd(heads["sigma_w"]), rnd(heads["csig_w"]) if C else None]
+            if not bf16:
+                w += [heads["xyzf_w"].contiguous(), heads["xyzf_w"].t().contiguous(), kh["feat_w"].t().contiguous()]
+                if C:
+                    c1 = heads["c1_w"]
+                    w += [_c1_padded(c1, W), c1[:W].t().contiguous(), c1[W:].contiguous(), heads["c2_w"].contiguous(),
+                          heads["c2_w"].t().contiguous(), kh["cfeat_w"].t().contiguous()]
+                else:
+                    w += [None] * 6
+            b = [heads["xyzf_b"].contiguous(), heads["sigma_b"].contiguous()] + (
+                [heads[k].contiguous() for k in ("c1_b", "c2_b", "csig_b")] if C else [None] * 3)
+        self.dx0 = torch.empty((N, in0), **f32)
+        self.dcemb = torch.empty((N, C), **f32) if C else None
+        rows = -(-self.slab // SLAB_ALIGN) * SLAB_ALIGN
+        self.ops = torch.empty((rows, self.lay.ops_w), dtype=cdt, device=dev)
+        self.bias_rows = torch.empty((rows // self.tile, self.lay.nb), **f32)
+        self.flat = torch.empty((self.lay.n_dw + self.lay.nb,), **f32)
+        self.lib = _build.library("heads_bwd")
+        self.x0 = x0.contiguous()
+        self.c_emb = c_emb.contiguous() if C else None
+        self.cots = [None if g is None else g.contiguous() for g in cots]
+        self.layout = (ctypes.c_int * len(HEADS_LAYOUT))(*heads_layout_slots(self.lay))
+        self._w = (None if tw is None else _ptrs(tw), _ptrs(tb), None if tT is None else _ptrs(tT), _ptrs(w), _ptrs(b))
+        self._keep = (tw, tb, tT, w, b)  # what the pointers point at
+        self.skip_mask = sum(1 << i for i in skips if 0 < i < D)
+        self.heads = heads
+        self.N, self.in0, self.C, self.F, self.D, self.skips, self.dev = N, in0, C, F, D, skips, dev
+        self.name = "heads_bwd" if heads is not None else "heads_bwd (trunk only)"
+
+    def walk(self, r0: int, r1: int) -> None:
+        """The kernel over rows [r0, r1): one launch (two in bfloat16 mode: its
+        x0 / c_emb rows first)."""
+        n = r1 - r0
+        cut = lambda t, per=1: None if t is None else t[r0 * per : r1 * per]  # noqa: E731
+        cots = [cut(g) for g in self.cots]
+        tw, tb, tT, w, b = self._w
+        stream = torch.cuda.current_stream(self.dev).cuda_stream
+        ce = cut(self.c_emb)
+        with torch.cuda.device(self.dev):
+            code = self.lib.upnerf_heads_bwd(
+                cut(self.x0).data_ptr(), None if ce is None else ce.data_ptr(), _ptrs(cots), tw, tb, tT, self.D,
+                self.skip_mask, w, b, None if self.wpack is None else self.wpack.data_ptr(), self.sched,
+                self.n_sched, _ptrs([cut(self.dx0), cut(self.dcemb)]), self.ops.data_ptr(), self.layout,
+                self.bias_rows.data_ptr(), n, self.in0, self.C, self.F, int(self.prec == "bfloat16"),
+                int(self.heads is not None), stream,
+            )
+        _raise_on(code, self.name, self.lib)
+
+    def dw(self, r0: int, r1: int) -> None:
+        """dw_gemm on the operands the kernel over rows [r0, r1) stored: the
+        slab's weight and bias gradients written into the flat result (r0 =
+        0) or added to it."""
+        n = r1 - r0
+        tiles = -(-n // self.tile)  # the bias rows the kernel wrote: in bfloat16 mode a block's two tiles
+        tiles += tiles % 2 if self.prec == "bfloat16" else 0
+        dw_gemm.dw_gemm([self.ops[:n]], self.lay.jobs, self.flat, self.lay.n_dw, self.bias_rows[:tiles], r0 > 0)
+
+    def run(self):
+        """The whole call: (dx0, dc_emb or None, [(dW, db)] per trunk layer,
+        {head key: grad}) ({} in the trunk-only mode)."""
+        for r0 in range(0, self.N, self.slab):
+            r1 = min(self.N, r0 + self.slab)
+            self.walk(r0, r1)
+            self.dw(r0, r1)
+        names = () if self.heads is None else HEAD_KEYS + (CAND_KEYS if self.C else ())
+        hd = {} if self.heads is None else {k: self.heads[k] for k in names}
+        return (self.dx0, self.dcemb, *heads_dw_result(self.flat, self.lay, self.D, self.skips, self.in0, self.F, hd))
+
+
+def _check_cots(cots, shapes, dev):
+    out = []
+    for i, shape in enumerate(shapes):
+        g = cots[i] if i < len(cots) else None
+        if g is not None and (g.device != dev or g.dtype != torch.float32 or tuple(g.shape) != shape):
+            raise ValueError(f"cotangent {i}: {g.device} {g.dtype} {tuple(g.shape)}, expected {dev} torch.float32"
+                             f" {shape}")
+        out.append(g)
+    return out
+
+
+def fused_trunk_heads_bwd_launch(x0, c_emb, trunk, heads, skips, precision, cots) -> BwdCall:
+    """fused_trunk_heads_bwd's CUDA call, checked and prepared but not
+    launched: to time its pieces (chip_smoke.py phase 16). Counts no launch."""
+    _check_args(x0, c_emb, trunk, heads, skips)
+    N, F = x0.shape[0], heads["feat_b"].shape[0]
+    cots = _check_cots(cots, [(N, 1), (N, F), (N, 1), (N, F)], x0.device)
+    names = HEAD_KEYS + (CAND_KEYS if c_emb is not None else ())
+    return BwdCall(x0, c_emb, trunk, {k: heads[k] for k in names}, skips, precision, cots)
+
+
 def fused_trunk_heads_bwd(x0, c_emb, trunk, heads, skips, precision, cots):
-    """Backward: `fused_trunk_heads_bwd_plain` for CPU tensors, the CUDA kernel
-    for CUDA tensors, with the same arguments and results. The kernel
-    recomputes the chain per tile and adds the weight gradients over all rows
-    with f32 atomic adds, so their last bits change from run to run."""
+    """Backward: `fused_trunk_heads_bwd_plain` for CPU tensors, the CUDA
+    kernels for CUDA tensors, with the same arguments and results. Per slab
+    of rows the kernel rebuilds the chain and walks it, storing the weight
+    gradients' operands (in bfloat16 mode the Hopper design on wgmma), and
+    the dW kernel sums them in a fixed order: two calls on the same inputs
+    give the same bits."""
     if x0.device.type == "cpu":
         return fused_trunk_heads_bwd_plain(x0, c_emb, trunk, heads, skips, precision, cots)
     if x0.device.type != "cuda":
         raise ValueError(f"no heads kernel for device {x0.device}")
     global bwd_launches
-    from upnerf_torch.ops import _build
-
-    _check_args(x0, c_emb, trunk, heads, skips)
-    N, in0 = x0.shape
-    C = 0 if c_emb is None else c_emb.shape[1]
-    W, HC, F = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["HC"], heads["feat_b"].shape[0]
-    D = len(trunk)
-    dev = x0.device
-    bf16 = canonical_precision(precision) == "bfloat16"
-    cdt = torch.bfloat16 if bf16 else torch.float32
-    FP = feat_pad(F, bf16)
-    kh = pad_feat(heads, FP)  # the feature dimension zero-padded to the kernels' FP
-    f32 = dict(dtype=torch.float32, device=dev)
-    cot_shapes = [(N, 1), (N, F), (N, 1), (N, F)]
-    cot_list = []
-    for i, shape in enumerate(cot_shapes):
-        g = cots[i] if i < len(cots) else None
-        if g is not None:
-            if g.device != dev or g.dtype != torch.float32 or tuple(g.shape) != shape:
-                raise ValueError(f"cotangent {i}: {g.device} {g.dtype} {tuple(g.shape)}, expected f32 {shape}")
-            g = g.contiguous()
-        cot_list.append(g)
-    padded = _padded_trunk(trunk, skips, in0)
-    tw = [_layout(w, bf16) for w in padded]
-    tT = [_layout(w.t(), bf16) for w in padded]
-    tb = [b.contiguous() for _, b in trunk]
-    if C:
-        c1 = heads["c1_w"]
-        cw = [_layout(_c1_padded(c1, W), bf16), _layout(c1[:W].t(), bf16), c1[W:].to(cdt).contiguous(),
-              _layout(heads["c2_w"], bf16), _layout(heads["c2_w"].t(), bf16), _layout(kh["cfeat_w"].t(), bf16)]
-        csig = heads["csig_w"].reshape(-1).to(cdt).contiguous()
-        cb = [heads["c1_b"].contiguous(), heads["c2_b"].contiguous(), heads["csig_b"].contiguous()]
-    else:
-        cw, csig, cb = [None] * 6, None, [None] * 3
-    w = [_layout(heads["xyzf_w"], bf16), _layout(heads["xyzf_w"].t(), bf16), _layout(kh["feat_w"].t(), bf16),
-         *cw, heads["sigma_w"].reshape(-1).to(cdt).contiguous(), csig]
-    b = [heads["xyzf_b"].contiguous(), heads["sigma_b"].contiguous(), *cb]
-    dx0 = torch.empty((N, in0), **f32)
-    dcemb = torch.empty((N, C), **f32) if C else None
-    dtw = [torch.zeros(t.shape, **f32) for t in padded]
-    dtb = [torch.zeros((W,), **f32) for _ in range(D)]
-    shapes = {"sigma_w": (W,), "sigma_b": (1,), "xyzf_w": (W, W), "xyzf_b": (W,), "feat_w": (W, FP), "feat_b": (FP,),
-              "c1_w": (W + 64, HC), "c1_b": (HC,), "c2_w": (HC, HC), "c2_b": (HC,), "csig_w": (HC,), "csig_b": (1,),
-              "cfeat_w": (HC, FP), "cfeat_b": (FP,)}
-    keys = HEAD_KEYS + (CAND_KEYS if C else ())
-    dh = {k: torch.zeros(shapes[k], **f32) for k in keys}
-    chain_w = (D + 1) * W + 2 * HC
-    grid = min((N + 31) // 32, torch.cuda.get_device_properties(dev).multi_processor_count)
-    scratch = torch.empty((grid * 32 * chain_w,), dtype=cdt, device=dev)
-    lib = _build.library("heads_bwd")
-    skip_mask = sum(1 << i for i in skips if 0 < i < D)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    x0 = x0.contiguous()
-    ce = c_emb.contiguous() if C else None
-    with torch.cuda.device(dev):
-        code = lib.upnerf_heads_bwd(
-            x0.data_ptr(), ce.data_ptr() if C else None, _ptrs(cot_list), _ptrs(tw), _ptrs(tb), _ptrs(tT), D,
-            skip_mask, _ptrs(w), _ptrs(b), _ptrs([dx0, dcemb]), _ptrs(dtw), _ptrs(dtb),
-            _ptrs([dh.get(k) for k in HEAD_KEYS + CAND_KEYS]), scratch.data_ptr(), N, in0, C, F, int(bf16), grid,
-            stream,
-        )
-    _raise_on(code, "heads_bwd", lib)
+    out = fused_trunk_heads_bwd_launch(x0, c_emb, trunk, heads, skips, precision, cots).run()
     bwd_launches += 1
-    dtrunk = [(unpad_trunk_grad(dtw[i], i, skips, in0), dtb[i]) for i in range(D)]
-    dp = {k: v.reshape(heads[k].shape) if k != "c1_w" else v[: W + C] for k, v in unpad_feat(dh, F).items()}
-    return dx0, dcemb, dtrunk, dp
+    return out
 
 
 class FusedTrunkHeads(torch.autograd.Function):

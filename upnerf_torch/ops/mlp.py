@@ -18,8 +18,9 @@ trains through its backward.
 - `fused_trunk_fwd` / `fused_trunk_bwd` are the wrappers: on CPU tensors they
   run the plain versions; on CUDA tensors they launch the trunk-only modes of
   the trunk + heads kernels (`csrc/heads_fwd.cu`, `csrc/heads_bwd.cu`, no head
-  pointers) or raise. They count their launches in `launches` and
-  `bwd_launches`.
+  pointers; the backward with the dW kernel, per slab of rows) or raise. They
+  count their launches in `launches` and `bwd_launches`.
+  `fused_trunk_bwd_dw_plain` is the backward's CUDA route in plain PyTorch.
 - `fused_trunk` is the differentiable entry (the JAX custom VJP): with grad
   mode on and a trainable input, an autograd.Function whose backward
   recomputes the chain, as the JAX one does; otherwise the forward alone.
@@ -37,11 +38,10 @@ from typing import List, Sequence, Tuple
 import torch
 
 from upnerf_torch.ops.linear import canonical_precision, matmul
-from upnerf_torch.ops.render_train import X0_PAD, _pack_fragments, _pad_x0_rows, _ptrs, _raise_on, unpad_trunk_grad
+from upnerf_torch.ops.render_train import X0_PAD, _pack_fragments, _pad_x0_rows, _ptrs, _raise_on
 
 KERNEL_W = 256  # the trunk width the CUDA kernels take
 MAX_D = 16
-BT = 32  # rows per tile of the backward kernel (csrc/walk_common.cuh)
 
 # Kernel launches made in this process by fused_trunk_fwd / fused_trunk_bwd.
 launches = 0
@@ -77,17 +77,20 @@ def fused_trunk_plain(
     return trunk_chain(x, trunk, skips, precision)[1][-1]
 
 
-def trunk_walk_plain(x0, trunk, skips, precision: str, inputs, acts, g):
+def trunk_walk_plain(x0, trunk, skips, precision: str, inputs, acts, g, ops=None):
     """The trunk walked back, last layer first, from g (the cotangent of the
     last activation) through the chain (inputs, acts) of trunk_chain: the
     ReLU masks, each layer's (dW, db), the input cotangent split at the skip
-    layers. Returns (dx0, [(dW, db)] per layer). Products as trunk_chain's."""
+    layers. Returns (dx0, [(dW, db)] per layer). Products as trunk_chain's.
+    ops: a dict that receives each layer's masked cotangent as g_act{k}."""
     prec = canonical_precision(precision)
     in0 = x0.shape[1]
     dx0 = torch.zeros_like(x0)
     dtrunk = [None] * len(trunk)
     for k in reversed(range(len(trunk))):
         g = g * (acts[k] > 0)
+        if ops is not None:
+            ops[f"g_act{k}"] = g
         dtrunk[k] = (matmul(inputs[k].t(), g, prec), g.sum(0))
         g_in = matmul(g, trunk[k][0].t(), prec)
         if k in skips and k > 0:
@@ -175,46 +178,45 @@ def fused_trunk_fwd(
 def fused_trunk_bwd(x, trunk, skips, precision: str, g):
     """Backward: `fused_trunk_bwd_plain` for CPU tensors, the trunk-only mode
     of the trunk + heads backward kernel for CUDA tensors, with the same
-    arguments and results. The kernel recomputes the chain per 32-row tile
-    and adds the weight gradients over all rows with f32 atomic adds, so their
-    last bits change from run to run; like the JAX kernel it computes them
-    always."""
+    arguments and results. Per slab of rows the kernel rebuilds the chain and
+    walks it, storing every layer's weight-gradient operands (in bfloat16
+    mode the Hopper design on wgmma), and the dW kernel sums them in a fixed
+    order (ops/heads.py:BwdCall): two calls give the same bits. Like the JAX
+    kernel it computes the weight gradients always."""
     if x.device.type == "cpu":
         return fused_trunk_bwd_plain(x, trunk, skips, precision, g)
     if x.device.type != "cuda":
         raise ValueError(f"no trunk kernel for device {x.device}")
     global bwd_launches
-    from upnerf_torch.ops import _build
+    from upnerf_torch.ops import heads
 
     _check_args(x, trunk, skips)
-    N, in0 = x.shape
-    W, D, dev = KERNEL_W, len(trunk), x.device
+    N, W, dev = x.shape[0], KERNEL_W, x.device
     if g.device != dev or g.dtype != torch.float32 or tuple(g.shape) != (N, W):
         raise ValueError(f"cotangent: {g.device} {g.dtype} {tuple(g.shape)}, expected {dev} torch.float32 {(N, W)}")
-    bf16 = canonical_precision(precision) == "bfloat16"
-    padded = _padded_trunk(trunk, skips, in0)
-    tw = [_layout(w, bf16) for w in padded]
-    tT = [_layout(w.t(), bf16) for w in padded]
-    tb = [b.contiguous() for _, b in trunk]
-    f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty((N, in0), **f32)
-    dtw = [torch.zeros(t.shape, **f32) for t in padded]
-    dtb = [torch.zeros((W,), **f32) for _ in range(D)]
-    # persistent blocks: two per SM in bfloat16 mode (~78 KB of shared memory each), one in float32 mode
-    per_sm = 2 if bf16 else 1
-    grid = min((N + BT - 1) // BT, per_sm * torch.cuda.get_device_properties(dev).multi_processor_count)
-    scratch = torch.empty((grid * BT * D * W,), dtype=torch.bfloat16 if bf16 else torch.float32, device=dev)
-    lib = _build.library("heads_bwd")
-    skip_mask = sum(1 << i for i in skips if 0 < i < D)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    x, g = x.contiguous(), g.contiguous()
-    with torch.cuda.device(dev):
-        code = lib.upnerf_heads_bwd(x.data_ptr(), None, _ptrs([g]), _ptrs(tw), _ptrs(tb), _ptrs(tT), D, skip_mask,
-                                    None, None, _ptrs([dx, None]), _ptrs(dtw), _ptrs(dtb), None, scratch.data_ptr(),
-                                    N, in0, 0, 0, int(bf16), grid, stream)
-    _raise_on(code, "heads_bwd (trunk only)", lib)
+    dx, _, dtrunk, _ = heads.BwdCall(x, None, trunk, None, skips, precision, [g]).run()
     bwd_launches += 1
-    return dx, [(unpad_trunk_grad(dtw[i], i, skips, in0), dtb[i]) for i in range(D)]
+    return dx, dtrunk
+
+
+def fused_trunk_bwd_dw_plain(x, trunk, skips, precision: str, g, slab_rows=None):
+    """The trunk-only backward as the CUDA route splits it, in plain PyTorch
+    (ops/heads.py:fused_trunk_heads_bwd_dw_plain's trunk subset): per slab of
+    rows the plain backward's operands stored into the buffers of
+    heads.heads_dw_layout's trunk-only mode, then dw_gemm_plain. Returns as
+    fused_trunk_bwd_plain."""
+    from upnerf_torch.ops import heads
+
+    D, W = len(trunk), trunk[0][1].shape[0]
+    lay = heads.heads_dw_layout(D, tuple(skips), W, 64, 0, 0, False)
+
+    def walk(r0, r1, ops):
+        inputs, acts = trunk_chain(x[r0:r1], trunk, skips, precision)
+        ops.update({"x0": x[r0:r1], **{f"act{i}": a for i, a in enumerate(acts)}})
+        return trunk_walk_plain(x[r0:r1], trunk, skips, precision, inputs, acts, g[r0:r1].to(x.dtype), ops)
+
+    (dx,), flat = heads._bwd_dw_plain(walk, x, lay, heads.heads_dw_biases(D, False, False), 1, slab_rows, precision)
+    return dx, heads.heads_dw_result(flat, lay, D, skips, x.shape[1], 0, {})[0]
 
 
 class FusedTrunk(torch.autograd.Function):

@@ -676,8 +676,9 @@ def walk_layout(lay: DwLayout, st: RTStatic) -> list:
     return [cols.get(k, -1) for k in WALK_LAYOUT] + trunk_g + trunk_b
 
 
-def dw_slab_rays(lay: Optional[DwLayout], S: int, n_sm: int = 0, chain_bytes: int = 0) -> int:
-    """Rays a slab of the backward. The saved chain's two-kernel train
+def dw_slab_rays(lay: Optional[DwLayout], S: int, n_sm: int = 0, chain_bytes: int = 0, esize: int = 2) -> int:
+    """Rays a slab of the backward, with operands of esize bytes (2 in
+    bfloat16 mode, 4 in float32 mode). The saved chain's two-kernel train
     backward (chain_bytes 0): as many as keep the buffers of lay (operands,
     per-ray operands, bias rows) within DW_BUFFER_BYTES, rounded down to a
     multiple of n_sm (the card's SMs: the walk runs a block a ray) where that
@@ -686,7 +687,7 @@ def dw_slab_rays(lay: Optional[DwLayout], S: int, n_sm: int = 0, chain_bytes: in
     slab's chain and lay's buffers within REC_BUFFER_BYTES, rounded down to a
     multiple of n_sm, and to an even count (the forward pairs two rays in a
     tile at S <= 64), where that leaves one."""
-    ops = 0 if lay is None else S * lay.ops_w * 2 + lay.ray_w * 2 + lay.nb * 4
+    ops = 0 if lay is None else (S * lay.ops_w + lay.ray_w) * esize + lay.nb * 4
     if not chain_bytes:
         rays = max(1, DW_BUFFER_BYTES // ops)
         return rays - rays % n_sm if n_sm and rays >= n_sm else rays
@@ -747,7 +748,8 @@ def render_train_bwd_dw_plain(x0, z_vals, ray_cond, trunk, heads, st: RTStatic, 
     pg = st.param_grads
     lay = dw_layout(st, W, feat_pad(F, dtype == torch.bfloat16), HH, HC, C)
     chain_bytes = 0 if st.save_chain else sum(w for _, w in st.chain_cols(W, HH, HC)) * dtype.itemsize
-    slab = slab_rays or (R if not (pg or chain_bytes) else dw_slab_rays(lay if pg else None, S, 0, chain_bytes))
+    slab = slab_rays or (R if not (pg or chain_bytes) else dw_slab_rays(lay if pg else None, S, 0, chain_bytes,
+                                                                        dtype.itemsize))
     flat = torch.empty((lay.n_dw + lay.nb,), dtype=torch.float32, device=z_vals.device) if pg else None
     dx0, d_cond, d_cemb = [], [], []
     for r0 in range(0, R, slab):
@@ -1307,7 +1309,6 @@ def render_train_fwd(
 
 
 DW_OPS = 512  # render_common.cuh:Flag: the walk stores the weight gradients' operands for dw_gemm.cu
-BWD_DESIGNS = ("stores", "adds", "no_adds")
 # Per-ray (1) or per-sample (S) rows of the backward's pointer lists, for cutting them into slabs of rays; None:
 # not cut. ins (the backward's order: rays_o, rays_d, z_vals, pe_w, c_emb, ray_cond, x0), cots (all per ray),
 # res (RES_ORDER), outs (d_rays_o, d_rays_d, d_ray_cond, d_c_emb, d_x0). _INS_ROWS also cuts the forward's ins.
@@ -1331,26 +1332,22 @@ class BwdLaunch:
     off) `rebuild(r0, r1)` first writes the slab's chain into a slab buffer
     with the forward kernel in its saved-chain residual mode (its weights
     packed once a call; counted in `rebuild_launches`), and the walk reads
-    that chain with the stored feat / c_feat. In the bf16 train mode (design
-    "stores", the port's) the walk (DW_OPS) stores the weight gradients'
-    operands (dw_layout) and adds none, then dw_gemm on them writes (first
-    slab) or adds the slab's weight and bias gradients in a fixed order.
-    `rebuild`, `walk(r0, r1)` and `dw(r0, r1)` launch one slab's kernels on
-    their own, for timing. Slabs: with the saved chain, dw_slab_rays under
-    DW_BUFFER_BYTES in the bf16 train mode and one slab otherwise; in the
-    recompute mode, dw_slab_rays of the rebuilt chain and the operand
-    buffers under REC_BUFFER_BYTES. Designs "adds" and "no_adds" run the
-    bf16 train mode as the walk did before the dW kernel, adding every
-    gradient with atomics, and the same built without the adds
-    (_build.VARIANTS): timing only (chip_smoke.py phase 9). The float32 and
-    the frozen modes run no dW kernel in every design."""
+    that chain with the stored feat / c_feat. In the train mode, in both
+    precisions, the walk (DW_OPS) stores the weight gradients' operands
+    (dw_layout, in the compute dtype) and adds none, then dw_gemm on them
+    writes (first slab) or adds the slab's weight and bias gradients in a
+    fixed order: no weight gradient is added with atomics, and two calls give
+    the same bits. `rebuild`, `walk(r0, r1)` and `dw(r0, r1)` launch one
+    slab's kernels on their own, for timing. Slabs: with the saved chain,
+    dw_slab_rays under DW_BUFFER_BYTES in the train mode and one slab in the
+    frozen mode; in the recompute mode, dw_slab_rays of the rebuilt chain
+    and the operand buffers under REC_BUFFER_BYTES. The frozen mode runs no
+    dW kernel."""
 
     def __init__(self, ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots,
-                 x0_mode: bool, design: str = "stores"):
+                 x0_mode: bool):
         from upnerf_torch.ops import _build
 
-        if design not in BWD_DESIGNS:
-            raise ValueError(f"design must be one of {BWD_DESIGNS}, got {design!r}")
         R, S = z_vals.shape
         dev = z_vals.device
         C = c_emb.shape[1] if st.use_cand else 0
@@ -1384,50 +1381,40 @@ class BwdLaunch:
         d_cond = torch.empty((R, HH), **f32) if st.use_rgb else None
         d_cemb = torch.empty((R, C), **f32) if st.use_cand else None
         self.rec = not st.save_chain
-        self.stores = st.param_grads and bf16 and design == "stores"
-        dtw, dtb, dhd = [None] * st.D, [None] * st.D, {}
+        self.stores = st.param_grads
         self.lay, layout, self.bufs = None, None, None
         if self.stores:
             self.lay = dw_layout(st, W, FP, HH, HC, C)
             layout = (ctypes.c_int * (len(WALK_LAYOUT) + 2 * MAX_D))(*walk_layout(self.lay, st))
-        elif st.param_grads:
-            # weight gradients accumulated by atomics: zero first; trunk and features in the padded layout
-            for i in range(st.D):
-                rows = (X0_PAD if i == 0 else (X0_PAD + W if i in st.skips else W))
-                dtw[i] = torch.zeros((rows, W), **f32)
-                dtb[i] = torch.zeros((W,), **f32)
-            dhd = {k: torch.zeros(v.shape, **f32) for k, v in pad_feat({k: heads[k] for k in st.head_keys},
-                                                                         FP).items()}
         chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
         if self.rec:
-            self.slab = min(R, dw_slab_rays(self.lay, S, n_sm, chain_w * cdt.itemsize))
+            self.slab = min(R, dw_slab_rays(self.lay, S, n_sm, chain_w * cdt.itemsize, cdt.itemsize))
             # the rebuild: the forward in the saved-chain residual mode, its weights packed once, into a slab buffer
             self.fwd_st = st._replace(save_chain=True)
             self.fwd_w = _fwd_weights(trunk, heads, self.fwd_st, in0)
             self.chain = torch.empty((self.slab * S, chain_w), dtype=cdt, device=dev)
             self._fwd = (fwd_ins, trunk, heads)
         else:
-            self.slab = min(R, dw_slab_rays(self.lay, S, n_sm)) if self.stores else R
+            self.slab = min(R, dw_slab_rays(self.lay, S, n_sm, esize=cdt.itemsize)) if self.stores else R
         if self.stores:
             n = self.slab
-            self.bufs = (torch.empty((n * S, self.lay.ops_w), dtype=torch.bfloat16, device=dev),
-                         torch.empty((n, self.lay.ray_w), dtype=torch.bfloat16, device=dev) if self.lay.ray_w else None,
+            self.bufs = (torch.empty((n * S, self.lay.ops_w), dtype=cdt, device=dev),
+                         torch.empty((n, self.lay.ray_w), dtype=cdt, device=dev) if self.lay.ray_w else None,
                          torch.empty((n, self.lay.nb), **f32))
             self.flat = torch.empty((self.lay.n_dw + self.lay.nb,), **f32)
         outs = [None, None, d_cond, d_cemb, d_front[0]] if x0_mode else [*d_front, d_cond, d_cemb, None]
-        self.lib = _build.library("render_train_bwd_no_dw_adds" if design == "no_adds" else "render_train_bwd")
+        self.lib = _build.library("render_train_bwd")
         self.name = "render_train_bwd (x0 mode)" if x0_mode else "render_train_bwd"
         self.flags = _flags(st, True) | (X0_IN if x0_mode else 0) | (DW_OPS if self.stores else 0)
         self.skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
         self._lists = (ins, cot_list, res_list, outs)
         self._weights = (_ptrs(kt), _ptrs(kw))
-        self._grads = (_ptrs(dtw), _ptrs(dtb), _ptrs([dhd.get(k) for k in HEAD_KEYS]))
         self._bufs = None if self.bufs is None else _ptrs(self.bufs)
-        self._keep = (kt, kw, dtw, dtb, dhd)  # what the pointers point at
+        self._keep = (kt, kw)  # what the pointers point at
         self.layout = layout
         self.R, self.S, self.L, self.C, self.dev, self.st, self.in0, self.F = R, S, L, C, dev, st, in0, F
         self.x0_mode = x0_mode
-        self.result = (d_front, d_cond, d_cemb, dtw, dtb, dhd)
+        self.result = (d_front, d_cond, d_cemb)
 
     def rebuild(self, r0: int, r1: int) -> None:
         """The recompute mode: the chain of rays [r0, r1) into the slab
@@ -1456,7 +1443,7 @@ class BwdLaunch:
             code = self.lib.upnerf_render_train_bwd(
                 _ptrs(_cut(ins, _INS_ROWS, r0, r1, S)), _ptrs(_cut(cot_list, (1,) * 7, r0, r1, S)), _ptrs(res),
                 self._weights[0], self.st.D, self.skip_mask, self._weights[1], _ptrs(_cut(outs, _OUT_ROWS, r0, r1, S)),
-                *self._grads, self._bufs, self.layout, r1 - r0, S, self.L, self.in0, self.C, self.F, self.flags,
+                self._bufs, self.layout, r1 - r0, S, self.L, self.in0, self.C, self.F, self.flags,
                 stream,
             )
         _raise_on(code, self.name, self.lib)
@@ -1481,14 +1468,10 @@ class BwdLaunch:
             self.walk(r0, r1)
             if self.stores:
                 self.dw(r0, r1)
-        d_front, d_cond, d_cemb, dtw, dtb, dhd = self.result
-        st = self.st
-        if not st.param_grads:
+        d_front, d_cond, d_cemb = self.result
+        if not self.st.param_grads:
             return d_front, d_cond, d_cemb, None, None
-        if self.stores:
-            return (d_front, d_cond, d_cemb, *dw_result(self.flat, self.lay, st, self.in0, self.F))
-        dtrunk = [(unpad_trunk_grad(dtw[i], i, st.skips, self.in0), dtb[i]) for i in range(st.D)]
-        return d_front, d_cond, d_cemb, dtrunk, unpad_feat(dhd, self.F)
+        return (d_front, d_cond, d_cemb, *dw_result(self.flat, self.lay, self.st, self.in0, self.F))
 
 
 def _launch_bwd(ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots,
@@ -1500,28 +1483,25 @@ def _launch_bwd(ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTSta
 
 
 def render_train_rays_bwd_launch(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res,
-                                 cots, design: str = "stores") -> BwdLaunch:
+                                 cots) -> BwdLaunch:
     """render_train_rays_bwd's CUDA call, checked and prepared but not
-    launched, in one of BWD_DESIGNS: to time its pieces (chip_smoke.py phase
-    9). Counts no launch."""
+    launched: to time its pieces (chip_smoke.py phase 9). Counts no launch."""
     R, S = z_vals.shape
     L = st.xyz_L
     front = {"rays_o": (rays_o, (R, 3)), "rays_d": (rays_d, (R, 3)), "pe_w": (pe_w, (L,))}
     _check_kernel_args(front, 3 + 6 * L, z_vals, ray_cond, c_emb, trunk, heads, st)
     return BwdLaunch([rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, None], 3 + 6 * L, L, z_vals, ray_cond, trunk,
-                     heads, st, c_emb, res, cots, False, design)
+                     heads, st, c_emb, res, cots, False)
 
 
 def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots):
     """Backward render: `render_train_rays_bwd_plain` for CPU tensors, the
     CUDA kernels for CUDA tensors, with the same arguments and results.
 
-    In the bf16 train mode the call runs, per slab of rays (dw_slab_rays),
-    the walk, which stores the weight gradients' operands (dw_layout), then
-    the dW kernel (ops/dw_gemm.py), which sums them in a fixed order: two
-    calls on the same inputs give the same bits. In the float32 train mode
-    the walk accumulates the weight gradients over all rays with f32 atomic
-    adds in device memory, so their last bits change from run to run. With
+    In the train mode, in both precisions, the call runs, per slab of rays
+    (dw_slab_rays), the walk, which stores the weight gradients' operands
+    (dw_layout), then the dW kernel (ops/dw_gemm.py), which sums them in a
+    fixed order: two calls on the same inputs give the same bits. With
     st.param_grads off it computes the data cotangents only (the same bits as
     the train mode's) and returns None for the weight gradients. In the
     recompute mode (st.save_chain off) the forward kernel first rebuilds
