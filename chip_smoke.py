@@ -33,14 +33,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      an in-memory scene as the JAX package's benchmark builds it (16 images
      of 256x256, 55x55x384 bf16 features, batch 2048, 128 + 128 samples,
      bfloat16): 1 warm-up and 3 steps in each of phases 0, 1 and 2, each
-     step 2 forward and 2 backward kernel launches (each backward a walk and
-     a dW kernel launch per slab of rays); then one phase-1 step of
+     step 2 forward and 2 backward kernel launches (each bf16 backward, per
+     slab of rays, the Hopper walk's three launches, its pre-pass, walk and
+     finishing pass, and a dW kernel launch); then one phase-1 step of
      256 rays on the card (kernels) against the same step on the CPU (plain
      versions), on the loss terms and every gradient;
   9. step ms and rays/s per phase (CUDA events), the backward kernel against
      the plain backward per 4096-ray chunk (F = 384 and 32), the step's peak
      memory; the backward's pieces per chunk in turns (the walk with its
      operand stores and the dW kernel over all slabs, the frozen walk), the
+     bf16 backward's two designs in turns (the Hopper walk and the mma.sync
+     walk it replaced, render_train.BWD_DESIGNS), the Hopper walk's three
+     kernels over all slabs, each against its plain twin on the first slab
+     (the pre-pass's coefficient rows within WALK_COEF_TOL and its mask words
+     bit for bit, the walk's per-tile partial sums and bias rows and the
+     finishing pass's outputs within BWD_TOL) and timed beside it; the
      call's peak memory, its bound and the design's byte floor; the dW kernel against its
      plain version at full width (DW_TOL), and two dW calls and two backward
      calls bit for bit; with
@@ -62,7 +69,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
  12. the backward kernel's frozen-model mode (param_grads=False, test-time
      optimization's) at 4096 rays, S = 256, phase 2 bf16 / f32 and phase 1
      bf16: its data cotangents equal the train mode's bit for bit and meet the
-     plain frozen backward; both modes timed in turns per chunk;
+     plain frozen backward; both modes timed in turns per chunk, and the
+     frozen mode's two bf16 designs in turns (phase 2);
  13. TTO -> eval through `upnerf_torch.cli.tto.main` and
      `upnerf_torch.cli.eval.main` at the brandenburg_gate width, on a
      Phototourism-layout scene the port writes (COLMAP binaries, tsv, PNGs of
@@ -223,6 +231,10 @@ CHAIN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # against cuBLAS's) over up to 2048 x 256 samples; bf16 also rounds every
 # cotangent to bf16 before each product, where one flip is 2^-8 of a term.
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# The Hopper walk's pre-pass against walk_coef_plain, per coefficient column, max
+# |d| over the column's max: the compositing in the same f32 order, but p and q
+# sum the bf16 products of the feat / c_feat head in another order (xyzf (Wf g)).
+WALK_COEF_TOL = 1e-3
 # A frame's rays on the card (kernel) against the CPU (plain version):
 # besides the above, fine samples move with the coarse weights, and the top
 # PE band (2^9 pi) turns a 1e-6 move of a sample into a ~2e-3 change of x0.
@@ -640,15 +652,21 @@ def phase_train_step(dev, card: str, profile_dir=None):
 
     n_steps = 3
     rt.launches = rt.bwd_launches = dg.dw_launches = 0
+    rt.walk_pre_launches = rt.walk_launches = rt.walk_finish_launches = 0
     state, times, peaks = time_steps(step, state, scene, store, dev, "8", n_steps)
     steps = len(STEP_PHASES) * (n_steps + 1)
-    launches = {"render_train_fwd": rt.launches, "render_train_bwd": rt.bwd_launches, "dw_gemm": dg.dw_launches}
+    launches = {"render_train_fwd": rt.launches, "render_train_bwd": rt.bwd_launches, "dw_gemm": dg.dw_launches,
+                "walk_pre": rt.walk_pre_launches, "walk": rt.walk_launches, "walk_finish": rt.walk_finish_launches}
     print(f"[8] {steps} steps: forward launches {launches['render_train_fwd']}, backward launches"
           f" {launches['render_train_bwd']} (expected {2 * steps} each); dW kernel launches {launches['dw_gemm']}"
           f" (one a slab of rays, at least {2 * steps})", flush=True)
     check(launches["render_train_fwd"] == 2 * steps and launches["render_train_bwd"] == 2 * steps,
           "the train step did not make 2 forward + 2 backward kernel launches a step")
     check(launches["dw_gemm"] >= 2 * steps, "the train step's backward did not launch the dW kernel")
+    print(f"[8] the Hopper walk's launches: pre-pass {launches['walk_pre']}, walk {launches['walk']}, finishing pass"
+          f" {launches['walk_finish']} (one each a slab of rays, at least {2 * steps})", flush=True)
+    check(launches["walk_pre"] == launches["walk"] == launches["walk_finish"] >= 2 * steps,
+          "the train step's backward did not run the Hopper walk's three kernels a slab")
     d_se3 = (state.pose_params.se3_refine.weight.detach() - se3_0).abs().max().item()
     d_ds = (state.pose_params.depth_scale.weight.detach() - ds_0).abs().max().item()
     print(f"[8] pose tables moved: max |d se3| {d_se3:.3e}, max |d depth_scale| {d_ds:.3e}", flush=True)
@@ -723,6 +741,132 @@ def dw_work(lay, R: int, S: int):
     return flop, nbytes
 
 
+def walk_bounds(field, st, lay, R: int, S: int) -> dict:
+    """bound() of the Hopper walk's three kernels (csrc/render_train_bwd.cu)
+    over R rays x S samples in bf16 mode st (lay: the train mode's dW
+    layout, None in the frozen mode): the pre-pass reads the chain once and
+    writes the coefficient rows and mask words; the walk does the data path's
+    products (at the padded feature width, with the train mode's re-derived
+    feat) and reads the masks and coefficients, writing the partial sums and,
+    in the train mode, the operand buffer and bias rows; the finishing pass
+    reads the partial sums."""
+    from upnerf_torch.ops import render_train as rt
+
+    cfg = field.cfg
+    W, F, HH, HC, C = cfg.W, cfg.feat_dim, cfg.W // 2, cfg.W // 2, cfg.candidate_dim
+    FP = rt.feat_pad(F, True)
+    M = R * S
+    chain_w = sum(w for _, w in st.chain_cols(W, HH, HC))
+    tiles = R * -(-S // rt.WALK_TILE)
+    per_sample_in = 4 * (2 + 3) + 4 * (2 if st.use_cand else 0)  # z, sig_s, rgb (3), and j / s weights' cotangents
+    pre_bytes = 2 * M * chain_w + M * per_sample_in + 2 * (W * F + F * HC) + 4 * M * rt.WALK_COEF_W + M * chain_w / 8
+    pre_flop = 2 * R * (W * F + F * HC * st.use_cand) + 2 * M * (W + HC * st.use_cand) * st.out_feat
+    skips = [i for i in cfg.skips if 0 < i < cfg.D]
+    macs = (cfg.D - 1) * W * W + (1 + len(skips)) * rt.X0_PAD * W + W * W + FP * W
+    macs += (HH * FP + 3 * HH) * st.use_rgb + (FP * HC + HC * HC + HC * W) * st.use_cand
+    walk_bytes = M * chain_w / 8 + 4 * M * rt.WALK_COEF_W + 4 * tiles * rt.WALK_PART_W
+    if lay is not None:
+        macs += W * FP * (st.use_rgb and st.save_chain)
+        walk_bytes += 2 * M * lay.ops_w + 4 * tiles * lay.nb + 2 * M * W * (st.use_rgb and st.save_chain)
+    finish_bytes = 4 * tiles * rt.WALK_PART_W + 4 * R * (HH * st.use_rgb + C * st.use_cand + 6)
+    if lay is not None:
+        finish_bytes += 2 * R * lay.ray_w + 4 * tiles * HC * st.use_cand
+    return {"pre": bound(pre_flop, pre_bytes, "bfloat16"), "walk": bound(2.0 * macs * M, walk_bytes, "bfloat16"),
+            "finish": bound(2.0 * R * C * HC * st.use_cand, finish_bytes, "bfloat16")}
+
+
+def walk_kernels(call, args, st, c_emb, res, cots, slabs):
+    """The Hopper walk's three kernels in a bf16 train backward call (phase
+    9's, `call` a render_train.BwdLaunch) over all its slabs, each timed in
+    turns with its plain twin over the same slabs (plain, kernel, kernel,
+    plain): the pre-pass against walk_coef_plain and walk_mask_plain, the walk
+    against _bwd_walk_plain with walk_part_plain and dw_operands_plain (its
+    stores), the finishing pass against ray_sums_plain and the d_c_emb
+    product; then each held against its twin on the first slab. Returns
+    {kernel: (ms, plain ms, max |d|)} and checks the coefficient rows within
+    WALK_COEF_TOL of each column's max, the mask words bit for bit, the
+    partial sums, the bias rows and the finishing pass's outputs within
+    BWD_TOL of their max."""
+    from upnerf_torch.ops import render_train as rt
+    from upnerf_torch.ops.linear import matmul
+
+    o, d, z, pe_w, cond, trunk, heads = args[:7]
+    S, L, tpr = z.shape[1], st.xyz_L, call.tpr
+    HH, HC = 128, 128
+    cut = lambda t, r0, r1, per=1: None if t is None else t[r0 * per : r1 * per]  # noqa: E731
+
+    def slab(r0, r1):
+        x0, xyz = rt._pe(o[r0:r1], d[r0:r1], z[r0:r1], pe_w, L)
+        sres = {k: cut(v, r0, r1, S if k in ("rgb", "chain", "feat", "cfeat") else 1) for k, v in res.items()}
+        return x0, xyz, z[r0:r1], cut(cond, r0, r1), cut(c_emb, r0, r1), sres, {k: v[r0:r1] for k, v in cots.items()}
+
+    def pre_plain():
+        for r0, r1 in slabs:
+            x0, _, zs, cs, ce, sres, scots = slab(r0, r1)
+            rt.walk_coef_plain(x0, zs, cs, trunk, heads, st, ce, sres, scots)
+            rt.walk_mask_plain(sres["chain"])
+
+    def walk_plain():
+        for r0, r1 in slabs:
+            x0, xyz, zs, cs, ce, sres, scots = slab(r0, r1)
+            dx0, _, _, ops = rt._bwd_walk_plain(x0, zs, cs, trunk, heads, st, ce, sres, scots)
+            rt.walk_part_plain(ops, dx0, xyz, zs, pe_w, st)
+            rt.dw_operands_plain(ops, call.lay, st, r1 - r0, S, torch.bfloat16, rt.WALK_TILE)
+
+    part = call.scratch[2]
+
+    def finish_plain():
+        for r0, r1 in slabs:
+            sums = rt.ray_sums_plain(part[: (r1 - r0) * tpr], tpr)
+            if st.use_cand:
+                matmul(sums[:, HH : HH + HC], heads["c1c_w"].t(), "bfloat16")
+
+    pieces = {"pre": (lambda: [call.pre(*sl) for sl in slabs], pre_plain),
+              "walk": (lambda: [call.walk_tiles(*sl) for sl in slabs], walk_plain),
+              "finish": (lambda: [call.finish(*sl) for sl in slabs], finish_plain)}
+    out = {}
+    for name, (kern, plain) in pieces.items():
+        p1, k1, k2, p2 = cuda_ms(plain, 1), cuda_ms(kern, 2), cuda_ms(kern, 2), cuda_ms(plain, 1)
+        out[name] = [(k1 + k2) / 2, (p1 + p2) / 2]
+
+    # each kernel against its twin on the first slab
+    r0, r1 = slabs[0]
+    n = r1 - r0
+    call.pre(r0, r1)
+    call.walk_tiles(r0, r1)
+    call.finish(r0, r1)
+    torch.cuda.synchronize()
+    x0, xyz, zs, cs, ce, sres, scots = slab(r0, r1)
+    coef = rt.walk_coef_plain(x0, zs, cs, trunk, heads, st, ce, sres, scots)
+    got = call.scratch[0][: n * S]
+    coef_rel = max(((got[:, k] - coef[:, k]).abs().max() / coef[:, k].abs().max().clamp_min(1e-30)).item()
+                   for k in range(7) if coef[:, k].abs().max() > 0)
+    mask_diff = int((call.scratch[1][: n * S] != rt.walk_mask_plain(sres["chain"])).sum())
+    dx0, d_cond, d_cemb, ops = rt._bwd_walk_plain(x0, zs, cs, trunk, heads, st, ce, sres, scots)
+    want_part = rt.walk_part_plain(ops, dx0, xyz, zs, pe_w, st)
+    got_part = part[: n * tpr]
+    sections = [(0, HH * st.use_rgb), (HH, HH + HC * st.use_cand), (HH + HC, HH + HC + 6)]
+    part_rel = max(rel_err(got_part[:, a:b], want_part[:, a:b]) for a, b in sections if b > a)
+    want_rows = rt.dw_operands_plain(ops, call.lay, st, n, S, torch.bfloat16, rt.WALK_TILE)[2]
+    rows_rel = rel_err(call.bufs[2][: n * tpr], want_rows)
+    d_o, d_d = rt._pe_bwd(dx0, xyz, zs, pe_w, L)
+    d_front, got_cond, got_cemb = call.result
+    fin = [(d_front[0][r0:r1], d_o), (d_front[1][r0:r1], d_d)]
+    fin += [(got_cond[r0:r1], d_cond)] if st.use_rgb else []
+    fin += [(got_cemb[r0:r1], d_cemb)] if st.use_cand else []
+    fin_rel = max(rel_err(a, b) for a, b in fin)
+    out["pre"].append((got - coef).abs().max().item())
+    out["walk"].append((got_part - want_part).abs().max().item())
+    out["finish"].append(max((a - b).abs().max().item() for a, b in fin))
+    print(f"[9] the Hopper walk's kernels against their plain twins on the first slab ({n} rays): pre-pass coefficient"
+          f" rows {coef_rel:.3e} (tol {WALK_COEF_TOL:.0e}), mask words differing {mask_diff}; walk partial sums"
+          f" {part_rel:.3e}, bias rows {rows_rel:.3e}; finishing pass {fin_rel:.3e} (tol {BWD_TOL['bfloat16']:.0e})",
+          flush=True)
+    check(coef_rel <= WALK_COEF_TOL and mask_diff == 0, "the walk's pre-pass disagrees with its plain twin")
+    check(max(part_rel, rows_rel, fin_rel) <= BWD_TOL["bfloat16"], "the walk or its finishing pass disagrees")
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def phase_bwd_timing(field, nerf_cfg, dev, card: str):
     """Phase 9's backward per 4096-ray chunk, S = 256, phase 1, bfloat16: the
     call (walk per slab + the dW kernel) against the plain backward, and the
@@ -791,6 +935,19 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
             t[name].append(cuda_ms(fn, 2))
         t = {k: sum(v) / 2 for k, v in t.items()}
 
+        # the two bf16 designs in turns: the whole call and its walk over the slabs, the frozen mode's call
+        mcall = rt.render_train_rays_bwd_launch(*args[:7], st, c_emb, res, cots, design="mma_sync")
+        mzcall = rt.render_train_rays_bwd_launch(*args[:7], frozen, c_emb, res, cots, design="mma_sync")
+        des = {}
+        for name, fn in (("call", call.run), ("call mma_sync", mcall.run), ("call mma_sync", mcall.run),
+                         ("call", call.run), ("walk", walk), ("walk mma_sync", lambda: [mcall.walk(*sl) for sl in slabs]),
+                         ("walk mma_sync", lambda: [mcall.walk(*sl) for sl in slabs]), ("walk", walk),
+                         ("frozen", zcall.run), ("frozen mma_sync", mzcall.run), ("frozen mma_sync", mzcall.run),
+                         ("frozen", zcall.run)):
+            des.setdefault(name, []).append(cuda_ms(fn, 2))
+        del mcall, mzcall
+        wk = walk_kernels(call, args, st, c_emb, res, cots, slabs)
+
         # the dW kernel against its plain version on the first slab's operands, and twice bit for bit
         r1 = slabs[0][1]
         srcs = [chain[: r1 * 256], ops[: r1 * 256], None if ray is None else ray[:r1]]
@@ -825,10 +982,17 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
           f"{flop / t['dw'] / 1e9:.0f} TFLOP/s", flush=True)
     print(f"[9] F={F} dW kernel vs plain on the first slab ({r1} rays): worst {worst} {errs[worst]:.3e} (tol"
           f" {DW_TOL:.0e}), max |d| {dw_abs:.3e}; two dW calls and two backward calls bit for bit: {same}", flush=True)
+    print(f"[9] F={F} the bf16 backward's designs per chunk in turns (Hopper walk / mma.sync walk): call"
+          f" {des['call']} / {des['call mma_sync']} ms, walk over the slabs {des['walk']} / {des['walk mma_sync']} ms,"
+          f" frozen call {des['frozen']} / {des['frozen mma_sync']} ms ({card})", flush=True)
+    wb = walk_bounds(field, st, lay, CHUNK, 256)
+    for name, (ms, pms, err) in wk.items():
+        print(f"[9] F={F} Hopper walk, {name}: {ms:.3f} ms over {len(slabs)} slabs, plain twin {pms:.2f} ms, bound"
+              f" {wb[name][0]:.3f} ms ({wb[name][1]}), max |d| {err:.3e} ({card})", flush=True)
     check(errs[worst] <= DW_TOL, f"the dW kernel disagrees with its plain version: {errs}")
     check(ops_gib <= 1.0, "the operand buffer exceeds 1 GiB")
     return ({"bwd": ((k1 + k2) / 2, (p1 + p2) / 2), "fwd": ((fk1 + fk2) / 2, (fp1 + fp2) / 2),
-             "dw": (t["dw"], t["dw_plain"])}, dw_abs, lay)
+             "dw": (t["dw"], t["dw_plain"]), "walk_kernels": wk, "walk_bounds": wb}, dw_abs, lay)
 
 
 def flash_l2_bytes(G: int, N: int) -> float:
@@ -1157,9 +1321,14 @@ def phase_frozen_bwd(field, nerf_cfg, dev, card: str):
         plain = lambda: rt.render_train_rays_bwd_plain(*args[:7], frozen, c_emb, res, cots)  # noqa: E731
         t1, f1, f2, t2 = cuda_ms(train, 2), cuda_ms(kern, 2), cuda_ms(kern, 2), cuda_ms(train, 2)
         p1 = cuda_ms(plain, 2)
+        # the frozen mode's two bf16 designs in turns (the Hopper walk, the mma.sync walk it replaced)
+        mma = rt.render_train_rays_bwd_launch(*args[:7], frozen, c_emb, res, cots, design="mma_sync").run
+        w1, m1, m2, w2 = cuda_ms(kern, 2), cuda_ms(mma, 2), cuda_ms(mma, 2), cuda_ms(kern, 2)
     fms, tms = (f1 + f2) / 2, (t1 + t2) / 2
     print(f"[12] per {CHUNK}-ray chunk, S=256, phase 2, bfloat16: frozen backward {fms:.2f} ms ({f1:.2f}, {f2:.2f}),"
           f" train mode {tms:.2f} ms ({t1:.2f}, {t2:.2f}), plain frozen {p1:.2f} ms ({card})", flush=True)
+    print(f"[12] the frozen backward's designs in turns: Hopper walk {w1:.3f}, {w2:.3f} ms; mma.sync walk {m1:.3f},"
+          f" {m2:.3f} ms ({card})", flush=True)
     return worst, fms, tms, p1
 
 
@@ -2743,7 +2912,9 @@ def kernel_times(dev, card: str, profile_dir=None) -> dict:
     checks: the numbers to compare two trees on one card. In a tree that has
     the forward's timing variants (render_train.FWD_DESIGNS), the forward of
     phases 5, 9 and 17 also in the variant's design (the mma.sync design the
-    wgmma kernel replaced). Uses only wrappers
+    wgmma kernel replaced); in a tree with the backward's
+    (render_train.BWD_DESIGNS), the backward of phases 9 and 12 also in the
+    mma.sync walk the Hopper walk replaced. Uses only wrappers
     that trees with kernels 4 and 5 already had, so the script can be copied
     into an older tree's root and run there, the trees in turns. With
     profile_dir, then a torch.profiler table of 5 flash-attention calls there,
@@ -2828,6 +2999,13 @@ def kernel_times(dev, card: str, profile_dir=None) -> dict:
                     lambda des=des: fwd_call(des, fargs, c_emb, True))
                 calls[f"static_render (phase 17), {des} design"] = (
                     lambda des=des: fwd_call(des, (o, d, z, pe_w, cond, trunk, hs, st2), x0=x0))
+        if hasattr(rt, "BWD_DESIGNS"):  # a tree with the backward's timing variant: the replaced walk too
+            bargs = (o, d, z, pe_w, cond, trunk)
+            for des in rt.BWD_DESIGNS[1:]:
+                calls[f"render_train_bwd (phase 9), {des} design"] = (
+                    lambda des=des: rt.render_train_rays_bwd_launch(*bargs, h1, st1, c_emb, res, cots, des).run())
+                calls[f"render_train_bwd_frozen (phase 12), {des} design"] = (
+                    lambda des=des: rt.render_train_rays_bwd_launch(*bargs, h2, frozen, None, res2, cots2, des).run())
         times = {name: cuda_ms(fn, 5) for name, fn in calls.items()}
         qa, ka, va = (torch.randn(DINO_HEADS, DINO_TOKENS, 64, generator=g, device=dev) for _ in range(3))
         times["flash_attn_fwd (phase 10)"] = cuda_ms(lambda: attention.flash_attention(qa, ka, va, scale=0.125), 20)
@@ -2887,8 +3065,10 @@ def main() -> int:
     for name, info in infos.items():
         print(f"    {name} -> {info.path.name}", flush=True)
         for line in info.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("      " + line.strip(), flush=True)
+            if "Function properties for" in line:  # the kernel the next lines describe, by its mangled name's tail
+                print("      " + line.strip().split("cu_")[-1][:80], flush=True)
+            if "registers" in line or "spill" in line or "(C75" in line:
+                print("      " + line.strip()[:160], flush=True)
 
     # 3. serving kernel against plain version, one chunk at full width
     nerf_cfg = NeRFConfig.from_hparams(BRANDENBURG_GATE)
@@ -3110,8 +3290,26 @@ def main() -> int:
             "bound_by": bounds["render_train_fwd"][1],
             "library_ms": None,
         },
+    ] + [
         {
-            "name": "render_train_bwd",
+            "name": f"render_train_bwd {label}",
+            "route": "cuda",
+            "source": "upnerf_torch/csrc/render_train_bwd.cu",
+            "replaces": "upnerf/ops/pallas_render_train.py:671",
+            "launches": launches[key],
+            "max_abs_err": kt["walk_kernels"][piece][2],
+            "ms": kt["walk_kernels"][piece][0],
+            "plain_ms": kt["walk_kernels"][piece][1],
+            "bound_ms": kt["walk_bounds"][piece][0],
+            "bound_by": kt["walk_bounds"][piece][1],
+            "library_ms": None,
+        }
+        for piece, key, label in (("pre", "walk_pre", "pre-pass (pre_kernel: compositing, mask bits)"),
+                                  ("walk", "walk", "walk (walk_kernel: wgmma over the weight stream)"),
+                                  ("finish", "walk_finish", "finishing pass (finish_kernel: per-ray sums)"))
+    ] + [
+        {
+            "name": "render_train_bwd (per slab: pre-pass, walk, finishing pass, dw_gemm)",
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_bwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:671",

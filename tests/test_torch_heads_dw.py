@@ -227,16 +227,19 @@ def test_layout_at_the_kernel_widths(mode, F):
         assert len(slots) == len(th.HEADS_LAYOUT) and slots[0] == lay.ops_w and slots[1] == lay.nb
 
 
-@pytest.mark.parametrize("name", ["heads_bwd", "dw_gemm", "heads_fwd", "render_train_bwd"])
+@pytest.mark.parametrize("name", ["heads_bwd", "dw_gemm", "heads_fwd", "render_train_bwd", "render_train_bwd_wg"])
 def test_c_entry_points_take_the_bindings_arguments(name):
     """Each C entry point's parameter count equals its ctypes binding's
     (ctypes passes whatever it is given: a count that differs goes unseen
-    until the card)."""
+    until the card); render_train_bwd_wg, the Hopper walk's stages, lives in
+    render_train_bwd.cu, and the library binds it (_build.ENTRY_POINTS)."""
     import re
     from pathlib import Path
 
     from upnerf_torch.ops import _build
 
-    src = (Path(_build.CSRC_DIR) / f"{name}.cu").read_text()
+    source = {"render_train_bwd_wg": "render_train_bwd"}.get(name, name)
+    assert f"upnerf_{name}" in _build.ENTRY_POINTS.get(source, (f"upnerf_{source}",))
+    src = (Path(_build.CSRC_DIR) / f"{source}.cu").read_text()
     sig = re.search(rf"int upnerf_{name}\(([^)]*)\)", src).group(1)
     assert len(sig.split(",")) == len(_build._ARGTYPES[f"upnerf_{name}"])

@@ -1306,3 +1306,97 @@ def test_run_to_run_bits_of_every_mode(cuda_device, precision):
         print(f"{precision} {name}: {n_diff} of {n} outputs differ, worst {worst:.3e} of an output's max")
     for name, (n_diff, n, _) in found.items():
         assert n > 0 and n_diff == 0, name
+
+
+def _bwd_outputs(r, st):
+    """The backward's data cotangents, then (train mode) every dW and db, in order."""
+    out = [t for t in (r[:-2] if isinstance(r[0], torch.Tensor) else [*r[0], *r[1:-2]]) if t is not None]
+    if st.param_grads:
+        out += [t for wb in r[-2] for t in wb] + [r[-1][k] for k in st.head_keys]
+    return out
+
+
+def _design_call(args, c_emb, res, cots, st, x0, design):
+    """One bf16 backward call in `design` (render_train.BWD_DESIGNS), rays or x0 frontend (x0 not None), run
+    through BwdLaunch as the route runs it."""
+    o, d, z, pe_w, cond, trunk, heads = args[:7]
+    if x0 is None:
+        r = rt.render_train_rays_bwd_launch(o, d, z, pe_w, cond, trunk, heads, st, c_emb, res, cots, design).run()
+        return (*r[0], *r[1:])
+    return rt.BwdLaunch([None, None, z, None, cond, c_emb, x0], x0.shape[1], 0, z, cond, trunk, heads, st, c_emb,
+                        res, cots, True, design).run()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x0_mode", [False, True], ids=["rays", "x0"])
+@pytest.mark.parametrize("F", WIDTHS)
+@pytest.mark.parametrize("phase", [0, 1, 2])
+def test_bf16_walk_designs_agree_in_every_mode(cuda_device, phase, F, x0_mode):
+    """The Hopper walk (the route's) against the mma.sync walk it replaced
+    (the timing variant, render_train_bwd_mma_sync) on the same residuals, in
+    the saved-chain and recompute modes, train and frozen: every output within
+    1e-2 of its max (the two designs sum their products in other orders; both
+    walk the same rebuilt chain in the recompute mode); the frozen mode's data
+    cotangents equal the train mode's bit for bit; each Hopper stage counted
+    once a slab."""
+    for save_chain in (True, False):
+        args, c_emb = recompute_inputs(48, 100, cuda_device, phase, "bfloat16", seed=17, F=F)
+        st = args[-1]._replace(save_chain=save_chain)
+        o, d, z, pe_w, cond, trunk, heads = args[:7]
+        x0 = rt._pe(o, d, z, pe_w, L)[0].contiguous() if x0_mode else None
+        with torch.no_grad():
+            if x0_mode:
+                out, res = rt.render_train_fwd(x0, z, cond, trunk, heads, st, c_emb=c_emb, save_res=True)
+            else:
+                out, res = rt.render_train_rays_fwd(*args[:7], st, c_emb=c_emb, save_res=True)
+            g = torch.Generator(device=cuda_device).manual_seed(4)
+            cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in out.items()}
+            for s in (st, st._replace(param_grads=False)):
+                before = (rt.walk_pre_launches, rt.walk_launches, rt.walk_finish_launches)
+                got = _design_call(args, c_emb, res, cots, s, x0, "wgmma")
+                n = rt.walk_launches - before[1]
+                assert n >= 1 and (rt.walk_pre_launches, rt.walk_finish_launches) == (before[0] + n, before[2] + n)
+                want = _design_call(args, c_emb, res, cots, s, x0, "mma_sync")
+                torch.cuda.synchronize()
+                for a, b in zip(_bwd_outputs(got, s), _bwd_outputs(want, s)):
+                    assert torch.isfinite(a).all()
+                    assert (a - b.reshape(a.shape)).abs().max() <= 1e-2 * b.abs().max(), (save_chain, s.param_grads)
+                if s.param_grads:
+                    train = _bwd_outputs(got, s)
+                else:
+                    assert all(torch.equal(a, b) for a, b in zip(_bwd_outputs(got, s), train))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [48, 100, 130])
+@pytest.mark.parametrize("phase", [0, 1, 2])
+def test_bf16_walk_at_a_ragged_s_matches_plain_and_repeats(cuda_device, phase, S):
+    """Ragged tiles (a ray's last 64-sample tile part empty; S = 48 one
+    tile, 100 two, 130 three) at an odd ray count (an odd tile count leaves a
+    work item's second tile empty): the Hopper walk's backward within 1e-2 of
+    each output's max of the plain backward, train and frozen; two calls and
+    the frozen mode's data cotangents bit for bit."""
+    o, d, z, pe_w, cond, trunk, heads = make_inputs(37, S, cuda_device, seed=19)
+    if phase < 2:
+        args, c_emb = train_inputs(37, S, cuda_device, phase, "bfloat16", seed=19)
+    else:
+        args, c_emb = (o, d, z, pe_w, cond, trunk, heads, rt.RTStatic(D=D, skips=SKIPS, xyz_L=L,
+                                                                      precision="bfloat16")), None
+    st = args[-1]
+    with torch.no_grad():
+        out, res = rt.render_train_rays_fwd(*args, c_emb=c_emb, save_res=True)
+        g = torch.Generator(device=cuda_device).manual_seed(5)
+        cots = {k: torch.randn(v.shape, generator=g, device=cuda_device) for k, v in out.items()}
+        for s in (st, st._replace(param_grads=False)):
+            a = rt.render_train_rays_bwd(*args[:7], s, c_emb, res, cots)
+            b = rt.render_train_rays_bwd(*args[:7], s, c_emb, res, cots)
+            want = rt.render_train_rays_bwd_plain(*args[:7], s, c_emb, res, cots)
+            torch.cuda.synchronize()
+            got = _bwd_outputs(a, s)
+            assert all(torch.equal(x, y) for x, y in zip(got, _bwd_outputs(b, s)))
+            for x, w in zip(got, _bwd_outputs(want, s)):
+                assert torch.isfinite(x).all() and (x - w.reshape(x.shape)).abs().max() <= 1e-2 * w.abs().max()
+            if s.param_grads:
+                train = got
+            else:
+                assert all(torch.equal(x, y) for x, y in zip(got, train))

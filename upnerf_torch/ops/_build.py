@@ -34,8 +34,10 @@ KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd", "heads_fwd"
            "dw_gemm")
 # name: (source, nvcc flags). render_train_fwd with the mma.sync bfloat16 design that
 # wg_kernel replaced: chip_smoke.py (phase 5b and --kernel_times) times both designs
-# in turns (render_train.py:FWD_DESIGNS).
-VARIANTS = {"render_train_fwd_mma_sync": ("render_train_fwd", ("-DUPNERF_FWD_MMA_SYNC",))}
+# in turns (render_train.py:FWD_DESIGNS); render_train_bwd with the mma.sync walk that
+# the Hopper walk replaced (phases 9 and 12, render_train.py:BWD_DESIGNS).
+VARIANTS = {"render_train_fwd_mma_sync": ("render_train_fwd", ("-DUPNERF_FWD_MMA_SYNC",)),
+            "render_train_bwd_mma_sync": ("render_train_bwd", ("-DUPNERF_BWD_MMA_SYNC",))}
 
 
 class BuildInfo(NamedTuple):
@@ -109,6 +111,11 @@ _ARGTYPES = {
     # train mode, DW_OPS), R, S, L, in0, C, F, flags, stream
     "upnerf_render_train_bwd": ["pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "ip", "i", "i", "i", "i", "i",
                                 "i", "i", "p"],
+    # the Hopper design's stages: ins, cots, res, D, skip mask, weights, outs, dW operand buffers, their layout,
+    # scratch (coefficient rows, mask words, partial sums, d h1 rows), packed weights, their schedule ((offset,
+    # bytes) pairs), its K-strips, R, S, L, in0, C, F, flags, stage, stream
+    "upnerf_render_train_bwd_wg": ["pp", "pp", "pp", "i", "u", "pp", "pp", "pp", "ip", "pp", "p", "ip", "i", "i", "i",
+                                   "i", "i", "i", "i", "i", "i", "p"],
     # sources, their rows, their columns, jobs (11 ints each), job count, workspace, splits, out, weight floats,
     # bias rows, their count, bias floats, accumulate, f32 sources, stream
     "upnerf_dw_gemm": ["pp", "ip", "ip", "ip", "i", "p", "i", "p", "i", "p", "i", "i", "i", "i", "p"],
@@ -126,6 +133,10 @@ _ARGTYPES = {
 }
 
 
+# The C entry points of each source, beside upnerf_<source>.
+ENTRY_POINTS = {"render_train_bwd": ("upnerf_render_train_bwd", "upnerf_render_train_bwd_wg")}
+
+
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The built library of kernel `name`, loaded once per process, with its C
@@ -134,10 +145,11 @@ def library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[name].path))
     kinds = {"p": ctypes.c_void_p, "pp": ctypes.POINTER(ctypes.c_void_p), "i": ctypes.c_int, "u": ctypes.c_uint,
              "f": ctypes.c_float, "ip": ctypes.POINTER(ctypes.c_int)}
-    fn_name = f"upnerf_{_source(name)[0]}"
-    fn = getattr(lib, fn_name)
-    fn.argtypes = [kinds[k] for k in _ARGTYPES[fn_name]]
-    fn.restype = ctypes.c_int
+    source = _source(name)[0]
+    for fn_name in ENTRY_POINTS.get(source, (f"upnerf_{source}",)):
+        fn = getattr(lib, fn_name)
+        fn.argtypes = [kinds[k] for k in _ARGTYPES[fn_name]]
+        fn.restype = ctypes.c_int
     lib.upnerf_error_string.argtypes = [ctypes.c_int]
     lib.upnerf_error_string.restype = ctypes.c_char_p
     return lib

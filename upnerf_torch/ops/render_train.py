@@ -101,6 +101,11 @@ rebuild_launches = 0
 # Kernel launches made by render_train_fwd / render_train_bwd (the x0 frontend), in every mode.
 x0_launches = 0
 x0_bwd_launches = 0
+# Kernel launches of the bf16 backward's Hopper walk, in every mode and frontend (BwdLaunch, per slab of rays):
+# the compositing pre-pass, the walk, the finishing pass.
+walk_pre_launches = 0
+walk_launches = 0
+walk_finish_launches = 0
 
 
 class RTStatic(NamedTuple):
@@ -319,32 +324,76 @@ def _excl_suffix(x: torch.Tensor) -> torch.Tensor:
     return torch.flip(_excl_prefix(torch.flip(x, [-1])), [-1])
 
 
-def _bwd_walk_plain(
-    x0, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res: Dict[str, torch.Tensor],
-    cots: Dict[str, Optional[torch.Tensor]],
-):
-    """The backward's walk (render_train_bwd_plain without its weight
-    gradients). In the recompute mode it reads the chain from res where res
-    holds one (the recompute route's rebuilt chain), else it rebuilds it; p,
-    q and rgb1's dW operand come from the stored feat / c_feat either way.
-    Returns (d_x0, d_ray_cond or None, d_c_emb or None, ops):
-    with st.param_grads, ops holds by name every operand of the weight
-    gradients (dw_products, dw_biases), unrounded in the working float dtype:
-    the X operands x0, act{i}, xyzf, rgbh, h1, h2, feat, c_emb and the
-    cotangents g_act{i}, g_xyzf, g_spre, g_feat, g_rgbh, g_u, g_cfeat, g_cpre,
-    g_h2, g_h1 (rows: samples) and ray_g1 (rows: rays); None in the frozen
-    mode."""
-    prec = canonical_precision(st.precision)
+def composite_bwd_plain(z_vals, res: Dict[str, torch.Tensor], st: RTStatic, p, q, rr,
+                        cots: Dict[str, Optional[torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """The backward's compositing step, division-free (the JAX kernel's
+    _composite; csrc/render_train_bwd.cu:pre_kernel): from the residual
+    sigmas and the per-sample inner products p = <feat, g_feat>, q = <c_feat,
+    g_feat> (out_feat; q with use_cand) and rr = <rgb, g_rgb_map> (use_rgb),
+    None where the mode has none, the per-sample coefficients of the walk:
+    g_spre (M, 1), g_cpre (M, 1; use_cand), the weights ow (the s-only
+    branch's), cf and cg (R, S) that scale g_feat into feat's and c_feat's
+    cotangents (out_feat; cg with use_cand), None where the mode has none."""
     R, S = z_vals.shape
-    in0 = x0.shape[1]
+    M = R * S
+    f32 = z_vals.dtype
+
+    def cot(k, shape):
+        g = cots.get(k)
+        return torch.zeros(shape, dtype=f32, device=z_vals.device) if g is None else g.to(f32)
+
+    sig_s = res["sig_s"]
+    delta = _deltas(z_vals)
+    ds = delta * sig_s
+    Ts = torch.exp(-_excl_prefix(ds))
+    a_s = 1.0 - torch.exp(-ds)
+    ow = a_s * Ts
+    g_ow = cot("s_weights", (R, S)) + cot("s_depth", (R,))[:, None] * z_vals
+    if st.use_rgb:
+        g_ow = g_ow + rr
+    if st.out_feat and not st.use_cand:
+        g_ow = g_ow + p
+    e_s = torch.exp(-ds)
+    gsig_s = delta * (e_s * Ts * g_ow - _excl_suffix(g_ow * ow))
+    cf = cg = g_cpre = None
+    if st.use_cand:
+        sig_c = res["sig_c"]
+        dc = delta * sig_c
+        Tj = torch.exp(-_excl_prefix(ds + dc))
+        a_c = 1.0 - torch.exp(-dc)
+        a_j = 1.0 - torch.exp(-(ds + dc))
+        sw, cw, jw = a_s * Tj, a_c * Tj, a_j * Tj
+        zero = torch.zeros_like(g_ow)
+        g_sw = p if st.out_feat else zero
+        g_cw = (q if st.out_feat else zero) + cot("t_weight", (R,))[:, None]
+        g_jw = cot("j_weights", (R, S)) + cot("c_depth", (R,))[:, None] * z_vals
+        sfx = _excl_suffix(g_sw * sw + g_cw * cw + g_jw * jw)
+        e_c = torch.exp(-dc)
+        e_j = e_s * e_c
+        gsig_s = gsig_s + delta * (e_s * Tj * g_sw + e_j * Tj * g_jw - sfx)
+        gsig_c = delta * (e_c * Tj * g_cw + e_j * Tj * g_jw - sfx)
+        g_cpre = (gsig_c * (1.0 - torch.exp(-sig_c))).reshape(M, 1)
+        if st.out_feat:
+            cf, cg = sw, cw
+    elif st.out_feat:
+        cf = ow
+    g_spre = (gsig_s * (1.0 - torch.exp(-sig_s))).reshape(M, 1)
+    return {"g_spre": g_spre, "g_cpre": g_cpre, "ow": ow, "cf": cf, "cg": cg}
+
+
+def _walk_setup(x0, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots):
+    """The walk's set-up: its chain by name (read from res, or rebuilt), feat
+    (None where the walk reads none), the cotangents g_feat (out_feat) and
+    g_rgb_map (use_rgb), and the compositing coefficients
+    (composite_bwd_plain)."""
+    R, S = z_vals.shape
     W = trunk[0][1].shape[0]
     HH = heads["rgb1_w"].shape[1] if st.use_rgb else 0
     HC = heads["c2_w"].shape[1] if st.use_cand else 0
-    M = R * S
-    f32 = z_vals.dtype  # float32; float64 where the plain version serves as a float64 witness
+    f32 = z_vals.dtype
 
     def dot(a, b):
-        return matmul(a, b, prec)
+        return matmul(a, b, canonical_precision(st.precision))
 
     def cot(k, shape):
         g = cots.get(k)
@@ -378,44 +427,36 @@ def _bwd_walk_plain(
             q = (cfeat.reshape(R, S, -1) * g_feat[:, None, :]).sum(-1)
     if st.use_rgb:
         rr = (res["rgb"].reshape(R, S, 3) * g_rgbm[:, None, :]).sum(-1)
+    return cuts, feat, g_feat, g_rgbm, composite_bwd_plain(z_vals, res, st, p, q, rr, cots)
 
-    # compositing backward, division-free (the JAX kernel's _composite)
-    sig_s = res["sig_s"]
-    delta = _deltas(z_vals)
-    ds = delta * sig_s
-    Ts = torch.exp(-_excl_prefix(ds))
-    a_s = 1.0 - torch.exp(-ds)
-    ow = a_s * Ts
-    g_ow = cot("s_weights", (R, S)) + cot("s_depth", (R,))[:, None] * z_vals
-    if st.use_rgb:
-        g_ow = g_ow + rr
-    if st.out_feat and not st.use_cand:
-        g_ow = g_ow + p
-    e_s = torch.exp(-ds)
-    gsig_s = delta * (e_s * Ts * g_ow - _excl_suffix(g_ow * ow))
-    cf = cg = None
-    if st.use_cand:
-        sig_c = res["sig_c"]
-        dc = delta * sig_c
-        Tj = torch.exp(-_excl_prefix(ds + dc))
-        a_c = 1.0 - torch.exp(-dc)
-        a_j = 1.0 - torch.exp(-(ds + dc))
-        sw, cw, jw = a_s * Tj, a_c * Tj, a_j * Tj
-        zero = torch.zeros_like(g_ow)
-        g_sw = p if st.out_feat else zero
-        g_cw = (q if st.out_feat else zero) + cot("t_weight", (R,))[:, None]
-        g_jw = cot("j_weights", (R, S)) + cot("c_depth", (R,))[:, None] * z_vals
-        sfx = _excl_suffix(g_sw * sw + g_cw * cw + g_jw * jw)
-        e_c = torch.exp(-dc)
-        e_j = e_s * e_c
-        gsig_s = gsig_s + delta * (e_s * Tj * g_sw + e_j * Tj * g_jw - sfx)
-        gsig_c = delta * (e_c * Tj * g_cw + e_j * Tj * g_jw - sfx)
-        g_cpre = (gsig_c * (1.0 - torch.exp(-sig_c))).reshape(M, 1)
-        if st.out_feat:
-            cf, cg = sw, cw
-    elif st.out_feat:
-        cf = ow
-    g_spre = (gsig_s * (1.0 - torch.exp(-sig_s))).reshape(M, 1)
+
+def _bwd_walk_plain(
+    x0, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res: Dict[str, torch.Tensor],
+    cots: Dict[str, Optional[torch.Tensor]],
+):
+    """The backward's walk (render_train_bwd_plain without its weight
+    gradients). In the recompute mode it reads the chain from res where res
+    holds one (the recompute route's rebuilt chain), else it rebuilds it; p,
+    q and rgb1's dW operand come from the stored feat / c_feat either way.
+    Returns (d_x0, d_ray_cond or None, d_c_emb or None, ops):
+    with st.param_grads, ops holds by name every operand of the weight
+    gradients (dw_products, dw_biases), unrounded in the working float dtype:
+    the X operands x0, act{i}, xyzf, rgbh, h1, h2, feat, c_emb and the
+    cotangents g_act{i}, g_xyzf, g_spre, g_feat, g_rgbh, g_u, g_cfeat, g_cpre,
+    g_h2, g_h1 (rows: samples) and ray_g1 (rows: rays); None in the frozen
+    mode."""
+    prec = canonical_precision(st.precision)
+    R, S = z_vals.shape
+    in0 = x0.shape[1]
+    W = trunk[0][1].shape[0]
+    M = R * S
+    f32 = z_vals.dtype  # float32; float64 where the plain version serves as a float64 witness
+
+    def dot(a, b):
+        return matmul(a, b, prec)
+
+    cuts, feat, g_feat, g_rgbm, comp = _walk_setup(x0, z_vals, ray_cond, trunk, heads, st, c_emb, res, cots)
+    g_spre, g_cpre, ow, cf, cg = (comp[k] for k in ("g_spre", "g_cpre", "ow", "cf", "cg"))
 
     # reverse walk over the chain
     ops: Dict[str, torch.Tensor] = {"x0": x0, "feat": feat, "c_emb": c_emb, **cuts}
@@ -467,7 +508,83 @@ def _bwd_walk_plain(
         else:
             g = g_in
 
-    return dx0, d_cond, d_cemb, ops if pg else None
+    return dx0, d_cond, d_cemb, ops if st.param_grads else None
+
+
+# The Hopper walk of the bf16 backward (csrc/render_train_bwd.cu: pre_kernel, walk_kernel, finish_kernel).
+WALK_TILE = 64  # samples a tile (wk::ROWS): a tile never spans two rays, a ray's last is ragged
+WALK_COEF_W = 8  # a sample's coefficient row (wk::COEF_W): g_spre, g_cpre, cfw, cgw, g_u (3), 0
+WALK_PART_W = 128 + 128 + 8  # a tile's partial sums (wk::PART_W): d_ray_cond, rayg1, d_rays_o, d_rays_d
+WALK_MAX_CHUNKS = 256  # K-strips a tile streams at most (wk::MAX_CHUNKS)
+
+
+def walk_coef_plain(x0, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots) -> torch.Tensor:
+    """The coefficient rows the Hopper walk's pre-pass writes, in plain
+    PyTorch: (R*S, WALK_COEF_W) f32 of g_spre, g_cpre, cfw (g_feat's weight in
+    feat's cotangent), cgw (in c_feat's), g_u = ow g_rgb_map rgb (1 - rgb)
+    and a zero, each 0 where the mode has none."""
+    R, S = z_vals.shape
+    M = R * S
+    _, _, _, g_rgbm, comp = _walk_setup(x0, z_vals, ray_cond, trunk, heads, st, c_emb, res, cots)
+    out = torch.zeros((M, WALK_COEF_W), dtype=z_vals.dtype, device=z_vals.device)
+    out[:, 0:1] = comp["g_spre"]
+    if comp["g_cpre"] is not None:
+        out[:, 1:2] = comp["g_cpre"]
+    for col, k in ((2, "cf"), (3, "cg")):
+        if comp[k] is not None:
+            out[:, col] = comp[k].reshape(M)
+    if st.use_rgb:
+        rgb = res["rgb"]
+        out[:, 4:7] = (comp["ow"][..., None] * g_rgbm[:, None, :]).reshape(M, 3) * rgb * (1.0 - rgb)
+    return out
+
+
+def walk_mask_plain(chain: torch.Tensor) -> torch.Tensor:
+    """The ReLU mask words the Hopper walk's pre-pass packs from a chain (M,
+    cw), in plain PyTorch: (M, cw / 32) int32, bit b of word w set where
+    chain[:, 32 w + b] > 0."""
+    bits = (chain.float() > 0).reshape(chain.shape[0], -1, 32).to(torch.int64)
+    words = (bits << torch.arange(32, device=chain.device)).sum(-1)
+    return (words - (words >= 2**31).to(torch.int64) * 2**32).to(torch.int32)
+
+
+def walk_part_plain(ops: Dict[str, torch.Tensor], dx0, xyz, z_vals, pe_w, st: RTStatic) -> torch.Tensor:
+    """The partial sums the Hopper walk writes a tile, in plain PyTorch, from
+    _bwd_walk_plain's operands (the train mode's) and d_x0: (R ceil(S /
+    WALK_TILE), WALK_PART_W) of the tile's sums of g_rgbh (d_ray_cond's),
+    g_h1 (rayg1's) and, with the rays frontend, of the PE backward's d xyz
+    and d xyz z (d_rays_o's, d_rays_d's), zero where the mode has none."""
+    S = z_vals.shape[1]
+    HH, HC = KERNEL_WIDTHS["HH"], KERNEL_WIDTHS["HC"]  # the row's sections (the kernel's widths)
+    rows = torch.zeros((dx0.shape[0], WALK_PART_W), dtype=dx0.dtype, device=dx0.device)
+    if st.use_rgb:
+        rows[:, : ops["g_rgbh"].shape[1]] = ops["g_rgbh"]
+    if st.use_cand:
+        rows[:, HH : HH + ops["g_h1"].shape[1]] = ops["g_h1"]
+    if xyz is not None:
+        dxyz = _pe_bwd_rows(dx0, xyz, pe_w, st.xyz_L)
+        rows[:, HH + HC : HH + HC + 3] = dxyz
+        rows[:, HH + HC + 3 : HH + HC + 6] = dxyz * z_vals.reshape(-1, 1)
+    return tile_sums_plain(rows, S)
+
+
+def tile_sums_plain(x: torch.Tensor, S: int, tile: int = WALK_TILE) -> torch.Tensor:
+    """(R*S, n) per-sample rows -> (R * ceil(S / tile), n): each tile's rows
+    summed in sample order. A tile never spans two rays; a ray's last tile
+    holds its remaining S mod tile samples."""
+    R = x.shape[0] // S
+    tpr = -(-S // tile)
+    pad = torch.zeros((R, tpr * tile - S, x.shape[1]), dtype=x.dtype, device=x.device)
+    return torch.cat([x.reshape(R, S, -1), pad], 1).reshape(R * tpr, tile, -1).sum(1)
+
+
+def ray_sums_plain(rows: torch.Tensor, tpr: int) -> torch.Tensor:
+    """(R * tpr, n) per-tile rows -> (R, n): each ray's tiles summed in tile
+    order (the finishing pass, csrc/render_train_bwd.cu:finish_kernel)."""
+    out = rows[0::tpr].clone()
+    for k in range(1, tpr):
+        out = out + rows[k::tpr]
+    return out
 
 
 def dw_products(st: RTStatic) -> Tuple[Tuple[str, Tuple[str, ...], str], ...]:
@@ -540,17 +657,21 @@ def render_train_bwd_plain(
     return (dx0, d_cond, d_cemb, *_split_grads(grads, st))
 
 
-def _pe_bwd(dx0, xyz, z_vals, pe_w, L: int):
-    """The PE backward (pallas_render_train.py:_pe_backward, :1024-1031): d_x0
-    (R*S, 3 + 6L) -> (d_rays_o, d_rays_d) (R, 3), with d sin(x f) = cos(x f) f
-    dx and d cos(x f) = -sin(x f) f dx."""
-    R, S = z_vals.shape
-    M = R * S
+def _pe_bwd_rows(dx0, xyz, pe_w, L: int):
+    """The PE backward of each sample: d_x0 (M, 3 + 6L) -> d xyz (M, 3), with
+    d sin(x f) = cos(x f) f dx and d cos(x f) = -sin(x f) f dx."""
+    M = dx0.shape[0]
     freq = 2.0 ** torch.arange(L, dtype=dx0.dtype, device=dx0.device) * math.pi
     sp = xyz[:, :, None] * freq  # (M, 3, L)
     denc = dx0[:, 3:].reshape(M, 3, 2, L) * pe_w
-    dxyz = dx0[:, :3] + (denc[:, :, 0] * torch.cos(sp) * freq - denc[:, :, 1] * torch.sin(sp) * freq).sum(-1)
-    dxyz = dxyz.reshape(R, S, 3)
+    return dx0[:, :3] + (denc[:, :, 0] * torch.cos(sp) * freq - denc[:, :, 1] * torch.sin(sp) * freq).sum(-1)
+
+
+def _pe_bwd(dx0, xyz, z_vals, pe_w, L: int):
+    """The PE backward (pallas_render_train.py:_pe_backward, :1024-1031): d_x0
+    (R*S, 3 + 6L) -> (d_rays_o, d_rays_d) (R, 3)."""
+    R, S = z_vals.shape
+    dxyz = _pe_bwd_rows(dx0, xyz, pe_w, L).reshape(R, S, 3)
     return dxyz.sum(1), (dxyz * z_vals[..., None]).sum(1)
 
 
@@ -698,11 +819,14 @@ def dw_slab_rays(lay: Optional[DwLayout], S: int, n_sm: int = 0, chain_bytes: in
     return rays
 
 
-def dw_operands_plain(ops: Dict[str, torch.Tensor], lay: DwLayout, st: RTStatic, n: int, S: int, dtype):
+def dw_operands_plain(ops: Dict[str, torch.Tensor], lay: DwLayout, st: RTStatic, n: int, S: int, dtype,
+                      tile: Optional[int] = None):
     """The walk's stores for n rays of S samples, in plain PyTorch: from
     _bwd_walk_plain's operands, the operand buffer (n S, lay.ops_w) and the
     per-ray operands (n, lay.ray_w) rounded to dtype (zero where no operand
-    lies), and the f32 bias rows (n, lay.nb)."""
+    lies), and the f32 bias rows (n, lay.nb), or with tile a row a tile of
+    that many samples (n ceil(S / tile), lay.nb: the Hopper walk's,
+    tile_sums_plain)."""
     dev = ops["x0"].device
     buf = torch.zeros((n * S, lay.ops_w), dtype=dtype, device=dev)
     for name, col in lay.ops.items():
@@ -710,10 +834,11 @@ def dw_operands_plain(ops: Dict[str, torch.Tensor], lay: DwLayout, st: RTStatic,
     ray = torch.zeros((n, lay.ray_w), dtype=dtype, device=dev) if lay.ray_w else None
     for name, col in lay.ray.items():
         ray[:, col : col + ops[name].shape[1]] = ops[name].to(dtype)
-    rows = torch.zeros((n, lay.nb), dtype=torch.float32, device=dev)
+    rows = torch.zeros((n * (1 if tile is None else -(-S // tile)), lay.nb), dtype=torch.float32, device=dev)
     for name, g in dw_biases(st):
         off = lay.bias[name][0]
-        rows[:, off : off + ops[g].shape[1]] = ops[g].reshape(n, S, -1).sum(1)
+        sums = ops[g].reshape(n, S, -1).sum(1) if tile is None else tile_sums_plain(ops[g], S, tile)
+        rows[:, off : off + ops[g].shape[1]] = sums
     return buf, ray, rows
 
 
@@ -735,7 +860,8 @@ def render_train_bwd_dw_plain(x0, z_vals, ray_cond, trunk, heads, st: RTStatic, 
     with save_chain on (render_train_plain); then the walk (_bwd_walk_plain,
     which in the recompute mode reads the stored feat / c_feat beside that
     chain); then, with st.param_grads, its stores into the operand buffers of
-    dw_layout (dw_operands_plain) and dw_gemm.dw_gemm_plain, which writes the
+    dw_layout (dw_operands_plain; in bf16 mode a bias row a WALK_TILE-sample
+    tile, as the Hopper walk writes them) and dw_gemm.dw_gemm_plain, which writes the
     slab's weight gradients and bias sums into a flat result, or adds them to
     it after the first slab. Returns as render_train_bwd_plain; with
     flat_out, also the flat result and the layout (None in the frozen mode)."""
@@ -762,7 +888,8 @@ def render_train_bwd_dw_plain(x0, z_vals, ray_cond, trunk, heads, st: RTStatic, 
         d, dc, de, ops = _bwd_walk_plain(cut(x0, S), cut(z_vals), cut(ray_cond), trunk, heads, st, cut(c_emb), sres,
                                          {k: cut(v) for k, v in cots.items()})
         if pg:
-            buf, ray, rows = dw_operands_plain(ops, lay, st, r1 - r0, S, dtype)
+            buf, ray, rows = dw_operands_plain(ops, lay, st, r1 - r0, S, dtype,
+                                               WALK_TILE if dtype == torch.bfloat16 else None)
             dw_gemm.dw_gemm_plain([sres["chain"], buf, ray], lay.jobs, flat, lay.n_dw, rows, r0 > 0)
         dx0.append(d)
         d_cond.append(dc)
@@ -1049,27 +1176,29 @@ BWD_WEIGHTS = ("xyzf_w^T", "feat_w", "feat_w^T", "rgb1_w^T", "rgb2_w^T", "c1x_w^
 _BWD_PRODUCT_WEIGHTS = ("xyzf_w^T", "feat_w", "feat_w^T", "rgb1_w^T", "c1x_w^T", "c2_w^T", "cfeat_w^T")
 
 
-def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic, in0: int):
+def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic, in0: int, design: str):
     """Weights in the layout the backward kernel reads: the trunk's
     transposes (out, in) with x0 padded to X0_PAD columns, BWD_WEIGHTS
     (None where the mode has no such head), their feature dimension
     zero-padded to feat_pad but for the "rm" copies. float32 mode: every
     matrix f32, row-major. bfloat16 mode: the matrices the walk's products
     read (the trunk's, and _BWD_PRODUCT_WEIGHTS) packed in fragment order for
-    the tensor cores; rgb2_w^T, c1c_w and the "rm" copies row-major bf16.
-    sigma_w and csig_w are f32 columns (the JAX kernel keeps them f32: they
-    enter rank-1 terms, not products), the biases f32."""
+    the tensor cores (the mma.sync design; None in the "wgmma" design, which
+    streams them from _walk_wgmma_weights); rgb2_w^T, c1c_w and the "rm"
+    copies row-major bf16. sigma_w and csig_w are f32 columns (the JAX kernel
+    keeps them f32: they enter rank-1 terms, not products), the biases f32."""
     cdt = _cdt(st)
     packed = cdt == torch.bfloat16
+    streamed = packed and design == "wgmma"
     padded = pad_feat(heads, feat_pad(heads["feat_b"].shape[0], packed))
     ptrunk = [_pad_x0_rows(w, in0) if i == 0 or i in st.skips else w for i, (w, _) in enumerate(trunk)]
-    kt = [_pack_fragments(w.t()) if packed else w.t().contiguous() for w in ptrunk]
+    kt = [None if streamed else _pack_fragments(w.t()) if packed else w.t().contiguous() for w in ptrunk]
     out = []
     for name in BWD_WEIGHTS:
         key = name.split(" ")[0].removesuffix("^T")
         v = (heads if name.endswith(" rm") else padded).get(key) if key in st.head_keys else None
-        if name == "feat_w" and not st.param_grads:
-            v = None  # read only to re-derive feat for rgb1's dW
+        if (name == "feat_w" and not st.param_grads) or (streamed and name in _BWD_PRODUCT_WEIGHTS):
+            v = None  # feat_w: read only to re-derive feat for rgb1's dW
         if v is not None:
             if key in ("sigma_w", "csig_w"):
                 v = v.reshape(-1)
@@ -1079,6 +1208,114 @@ def _bwd_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic, in0: int):
             v = v.contiguous()
         out.append(v)
     return kt, out
+
+
+# The backward's bf16 designs: the route's Hopper walk, and for timing only the mma.sync walk it replaced
+# (_build.VARIANTS), each in its library.
+BWD_DESIGNS = ("wgmma", "mma_sync")
+BWD_LIBS = {"wgmma": "render_train_bwd", "mma_sync": "render_train_bwd_mma_sync"}
+
+
+@functools.lru_cache(maxsize=64)
+def _walk_wgmma_plan(D: int, skips: Tuple[int, ...], in0: int, F: int, FP: int, rgb: bool, cand: bool,
+                     feat_op: bool):
+    """The gather that packs the Hopper walk's weights (bf16), its schedule
+    and each K-strip's label, from the shapes alone: (index, sched, labels).
+    index (int64, CPU) maps each packed element to its source in the flat
+    concatenation [0, the trunk's weights, xyzf_w, feat_w, then rgb1_w
+    (rgb), c1x_w, c2_w, cfeat_w (cand)] (0: a padded zero). Every product's
+    B operand (K x N, the product g (64 x K) B) is laid out by pack_wgmma in
+    blocks of nb columns. sched: (byte offset, bytes) of each K-strip in the
+    order a consumer reads them (csrc/render_train_bwd.cu:wk_consume):
+    feat_w in blocks of min(FP, 128) (feat_op: the train mode's re-derived
+    feat, with the saved chain); rgb1_w^T in blocks of min(FP, 128) (rgb);
+    cfeat_w^T and c2_w^T (cand); per half of W, feat_w^T and c1x_w^T
+    (cand); xyzf_w^T by halves; then the trunk, last layer first, each layer's
+    x0 columns (layer 0 and the skip layers, 64) before its other columns by
+    halves. labels: (matrix, block, K-strip) of each sched entry."""
+    W, HH, HC = KERNEL_WIDTHS["W"], KERNEL_WIDTHS["HH"], KERNEL_WIDTHS["HC"]
+    sizes = [(f"t{i}", (in0 if i == 0 else (in0 + W if i in skips else W), W)) for i in range(D)]
+    sizes += [("xyzf_w", (W, W)), ("feat_w", (W, F))]
+    if rgb:
+        sizes.append(("rgb1_w", (F, HH)))
+    if cand:
+        sizes += [("c1x_w", (W, HC)), ("c2_w", (HC, HC)), ("cfeat_w", (HC, F))]
+    src, at = {}, 1
+    for name, (k, n) in sizes:
+        src[name] = torch.arange(at, at + k * n, dtype=torch.int64).reshape(k, n)
+        at += k * n
+    cols = lambda t, n: torch.cat([t, t.new_zeros(t.shape[0], n - t.shape[1])], 1)  # noqa: E731
+    NB = min(FP, 128)
+    mats = {}
+    if feat_op:
+        mats["feat_w"] = (cols(src["feat_w"], FP), NB)
+    if cand:
+        mats["cfeat_w^T"] = (cols(src["cfeat_w"], FP).t(), 128)
+        mats["c2_w^T"] = (src["c2_w"].t(), 128)
+    if rgb:
+        mats["rgb1_w^T"] = (cols(src["rgb1_w"].t(), FP), NB)
+    mats["feat_w^T"] = (cols(src["feat_w"], FP).t(), 128)
+    if cand:
+        mats["c1x_w^T"] = (src["c1x_w"].t(), 128)
+    mats["xyzf_w^T"] = (src["xyzf_w"].t(), 128)
+    for i in range(D):
+        wt = (_pad_x0_rows(src[f"t{i}"], in0) if i == 0 or i in skips else src[f"t{i}"]).t()  # (W, in_pad)
+        if i == 0 or i in skips:
+            mats[f"trunk{i}_x0^T"] = (wt[:, :X0_PAD], 64)
+        if i > 0:
+            mats[f"trunk{i}^T"] = (wt[:, X0_PAD:] if i in skips else wt, 128)
+    parts, start, size = [], {}, 0
+    for name, (idx, nb) in mats.items():
+        parts.append(pack_wgmma(idx.contiguous(), nb))
+        start[name] = size
+        size += parts[-1].numel()
+    sched, labels = [], []
+
+    def strips(name, blocks=None):
+        idx, nb = mats[name]
+        K = idx.shape[0]
+        for b in range(idx.shape[1] // nb) if blocks is None else blocks:
+            for ks in range(K // 64):
+                sched.append((2 * (start[name] + (b * (K // 64) + ks) * 64 * nb), 128 * nb))
+                labels.append((name, b, ks))
+
+    for name in ("feat_w", "rgb1_w^T", "cfeat_w^T", "c2_w^T"):
+        if name in mats:
+            strips(name)
+    for half in range(W // 128):
+        strips("feat_w^T", [half])
+        if cand:
+            strips("c1x_w^T", [half])
+    strips("xyzf_w^T")
+    for i in reversed(range(D)):
+        if i == 0 or i in skips:
+            strips(f"trunk{i}_x0^T")
+        if i > 0:
+            strips(f"trunk{i}^T")
+    return torch.cat(parts), tuple(sched), tuple(labels)
+
+
+_WALK_INDEX: Dict[tuple, torch.Tensor] = {}  # _walk_wgmma_plan's index on each device
+
+
+def _walk_wgmma_weights(trunk, heads: Dict[str, torch.Tensor], st: RTStatic, in0: int):
+    """The bf16 weights of the Hopper walk for mode st as one flat tensor, and
+    the schedule of K-strips its producer streams for every tile
+    (_walk_wgmma_plan). A call runs one concatenation, one gather and one
+    rounding on the device."""
+    F = heads["feat_b"].shape[0]
+    skips = tuple(i for i in st.skips if 0 < i < st.D)
+    feat_op = st.param_grads and st.use_rgb and st.save_chain
+    key = (st.D, skips, in0, F, feat_pad(F, True), st.use_rgb, st.use_cand, feat_op)
+    index, sched, _ = _walk_wgmma_plan(*key)
+    mats = [w for w, _ in trunk] + [heads["xyzf_w"], heads["feat_w"]]
+    mats += [heads["rgb1_w"]] if st.use_rgb else []
+    mats += [heads[k] for k in ("c1x_w", "c2_w", "cfeat_w")] if st.use_cand else []
+    dev = heads["xyzf_w"].device
+    if (key, dev) not in _WALK_INDEX:
+        _WALK_INDEX[(key, dev)] = index.to(dev)
+    flat = torch.cat([mats[0].new_zeros(1)] + [m.reshape(-1) for m in mats])
+    return flat[_WALK_INDEX[(key, dev)]].to(torch.bfloat16), list(sched)
 
 
 def _head_shapes(W, F, HH, HC, C):
@@ -1332,22 +1569,31 @@ class BwdLaunch:
     off) `rebuild(r0, r1)` first writes the slab's chain into a slab buffer
     with the forward kernel in its saved-chain residual mode (its weights
     packed once a call; counted in `rebuild_launches`), and the walk reads
-    that chain with the stored feat / c_feat. In the train mode, in both
-    precisions, the walk (DW_OPS) stores the weight gradients' operands
-    (dw_layout, in the compute dtype) and adds none, then dw_gemm on them
-    writes (first slab) or adds the slab's weight and bias gradients in a
-    fixed order: no weight gradient is added with atomics, and two calls give
-    the same bits. `rebuild`, `walk(r0, r1)` and `dw(r0, r1)` launch one
-    slab's kernels on their own, for timing. Slabs: with the saved chain,
+    that chain with the stored feat / c_feat. `walk(r0, r1)` then walks the
+    slab: in bfloat16 mode (design "wgmma", the route's) three launches, the
+    compositing pre-pass, the Hopper walk over the packed weight stream
+    (_walk_wgmma_weights, packed once a call) and the finishing pass of the
+    per-ray sums (`pre`, `walk_tiles`, `finish`; counted in
+    `walk_pre_launches`, `walk_launches`, `walk_finish_launches`); in float32
+    mode, and in the mma.sync design that the Hopper walk replaced (design
+    "mma_sync", a timing variant, _build.VARIANTS), one launch of the SIMT /
+    mma.sync walk. In the train mode the walk (DW_OPS) stores the weight
+    gradients' operands (dw_layout, in the compute dtype; bias rows a tile of
+    WALK_TILE samples in the Hopper walk, a ray otherwise) and adds none, then
+    `dw(r0, r1)` (dw_gemm) writes (first slab) or adds the slab's weight and
+    bias gradients in a fixed order: no weight gradient is added with
+    atomics, and two calls give the same bits. Slabs: with the saved chain,
     dw_slab_rays under DW_BUFFER_BYTES in the train mode and one slab in the
-    frozen mode; in the recompute mode, dw_slab_rays of the rebuilt chain
-    and the operand buffers under REC_BUFFER_BYTES. The frozen mode runs no
-    dW kernel."""
+    frozen mode; in the recompute mode, dw_slab_rays of the rebuilt chain and
+    the operand buffers under REC_BUFFER_BYTES. The frozen mode runs no dW
+    kernel."""
 
     def __init__(self, ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots,
-                 x0_mode: bool):
+                 x0_mode: bool, design: str = "wgmma"):
         from upnerf_torch.ops import _build
 
+        if design not in BWD_DESIGNS:
+            raise ValueError(f"design must be one of {BWD_DESIGNS}, got {design!r}")
         R, S = z_vals.shape
         dev = z_vals.device
         C = c_emb.shape[1] if st.use_cand else 0
@@ -1355,6 +1601,7 @@ class BwdLaunch:
         F = heads["feat_b"].shape[0]
         cdt = _cdt(st)
         bf16 = cdt == torch.bfloat16
+        self.wg = bf16 and design == "wgmma"
         FP = feat_pad(F, bf16)
         f32 = dict(dtype=torch.float32, device=dev)
         fwd_ins = [t.contiguous() if t is not None else None for t in ins]
@@ -1374,7 +1621,7 @@ class BwdLaunch:
             if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
                 raise ValueError(f"residual {k}: {t.device} {t.dtype} {tuple(t.shape)}; st needs {dev} {dt} {shape}")
         res_list = [res[k].contiguous() if k in st.res_keys else None for k in RES_ORDER]
-        kt, kw = _bwd_weights(trunk, heads, st, in0)
+        kt, kw = _bwd_weights(trunk, heads, st, in0, design)
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         d_front = [torch.empty((R * S, in0), **f32)] if x0_mode else [torch.empty((R, 3), **f32),
                                                                       torch.empty((R, 3), **f32)]
@@ -1396,20 +1643,35 @@ class BwdLaunch:
             self._fwd = (fwd_ins, trunk, heads)
         else:
             self.slab = min(R, dw_slab_rays(self.lay, S, n_sm, esize=cdt.itemsize)) if self.stores else R
+        self.tpr = -(-S // WALK_TILE)
+        tiles = self.slab * self.tpr + self.slab * self.tpr % 2  # the walk's work items are pairs of tiles
         if self.stores:
             n = self.slab
             self.bufs = (torch.empty((n * S, self.lay.ops_w), dtype=cdt, device=dev),
                          torch.empty((n, self.lay.ray_w), dtype=cdt, device=dev) if self.lay.ray_w else None,
-                         torch.empty((n, self.lay.nb), **f32))
+                         torch.empty((tiles if self.wg else n, self.lay.nb), **f32))
             self.flat = torch.empty((self.lay.n_dw + self.lay.nb,), **f32)
+        self.scratch, self.wpack, self.sched, self.n_sched = None, None, None, 0
+        if self.wg:
+            # the coefficient rows, the chain's mask words and the tiles' partial sums of one slab; the d h1 rows of
+            # each block's two tiles (a block an SM)
+            self.scratch = (torch.empty((self.slab * S, WALK_COEF_W), **f32),
+                            torch.empty((self.slab * S, chain_w // 32), dtype=torch.int32, device=dev),
+                            torch.empty((tiles, WALK_PART_W), **f32),
+                            torch.empty((n_sm * 2 * WALK_TILE, HC), dtype=torch.bfloat16, device=dev))
+            self.wpack, sched = _walk_wgmma_weights(trunk, heads, st, in0)
+            self.sched = (ctypes.c_int * (2 * len(sched)))(*[v for pair in sched for v in pair])
+            self.n_sched = len(sched)
         outs = [None, None, d_cond, d_cemb, d_front[0]] if x0_mode else [*d_front, d_cond, d_cemb, None]
-        self.lib = _build.library("render_train_bwd")
+        self.lib = _build.library(BWD_LIBS[design] if bf16 else "render_train_bwd")
         self.name = "render_train_bwd (x0 mode)" if x0_mode else "render_train_bwd"
         self.flags = _flags(st, True) | (X0_IN if x0_mode else 0) | (DW_OPS if self.stores else 0)
         self.skip_mask = sum(1 << i for i in st.skips if 0 < i < st.D)
         self._lists = (ins, cot_list, res_list, outs)
+        self._slab_args = {}
         self._weights = (_ptrs(kt), _ptrs(kw))
         self._bufs = None if self.bufs is None else _ptrs(self.bufs)
+        self._scratch = None if self.scratch is None else _ptrs(self.scratch)
         self._keep = (kt, kw)  # what the pointers point at
         self.layout = layout
         self.R, self.S, self.L, self.C, self.dev, self.st, self.in0, self.F = R, S, L, C, dev, st, in0, F
@@ -1432,19 +1694,63 @@ class BwdLaunch:
         S = self.S
         return self.chain[: (r1 - r0) * S] if self.rec else self._lists[2][RES_ORDER.index("chain")][r0 * S : r1 * S]
 
+    def _args(self, r0: int, r1: int):
+        """The C pointer lists of rays [r0, r1), built once a slab (the Hopper design launches three kernels on
+        them)."""
+        if (r0, r1) not in self._slab_args:
+            S = self.S
+            ins, cot_list, res_list, outs = self._lists
+            res = _cut(res_list, _RES_ROWS, r0, r1, S)
+            res[RES_ORDER.index("chain")] = self._chain(r0, r1)
+            self._slab_args[(r0, r1)] = (_ptrs(_cut(ins, _INS_ROWS, r0, r1, S)),
+                                         _ptrs(_cut(cot_list, (1,) * 7, r0, r1, S)), _ptrs(res),
+                                         _ptrs(_cut(outs, _OUT_ROWS, r0, r1, S)))
+        return self._slab_args[(r0, r1)]
+
+    def _wg(self, r0: int, r1: int, stage: int) -> None:
+        """One launch of the Hopper design over rays [r0, r1): stage 0 the
+        pre-pass, 1 the walk, 2 the finishing pass."""
+        ins, cots, res, outs = self._args(r0, r1)
+        stream = torch.cuda.current_stream(self.dev).cuda_stream
+        with torch.cuda.device(self.dev):
+            code = self.lib.upnerf_render_train_bwd_wg(
+                ins, cots, res, self.st.D, self.skip_mask, self._weights[1], outs, self._bufs, self.layout,
+                self._scratch, self.wpack.data_ptr(), self.sched, self.n_sched, r1 - r0, self.S, self.L, self.in0,
+                self.C, self.F, self.flags, stage, stream,
+            )
+        _raise_on(code, f"{self.name} {('pre-pass', 'walk', 'finishing pass')[stage]}", self.lib)
+
+    def pre(self, r0: int, r1: int) -> None:
+        """The Hopper design's compositing pre-pass over rays [r0, r1): one launch."""
+        global walk_pre_launches
+        self._wg(r0, r1, 0)
+        walk_pre_launches += 1
+
+    def walk_tiles(self, r0: int, r1: int) -> None:
+        """The Hopper walk over the tiles of rays [r0, r1): one launch (after `pre`)."""
+        global walk_launches
+        self._wg(r0, r1, 1)
+        walk_launches += 1
+
+    def finish(self, r0: int, r1: int) -> None:
+        """The Hopper design's finishing pass over rays [r0, r1): one launch (after `walk_tiles`)."""
+        global walk_finish_launches
+        self._wg(r0, r1, 2)
+        walk_finish_launches += 1
+
     def walk(self, r0: int, r1: int) -> None:
-        """The walk over rays [r0, r1): one launch."""
-        S = self.S
-        ins, cot_list, res_list, outs = self._lists
-        res = _cut(res_list, _RES_ROWS, r0, r1, S)
-        res[RES_ORDER.index("chain")] = self._chain(r0, r1)
+        """The walk over rays [r0, r1): the Hopper design's three launches, or one."""
+        if self.wg:
+            self.pre(r0, r1)
+            self.walk_tiles(r0, r1)
+            self.finish(r0, r1)
+            return
+        ins, cots, res, outs = self._args(r0, r1)
         stream = torch.cuda.current_stream(self.dev).cuda_stream
         with torch.cuda.device(self.dev):
             code = self.lib.upnerf_render_train_bwd(
-                _ptrs(_cut(ins, _INS_ROWS, r0, r1, S)), _ptrs(_cut(cot_list, (1,) * 7, r0, r1, S)), _ptrs(res),
-                self._weights[0], self.st.D, self.skip_mask, self._weights[1], _ptrs(_cut(outs, _OUT_ROWS, r0, r1, S)),
-                self._bufs, self.layout, r1 - r0, S, self.L, self.in0, self.C, self.F, self.flags,
-                stream,
+                ins, cots, res, self._weights[0], self.st.D, self.skip_mask, self._weights[1], outs, self._bufs,
+                self.layout, r1 - r0, self.S, self.L, self.in0, self.C, self.F, self.flags, stream,
             )
         _raise_on(code, self.name, self.lib)
 
@@ -1455,7 +1761,7 @@ class BwdLaunch:
         S, (ops, ray, rows) = self.S, self.bufs
         n = r1 - r0
         dw_gemm.dw_gemm([self._chain(r0, r1), ops[: n * S], None if ray is None else ray[:n]], self.lay.jobs,
-                        self.flat, self.lay.n_dw, rows[:n], r0 > 0)
+                        self.flat, self.lay.n_dw, rows[: n * self.tpr if self.wg else n], r0 > 0)
 
     def run(self):
         """The whole call. Returns (d_front, d_ray_cond, d_c_emb, dtrunk,
@@ -1483,15 +1789,17 @@ def _launch_bwd(ins, in0: int, L: int, z_vals, ray_cond, trunk, heads, st: RTSta
 
 
 def render_train_rays_bwd_launch(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res,
-                                 cots) -> BwdLaunch:
+                                 cots, design: str = "wgmma") -> BwdLaunch:
     """render_train_rays_bwd's CUDA call, checked and prepared but not
-    launched: to time its pieces (chip_smoke.py phase 9). Counts no launch."""
+    launched: to time its pieces and, in bfloat16 mode, the two designs of
+    BWD_DESIGNS (chip_smoke.py phases 9 and 12). Counts no call (its pieces
+    count their own launches)."""
     R, S = z_vals.shape
     L = st.xyz_L
     front = {"rays_o": (rays_o, (R, 3)), "rays_d": (rays_d, (R, 3)), "pe_w": (pe_w, (L,))}
     _check_kernel_args(front, 3 + 6 * L, z_vals, ray_cond, c_emb, trunk, heads, st)
     return BwdLaunch([rays_o, rays_d, z_vals, pe_w, ray_cond, c_emb, None], 3 + 6 * L, L, z_vals, ray_cond, trunk,
-                     heads, st, c_emb, res, cots, False)
+                     heads, st, c_emb, res, cots, False, design)
 
 
 def render_train_rays_bwd(rays_o, rays_d, z_vals, pe_w, ray_cond, trunk, heads, st: RTStatic, c_emb, res, cots):
