@@ -7,7 +7,8 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
   1. the card: name and power limit from nvidia-smi;
   2. build: nvcc compiles upnerf_torch/csrc/*.cu for sm_90a, one process per
-     source (and per timing variant), all at once;
+     source (and per timing variant), all at once; each kernel's ptxas report,
+     and none of the heads forward's wgmma serialized (C7512);
   3. the forward kernel's serving mode against its plain PyTorch version on
      one 4096-ray chunk at the brandenburg_gate width, S = 64, 100, 128 and
      256 samples, float32 and bfloat16, and two calls bit for bit;
@@ -81,7 +82,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      an eval chunk;
  14. the trunk kernel (the trunk-only mode of heads_fwd.cu) against its plain
      version at 262,144 rows (the fast render's probe) and at a ragged N, bf16
-     and f32; ms of each in turns;
+     and f32; ms of each in turns; the bf16 forward's two designs
+     (heads.HEADS_FWD_DESIGNS: wg_fwd_kernel and the mma.sync design it
+     replaced) against each other and in turns (ms, TFLOP/s, share of the
+     bound);
  15. `upnerf_torch.cli.render_video --fast` for 2 frames at 128x128: the
      files and the trunk kernel's launches; a fast frame's ms against phase
      5's full-budget frame;
@@ -90,7 +94,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      backward output, at 524,288 rows (2048 rays x 256 samples) in bf16 with
      and without the candidate branch and in f32 at 65,536 rows and a ragged
      N, the backward also against its plain version in float64; forward and
-     backward timed in turns, and the backward's route in pieces (the Hopper
+     backward timed in turns, the forward's two bf16 designs as in phase 14,
+     the bf16 forward at N = 1 .. 1037 around the tiles' edges (F = 32 / 64 /
+     384, each mode), and the backward's route in pieces (the Hopper
      walk with its operand stores, the dW kernel, per slab of rows) with the
      call's peak memory; then the F = 32 instances (524,288 rows bf16, 65,536 and 1,037 rows f32),
      timed in turns;
@@ -169,7 +175,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      outputs differ and by how much; same bits required of every mode in bf16
      and f32: the forward (saved chain and recompute), kernel 2's train
      backward (saved chain and recompute), the frozen mode, and kernels 5 and
-     6's backward (no backward adds a weight gradient with atomics).
+     6's forward and backward (no backward adds a weight gradient with
+     atomics).
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -1335,9 +1342,11 @@ def phase_frozen_bwd(field, nerf_cfg, dev, card: str):
 def phase_trunk_kernel(field, nerf_cfg, dev, card: str):
     """Phase 14: the trunk kernel against its plain version at the fast
     render's probe batch (4096 rays x 64 samples = 262,144 rows) and at a
-    ragged N, bf16 and f32; then both timed in turns at 262,144 rows, bf16.
-    Returns (worst max |d|, kernel ms, plain ms)."""
+    ragged N, bf16 and f32; then both timed in turns at 262,144 rows, bf16,
+    and the forward's two bf16 designs in turns (fwd_designs). Returns (worst
+    max |d|, kernel ms, plain ms)."""
     from upnerf_torch.models.nerf import positional_encoding
+    from upnerf_torch.ops import heads as hk
     from upnerf_torch.ops import mlp
 
     trunk = [(lay.weight.t(), lay.bias) for lay in field.trunk_layers()]
@@ -1373,7 +1382,43 @@ def phase_trunk_kernel(field, nerf_cfg, dev, card: str):
     flop = 2.0 * trunk_macs(nerf_cfg) * PROBE_ROWS
     print(f"[14] trunk N={PROBE_ROWS} bfloat16: kernel {kms:.3f} ms ({k1:.3f}, {k2:.3f}; {flop / kms / 1e9:.0f}"
           f" TFLOP/s), plain {pms:.3f} ms ({card})", flush=True)
+    fwd_designs("14", f"trunk N={PROBE_ROWS}", lambda des: hk.fused_trunk_heads_fwd_launch(
+        x, None, trunk, None, nerf_cfg.skips, "bfloat16", des), flop, trunk_fwd_bound(field, nerf_cfg, PROBE_ROWS),
+        card, 10)
     return worst, kms, pms
+
+
+def trunk_fwd_bound(field, nerf_cfg, n: int):
+    """bound() of one trunk-forward call on n rows in bf16: reads x0 (f32) and
+    the weights, writes h (f32)."""
+    return bound(2.0 * trunk_macs(nerf_cfg) * n, 4 * n * (nerf_cfg.in_channels_xyz + nerf_cfg.W)
+                 + 2 * sum(lay.weight.numel() + lay.bias.numel() for lay in field.trunk_layers()), "bfloat16")
+
+
+def fwd_designs(label: str, what: str, call, flop: float, bnd, card: str, reps: int) -> dict:
+    """Kernels 5 and 6's bf16 forward in both designs (heads.HEADS_FWD_DESIGNS:
+    the route's wgmma kernel and the mma.sync design it replaced, a timing
+    variant), call(design) -> outputs: each design's outputs against the
+    route's (TRUNK_TOL of each output's max), then both timed in turns (a, b,
+    b, a): ms, TFLOP/s and share of the bound. Returns {design: ms}."""
+    from upnerf_torch.ops import heads as hk
+
+    with torch.no_grad():
+        got = {des: call(des) for des in hk.HEADS_FWD_DESIGNS}
+        torch.cuda.synchronize()
+        agree = max(rel_err(a, b) for des in hk.HEADS_FWD_DESIGNS for a, b in zip(got[des], got["wgmma"]))
+        del got
+        check(agree <= TRUNK_TOL["bfloat16"], f"[{label}] {what}: the forward's designs disagree by {agree}")
+        runs = {des: [] for des in hk.HEADS_FWD_DESIGNS}
+        for des in list(hk.HEADS_FWD_DESIGNS) + list(reversed(hk.HEADS_FWD_DESIGNS)):
+            runs[des].append(cuda_ms(lambda: call(des), reps))
+    ms = {des: sum(v) / len(v) for des, v in runs.items()}
+    b_ms, b_by = bnd
+    print(f"[{label}] {what} bfloat16, the forward's designs in turns: " + "; ".join(
+        f"{des} {ms[des]:.3f} ms ({' '.join(f'{v:.3f}' for v in runs[des])}; {flop / ms[des] / 1e9:.0f} TFLOP/s,"
+        f" {b_ms / ms[des]:.2f} of the bound)" for des in hk.HEADS_FWD_DESIGNS)
+        + f"; bound {b_ms:.3f} ms ({b_by}); the designs agree to {agree:.2e} of the max ({card})", flush=True)
+    return ms
 
 
 def heads_macs(nerf_cfg, cand: bool) -> int:
@@ -1409,7 +1454,9 @@ def phase_heads_kernel(field, nerf_cfg, dev, card: str, cases=None, pieces: bool
     the candidate branch (phase 1) and without (phase 2); f32 at 65,536 rows and
     a ragged N; the backward also against the plain backward in float64. Then
     forward and backward timed in turns at 524,288 rows, bf16, with the
-    candidate branch, and (pieces) the backward's route in turns: the Hopper
+    candidate branch, the forward's two bf16 designs in turns (fwd_designs),
+    and (pieces) the bf16 forward at ragged N (heads_fwd_sweep) and the
+    backward's route in turns: the Hopper
     walk with its operand stores over the slabs, the dW kernel over them; and
     the call's peak memory above its inputs (one slab's operand buffer within
     render_train.DW_BUFFER_BYTES). cases: (rows, precision, candidate) to check, by
@@ -1496,11 +1543,55 @@ def phase_heads_kernel(field, nerf_cfg, dev, card: str, cases=None, pieces: bool
             times[kind] = ((k1 + k2) / 2, (p1 + p2) / 2)
             print(f"[16] heads F={F} {kind} N={n} bfloat16 candidate: kernel {times[kind][0]:.2f} ms ({k1:.2f}, {k2:.2f}),"
                   f" plain {times[kind][1]:.2f} ms ({p1:.2f}, {p2:.2f}) ({card})", flush=True)
+        fwd_designs("16", f"heads F={F} fwd N={n} candidate", lambda des: hk.fused_trunk_heads_fwd_launch(*args, des),
+                    2.0 * heads_macs(nerf_cfg, True) * n, heads_bound(field, nerf_cfg, n, True, "fwd"), card, 3)
         if not pieces:
             return worst_f, worst_b, times
+        worst_f = max(worst_f, heads_fwd_sweep(field, nerf_cfg, dev))
         times.update(bwd_pieces(hk.fused_trunk_heads_bwd_launch(*args, cots), lambda: hk.fused_trunk_heads_bwd(
             *args, cots), "16", f"heads bwd N={n} bfloat16 candidate", dev, card))
     return worst_f, worst_b, times
+
+
+def heads_fwd_sweep(field, nerf_cfg, dev) -> float:
+    """Phase 16: the bf16 forward of kernels 5 and 6 (wg_fwd_kernel) against
+    its plain version at N around a tile (64) and a tile pair (128), F = 32,
+    64 and 384 (the field's feature columns cut to F), with the candidate
+    branch, without it and trunk-only: TRUNK_TOL of each output's max (the
+    outputs hold N rows). Returns the worst max |d|."""
+    from upnerf_torch.models.nerf import positional_encoding
+    from upnerf_torch.ops import heads as hk
+    from upnerf_torch.ops import mlp
+
+    worst, worst_rel = 0.0, 0.0
+    trunk = field.trunk_weights()
+    for n in (1, 63, 64, 65, 127, 128, 129, 1037):
+        g = torch.Generator(device=dev).manual_seed(1600 + n)
+        x0 = positional_encoding(torch.randn((n, 3), generator=g, device=dev), nerf_cfg.xyz_L).contiguous()
+        c_emb = torch.randn((n, nerf_cfg.candidate_dim), generator=g, device=dev)
+        cases = [("trunk", None, None)]
+        for F in (32, 64, 384):
+            for cand in (True, False):
+                heads = {k: (v[..., :F] if k in ("feat_w", "feat_b", "cfeat_w", "cfeat_b") else v)
+                         for k, v in field.trunk_heads_weights(cand)[1].items()}
+                cases.append((f"F={F} candidate={cand}", heads, c_emb if cand else None))
+        with torch.no_grad():
+            for label, heads, ce in cases:
+                if heads is None:
+                    got = (mlp.fused_trunk_fwd(x0, trunk, nerf_cfg.skips, "bfloat16"),)
+                    want = (mlp.fused_trunk_plain(x0, trunk, nerf_cfg.skips, "bfloat16"),)
+                else:
+                    got = hk.fused_trunk_heads_fwd(x0, ce, trunk, heads, nerf_cfg.skips, "bfloat16")
+                    want = hk.fused_trunk_heads_plain(x0, ce, trunk, heads, nerf_cfg.skips, "bfloat16")
+                torch.cuda.synchronize()
+                for a_, p_ in zip(got, want):
+                    check(a_.shape == p_.shape and bool(torch.isfinite(a_).all()), f"[16] forward N={n} {label}")
+                    err = rel_err(a_, p_)
+                    check(err <= TRUNK_TOL["bfloat16"], f"[16] forward N={n} {label} disagrees: {err}")
+                    worst, worst_rel = max(worst, (a_ - p_).abs().max().item()), max(worst_rel, err)
+    print(f"[16] the bf16 forward at N = 1, 63, 64, 65, 127, 128, 129, 1037, F = 32 / 64 / 384, candidate on and off,"
+          f" trunk-only: worst max |d| / max |value| {worst_rel:.3e} (tol {TRUNK_TOL['bfloat16']:.0e})", flush=True)
+    return worst
 
 
 def bwd_pieces(call, whole, label: str, what: str, dev, card: str) -> dict:
@@ -2849,11 +2940,11 @@ def phase_run_to_run(field, nerf_cfg, dev):
     """Phase 26: run-to-run bits. Each mode twice on the same inputs (the render
     kernels at 2048 rays x 256 samples, phase 1 unless said; kernels 5 and 6
     at 524,288 rows): how many outputs differ and by how much. Same bits are
-    required of every mode in both precisions: the forward (its column sums
-    run in a fixed order), every backward (no weight gradient is added with
-    atomics: each walk stores its operands and the dW kernel sums them in a
-    fixed order, a slab at a time) and the frozen mode. Returns {mode:
-    (differ, elements, worst)}."""
+    required of every mode in both precisions: the render forward (its
+    column sums run in a fixed order) and kernels 5 and 6's forward, every
+    backward (no weight gradient is added with atomics: each walk stores its
+    operands and the dW kernel sums them in a fixed order, a slab at a time)
+    and the frozen mode. Returns {mode: (differ, elements, worst)}."""
     from upnerf_torch.models.nerf import positional_encoding
     from upnerf_torch.ops import heads as hk
     from upnerf_torch.ops import mlp
@@ -2888,6 +2979,10 @@ def phase_run_to_run(field, nerf_cfg, dev):
             trunk, heads = field.trunk_heads_weights(True)
             hcots = [torch.randn(t.shape, generator=g, device=dev)
                      for t in hk.fused_trunk_heads_fwd(x0, c_emb, trunk, heads, nerf_cfg.skips, prec)]
+            out[f"kernel 5 forward {prec}"] = run_twice(
+                lambda: hk.fused_trunk_heads_fwd(x0, c_emb, trunk, heads, nerf_cfg.skips, prec))
+            out[f"kernel 6 forward {prec}"] = run_twice(
+                lambda: mlp.fused_trunk_fwd(x0, field.trunk_weights(), nerf_cfg.skips, prec))
             out[f"kernel 5 backward {prec}"] = run_twice(
                 lambda: hk.fused_trunk_heads_bwd(x0, c_emb, trunk, heads, nerf_cfg.skips, prec, hcots))
             tcot = torch.randn((n, nerf_cfg.W), generator=g, device=dev)
@@ -2914,7 +3009,9 @@ def kernel_times(dev, card: str, profile_dir=None) -> dict:
     phases 5, 9 and 17 also in the variant's design (the mma.sync design the
     wgmma kernel replaced); in a tree with the backward's
     (render_train.BWD_DESIGNS), the backward of phases 9 and 12 also in the
-    mma.sync walk the Hopper walk replaced. Uses only wrappers
+    mma.sync walk the Hopper walk replaced; in a tree with the heads
+    forward's (heads.HEADS_FWD_DESIGNS), the forward of phases 14 and 16 also
+    in the mma.sync design wg_fwd_kernel replaced. Uses only wrappers
     that trees with kernels 4 and 5 already had, so the script can be copied
     into an older tree's root and run there, the trees in turns. With
     profile_dir, then a torch.profiler table of 5 flash-attention calls there,
@@ -2999,6 +3096,12 @@ def kernel_times(dev, card: str, profile_dir=None) -> dict:
                     lambda des=des: fwd_call(des, fargs, c_emb, True))
                 calls[f"static_render (phase 17), {des} design"] = (
                     lambda des=des: fwd_call(des, (o, d, z, pe_w, cond, trunk, hs, st2), x0=x0))
+        if hasattr(hk, "HEADS_FWD_DESIGNS"):  # a tree with the heads forward's timing variant: the replaced design
+            for des in hk.HEADS_FWD_DESIGNS[1:]:
+                calls[f"trunk_fwd (phase 14), {des} design"] = (lambda des=des: hk.fused_trunk_heads_fwd_launch(
+                    xr[:PROBE_ROWS], None, tp, None, nerf_cfg.skips, "bfloat16", des))
+                calls[f"heads_fwd (phase 16), {des} design"] = (
+                    lambda des=des: hk.fused_trunk_heads_fwd_launch(*hargs, des))
         if hasattr(rt, "BWD_DESIGNS"):  # a tree with the backward's timing variant: the replaced walk too
             bargs = (o, d, z, pe_w, cond, trunk)
             for des in rt.BWD_DESIGNS[1:]:
@@ -3069,6 +3172,8 @@ def main() -> int:
                 print("      " + line.strip().split("cu_")[-1][:80], flush=True)
             if "registers" in line or "spill" in line or "(C75" in line:
                 print("      " + line.strip()[:160], flush=True)
+    # the heads forward's wgmma instances: ptxas keeps their products asynchronous
+    check("C7512" not in infos["heads_fwd"].log, "ptxas serialized the heads forward's wgmma (C7512)")
 
     # 3. serving kernel against plain version, one chunk at full width
     nerf_cfg = NeRFConfig.from_hparams(BRANDENBURG_GATE)
@@ -3244,9 +3349,7 @@ def main() -> int:
         "render_train_bwd_frozen": render_bound(field, st2, CHUNK, 256, "bwd"),
         "flash_attn_fwd": (max(flash_terms.values()),
                            "bytes" if max(flash_terms, key=flash_terms.get) == "bytes" else "operations"),
-        "trunk_fwd": bound(2.0 * trunk_macs(nerf_cfg) * PROBE_ROWS,
-                         4 * PROBE_ROWS * (nerf_cfg.in_channels_xyz + nerf_cfg.W)
-                         + 2 * sum(lay.weight.numel() + lay.bias.numel() for lay in field.trunk_layers()), "bfloat16"),
+        "trunk_fwd": trunk_fwd_bound(field, nerf_cfg, PROBE_ROWS),
     }
     heads_rows = TRAIN_RAYS * 256
     bounds["heads_fwd"] = heads_bound(field, nerf_cfg, heads_rows, True, "fwd")
@@ -3361,7 +3464,7 @@ def main() -> int:
             "library_ms": attn_lib_ms,
         },
         {
-            "name": "heads_fwd, trunk-only mode",
+            "name": "heads_fwd, trunk-only mode (wg_fwd_kernel: wgmma over the weight stream)",
             "route": "cuda",
             "source": "upnerf_torch/csrc/heads_fwd.cu",
             "replaces": "upnerf/ops/pallas_mlp.py:58",
@@ -3374,7 +3477,7 @@ def main() -> int:
             "library_ms": None,
         },
         {
-            "name": "heads_fwd",
+            "name": "heads_fwd (wg_fwd_kernel: wgmma over the weight stream, TMA stores)",
             "route": "cuda",
             "source": "upnerf_torch/csrc/heads_fwd.cu",
             "replaces": "upnerf/ops/pallas_heads.py:93",

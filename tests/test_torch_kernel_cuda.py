@@ -3,7 +3,9 @@ on the card, at the brandenburg_gate width (D=8, W=256, skip 4, F=384, HH=128,
 L=10) and at the validation configs' feature widths (F=32, 64): the fused
 forward render, its backward in the train and frozen-model modes, the trunk
 kernel of the fast render's probe and its backward (the feature-less field's),
-the trunk + heads kernels (forward and backward), the static render from
+the trunk + heads kernels (forward and backward; the bf16 forward in both
+designs, heads.HEADS_FWD_DESIGNS, and its trunk bit for bit the backward's
+rebuild), the static render from
 PE rows (the x0 mode), the fused render from PE rows in every training mode
 with its d_x0 backward (kernel 1b), and the matrix-unit probe's three chains.
 Every test here needs an NVIDIA card: it carries the `cuda` marker and skips
@@ -388,8 +390,8 @@ def test_trunk_function_launches_both_kernels(cuda_device):
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
 
 
-def heads_inputs(N, device, cand, seed=21, C=16, HC=128, F=384, depth=D, skips=SKIPS):
-    """x0 rows, a per-row candidate embedding and the kernel-5 weights (c1 unsplit)."""
+def heads_inputs(N, device, cand, seed=21, C=16, HC=128, F=384, depth=D, skips=SKIPS, in0=3 + 6 * L):
+    """x0 rows (in0 columns), a per-row candidate embedding and the kernel-5 weights (c1 unsplit)."""
     rng = np.random.RandomState(seed)
 
     def t(a):
@@ -399,7 +401,6 @@ def heads_inputs(N, device, cand, seed=21, C=16, HC=128, F=384, depth=D, skips=S
         b = i**-0.5
         return t(rng.uniform(-b, b, (i, o))), t(rng.uniform(-b, b, o))
 
-    in0 = 3 + 6 * L
     trunk = [lin(in0 if i == 0 else (in0 + W if i in skips else W), W) for i in range(depth)]
     shapes = {"sigma": (W, 1), "xyzf": (W, W), "feat": (W, F)}
     if cand:
@@ -1400,3 +1401,104 @@ def test_bf16_walk_at_a_ragged_s_matches_plain_and_repeats(cuda_device, phase, S
                 train = got
             else:
                 assert all(torch.equal(x, y) for x, y in zip(got, train))
+
+
+# Kernels 5 and 6's forward in bf16: the route's Hopper design (heads_fwd.cu:wg_fwd_kernel) and the
+# mma.sync design it replaced (the timing variant heads_fwd_mma_sync, heads.HEADS_FWD_DESIGNS).
+HEADS_FWD_TOL = 5e-3  # of each output's max (chip_smoke.py: TRUNK_TOL): a bf16 rounding flip carries on
+HEADS_FWD_ROWS = [1, 63, 64, 65, 127, 128, 129, 1037, 524288]  # around a tile (64) and a tile pair (128)
+HEADS_FWD_CASES = [(n, F, mode) for n in HEADS_FWD_ROWS for mode in ("candidate", "heads", "trunk")
+                   for F in (WIDTHS if mode != "trunk" else [384])]
+
+
+def heads_fwd_outputs(x0, c_emb, trunk, heads, skips, mode, design):
+    """One bf16 forward launch in a design: kernel 5's outputs, or (h,) in the trunk-only mode."""
+    from upnerf_torch.ops import heads as hk
+
+    return hk.fused_trunk_heads_fwd_launch(x0, c_emb, trunk, None if mode == "trunk" else heads, skips, "bfloat16",
+                                           design)
+
+
+def heads_fwd_plain(x0, c_emb, trunk, heads, skips, mode, precision="bfloat16"):
+    from upnerf_torch.ops import heads as hk
+    from upnerf_torch.ops import mlp
+
+    if mode == "trunk":
+        return (mlp.fused_trunk_plain(x0, trunk, skips, precision),)
+    return hk.fused_trunk_heads_plain(x0, c_emb, trunk, heads, skips, precision)
+
+
+def check_heads_fwd_designs(x0, c_emb, trunk, heads, skips, mode):
+    """Both designs against the plain version and each other (HEADS_FWD_TOL),
+    the Hopper design's RMS distance to the bf16 plain version under a
+    quarter of its distance to the f32 one, and two of its calls bit for bit."""
+    from upnerf_torch.ops import heads as hk
+
+    with torch.no_grad():
+        want = heads_fwd_plain(x0, c_emb, trunk, heads, skips, mode)
+        want32 = heads_fwd_plain(x0, c_emb, trunk, heads, skips, mode, "float32")
+        got = {des: heads_fwd_outputs(x0, c_emb, trunk, heads, skips, mode, des) for des in hk.HEADS_FWD_DESIGNS}
+        again = heads_fwd_outputs(x0, c_emb, trunk, heads, skips, mode, "wgmma")
+    torch.cuda.synchronize()
+    rms = lambda t: t.double().pow(2).mean().sqrt()  # noqa: E731
+    assert len(got["wgmma"]) == len(want) == {"candidate": 4, "heads": 2, "trunk": 1}[mode]
+    for i, b in enumerate(want):
+        k, m = got["wgmma"][i], got["mma_sync"][i]
+        assert k.shape == b.shape == m.shape and torch.isfinite(k).all() and torch.isfinite(m).all()
+        lim = HEADS_FWD_TOL * b.abs().max()
+        assert (k - b).abs().max() <= lim and (m - b).abs().max() <= lim and (k - m).abs().max() <= lim
+        assert torch.equal(k, again[i])
+        if x0.shape[0] >= 64:
+            assert rms(k - b) <= 0.25 * rms(k - want32[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,F,mode", HEADS_FWD_CASES)
+def test_heads_forward_designs_match_plain_and_each_other(cuda_device, N, F, mode):
+    """The bf16 forward in both designs at N around the tiles' edges and at
+    524,288 rows (a train step's fine pass), F = 32 / 64 / 384, with the
+    candidate branch, without it and trunk-only: rows past N are never
+    written (the outputs hold exactly N rows, each within the tolerance)."""
+    x0, c_emb, trunk, heads = heads_inputs(N, cuda_device, mode == "candidate", seed=N + F, F=F)
+    check_heads_fwd_designs(x0, c_emb, trunk, heads, SKIPS, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in0", [39, 63])
+@pytest.mark.parametrize("depth,skips", [(4, (2,)), (16, (4, 8, 12))], ids=["D4", "D16"])
+@pytest.mark.parametrize("mode", ["candidate", "heads", "trunk"])
+def test_heads_forward_designs_at_other_widths_and_depths(cuda_device, mode, depth, skips, in0):
+    """The same at x0 widths 39 (L = 6) and 63, D = 4 and 16 with skip layers, 1037 rows."""
+    x0, c_emb, trunk, heads = heads_inputs(1037, cuda_device, mode == "candidate", seed=depth + in0, depth=depth,
+                                           skips=skips, in0=in0)
+    check_heads_fwd_designs(x0, c_emb, trunk, heads, skips, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,skips", [(8, (4,)), (16, (4, 8, 12))], ids=["D8", "D16"])
+@pytest.mark.parametrize("mode", ["trunk", "candidate"])
+@pytest.mark.parametrize("N", [1, 129, 4097])
+def test_trunk_forward_is_the_backwards_rebuilt_activation(cuda_device, N, mode, depth, skips):
+    """The forward's chain and the backward's rebuild are one code
+    (wg_chain.cuh:trunk_chain): the trunk-only forward's output, rounded to
+    bf16, equals bit for bit the last activation that heads.BwdCall stores as
+    its dW operand for the same rows, in the backward's trunk-only mode and
+    in its candidate mode (the same trunk)."""
+    from upnerf_torch.ops import heads as hk
+
+    x0, c_emb, trunk, heads = heads_inputs(N, cuda_device, mode == "candidate", seed=N + depth, depth=depth,
+                                           skips=skips)
+    with torch.no_grad():
+        (h,) = hk.fused_trunk_heads_fwd_launch(x0, None, trunk, None, skips, "bfloat16")
+        if mode == "trunk":
+            call = hk.BwdCall(x0, None, trunk, None, skips, "bfloat16", [torch.zeros((N, W), device=cuda_device)])
+        else:
+            names = hk.HEAD_KEYS + hk.CAND_KEYS
+            cots = [torch.zeros(t.shape, device=cuda_device) for t in hk.fused_trunk_heads_plain(
+                x0, c_emb, trunk, heads, skips, "bfloat16")]
+            call = hk.BwdCall(x0, c_emb, trunk, {k: heads[k] for k in names}, skips, "bfloat16", cots)
+        assert call.slab >= N
+        call.walk(0, N)
+    torch.cuda.synchronize()
+    col = call.lay.ops[f"act{depth - 1}"]
+    assert torch.equal(call.ops[:N, col : col + W], h.bfloat16())

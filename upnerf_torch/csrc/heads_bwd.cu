@@ -35,23 +35,25 @@
 // same bits.
 //
 // bfloat16 mode, the Hopper design (wg_bwd_kernel). What bounds it on the H100:
-// operations. A row costs ~1.5 M multiply-adds in this kernel at D = 8, W = 256, F = 384
-// with the candidate branch (the rebuild ~0.76 M, the walk's data path ~0.76 M; the dW
-// products, ~0.76 M more, are dw_gemm.cu's), against ~12 KB of operands stored. So the
-// layers chain in registers, as in render_train_fwd.cu:wg_kernel, over the same weight
-// stream (wg_stream.cuh): persistent blocks of a producer warpgroup and two consumer
-// warpgroups of 64 rows each. The producer streams every K-strip of the rebuild (W)
-// and of the walk (W^T), in the order the consumers read them (packed once a call by
-// upnerf_torch/ops/heads.py:_bwd_wgmma_weights), through a 6 x 16 KB mbarrier ring, and
-// loads each tile's x0 and c_emb rows (bf16, written into the operand buffer by a first
-// pass, x0_rows_kernel) by TMA. The consumers rebuild the chain with wgmma, the
-// activations as register A fragments, storing each layer's bf16 output as its dW X
-// operand and keeping its ReLU mask as bits in shared memory; then walk back with wgmma
-// on W^T, the rounded cotangent of each layer carried as the next A fragments and stored
-// as its G operand; the feature cotangents (g_sf, g_cf) are read once by a column pass
-// (their f32 bias sums and their rounded rows) and reloaded as A fragments strip by
-// strip. Bias and sigma sums of a tile run over its rows in a fixed order (shuffles,
-// then the 4 warps in order). No weight gradient is added with atomics.
+// operations. A row costs ~1.5 M multiply-adds in this kernel at D = 8, W = 256, F =
+// 384 with the candidate branch (the rebuild ~0.76 M, the walk's data path ~0.76 M; the
+// dW products, ~0.76 M more, are dw_gemm.cu's), against ~12 KB of operands stored. So
+// the layers chain in registers, as in render_train_fwd.cu:wg_kernel, over the same
+// weight stream (wg_stream.cuh): persistent blocks of a producer warpgroup and two
+// consumer warpgroups of 64 rows each. The producer streams every K-strip of the
+// rebuild (W) and of the walk (W^T), in the order the consumers read them (packed once
+// a call by upnerf_torch/ops/heads.py:_bwd_wgmma_weights), through a 6 x 16 KB mbarrier
+// ring, and loads each tile's x0 and c_emb rows (bf16, written into the operand buffer
+// by a first pass, wg_chain.cuh:bf16_rows_kernel) by TMA. The consumers rebuild the
+// chain with wgmma, the activations as register A fragments (the trunk through
+// wg_chain.cuh:trunk_chain, the forward heads_fwd.cu:wg_fwd_kernel's own code, so both
+// round alike), storing each layer's bf16 output as its dW X operand and keeping its
+// ReLU mask as bits in shared memory; then walk back with wgmma on W^T, the rounded
+// cotangent of each layer carried as the next A fragments and stored as its G operand;
+// the feature cotangents (g_sf, g_cf) are read once by a column pass (their f32 bias
+// sums and their rounded rows) and reloaded as A fragments strip by strip. Bias and
+// sigma sums of a tile run over its rows in a fixed order (shuffles, then the 4 warps
+// in order). No weight gradient is added with atomics.
 //
 // float32 mode (f32_kernel, f32_trunk_kernel): SIMT FMAs in f32 (no TF32), 32-row
 // tiles: each tile rebuilds its chain straight into the operand buffer (which holds it
@@ -68,6 +70,7 @@
 #include <string.h>
 
 #include "walk_common.cuh"
+#include "wg_chain.cuh"
 #include "wg_walk.cuh"
 
 namespace {
@@ -493,26 +496,6 @@ struct WbSmem {
   __device__ uint32_t cemb_tile(int c) const { return in + c * wb::IN_BYTES + wb::BLK_BYTES; }
 };
 
-// The first pass: x0 (f32, in0 columns) and c_emb (f32, C columns) of each row rounded to
-// bf16 into the operand buffer's x0 and c_emb column blocks (64 columns each, zero past
-// in0 and C): the TMA tiles the rebuild reads and the dW operands of the trunk's first
-// layer and of c1. One thread an 8-column chunk.
-__global__ void __launch_bounds__(256) x0_rows_kernel(const HB a) {
-  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x, row = i >> 4;
-  const int chunk = (int)(i & 15);
-  if (row >= (size_t)a.N) return;
-  const bool ce = chunk >= 8;
-  if (ce && a.cemb == nullptr) return;
-  const float* src = ce ? a.cemb + row * a.C : a.x + row * a.in0;
-  const int n = ce ? a.C : a.in0, j0 = 8 * (chunk & 7);
-  float v[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = j0 + e < n ? __ldg(src + j0 + e) : 0.f;
-  bf16* dst = static_cast<bf16*>(a.ops) + row * a.lay[L_OPS_W] + a.lay[ce ? L_CEMB : L_X0] + j0;
-  *reinterpret_cast<uint4*>(dst) =
-      make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
-}
-
 // Consumer warpgroup c: its 64 rows of every tile pair of the block's work items.
 template <int FP>
 __device__ __forceinline__ void wb_consume(const WbParams& p, const WbSmem& sm, int c, int rounds) {
@@ -546,44 +529,13 @@ __device__ __forceinline__ void wb_consume(const WbParams& p, const WbSmem& sm, 
     const uint32_t x0s = sm.x0_tile(c);
     mbar_wait(sm.in_full(), nx & 1);
 
-    // ---- rebuild the chain: each activation stored as its dW operand, its mask kept --
+    // ---- rebuild the chain (wg_chain.cuh, the forward's own code): each activation
+    // stored as its dW operand, its mask kept --
     uint32_t h[16][4], hn[16][4];
-    {
-      float acc[64];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        zero(acc);
-        layer_ss<64, 1>(acc, x0s, 0, ring);
-        bias_act(acc, a.tb[0] + 128 * half, true);
-        mask_bits(mk + (2 * half) * 128, acc);
-        if (half == 0)
-          pack_half<0>(h, acc);
-        else
-          pack_half<1>(h, acc);
-      }
-    }
-    store_frags(rows, ld, a.lay[L_ACT0], h, n_rows);
-#pragma unroll 1
-    for (int i = 1; i < a.D; ++i) {
-      const bool skip = (a.skips >> i) & 1u;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float acc[64];
-        zero(acc);
-        if (skip)
-          layer_rs<64, 16, true>(acc, h, wgmma_desc_sw128(x0s, 16, 1024), ring);
-        else
-          layer_rs<64, 16, false>(acc, h, 0, ring);
-        bias_act(acc, a.tb[i] + 128 * half, true);
-        mask_bits(mk + (4 * i + 2 * half) * 128, acc);
-        if (half == 0)
-          pack_half<0>(hn, acc);
-        else
-          pack_half<1>(hn, acc);
-      }
-      copy_frags(h, hn);
-      store_frags(rows, ld, a.lay[L_ACT0] + i * W, h, n_rows);
-    }
+    trunk_chain(
+        h, hn, x0s, a.tb, a.D, a.skips, ring,
+        [&](const float(&acc)[64], int i, int half) { mask_bits(mk + (4 * i + 2 * half) * 128, acc); },
+        [&](const uint32_t(&hh)[16][4], int i) { store_frags(rows, ld, a.lay[L_ACT0] + i * W, hh, n_rows); });
     float ss0 = 0.f, ss1 = 0.f, cs0 = 0.f, cs1 = 0.f;  // s_sigma, c_sigma of rows r0, r0 + 8
     if (heads) {
       float sg[4];
@@ -920,8 +872,11 @@ int launch_wg(const HB& a, const void* wpack, const int* sched, int n_sched, cud
     return (int)err;
   const int slots = per_sm * n_sm;
   if (slots <= 0) return BAD_SMEM;
-  const long long chunks = (long long)a.N * 16;
-  x0_rows_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(a);
+  // the x0 and c_emb rows into the operand buffer: the TMA tiles the rebuild reads, and the dW
+  // operands of the trunk's first layer and of c1
+  const long long chunks = (long long)a.N * (a.cemb ? 16 : 8);
+  bf16_rows_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(
+      a.x, a.cemb, static_cast<bf16*>(a.ops), a.lay[L_OPS_W], a.lay[L_X0], a.lay[L_CEMB], a.N, a.in0, a.C);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   kernel<<<slots < p.items ? slots : p.items, wb::THREADS, bytes, st>>>(p);
   return (int)cudaGetLastError();

@@ -127,6 +127,15 @@ __device__ __forceinline__ uint64_t l2_policy_evict_first() {
   return p;
 }
 
+// tma_store_2d with an L2 cache policy.
+__device__ __forceinline__ void tma_store_2d_hint(const CUtensorMap* tmap, uint32_t src, int c0, int c1,
+                                                  uint64_t policy) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%2, %3}], [%1], %4;\n" ::
+                   "l"(reinterpret_cast<uint64_t>(tmap)),
+               "r"(src), "r"(c0), "r"(c1), "l"(policy)
+               : "memory");
+}
+
 // tma_store_3d with an L2 cache policy.
 __device__ __forceinline__ void tma_store_3d_hint(const CUtensorMap* tmap, uint32_t src, int c0, int c1, int c2,
                                                   uint64_t policy) {

@@ -35,9 +35,12 @@ KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd", "heads_fwd"
 # name: (source, nvcc flags). render_train_fwd with the mma.sync bfloat16 design that
 # wg_kernel replaced: chip_smoke.py (phase 5b and --kernel_times) times both designs
 # in turns (render_train.py:FWD_DESIGNS); render_train_bwd with the mma.sync walk that
-# the Hopper walk replaced (phases 9 and 12, render_train.py:BWD_DESIGNS).
+# the Hopper walk replaced (phases 9 and 12, render_train.py:BWD_DESIGNS); heads_fwd
+# with the mma.sync forward that wg_fwd_kernel replaced (phases 14 and 16,
+# heads.py:HEADS_FWD_DESIGNS).
 VARIANTS = {"render_train_fwd_mma_sync": ("render_train_fwd", ("-DUPNERF_FWD_MMA_SYNC",)),
-            "render_train_bwd_mma_sync": ("render_train_bwd", ("-DUPNERF_BWD_MMA_SYNC",))}
+            "render_train_bwd_mma_sync": ("render_train_bwd", ("-DUPNERF_BWD_MMA_SYNC",)),
+            "heads_fwd_mma_sync": ("heads_fwd", ("-DUPNERF_HEADS_FWD_MMA_SYNC",))}
 
 
 class BuildInfo(NamedTuple):
@@ -121,8 +124,10 @@ _ARGTYPES = {
     "upnerf_dw_gemm": ["pp", "ip", "ip", "ip", "i", "p", "i", "p", "i", "p", "i", "i", "i", "i", "p"],
     # q, k, v, o, bf16 scratch q * scale, k, v (null in float32 mode), G, N, hd, scale, use_bf16, stream
     "upnerf_flash_attn_fwd": ["p", "p", "p", "p", "p", "p", "p", "i", "i", "i", "f", "i", "p"],
-    # x0, c_emb, trunk W, trunk b, D, skip mask, heads (null: the trunk alone), outs, N, in0, C, F, use_bf16, stream
-    "upnerf_heads_fwd": ["p", "p", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "p"],
+    # x0, c_emb, trunk W, trunk b, D, skip mask, heads (null: the trunk alone), outs, N, in0, C, F, use_bf16,
+    # packed weights (bf16), their schedule ((offset, bytes) pairs), its K-strips, the input rows' scratch, stream
+    "upnerf_heads_fwd": ["p", "p", "pp", "pp", "i", "u", "pp", "pp", "i", "i", "i", "i", "i", "p", "ip", "i", "p",
+                         "p"],
     # x0, c_emb, cots, trunk W, trunk b, trunk W^T (the trunk's matrices null in bf16 mode), D, skip mask,
     # weights, biases, packed weights (bf16), their schedule ((offset, bytes) pairs), its K-strips, outs, dW operand
     # buffer, its layout, bias rows, N, in0, C, F, use_bf16, heads, stream

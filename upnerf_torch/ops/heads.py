@@ -17,7 +17,11 @@ interface: the caller broadcasts it, autograd sums its gradient back per ray).
 - `fused_trunk_heads_fwd` / `fused_trunk_heads_bwd` are the wrappers: on CPU
   tensors they run the plain versions, on CUDA tensors they launch the
   hand-written kernels (`csrc/heads_fwd.cu`, `csrc/heads_bwd.cu`) or raise.
-  They count their launches in `launches` and `bwd_launches`. The backward
+  They count their launches in `launches` and `bwd_launches`. In bfloat16
+  mode both kernels stream their weights, packed once a call by one gather
+  (`_fwd_wgmma_weights`, `_bwd_wgmma_weights`, from the same strip helpers),
+  to `wgmma` consumers; `fused_trunk_heads_fwd_launch` also launches the
+  forward's timing variant (`HEADS_FWD_DESIGNS`). The backward
   runs per slab of rows: the kernel stores the operands of every weight
   gradient into a buffer laid out by `heads_dw_layout`, and `dw_gemm`
   (csrc/dw_gemm.cu) sums them in a fixed order, so two calls give the same
@@ -40,6 +44,7 @@ import torch
 
 from upnerf_torch.ops import dw_gemm, render_train
 from upnerf_torch.ops.linear import canonical_precision, matmul
+from upnerf_torch.ops.mlp import _check_args as _check_trunk_args
 from upnerf_torch.ops.mlp import _layout, _padded_trunk, fused_trunk_plain, trunk_chain, trunk_walk_plain
 from upnerf_torch.ops.render_train import (
     X0_PAD, DwLayout, _pad_x0_rows, _ptrs, _raise_on, check_feat_width, feat_pad, pack_wgmma, pad_feat, softplus,
@@ -343,113 +348,188 @@ def fused_trunk_heads_bwd_dw_plain(x0, c_emb, trunk, heads, skips, precision, co
     return (dx0, dc_emb, *heads_dw_result(flat, lay, D, skips, x0.shape[1], F, {k: heads[k] for k in names}))
 
 
-# The Hopper backward's weight stream (csrc/heads_bwd.cu:wg_bwd_kernel): one tile's
-# K-strips in the order its consumers read them, packed by pack_wgmma.
+# The Hopper kernels' weight streams (csrc/heads_fwd.cu:wg_fwd_kernel,
+# csrc/heads_bwd.cu:wg_bwd_kernel): one tile's K-strips in the order its consumers
+# read them, packed by pack_wgmma, then the narrow heads.
 WG_NARROW = 8  # the sigma heads' columns, zero-padded: wgmma's smallest N
 WG_HEADS_BYTES = 8192
+
+
+class _Stream:
+    """A weight stream in the making, from the shapes alone: index matrices
+    packed as K-strips (pack_wgmma) under a key each, and the schedule of
+    (byte offset, bytes) of the strips in the order a kernel reads them."""
+
+    def __init__(self):
+        self.parts, self.pieces, self.size, self.sched = [], {}, 0, []
+
+    def add(self, key, idx: torch.Tensor, nb: int) -> None:
+        self.parts.append(pack_wgmma(idx, nb))
+        self.pieces[key] = (self.size, idx.shape[0], idx.shape[1] // nb, nb)
+        self.size += self.parts[-1].numel()
+
+    def strips(self, key, blocks=None) -> None:
+        """Piece key's K-strips into the schedule: each block of nb columns
+        (all, or those named), its strips in K order."""
+        start, K, n_blocks, nb = self.pieces[key]
+        for b in range(n_blocks) if blocks is None else blocks:
+            for ks in range(K // 64):
+                self.sched.append((2 * (start + (b * (K // 64) + ks) * 64 * nb), 128 * nb))
+
+    def narrow(self, sigma_w: torch.Tensor, csig_w: Optional[torch.Tensor], HC: int) -> None:
+        """The narrow heads' 8 KB (sigma_w, then csig_w or zeros, at WG_NARROW
+        columns), last in the stream and the schedule."""
+        parts = [pack_wgmma(_cols(sigma_w, WG_NARROW), WG_NARROW)]
+        parts.append(pack_wgmma(_cols(csig_w, WG_NARROW) if csig_w is not None else _zeros(HC, WG_NARROW),
+                                WG_NARROW))
+        parts.append(_zeros(WG_HEADS_BYTES // 2 - sum(t.numel() for t in parts), 1).reshape(-1))
+        self.sched.append((2 * self.size, WG_HEADS_BYTES))
+        self.parts += parts
+
+    def done(self):
+        return torch.cat(self.parts), tuple(self.sched)
+
+
+def _zeros(k: int, n: int) -> torch.Tensor:
+    return torch.zeros((k, n), dtype=torch.int64)
+
+
+def _cols(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t's columns zero-padded (index 0) to n."""
+    return torch.cat([t, _zeros(t.shape[0], n - t.shape[1])], 1)
+
+
+def _stream_sources(D: int, skips, in0: int, W: int, HC: int, C: int, F: int) -> Dict:
+    """Each weight's index matrix into the flat concatenation [0, the trunk's
+    weights, then (C >= 0: the heads) sigma_w, xyzf_w, feat_w, and with C > 0
+    c1_w, c2_w, csig_w, cfeat_w] (0: a padded zero)."""
+    src, at = {}, 1
+    sizes = [(f"t{i}", (in0 if i == 0 else (in0 + W if i in skips else W), W)) for i in range(D)]
+    if C >= 0:
+        sizes += [("sigma_w", (W, 1)), ("xyzf_w", (W, W)), ("feat_w", (W, F))]
+    if C > 0:
+        sizes += [("c1_w", (W + C, HC)), ("c2_w", (HC, HC)), ("csig_w", (HC, 1)), ("cfeat_w", (HC, F))]
+    for name, (k, n) in sizes:
+        src[name] = torch.arange(at, at + k * n, dtype=torch.int64).reshape(k, n)
+        at += k * n
+    return src
+
+
+def _add_chain(st: _Stream, src: Dict, D: int, skips, in0: int, W: int, C: int):
+    """The chain's products as the forward computes them (the backward's
+    rebuild streams the same strips): each trunk layer (x0 rows zero-padded
+    to X0_PAD at layer 0 and the skip layers), then with the heads xyzf, with
+    the candidate branch c1 ([c_emb rows zero-padded to X0_PAD | xyzf's W
+    rows]) and c2; columns in blocks of 128. Returns (the padded trunk, the
+    padded c_emb rows of c1 or None)."""
+    trunk = [_pad_x0_rows(src[f"t{i}"], in0) if i == 0 or i in skips else src[f"t{i}"] for i in range(D)]
+    for i in range(D):
+        st.add(("fwd", i), trunk[i], 128)
+    if C >= 0:
+        st.add("xyzf", src["xyzf_w"], 128)
+    cpad = None
+    if C > 0:
+        c1 = src["c1_w"]
+        cpad = torch.cat([c1[W:], _zeros(X0_PAD - C, c1.shape[1])])
+        st.add("c1", torch.cat([cpad, c1[:W]]), 128)
+        st.add("c2", src["c2_w"], 128)
+    return trunk, cpad
+
+
+def _chain_strips(st: _Stream, D: int, heads: bool) -> None:
+    """The trunk's strips, layer by layer and half by half, then xyzf's."""
+    for i in range(D):
+        st.strips(("fwd", i))
+    if heads:
+        st.strips("xyzf")
 
 
 @functools.lru_cache(maxsize=64)
 def _bwd_wgmma_plan(D: int, skips: Tuple[int, ...], in0: int, W: int, FP: int, HC: int, C: int, F: int):
     """The gather that packs the backward's weights (bf16) and its schedule,
     from the shapes alone: (index, sched). index (int64, CPU) maps each
-    packed element to its source in the flat concatenation [0, the trunk's
-    weights, then (C >= 0: the heads) sigma_w, xyzf_w, feat_w, and with C > 0
-    c1_w, c2_w, csig_w, cfeat_w] (0: a padded zero). C = -1: the trunk-only
-    mode. sched: (byte offset, bytes) of each K-strip, then of the narrow
-    heads' 8 KB (with the heads)."""
+    packed element to its source in the flat concatenation of
+    _stream_sources (0: a padded zero). C = -1: the trunk-only mode. sched:
+    (byte offset, bytes) of each K-strip, then of the narrow heads' 8 KB
+    (with the heads): the rebuild (the forward's chain), then the walk."""
     heads, cand = C >= 0, C > 0
-    src, at = {}, 1
-    sizes = [(f"t{i}", (in0 if i == 0 else (in0 + W if i in skips else W), W)) for i in range(D)]
-    if heads:
-        sizes += [("sigma_w", (W, 1)), ("xyzf_w", (W, W)), ("feat_w", (W, F))]
-    if cand:
-        sizes += [("c1_w", (W + C, HC)), ("c2_w", (HC, HC)), ("csig_w", (HC, 1)), ("cfeat_w", (HC, F))]
-    for name, (k, n) in sizes:
-        src[name] = torch.arange(at, at + k * n, dtype=torch.int64).reshape(k, n)
-        at += k * n
-    zeros = lambda k, n: torch.zeros((k, n), dtype=torch.int64)  # noqa: E731
-    cols = lambda t, n: torch.cat([t, zeros(t.shape[0], n - t.shape[1])], 1)  # noqa: E731
-    parts, pieces, size = [], {}, 0
-
-    def add(key, idx, nb):
-        nonlocal size
-        parts.append(pack_wgmma(idx, nb))
-        pieces[key] = (size, idx.shape[0], idx.shape[1] // nb, nb)
-        size += parts[-1].numel()
-
-    trunk = [_pad_x0_rows(src[f"t{i}"], in0) if i == 0 or i in skips else src[f"t{i}"] for i in range(D)]
-    for i in range(D):
-        add(("fwd", i), trunk[i], 128)
-    if heads:
-        add("xyzf", src["xyzf_w"], 128)
-        feat_t = cols(src["feat_w"], FP).t()
+    src = _stream_sources(D, skips, in0, W, HC, C, F)
+    st = _Stream()
+    trunk, cpad = _add_chain(st, src, D, skips, in0, W, C)
     if cand:
         c1 = src["c1_w"]
-        cpad = torch.cat([c1[W:], zeros(X0_PAD - C, HC)])
-        add("c1", torch.cat([cpad, c1[:W]]), 128)
-        add("c2", src["c2_w"], 128)
-        add("cfeat_t", cols(src["cfeat_w"], FP).t(), 128)
-        add("c2_t", src["c2_w"].t(), 128)
-        add("c1c_t", cpad.t(), 64)
-        add("c1x_t", c1[:W].t(), 128)
+        st.add("cfeat_t", _cols(src["cfeat_w"], FP).t(), 128)
+        st.add("c2_t", src["c2_w"].t(), 128)
+        st.add("c1c_t", cpad.t(), 64)
+        st.add("c1x_t", c1[:W].t(), 128)
     if heads:
-        add("feat_t", feat_t, 128)
-        add("xyzf_t", src["xyzf_w"].t(), 128)
+        st.add("feat_t", _cols(src["feat_w"], FP).t(), 128)
+        st.add("xyzf_t", src["xyzf_w"].t(), 128)
     for i in range(D):
         wt = trunk[i].t()
         if i == 0 or i in skips:
-            add(("x0_t", i), wt[:, :X0_PAD], 64)
+            st.add(("x0_t", i), wt[:, :X0_PAD], 64)
         if i > 0:
-            add(("h_t", i), wt[:, X0_PAD:] if i in skips else wt, 128)
+            st.add(("h_t", i), wt[:, X0_PAD:] if i in skips else wt, 128)
 
-    sched = []
-
-    def strips(key, blocks=None):
-        start, K, n_blocks, nb = pieces[key]
-        for b in range(n_blocks) if blocks is None else blocks:
-            for ks in range(K // 64):
-                sched.append((2 * (start + (b * (K // 64) + ks) * 64 * nb), 128 * nb))
-
-    for i in range(D):  # the rebuild: each layer half by half
-        strips(("fwd", i))
-    if heads:
-        strips("xyzf")
+    _chain_strips(st, D, heads)  # the rebuild
     if cand:
-        strips("c1")
-        strips("c2")
-        strips("cfeat_t")  # the walk: the candidate branch
-        strips("c2_t")
-        strips("c1c_t")
+        st.strips("c1")
+        st.strips("c2")
+        st.strips("cfeat_t")  # the walk: the candidate branch
+        st.strips("c2_t")
+        st.strips("c1c_t")
     if heads:
         for b in range(W // 128):  # g_xyzf's halves: feat, then c1's xyzf part
-            strips("feat_t", [b])
+            st.strips("feat_t", [b])
             if cand:
-                strips("c1x_t", [b])
-        strips("xyzf_t")
+                st.strips("c1x_t", [b])
+        st.strips("xyzf_t")
     for i in reversed(range(D)):  # the trunk, last layer first: x0's columns, then the halves
         if i == 0 or i in skips:
-            strips(("x0_t", i))
+            st.strips(("x0_t", i))
         if i > 0:
-            strips(("h_t", i))
+            st.strips(("h_t", i))
     if heads:
-        narrow = [pack_wgmma(cols(src["sigma_w"], WG_NARROW), WG_NARROW)]
-        narrow.append(pack_wgmma(cols(src["csig_w"], WG_NARROW) if cand else zeros(HC, WG_NARROW), WG_NARROW))
-        filled = sum(t.numel() for t in narrow)
-        narrow.append(torch.zeros((WG_HEADS_BYTES // 2 - filled,), dtype=torch.int64))
-        sched.append((2 * size, WG_HEADS_BYTES))
-        parts += narrow
-    return torch.cat(parts), tuple(sched)
+        st.narrow(src["sigma_w"], src["csig_w"] if cand else None, HC)
+    return st.done()
 
 
-_BWD_INDEX: Dict[tuple, torch.Tensor] = {}  # _bwd_wgmma_plan's index on each device
+@functools.lru_cache(maxsize=64)
+def _fwd_wgmma_plan(D: int, skips: Tuple[int, ...], in0: int, W: int, FP: int, HC: int, C: int, F: int):
+    """The forward's gather and schedule, as _bwd_wgmma_plan's: the trunk
+    and xyzf (the strips the backward's rebuild streams first), then feat
+    untransposed (FP columns in blocks of 128, or one of 64 at FP = 64), then
+    with the candidate branch c1, c2 and cfeat (as feat); the narrow heads
+    last."""
+    heads, cand = C >= 0, C > 0
+    src = _stream_sources(D, skips, in0, W, HC, C, F)
+    st = _Stream()
+    _add_chain(st, src, D, skips, in0, W, C)
+    NB = min(FP, 128)
+    if heads:
+        st.add("feat", _cols(src["feat_w"], FP), NB)
+    if cand:
+        st.add("cfeat", _cols(src["cfeat_w"], FP), NB)
+    _chain_strips(st, D, heads)
+    if heads:
+        st.strips("feat")
+    if cand:
+        for key in ("c1", "c2", "cfeat"):
+            st.strips(key)
+    if heads:
+        st.narrow(src["sigma_w"], src["csig_w"] if cand else None, HC)
+    return st.done()
 
 
-def _bwd_wgmma_weights(trunk, heads: Optional[Dict[str, torch.Tensor]], skips, in0: int, C: int):
-    """The bf16 weights of the Hopper backward as one flat tensor, and the
-    schedule its producer streams for every tile (_bwd_wgmma_plan); heads
-    None: the trunk-only mode. A call runs one concatenation, one gather and
-    one rounding on the device."""
+_STREAM_INDEX: Dict[tuple, torch.Tensor] = {}  # each plan's index on each device
+
+
+def _wgmma_weights(plan, trunk, heads: Optional[Dict[str, torch.Tensor]], skips, in0: int, C: int):
+    """The bf16 weights of a Hopper kernel as one flat tensor, and the
+    schedule its producer streams for every tile (plan: _fwd_wgmma_plan or
+    _bwd_wgmma_plan); heads None: the trunk-only mode. A call runs one
+    concatenation, one gather and one rounding on the device."""
     W = trunk[0][1].shape[0]
     mats = [w for w, _ in trunk]
     F, FP, HC = 0, 64, 0
@@ -461,12 +541,22 @@ def _bwd_wgmma_weights(trunk, heads: Optional[Dict[str, torch.Tensor]], skips, i
             HC = heads["c2_w"].shape[1]
             mats += [heads[k] for k in ("c1_w", "c2_w", "csig_w", "cfeat_w")]
     key = (len(trunk), tuple(skips), in0, W, FP, HC, C if heads is not None else -1, F)
-    index, sched = _bwd_wgmma_plan(*key)
+    index, sched = plan(*key)
     dev = trunk[0][0].device
-    if (key, dev) not in _BWD_INDEX:
-        _BWD_INDEX[(key, dev)] = index.to(dev)
+    if (plan, key, dev) not in _STREAM_INDEX:
+        _STREAM_INDEX[(plan, key, dev)] = index.to(dev)
     flat = torch.cat([mats[0].new_zeros(1)] + [m.reshape(-1) for m in mats])
-    return flat[_BWD_INDEX[(key, dev)]].to(torch.bfloat16), list(sched)
+    return flat[_STREAM_INDEX[(plan, key, dev)]].to(torch.bfloat16), list(sched)
+
+
+def _bwd_wgmma_weights(trunk, heads, skips, in0: int, C: int):
+    """The Hopper backward's stream (_wgmma_weights of _bwd_wgmma_plan)."""
+    return _wgmma_weights(_bwd_wgmma_plan, trunk, heads, skips, in0, C)
+
+
+def _fwd_wgmma_weights(trunk, heads, skips, in0: int, C: int):
+    """The Hopper forward's stream (_wgmma_weights of _fwd_wgmma_plan)."""
+    return _wgmma_weights(_fwd_wgmma_plan, trunk, heads, skips, in0, C)
 
 
 # ---------------------------------------------------------------------------
@@ -504,57 +594,97 @@ def _c1_padded(c1_w: torch.Tensor, W: int) -> torch.Tensor:
     return torch.cat([c1_w, c1_w.new_zeros(W + 64 - c1_w.shape[0], c1_w.shape[1])], 0)
 
 
+# The forward's bfloat16 designs: the route's Hopper kernel (wg_fwd_kernel), and for
+# timing only the mma.sync design it replaced, built as a variant (_build.VARIANTS)
+# that chip_smoke.py (phases 14 and 16, --kernel_times) and the card tests select.
+HEADS_FWD_DESIGNS = ("wgmma", "mma_sync")
+HEADS_FWD_LIBS = {"wgmma": "heads_fwd", "mma_sync": "heads_fwd_mma_sync"}
+
+
+def fused_trunk_heads_fwd_launch(x0, c_emb, trunk, heads, skips, precision: str = "float32",
+                                 design: str = "wgmma") -> Tuple[torch.Tensor, ...]:
+    """One launch of csrc/heads_fwd.cu on CUDA tensors, checked: kernel 5's
+    forward (fused_trunk_heads_fwd's outputs), or with heads None the
+    trunk-only mode (kernel 6's: (h (N, W),), mlp.fused_trunk_fwd). design,
+    one of HEADS_FWD_DESIGNS, picks the bfloat16 kernel: "wgmma" (the
+    routes'), or "mma_sync" (a timing variant no route reaches; the float32
+    kernel is the same in both). Counts no launch."""
+    from upnerf_torch.ops import _build
+
+    if design not in HEADS_FWD_DESIGNS:
+        raise ValueError(f"design must be one of {HEADS_FWD_DESIGNS}, got {design!r}")
+    if heads is None:
+        _check_trunk_args(x0, trunk, skips)
+    else:
+        _check_args(x0, c_emb, trunk, heads, skips)
+    N, in0 = x0.shape
+    C = 0 if c_emb is None else c_emb.shape[1]
+    W, F = KERNEL_WIDTHS["W"], 0 if heads is None else heads["feat_b"].shape[0]
+    bf16 = canonical_precision(precision) == "bfloat16"
+    hopper = bf16 and design == "wgmma"
+    dev = x0.device
+    tb = [b.contiguous() for _, b in trunk]
+    wpack, sched, n_sched, in_rows = None, None, 0, None
+    if hopper:  # the matrices in one packed stream; the kernel reads the biases beside it
+        wpack, pairs = _fwd_wgmma_weights(trunk, heads, skips, in0, C)
+        sched = (ctypes.c_int * (2 * len(pairs)))(*[v for pair in pairs for v in pair])
+        n_sched = len(pairs) - (heads is not None)
+        in_rows = torch.empty((N, 2 * X0_PAD if C else X0_PAD), dtype=torch.bfloat16, device=dev)
+        tw = [None] * len(trunk)
+    else:
+        tw = [_layout(w, bf16) for w in _padded_trunk(trunk, skips, in0)]
+    f32 = dict(dtype=torch.float32, device=dev)
+    hw = None
+    if heads is None:
+        outs = [torch.empty((N, W), **f32)]
+    else:
+        cdt = torch.bfloat16 if bf16 else torch.float32
+        hp = pad_feat(heads, feat_pad(F, bf16))
+        mat = (lambda t: None) if hopper else (lambda t: _layout(t, bf16))  # noqa: E731
+        vec = (lambda t: None) if hopper else (lambda t: t.reshape(-1).to(cdt).contiguous())  # noqa: E731
+        hw = [vec(hp["sigma_w"]), hp["sigma_b"].contiguous(), mat(hp["xyzf_w"]), hp["xyzf_b"].contiguous(),
+              mat(hp["feat_w"]), hp["feat_b"].contiguous()]
+        if C:
+            hw += [mat(_c1_padded(hp["c1_w"], W)), hp["c1_b"].contiguous(), mat(hp["c2_w"]), hp["c2_b"].contiguous(),
+                   vec(hp["csig_w"]), hp["csig_b"].contiguous(), mat(hp["cfeat_w"]), hp["cfeat_b"].contiguous()]
+        else:
+            hw += [None] * len(CAND_KEYS)
+        outs = [torch.empty((N, 1), **f32), torch.empty((N, F), **f32)]
+        if C:
+            outs += [torch.empty((N, 1), **f32), torch.empty((N, F), **f32)]
+    x0 = x0.contiguous()
+    ce = c_emb.contiguous() if C else None
+    lib = _build.library(HEADS_FWD_LIBS[design] if bf16 else "heads_fwd")
+    skip_mask = sum(1 << i for i in skips if 0 < i < len(trunk))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = lib.upnerf_heads_fwd(x0.data_ptr(), ce.data_ptr() if C else None, _ptrs(tw), _ptrs(tb), len(trunk),
+                                    skip_mask, None if hw is None else _ptrs(hw),
+                                    _ptrs(outs + [None] * (4 - len(outs))), N, in0, C, F, int(bf16),
+                                    None if wpack is None else wpack.data_ptr(), sched, n_sched,
+                                    None if in_rows is None else in_rows.data_ptr(), stream)
+    _raise_on(code, "heads_fwd" if heads is not None else "heads_fwd (trunk only)", lib)
+    return tuple(outs)
+
+
 def fused_trunk_heads_fwd(x0, c_emb, trunk, heads, skips, precision: str = "float32") -> Tuple[torch.Tensor, ...]:
     """Forward: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors; the same arguments and outputs either way, all f32. The kernel
-    takes W = 256, F in render_train.KERNEL_F, HC = 128, 3 + 6L <= 64,
-    D <= 16, C <= 64; it computes no gradient (train through
-    `fused_trunk_heads`)."""
+    tensors (in bfloat16 mode the Hopper design); the same arguments and
+    outputs either way, all f32. The kernel takes W = 256, F in
+    render_train.KERNEL_F, HC = 128, 3 + 6L <= 64, D <= 16, C <= 64; it
+    computes no gradient (train through `fused_trunk_heads`)."""
     if x0.device.type == "cpu":
         return fused_trunk_heads_plain(x0, c_emb, trunk, heads, skips, precision)
     if x0.device.type != "cuda":
         raise ValueError(f"no heads kernel for device {x0.device}")
     global launches
-    from upnerf_torch.ops import _build
-
-    _check_args(x0, c_emb, trunk, heads, skips)
     tensors = [x0, c_emb, *heads.values()] + [t for wb in trunk for t in wb]
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError("the CUDA heads kernel is forward-only: run it under torch.no_grad()"
                            " or train through fused_trunk_heads")
-    N, in0 = x0.shape
-    C = 0 if c_emb is None else c_emb.shape[1]
-    W, F = KERNEL_WIDTHS["W"], heads["feat_b"].shape[0]
-    bf16 = canonical_precision(precision) == "bfloat16"
-    cdt = torch.bfloat16 if bf16 else torch.float32
-    heads = pad_feat(heads, feat_pad(F, bf16))
-    tw = [_layout(w, bf16) for w in _padded_trunk(trunk, skips, in0)]
-    tb = [b.contiguous() for _, b in trunk]
-    hw = [heads["sigma_w"].reshape(-1).to(cdt).contiguous(), heads["sigma_b"].contiguous(),
-          _layout(heads["xyzf_w"], bf16), heads["xyzf_b"].contiguous(),
-          _layout(heads["feat_w"], bf16), heads["feat_b"].contiguous()]
-    if C:
-        hw += [_layout(_c1_padded(heads["c1_w"], W), bf16), heads["c1_b"].contiguous(), _layout(heads["c2_w"], bf16),
-               heads["c2_b"].contiguous(), heads["csig_w"].reshape(-1).to(cdt).contiguous(),
-               heads["csig_b"].contiguous(), _layout(heads["cfeat_w"], bf16), heads["cfeat_b"].contiguous()]
-    else:
-        hw += [None] * len(CAND_KEYS)
-    f32 = dict(dtype=torch.float32, device=x0.device)
-    outs = [torch.empty((N, 1), **f32), torch.empty((N, F), **f32)]
-    if C:
-        outs += [torch.empty((N, 1), **f32), torch.empty((N, F), **f32)]
-    x0 = x0.contiguous()
-    ce = c_emb.contiguous() if C else None
-    lib = _build.library("heads_fwd")
-    skip_mask = sum(1 << i for i in skips if 0 < i < len(trunk))
-    stream = torch.cuda.current_stream(x0.device).cuda_stream
-    with torch.cuda.device(x0.device):
-        code = lib.upnerf_heads_fwd(x0.data_ptr(), ce.data_ptr() if C else None, _ptrs(tw), _ptrs(tb), len(trunk),
-                                    skip_mask, _ptrs(hw), _ptrs(outs + [None] * (4 - len(outs))), N, in0, C, F,
-                                    int(bf16), stream)
-    _raise_on(code, "heads_fwd", lib)
+    outs = fused_trunk_heads_fwd_launch(x0, c_emb, trunk, heads, skips, precision)
     launches += 1
-    return tuple(outs)
+    return outs
 
 
 class BwdCall:

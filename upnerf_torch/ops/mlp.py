@@ -25,7 +25,8 @@ trains through its backward.
   mode on and a trainable input, an autograd.Function whose backward
   recomputes the chain, as the JAX one does; otherwise the forward alone.
 - `_padded_trunk` / `_layout` give the trunk weights in the layout of the
-  heads kernels (forward and backward).
+  heads kernels' float32 modes and of the forward's `mma.sync` variant (the
+  bfloat16 kernels stream theirs, ops/heads.py).
 
 Weights come in the JAX kernel's interface: `trunk` is a sequence of
 (W (in, out), b (out,)) pairs.
@@ -38,7 +39,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from upnerf_torch.ops.linear import canonical_precision, matmul
-from upnerf_torch.ops.render_train import X0_PAD, _pack_fragments, _pad_x0_rows, _ptrs, _raise_on
+from upnerf_torch.ops.render_train import X0_PAD, _pack_fragments, _pad_x0_rows
 
 KERNEL_W = 256  # the trunk width the CUDA kernels take
 MAX_D = 16
@@ -143,8 +144,9 @@ def fused_trunk_fwd(
     precision: str = "float32",
 ) -> torch.Tensor:
     """(N, W) last trunk activation: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors; the same arguments either way. The kernel
-    takes W = 256, 3 + 6L <= 64 and D <= 16, and computes no gradient: inputs
+    CUDA kernel (heads.fused_trunk_heads_fwd_launch's trunk-only mode) for
+    CUDA tensors; the same arguments either way. The kernel takes W = 256,
+    3 + 6L <= 64 and D <= 16, and computes no gradient: inputs
     that require grad are refused while grad mode is on (train through
     `fused_trunk`)."""
     if x.device.type == "cpu":
@@ -152,25 +154,12 @@ def fused_trunk_fwd(
     if x.device.type != "cuda":
         raise ValueError(f"no trunk kernel for device {x.device}")
     global launches
-    from upnerf_torch.ops import _build
+    from upnerf_torch.ops import heads
 
-    _check_args(x, trunk, skips)
     if torch.is_grad_enabled() and any(t.requires_grad for wb in trunk for t in (x, *wb)):
         raise RuntimeError("the CUDA trunk kernel is forward-only: run it under torch.no_grad()"
                            " or train through fused_trunk")
-    N, in0 = x.shape
-    bf16 = canonical_precision(precision) == "bfloat16"
-    ws = [_layout(w, bf16) for w in _padded_trunk(trunk, skips, in0)]
-    bs = [b.contiguous() for _, b in trunk]
-    x = x.contiguous()
-    out = torch.empty((N, KERNEL_W), dtype=torch.float32, device=x.device)
-    lib = _build.library("heads_fwd")
-    skip_mask = sum(1 << i for i in skips if 0 < i < len(trunk))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        code = lib.upnerf_heads_fwd(x.data_ptr(), None, _ptrs(ws), _ptrs(bs), len(trunk), skip_mask, None,
-                                    _ptrs([out]), N, in0, 0, 0, int(bf16), stream)
-    _raise_on(code, "heads_fwd (trunk only)", lib)
+    (out,) = heads.fused_trunk_heads_fwd_launch(x, None, trunk, None, skips, precision)
     launches += 1
     return out
 
