@@ -8,7 +8,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   1. the card: name and power limit from nvidia-smi;
   2. build: nvcc compiles upnerf_torch/csrc/*.cu for sm_90a, one process per
      source (and per timing variant), all at once; each kernel's ptxas report,
-     and none of the heads forward's wgmma serialized (C7512);
+     and none of the heads forward's or the probe's wgmma serialized
+     (C7512);
   3. the forward kernel's serving mode against its plain PyTorch version on
      one 4096-ray chunk at the brandenburg_gate width, S = 64, 100, 128 and
      256 samples, float32 and bfloat16, and two calls bit for bit;
@@ -164,19 +165,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      4096 x 256 and 2048 x 384; then `upnerf_torch.scripts.
      bench_render_train_kernel` at its defaults with 3 steps (4 forward and 4
      backward launches);
- 25. the matrix-unit probe (`ops.mxu_probe`, csrc/mxu_probe.cu) at the JAX
-     probe's shapes (M 2048, W 256, L 16, 64 copies): the pure / epi / int8
-     chains against their plain versions (int8 bit for bit, bf16 by RMS),
-     then `upnerf_torch.scripts.bench_mxu_probe` at its defaults (31
-     launches a chain): ms, TFLOP/s or TOPS, share of the dense peak, the
-     plain version's and the library products' ms;
+ 25. the matrix-unit probe (`ops.mxu_probe`, csrc/mxu_probe.cu: the route's
+     wg_probe_kernel) at the JAX probe's shapes (M 2048, W 256, L 16, 64
+     copies): the pure / epi / int8 chains against their plain versions
+     (int8 bit for bit, bf16 by RMS), then `upnerf_torch.scripts.
+     bench_mxu_probe` at its defaults (31 launches a chain): ms, TFLOP/s or
+     TOPS, share of the dense peak, the plain version's and the library
+     products' ms; then both designs (mxu_probe.PROBE_DESIGNS: wgmma and the
+     mma.sync design it replaced) against each other and in turns: ms, rate,
+     share of the bound, and the L2 bytes of each design's weight reads with
+     the rate they imply;
  26. run-to-run bits: each mode twice on the same inputs (the render
-     kernels at 2048 x 256; kernels 5 and 6 at 524,288 rows), how many
-     outputs differ and by how much; same bits required of every mode in bf16
-     and f32: the forward (saved chain and recompute), kernel 2's train
-     backward (saved chain and recompute), the frozen mode, and kernels 5 and
-     6's forward and backward (no backward adds a weight gradient with
-     atomics).
+     kernels at 2048 x 256; kernels 5 and 6 at 524,288 rows; the probe's
+     chains at phase 25's shapes), how many outputs differ and by how much;
+     same bits required of every mode in bf16 and f32: the forward (saved
+     chain and recompute), kernel 2's train backward (saved chain and
+     recompute), the frozen mode, kernels 5 and 6's forward and backward
+     (no backward adds a weight gradient with atomics), and the probe.
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -2911,7 +2916,53 @@ def phase_mxu_probe(dev, card: str):
         print(f"[25] {chain}: {result[chain]['ms']:.3f} ms against a bound of {bms:.3f} ms ({by}); plain"
               f" {result[chain]['plain_ms']:.3f} ms; library products {result[chain]['library_ms']} ms ({card})",
               flush=True)
+    with torch.no_grad():
+        for chain in mp.CHAINS:
+            probe_designs(mp, x, ws_i8 if chain == "int8" else ws, b, chain, card)
     return errs, got, result
+
+
+def probe_l2_bytes(M: int, L: int, copies: int, chain: str, design: str) -> float:
+    """The L2 bytes of one probe call's weight reads: the wgmma design streams
+    every layer once per pair of 64-row tiles (the two consumers of a block
+    share each strip), the mma.sync design once per tile."""
+    tiles = copies * -(-M // 64)
+    reads = -(-tiles // 2) if design == "wgmma" else tiles
+    return reads * L * 256 * 256 * (1 if chain == "int8" else 2)
+
+
+def probe_designs(mp, x, w, b, chain: str, card: str, reps: int = 20) -> None:
+    """Phase 25's chain in both designs (mxu_probe.PROBE_DESIGNS), each from
+    its own packed weights: the mma.sync design against the route's (int8
+    bit for bit, bf16 by PROBE_RMS_TOL), then both timed in turns (a, b, b,
+    a): ms, rate, share of the bound, the weight reads' L2 bytes and the rate
+    they imply."""
+    M, W, L, G = PROBE_SHAPE
+    rms = lambda t: t.double().pow(2).mean().sqrt().item()  # noqa: E731
+    packed = {des: mp.kernel_weights(w, chain, des) for des in mp.PROBE_DESIGNS}
+    call = {des: (lambda des=des: mp.mxu_probe_launch(x, w, b, chain, G, packed[des], des)) for des in mp.PROBE_DESIGNS}
+    got = {des: call[des]() for des in mp.PROBE_DESIGNS}
+    torch.cuda.synchronize()
+    base = got[mp.PROBE_DESIGNS[0]]
+    for des in mp.PROBE_DESIGNS[1:]:
+        if chain == "int8":
+            check(torch.equal(got[des], base), f"[25] int8: the {des} design differs from the route's")
+        else:
+            d = rms(got[des] - base) / rms(base)
+            check(d <= PROBE_RMS_TOL, f"[25] {chain}: the {des} design is {d} from the route's")
+    del got
+    runs = {des: [] for des in mp.PROBE_DESIGNS}
+    for des in mp.PROBE_DESIGNS + mp.PROBE_DESIGNS[::-1]:
+        runs[des].append(cuda_ms(call[des], reps))
+    ms = {des: sum(v) / len(v) for des, v in runs.items()}
+    ops = 2.0 * M * W * W * L * G
+    unit = "TOPS" if chain == "int8" else "TFLOP/s"
+    bms, by = probe_bound(M, W, L, G, chain)
+    print(f"[25] {chain}, the designs in turns: " + "; ".join(
+        f"{des} {ms[des]:.4f} ms ({' '.join(f'{v:.4f}' for v in runs[des])}; {ops / ms[des] / 1e9:.0f} {unit},"
+        f" {bms / ms[des]:.2f} of the bound; L2 weight reads {probe_l2_bytes(M, L, G, chain, des) / 1e9:.3f} GB,"
+        f" {probe_l2_bytes(M, L, G, chain, des) / ms[des] / 1e9:.2f} TB/s)" for des in mp.PROBE_DESIGNS)
+        + f"; bound {bms:.3f} ms ({by}) ({card})", flush=True)
 
 
 def flat_tensors(x) -> list:
@@ -2944,10 +2995,12 @@ def phase_run_to_run(field, nerf_cfg, dev):
     column sums run in a fixed order) and kernels 5 and 6's forward, every
     backward (no weight gradient is added with atomics: each walk stores its
     operands and the dW kernel sums them in a fixed order, a slab at a time)
-    and the frozen mode. Returns {mode: (differ, elements, worst)}."""
+    and the frozen mode; and the probe's three chains at phase 25's shapes.
+    Returns {mode: (differ, elements, worst)}."""
     from upnerf_torch.models.nerf import positional_encoding
     from upnerf_torch.ops import heads as hk
     from upnerf_torch.ops import mlp
+    from upnerf_torch.ops import mxu_probe as mp
     from upnerf_torch.ops import render_train as rt
 
     out = {}
@@ -2989,6 +3042,11 @@ def phase_run_to_run(field, nerf_cfg, dev):
             out[f"kernel 6 backward {prec}"] = run_twice(
                 lambda: mlp.fused_trunk_bwd(x0, field.trunk_weights(), nerf_cfg.skips, prec, tcot))
             torch.cuda.empty_cache()
+        M, W, L, G = PROBE_SHAPE
+        px, pws, pb, pws_i8 = (torch.from_numpy(a).to(dev) for a in mp.probe_inputs(M, W, L, seed=26))
+        for chain in mp.CHAINS:
+            w = pws_i8 if chain == "int8" else pws
+            out[f"probe {chain}"] = run_twice(lambda: mp.mxu_probe(px, w, pb, chain, G))
     for name, (n_diff, n_el, worst) in out.items():
         print(f"[26] {name}: {n_diff} of {n_el} outputs differ between two calls, worst {worst:.3e} of an output's"
               f" max", flush=True)
@@ -3011,7 +3069,9 @@ def kernel_times(dev, card: str, profile_dir=None) -> dict:
     (render_train.BWD_DESIGNS), the backward of phases 9 and 12 also in the
     mma.sync walk the Hopper walk replaced; in a tree with the heads
     forward's (heads.HEADS_FWD_DESIGNS), the forward of phases 14 and 16 also
-    in the mma.sync design wg_fwd_kernel replaced. Uses only wrappers
+    in the mma.sync design wg_fwd_kernel replaced; the probe's three chains
+    of phase 25, and in a tree with mxu_probe.PROBE_DESIGNS also in the
+    mma.sync design wg_probe_kernel replaced. Uses only wrappers
     that trees with kernels 4 and 5 already had, so the script can be copied
     into an older tree's root and run there, the trees in turns. With
     profile_dir, then a torch.profiler table of 5 flash-attention calls there,
@@ -3020,6 +3080,7 @@ def kernel_times(dev, card: str, profile_dir=None) -> dict:
     from upnerf_torch.ops import attention
     from upnerf_torch.ops import heads as hk
     from upnerf_torch.ops import mlp
+    from upnerf_torch.ops import mxu_probe as mp
     from upnerf_torch.ops import render as srk
     from upnerf_torch.ops import render_train as rt
     from upnerf_torch.render.render_rays import field_weights
@@ -3109,6 +3170,22 @@ def kernel_times(dev, card: str, profile_dir=None) -> dict:
                     lambda des=des: rt.render_train_rays_bwd_launch(*bargs, h1, st1, c_emb, res, cots, des).run())
                 calls[f"render_train_bwd_frozen (phase 12), {des} design"] = (
                     lambda des=des: rt.render_train_rays_bwd_launch(*bargs, h2, frozen, None, res2, cots2, des).run())
+        # the probe's chains at phase 25's shapes: the route with the weights packed as it reads them, and in a
+        # tree with the probe's timing variant (mxu_probe.PROBE_DESIGNS) the mma.sync design wg_probe_kernel replaced
+        M, W, L, G = PROBE_SHAPE
+        px, pws, pb, pws_i8 = (torch.from_numpy(a).to(dev) for a in mp.probe_inputs(M, W, L, seed=0))
+        for chain in mp.CHAINS:
+            w = pws_i8 if chain == "int8" else pws
+            if hasattr(mp, "PROBE_DESIGNS"):
+                pk = mp.kernel_weights(w, chain)
+                for des in mp.PROBE_DESIGNS[1:]:
+                    pd = mp.kernel_weights(w, chain, des)
+                    calls[f"mxu_probe {chain} (phase 25), {des} design"] = (
+                        lambda w=w, chain=chain, des=des, pd=pd: mp.mxu_probe_launch(px, w, pb, chain, G, pd, des))
+            else:
+                pk = mp.pack_weights(w if chain == "int8" else w.to(torch.bfloat16))
+            calls[f"mxu_probe {chain} (phase 25)"] = (
+                lambda w=w, chain=chain, pk=pk: mp.mxu_probe(px, w, pb, chain, G, packed=pk))
         times = {name: cuda_ms(fn, 5) for name, fn in calls.items()}
         qa, ka, va = (torch.randn(DINO_HEADS, DINO_TOKENS, 64, generator=g, device=dev) for _ in range(3))
         times["flash_attn_fwd (phase 10)"] = cuda_ms(lambda: attention.flash_attention(qa, ka, va, scale=0.125), 20)
@@ -3172,8 +3249,9 @@ def main() -> int:
                 print("      " + line.strip().split("cu_")[-1][:80], flush=True)
             if "registers" in line or "spill" in line or "(C75" in line:
                 print("      " + line.strip()[:160], flush=True)
-    # the heads forward's wgmma instances: ptxas keeps their products asynchronous
+    # the heads forward's and the probe's wgmma instances: ptxas keeps their products asynchronous
     check("C7512" not in infos["heads_fwd"].log, "ptxas serialized the heads forward's wgmma (C7512)")
+    check("C7512" not in infos["mxu_probe"].log, "ptxas serialized the probe's wgmma (C7512)")
 
     # 3. serving kernel against plain version, one chunk at full width
     nerf_cfg = NeRFConfig.from_hparams(BRANDENBURG_GATE)
@@ -3595,7 +3673,7 @@ def main() -> int:
         },
     ] + [
         {
-            "name": f"mxu_probe_{label}",
+            "name": f"mxu_probe_{label} (wg_probe_kernel)",
             "route": "cuda",
             "source": "upnerf_torch/csrc/mxu_probe.cu",
             "replaces": f"scripts/bench_mxu_probe.py:{line}",

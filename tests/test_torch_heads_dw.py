@@ -227,7 +227,8 @@ def test_layout_at_the_kernel_widths(mode, F):
         assert len(slots) == len(th.HEADS_LAYOUT) and slots[0] == lay.ops_w and slots[1] == lay.nb
 
 
-@pytest.mark.parametrize("name", ["heads_bwd", "dw_gemm", "heads_fwd", "render_train_bwd", "render_train_bwd_wg"])
+@pytest.mark.parametrize("name", ["heads_bwd", "dw_gemm", "heads_fwd", "render_train_bwd", "render_train_bwd_wg",
+                                  "mxu_probe"])
 def test_c_entry_points_take_the_bindings_arguments(name):
     """Each C entry point's parameter count equals its ctypes binding's
     (ctypes passes whatever it is given: a count that differs goes unseen

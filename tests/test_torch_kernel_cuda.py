@@ -7,7 +7,8 @@ the trunk + heads kernels (forward and backward; the bf16 forward in both
 designs, heads.HEADS_FWD_DESIGNS, and its trunk bit for bit the backward's
 rebuild), the static render from
 PE rows (the x0 mode), the fused render from PE rows in every training mode
-with its d_x0 backward (kernel 1b), and the matrix-unit probe's three chains.
+with its d_x0 backward (kernel 1b), and the matrix-unit probe's three chains in
+both designs (mxu_probe.PROBE_DESIGNS).
 Every test here needs an NVIDIA card: it carries the `cuda` marker and skips
 without one.
 
@@ -1058,27 +1059,80 @@ def test_static_render_kernel_takes_any_x0_width(cuda_device, precision, S):
     torch.testing.assert_close(got[1], want[1], rtol=tol, atol=0)
 
 
+def _probe(mp, x, w, b, chain, copies, design):
+    """The route (mxu_probe, which counts its launch) for the Hopper design, the
+    launch function for the mma.sync variant."""
+    if design == "wgmma":
+        before = mp.launches[chain]
+        got = mp.mxu_probe(x, w, b, chain, copies)
+        assert mp.launches[chain] == before + 1
+        return got
+    return mp.mxu_probe_launch(x, w, b, chain, copies, design=design)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", ["wgmma", "mma_sync"])
 @pytest.mark.parametrize("chain", ["pure", "epi", "int8"])
-def test_mxu_probe_kernel_matches_plain(cuda_device, chain):
-    """The probe's chains at a ragged M (300 rows, 5 tiles), L = 6, 3 copies:
-    int8 bit for bit (exact int32 sums, the same requantisation); bf16 by RMS
-    within 1e-3 of the plain chain's RMS (another summation order flips a
-    rare bf16 rounding, which the next layers carry)."""
+def test_mxu_probe_kernel_matches_plain(cuda_device, chain, design):
+    """The probe's chains at a ragged M (300 rows, 5 tiles), L = 6, 3 copies,
+    in both designs (mxu_probe.PROBE_DESIGNS): int8 bit for bit (exact int32
+    sums, the same requantisation); bf16 by RMS within 1e-3 of the plain
+    chain's RMS (another summation order flips a rare bf16 rounding, which the
+    next layers carry)."""
     from upnerf_torch.ops import mxu_probe as mp
 
     x, ws, b, ws_i8 = (torch.from_numpy(a).to(cuda_device) for a in mp.probe_inputs(300, 256, 6, seed=1))
     w = ws_i8 if chain == "int8" else ws
-    before = mp.launches[chain]
     with torch.no_grad():
-        got = mp.mxu_probe(x, w, b, chain, copies=3)
+        got = _probe(mp, x, w, b, chain, 3, design)
         want = mp.mxu_probe_plain(x, w, b, chain)
     torch.cuda.synchronize()
-    assert mp.launches[chain] == before + 1 and got.shape == (300, 256) and torch.isfinite(got).all()
+    assert got.shape == (300, 256) and torch.isfinite(got).all()
     if chain == "int8":
         assert torch.equal(got, want)
     else:
         assert _rms(got - want) <= 1e-3 * _rms(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("chain", ["pure", "epi", "int8"])
+@pytest.mark.parametrize("M, copies", [(1, 1), (63, 3), (64 * 265, 1)], ids=["M1", "M63x3", "M16960"])
+def test_mxu_probe_ragged_rows_and_idle_consumers(cuda_device, chain, design, M, copies):
+    """Rows below one tile (M = 1, 63), tile counts that leave the last item's
+    second consumer without a tile (1 and 3 tiles), and 265 tiles, 133 items
+    on 132 SMs: one block takes two items, the others one, and the last
+    item's second consumer has none. L = 2; tolerances as above."""
+    from upnerf_torch.ops import mxu_probe as mp
+
+    x, ws, b, ws_i8 = (torch.from_numpy(a).to(cuda_device) for a in mp.probe_inputs(M, 256, 2, seed=2))
+    w = ws_i8 if chain == "int8" else ws
+    with torch.no_grad():
+        got = _probe(mp, x, w, b, chain, copies, design)
+        want = mp.mxu_probe_plain(x, w, b, chain)
+    torch.cuda.synchronize()
+    assert got.shape == (M, 256) and torch.isfinite(got).all()
+    if chain == "int8":
+        assert torch.equal(got, want)
+    else:
+        assert _rms(got - want) <= 1e-3 * _rms(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("chain", ["pure", "epi", "int8"])
+def test_mxu_probe_two_calls_equal_bits(cuda_device, chain, design):
+    """Two calls on the same inputs (2048 rows, L = 16, 4 copies) give the same
+    bits: every sum runs in a fixed order."""
+    from upnerf_torch.ops import mxu_probe as mp
+
+    x, ws, b, ws_i8 = (torch.from_numpy(a).to(cuda_device) for a in mp.probe_inputs(2048, 256, 16, seed=3))
+    w = ws_i8 if chain == "int8" else ws
+    packed = mp.kernel_weights(w, chain, design)
+    with torch.no_grad():
+        a, c = (mp.mxu_probe_launch(x, w, b, chain, 4, packed, design) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
 
 
 # The weight-gradient kernel (csrc/dw_gemm.cu) and the two-kernel bf16 train backward.

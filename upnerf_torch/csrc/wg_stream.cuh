@@ -1,12 +1,15 @@
 // A weight stream consumed by wgmma warpgroups (sm_90a), shared by the kernels of this
 // directory that chain layers in registers (render_train_fwd.cu:wg_kernel,
-// heads_bwd.cu:wg_bwd_kernel): a producer thread copies each layer's K-strips (64 rows
-// of a packed weight, upnerf_torch/ops/render_train.py:pack_wgmma) in a fixed order
+// heads_{fwd,bwd}.cu, mxu_probe.cu:wg_probe_kernel): a producer thread copies each
+// layer's K-strips (64 rows of a packed weight, upnerf_torch/ops/render_train.py:
+// pack_wgmma; 128 rows of an int8 one, ops/mxu_probe.py:pack_stream) in a fixed order
 // through a ring of STREAM_STAGES stages of STREAM_STAGE_BYTES; two consumer
 // warpgroups each read every strip, taking turns at the tensor cores (named barriers
 // STREAM_TURN + c), with their activations as register A fragments; and the fragment
 // helpers of their epilogues.
 #pragma once
+
+#include <type_traits>
 
 #include "hopper_common.cuh"
 #include "render_common.cuh"
@@ -43,14 +46,26 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// The register-A product of layer_rs, by the accumulators' type: bf16 m64nNk16 into f32,
+// or s8 m64n128k32 into s32 (a k-step of either is 32 bytes of the strip's rows).
+template <int NACC>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[NACC], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  wgmma_rs<0>(d, a, desc_b, scale_d);
+}
+__device__ __forceinline__ void wgmma_rs_k(int (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  wgmma_rs_s8(d, a, desc_b, scale_d);
+}
+
 // acc = [x0 |] a @ B over one layer's K-strips from the ring (m64nN, N = 2 NACC): with X0
 // a first strip whose A is the x0 tile in shared memory (descriptor x0d), then KS / 4
 // strips whose A are the register fragments a (k-step kk = a[kk]). A strip's products
 // are committed as one group; the previous strip's stage is freed as soon as its group
-// is done. accumulate: add to acc instead of overwriting it.
-template <int NACC, int KS, bool X0>
-__device__ __forceinline__ void layer_rs(float (&acc)[NACC], uint32_t (&a)[KS][4], uint64_t x0d, WgRing& ring,
+// is done. accumulate: add to acc instead of overwriting it. T: float (bf16 products),
+// or int (s8 products, strips of 128 K-rows of int8; no x0 strip).
+template <int NACC, int KS, bool X0, typename T>
+__device__ __forceinline__ void layer_rs(T (&acc)[NACC], uint32_t (&a)[KS][4], uint64_t x0d, WgRing& ring,
                                          bool accumulate = false) {
+  static_assert(!X0 || std::is_same<T, float>::value, "the x0 strip is bf16");
   constexpr int N_STRIPS = KS / 4 + (X0 ? 1 : 0);
   const int q0 = ring.q;
   ring.take_turn();
@@ -60,13 +75,15 @@ __device__ __forceinline__ void layer_rs(float (&acc)[NACC], uint32_t (&a)[KS][4
     fence_regs(acc);
     wgmma_fence();
     if (X0 && j == 0) {
+      if constexpr (X0) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(acc, x0d + 2 * kk, db + 2 * kk, (accumulate || kk > 0) ? 1 : 0);
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(acc, x0d + 2 * kk, db + 2 * kk, (accumulate || kk > 0) ? 1 : 0);
+      }
     } else {
       const int ks = 4 * (X0 ? (j > 0 ? j - 1 : 0) : j);  // never negative, even where the branch is dead
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<0>(acc, a[ks + kk], db + 2 * kk, (accumulate || j > 0 || kk > 0) ? 1 : 0);
+        wgmma_rs_k(acc, a[ks + kk], db + 2 * kk, (accumulate || j > 0 || kk > 0) ? 1 : 0);
     }
     wgmma_commit();
     if (j == N_STRIPS - 1) ring.pass_turn();

@@ -37,10 +37,12 @@ KERNELS = ("render_train_fwd", "render_train_bwd", "flash_attn_fwd", "heads_fwd"
 # in turns (render_train.py:FWD_DESIGNS); render_train_bwd with the mma.sync walk that
 # the Hopper walk replaced (phases 9 and 12, render_train.py:BWD_DESIGNS); heads_fwd
 # with the mma.sync forward that wg_fwd_kernel replaced (phases 14 and 16,
-# heads.py:HEADS_FWD_DESIGNS).
+# heads.py:HEADS_FWD_DESIGNS); mxu_probe with the mma.sync probe that wg_probe_kernel
+# replaced (phase 25, mxu_probe.py:PROBE_DESIGNS).
 VARIANTS = {"render_train_fwd_mma_sync": ("render_train_fwd", ("-DUPNERF_FWD_MMA_SYNC",)),
             "render_train_bwd_mma_sync": ("render_train_bwd", ("-DUPNERF_BWD_MMA_SYNC",)),
-            "heads_fwd_mma_sync": ("heads_fwd", ("-DUPNERF_HEADS_FWD_MMA_SYNC",))}
+            "heads_fwd_mma_sync": ("heads_fwd", ("-DUPNERF_HEADS_FWD_MMA_SYNC",)),
+            "mxu_probe_mma_sync": ("mxu_probe", ("-DUPNERF_PROBE_MMA_SYNC",))}
 
 
 class BuildInfo(NamedTuple):
@@ -133,7 +135,7 @@ _ARGTYPES = {
     # buffer, its layout, bias rows, N, in0, C, F, use_bf16, heads, stream
     "upnerf_heads_bwd": ["p", "p", "pp", "pp", "pp", "pp", "i", "u", "pp", "pp", "p", "ip", "i", "pp", "p", "ip", "p",
                          "i", "i", "i", "i", "i", "i", "p"],
-    # x, packed weights (L layers), bias, out, M, W, L, copies, chain, stream
+    # x, packed weights (L layers: the build's design's layout), bias, out, M, W, L, copies, chain, stream
     "upnerf_mxu_probe": ["p", "p", "p", "p", "i", "i", "i", "i", "i", "p"],
 }
 

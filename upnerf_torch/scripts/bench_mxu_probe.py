@@ -113,7 +113,7 @@ def main(argv: Optional[list] = None) -> dict:
                 print(f"{LABELS[chain]}: plain version {plain_ms:.3f} ms (no card: the kernel is not run)", flush=True)
                 results[chain] = {"plain_ms": plain_ms}
                 continue
-            packed = mp.pack_weights(w if chain == "int8" else w.to(torch.bfloat16))
+            packed = mp.kernel_weights(w, chain)
             k_ms = ms(lambda: mp.mxu_probe(x, w, b, chain, G, packed=packed))
             lib = library_chain(x, ws if chain != "int8" else ws_i8, b, chain, G)
             lib_ms = ms(lib) if lib is not None else None
