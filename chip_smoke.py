@@ -181,7 +181,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      same bits required of every mode in bf16 and f32: the forward (saved
      chain and recompute), kernel 2's train backward (saved chain and
      recompute), the frozen mode, kernels 5 and 6's forward and backward
-     (no backward adds a weight gradient with atomics), and the probe.
+     (no backward adds a weight gradient with atomics), and the probe;
+ 27. the pose-warp mitigations and the optimizer kinds at brandenburg_gate's
+     width: (a) the candidate scorer (`train.warp.make_pose_scorer`, 10
+     candidates x 1024 rays in one render call) on an image whose feature
+     map is the model's own render from its base pose and whose incumbent is
+     warped, through kernel 1's forward (tpu.fused_train on) and kernel 5's
+     (off), each against its plain route on the card in f32 (score_tol), the
+     base pose first, the call's ms in bf16; (b) `cli.train` with
+     `pose.warp.mitigate multistart` and a hair-trigger detector on phase
+     18's scene, 102 steps, both fused_train settings: one event, the
+     adopted rows' Adam moments zero right after it, finite losses after it,
+     the scorer's launches; (c) the same with `reset`: the flagged se3 rows
+     zero at the event; (d) `optimizer.type adamw` with a cosine schedule and
+     `optimizer_pose.type sgd` with a constant one: finite, every logged LR
+     its closed form.
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -3055,6 +3069,265 @@ def phase_run_to_run(field, nerf_cfg, dev):
     return out
 
 
+# Phase 27: the pose-warp mitigations and the optimizer kinds at brandenburg_gate's width. The scorer renders
+# SCORE_KICKS + 2 candidates x SCORE_RAYS rays of one flagged image (of WARP_WH pixels, feature map at pixel
+# resolution) in phase 0 at PE progress SCORE_PROGRESS, as pose.warp's defaults say.
+SCORE_RAYS, SCORE_KICKS, SCORE_PROGRESS, WARP_WH, WARP_FOCAL = 1024, 8, 0.5, (64, 48), 50.0
+WARPED_ROW = (0.06, -0.05, 0.04, 0.12, -0.08, 0.1)  # the flagged image's incumbent se3 refinement
+# Phase 27's train runs: cli.train reads the metrics back, and checks the warp detector, every 100 steps and at the
+# last, so 102 steps give the event at step 100 and a step after it to check; a val render at 51 and 102.
+WARP_RUN = ["max_steps", "102", "val.log_interval", "51", "train.ckpt_interval", "51", "train.log_pose_interval", "51"]
+WARP_STEPS, WARP_EVENT_STEP, WARP_VALS = 102, 100, 2
+# The hair-trigger detector of tests/test_warp.py: every check flags the images above the median, one event.
+HAIR_TRIGGER = ["pose.warp.ratio", "1.0001", "pose.warp.patience", "1", "pose.warp.decay", "0.0",
+                "pose.warp.min_progress", "0.0", "pose.warp.max_progress", "1.0", "pose.warp.max_events", "1",
+                "pose.warp.cooldown", "1"]
+
+
+def score_tol(scores: torch.Tensor, feat_max: float) -> torch.Tensor:
+    """Phase 27's bound on |kernel score - plain score| of each candidate. The
+    forward kernel meets its plain version within TOL["float32"] of the largest
+    output (phases 5, 9): |d f| <= e = TOL * max |f|. A score is s = mean((f -
+    t)^2), so |d s| = |mean(2 (f - t) d f + d f^2)| <= 2 sqrt(s) e + e^2
+    (Cauchy-Schwarz)."""
+    e = TOL["float32"] * feat_max
+    return 2.0 * scores.clamp_min(0).sqrt() * e + e * e
+
+
+class _ScorerRoute:
+    """Phase 27 (a)'s routes of the scorer on the card: with plain=True kernel
+    1's forward is replaced by its plain version (tpu.fused_train on) and the
+    fields' trunk + heads by theirs (off: the tpu.fused_trunk false route).
+    Either way records max |feat| of the rendered candidates."""
+
+    def __init__(self, model, plain: bool):
+        from upnerf_torch.ops import render_train as rt
+        from upnerf_torch.train import warp
+
+        self.rt, self.warp, self.model, self.plain, self.feat_max = rt, warp, model, plain, 0.0
+        self.fields = [model.nerf_coarse, model.nerf_fine]
+
+    def __enter__(self):
+        self.saved = (self.rt.render_train_rays_fwd, self.warp.render_rays, [f.cfg for f in self.fields])
+        render = self.saved[1]
+
+        def spied(*args, **kw):
+            out = render(*args, **kw)
+            self.feat_max = max(self.feat_max, float(out["feat_fine"].abs().max()))
+            return out
+
+        self.warp.render_rays = spied
+        if self.plain:
+            self.rt.render_train_rays_fwd = self.rt.render_train_rays_plain
+            for f in self.fields:
+                f.cfg = f.cfg._replace(fused_trunk=False)
+        return self
+
+    def __exit__(self, *exc):
+        self.rt.render_train_rays_fwd, self.warp.render_rays, cfgs = self.saved
+        for f, c in zip(self.fields, cfgs):
+            f.cfg = c
+
+
+def warp_scorer_world(dev, precision=None):
+    """(StepConfig, model, scene, pixels, candidates) of phase 27 (a):
+    brandenburg_gate's config (at `precision`, else its own), a seeded model of 4 images on a
+    ring, random unit feature maps at pixel resolution except image 0's, which
+    is the model's own render from its base pose (so the base pose is the
+    scores' optimum), and image 0's candidates around the incumbent WARPED_ROW,
+    drawn as run_multistart draws them."""
+    from upnerf_torch.config import get_from_path
+    from upnerf_torch.geometry import rays as ray_utils
+    from upnerf_torch.render.render_rays import render_rays
+    from upnerf_torch.train import StepConfig, init_params, make_scene_constants, warp
+
+    hp = get_from_path("configs/brandenburg_gate.yaml")
+    hp["tpu.matmul_precision"] = precision or hp["tpu.matmul_precision"]
+    cfg = StepConfig.from_hparams(hp)
+    n, (w, h) = 4, WARP_WH
+    model = init_params(cfg.nerf, cfg.transient, n, generator=torch.Generator().manual_seed(27)).to(dev)
+    model.requires_grad_(False)
+    K = np.array([[WARP_FOCAL, 0, w / 2], [0, WARP_FOCAL, h / 2], [0, 0, 1]], np.float32)
+    poses = ring_poses(n).astype(np.float32)
+    rng = np.random.RandomState(27)
+    maps = rng.randn(n, h, w, cfg.nerf.feat_dim).astype(np.float32)
+    maps /= np.linalg.norm(maps, axis=-1, keepdims=True)
+    scene = make_scene_constants(np.broadcast_to(K, (n, 3, 3)), poses, np.tile([[0.1, 5.0]], (n, 1)),
+                                 np.tile([[w, h]], (n, 1)), maps, dev, feat_dtype=torch.float32)
+    jj, ii = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij")
+    dirs = ray_utils.pixel_directions(ii.reshape(-1), jj.reshape(-1), scene.Ks[0])
+    rays_o, rays_d = ray_utils.get_rays(dirs, scene.poses[0])
+    rays = torch.cat([rays_o, rays_d, scene.near_far[0].expand(w * h, 2)], -1)
+    with torch.no_grad():
+        out = render_rays(model.render_params(), cfg.render._replace(perturb=0.0), rays,
+                          torch.zeros(w * h, dtype=torch.long, device=dev), phase=0, sched_mult=0.0,
+                          progress=SCORE_PROGRESS, det=True)
+    scene.feat_maps[0] = out["feat_fine"].float().reshape(h, w, -1)
+    px = np.floor(rng.rand(SCORE_RAYS) * w).clip(0, w - 1).astype(np.float32)
+    py = np.floor(rng.rand(SCORE_RAYS) * h).clip(0, h - 1).astype(np.float32)
+    cands = warp.propose_candidates(np.asarray(WARPED_ROW, np.float32), warp.WarpConfig(kicks=SCORE_KICKS), rng)
+    return cfg, model, scene, px, py, cands
+
+
+def phase_warp(dev, card: str):
+    """Phase 27: the pose-warp mitigations and the optimizer kinds at
+    brandenburg_gate's width.
+
+    (a) The candidate scorer (train.warp.make_pose_scorer: 10 candidates x 1024
+    rays in one render call, phase 0, no_grad) on warp_scorer_world's image 0,
+    whose incumbent is warped: with tpu.fused_train on (kernel 1's forward) and
+    off (kernel 5's forward), f32, each route's scores against its plain
+    route's on the card within score_tol; the argmin
+    the same wherever the best two differ by more than that; the base pose
+    first. Then ms of a scorer call at the config's bf16, each route, and the
+    call's peak memory.
+    (b) cli.train with pose.warp.mitigate multistart and the hair-trigger
+    detector on phase 18's scene, WARP_RUN's 102 steps, default flags and
+    tpu.fused_train false: one event, at step 100, the budget spent, the
+    adopted rows' Adam moments exactly zero right after it, finite losses
+    after it, and the launches (2 + 2 a step, 2 a val render, and 2 of the
+    scorer's kernel a flagged image).
+    (c) The same with reset: the flagged se3 rows exactly zero at the event.
+    (d) optimizer.type adamw with scheduler.type cosine, and optimizer_pose.type
+    sgd with a constant schedule: finite losses, every logged LR its closed
+    form (in double) within 4 float32 ulps of the base LR. Returns {kernel: launches} of (b) and (c)'s runs."""
+    import math
+
+    from upnerf_torch.cli import train as train_cli
+    from upnerf_torch.train import warp
+    from upnerf_torch.train.loop import Trainer
+
+    zero, read = _launch_counters()
+    none = {k: 0 for k in read()}
+
+    # (a) the scorer: kernel routes against plain routes, f32, then timed at bf16
+    cfg, model, scene, px, py, cands = warp_scorer_world(dev, "float32")
+    for fused in (True, False):
+        route = "kernel 1's forward" if fused else "kernel 5's forward"
+        c = cfg._replace(render=cfg.render._replace(fused_train=fused))
+        score = warp.make_pose_scorer(c, SCORE_RAYS, SCORE_PROGRESS)
+        with _ScorerRoute(model, plain=False) as k_spy:
+            got = score(model, scene, 0, px, py, cands)
+        with _ScorerRoute(model, plain=True) as p_spy:
+            want = score(model, scene, 0, px, py, cands)
+        torch.cuda.synchronize()
+        feat_max = max(k_spy.feat_max, p_spy.feat_max)
+        tol = score_tol(want, feat_max)
+        d = (got - want).abs()
+        print(f"[27a] scorer, tpu.fused_train {fused} ({route}), f32, {len(cands)} candidates x {SCORE_RAYS} rays:"
+              f" kernel {[f'{v:.6g}' for v in got.tolist()]}, plain {[f'{v:.6g}' for v in want.tolist()]};"
+              f" max |d| {float(d.max()):.3e}, largest d / tol {float((d / tol).max()):.3f} (tol 2 sqrt(s) e + e^2,"
+              f" e = {TOL['float32']:.0e} x max |feat| {feat_max:.3f})", flush=True)
+        check(bool(torch.isfinite(got).all()) and bool((d <= tol).all()), f"[27a] scores differ beyond tol: {d}")
+        top2 = torch.topk(want, 2, largest=False)
+        if float(top2.values[1] - top2.values[0]) > float(tol[top2.indices[0]] + tol[top2.indices[1]]):
+            check(int(got.argmin()) == int(want.argmin()), "[27a] the two routes pick different candidates")
+        check(int(got.argmin()) == 1, f"[27a] the base pose (candidate 1) did not rank first: argmin {int(got.argmin())}")
+    cfg16, model16, scene16, px, py, cands = warp_scorer_world(dev)
+    for fused in (True, False):
+        c = cfg16._replace(render=cfg16.render._replace(fused_train=fused))
+        score = warp.make_pose_scorer(c, SCORE_RAYS, SCORE_PROGRESS)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(lambda: score(model16, scene16, 0, px, py, cands), 3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"[27a] scorer call, {cfg16.render.precision}, tpu.fused_train {fused}: {ms:.2f} ms for {len(cands)} x"
+              f" {SCORE_RAYS} rays x ({cfg16.render.N_samples} + {cfg16.render.N_samples + cfg16.render.N_importance})"
+              f" samples, peak {peak:.2f} GiB ({card})", flush=True)
+    del model, model16, scene, scene16
+    torch.cuda.empty_cache()
+
+    # (b)-(d): the train CLI
+    seen = []
+    original = Trainer._warp_check
+
+    def spied(self, step, img_sum, img_cnt):
+        n = len(self.warp_adoptions)
+        original(self, step, img_sum, img_cnt)
+        if len(self.warp_adoptions) > n:
+            table = self.state.pose_params.se3_refine.weight
+            st = self.state.pose_opt_state.optimizer.state[table]
+            seen.append((self.warp_adoptions[-1], table.detach().clone(), st["exp_avg"].clone(),
+                         st["exp_avg_sq"].clone()))
+
+    def run(label, extra):
+        seen.clear()
+        zero()
+        t0 = time.perf_counter()
+        Trainer._warp_check = spied
+        try:
+            tr = train_cli.main(base + extra)
+        finally:
+            Trainer._warp_check = original
+        torch.cuda.synchronize()
+        got = read()
+        with open(os.path.join(tr.save_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [(r["step"], r["loss"]) for r in recs if "loss" in r]
+        print(f"[27{label}] {tr.state.step} steps in {time.perf_counter() - t0:.1f} s, launches"
+              f" { {k: v for k, v in got.items() if v} }; losses {losses}; events {tr._warp.events if tr._warp else 0},"
+              f" adoptions {[(s, a.tolist()) for s, a in tr.warp_adoptions]}", flush=True)
+        check(tr.state.step == WARP_STEPS and bool(losses) and all(math.isfinite(v) for _, v in losses),
+              f"[27{label}] losses {losses}")
+        return tr, got, recs
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, name = os.path.join(tmp, "scene"), "scene"
+        write_train_scene(root, name)
+        base = ["--config", "configs/brandenburg_gate.yaml", "--device", "cuda", "root_dir", root, "scene_name", name,
+                "feat_dir", os.path.join(root, "DINO"), "depth_dir", os.path.join(root, "DPT"),
+                "out_dir", os.path.join(tmp, "out"), "val.img_idx", "[0]", "phototourism.use_cache", "False",
+                "seed", "0"] + WARP_RUN
+        steps = {"render_fwd": 2 * WARP_STEPS + 2 * WARP_VALS, "render_bwd": 2 * WARP_STEPS}
+        for label, mitigate, extra in (("b", "multistart", []), ("b", "multistart", ["tpu.fused_train", "false"]),
+                                       ("c", "reset", [])):
+            fused = not extra
+            tr, got, recs = run(label, ["exp_name", f"{mitigate}_{fused}", "pose.warp.mitigate", mitigate]
+                                + HAIR_TRIGGER + extra)
+            check(tr._warp.events == 1 and not tr._warp.budget_left, f"[27{label}] events {tr._warp.events}")
+            flagged = next(r for r in recs if "train/warp_flagged" in r)
+            check(flagged["step"] == WARP_EVENT_STEP, f"[27{label}] the first flags came at step {flagged['step']}")
+            n_flag = int(flagged["train/warp_flagged"])
+            scorer = 2 * n_flag if mitigate == "multistart" else 0  # one call a flagged image: coarse + fine pass
+            want = (dict(none, render_fwd=steps["render_fwd"] + scorer, render_bwd=steps["render_bwd"]) if fused else
+                    dict(none, heads_fwd=2 * WARP_STEPS + scorer, heads_bwd=2 * WARP_STEPS, static=2 * WARP_VALS))
+            check(got == want, f"[27{label}] launches {got}, expected {want}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            check(len(seen) == 1, f"[27{label}] {len(seen)} events adopted rows")
+            (step, rows), table, mu, nu = seen[0]
+            after = [r["loss"] for r in recs if "loss" in r and r["step"] > step]
+            check(bool(after) and all(math.isfinite(v) for v in after), f"[27{label}] losses after the event {after}")
+            check(not mu[rows].any() and not nu[rows].any(), f"[27{label}] adopted rows' Adam moments not zero")
+            if mitigate == "reset":
+                check(len(rows) == n_flag, f"[27c] {n_flag} images flagged, rows {rows.tolist()} reset")
+                check(not table[rows].any(), f"[27c] the reset rows of the se3 table are not zero: {table[rows]}")
+            print(f"[27{label}] {mitigate}, tpu.fused_train {fused}: {n_flag} images flagged at step {step}, rows"
+                  f" {rows.tolist()} adopted at step {step}; their Adam moments zero right after"
+                  + ("; their se3 rows zero" if mitigate == "reset" else "")
+                  + f"; {scorer} scorer launches; losses after the event {[round(v, 5) for v in after]}", flush=True)
+
+        # (d) the other optimizer kinds
+        for label, extra, key, lr_key, kind in (
+                ("d", ["optimizer.type", "adamw", "optimizer.scheduler.type", "cosine"], "lr", "optimizer.lr",
+                 "cosine"),
+                ("d", ["optimizer_pose.type", "sgd", "optimizer_pose.scheduler.type", "constant"], "lr_pose",
+                 "optimizer_pose.lr", "constant")):
+            tr, got, recs = run(label, ["exp_name", extra[1]] + extra)
+            check(got == dict(none, **steps), f"[27d] launches {got}")
+            lr0, T = float(tr.hp[lr_key]), WARP_STEPS
+            for r in (r for r in recs if key in r):
+                t = r["step"]
+                closed = lr0 if kind == "constant" else lr0 * (
+                    1e-8 / lr0 + (1 - 1e-8 / lr0) * 0.5 * (1 + math.cos(math.pi * min(t, T) / T)))
+                # the port computes the factor (a number in [0, 1]) in float32, as optax does: a few float32 ulps of
+                # 1, times lr0 (near the cosine's end 1 + cos cancels, so the error is not relative to the LR)
+                check(abs(r[key] - closed) <= 4 * 2.0**-23 * lr0, f"[27d] {key} at step {t}: {r[key]} against {closed}")
+            print(f"[27d] {' '.join(extra)}: logged {key} {[(r['step'], r[key]) for r in recs if key in r]} equal the"
+                  f" closed form", flush=True)
+    return launches
+
+
 def kernel_times(dev, card: str, profile_dir=None) -> dict:
     """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16, 17 and
     19, the recompute train (phase 1) and frozen (phase 2) backward of phase
@@ -3415,6 +3688,10 @@ def main() -> int:
     phase_run_to_run(field, nerf_cfg, dev)
     print(f"    phases 24-26: {time.perf_counter() - t_start:.0f} s", flush=True)
 
+    # 27. the pose-warp mitigations (the scorer on kernels 1 and 5) and the optimizer kinds, through cli.train
+    warp_launches = phase_warp(dev, card)
+    print(f"    phase 27: {time.perf_counter() - t_start:.0f} s", flush=True)
+
     # the least time the card could take for each timed call, from its shapes
     flash_terms = flash_bound_terms(DINO_HEADS, DINO_TOKENS)
     st1 = train_static(nerf_cfg, "bfloat16", 1)
@@ -3463,7 +3740,7 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_fwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:555",
-            "launches": launches["render_train_fwd"],
+            "launches": launches["render_train_fwd"] + warp_launches["render_fwd"],
             "max_abs_err": max(fwd_err, max(max(e["rgb_map"], e["s_weights"]) for e in errs.values())),
             "ms": kt["fwd"][0],
             "plain_ms": kt["fwd"][1],
@@ -3559,7 +3836,7 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/heads_fwd.cu",
             "replaces": "upnerf/ops/pallas_heads.py:93",
-            "launches": train_launches["heads_fwd"],
+            "launches": train_launches["heads_fwd"] + warp_launches["heads_fwd"],
             "max_abs_err": heads_fwd_err,
             "ms": heads_t["fwd"][0],
             "plain_ms": heads_t["fwd"][1],

@@ -1,14 +1,22 @@
 """upnerf_torch.geometry against upnerf.geometry (JAX), same numpy inputs,
 float32 on both sides. Tolerance 1e-6 absolute: the same f32 formulas, with
-the order of a few sums and products left to each framework."""
+the order of a few sums and products left to each framework. Covers the
+se(3) / so(3) exp maps, pose composition, the novel-view orbit, rays (pixel
+directions, the full-image grid, NDC) and the quaternions (R_to_q also at
+the rotations where its largest eigenvalue changes hands: angles 0, pi / 2
+and pi about each axis, and pi about a diagonal)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import upnerf.geometry as jgeometry
+import upnerf_torch.geometry as tgeometry
+from upnerf.geometry import quaternion as jquat
 from upnerf.geometry import rays as jrays
 from upnerf.geometry import se3 as jse3
+from upnerf_torch.geometry import quaternion as tquat
 from upnerf_torch.geometry import rays as trays
 from upnerf_torch.geometry import se3 as tse3
 
@@ -84,3 +92,65 @@ def test_get_rays(per_ray_pose):
     o_j, d_j = jrays.get_rays(jnp.asarray(dirs), jnp.asarray(c2w))
     close(o_t, o_j)
     close(d_t, d_j)
+
+
+@pytest.mark.parametrize("scale", [0.0, 1e-4, 0.3, 1.5])
+def test_so3_to_SO3(scale):
+    w = (np.random.RandomState(5).randn(7, 3) * scale).astype(np.float32)
+    close(tse3.so3_to_SO3(torch.from_numpy(w)), jse3.so3_to_SO3(jnp.asarray(w)))
+
+
+def test_get_ray_directions():
+    K = np.array([[35.0, 0, 20.5], [0, 33.0, 15.0], [0, 0, 1]], np.float32)
+    got = trays.get_ray_directions(30, 41, torch.from_numpy(K))
+    assert got.shape == (30, 41, 3) and got.dtype == torch.float32
+    close(got, jrays.get_ray_directions(30, 41, K))
+
+
+def test_get_ndc_rays():
+    rng = np.random.RandomState(6)
+    o = (rng.randn(11, 3) * 0.3).astype(np.float32)
+    d = np.concatenate([rng.randn(11, 2) * 0.3, -np.ones((11, 1))], -1).astype(np.float32)
+    got = trays.get_ndc_rays(48, 64, 50.0, 1.0, torch.from_numpy(o), torch.from_numpy(d))
+    want = jrays.get_ndc_rays(48, 64, 50.0, 1.0, jnp.asarray(o), jnp.asarray(d))
+    for g, w in zip(got, want):
+        close(g, w, atol=1e-5 * max(1.0, float(np.abs(np.asarray(w)).max())))
+
+
+def _rotations() -> np.ndarray:
+    """Random rotations, and those where R_to_q's largest eigenvalue changes
+    hands: angle 0, pi / 2, pi about each axis and pi about a diagonal."""
+    rng = np.random.RandomState(7)
+    w = [rng.randn(3) * s for s in (0.1, 1.0, 2.0, 3.0)]
+    for axis in np.eye(3):
+        w += [axis * a for a in (0.0, np.pi / 2, np.pi - 1e-4, np.pi)]
+    w.append(np.ones(3) / np.sqrt(3.0) * np.pi)
+    return np.asarray(jse3.so3_to_SO3(jnp.asarray(np.asarray(w, np.float32))))
+
+
+def test_R_to_q():
+    R = _rotations()
+    got = tquat.R_to_q(torch.from_numpy(R))
+    want = np.asarray(jquat.R_to_q(jnp.asarray(R)))
+    assert got.shape == (len(R), 4) and got.dtype == torch.float32
+    close(got, want)
+    assert (got[:, 0] >= 0).all()
+    # q_to_R inverts it (a 180-degree turn's q and -q give the same R)
+    close(tquat.q_to_R(got), R, atol=1e-5)
+
+
+def test_quaternion_algebra():
+    rng = np.random.RandomState(8)
+    q1, q2 = (rng.randn(2, 5, 4).astype(np.float32))
+    unit = q1 / np.linalg.norm(q1, axis=-1, keepdims=True)
+    close(tquat.q_to_R(torch.from_numpy(unit)), jquat.q_to_R(jnp.asarray(unit)))
+    close(tquat.invert(torch.from_numpy(q1)), jquat.invert(jnp.asarray(q1)))
+    close(tquat.product(torch.from_numpy(q1), torch.from_numpy(q2)), jquat.product(jnp.asarray(q1), jnp.asarray(q2)),
+          atol=1e-5)
+    ident = tquat.product(torch.from_numpy(q1), tquat.invert(torch.from_numpy(q1)))
+    close(ident, np.broadcast_to(np.array([1.0, 0, 0, 0], np.float32), (5, 4)))
+
+
+def test_geometry_exports_match_jax():
+    assert sorted(tgeometry.__all__) == sorted(jgeometry.__all__)
+    assert all(hasattr(tgeometry, name) for name in tgeometry.__all__)

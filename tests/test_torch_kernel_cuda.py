@@ -1556,3 +1556,77 @@ def test_trunk_forward_is_the_backwards_rebuilt_activation(cuda_device, N, mode,
     torch.cuda.synchronize()
     col = call.lay.ops[f"act{depth - 1}"]
     assert torch.equal(call.ops[:N, col : col + W], h.bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_train", [True, False], ids=["kernel1", "kernel5"])
+def test_pose_scorer_kernel_route_matches_plain_route(cuda_device, fused_train):
+    """train.warp's candidate scorer at the brandenburg_gate width, f32, 6
+    candidates x 64 rays of one image in one render call: through kernel 1's
+    forward (tpu.fused_train on) or kernel 5's (off), against the same scorer
+    with the kernel replaced by its plain version on the card. A score is
+    mean((f - t)^2), and the kernel meets its plain version within e =
+    TOL * max |f| (f32), so each score within 2 sqrt(s) e + e^2; the base pose,
+    whose own render is the target, ranks first in both."""
+    import os
+
+    from upnerf_torch.config import get_from_path
+    from upnerf_torch.geometry import rays as ray_utils
+    from upnerf_torch.render.render_rays import render_rays
+    from upnerf_torch.train import StepConfig, init_params, make_scene_constants, warp
+
+    hp = get_from_path(os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs", "brandenburg_gate.yaml"))
+    hp["tpu.matmul_precision"] = "float32"
+    cfg = StepConfig.from_hparams(hp)
+    cfg = cfg._replace(render=cfg.render._replace(fused_train=fused_train))
+    model = init_params(cfg.nerf, cfg.transient, 2, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    model.requires_grad_(False)
+    w, h, rng = 32, 24, np.random.RandomState(3)
+    K = np.array([[30.0, 0, w / 2], [0, 30.0, h / 2], [0, 0, 1]], np.float32)
+    poses = np.stack([np.eye(3, 4), np.eye(3, 4)]).astype(np.float32)
+    poses[:, 2, 3] = 3.0
+    maps = rng.randn(2, h, w, cfg.nerf.feat_dim).astype(np.float32)
+    scene = make_scene_constants(np.stack([K, K]), poses, np.tile([[0.1, 5.0]], (2, 1)), np.tile([[w, h]], (2, 1)),
+                                 maps, cuda_device, feat_dtype=torch.float32)
+    jj, ii = torch.meshgrid(torch.arange(h, device=cuda_device), torch.arange(w, device=cuda_device), indexing="ij")
+    rays_o, rays_d = ray_utils.get_rays(ray_utils.pixel_directions(ii.reshape(-1), jj.reshape(-1), scene.Ks[0]),
+                                        scene.poses[0])
+    rays = torch.cat([rays_o, rays_d, scene.near_far[0].expand(w * h, 2)], -1)
+    with torch.no_grad():
+        out = render_rays(model.render_params(), cfg.render._replace(perturb=0.0, fused_train=True), rays,
+                          torch.zeros(w * h, dtype=torch.long, device=cuda_device), phase=0, sched_mult=0.0,
+                          progress=0.5, det=True)
+    scene.feat_maps[0] = out["feat_fine"].reshape(h, w, -1)
+    px = rng.randint(0, w, 64).astype(np.float32)
+    py = rng.randint(0, h, 64).astype(np.float32)
+    cands = warp.propose_candidates(np.array([0.05, -0.04, 0.03, 0.1, -0.05, 0.08], np.float32),
+                                    warp.WarpConfig(kicks=4), rng)
+    from upnerf_torch.ops import heads as hk
+
+    score = warp.make_pose_scorer(cfg, 64, 0.5)
+    feat_max, render = [0.0], warp.render_rays
+
+    def spied(*args, **kw):  # max |f| of the rendered candidates' features
+        res = render(*args, **kw)
+        feat_max[0] = max(feat_max[0], float(res["feat_fine"].abs().max()))
+        return res
+
+    kernel, fields, before = rt.render_train_rays_fwd, [model.nerf_coarse, model.nerf_fine], (rt.launches, hk.launches)
+    cfgs = [f.cfg for f in fields]
+    warp.render_rays = spied
+    try:
+        got = score(model, scene, 0, px, py, cands)
+        assert (rt.launches - before[0], hk.launches - before[1]) == ((2, 0) if fused_train else (0, 2))
+        # the plain route: kernel 1's plain version, or the fields' plain trunk + heads
+        rt.render_train_rays_fwd = rt.render_train_rays_plain
+        for f in fields:
+            f.cfg = f.cfg._replace(fused_trunk=False)
+        want = score(model, scene, 0, px, py, cands)
+    finally:
+        warp.render_rays, rt.render_train_rays_fwd = render, kernel
+        for f, c in zip(fields, cfgs):
+            f.cfg = c
+    e = TOL["float32"] * feat_max[0]
+    tol = 2 * want.clamp_min(0).sqrt() * e + e * e
+    assert ((got - want).abs() <= tol).all(), (got, want, tol)
+    assert int(got.argmin()) == int(want.argmin()) == 1

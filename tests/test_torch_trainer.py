@@ -310,7 +310,7 @@ def test_explicit_resume_ckpt(hp):
 
 
 def test_unported_configurations_raise(hp):
-    for over in ({"tpu.n_devices": 2}, {"dist.num_processes": 2}, {"pose.warp.mitigate": "reset"}):
+    for over in ({"tpu.n_devices": 2}, {"dist.num_processes": 2}):
         with pytest.raises(NotImplementedError):
             trainer_of(hp, exp_name="unported", **over)
 

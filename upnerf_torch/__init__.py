@@ -6,7 +6,7 @@ package imports `torch` and never `jax` or `upnerf`.
 
 Subpackages (same layout as `upnerf`):
   geometry  SE(3) exp / log maps, pose algebra, novel-view orbit, rays,
-            Procrustes alignment and pose errors
+            quaternions, Procrustes alignment and pose errors
   ops       dense layer precision policy, bilinear feature gathers, the fused
             render kernels, forward and backward (train and frozen-model
             modes; CUDA C++ in csrc/), with their plain PyTorch versions and
@@ -21,8 +21,9 @@ Subpackages (same layout as `upnerf`):
             coarse+fine render_rays in all three schedule phases, routed by
             the tpu.fused_* flags as in the JAX package, fast serving renders
             (interval tightening)
-  train     the train step (state, schedules, losses, Adam, make_train_step),
-            the val renderer, the warp detector, the Trainer loop
+  train     the train step (state, schedules, losses, the optimizers and LR
+            schedules, make_train_step), the val renderer, the pose-warp
+            detector and its mitigations, the Trainer loop
   data      scene metadata (Phototourism, custom), COLMAP models, scene
             images (LANCZOS downscale without PIL), the compact ray store
             (build_arrays), its .npy cache
@@ -32,8 +33,10 @@ Subpackages (same layout as `upnerf`):
   features  the offline extractors: ViT backbone, DINO descriptor maps, DPT
             inverse depth, weight converters, image reading without PIL
   utils     reference-checkpoint weight bridge, both ways; the extractors'
-            npz-layout bridge; checkpoints, metric logging, visualisation
-  cli       train, prepare_cache, render_video, preprocess, tto, eval
+            npz-layout bridge; checkpoints, metric logging, profiling,
+            visualisation
+  cli       train, prepare_cache, render_video, preprocess, tto, eval,
+            convert_weights
 """
 
 import torch

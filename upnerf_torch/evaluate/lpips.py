@@ -3,7 +3,7 @@
 The same architecture (lpips v0.1 alex) and the same npz weight asset as the
 JAX package: keys conv{i}_w (out, in, kh, kw), conv{i}_b and lin{i} (C,),
 written by `upnerf.evaluate.lpips.convert_from_torch` and found through
-UPNERF_LPIPS_WEIGHTS. Input in [-1, 1], normalised by shift / scale; AlexNet
+UPNERF_LPIPS_WEIGHTS (`convert_from_torch` below writes it too). Input in [-1, 1], normalised by shift / scale; AlexNet
 features after each of the 5 ReLU stages (max-pool 3/2 before convs 1 and 2);
 channels unit-normalised; squared difference; a 1x1 linear head per stage;
 spatial mean; sum over stages. The convolutions are F.conv2d in f32 (the JAX
@@ -70,3 +70,26 @@ def load_lpips(path: Optional[str] = None, device="cpu") -> Optional[LPIPS]:
     if path is None or not os.path.isfile(path):
         return None
     return LPIPS(dict(np.load(path)), device=device)
+
+
+def convert_from_torch(out_path: str) -> None:
+    """The `lpips` package's AlexNet LPIPS weights (v0.1) -> the npz asset
+    above. Needs that package (it ships the weights); without it, exits with
+    a message saying so."""
+    try:
+        import lpips as lpips_pkg  # type: ignore
+    except ImportError as e:
+        raise SystemExit("convert_weights lpips needs the `lpips` package, which carries the AlexNet LPIPS weights;"
+                         f" it is not installed here ({e}). Install it where the weights can be fetched, convert"
+                         " there and copy the npz; without weights, eval reports PSNR / SSIM only.") from e
+
+    model = lpips_pkg.LPIPS(net="alex")
+    convs = [m for s in (model.net.slice1, model.net.slice2, model.net.slice3, model.net.slice4, model.net.slice5)
+             for m in s if isinstance(m, torch.nn.Conv2d)]
+    out = {}
+    for i, m in enumerate(convs):
+        out[f"conv{i}_w"] = m.weight.detach().cpu().numpy()
+        out[f"conv{i}_b"] = m.bias.detach().cpu().numpy()
+    for i, lin in enumerate([model.lin0, model.lin1, model.lin2, model.lin3, model.lin4]):
+        out[f"lin{i}"] = lin.model[1].weight.detach().cpu().numpy()[0, :, 0, 0]  # (1, C, 1, 1) -> (C,)
+    np.savez(out_path, **out)

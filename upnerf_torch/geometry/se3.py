@@ -64,6 +64,14 @@ def taylor_C(x: torch.Tensor, nth: int = 10) -> torch.Tensor:
     return ans
 
 
+def so3_to_SO3(w: torch.Tensor) -> torch.Tensor:
+    """Exponential map so(3) -> SO(3): [..., 3] -> [..., 3, 3]."""
+    wx = skew_symmetric(w)
+    theta = _norm(w)[..., None, None]
+    I = torch.eye(3, dtype=w.dtype, device=w.device)
+    return I + taylor_A(theta) * wx + taylor_B(theta) * (wx @ wx)
+
+
 def se3_to_SE3(wu: torch.Tensor) -> torch.Tensor:
     """Exponential map se(3) -> SE(3): [..., 6] -> [..., 3, 4]."""
     w, u = wu[..., :3], wu[..., 3:]

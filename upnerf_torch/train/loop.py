@@ -4,7 +4,7 @@
 (load_training_data) or, with `tpu.store_on_device` false, keeps the store on
 the host behind a `data.prefetch.BatchPrefetcher` (seeded with `seed`; its
 draws are not checkpointed, as in the JAX package), the two modules and their
-Adam optimizers, the train
+optimizers, the train
 step and the val renderer; `fit()` drives the step with the schedule phase
 derived from progress, reads the metrics back only every `log_every` steps
 (the steps queue on the device in between), renders the val images, logs the
@@ -12,10 +12,13 @@ pose errors, checkpoints with auto-resume and `resume_ckpt`, recovers from a
 non-finite loss by restoring the latest checkpoint with a reseeded generator
 (up to `train.max_nan_restarts` times), stops cleanly between steps on
 SIGTERM / SIGINT, and with `train.profile_at` traces `train.profile_steps`
-steps with torch.profiler. The GT-free pose-warp detector logs flagged images.
+steps with torch.profiler. The GT-free pose-warp detector logs flagged images
+and, with `pose.warp.mitigate` multistart or reset, adopts new poses for them
+(train/warp.py): the se3 rows are written in place and their optimizer
+moments zeroed, within the event budget and after each event a cooldown.
 
-Not ported: the mesh / multi-process branches (`tpu.n_devices` > 1, `dist.*`)
-and the warp mitigations; each raises with its ROADMAP item.
+Not ported: the mesh / multi-process branches (`tpu.n_devices` > 1, `dist.*`);
+each raises with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,11 +44,11 @@ from upnerf_torch.utils.logging import MetricLogger
 from upnerf_torch.utils.viz import get_pca_img, visualize_depth
 from upnerf_torch.utils.weights import reference_payload
 
-from .optim import make_optimizer
+from . import warp as warp_mod
+from .optim import learning_rate_at, make_optimizer
 from .schedules import pe_progress, schedule_phase
 from .state import TrainState, init_params, init_pose_params, make_ray_store, make_scene_constants, make_train_state
 from .step import StepConfig, make_eval_render, make_train_step
-from .warp import WarpConfig, WarpDetector
 
 
 def check_supported(hp: Dict[str, Any]) -> None:
@@ -111,9 +114,17 @@ class Trainer:
         self.ckpt_interval = hp.get("train.ckpt_interval", 10000)
         self.log_pose_interval = hp.get("train.log_pose_interval", 3000)
 
-        self.warp_cfg = WarpConfig.from_hparams(hp)
-        self._warp = WarpDetector(self.n_images, self.warp_cfg) if self.warp_cfg.detect and self.cfg.pose_optimize \
-            else None
+        # the GT-free pose-warp detector and its mitigation (train/warp.py)
+        self.warp_cfg = warp_mod.WarpConfig.from_hparams(hp)
+        if self.warp_cfg.mitigate == "multistart" and not self.cfg.nerf.encode_feat:
+            warnings.warn("pose.warp.mitigate=multistart needs feature encoding (nerf.feat_dim > 0); mitigation"
+                          " disabled")
+            self.warp_cfg = self.warp_cfg._replace(mitigate="none")
+        self._warp = warp_mod.WarpDetector(self.n_images, self.warp_cfg) \
+            if self.warp_cfg.detect and self.cfg.pose_optimize else None
+        self._warp_scorer = None
+        self._warp_rng = np.random.RandomState(self.seed + 977)
+        self.warp_adoptions = []  # (step, adopted rows) of each event that adopted any
         self.val_img_idx = list(hp.get("val.img_idx", (0,)))
         self._setup_val_scale()
 
@@ -158,17 +169,21 @@ class Trainer:
         return payload
 
     def _restore(self, payload: Dict[str, Any]) -> None:
-        """Load a checkpoint payload into the state in place."""
+        """Load a checkpoint payload into the state in place. A converted
+        reference checkpoint (cli.convert_weights model) carries no optimizer
+        or generator state: the optimizers start fresh, as the JAX package's
+        converted runs do."""
         st = self.state
         sd = payload["state_dict"]
         pose_keys = set(st.pose_params.state_dict())
         st.params.load_state_dict({k: v for k, v in sd.items() if k not in pose_keys})
         st.pose_params.load_state_dict({k: v for k, v in sd.items() if k in pose_keys})
-        for opt, o_sd, s_sd in zip((st.opt_state, st.pose_opt_state), payload["optimizer_states"],
-                                   payload["lr_schedulers"]):
+        for opt, o_sd, s_sd in zip((st.opt_state, st.pose_opt_state), payload.get("optimizer_states", ()),
+                                   payload.get("lr_schedulers", ())):
             opt.optimizer.load_state_dict(o_sd)
             opt.scheduler.load_state_dict(s_sd)
-        st.generator.set_state(payload["generator"])
+        if "generator" in payload:
+            st.generator.set_state(payload["generator"])
         self.state = st._replace(step=int(payload["global_step"]))
 
     def _load_explicit(self, path: str) -> Dict[str, Any]:
@@ -192,6 +207,7 @@ class Trainer:
             self._restore(self.ckpt.load())
             print(f"[upnerf_torch] resumed from step {self.state.step}", flush=True)
         max_steps = max_steps or self.max_steps
+        hp = self.hp
         if self.store_np is not None and self.prefetcher is None:
             self._open_prefetcher()
 
@@ -230,8 +246,11 @@ class Trainer:
                         t0, window_rays = time.time(), 0
                         continue
                     m["rays_per_sec"] = window_rays / max(time.time() - t0, 1e-9)
-                    m["lr"] = self.state.opt_state.scheduler.get_last_lr()[0]
-                    m["lr_pose"] = self.state.pose_opt_state.scheduler.get_last_lr()[0]
+                    m["lr"] = learning_rate_at(step, hp["optimizer.lr"], hp["optimizer.scheduler.lr_end"],
+                                               self.max_steps, hp["optimizer.scheduler.type"])
+                    m["lr_pose"] = learning_rate_at(step, hp["optimizer_pose.lr"],
+                                                    hp["optimizer_pose.scheduler.lr_end"], self.max_steps,
+                                                    hp["optimizer_pose.scheduler.type"])
                     m["phase"] = phase
                     self.logger.log(step, m)
                     if self._warp is not None and img_sum is not None:
@@ -310,12 +329,44 @@ class Trainer:
         return restore
 
     def _warp_check(self, step: int, img_sum: np.ndarray, img_cnt: np.ndarray) -> None:
+        """Feed one log point's per-image loss vectors to the warp detector;
+        on flags, within the budget, run the configured mitigation."""
         flags = self._warp.update(img_sum, img_cnt, step / self.max_steps)
+        # the worst EMA ratio, always: the audit trail for tuning pose.warp.ratio
         self.logger.log(step, {"train/warp_max_ratio": float(self._warp.ema.max())})
-        if flags.any():
-            self.logger.log(step, {"train/warp_flagged": float(flags.sum())})
-            print(f"[upnerf_torch] warp detector: image(s) {np.nonzero(flags)[0].tolist()} stalled above"
-                  f" {self.warp_cfg.ratio}x median loss at step {step}", flush=True)
+        if not flags.any():
+            return
+        self.logger.log(step, {"train/warp_flagged": float(flags.sum())})
+        print(f"[upnerf_torch] warp detector: image(s) {np.nonzero(flags)[0].tolist()} stalled above"
+              f" {self.warp_cfg.ratio}x median loss at step {step}", flush=True)
+        if self.warp_cfg.mitigate == "none" or not self._warp.budget_left:
+            return
+        table = self.state.pose_params.se3_refine.weight
+        se3_tab = table.detach().cpu().numpy()
+        if self.warp_cfg.mitigate == "reset":
+            # every flagged row back to its base pose, unscored: in a collective warp the field co-adapts to the
+            # warped poses, so a scored comparison keeps the incumbent; the DINO targets re-align the reset rows
+            new_tab = np.array(se3_tab)
+            new_tab[flags] = 0.0
+            adopted = np.nonzero(flags)[0]
+        else:
+            if self._warp_scorer is None:
+                self._warp_scorer = warp_mod.make_pose_scorer(self.cfg, self.warp_cfg.score_rays,
+                                                              self.warp_cfg.score_progress)
+            new_tab, adopted = warp_mod.run_multistart(self._warp_scorer, self.state.params, self.scene, se3_tab,
+                                                       flags, self.scene.wh.cpu().numpy(), self.warp_cfg,
+                                                       self._warp_rng, log=lambda msg: print(msg, flush=True))
+        self._warp.start_cooldown()
+        if adopted.size == 0:
+            return
+        with torch.no_grad():
+            table.copy_(torch.as_tensor(new_tab, device=table.device))
+        warp_mod.reset_opt_rows(self.state.pose_opt_state, adopted, tuple(se3_tab.shape))
+        self.warp_adoptions.append((step, adopted))
+        self.logger.log(step, {"train/warp_event": float(adopted.size),
+                               "train/warp_events_total": float(self._warp.events)})
+        print(f"[upnerf_torch] warp {self.warp_cfg.mitigate} adopted new pose(s) for image(s) {adopted.tolist()} at"
+              f" step {step} (event {self._warp.events}/{self.warp_cfg.max_events})", flush=True)
 
     def _recover_from_nonfinite(self, step: int, m: Dict[str, float]) -> int:
         """Divergence watchdog: a non-finite total loss at a log point means the

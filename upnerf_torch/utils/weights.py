@@ -17,8 +17,13 @@ hyper_parameters is the flat dotted-key config dict.
   coarse and fine appearance tables, and the se3 table.
 - `init_reference_ckpt` writes a freshly seeded model in that layout.
 - `train_modules_from_jax` builds the train modules (UPNeRF, PoseTables)
-  from the JAX parameter pytree; `export_reference_ckpt` writes a trained
-  state back in the reference layout, which `render_video` reads.
+  from the JAX parameter pytree, `optimizer_state_from_jax` their optimizer
+  states from optax's; `export_reference_ckpt` writes a trained state back
+  in the reference layout, which `render_video` reads.
+- `convert_reference_run` / `export_run` (python -m
+  upnerf_torch.cli.convert_weights model / export): a trained reference
+  checkpoint into a port run directory, and back, with the checks of
+  upnerf/utils/ref_ckpt.py.
 - `vit_params_from_jax` / `dpt_params_from_jax` turn the extractors'
   parameter trees in the npz layout (upnerf/features/vit.py:11-17,
   dpt.py:14-23; numpy leaves, as `init_vit_params`, `init_dpt_params` or
@@ -55,6 +60,16 @@ def _t(x) -> torch.Tensor:
 def state_dict_from_jax(params: Dict[str, Any], pose_params: Dict[str, Any], progress: float):
     """The JAX parameter pytree (numpy arrays; Linear weights (in, out))
     -> the reference's flat state_dict of torch tensors."""
+    sd = _model_state_dict_from_jax(params, progress)
+    sd.update(_pose_state_dict_from_jax(pose_params))
+    return sd
+
+
+def _pose_state_dict_from_jax(pose_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    return {"se3_refine.weight": _t(pose_params["se3"]), "depth_scale.weight": _t(pose_params["depth_scale"])}
+
+
+def _model_state_dict_from_jax(params: Dict[str, Any], progress: float) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
 
     def put_linear(prefix: str, p: Dict[str, Any]) -> None:
@@ -98,10 +113,34 @@ def state_dict_from_jax(params: Dict[str, Any], pose_params: Dict[str, Any], pro
         arr = params.get("embeddings", {}).get(ours)
         if arr is not None:
             sd[f"{theirs}.weight"] = _t(arr)
-
-    sd["se3_refine.weight"] = _t(pose_params["se3"])
-    sd["depth_scale.weight"] = _t(pose_params["depth_scale"])
     return sd
+
+
+def optimizer_state_from_jax(opt_state, module: nn.Module, mu: Optional[Dict[str, Any]],
+                             nu: Optional[Dict[str, Any]], count: int) -> None:
+    """Carry an optax optimizer state into a port one (train.optim.OptState
+    over `module`'s trainable parameters), in place.
+
+    mu, nu: the moments of optax's ScaleByAdamState (adam / adamw) as numpy
+    trees in the JAX layout of the module's parameters: the parameter pytree
+    for UPNeRF, {"se3", "depth_scale"} for PoseTables; None for sgd, which
+    keeps no state. They become torch's exp_avg / exp_avg_sq (Linear weights
+    transposed), `count` its per-parameter step, and the LR schedule is put
+    at update `count`."""
+    if mu is not None:
+        if "se3" in mu:
+            mu_sd, nu_sd = _pose_state_dict_from_jax(mu), _pose_state_dict_from_jax(nu)
+        else:
+            mu_sd, nu_sd = _model_state_dict_from_jax(mu, 0.0), _model_state_dict_from_jax(nu, 0.0)
+        in_opt = {id(p) for g in opt_state.optimizer.param_groups for p in g["params"]}
+        for name, p in module.named_parameters():
+            if id(p) in in_opt:
+                opt_state.optimizer.state[p] = {
+                    "step": torch.tensor(float(count)),
+                    "exp_avg": mu_sd[name].to(p.device, p.dtype),
+                    "exp_avg_sq": nu_sd[name].to(p.device, p.dtype),
+                }
+    opt_state.seek(int(count))
 
 
 def load_reference_ckpt(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, Any]], int]:
@@ -213,11 +252,116 @@ def reference_payload(model: nn.Module, pose: nn.Module, hparams: Dict[str, Any]
 
 
 def export_reference_ckpt(path: str, model: nn.Module, pose: nn.Module, hparams: Dict[str, Any], step: int,
-                          progress: float) -> str:
-    """Write a trained state as a reference checkpoint (reference_payload)."""
+                          progress: float, **extra) -> str:
+    """Write a trained state as a reference checkpoint (reference_payload),
+    with `extra` top-level keys."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save(reference_payload(model, pose, hparams, step, progress), path)
+    torch.save(dict(reference_payload(model, pose, hparams, step, progress), **extra), path)
     return path
+
+
+def train_modules_from_state_dict(sd: Dict[str, torch.Tensor], hparams: Dict[str, Any]):
+    """(UPNeRF, PoseTables) of the configuration `hparams` holding a reference
+    state_dict, loaded with strict=True; a checkpoint whose tensors are not
+    the configuration's model raises SystemExit saying which differ."""
+    from upnerf_torch.train.state import PoseTables, UPNeRF
+
+    n_images = int(sd["se3_refine.weight"].shape[0])
+    model = UPNeRF(NeRFConfig.from_hparams(hparams), TransientConfig.from_hparams(hparams), n_images,
+                   fine=hparams["nerf.N_importance"] > 0)
+    pose = PoseTables(n_images)
+    want = {**model.state_dict(), **pose.state_dict()}
+    missing, extra = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
+    shapes = sorted(k for k in set(want) & set(sd) if tuple(want[k].shape) != tuple(sd[k].shape))
+    if missing or extra or shapes:
+        raise SystemExit("the checkpoint's tensors do not match the config's model structure: missing"
+                         f" {missing[:8]}, unexpected {extra[:8]}, other shapes {shapes[:8]}")
+    pose_keys = set(pose.state_dict())
+    model.load_state_dict({k: v.float() for k, v in sd.items() if k not in pose_keys}, strict=True)
+    pose.load_state_dict({k: sd[k].float() for k in pose_keys}, strict=True)
+    return model, pose
+
+
+def _check_scene_image_count(hparams: Dict[str, Any], n_images: int, log) -> None:
+    """Fail early, readably, when the checkpoint's per-image tables do not
+    match the train images of the scene the config names (else tto / eval
+    fail later on a shape); a scene not readable here is skipped, noted."""
+    from upnerf_torch.data import load_scene_meta
+
+    try:
+        meta = load_scene_meta(hparams)
+    except Exception as e:  # the scene may live on another host
+        log(f"note: scene not loadable here ({e!r}); skipping the image-count cross-check (tables cover"
+            f" {n_images} images)")
+        return
+    if meta.N_images_train != n_images:
+        raise SystemExit(f"checkpoint tables cover {n_images} images but the scene at {hparams.get('root_dir')!r} has"
+                         f" {meta.N_images_train} train images — the checkpoint was trained on a different scene/split"
+                         " (tto/eval would fail to restore it)")
+
+
+def convert_reference_run(ckpt_path: str, result_dir: str, config_path: Optional[str] = None, log=print) -> str:
+    """A trained reference checkpoint -> a run directory of the port
+    (`config.yaml`, `ckpts/<step>.ckpt`) that cli.render_video --result_dir
+    reads, and whose checkpoint cli.tto / cli.eval take. The port's
+    checkpoints are reference checkpoints already, so the tensors are copied
+    as they are, after the JAX converter's checks: the hyper_parameters (or
+    --config), the scene's image count, the model structure. The reference's
+    global_step counts both optimizers' steps under pose optimization;
+    `step` counts batches. Returns the checkpoint's path."""
+    from upnerf_torch.config import get_from_path, save_yaml
+    from upnerf_torch.utils.ckpt import CheckpointManager
+
+    sd, ckpt_hparams, global_step = load_reference_ckpt(ckpt_path)
+    if config_path is not None:
+        hparams = get_from_path(config_path)
+    elif ckpt_hparams is not None:
+        hparams = ckpt_hparams
+    else:
+        raise SystemExit("checkpoint has no hyper_parameters; pass --config <yaml>")
+    n_images = int(sd["se3_refine.weight"].shape[0])
+    _check_scene_image_count(hparams, n_images, log)
+    model, pose = train_modules_from_state_dict(sd, hparams)
+    step = global_step // 2 if hparams.get("pose.optimize", True) else global_step
+    progress = float(sd["nerf_coarse.progress"]) if "nerf_coarse.progress" in sd else None
+    if progress and hparams.get("max_steps"):
+        from_progress = progress * float(hparams["max_steps"])
+        if abs(from_progress - step) > max(1.0, 0.01 * step):
+            log(f"note: checkpoint progress={progress:.4f} implies step ~{from_progress:.0f} but global_step maps to"
+                f" {step}; keeping the global_step mapping (schedules resume from `step`, so a mismatch shifts the"
+                " anneal)")
+    os.makedirs(result_dir, exist_ok=True)
+    save_yaml(hparams, os.path.join(result_dir, "config.yaml"))
+    if progress is None:
+        progress = min(float(step) / float(hparams["max_steps"]), 1.0)
+    path = CheckpointManager(os.path.join(result_dir, "ckpts")).save(
+        step, reference_payload(model, pose, hparams, step, progress))
+    log(f"converted step-{step} checkpoint ({n_images} images, progress={progress}) -> {result_dir}")
+    return path
+
+
+def export_run(result_dir: str, out_path: str, ckpt: str = "last", log=print) -> str:
+    """A run directory of the port -> a reference Lightning checkpoint
+    (state_dict, hyper_parameters, global_step) through
+    export_reference_ckpt: the `last` or `best` checkpoint's tensors, the BARF
+    progress min(step / max_steps, 1), and global_step doubled under pose
+    optimization, as Lightning counts both optimizers' steps. Optimizer
+    states are not carried over."""
+    from upnerf_torch.config import get_from_path
+    from upnerf_torch.utils.ckpt import CheckpointManager
+
+    hparams = get_from_path(os.path.join(result_dir, "config.yaml"))
+    mngr = CheckpointManager(os.path.join(result_dir, "ckpts"))
+    step = mngr.best_step() if ckpt == "best" else mngr.latest_step()
+    if step is None:
+        raise SystemExit(f"no checkpoint under {result_dir}/ckpts")
+    model, pose = train_modules_from_state_dict(mngr.load(step)["state_dict"], hparams)
+    progress = min(float(step) / float(hparams["max_steps"]), 1.0)
+    global_step = int(step) * (2 if hparams.get("pose.optimize", True) else 1)
+    export_reference_ckpt(out_path, model, pose, hparams, global_step, progress, epoch=0,
+                          **{"pytorch-lightning_version": "1.9.0"})
+    log(f"exported step-{step} state (progress={progress:.4f}, global_step {global_step}) -> {out_path}")
+    return out_path
 
 
 # XLA conv_transpose kernels of the DPT neck (upnerf/features/dpt.py:150-152).
