@@ -195,7 +195,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      the scorer's launches; (c) the same with `reset`: the flagged se3 rows
      zero at the event; (d) `optimizer.type adamw` with a cosine schedule and
      `optimizer_pose.type sgd` with a constant one: finite, every logged LR
-     its closed form.
+     its closed form;
+ 28. data parallel (`upnerf_torch.parallel`): (a) two ranks on the one card
+     over gloo (`parallel.launch`, the kernels built before the spawn) at
+     brandenburg_gate's width on phase 8's scene, phase 1, bf16, batch 2048
+     (1024 a rank): a teacher-forced step against one rank (loss terms and
+     metrics within DP_METRIC_TOL, every gradient within DW_TOL of its max;
+     each rank's per-ray render outputs against the one-rank rows, differing
+     values counted), then 3 steps drawn by step_fn (launches, ms, each
+     rank's peak memory, the ranks' parameters bit for bit) and the
+     all-reduce alone; (d) in the same ranks, a TTO step and an eval chunk
+     through a two-rank TTORunner against one rank (the eval bit for bit
+     against one rank rendering the same rays a call); (b) `cli.train
+     dist.num_processes 1`, a one-rank NCCL group, 4 steps; (c) two
+     `cli.train` processes with dist.* keys on phase 18's scene, 12 steps:
+     rank 0's files only, its checkpoint through `cli.tto`.
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -3328,6 +3342,369 @@ def phase_warp(dev, card: str):
     return launches
 
 
+DP_RANKS = 2  # phase 28: two ranks on the one card, over gloo
+DP_STEPS = 3
+DP_RAY_KEYS = ("s_rgb_coarse", "s_rgb_fine", "s_depth_fine", "rgb_fine", "feat_fine")
+DP_METRIC_TOL = 1e-5  # the loss terms and metrics of the two-rank step against one rank's: sums reordered
+# The two-rank step's gradients against one rank's, of each gradient's max. The kernels sum their weight
+# gradients in f32 (DW_TOL, as the sum is reordered); a layer under the bf16 matmul policy in PyTorch (the
+# transient net, ops/linear.py) hands its weight a gradient rounded to bf16, on each rank from its half of the
+# batch: two roundings of the halves and one of the whole, half a bf16 ulp (2^-9) each, bound 2^-7 of the max.
+DP_BF16_GRAD_TOL = 2.0 ** -7
+DP_TTO_GROUP, DP_TTO_WH = 4, (64, 48)  # phase 13's TTO group and image size
+
+
+def _dp_world(dev):
+    """Phase 28 (a)'s world on `dev`, from seeds, as each rank and the
+    one-rank reference build it: phase 8's scene and config, a fresh state at
+    phase 1, and a global teacher-forced batch of TRAIN_RAYS rays with its
+    uniforms."""
+    from upnerf_torch.train import step as tstep
+
+    cfg, scene, store, n_images = flagship_world(dev)
+    state, opt, pose_opt = fresh_state(cfg, n_images, dev)
+    state = state._replace(step=int(PHASE_PROGRESS[1] * MAX_STEPS))
+    g = torch.Generator(device=dev).manual_seed(7)
+    idx = torch.randint(0, store.n_rays, (TRAIN_RAYS,), generator=g, device=dev)
+    noise = {"coarse": torch.rand((TRAIN_RAYS, cfg.render.N_samples), generator=g, device=dev),
+             "fine": torch.rand((TRAIN_RAYS, cfg.render.N_importance), generator=g, device=dev)}
+    return cfg, scene, store, state, opt, pose_opt, tstep.gather_batch(store, idx), noise
+
+
+def _dp_step(world, mesh):
+    """One teacher-forced phase-1 batch step of `world` over `mesh` (None:
+    one rank): (metrics, every gradient, the render's per-ray outputs of this
+    rank's rows), as numpy."""
+    from upnerf_torch.train import make_train_step
+    from upnerf_torch.train import step as tstep
+
+    cfg, scene, _, state, opt, pose_opt, batch, noise = world
+    rays = {}
+    forward = tstep.forward
+
+    def record(*args, **kwargs):
+        results, r, feats = forward(*args, **kwargs)
+        rays.update({k: v.detach().float().cpu().numpy() for k, v in results.items() if k in DP_RAY_KEYS})
+        return results, r, feats
+
+    tstep.forward = record
+    try:
+        state, m = make_train_step(cfg, opt, pose_opt, mesh)[1](state, scene, batch, 1, noise=noise)
+    finally:
+        tstep.forward = forward
+    named = list(state.params.named_parameters()) + list(state.pose_params.named_parameters())
+    grads = {k: p.grad.detach().float().cpu().numpy() for k, p in named if p.grad is not None}
+    return {k: v.float().cpu().numpy() for k, v in m.items()}, grads, rays
+
+
+def _dp_tto(ckpt: str, dev, mesh, chunk: int = 0):
+    """Phase 28 (d): one phase-A TTO step of a group of DP_TTO_GROUP images x
+    1024 rays on the checkpoint's frozen model (the pixels and uniforms drawn
+    from a seeded generator at the global shape) and one eval chunk (each
+    image's 64 x 64 grid, 4096 rays), over `mesh`; the eval also at chunk
+    `chunk` when given. Returns (loss, {trainable: gradient}, eval preds,
+    step ms, eval ms), numpy."""
+    from upnerf_torch.evaluate.tto import EVAL_CHUNK, TTOConfig, TTOGroup, TTORunner, make_tto_eval
+    from upnerf_torch.models.nerf import NeRFConfig
+    from upnerf_torch.render.render_rays import RenderConfig
+    from upnerf_torch.utils.weights import load_reference_ckpt, render_params
+
+    sd, hp, _ = load_reference_ckpt(ckpt)
+    frozen, _ = render_params(sd, NeRFConfig.from_hparams(hp), dev)
+    cfg = TTOConfig(nerf=NeRFConfig.from_hparams(hp), batch_size=1024,
+                    render=RenderConfig.from_hparams(hp)._replace(perturb=1.0, param_grads=False))
+    runner = TTORunner(frozen, cfg, hp["nerf.appearance_dim"], region_A=(64, 64), region_B=(64, 64), mesh=mesh)
+    g = torch.Generator(device=dev).manual_seed(5)
+    (w, h), n = DP_TTO_WH, DP_TTO_GROUP
+    group = TTOGroup(
+        Ks=torch.tensor([[[50.0, 0, w / 2], [0, 50.0, h / 2], [0, 0, 1]]] * n, device=dev),
+        base_poses=torch.from_numpy(ring_poses(n).astype(np.float32)).to(dev),
+        rgbs=torch.randint(0, 256, (n, 64, 64, 3), dtype=torch.uint8, device=dev, generator=g),
+        wh=torch.tensor([[w, h]] * n, dtype=torch.int32, device=dev),
+        near_far=torch.tensor([[0.1, 5.0]] * n, device=dev))
+    init = {"fine_a": torch.randn((n, hp["nerf.appearance_dim"]), generator=g, device=dev),
+            "se3": torch.zeros((n, 6), device=dev)}
+    trainables = {k: v.clone().requires_grad_(True) for k, v in init.items()}
+    loss = runner.step_A(trainables, runner.opt_A(trainables), group, torch.Generator(device=dev).manual_seed(6))
+    grads = {k: t.grad.cpu().numpy() for k, t in trainables.items()}
+    preds = {EVAL_CHUNK: runner.eval_A(init, group, 64, 64)[0].cpu().numpy()}
+    if chunk:
+        preds[chunk] = make_tto_eval(frozen, cfg, x_frac=(0.0, 1.0), chunk=chunk)(init, group, 64, 64)[0].cpu().numpy()
+    timed = {k: v.clone().requires_grad_(True) for k, v in init.items()}
+    opt = runner.opt_A(timed)
+    step_ms = host_ms(lambda: runner.step_A(timed, opt, group, g), dev)
+    eval_ms = host_ms(lambda: runner.eval_A(init, group, 64, 64), dev)
+    return float(loss), grads, preds, step_ms, eval_ms
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def host_ms(fn, dev, reps: int = 3) -> float:
+    """Mean wall ms of fn() over `reps` runs after a warm-up, the card
+    synchronised around them (a gloo collective also waits on the host)."""
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _dp_rank(tto_ckpt: str) -> dict:
+    """Phase 28 (a) and (d) in one rank of the group (spawned by
+    upnerf_torch.parallel.launch)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from upnerf_torch import parallel
+    from upnerf_torch.ops import dw_gemm as dg
+    from upnerf_torch.ops import render_train as rt
+    from upnerf_torch.train import make_eval_render, make_train_step
+    from upnerf_torch.train import step as tstep
+
+    dev = parallel.distributed.local_device()
+    mesh = parallel.make_mesh(0, dev)
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": dist.get_backend(mesh.group),
+           "teacher": _dp_step(_dp_world(dev), mesh)}
+
+    # the main path: DP_STEPS phase-1 steps drawn by step_fn, each rank its rows, every count zeroed just before
+    cfg, scene, store, state, opt, pose_opt, _, _ = _dp_world(dev)
+    step, _ = make_train_step(cfg, opt, pose_opt, mesh)
+    state, _ = step(state, scene, store, 1)  # warm-up
+    zero, read = _launch_counters()
+    zero()
+    rt.walk_pre_launches = rt.walk_launches = rt.walk_finish_launches = 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(DP_STEPS):
+        state, m = step(state, scene, store, 1)
+        losses.append(m["loss"])
+    torch.cuda.synchronize(dev)
+    out["step_ms"] = (time.perf_counter() - t0) / DP_STEPS * 1e3
+    out["launches"] = dict(read(), dw=dg.dw_launches, walk_pre=rt.walk_pre_launches, walk=rt.walk_launches,
+                           walk_finish=rt.walk_finish_launches)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["losses"] = [float(x) for x in losses]
+    parallel.assert_replicated([state.params, state.pose_params], mesh, "parameters")
+    h = hashlib.sha256()
+    for p in list(state.params.parameters()) + list(state.pose_params.parameters()):
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    out["sha"] = h.hexdigest()
+
+    # the step's all-reduce alone: one flat buffer of every gradient and the metrics
+    n = sum(p.numel() for o in (state.opt_state, state.pose_opt_state) for gr in o.optimizer.param_groups
+            for p in gr["params"]) + sum(v.numel() for v in m.values())
+    buf = torch.zeros(n, device=dev)
+    out["allreduce_ms"] = host_ms(lambda: parallel.all_reduce_mean([buf], mesh), dev, reps=5)
+    out["allreduce_mb"] = n * 4 / 1e6
+    # a phase-1 val chunk rendered over the mesh, and its gather alone: each rank's half of the rows, every output
+    # in f32 (gloo has no all-gather of CUDA tensors: through host memory)
+    batch = tstep.gather_batch(store, torch.arange(CHUNK, device=dev))
+    batch = {k: batch[k] for k in ("px", "py", "img_idx", "inv_depth")}
+    val = make_eval_render(cfg, CHUNK, mesh)(state.params, state.pose_params, scene, batch, PHASE_PROGRESS[1], 1)
+    out["val_cols"] = sum(v[0].numel() for v in val.values())
+    out["val_finite"] = all(bool(torch.isfinite(v).all()) for v in val.values())
+    rows = torch.zeros((CHUNK // mesh.size, out["val_cols"]), device=dev)
+    out["gather_ms"] = host_ms(lambda: parallel.all_gather_rows(rows, mesh), dev, reps=5)
+    del state, store, scene, buf, rows
+    torch.cuda.empty_cache()
+    out["tto"] = _dp_tto(tto_ckpt, dev, mesh)
+    return out
+
+
+def phase_data_parallel(dev, card: str):
+    """Phase 28: the data-parallel branches (upnerf_torch.parallel) on the
+    card. (a) Two ranks on the one card over gloo (NCCL refuses two ranks on
+    one device), at brandenburg_gate's width on phase 8's scene, phase 1,
+    bf16, batch 2048 (1024 a rank): one teacher-forced step against
+    the same step on one rank (loss terms and metrics within DP_METRIC_TOL,
+    every gradient within DW_TOL of its max, the bf16-policy layers' within
+    DP_BF16_GRAD_TOL; the per-ray render outputs of each rank's rows against
+    the one-rank rows: differing values counted), then DP_STEPS steps drawn
+    by step_fn: launches, step ms, each rank's peak memory, the ranks'
+    parameters bit for bit, the all-reduce's ms alone, a sharded val chunk
+    and its gather's ms. (d) In the same ranks: one TTO step and one eval
+    chunk through the ranks' TTORunner against one rank (loss, gradients; the
+    eval bit for bit against one rank rendering the same rays a call, and the
+    differences from 4096 rays a call counted). (b) `cli.train
+    dist.num_processes 1`, a one-rank NCCL group, 4 steps. (c) Two
+    `cli.train` processes with dist.* keys on phase 18's scene, 12 steps,
+    both on the one card over gloo: rank-0 gating, and the checkpoint
+    through `cli.tto`. Returns the kernel launches of (a)'s steps, every
+    rank together."""
+    import torch.distributed as dist
+
+    from upnerf_torch import parallel
+    from upnerf_torch.cli import tto as tto_cli
+    from upnerf_torch.evaluate.tto import EVAL_CHUNK
+    from upnerf_torch.train import make_train_step
+    from upnerf_torch.utils.weights import init_reference_ckpt
+
+    ranks, devices, backend = DP_RANKS, [dev] * DP_RANKS, "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        tto_ckpt = init_reference_ckpt(os.path.join(tmp, "bg.ckpt"), dict(BRANDENBURG_GATE), n_images=4, seed=1)
+        # the one-rank references, before the ranks start
+        ref = _dp_step(_dp_world(dev), parallel.DataMesh())
+        cfg, scene, store, state, opt, pose_opt, _, _ = _dp_world(dev)
+        step, _ = make_train_step(cfg, opt, pose_opt)
+        one = {"s": state}
+
+        def one_step():
+            one["s"], _ = step(one["s"], scene, store, 1)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        one_ms = host_ms(one_step, dev, reps=DP_STEPS)
+        one_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        ref_tto = _dp_tto(tto_ckpt, dev, parallel.DataMesh(), chunk=EVAL_CHUNK // ranks)
+        del one, state, store, scene, step
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        outs = parallel.launch(_dp_rank, (tto_ckpt,), n_local=ranks, device=dev, devices=devices)
+        print(f"[28 a] {ranks} ranks on {len(set(devices))} card(s) in {time.perf_counter() - t0:.1f} s (spawn,"
+              " steps, TTO)", flush=True)
+        check([o["rank"] for o in outs] == list(range(ranks)) and all(o["size"] == ranks for o in outs),
+              "the ranks' group")
+        check(all(o["backend"] == backend for o in outs), f"the ranks' collectives run {backend}, got"
+              f" {outs[0]['backend']}")
+        rm, rg, rrays = ref
+        rows = TRAIN_RAYS // ranks
+        for o in outs:
+            tm, tg, trays = o["teacher"]
+            errs = {}
+            for k, v in rm.items():
+                want = v * (1.0 / ranks if k.startswith("img_loss") else 1.0)  # pmean'd sums and counts
+                errs[k] = float(np.abs(tm[k] - want).max() / max(np.abs(want).max(), 1e-30))
+            worst = max(errs, key=errs.get)
+            check(set(tm) == set(rm), "the sharded step's metrics")
+            check(errs[worst] <= DP_METRIC_TOL, f"rank {o['rank']}: metric {worst} off by {errs[worst]:.3e}")
+            gerrs = {k: float(np.abs(tg[k] - v).max() / max(np.abs(v).max(), 1e-30)) for k, v in rg.items()}
+            check(set(tg) == set(rg), "the sharded step's gradients")
+            bf16 = {k for k in gerrs if k.startswith("transient_net.")}
+            gworst = max(set(gerrs) - bf16, key=gerrs.get)
+            bworst = max(bf16, key=gerrs.get)
+            check(gerrs[gworst] <= DW_TOL, f"rank {o['rank']}: gradient {gworst} off by {gerrs[gworst]:.3e}")
+            check(gerrs[bworst] <= DP_BF16_GRAD_TOL, f"rank {o['rank']}: gradient {bworst} off by {gerrs[bworst]:.3e}")
+            r0 = o["rank"] * rows
+            diff = {k: int((trays[k] != rrays[k][r0:r0 + rows]).sum()) for k in trays}
+            dmax = {k: float(np.abs(trays[k] - rrays[k][r0:r0 + rows]).max()) for k in trays}
+            print(f"[28 a] rank {o['rank']}, teacher-forced step against one rank: worst metric {worst}"
+                  f" {errs[worst]:.2e} (tol {DP_METRIC_TOL:.0e}), worst gradient {gworst} {gerrs[gworst]:.2e} of its"
+                  f" max (tol {DW_TOL:.0e}), of the bf16-policy layers {bworst} {gerrs[bworst]:.2e} (tol"
+                  f" {DP_BF16_GRAD_TOL:.2e}); per-ray outputs of its {rows} rows, values that differ from the"
+                  f" one-rank rows {diff} (max |d| {dmax})", flush=True)
+        check(len({o["sha"] for o in outs}) == 1, "the ranks' parameters differ after the steps")
+        check(all(o["val_finite"] for o in outs), "the sharded val chunk is not finite")
+        launches = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
+        want = 2 * DP_STEPS * ranks
+        print(f"[28 a] {DP_STEPS} steps on each rank: launches {launches} (forward and backward {want} each, every"
+              f" rank); losses {[o['losses'] for o in outs]}; parameters equal bit for bit", flush=True)
+        check(launches["render_fwd"] == want and launches["render_bwd"] == want, "2 + 2 launches a step on each rank")
+        check(launches["walk_pre"] == launches["walk"] == launches["walk_finish"] >= want and launches["dw"] >= want,
+              "each rank's backward ran the Hopper walk's three kernels and the dW kernel a slab")
+        for o in outs:
+            print(f"[28 a] rank {o['rank']}: phase-1 step {o['step_ms']:.2f} ms ({rows} rays a rank,"
+                  f" {TRAIN_RAYS / o['step_ms'] * 1e3:.0f} rays/s together), all-reduce of {o['allreduce_mb']:.2f} MB"
+                  f" {o['allreduce_ms']:.2f} ms ({o['allreduce_ms'] / o['step_ms']:.0%} of the step), a val chunk's"
+                  f" gather ({CHUNK} x {o['val_cols']} f32) {o['gather_ms']:.2f} ms, peak memory"
+                  f" {o['peak_gib']:.2f} GiB; one rank alone: {one_ms:.2f} ms at {one_peak:.2f} GiB ({card})",
+                  flush=True)
+
+        # (d) TTO through the ranks' runner against one rank
+        rloss, rgrads, rpreds, rstep_ms, reval_ms = ref_tto
+        part = EVAL_CHUNK // ranks
+        for o in outs:
+            loss, grads, preds, step_ms, eval_ms = o["tto"]
+            lerr = abs(loss - rloss) / abs(rloss)
+            gerr = max(float(np.abs(grads[k] - v).max() / max(np.abs(v).max(), 1e-30)) for k, v in rgrads.items())
+            full = preds[EVAL_CHUNK]
+            same = int((full != rpreds[part]).sum())
+            whole = int((full != rpreds[EVAL_CHUNK]).sum())
+            print(f"[28 d] rank {o['rank']}: TTO step loss rel {lerr:.2e}, gradients {gerr:.2e} of their max; eval"
+                  f" chunk values differing from one rank at {part} rays an image a call {same}, at {EVAL_CHUNK}"
+                  f" {whole} of {full.size} (max |d| {float(np.abs(full - rpreds[EVAL_CHUNK]).max()):.2e}); TTO step"
+                  f" {step_ms:.2f} ms, eval chunk {eval_ms:.2f} ms; one rank {rstep_ms:.2f} / {reval_ms:.2f} ms"
+                  f" ({card})", flush=True)
+            check(lerr <= DP_METRIC_TOL and gerr <= DW_TOL, f"rank {o['rank']}: the sharded TTO step disagrees")
+            check(same == 0, "the sharded eval chunk differs from one rank rendering the same rays a call")
+
+        zero, read = _launch_counters()
+        none = {k: 0 for k in read()}
+        root, name = os.path.join(tmp, "scene"), "scene"
+        write_train_scene(root, name)
+        base = ["--config", "configs/brandenburg_gate.yaml", "--device", dev.type, "root_dir", root, "scene_name",
+                name, "feat_dir", os.path.join(root, "DINO"), "depth_dir", os.path.join(root, "DPT"),
+                "out_dir", os.path.join(tmp, "out"), "max_steps", "12", "val.log_interval", "6",
+                "train.ckpt_interval", "6", "train.log_pose_interval", "6", "val.img_idx", "[0]",
+                "phototourism.use_cache", "False", "seed", "0"]
+
+        def rank0_files(run_dir: str, label: str):
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            val = [r["step"] for r in recs if "val/psnr" in r]
+            ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpts")))
+            print(f"[{label}] val records at {val}, ckpts {ckpts}", flush=True)
+            check(val == [6, 12] and ckpts == ["12.ckpt", "6.ckpt", "ckpt_metrics.json"]
+                  and os.path.isfile(os.path.join(run_dir, "config.yaml")), f"[{label}] rank 0's files")
+            check(all(np.isfinite(r["loss"]) for r in recs if "loss" in r), f"[{label}] losses not finite")
+
+        # (b) a one-rank group: a card of its own, so NCCL
+        argv = base + ["exp_name", "nccl", "max_steps", "4", "val.log_interval", "4", "dist.coordinator",
+                       f"127.0.0.1:{free_port()}", "dist.num_processes", "1", "dist.process_id", "0"]
+        tr = _run_train(argv, "28 b", zero, read, dict(none, render_fwd=2 * 4 + 2, render_bwd=2 * 4))
+        check(tr.mesh.size == 1 and tr.mesh.group is not None and not dist.is_initialized(),
+              "cli.train dist.num_processes 1 did not run (and leave) a one-rank NCCL group")
+        print("[28 b] one-rank group through cli.train: the data mesh on NCCL, 4 steps", flush=True)
+
+        # (c) two cli.train processes, one rank each, both on the one card
+        port = free_port()
+        logs = [os.path.join(tmp, f"dist{p}.log") for p in range(DP_RANKS)]
+        procs = []
+        t0 = time.perf_counter()
+        for p in range(DP_RANKS):
+            with open(logs[p], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "upnerf_torch.cli.train", *base, "exp_name", "dist", "dist.coordinator",
+                     f"127.0.0.1:{port}", "dist.num_processes", str(DP_RANKS), "dist.process_id", str(p),
+                     "dist.init_timeout", "600"],
+                    cwd=os.path.dirname(os.path.abspath(__file__)), stdout=f, stderr=subprocess.STDOUT))
+        try:
+            rcs = [proc.wait(timeout=900) for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+        texts = [open(path).read() for path in logs]
+        for p, (rc, text) in enumerate(zip(rcs, texts)):
+            if rc != 0:
+                print(text[-4000:], flush=True)
+            check(rc == 0, f"[28 c] cli.train process {p} exited {rc}")
+        run_dir = os.path.join(tmp, "out", name, "dist")
+        print(f"[28 c] two cli.train processes (dist.num_processes 2) in {time.perf_counter() - t0:.1f} s; process 0:"
+              f" {[ln for ln in texts[0].splitlines() if 'process group' in ln]}", flush=True)
+        rank0_files(run_dir, "28 c")
+        check(f"on {backend}" in texts[0] and "[upnerf_torch] process group" not in texts[1],
+              "[28 c] the group's report")
+        metrics_path = tto_cli.main(["--ckpt", os.path.join(run_dir, "ckpts", "12.ckpt"), "--result_dir",
+                                     os.path.join(tmp, "tto"), "--group_size", "2", "--batch_size", "1024",
+                                     "--pose_epochs", "1", "--appearance_epochs", "1", "--device", dev.type])
+        with open(metrics_path) as f:
+            tm = json.load(f)
+        check(len(tm) == 2 and all(np.isfinite(v["psnr"]) for v in tm.values()), f"[28 c] cli.tto metrics {tm}")
+        print(f"[28 c] cli.tto on its step-12 checkpoint: {tm}", flush=True)
+    return launches
+
+
 def kernel_times(dev, card: str, profile_dir=None) -> dict:
     """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16, 17 and
     19, the recompute train (phase 1) and frozen (phase 2) backward of phase
@@ -3692,6 +4069,10 @@ def main() -> int:
     warp_launches = phase_warp(dev, card)
     print(f"    phase 27: {time.perf_counter() - t_start:.0f} s", flush=True)
 
+    # 28. data parallel: two ranks on the card against one, a one-rank NCCL group, two cli.train processes
+    dp_launches = phase_data_parallel(dev, card)
+    print(f"    phase 28: {time.perf_counter() - t_start:.0f} s", flush=True)
+
     # the least time the card could take for each timed call, from its shapes
     flash_terms = flash_bound_terms(DINO_HEADS, DINO_TOKENS)
     st1 = train_static(nerf_cfg, "bfloat16", 1)
@@ -3740,7 +4121,7 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_fwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:555",
-            "launches": launches["render_train_fwd"] + warp_launches["render_fwd"],
+            "launches": launches["render_train_fwd"] + warp_launches["render_fwd"] + dp_launches["render_fwd"],
             "max_abs_err": max(fwd_err, max(max(e["rgb_map"], e["s_weights"]) for e in errs.values())),
             "ms": kt["fwd"][0],
             "plain_ms": kt["fwd"][1],
@@ -3754,7 +4135,7 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_bwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:671",
-            "launches": launches[key],
+            "launches": launches[key] + dp_launches[key],
             "max_abs_err": kt["walk_kernels"][piece][2],
             "ms": kt["walk_kernels"][piece][0],
             "plain_ms": kt["walk_kernels"][piece][1],
@@ -3771,7 +4152,7 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_bwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:671",
-            "launches": launches["render_train_bwd"],
+            "launches": launches["render_train_bwd"] + dp_launches["render_bwd"],
             "max_abs_err": bwd_abs,
             "ms": kt["bwd"][0],
             "plain_ms": kt["bwd"][1],
@@ -3784,7 +4165,7 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/dw_gemm.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:822",
-            "launches": launches["dw_gemm"],
+            "launches": launches["dw_gemm"] + dp_launches["dw"],
             "max_abs_err": dw_err,
             "ms": kt["dw"][0],
             "plain_ms": kt["dw"][1],

@@ -24,6 +24,7 @@ train CLI.
 
 import json
 import os
+import socket
 
 import jax
 import jax.numpy as jnp
@@ -310,9 +311,53 @@ def test_explicit_resume_ckpt(hp):
 
 
 def test_unported_configurations_raise(hp):
-    for over in ({"tpu.n_devices": 2}, {"dist.num_processes": 2}):
-        with pytest.raises(NotImplementedError):
-            trainer_of(hp, exp_name="unported", **over)
+    """The data-parallel settings raised until the port had torch.distributed.
+    Now a Trainer outside a process group refuses a mesh of 2 ranks only for
+    want of the group (cli.train starts the ranks:
+    tests/test_torch_multiprocess.py), and one rank of a group
+    (`dist.num_processes 1`) trains as a Trainer alone does, bit for bit."""
+    from upnerf_torch import parallel
+
+    with pytest.raises(RuntimeError, match="no process group"):
+        trainer_of(hp, exp_name="unported", **{"tpu.n_devices": 2})
+    alone = trainer_of(hp, exp_name="alone").fit(log_every=5, max_steps=5)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    parallel.initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0, device="cpu")
+    try:
+        trainer = trainer_of(hp, exp_name="grouped", **{"dist.num_processes": 1})
+        assert trainer.mesh.size == 1 and trainer.mesh.group is None and parallel.is_main_process()
+        grouped = trainer.fit(log_every=5, max_steps=5)
+    finally:
+        parallel.shutdown()
+    for a, b in zip(alone.params.parameters(), grouped.params.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_default_n_devices_is_one_rank_on_a_multi_card_host(hp, monkeypatch):
+    """`tpu.n_devices 0`, every config's default, is this process's one
+    device outside a process group, on a host of four cards as on one: the
+    mesh, cli.train and the Trainer start no ranks. N > 1 asks for N (clamped
+    to the cards), and a host of a multi-process run takes every card."""
+    from upnerf_torch import parallel
+    from upnerf_torch.cli import train as train_cli
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cuda = torch.device("cuda")
+    assert hp["tpu.n_devices"] == 0
+    assert parallel.make_mesh(0, cuda) == parallel.DataMesh(0, 1, cuda)
+    with pytest.raises(RuntimeError, match="no process group"):
+        parallel.make_mesh(2, cuda)
+    assert [parallel.local_ranks(n, cuda) for n in (0, 1, 2, 8)] == [1, 1, 2, 4]
+    assert parallel.local_ranks(0, cuda, every_card=True) == 4
+    assert train_cli.ranks(hp, cuda)[:2] == (1, False)
+    assert train_cli.ranks(dict(hp, **{"tpu.n_devices": 3}), cuda)[:2] == (3, False)
+    host = {"dist.coordinator": "127.0.0.1:1", "dist.num_processes": 2, "dist.process_id": 0}
+    assert train_cli.ranks(dict(hp, **host), cuda)[:2] == (4, True)
+    assert train_cli.ranks(dict(hp, **{"dist.multiprocess": True}), cuda)[:2] == (1, True)  # torchrun's ranks
+    trainer = trainer_of(hp, exp_name="four_cards")
+    assert trainer.mesh == parallel.DataMesh(0, 1, torch.device("cpu")) and trainer.is_main
 
 
 def test_train_cli_end_to_end(hp, tmp_path):

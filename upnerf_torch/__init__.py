@@ -35,6 +35,9 @@ Subpackages (same layout as `upnerf`):
   utils     reference-checkpoint weight bridge, both ways; the extractors'
             npz-layout bridge; checkpoints, metric logging, profiling,
             visualisation
+  parallel  data parallelism over torch.distributed: the data mesh as ranks
+            of a process group, the launcher of local ranks, the collectives
+            of the sharded train step, val renderer and TTO
   cli       train, prepare_cache, render_video, preprocess, tto, eval,
             convert_weights
 """

@@ -15,6 +15,12 @@ DIR/a_optimize/: optimized_pose/best_pose_NN.npy,
 optimized_emb_a/best_emb_NN.npy and metrics.json (metrics.shard{i}of{n}.json
 with --shard), which upnerf_torch.cli.eval reads. Every step's backward is the
 fused render kernel's frozen-model mode (no weight gradients).
+
+The run's `tpu.n_devices` N > 1 (clamped to the local cards; `--device cpu`:
+N CPU ranks) starts as many ranks (`upnerf_torch.parallel`) when both
+--batch_size and the eval chunk divide by it: each image's rays are sharded
+across them, and rank 0 alone writes the files. `--shard i/n` splits the
+test images across hosts.
 """
 
 from __future__ import annotations
@@ -99,19 +105,43 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> str:
     """Run TTO; returns the metrics file's path."""
+    from upnerf_torch import parallel
+    from upnerf_torch.evaluate.tto import EVAL_CHUNK
+    from upnerf_torch.utils.weights import load_reference_ckpt
+
     args = parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but no CUDA device is available")
+    hparams = load_reference_ckpt(args.ckpt)[1] or {}
+    n = parallel.local_ranks(hparams.get("tpu.n_devices", hparams.get("tpu.data_axis", 0)), device)
+    if n > 1 and args.batch_size % n == 0 and EVAL_CHUNK % n == 0:
+        return parallel.launch(_run_rank, (args,), n_local=n, device=device)[0]
+    return _run(args, device)
+
+
+def _run_rank(args: argparse.Namespace) -> str:
+    from upnerf_torch.parallel import distributed
+
+    return _run(args, distributed.local_device())
+
+
+def _run(args: argparse.Namespace, device: torch.device) -> str:
+    """TTO on this rank: over the data mesh of the process group, if there is one."""
     from upnerf_torch.data.images import load_rgb_u8
     from upnerf_torch.evaluate.lpips import load_lpips
     from upnerf_torch.evaluate.tto import TTOConfig, TTOGroup, TTORunner, align_test_poses, tto_region_size
     from upnerf_torch.models.nerf import NeRFConfig
+    from upnerf_torch.parallel import make_mesh
     from upnerf_torch.render.render_rays import RenderConfig
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but no CUDA device is available")
     hparams, frozen, se3_table, meta = load_trained(args.ckpt, device)
+    mesh = make_mesh(0, device)  # every rank of the group main() started, or this process alone
+    is_main = mesh.rank == 0
+    log = (lambda s: print(s, flush=True)) if is_main else (lambda s: None)
     save_root = os.path.join(args.result_dir, "a_optimize")
-    os.makedirs(os.path.join(save_root, "optimized_pose"), exist_ok=True)
+    if is_main:
+        os.makedirs(os.path.join(save_root, "optimized_pose"), exist_ok=True)
 
     if meta.GT_poses_dict is None:
         raise SystemExit("TTO needs GT test poses")
@@ -125,11 +155,11 @@ def main(argv: Optional[List[str]] = None) -> str:
     shard_i, shard_n = _parse_shard(args.shard)
     nums = nums[shard_i::shard_n]
     if shard_n > 1:
-        print(f"[tto] shard {shard_i}/{shard_n}: {len(nums)} of {len(test_ids)} test images", flush=True)
+        log(f"[tto] shard {shard_i}/{shard_n}: {len(nums)} of {len(test_ids)} test images")
     results_name = "metrics.json" if shard_n == 1 else f"metrics.shard{shard_i}of{shard_n}.json"
     results_path = os.path.join(save_root, results_name)
     if not nums:
-        print("[tto] shard owns no test images; nothing to do", flush=True)
+        log("[tto] shard owns no test images; nothing to do")
         return results_path
 
     cfg = TTOConfig(
@@ -146,7 +176,7 @@ def main(argv: Optional[List[str]] = None) -> str:
     )
     lpips = load_lpips(device=device)
     if lpips is None:
-        print("[tto] LPIPS weights not found (UPNERF_LPIPS_WEIGHTS unset): reporting PSNR/SSIM only", flush=True)
+        log("[tto] LPIPS weights not found (UPNERF_LPIPS_WEIGHTS unset): reporting PSNR/SSIM only")
 
     all_metrics = {}
     if os.path.isfile(results_path):
@@ -157,7 +187,7 @@ def main(argv: Optional[List[str]] = None) -> str:
     all_wh = np.asarray([image_wh(os.path.join(meta.image_dir, meta.image_paths[test_ids[n]]), meta.scale)
                          for n in nums], np.int64)
     runner = TTORunner(frozen, cfg, hparams["nerf.appearance_dim"], region_A=tto_region_size(all_wh, (0.0, 1.0)),
-                       region_B=tto_region_size(all_wh, (0.5, 1.0)))
+                       region_B=tto_region_size(all_wh, (0.5, 1.0)), mesh=mesh)
     Hm_img = -(-int(all_wh[:, 1].max()) // 64) * 64
     Wm_img = -(-int(all_wh[:, 0].max()) // 64) * 64
 
@@ -180,22 +210,24 @@ def main(argv: Optional[List[str]] = None) -> str:
             wh=torch.tensor([[img.shape[1], img.shape[0]] for img in imgs], dtype=torch.int32, device=device),
             near_far=near_far.expand(len(imgs), 2).contiguous(),
         )
-        out = runner.run_group(group, generator, lpips=lpips, log=lambda s: print(s, flush=True),
-                               eval_every=args.eval_every)
-        emb_dir = os.path.join(save_root, "optimized_emb_a")
-        os.makedirs(emb_dir, exist_ok=True)
+        out = runner.run_group(group, generator, lpips=lpips, log=log, eval_every=args.eval_every)
         for i, n in enumerate(group_nums):
-            np.save(os.path.join(save_root, "optimized_pose", f"best_pose_{n:02d}.npy"), out["pose"][i])
-            np.save(os.path.join(emb_dir, f"best_emb_{n:02d}.npy"), out["emb"][i])
             all_metrics[str(n)] = {
                 "psnr": float(out["psnr"][i]),
                 "ssim": float(out["ssim"][i]),
                 "lpips": None if np.isnan(out["lpips"][i]) else float(out["lpips"][i]),
             }
+        if not is_main:
+            continue
+        emb_dir = os.path.join(save_root, "optimized_emb_a")
+        os.makedirs(emb_dir, exist_ok=True)
+        for i, n in enumerate(group_nums):
+            np.save(os.path.join(save_root, "optimized_pose", f"best_pose_{n:02d}.npy"), out["pose"][i])
+            np.save(os.path.join(emb_dir, f"best_emb_{n:02d}.npy"), out["emb"][i])
         with open(results_path, "w") as f:
             json.dump(all_metrics, f, indent=1)
         done = sum(1 for n in nums if str(n) in all_metrics)
-        print(f"[tto] {done}/{len(nums)} images done -> {results_path}", flush=True)
+        log(f"[tto] {done}/{len(nums)} images done -> {results_path}")
     return results_path
 
 

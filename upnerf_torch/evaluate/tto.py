@@ -17,7 +17,10 @@ render is the fused render kernel's forward; every step's backward is its
 frozen-model backward (RenderConfig.param_grads = False: no weight
 gradients). Randomness comes from explicit torch.Generators; the step takes
 pre-drawn pixels and uniforms, as the tests hand both packages the same
-ones. The JAX package's multi-device branch (a mesh, shard_map) is not ported.
+ones. With a data mesh (`upnerf_torch.parallel`) each rank renders its share
+of every image's B rays (pixels and uniforms drawn at the global (G, B)
+shape, then sliced on B) and one all-reduce-mean combines the loss and the
+gradients; the eval render splits each chunk's rays across the ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from upnerf_torch.geometry import procrustes, se3
 from upnerf_torch.geometry import rays as ray_utils
 from upnerf_torch.models.nerf import NeRFConfig
+from upnerf_torch.parallel import DataMesh, all_gather_rows, all_reduce_grads, shard_batch
 from upnerf_torch.render.render_rays import RenderConfig, render_rays
 from upnerf_torch.train.state import gaussian_1d
 
@@ -181,14 +185,19 @@ def _render_group_rays(
 
 
 def make_tto_step(frozen: Dict[str, Any], cfg: TTOConfig, *, optimize_pose: bool,
-                  x_frac: Tuple[float, float]) -> Callable:
+                  x_frac: Tuple[float, float], mesh: DataMesh = DataMesh()) -> Callable:
     """step(trainables, optimizer, group, generator, progress=1.0, px=None,
     py=None, noise=None) -> loss (a 0-d tensor, not synchronised).
 
     trainables = {"fine_a": (G, A)[, "se3": (G, 6)]} leaf tensors that require
     grad, updated in place by `optimizer`. The loss is the mean squared error
     over the G*B rays. px, py (G, B) and noise {coarse/fine: (G, B, N)} are
-    drawn from `generator` unless given."""
+    drawn from `generator` unless given. Over a `mesh` they are the global
+    batch: each rank renders its B / n columns, and the loss and the
+    gradients of the optimizer's parameters are averaged over the ranks
+    before it steps (the global batch's, up to the order of the sums)."""
+    if cfg.batch_size % mesh.size:
+        raise ValueError(f"the TTO batch {cfg.batch_size} does not split over {mesh.size} ranks")
 
     def step(trainables, optimizer, group: TTOGroup, generator=None, progress: float = 1.0, px=None, py=None,
              noise=None):
@@ -197,6 +206,8 @@ def make_tto_step(frozen: Dict[str, Any], cfg: TTOConfig, *, optimize_pose: bool
             px, py = _sample_pixels(generator, group.wh, x_frac, cfg.batch_size)
         if noise is None:
             noise = _draw_render_noise(generator, cfg.render, G, px.shape[1], px.device)
+        px, py = shard_batch(mesh, px, axis=1).contiguous(), shard_batch(mesh, py, axis=1).contiguous()
+        noise = shard_batch(mesh, noise, axis=1)
         se3_delta = trainables["se3"] if optimize_pose else torch.zeros((G, 6), device=px.device)
         flat = {k: v.reshape(-1, v.shape[-1]) for k, v in noise.items()}
         pred, gt = _render_group_rays(frozen, trainables["fine_a"], se3_delta, cfg, group, px, py, det=False,
@@ -204,18 +215,26 @@ def make_tto_step(frozen: Dict[str, Any], cfg: TTOConfig, *, optimize_pose: bool
         loss = ((pred - gt) ** 2).mean()
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        (loss,) = all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]], mesh, [loss.detach()])
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 
 
 def make_tto_eval(frozen: Dict[str, Any], cfg: TTOConfig, *, x_frac: Tuple[float, float],
-                  chunk: int = EVAL_CHUNK) -> Callable:
+                  chunk: int = EVAL_CHUNK, mesh: DataMesh = DataMesh()) -> Callable:
     """render_full(trainables, group, Hm, Wm) -> (pred, gt), each (G, Hm, Wm, 3):
     a deterministic render of each image's region on a padded grid, pixels
     clamped into each image's valid region (the metrics crop them out), in
-    chunks of G x `chunk` rays."""
+    chunks of G x `chunk` rays. Over a `mesh` the grid is padded to whole
+    chunks, each rank renders its chunk / n rays of every chunk and the parts
+    are gathered back in order on every rank: rays are independent, so the
+    result is bit for bit the unsharded render at chunk / n rays a call
+    (against calls of chunk rays, products that block by a call's rows can
+    move the last bits)."""
+    if chunk % mesh.size:
+        raise ValueError(f"the eval chunk {chunk} does not split over {mesh.size} ranks")
 
     @torch.no_grad()
     def render_full(trainables, group: TTOGroup, Hm: int, Wm: int):
@@ -229,15 +248,19 @@ def make_tto_eval(frozen: Dict[str, Any], cfg: TTOConfig, *, x_frac: Tuple[float
         se3_delta = trainables.get("se3")
         if se3_delta is None:
             se3_delta = torch.zeros((G, 6), device=dev)
-        preds, gts = [], []
-        for c0 in range(0, Hm * Wm, chunk):
-            pred, gt = _render_group_rays(frozen, trainables["fine_a"], se3_delta, cfg, group,
-                                          px[:, c0 : c0 + chunk].contiguous(), py[:, c0 : c0 + chunk].contiguous(),
-                                          det=True)
-            n = pred.shape[0] // G
-            preds.append(pred.reshape(G, n, 3))
-            gts.append(gt.reshape(G, n, 3))
-        return torch.cat(preds, 1).reshape(G, Hm, Wm, 3), torch.cat(gts, 1).reshape(G, Hm, Wm, 3)
+        n_px = Hm * Wm
+        if mesh.size > 1:  # whole chunks: the last pixel repeated, cropped below
+            pad = (-n_px) % chunk
+            px, py = (torch.cat([v, v[:, -1:].expand(G, pad)], 1) for v in (px, py))
+        outs = []
+        for c0 in range(0, px.shape[1], chunk):
+            px_c, py_c = (shard_batch(mesh, v[:, c0 : c0 + chunk], axis=1) for v in (px, py))
+            pred, gt = _render_group_rays(frozen, trainables["fine_a"], se3_delta, cfg, group, px_c.contiguous(),
+                                          py_c.contiguous(), det=True)
+            outs.append(torch.cat([pred, gt], -1).reshape(G, -1, 6))
+        out = torch.cat(outs, 1)  # (G, rays, pred | gt)
+        out = all_gather_rows(out.transpose(0, 1), mesh, len(outs)).transpose(0, 1)[:, :n_px]
+        return out[..., :3].reshape(G, Hm, Wm, 3), out[..., 3:].reshape(G, Hm, Wm, 3)
 
     return render_full
 
@@ -281,16 +304,16 @@ class TTORunner:
     """Scene-level TTO: both phases' step and eval functions, built once."""
 
     def __init__(self, frozen: Dict[str, Any], cfg: TTOConfig, appearance_dim: int, region_A: Tuple[int, int],
-                 region_B: Tuple[int, int]):
+                 region_B: Tuple[int, int], mesh: DataMesh = DataMesh()):
         self.frozen = frozen
         self.cfg = cfg
         self.appearance_dim = appearance_dim
         self.region_A = region_A
         self.region_B = region_B
-        self.step_A = make_tto_step(frozen, cfg, optimize_pose=True, x_frac=(0.0, 1.0))
-        self.step_B = make_tto_step(frozen, cfg, optimize_pose=False, x_frac=(0.0, 0.5))
-        self.eval_A = make_tto_eval(frozen, cfg, x_frac=(0.0, 1.0))
-        self.eval_B = make_tto_eval(frozen, cfg, x_frac=(0.5, 1.0))
+        self.step_A = make_tto_step(frozen, cfg, optimize_pose=True, x_frac=(0.0, 1.0), mesh=mesh)
+        self.step_B = make_tto_step(frozen, cfg, optimize_pose=False, x_frac=(0.0, 0.5), mesh=mesh)
+        self.eval_A = make_tto_eval(frozen, cfg, x_frac=(0.0, 1.0), mesh=mesh)
+        self.eval_B = make_tto_eval(frozen, cfg, x_frac=(0.5, 1.0), mesh=mesh)
 
     def opt_A(self, trainables) -> torch.optim.Optimizer:
         """optax.multi_transform of two Adams (eps 1e-8): the embedding at

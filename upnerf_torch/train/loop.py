@@ -1,4 +1,4 @@
-"""Host training loop (upnerf/train/loop.py), on one device.
+"""Host training loop (upnerf/train/loop.py), on one device or data-parallel.
 
 `Trainer(hparams, device)` builds the device-resident scene and ray store
 (load_training_data) or, with `tpu.store_on_device` false, keeps the store on
@@ -17,8 +17,19 @@ and, with `pose.warp.mitigate` multistart or reset, adopts new poses for them
 (train/warp.py): the se3 rows are written in place and their optimizer
 moments zeroed, within the event budget and after each event a cooldown.
 
-Not ported: the mesh / multi-process branches (`tpu.n_devices` > 1, `dist.*`);
-each raises with its ROADMAP item.
+Data-parallel (`upnerf_torch.parallel`): in a process group every rank runs
+this loop over the data mesh (`tpu.n_devices` and the group: rays sharded,
+state replicated, each step's gradients and metrics all-reduced). Every rank
+holds the same state, so each takes the same warp decisions, restores the
+same checkpoints and sees the same metrics. Rank 0 alone writes the metric
+log, images and checkpoints, each save followed by a barrier; every rank
+restores. The host prefetcher of rank r draws batch_size / world rows with
+seed `seed + r`. Val renders split each chunk's rays across the ranks. Each
+rank traces into its own `profile-proc<rank>` directory. On SIGTERM every rank
+saves between steps: the save's barrier needs each rank to get the signal, as
+a scheduler's preemption delivers it (the JAX package's collective save has
+the same contract). At the end of `fit` the ranks' parameters are held equal
+bit for bit (`parallel.assert_replicated`).
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from upnerf_torch.data.images import load_rgb_u8
 from upnerf_torch.data.prefetch import BatchPrefetcher
 from upnerf_torch.evaluate.metrics import psnr as psnr_fn
 from upnerf_torch.geometry import procrustes, se3
+from upnerf_torch.parallel import DataMesh, assert_replicated, fetch, make_mesh, put_replicated, sync
 from upnerf_torch.utils.ckpt import CheckpointManager
 from upnerf_torch.utils.logging import MetricLogger
 from upnerf_torch.utils.viz import get_pca_img, visualize_depth
@@ -51,19 +63,28 @@ from .state import TrainState, init_params, init_pose_params, make_ray_store, ma
 from .step import StepConfig, make_eval_render, make_train_step
 
 
-def check_supported(hp: Dict[str, Any]) -> None:
-    """Raise on the JAX trainer's configurations the port does not run."""
-    if int(hp.get("tpu.n_devices", 0) or 0) > 1:
-        raise NotImplementedError("tpu.n_devices > 1 needs torch.distributed, which is not ported (ROADMAP.md)")
-    if any(k.startswith("dist.") and v not in (None, False, 0, "") for k, v in hp.items()):
-        raise NotImplementedError("dist.* (multi-process training) is not ported (ROADMAP.md)")
+class _NullLogger:
+    """The metric sink of ranks other than 0: every rank runs the same steps,
+    rank 0 alone writes."""
+
+    def log(self, *a, **k):
+        pass
+
+    def log_image(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
 
 
 class Trainer:
     def __init__(self, hparams: Dict[str, Any], device="cuda"):
-        check_supported(hparams)
         self.hp = hp = hparams
         self.device = torch.device(device)
+        # the data mesh: this process alone, or every rank of the process group (`tpu.data_axis` is the old name)
+        self.mesh = make_mesh(hp.get("tpu.n_devices", hp.get("tpu.data_axis", 0)), self.device)
+        self.multiprocess = self.mesh.size > 1
+        self.is_main = self.mesh.rank == 0
         self.cfg = StepConfig.from_hparams(hparams)
         self.max_steps = hp["max_steps"]
         self.debug = hp.get("debug", False)
@@ -85,7 +106,9 @@ class Trainer:
         if self.store_on_device:
             self.store = make_ray_store(store_np["px"], store_np["py"], store_np["img_idx"], store_np["rgb"],
                                         store_np["inv_depth"], self.device)
-        else:  # one process: the whole batch from one stream of draws
+        else:  # each rank draws its own rows of the batch from its own stream
+            if self.cfg.batch_size % self.mesh.size:
+                raise ValueError(f"train.batch_size {self.cfg.batch_size} does not split over {self.mesh.size} ranks")
             self.store_np = store_np
             self._open_prefetcher()
         self.n_rays = int(store_np["px"].shape[0])
@@ -99,13 +122,16 @@ class Trainer:
                              generator=torch.Generator().manual_seed(self.seed))
         self.state: TrainState = make_train_state(params, init_pose_params(self.n_images), self.optimizer,
                                                   self.pose_optimizer, self.seed + 1, self.device)
-        self.step_fn, self.batch_step_fn = make_train_step(self.cfg, self.optimizer, self.pose_optimizer)
-        self.eval_render = make_eval_render(self.cfg, hp["val.chunk_size"])
+        put_replicated([self.state.params, self.state.pose_params], self.mesh)
+        self.step_fn, self.batch_step_fn = make_train_step(self.cfg, self.optimizer, self.pose_optimizer, self.mesh)
+        # val renders split each chunk across the ranks where it divides; else every rank renders it all
+        self.eval_render = make_eval_render(self.cfg, hp["val.chunk_size"],
+                                            self.mesh if hp["val.chunk_size"] % self.mesh.size == 0 else DataMesh())
 
         self.save_dir = os.path.join(hp["out_dir"], hp["scene_name"], hp["exp_name"])
         os.makedirs(self.save_dir, exist_ok=True)
         self.ckpt = CheckpointManager(os.path.join(self.save_dir, "ckpts"))
-        self.logger = MetricLogger(self.save_dir)
+        self.logger = MetricLogger(self.save_dir) if self.is_main else _NullLogger()
 
         # val cadence: a fraction of an epoch (Lightning's val_check_interval) or steps when >= 1
         li = hp["val.log_interval"]
@@ -129,8 +155,9 @@ class Trainer:
         self._setup_val_scale()
 
     def _open_prefetcher(self) -> None:
-        """The host store's prefetcher (a fit() after a fit() starts a new one, from the seed)."""
-        self.prefetcher = BatchPrefetcher(self.store_np, self.cfg.batch_size, self.device, seed=self.seed)
+        """The host store's prefetcher of this rank's rows (a fit() after a fit() starts a new one, from the seed)."""
+        self.prefetcher = BatchPrefetcher(self.store_np, self.cfg.batch_size // self.mesh.size, self.device,
+                                          seed=self.seed + self.mesh.rank)
 
     def _setup_val_scale(self) -> None:
         """Val renders at downscale >= 2 even for scale-1 training (the
@@ -186,6 +213,19 @@ class Trainer:
             st.generator.set_state(payload["generator"])
         self.state = st._replace(step=int(payload["global_step"]))
 
+    def _save(self, step: int, metrics: Optional[dict] = None) -> None:
+        """Rank 0 writes the checkpoint; every rank waits for it. The payload
+        records the schedule's progress in the fields: every rank does, so
+        the replicas stay equal."""
+        self.state.params.set_progress(pe_progress(self.state.step, self.max_steps))
+        if self.is_main:
+            self.ckpt.save(step, self._payload(), metrics)
+        sync("upnerf_torch:ckpt")
+
+    def _log(self, msg: str) -> None:
+        if self.is_main:
+            print(msg, flush=True)
+
     def _load_explicit(self, path: str) -> Dict[str, Any]:
         """`resume_ckpt`: a checkpoint file, a run directory (its ckpts/) or a
         checkpoint directory; a directory gives its latest step."""
@@ -202,10 +242,10 @@ class Trainer:
         resume_ckpt = self.hp.get("resume_ckpt")
         if resume and resume_ckpt not in (None, "None", ""):
             self._restore(self._load_explicit(resume_ckpt))  # an explicit checkpoint wins over auto-resume
-            print(f"[upnerf_torch] restarted from {resume_ckpt} at step {self.state.step}", flush=True)
+            self._log(f"[upnerf_torch] restarted from {resume_ckpt} at step {self.state.step}")
         elif resume and self.ckpt.latest_step() is not None:
             self._restore(self.ckpt.load())
-            print(f"[upnerf_torch] resumed from step {self.state.step}", flush=True)
+            self._log(f"[upnerf_torch] resumed from step {self.state.step}")
         max_steps = max_steps or self.max_steps
         hp = self.hp
         if self.store_np is not None and self.prefetcher is None:
@@ -225,7 +265,8 @@ class Trainer:
                 if self.store_on_device:
                     self.state, metrics = self.step_fn(self.state, self.scene, self.store, phase)
                 else:
-                    self.state, metrics = self.batch_step_fn(self.state, self.scene, next(self.prefetcher), phase)
+                    self.state, metrics = self.batch_step_fn(self.state, self.scene, next(self.prefetcher), phase,
+                                                             local=True)
                 step += 1
                 window_rays += self.cfg.batch_size
 
@@ -261,19 +302,19 @@ class Trainer:
                     self.log_pose(step)
                 if step % self.val_interval == 0 or step == max_steps:
                     val_psnr = self.validate(step)
-                    self.ckpt.save(step, self._payload(), {"val_psnr": val_psnr})
+                    self._save(step, {"val_psnr": val_psnr})
                     last_saved = step
                 elif step % self.ckpt_interval == 0:
-                    self.ckpt.save(step, self._payload())
+                    self._save(step)
                     last_saved = step
 
                 if self._preempted is not None:
                     # between steps the state is consistent: checkpoint it and leave
                     if last_saved != step:
-                        self.ckpt.save(step, self._payload())
+                        self._save(step)
                         last_saved = step
-                    print(f"[upnerf_torch] caught signal {self._preempted}; checkpointed step {step} and stopped"
-                          " cleanly", flush=True)
+                    self._log(f"[upnerf_torch] caught signal {self._preempted}; checkpointed step {step} and stopped"
+                              " cleanly")
                     break
         finally:
             if profiler is not None:  # fit ended mid-capture
@@ -283,6 +324,7 @@ class Trainer:
             if self.prefetcher is not None:
                 self.prefetcher.close()
                 self.prefetcher = None
+        assert_replicated([self.state.params, self.state.pose_params], self.mesh, "parameters")
         return self.state
 
     def _start_profile(self):
@@ -296,13 +338,13 @@ class Trainer:
     def _stop_profile(self, profiler, n: int, start: int) -> None:
         self._sync()
         profiler.stop()
-        out = os.path.join(self.save_dir, "profile")
+        out = os.path.join(self.save_dir, "profile" + (f"-proc{self.mesh.rank}" if self.multiprocess else ""))
         os.makedirs(out, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(out, "trace.json"))
         sort = "self_cuda_time_total" if self.device.type == "cuda" else "self_cpu_time_total"
         with open(os.path.join(out, "table.txt"), "w") as f:
             f.write(profiler.key_averages().table(sort_by=sort, row_limit=40))
-        print(f"[upnerf_torch] trace of {n} steps from step {start} -> {out}", flush=True)
+        self._log(f"[upnerf_torch] trace of {n} steps from step {start} -> {out}")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -337,8 +379,8 @@ class Trainer:
         if not flags.any():
             return
         self.logger.log(step, {"train/warp_flagged": float(flags.sum())})
-        print(f"[upnerf_torch] warp detector: image(s) {np.nonzero(flags)[0].tolist()} stalled above"
-              f" {self.warp_cfg.ratio}x median loss at step {step}", flush=True)
+        self._log(f"[upnerf_torch] warp detector: image(s) {np.nonzero(flags)[0].tolist()} stalled above"
+                  f" {self.warp_cfg.ratio}x median loss at step {step}")
         if self.warp_cfg.mitigate == "none" or not self._warp.budget_left:
             return
         table = self.state.pose_params.se3_refine.weight
@@ -355,7 +397,7 @@ class Trainer:
                                                               self.warp_cfg.score_progress)
             new_tab, adopted = warp_mod.run_multistart(self._warp_scorer, self.state.params, self.scene, se3_tab,
                                                        flags, self.scene.wh.cpu().numpy(), self.warp_cfg,
-                                                       self._warp_rng, log=lambda msg: print(msg, flush=True))
+                                                       self._warp_rng, log=self._log)
         self._warp.start_cooldown()
         if adopted.size == 0:
             return
@@ -365,8 +407,8 @@ class Trainer:
         self.warp_adoptions.append((step, adopted))
         self.logger.log(step, {"train/warp_event": float(adopted.size),
                                "train/warp_events_total": float(self._warp.events)})
-        print(f"[upnerf_torch] warp {self.warp_cfg.mitigate} adopted new pose(s) for image(s) {adopted.tolist()} at"
-              f" step {step} (event {self._warp.events}/{self.warp_cfg.max_events})", flush=True)
+        self._log(f"[upnerf_torch] warp {self.warp_cfg.mitigate} adopted new pose(s) for image(s) {adopted.tolist()}"
+                  f" at step {step} (event {self._warp.events}/{self.warp_cfg.max_events})")
 
     def _recover_from_nonfinite(self, step: int, m: Dict[str, float]) -> int:
         """Divergence watchdog: a non-finite total loss at a log point means the
@@ -387,8 +429,8 @@ class Trainer:
         restored = self.state.step
         self.state.generator.manual_seed((self.seed + 1) * 1_000_003 + self._nan_restarts)
         self.logger.log(step, {"train/nonfinite_restart": float(restored)})
-        print(f"[upnerf_torch] non-finite loss at step {step} ({bad}); restored step {restored}, retry"
-              f" {self._nan_restarts}/{budget}", flush=True)
+        self._log(f"[upnerf_torch] non-finite loss at step {step} ({bad}); restored step {restored}, retry"
+                  f" {self._nan_restarts}/{budget}")
         return restored
 
     # --- validation ----------------------------------------------------------
@@ -430,7 +472,7 @@ class Trainer:
         progress = pe_progress(step, self.max_steps)
         phase = schedule_phase(step / self.max_steps, self.cfg.candidate_schedule)
         out = self.eval_render(self.state.params, self.state.pose_params, scene, batch, progress, phase)
-        out = {k: v[:n].float().cpu().numpy() for k, v in out.items()}
+        out = {k: v[:n] for k, v in fetch(out).items()}  # every rank holds the whole render
         w, h = (int(x) for x in scene.wh[img_i].tolist())
         return out, (w, h)
 
@@ -448,7 +490,7 @@ class Trainer:
             key = next((k for k in (f"rgb_{typ}", f"s_rgb_{typ}") if k in out), None)
             if key is not None:
                 psnrs.append(float(psnr_fn(torch.from_numpy(out[key]), torch.from_numpy(rgb_gt))))
-            if not self.debug:
+            if not self.debug and self.is_main:
                 self._log_val_images(step, img_i, out, rgb_gt, (w, h))
         val_psnr = float(np.mean(psnrs)) if psnrs else 0.0
         self.logger.log(step, {"val/psnr": val_psnr})
@@ -489,7 +531,7 @@ class Trainer:
     # --- pose errors ---------------------------------------------------------
 
     def log_pose(self, step: int) -> None:
-        if self.meta.GT_poses_dict is None:
+        if self.meta.GT_poses_dict is None or not self.is_main:
             return
         ids = self.meta.img_ids_train
         base = torch.as_tensor(np.stack([np.asarray(self.meta.poses_dict[i], np.float32) for i in ids]))

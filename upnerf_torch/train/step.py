@@ -1,4 +1,4 @@
-"""The UP-NeRF train step (upnerf/train/step.py), without the mesh branch.
+"""The UP-NeRF train step and val renderer (upnerf/train/step.py).
 
 One step: draw a ray batch from the device-resident store, build rays
 through the refined per-image poses, gather DINO features bilinearly, apply
@@ -10,6 +10,11 @@ scheduled loss and update both Adam optimizers. The phase is an argument;
 The step updates the state's modules and optimizers in place and returns a
 TrainState with the step advanced. Metrics stay on the device; reading one
 waits for the step.
+
+With a data mesh (`upnerf_torch.parallel`) each rank renders its rows of the
+global batch and one all-reduce-mean combines the gradients and the raw
+metrics before the optimizers step, as the JAX package's shard_map branch
+does with pmean; the val renderer splits each chunk's rays across ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from upnerf_torch.geometry import se3
 from upnerf_torch.models.nerf import NeRFConfig
 from upnerf_torch.models.transient import TransientConfig
 from upnerf_torch.ops.interp import bilinear_gather
+from upnerf_torch.parallel import DataMesh, all_gather_rows, all_reduce_grads, shard_batch
 from upnerf_torch.render.render_rays import RenderConfig, render_rays
 
 from .losses import LossConfig, compute_loss
@@ -178,17 +184,33 @@ def _loss_and_metrics(params: UPNeRF, pose_params: PoseTables, cfg: StepConfig, 
     return loss, metrics
 
 
-def make_train_step(cfg: StepConfig, optimizer, pose_optimizer):
+def make_train_step(cfg: StepConfig, optimizer, pose_optimizer, mesh: DataMesh = DataMesh()):
     """(step, batch_step) of the train loop.
 
     step(state, scene, store, phase) draws the ray batch uniformly from the
     device-resident store (iid with replacement) and the render uniforms,
     both from state.generator. batch_step(state, scene, batch, phase,
-    noise=None) takes the batch; `noise=None` draws the uniforms, a dict
-    supplies them (an empty dict selects the deterministic sampling paths).
-    Both return (state, metrics). `optimizer`/`pose_optimizer` are the specs
-    the state's optimizer states were built from; with no pose optimizer,
-    or pose_optimize off, the pose tables do not move."""
+    noise=None, local=False) takes the batch; `noise=None` draws the
+    uniforms, a dict supplies them (an empty dict selects the deterministic
+    sampling paths). Both return (state, metrics). `optimizer`/`pose_optimizer`
+    are the specs the state's optimizer states were built from; with no pose
+    optimizer, or pose_optimize off, the pose tables do not move.
+
+    Over a `mesh` of several ranks (the state replicated on each) every rank
+    draws the indices and uniforms at the global batch
+    shape from its copy of the generator and keeps its rows (`shard_batch`),
+    so the generators advance alike and each rank's rows are bit for bit the
+    one-rank draw's. After the backward one all-reduce-mean covers every
+    gradient of the optimizers' parameters (zero where the phase leaves one
+    unused) and every raw metric; psnr is derived after it. Every metric is a
+    mean over the batch, so the reduced values are the global batch's, but
+    img_loss_sum / img_loss_cnt come out divided by the mesh's size, as
+    JAX's pmean leaves them (their ratio is exact). batch_step slices a
+    global batch the same way; `local=True` says the batch holds this rank's
+    rows already (the host prefetcher's), and the uniforms are still drawn at
+    the global shape."""
+    if cfg.batch_size % mesh.size:
+        raise ValueError(f"train.batch_size {cfg.batch_size} does not split over {mesh.size} ranks")
 
     def draw_noise(generator: torch.Generator, n_rays: int, device) -> Dict[str, torch.Tensor]:
         noise = {}
@@ -197,6 +219,14 @@ def make_train_step(cfg: StepConfig, optimizer, pose_optimizer):
         if cfg.render.N_importance > 0:
             noise["fine"] = torch.rand((n_rays, cfg.render.N_importance), generator=generator, device=device)
         return noise
+
+    def reduce(state: TrainState, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The mesh's mean of the gradients (in place) and of the metrics."""
+        opts = [state.opt_state] + ([state.pose_opt_state] if cfg.pose_optimize and pose_optimizer is not None
+                                    else [])
+        params = [p for opt in opts for g in opt.optimizer.param_groups for p in g["params"]]
+        names = sorted(metrics)
+        return dict(zip(names, all_reduce_grads(params, mesh, [metrics[k] for k in names])))
 
     def update(state: TrainState, scene, batch, noise, phase: int):
         progress = pe_progress(state.step, cfg.max_steps)
@@ -207,39 +237,50 @@ def make_train_step(cfg: StepConfig, optimizer, pose_optimizer):
         loss, metrics = _loss_and_metrics(state.params, state.pose_params, cfg, scene, batch, noise, phase, sched,
                                           progress)
         loss.backward()
+        metrics = reduce(state, {k: v.detach() for k, v in metrics.items()})
         state.opt_state.step()
         if cfg.pose_optimize and pose_optimizer is not None:
             state.pose_opt_state.step()
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["psnr"] = -10.0 * torch.log10(metrics.pop("mse"))
         return state._replace(step=state.step + 1), metrics
 
     def step_fn(state: TrainState, scene: SceneConstants, store: RayStore, phase: int):
         dev = store.px.device
         idx = torch.randint(0, store.n_rays, (cfg.batch_size,), generator=state.generator, device=dev)
-        batch = gather_batch(store, idx)
         noise = draw_noise(state.generator, cfg.batch_size, dev)
-        return update(state, scene, batch, noise, phase)
+        idx, noise = shard_batch(mesh, idx), shard_batch(mesh, noise)  # each rank gathers only its rows
+        return update(state, scene, gather_batch(store, idx), noise, phase)
 
     def batch_step_fn(state: TrainState, scene: SceneConstants, batch: Dict[str, torch.Tensor], phase: int,
-                      noise: Optional[Dict[str, torch.Tensor]] = None):
-        if noise is None:
-            noise = draw_noise(state.generator, batch["px"].shape[0], batch["px"].device)
+                      noise: Optional[Dict[str, torch.Tensor]] = None, local: bool = False):
+        local_noise = local
+        if noise is None:  # drawn at the global batch shape
+            n_rays = batch["px"].shape[0] * (mesh.size if local else 1)
+            noise, local_noise = draw_noise(state.generator, n_rays, batch["px"].device), False
+        noise = noise if local_noise else shard_batch(mesh, noise)
+        batch = batch if local else shard_batch(mesh, batch)
         return update(state, scene, batch, noise, phase)
 
     return step_fn, batch_step_fn
 
 
-def make_eval_render(cfg: StepConfig, chunk_size: int = 4096):
-    """Full-image renderer (upnerf/train/step.py:make_eval_render, without the
-    mesh branch): deterministic renders of fixed-size chunks, each with the
-    scaled DPT prior `pred_depth` and, where the scene has features, the
-    gathered DINO targets `feats_gt`.
+def make_eval_render(cfg: StepConfig, chunk_size: int = 4096, mesh: DataMesh = DataMesh()):
+    """Full-image renderer (upnerf/train/step.py:make_eval_render):
+    deterministic renders of fixed-size chunks, each with the scaled DPT
+    prior `pred_depth` and, where the scene has features, the gathered DINO
+    targets `feats_gt`.
 
     render(params, pose_params, scene, batch, progress, phase) -> results,
     batch holding px, py, img_idx, inv_depth padded to a multiple of
     chunk_size; every result is concatenated over the chunks (the caller
-    crops the padding)."""
+    crops the padding). Over a `mesh` of several ranks each rank renders its part of every
+    chunk (chunk_size / n rays) and the parts are gathered back into chunk
+    order on every rank. Rays are independent and the render deterministic,
+    so the result is bit for bit the unsharded render at chunk_size / n rays
+    a call (against calls of chunk_size rays, products that block by a call's
+    rows can move the last bits)."""
+    if chunk_size % mesh.size:
+        raise ValueError(f"val.chunk_size {chunk_size} does not split over {mesh.size} ranks")
 
     @torch.no_grad()
     def render_fn(params: UPNeRF, pose_params: PoseTables, scene: SceneConstants, batch: Dict[str, torch.Tensor],
@@ -250,13 +291,13 @@ def make_eval_render(cfg: StepConfig, chunk_size: int = 4096):
             raise ValueError(f"{n} pixels is not a multiple of the chunk size {chunk_size}: pad first")
         outs = []
         for c0 in range(0, n, chunk_size):
-            b = {k: v[c0 : c0 + chunk_size] for k, v in batch.items()}
+            b = shard_batch(mesh, {k: v[c0 : c0 + chunk_size] for k, v in batch.items()})
             results, _, feats = forward(params, pose_params, cfg, scene, b, phase=phase, sched_mult=sched,
                                         progress=progress, noise=None, det=True)
             if feats is not None:
                 results["feats_gt"] = feats
             results["pred_depth"] = depth_prior(pose_params, b, cfg.near, cfg.far)
             outs.append(results)
-        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        return {k: all_gather_rows(torch.cat([o[k] for o in outs]), mesh, len(outs)) for k in outs[0]}
 
     return render_fn
