@@ -210,6 +210,15 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      dist.num_processes 1`, a one-rank NCCL group, 4 steps; (c) two
      `cli.train` processes with dist.* keys on phase 18's scene, 12 steps:
      rank 0's files only, its checkpoint through `cli.tto`.
+ 29. the quality-protocol drivers (`upnerf_torch.scripts.pose_protocol`,
+     `tto_protocol`) at cut lengths into a temporary directory: the pose
+     recipe, seed 42, PROTOCOL_POSE_STEPS steps through kernels 1 / 2 and
+     the dW kernel at F = 32; the TTO recipe, seed 42, PROTOCOL_TTO_STEPS
+     steps, then `cli.tto` (epochs cut) and `cli.eval`; each record's keys
+     against the JAX record's plus "device", the rel-R trace, finite TTO
+     PSNR / SSIM, each run's launches (2 + 2 a train step, the dW kernel a
+     slab, the frozen backward a TTO step); each call again reuses the
+     finished seed and launches no kernel.
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -369,6 +378,11 @@ TTO_POSE_DEG = 0.5
 # (arccos near 1 floors the angle at ~0.03 degrees).
 EVAL_POSE_DEG = 0.1
 SSIM_TOL = 1e-5  # SSIM card vs CPU: the same f32 operations, sums in another order
+# Phase 29: the protocol drivers at cut lengths. The pose recipe logs its rel-R every max(500, steps // 30)
+# steps and a run is reused when its last log is its last step, so 500 steps log one row, at the end;
+# synth_tto logs poses every 1000 steps, so a 1000-step TTO run logs the pose keys of the JAX record's rows.
+# TTO's pose / appearance epochs are cut to these (eval every 10).
+PROTOCOL_POSE_STEPS, PROTOCOL_TTO_STEPS, PROTOCOL_TTO_EPOCHS = 500, 1000, (20, 4)
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them; HBM3.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
@@ -781,6 +795,19 @@ def dw_work(lay, R: int, S: int):
     return flop, nbytes
 
 
+def dw_library(srcs, jobs):
+    """The dW kernel's products by one PyTorch call a job: torch.mm of the same
+    stored bf16 operands (cuBLAS, f32 accumulation, bf16 out), X^T G, without
+    the bias sums. The yardstick of the library_ms column; the port never
+    calls it."""
+    def run():
+        for j in jobs:
+            x = srcs[j.x_src][:, j.x_col : j.x_col + j.x_cols][:, : j.m_out]
+            g = srcs[j.g_src][:, j.g_col + j.g0 : j.g_col + j.g0 + j.n_out]
+            torch.mm(x.t(), g)
+    return run
+
+
 def walk_bounds(field, st, lay, R: int, S: int) -> dict:
     """bound() of the Hopper walk's three kernels (csrc/render_train_bwd.cu)
     over R rays x S samples in bf16 mode st (lay: the train mode's dW
@@ -968,10 +995,18 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
                 dg.dw_gemm_plain([chain[r0 * 256 : r1 * 256], ops[: n * 256], None if ray is None else ray[:n]],
                                  lay.jobs, call.flat, lay.n_dw, rows[:n], r0 > 0)
 
+        def dw_lib_chunk():  # one torch.mm a job over the chunk's slabs, on the same buffers
+            for r0, r1 in slabs:
+                n = r1 - r0
+                dw_library([chain[r0 * 256 : r1 * 256], ops[: n * 256], None if ray is None else ray[:n]],
+                           lay.jobs)()
+
         t = {}
-        for name, fn in (("frozen", zcall.run), ("walk", walk), ("dw", dwk), ("dw_plain", dw_plain_chunk)):
+        for name, fn in (("frozen", zcall.run), ("walk", walk), ("dw", dwk), ("dw_lib", dw_lib_chunk),
+                         ("dw_plain", dw_plain_chunk)):
             t[name] = [cuda_ms(fn, 2)]
-        for name, fn in (("dw_plain", dw_plain_chunk), ("dw", dwk), ("walk", walk), ("frozen", zcall.run)):
+        for name, fn in (("dw_plain", dw_plain_chunk), ("dw_lib", dw_lib_chunk), ("dw", dwk), ("walk", walk),
+                         ("frozen", zcall.run)):
             t[name].append(cuda_ms(fn, 2))
         t = {k: sum(v) / 2 for k, v in t.items()}
 
@@ -1013,8 +1048,9 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
           f" {k2:.2f}), plain {(p1 + p2) / 2:.2f} ms; forward with residuals kernel {(fk1 + fk2) / 2:.2f} ms, plain"
           f" {(fp1 + fp2) / 2:.2f} ms ({card})", flush=True)
     print(f"[9] F={F} the design, per chunk in turns: walk with its operand stores {t['walk']:.2f} ms over"
-          f" {len(slabs)} slabs of {call.slab} rays, dW kernel {t['dw']:.2f} ms (plain {t['dw_plain']:.2f} ms), walk"
-          f" frozen {t['frozen']:.2f} ms ({card})", flush=True)
+          f" {len(slabs)} slabs of {call.slab} rays, dW kernel {t['dw']:.2f} ms (plain {t['dw_plain']:.2f} ms,"
+          f" one torch.mm a job {t['dw_lib']:.2f} ms over {len(lay.jobs)} jobs a slab), walk frozen"
+          f" {t['frozen']:.2f} ms ({card})", flush=True)
     print(f"[9] F={F} backward call peak memory {peak / 2**30:.3f} GiB above its inputs (operand buffer"
           f" {ops_gib:.3f} GiB, {lay.ops_w} columns); bound {bwd_bound[0]:.3f} ms ({bwd_bound[1]}); this design's byte"
           f" floor (chain read twice, operand buffer written and read once) {floor:.3f} ms; dW kernel bound"
@@ -1032,7 +1068,7 @@ def phase_bwd_timing(field, nerf_cfg, dev, card: str):
     check(errs[worst] <= DW_TOL, f"the dW kernel disagrees with its plain version: {errs}")
     check(ops_gib <= 1.0, "the operand buffer exceeds 1 GiB")
     return ({"bwd": ((k1 + k2) / 2, (p1 + p2) / 2), "fwd": ((fk1 + fk2) / 2, (fp1 + fp2) / 2),
-             "dw": (t["dw"], t["dw_plain"]), "walk_kernels": wk, "walk_bounds": wb}, dw_abs, lay)
+             "dw": (t["dw"], t["dw_plain"], t["dw_lib"]), "walk_kernels": wk, "walk_bounds": wb}, dw_abs, lay)
 
 
 def flash_l2_bytes(G: int, N: int) -> float:
@@ -1637,7 +1673,8 @@ def bwd_pieces(call, whole, label: str, what: str, dev, card: str) -> dict:
     slabs = [(r0, min(call.N, r0 + call.slab)) for r0 in range(0, call.N, call.slab)]
     walk = lambda: [call.walk(r0, r1) for r0, r1 in slabs]  # noqa: E731
     dwk = lambda: [call.dw(r0, r1) for r0, r1 in slabs]  # noqa: E731
-    w1, d1, d2, w2 = cuda_ms(walk, 3), cuda_ms(dwk, 3), cuda_ms(dwk, 3), cuda_ms(walk, 3)
+    lib = lambda: [dw_library([call.ops[: r1 - r0]], call.lay.jobs)() for r0, r1 in slabs]  # noqa: E731
+    w1, d1, l1, l2, d2, w2 = (cuda_ms(f, 3) for f in (walk, dwk, lib, lib, dwk, walk))
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1647,11 +1684,12 @@ def bwd_pieces(call, whole, label: str, what: str, dev, card: str) -> dict:
     outs = sum(t.numel() * t.element_size() for t in flat_tensors(out))
     ops = call.ops.numel() * call.ops.element_size() + call.bias_rows.numel() * 4
     print(f"[{label}] {what}, the route in turns: walk {(w1 + w2) / 2:.2f} ms ({w1:.2f}, {w2:.2f}) over {len(slabs)}"
-          f" slabs of {call.slab} rows, dW kernel {(d1 + d2) / 2:.2f} ms ({d1:.2f}, {d2:.2f}); call peak memory"
+          f" slabs of {call.slab} rows, dW kernel {(d1 + d2) / 2:.2f} ms ({d1:.2f}, {d2:.2f}), one torch.mm a job"
+          f" {(l1 + l2) / 2:.2f} ms ({l1:.2f}, {l2:.2f}) over {len(call.lay.jobs)} jobs a slab; call peak memory"
           f" {peak / 2**30:.3f} GiB above its inputs (slab buffers {ops / 2**30:.3f} GiB, {call.lay.ops_w} columns;"
           f" outputs {outs / 2**30:.3f} GiB) ({card})", flush=True)
     check(ops <= rt.DW_BUFFER_BYTES, "a slab's operand buffer and bias rows exceed their budget")
-    return {"walk": (w1 + w2) / 2, "dw": (d1 + d2) / 2}
+    return {"walk": (w1 + w2) / 2, "dw": (d1 + d2) / 2, "dw_lib": (l1 + l2) / 2}
 
 
 def phase_static_render(field, nerf_cfg, dev, card: str):
@@ -3705,6 +3743,148 @@ def phase_data_parallel(dev, card: str):
     return launches
 
 
+def _record_keys(path: str):
+    """(top-level keys, keys of its runs) of a JSON protocol record; a run's
+    "reused_from_artifact" marks a seed taken from an earlier record."""
+    with open(path) as f:
+        rec = json.load(f)
+    return set(rec), set().union(*(set(r) for r in rec["runs"])) - {"reused_from_artifact"}
+
+
+def _protocol_launches(zero_all, read_all):
+    """(zero, read) over the launch counts phase 29 checks: kernel 1's forward,
+    kernel 2's train and frozen backward, the Hopper walk's kernels and the dW
+    kernel, and every other wrapper's (which must stay at 0)."""
+    from upnerf_torch.ops import dw_gemm as dg
+    from upnerf_torch.ops import render_train as rt
+
+    def zero():
+        zero_all()
+        rt.walk_pre_launches = rt.walk_launches = rt.walk_finish_launches = 0
+
+    def read():
+        return dict(read_all(), dw=dg.dw_launches, walk_pre=rt.walk_pre_launches, walk=rt.walk_launches,
+                    walk_finish=rt.walk_finish_launches)
+
+    return zero, read
+
+
+def phase_protocols(dev, card: str):
+    """Phase 29: the quality-protocol drivers (upnerf_torch.scripts.pose_protocol,
+    tto_protocol) on the card at cut lengths, into a temporary --out and
+    --work: (a) the pose recipe (configs/validation/synth_pose.yaml, its
+    16-view scene written by the ported generator), seed 42,
+    PROTOCOL_POSE_STEPS steps; (b) the same call again, which reuses the
+    finished seed and launches no kernel; (c) the TTO recipe
+    (synth_tto.yaml, 32 + 4 views), seed 42, PROTOCOL_TTO_STEPS steps, then
+    cli.tto with the pose / appearance epochs cut to PROTOCOL_TTO_EPOCHS and
+    cli.eval; (d) (c) again, reused. Checks each record's keys against the
+    JAX record's (benchmarks/) plus "device", the rel-R trace's rows and
+    values, finite TTO PSNR / SSIM, and each run's launches: 2 forward + 2
+    backward of kernels 1 / 2 a train step (2 forward a val render's chunk),
+    the Hopper walk's three kernels and the dW kernel once a slab, the frozen
+    backward once a TTO step. Returns the launches of (a) and (c) by kernel."""
+    from upnerf_torch.scripts import pose_protocol, tto_protocol
+
+    zero, read = _protocol_launches(*_launch_counters())
+    none = {k: 0 for k in read()}
+    t0 = time.perf_counter()
+    total = dict(none)
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--seeds", "42", "--device", "cuda", "--out", os.path.join(tmp, "records"),
+                  "--work", os.path.join(tmp, "work")]
+        pose_argv = ["--recipe", "pose", "--steps", str(PROTOCOL_POSE_STEPS), "--tag", "_smoke"] + common
+        chunks = -(-(64 // 2) * (80 // 2) // CHUNK)  # a val render's chunks: 80 x 64 at downscale 2
+
+        def train_want(steps: int, got: dict) -> dict:
+            want = dict(none, render_fwd=2 * steps + 2 * chunks, render_bwd=2 * steps)
+            slabs = got["walk"]  # one walk a slab of rays; at least one a backward call
+            return dict(want, walk_pre=slabs, walk=slabs, walk_finish=slabs, dw=slabs)
+
+        # (a) the pose recipe
+        zero()
+        t1 = time.perf_counter()
+        rec = pose_protocol.main(pose_argv)
+        torch.cuda.synchronize()
+        got = read()
+        want = train_want(PROTOCOL_POSE_STEPS, got)
+        (run,) = rec["runs"]
+        log_int = max(500, PROTOCOL_POSE_STEPS // 30)
+        rows = list(range(log_int, PROTOCOL_POSE_STEPS + 1, log_int))
+        print(f"[29 a] pose_protocol --recipe pose, 1 seed x {PROTOCOL_POSE_STEPS} steps in"
+              f" {time.perf_counter() - t1:.1f} s: final rel-R {run['final_rel_R_deg']} deg (init"
+              f" {run['init_rel_R_deg']}), rel-t {run['final_rel_t']}, trace {run['trace']}; launches {got} (expected"
+              f" {want}); device {rec['device']!r}", flush=True)
+        keys, run_keys = _record_keys("benchmarks/pose_protocol_pose.json")
+        check(set(rec) == keys | {"device"} and set(run) == run_keys, f"[29 a] record keys {sorted(rec)}"
+              f" / {sorted(run)}, the JAX record's {sorted(keys)} / {sorted(run_keys)}")
+        check(rec["device"] == card, f"[29 a] the record's device {rec['device']!r}")
+        check([r[0] for r in run["trace"]] == rows and all(np.isfinite(v) for r in run["trace"] for v in r[1:]),
+              f"[29 a] the trace {run['trace']}, expected rows at steps {rows}")
+        check(got == want and got["walk"] >= 2 * PROTOCOL_POSE_STEPS, f"[29 a] launches {got}, expected {want}")
+        total = {k: total[k] + v for k, v in got.items()}
+
+        # (b) the finished seed again: reused, no kernel launched
+        from upnerf_torch.config import default, merge_from_file
+
+        hp = default()
+        merge_from_file(hp, pose_protocol.RECIPES["pose"]["config"])
+        run_dir = os.path.join(pose_protocol.work_path(hp["out_dir"], os.path.join(tmp, "work")), hp["scene_name"],
+                               run["exp"])
+        check(pose_protocol.plan_run(run_dir, PROTOCOL_POSE_STEPS) == "reuse", "[29 b] the run is not reusable")
+        zero()
+        again = pose_protocol.main(pose_argv)
+        torch.cuda.synchronize()
+        check(read() == none and again["runs"] == rec["runs"], f"[29 b] the reused seed launched {read()}")
+        print("[29 b] the same call again: plan reuse, no kernel launched, the same row", flush=True)
+
+        # (c) the TTO recipe: train, then cli.tto and cli.eval with the epochs cut
+        kw = tto_protocol.TTO_KW
+        tto_protocol.TTO_KW = dict(kw, pose_epochs=PROTOCOL_TTO_EPOCHS[0], appearance_epochs=PROTOCOL_TTO_EPOCHS[1])
+        try:
+            tto_argv = ["--steps", str(PROTOCOL_TTO_STEPS)] + common
+            zero()
+            t1 = time.perf_counter()
+            rec = tto_protocol.main(tto_argv)
+            torch.cuda.synchronize()
+            got = read()
+            (run,) = rec["runs"]
+            # 80 x 64 test images, 1024 rays a step: 5 steps a phase-A epoch, 2 a phase-B epoch
+            tto_steps = PROTOCOL_TTO_EPOCHS[0] * 5 + PROTOCOL_TTO_EPOCHS[1] * 2
+            # the TTO steps' forwards and its eval renders' (2 a chunk) on top of the training's; the frozen
+            # backward runs the Hopper walk's kernels on one slab a call and no dW kernel
+            slabs = got["dw"]
+            want = dict(none, render_fwd=got["render_fwd"], render_bwd=2 * PROTOCOL_TTO_STEPS,
+                        render_frozen=tto_steps, dw=slabs, walk_pre=slabs + tto_steps, walk=slabs + tto_steps,
+                        walk_finish=slabs + tto_steps)
+            tto_fwd = got["render_fwd"] - (2 * PROTOCOL_TTO_STEPS + 2 * chunks)
+            print(f"[29 c] tto_protocol, 1 seed x {PROTOCOL_TTO_STEPS} steps + TTO {PROTOCOL_TTO_EPOCHS} epochs"
+                  f" ({tto_steps} steps) + eval in {time.perf_counter() - t1:.1f} s: val PSNR {run['final_val_psnr']},"
+                  f" TTO PSNR {run['tto_psnr_per_image']}, SSIM {run['tto_ssim_mean']}, rel-R"
+                  f" {run.get('final_rel_R_deg')}; launches {got} (the TTO's forwards {tto_fwd}); pass"
+                  f" {rec['pass']}", flush=True)
+            keys, run_keys = _record_keys("benchmarks/tto_quality_protocol.json")
+            check(set(rec) == keys | {"device"} and set(run) == run_keys, f"[29 c] record keys {sorted(rec)}"
+                  f" / {sorted(run)}, the JAX record's {sorted(keys)} / {sorted(run_keys)}")
+            check(run["n_test_images"] == 4 and all(np.isfinite(run["tto_psnr_per_image"]))
+                  and np.isfinite(run["tto_ssim_mean"]), f"[29 c] TTO rows {run}")
+            check(got == want and slabs >= 2 * PROTOCOL_TTO_STEPS and tto_fwd >= 2 * (tto_steps + 1)
+                  and tto_fwd % 2 == 0,
+                  f"[29 c] launches {got}, expected {want} and 2 forwards a TTO step and eval chunk")
+            total = {k: total[k] + v for k, v in got.items()}
+
+            # (d) again: the run and its stamped TTO result reused
+            zero()
+            again = tto_protocol.main(tto_argv)
+            torch.cuda.synchronize()
+            check(read() == none and again["runs"] == rec["runs"], f"[29 d] the reused seed launched {read()}")
+            print("[29 d] the same call again: train and TTO reused, cli.eval only, no kernel launched", flush=True)
+        finally:
+            tto_protocol.TTO_KW = kw
+    print(f"[29] the protocol drivers: {time.perf_counter() - t0:.1f} s; launches {total} ({card})", flush=True)
+    return total
+
+
 def kernel_times(dev, card: str, profile_dir=None) -> dict:
     """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16, 17 and
     19, the recompute train (phase 1) and frozen (phase 2) backward of phase
@@ -4073,6 +4253,10 @@ def main() -> int:
     dp_launches = phase_data_parallel(dev, card)
     print(f"    phase 28: {time.perf_counter() - t_start:.0f} s", flush=True)
 
+    # 29. the quality-protocol drivers (pose recovery, TTO success) at cut lengths
+    pr_launches = phase_protocols(dev, card)
+    print(f"    phase 29: {time.perf_counter() - t_start:.0f} s", flush=True)
+
     # the least time the card could take for each timed call, from its shapes
     flash_terms = flash_bound_terms(DINO_HEADS, DINO_TOKENS)
     st1 = train_static(nerf_cfg, "bfloat16", 1)
@@ -4121,7 +4305,8 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_fwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:555",
-            "launches": launches["render_train_fwd"] + warp_launches["render_fwd"] + dp_launches["render_fwd"],
+            "launches": launches["render_train_fwd"] + warp_launches["render_fwd"] + dp_launches["render_fwd"]
+            + pr_launches["render_fwd"],
             "max_abs_err": max(fwd_err, max(max(e["rgb_map"], e["s_weights"]) for e in errs.values())),
             "ms": kt["fwd"][0],
             "plain_ms": kt["fwd"][1],
@@ -4135,7 +4320,7 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_bwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:671",
-            "launches": launches[key] + dp_launches[key],
+            "launches": launches[key] + dp_launches[key] + pr_launches[key],
             "max_abs_err": kt["walk_kernels"][piece][2],
             "ms": kt["walk_kernels"][piece][0],
             "plain_ms": kt["walk_kernels"][piece][1],
@@ -4152,7 +4337,7 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_bwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:671",
-            "launches": launches["render_train_bwd"] + dp_launches["render_bwd"],
+            "launches": launches["render_train_bwd"] + dp_launches["render_bwd"] + pr_launches["render_bwd"],
             "max_abs_err": bwd_abs,
             "ms": kt["bwd"][0],
             "plain_ms": kt["bwd"][1],
@@ -4165,20 +4350,20 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/dw_gemm.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:822",
-            "launches": launches["dw_gemm"] + dp_launches["dw"],
+            "launches": launches["dw_gemm"] + dp_launches["dw"] + pr_launches["dw"],
             "max_abs_err": dw_err,
             "ms": kt["dw"][0],
             "plain_ms": kt["dw"][1],
             "bound_ms": bounds["dw_gemm"][0],
             "bound_by": bounds["dw_gemm"][1],
-            "library_ms": None,
+            "library_ms": kt["dw"][2],
         },
         {
             "name": "render_train_bwd_frozen",
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_bwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:671",
-            "launches": frozen_launches,
+            "launches": frozen_launches + pr_launches["render_frozen"],
             "max_abs_err": frozen_err,
             "ms": frozen_ms,
             "plain_ms": frozen_plain_ms,

@@ -94,13 +94,48 @@ def _apply_camera_noise(meta: SceneMeta) -> None:
         pose_noises = np.load(noise_file)
     else:
         rng = np.random.RandomState(0)
-        se3_noise = rng.randn(len(train_poses), 6).astype(np.float32) * noise
-        pose_noises = se3_ops.se3_to_SE3(torch.from_numpy(se3_noise)).numpy()
+        pose_noises = _noise_SE3(rng.randn(len(train_poses), 6).astype(np.float32) * noise)
         os.makedirs(os.path.dirname(noise_file), exist_ok=True)
         np.save(noise_file, pose_noises)
-    noised = se3_ops.compose([torch.from_numpy(pose_noises), torch.from_numpy(train_poses)]).numpy()
+    # pose_b o pose_a in numpy float32, as the JAX loader's compose computes it on numpy arrays
+    R_b, t_b = train_poses[..., :3], train_poses[..., 3:]
+    noised = np.concatenate([R_b @ pose_noises[..., :3], R_b @ pose_noises[..., 3:] + t_b], axis=-1)
     for i, id_ in enumerate(meta.img_ids_train):
         meta.poses_dict[id_] = noised[i]
+
+
+def _fma(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """a * b + c in float32 as a fused multiply-add: float64 holds the
+    product exactly, and its sum rounds to float32 as the fused one does but
+    where it lands on a float32 halfway point."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _mm_fma(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Batched a @ b in float32 as one fused multiply-add a term, k = 0 first."""
+    out = a[..., :, :1] * b[..., :1, :]
+    for k in range(1, a.shape[-1]):
+        out = _fma(a[..., :, k : k + 1], b[..., k : k + 1, :], out)
+    return out
+
+
+def _noise_SE3(wu: np.ndarray) -> np.ndarray:
+    """se3_to_SE3 of the (n, 6) float32 noise draw, bit for bit as the JAX
+    loader computes it on the CPU (upnerf/data/scene.py): the norm's squares
+    summed in numpy in order, the Taylor coefficients as se3_ops' (which
+    match jnp's elementwise ops), and the 3 x 3 products as XLA's, a chain
+    of fused multiply-adds. Both packages then draw the same perturbation
+    into the same noise file."""
+    w, u = wu[..., :3], wu[..., 3:]
+    theta = np.sqrt((w[..., 0] * w[..., 0] + w[..., 1] * w[..., 1]) + w[..., 2] * w[..., 2])[..., None, None]
+    th = torch.from_numpy(theta)
+    A, B, C = (f(th).numpy() for f in (se3_ops.taylor_A, se3_ops.taylor_B, se3_ops.taylor_C))
+    wx = se3_ops.skew_symmetric(torch.from_numpy(w)).numpy()
+    eye = np.eye(3, dtype=np.float32)
+    wxwx = _mm_fma(wx, wx)
+    R = (eye + A * wx) + B * wxwx
+    V = (eye + B * wx) + C * wxwx
+    return np.concatenate([R, _mm_fma(V, u[..., None])], axis=-1)
 
 
 def load_phototourism(root_dir: str, scene_name: str, img_downscale: int = 1,
