@@ -219,6 +219,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      PSNR / SSIM, each run's launches (2 + 2 a train step, the dW kernel a
      slab, the frozen backward a TTO step); each call again reuses the
      finished seed and launches no kernel.
+ 30. JPEG scenes, with no PIL on the host: (a) the ported generator writes
+     a Phototourism-layout scene of JPEGs (12 + 4 views of 512x384, quality
+     95, 4:2:0); `cli.preprocess` runs on them with phase 11's seeded
+     full-width npz weights (9 flash launches an image), then
+     `cli.prepare_cache`, `cli.train` at brandenburg_gate's settings
+     (img_downscale 2, from the cache; 12 steps: kernels 1 / 2, the Hopper
+     walk and the dW kernel), `cli.tto` (kernel 2 frozen, kernel 1) and
+     `cli.eval`; each run's launches, finite losses and metrics; (b) ms of
+     `decode_jpeg`, `encode_jpeg` and `read_png_rgb` on a 1024x768 image
+     and the scene's load from its JPEGs and from the cache; (c) the
+     fixtures in tests/torch_jpeg_fixtures/ decode to PIL's pixels and the
+     seeded array encodes to PIL's bytes; "PIL" never imported.
 
 The last two lines are one JSON object describing each kernel (with its
 bound from the shapes and the library call's time where PyTorch has one),
@@ -383,6 +395,12 @@ SSIM_TOL = 1e-5  # SSIM card vs CPU: the same f32 operations, sums in another or
 # synth_tto logs poses every 1000 steps, so a 1000-step TTO run logs the pose keys of the JAX record's rows.
 # TTO's pose / appearance epochs are cut to these (eval every 10).
 PROTOCOL_POSE_STEPS, PROTOCOL_TTO_STEPS, PROTOCOL_TTO_EPOCHS = 500, 1000, (20, 4)
+# Phase 30: a Phototourism-layout scene of JPEGs (quality 95, 4:2:0) from the ported generator, 12 train and
+# 4 test views, read at brandenburg_gate's img_downscale 2; the host codec timed on a 1024 x 768 image; the
+# fixtures PIL wrote (tests/test_torch_jpeg.py:write_fixtures).
+JPEG_VIEWS, JPEG_WH, JPEG_FOCAL, JPEG_STEPS = (12, 4), (512, 384), 420.0, 12
+JPEG_HOST_WH = (1024, 768)
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_jpeg_fixtures")
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them; HBM3.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
@@ -3885,6 +3903,204 @@ def phase_protocols(dev, card: str):
     return total
 
 
+def host_codec_times(tmp: str, card: str, reps: int = 3) -> dict:
+    """Phase 30 (b): ms an image of `decode_jpeg` and `encode_jpeg` on a
+    JPEG_HOST_WH quality-95 4:2:0 image (smooth content plus seeded noise,
+    as a render), and of `read_png_rgb` on the same pixels (host clock, the
+    mean of `reps` after one warm-up)."""
+    from upnerf_torch.features import jpeg
+    from upnerf_torch.features.images import read_png_rgb, write_png
+
+    w, h = JPEG_HOST_WH
+    rng = np.random.RandomState(30)
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = np.stack([xx / w, yy / h, (xx + yy) / (w + h)], -1) * 220
+    img = np.clip(smooth + rng.randint(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+    data = jpeg.encode_jpeg(img, 95)
+    png = os.path.join(tmp, "host.png")
+    write_png(png, img)
+
+    def timed(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        return (time.perf_counter() - t0) / reps * 1e3, out
+
+    dec_ms, dec = timed(lambda: jpeg.decode_jpeg(data))
+    enc_ms, enc = timed(lambda: jpeg.encode_jpeg(img, 95))
+    png_ms, px = timed(lambda: read_png_rgb(png))
+    psnr = 10 * np.log10(255.0**2 / np.mean((dec.astype(np.float64) - img) ** 2))
+    check(enc == data and dec.shape == img.shape and np.array_equal(px, img) and psnr > 30,
+          f"[30 b] the codec's round trip: {len(enc)} vs {len(data)} bytes, PSNR {psnr:.2f}")
+    print(f"[30 b] {w}x{h} quality 95 4:2:0 ({len(data)} bytes, round trip {psnr:.2f} dB): decode_jpeg"
+          f" {dec_ms:.1f} ms, encode_jpeg {enc_ms:.1f} ms, read_png_rgb of the same pixels {png_ms:.1f} ms an image"
+          f" (host clock, {reps} after a warm-up) ({card})", flush=True)
+    return {"decode": dec_ms, "encode": enc_ms, "png": png_ms}
+
+
+def check_jpeg_fixtures() -> int:
+    """Phase 30 (c): every tests/torch_jpeg_fixtures/decode_*.jpg decodes to
+    its stored pixels (PIL's), and encode_q95.npy encodes to PIL's bytes.
+    Returns the number of files decoded."""
+    from upnerf_torch.features import jpeg
+
+    names = sorted(n[:-4] for n in os.listdir(JPEG_FIXTURES) if n.startswith("decode_") and n.endswith(".jpg"))
+    for name in names:
+        with open(os.path.join(JPEG_FIXTURES, name + ".jpg"), "rb") as f:
+            got = jpeg.decode_jpeg(f.read())
+        want = np.load(os.path.join(JPEG_FIXTURES, name + ".npy"))
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"[30 c] {name}: {int((got != want).sum()) if got.shape == want.shape else got.shape} values differ")
+    with open(os.path.join(JPEG_FIXTURES, "encode_q95.jpg"), "rb") as f:
+        want = f.read()
+    got = jpeg.encode_jpeg(np.load(os.path.join(JPEG_FIXTURES, "encode_q95.npy")), 95)
+    check(got == want, f"[30 c] encode_q95: {len(got)} bytes against PIL's {len(want)}")
+    print(f"[30 c] {len(names)} fixtures decode to PIL's pixels ({', '.join(n[7:] for n in names)}); encode_q95"
+          f" gives PIL's {len(want)} bytes", flush=True)
+    return len(names)
+
+
+def phase_jpeg_scenes(dev, card: str):
+    """Phase 30: JPEG scenes on the card, with no PIL. (a) the ported
+    generator writes a Phototourism-layout scene of JPEGs (JPEG_VIEWS views
+    of JPEG_WH, quality 95); `cli.preprocess` runs on them with phase 11's
+    seeded DINO ViT-S/8 and DPT-Large npz weights (9 flash-attention
+    launches an image), then `cli.prepare_cache`, `cli.train` at
+    brandenburg_gate's settings from the cache (JPEG_STEPS steps: 2 + 2
+    launches of kernels 1 / 2 a step, the Hopper walk and the dW kernel a
+    slab, 2 a val chunk), `cli.tto` (2 forwards and 1 frozen backward a
+    step) and `cli.eval`; finite losses and metrics. (b) host_codec_times,
+    and the scene's load through `load_training_data` from its JPEGs and
+    from the cache. (c) check_jpeg_fixtures. Then "PIL" is not in
+    sys.modules. Returns the launches of (a) by kernel, flash attention's
+    under "flash"."""
+    from upnerf_torch.cli import eval as eval_cli
+    from upnerf_torch.cli import prepare_cache, preprocess
+    from upnerf_torch.cli import train as train_cli
+    from upnerf_torch.cli import tto as tto_cli
+    from upnerf_torch.data import load_training_data
+    from upnerf_torch.data.synthetic import generate_scene
+    from upnerf_torch.features import dpt, vit
+    from upnerf_torch.ops import attention
+
+    zero, read = _protocol_launches(*_launch_counters())
+    none = {k: 0 for k in read()}
+    t_phase = time.perf_counter()
+    (n_train, n_test), (W, H) = JPEG_VIEWS, JPEG_WH
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the scene, its features and depth, the cache, train -> TTO -> eval
+        root, name = os.path.join(tmp, "scene"), "scene"
+        t0 = time.perf_counter()
+        meta = generate_scene(root, n_train=n_train, n_test=n_test, H=H, W=W, feat_hw=8, feat_dim=8,
+                              focal=JPEG_FOCAL, seed=30, phototourism_layout=True, arc=0.5, interleave_test=True)
+        images = sorted(os.listdir(os.path.join(root, "dense", "images")))
+        check(len(images) == n_train + n_test and all(n.endswith(".jpg") for n in images)
+              and all(v["name"].endswith(".jpg") for v in meta.values()), f"[30 a] the scene's images {images}")
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        np.savez(os.path.join(tmp, "dino_vits8.npz"),
+                 **_flatten(vit.init_vit_params(np.random.default_rng(10), vit.ViTConfig())))
+        np.savez(os.path.join(tmp, "dpt_large.npz"), **_flatten(dpt.init_dpt_params(np.random.default_rng(11))))
+        print(f"[30 a] the generator wrote {len(images)} JPEGs of {W}x{H} (quality 95) + tsv + COLMAP in"
+              f" {gen_s:.1f} s; seeded npz weights in {time.perf_counter() - t0:.1f} s", flush=True)
+        attention.launches = 0
+        t0 = time.perf_counter()
+        preprocess.main(["--image_dir", os.path.join(root, "dense", "images"), "--save_dir", root, "--what", "dino",
+                         "dpt", "--device", "cuda", "--dino_weights", os.path.join(tmp, "dino_vits8.npz"),
+                         "--dpt_weights", os.path.join(tmp, "dpt_large.npz")])
+        torch.cuda.synchronize()
+        flash = attention.launches
+        print(f"[30 a] preprocess --what dino dpt on the JPEGs: {time.perf_counter() - t0:.1f} s, flash kernel"
+              f" launches {flash} (expected 9 x {len(images)})", flush=True)
+        check(flash == 9 * len(images), f"[30 a] flash kernel launched {flash} times")
+        for img in images:
+            stem = img[:-4]
+            feat = np.load(os.path.join(root, "DINO", "feature_maps", stem + ".npy"))
+            depth = np.load(os.path.join(root, "DPT", stem + ".npy"))
+            check(feat.shape == (DINO_GRID, DINO_GRID, DINO_DIM) and depth.shape == (H, W)
+                  and np.isfinite(feat).all() and np.isfinite(depth).all(),
+                  f"[30 a] {stem}: features {feat.shape}, depth {depth.shape}")
+        config = ["--config", "configs/brandenburg_gate.yaml"]
+        scene = ["root_dir", root, "scene_name", name, "feat_dir", os.path.join(root, "DINO"), "depth_dir",
+                 os.path.join(root, "DPT")]
+        t0 = time.perf_counter()
+        cdir = prepare_cache.cli(config + scene)
+        print(f"[30 a] prepare_cache: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(cdir, tmp)}", flush=True)
+        argv = config + ["--device", "cuda"] + scene + [
+            "out_dir", os.path.join(tmp, "out"), "max_steps", str(JPEG_STEPS), "val.log_interval", "6",
+            "train.ckpt_interval", "6", "train.log_pose_interval", "6", "val.img_idx", "[0]", "seed", "0",
+            "exp_name", "jpeg"]
+        chunks = -(-(W // 2) * (H // 2) // CHUNK)  # a val render of train image 0 at downscale 2
+        zero()
+        t0 = time.perf_counter()
+        tr = train_cli.main(argv)
+        torch.cuda.synchronize()
+        got = read()
+        with open(os.path.join(tr.save_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        psnrs = [r["val/psnr"] for r in recs if "val/psnr" in r]
+        slabs = got["walk"]  # one walk a slab of rays; at least one a backward call
+        want = dict(none, render_fwd=2 * JPEG_STEPS + 2 * 2 * chunks, render_bwd=2 * JPEG_STEPS, walk_pre=slabs,
+                    walk=slabs, walk_finish=slabs, dw=slabs)
+        print(f"[30 a] cli.train from the cache, {tr.state.step} steps in {time.perf_counter() - t0:.1f} s: launches"
+              f" {got} (expected {want}); losses {[round(x, 4) for x in losses]}, val psnr {psnrs}", flush=True)
+        check(tr.state.step == JPEG_STEPS and got == want and slabs >= 2 * JPEG_STEPS,
+              f"[30 a] train launches {got}, expected {want}")
+        check(bool(losses) and all(np.isfinite(losses)) and bool(psnrs) and all(np.isfinite(psnrs)),
+              f"[30 a] losses {losses}, val psnr {psnrs}")
+        total = dict(got)
+        ckpt = tr.ckpt.path(tr.ckpt.latest_step())
+        result_dir = os.path.join(tmp, "result")
+        zero()
+        t0 = time.perf_counter()
+        metrics_path = tto_cli.main(["--ckpt", ckpt, "--result_dir", result_dir, "--group_size", str(n_test),
+                                     "--batch_size", "1024", "--pose_epochs", "1", "--appearance_epochs", "1",
+                                     "--device", "cuda"])
+        torch.cuda.synchronize()
+        got = read()
+        steps_a = -(-(W // 2) * (H // 2) // 1024)  # a pose epoch's steps; an appearance epoch's max(1, steps_a // 2)
+        tto_steps = steps_a + max(1, steps_a // 2)
+        print(f"[30 a] cli.tto ({n_test} test JPEGs at downscale 2, {tto_steps} steps): {time.perf_counter() - t0:.1f}"
+              f" s, launches {got}", flush=True)
+        check(got["render_frozen"] == tto_steps and got["render_bwd"] == 0 and got["dw"] == 0
+              and got["render_fwd"] >= 2 * tto_steps and got["render_fwd"] % 2 == 0
+              and all(v == 0 for k, v in got.items() if k not in ("render_fwd", "render_frozen", "walk_pre", "walk",
+                                                                    "walk_finish")),
+              f"[30 a] TTO launches {got}: 2 forwards and 1 frozen backward a step, 2 forwards an eval chunk")
+        total = {k: total[k] + v for k, v in got.items()}
+        with open(metrics_path) as f:
+            m = json.load(f)
+        check(len(m) == n_test and all(np.isfinite(v["psnr"]) and np.isfinite(v["ssim"]) for v in m.values()),
+              f"[30 a] TTO metrics {m}")
+        ev = eval_cli.main(["--ckpt", ckpt, "--result_dir", result_dir, "--device", "cuda"])
+        check(all(np.isfinite(v) for v in ev.values()), f"[30 a] eval printed non-finite numbers: {ev}")
+        print(f"[30 a] cli.eval: {ev}; the phase's launches {total}, flash {flash} ({card})", flush=True)
+
+        # (b) the host codec, and the scene's load from its JPEGs and from the cache
+        codec = host_codec_times(tmp, card)
+        hp = dict(tr.hp)
+        loads = {}
+        for label, cached in (("JPEGs", False), ("cache", True)):
+            t0 = time.perf_counter()
+            scene_np, store_np, _ = load_training_data(dict(hp, **{"phototourism.use_cache": cached}))
+            loads[label] = time.perf_counter() - t0
+        n_rays = store_np["px"].shape[0]
+        check(n_rays == n_train * (W // 2) * (H // 2), f"[30 b] {n_rays} rays loaded")
+        print(f"[30 b] load_training_data of (a)'s scene ({n_train} train JPEGs of {W}x{H} at downscale 2, {n_rays}"
+              f" rays, {DINO_DIM}-d maps): from the JPEGs {loads['JPEGs']:.2f} s, from the cache {loads['cache']:.2f}"
+              f" s (host clock) ({card})", flush=True)
+
+        # (c) the fixtures
+        n_fixtures = check_jpeg_fixtures()
+    check("PIL" not in sys.modules, "[30] PIL was imported")
+    print(f"[30] JPEG scenes: {time.perf_counter() - t_phase:.1f} s; PIL not imported; {n_fixtures} fixtures;"
+          f" decode {codec['decode']:.1f} ms, encode {codec['encode']:.1f} ms, scene load {loads['JPEGs']:.2f} s"
+          f" ({card})", flush=True)
+    return dict(total, flash=flash)
+
+
 def kernel_times(dev, card: str, profile_dir=None) -> dict:
     """--kernel_times: the F = 384 kernels of phases 5, 9, 12, 14, 16, 17 and
     19, the recompute train (phase 1) and frozen (phase 2) backward of phase
@@ -4257,6 +4473,11 @@ def main() -> int:
     pr_launches = phase_protocols(dev, card)
     print(f"    phase 29: {time.perf_counter() - t_start:.0f} s", flush=True)
 
+    # 30. JPEG scenes: preprocess -> prepare_cache -> train -> TTO -> eval on the generator's JPEGs, the host
+    # codec's times, the fixtures PIL wrote
+    jpeg_launches = phase_jpeg_scenes(dev, card)
+    print(f"    phase 30: {time.perf_counter() - t_start:.0f} s", flush=True)
+
     # the least time the card could take for each timed call, from its shapes
     flash_terms = flash_bound_terms(DINO_HEADS, DINO_TOKENS)
     st1 = train_static(nerf_cfg, "bfloat16", 1)
@@ -4306,7 +4527,7 @@ def main() -> int:
             "source": "upnerf_torch/csrc/render_train_fwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:555",
             "launches": launches["render_train_fwd"] + warp_launches["render_fwd"] + dp_launches["render_fwd"]
-            + pr_launches["render_fwd"],
+            + pr_launches["render_fwd"] + jpeg_launches["render_fwd"],
             "max_abs_err": max(fwd_err, max(max(e["rgb_map"], e["s_weights"]) for e in errs.values())),
             "ms": kt["fwd"][0],
             "plain_ms": kt["fwd"][1],
@@ -4320,7 +4541,7 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_bwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:671",
-            "launches": launches[key] + dp_launches[key] + pr_launches[key],
+            "launches": launches[key] + dp_launches[key] + pr_launches[key] + jpeg_launches[key],
             "max_abs_err": kt["walk_kernels"][piece][2],
             "ms": kt["walk_kernels"][piece][0],
             "plain_ms": kt["walk_kernels"][piece][1],
@@ -4337,7 +4558,8 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_bwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:671",
-            "launches": launches["render_train_bwd"] + dp_launches["render_bwd"] + pr_launches["render_bwd"],
+            "launches": launches["render_train_bwd"] + dp_launches["render_bwd"] + pr_launches["render_bwd"]
+            + jpeg_launches["render_bwd"],
             "max_abs_err": bwd_abs,
             "ms": kt["bwd"][0],
             "plain_ms": kt["bwd"][1],
@@ -4350,7 +4572,7 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/dw_gemm.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:822",
-            "launches": launches["dw_gemm"] + dp_launches["dw"] + pr_launches["dw"],
+            "launches": launches["dw_gemm"] + dp_launches["dw"] + pr_launches["dw"] + jpeg_launches["dw"],
             "max_abs_err": dw_err,
             "ms": kt["dw"][0],
             "plain_ms": kt["dw"][1],
@@ -4363,7 +4585,7 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/render_train_bwd.cu",
             "replaces": "upnerf/ops/pallas_render_train.py:671",
-            "launches": frozen_launches + pr_launches["render_frozen"],
+            "launches": frozen_launches + pr_launches["render_frozen"] + jpeg_launches["render_frozen"],
             "max_abs_err": frozen_err,
             "ms": frozen_ms,
             "plain_ms": frozen_plain_ms,
@@ -4376,7 +4598,7 @@ def main() -> int:
             "route": "cuda",
             "source": "upnerf_torch/csrc/flash_attn_fwd.cu",
             "replaces": "upnerf/ops/pallas_attention.py:41",
-            "launches": attn_launches,
+            "launches": attn_launches + jpeg_launches["flash"],
             "max_abs_err": attn_err,
             "ms": attn_ms,
             "plain_ms": attn_plain_ms,

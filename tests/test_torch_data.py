@@ -11,7 +11,8 @@ scene metadata, the LANCZOS integer downscale and the tsv reader.
   None: 1e-6 absolute on float32 poses (the noise composition is f32 matrix
   products in another order), exact elsewhere;
 - the LANCZOS downscale against PIL, and `load_rgb_u8` against the JAX
-  package's: equal, byte for byte.
+  package's on a PNG and on the JAX generator's JPEG (the port's own
+  decoder against PIL): equal, byte for byte.
 """
 
 import os
@@ -173,6 +174,7 @@ def test_load_rgb_u8_matches_jax(scene_dir, tmp_path):
     assert image_wh(png) == (img.shape[1], img.shape[0])
     for factor in (1, 2, 3):
         np.testing.assert_array_equal(timages.load_rgb_u8(png, factor), jimages.load_rgb_u8(png, factor))
-    jpg = os.path.join(scene_dir, "dense/images/001.jpg")  # through PIL where it is installed
-    np.testing.assert_array_equal(timages.load_rgb_u8(jpg, 2), jimages.load_rgb_u8(jpg, 2))
+    jpg = os.path.join(scene_dir, "dense/images/001.jpg")  # through the port's JPEG decoder, the JAX side's PIL
+    for factor in (1, 2):
+        np.testing.assert_array_equal(timages.load_rgb_u8(jpg, factor), jimages.load_rgb_u8(jpg, factor))
     assert image_wh(jpg) == Image.open(jpg).size

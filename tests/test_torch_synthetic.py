@@ -2,14 +2,14 @@
 the JAX package's (upnerf.data.synthetic), and the render_video CLI's
 anchor on a scene whose base poses are not the identity.
 
-- generate_scene with the same arguments: metadata (poses, focal, split)
-  equal; the analytic renders before encoding (rgb, inverse depth, hit
-  points, directions) within 1e-6; the DPT maps within 1e-6; the port's
-  8-bit bilinear resize of each render within 1 LSB of PIL's BILINEAR; with
-  PIL's resize in its place, the DINO maps and PCA infos within 1e-6; the
-  Phototourism layout read back by the port's loader gives the same poses
-  and intrinsics as the JAX loader on the JAX scene; load_custom reads the
-  ported scene (PNGs) unchanged;
+- generate_scene with the same arguments: the same metadata and every file
+  (JPEGs, metadata.json, feature maps, PCA infos, DPT maps, tsv, COLMAP
+  binaries) byte for byte; the analytic renders before encoding (rgb equal;
+  inverse depth, hit points, directions within 1e-6); the port's 8-bit
+  bilinear resize of each render equal to PIL's BILINEAR; the port's JPEG
+  decoded as PIL decodes the JAX generator's; the Phototourism layout read
+  back by the port's loader gives the same poses and intrinsics as the JAX
+  loader on the JAX scene; load_custom reads the ported scene;
 - render_video's anchor exp(se3[anchor]) o meta.poses_dict[id] and K =
   meta.Ks[id] (w, h = 2 cx, 2 cy) against the JAX CLI's composition
   (upnerf/cli/render_video.py:55-64) with upnerf.geometry.se3, then the orbit
@@ -56,22 +56,31 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def pil_bilinear(rgb, size_hw, mode):
-    assert mode == "bilinear"
+def pil_bilinear(rgb, size_hw):
     return np.asarray(Image.fromarray(rgb).resize(size_hw[::-1], Image.BILINEAR))
 
 
+def tree(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
+
+
 @pytest.mark.parametrize("feature_mode,interleave", [("color", False), ("world", True)])
-def test_generator_matches_jax(tmp_path, monkeypatch, feature_mode, interleave):
+def test_generator_matches_jax(tmp_path, feature_mode, interleave):
     kw = dict(GEN, feature_mode=feature_mode, interleave_test=interleave, seed=3)
-    jroot, troot = str(tmp_path / "jax"), str(tmp_path / "port")
+    jroot, troot = str(tmp_path / "jax" / "scene"), str(tmp_path / "port" / "scene")
     jmeta = jsyn.generate_scene(jroot, **kw)
     tmeta = tsyn.generate_scene(troot, **kw)
     assert list(tmeta) == list(jmeta)
     for k in jmeta:
-        assert tmeta[k]["name"] == jmeta[k]["name"].replace(".jpg", ".png")
+        assert tmeta[k]["name"] == jmeta[k]["name"]
         assert (tmeta[k]["c2w"], tmeta[k]["focal"], tmeta[k]["split"]) == (jmeta[k]["c2w"], jmeta[k]["focal"],
                                                                            jmeta[k]["split"])
+    # every file, the JPEGs, metadata.json, the tsv, the COLMAP binaries and every array among them, byte for byte
+    files = tree(jroot)
+    assert files == tree(troot) and len(files) == 5 * 5 + 2 + 3
+    for f in files:
+        with open(os.path.join(jroot, f), "rb") as a, open(os.path.join(troot, f), "rb") as b:
+            assert a.read() == b.read(), f
     poses = jsyn._camera_ring(5, arc=0.2)
     K = np.array([[20.0, 0, 12], [0, 20.0, 10], [0, 0, 1]], np.float32)
     for i, pose in enumerate(poses):
@@ -79,29 +88,17 @@ def test_generator_matches_jax(tmp_path, monkeypatch, feature_mode, interleave):
         np.testing.assert_array_equal(got[0], want[0])
         for a, b in zip(got[1:], want[1:]):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
-        # the port's 8-bit bilinear against PIL's
-        small = resize_u8(got[0], (6, 6), "bilinear").astype(np.int16)
-        assert np.abs(small - pil_bilinear(got[0], (6, 6), "bilinear").astype(np.int16)).max() <= 1
-        # the PNG holds the render exactly
-        np.testing.assert_array_equal(read_rgb_u8(os.path.join(troot, tmeta[str(i)]["name"])), got[0])
-    for f in sorted(os.listdir(os.path.join(jroot, "DPT"))):
-        np.testing.assert_allclose(np.load(os.path.join(troot, "DPT", f)), np.load(os.path.join(jroot, "DPT", f)),
-                                   rtol=0, atol=1e-6)
-    # with PIL's resize in place of the port's, the feature maps and PCA infos are the JAX generator's
-    monkeypatch.setattr(tsyn, "resize_u8", pil_bilinear)
-    proot = str(tmp_path / "port_pil")
-    tsyn.generate_scene(proot, **kw)
-    for sub in ("DINO/feature_maps", "DINO/pca_infos"):
-        names = sorted(os.listdir(os.path.join(jroot, sub)))
-        assert names == sorted(os.listdir(os.path.join(proot, sub)))
-        for f in names:
-            np.testing.assert_allclose(np.load(os.path.join(proot, sub, f)), np.load(os.path.join(jroot, sub, f)),
-                                       rtol=0, atol=1e-6, err_msg=f)
+        # the port's 8-bit bilinear is PIL's BILINEAR
+        np.testing.assert_array_equal(resize_u8(got[0], (6, 6), "bilinear"), pil_bilinear(got[0], (6, 6)))
+        # the port reads its JPEG as PIL reads the JAX generator's
+        name = tmeta[str(i)]["name"]
+        np.testing.assert_array_equal(read_rgb_u8(os.path.join(troot, name)),
+                                      np.asarray(Image.open(os.path.join(jroot, name)).convert("RGB")))
     # the Phototourism layout: the same poses and intrinsics through both loaders
-    hp = {"dataset_name": "phototourism", "root_dir": troot, "scene_name": "port", "phototourism.img_downscale": 1,
+    hp = {"dataset_name": "phototourism", "root_dir": troot, "scene_name": "scene", "phototourism.img_downscale": 1,
           "pose.noise": None}
     tm = load_scene_meta(hp)
-    jm = jload_scene_meta(dict(hp, root_dir=jroot, scene_name="jax"))
+    jm = jload_scene_meta(dict(hp, root_dir=jroot))
     assert tm.img_ids_train == jm.img_ids_train and tm.img_ids_test == jm.img_ids_test
     for i in tm.img_ids:
         np.testing.assert_allclose(tm.poses_dict[i], jm.poses_dict[i], rtol=0, atol=1e-5)

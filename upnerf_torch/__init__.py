@@ -32,6 +32,7 @@ Subpackages (same layout as `upnerf`):
             LPIPS
   features  the offline extractors: ViT backbone, DINO descriptor maps, DPT
             inverse depth, weight converters, image reading without PIL
+            (PNG, and JPEG through the port's own codec)
   utils     reference-checkpoint weight bridge, both ways; the extractors'
             npz-layout bridge; checkpoints, metric logging, profiling,
             visualisation

@@ -8,8 +8,9 @@
 Writes <root>/DINO/feature_maps/<stem>.npy, <root>/DINO/pca_infos/
 <stem>_{mean,components}.npy and <root>/DPT/<stem>.npy. The weights are the
 converted npz files (upnerf_torch.features.convert), or UPNERF_DINO_WEIGHTS
-/ UPNERF_DPT_WEIGHTS. Images are read as .npy or PNG without PIL, any other
-format with PIL where it is installed.
+/ UPNERF_DPT_WEIGHTS. Images are read as .npy, PNG or JPEG without PIL
+(upnerf_torch.features.images.read_rgb_u8), any other format with PIL where
+it is installed.
 """
 
 from __future__ import annotations

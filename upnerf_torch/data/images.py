@@ -1,25 +1,27 @@
-"""Scene image and map loading (upnerf/data/images.py), without PIL for PNGs.
+"""Scene image and map loading (upnerf/data/images.py), without PIL.
 
-- `load_rgb_u8`: PNGs and .npy arrays are decoded here
-  (upnerf_torch/features/images.py); other formats, a real Phototourism
-  scene's JPEGs among them, need PIL.
-- `resize_bilinear`: PIL's BILINEAR resize of a mode-"F" image, written out
-  in numpy. PIL widens the filter's support by the scale factor when it
-  shrinks (an antialiased resize; cv2's is not), computes the coefficients
-  and the sums in float64 and stores each pass as float32, horizontal pass
-  first, and skips a pass whose size does not change.
+- `load_rgb_u8`: PNGs, JPEGs (a real Phototourism scene's, the JAX
+  generator's) and .npy arrays are decoded here
+  (upnerf_torch/features/images.py, upnerf_torch/features/jpeg.py), as PIL
+  decodes them; the integer downscale is PIL's LANCZOS resampler.
+- `resize_bilinear`: PIL's BILINEAR resize of a mode-"F" image
+  (`features.images.resample_f32`). PIL widens the filter's support by the
+  scale factor when it shrinks (an antialiased resize; cv2's is not),
+  computes the coefficients and the sums in float64 and stores each pass as
+  float32, horizontal pass first, and skips a pass whose size does not
+  change.
 - `normalize_inv_depth`, `load_feat_map`: the reference's DPT normalisation
   and the per-pixel L2-normalised DINO map.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Tuple
 
 import numpy as np
+import torch
 
-from upnerf_torch.features.images import read_rgb_u8, resize_lanczos_u8
+from upnerf_torch.features.images import read_rgb_u8, resample_f32, resize_lanczos_u8
 
 
 def load_rgb_u8(path: str, downscale: int = 1) -> np.ndarray:
@@ -32,58 +34,12 @@ def load_rgb_u8(path: str, downscale: int = 1) -> np.ndarray:
     return img
 
 
-def _bilinear_coeffs(in_size: int, out_size: int):
-    """PIL's precompute_coeffs for the bilinear filter (support 1): (xmin
-    (out,), normalised float64 weights (out, ksize))."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
-    ksize = int(math.ceil(support)) * 2 + 1
-    ss = 1.0 / filterscale
-    xmins = np.zeros(out_size, np.int64)
-    kk = np.zeros((out_size, ksize), np.float64)
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size) - xmin
-        k = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) * ss)) for x in range(xmax)]
-        ww = sum(k)
-        kk[xx, :xmax] = [w / ww if ww != 0.0 else w for w in k]
-        xmins[xx] = xmin
-    return xmins, kk
-
-
-def _bilinear_pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
-    """One pass of PIL's 32-bit float resampler along `axis` of a 2-D float32 map."""
-    in_size = img.shape[axis]
-    xmins, kk = _bilinear_coeffs(in_size, out_size)
-    shape = list(img.shape)
-    shape[axis] = out_size
-    acc = np.zeros(shape, np.float64)
-    wshape = [1, 1]
-    wshape[axis] = out_size
-    for x in range(kk.shape[1]):  # weights past a pixel's window are 0, so the clamped index is harmless
-        src = np.take(img, np.minimum(xmins + x, in_size - 1), axis=axis).astype(np.float64)
-        acc += src * kk[:, x].reshape(wshape)
-    return acc.astype(np.float32)
-
-
-def _resize_map(arr: np.ndarray, w: int, h: int) -> np.ndarray:
-    out = np.asarray(arr, np.float32)
-    if w != out.shape[1]:
-        out = _bilinear_pass(out, 1, w)
-    if h != out.shape[0]:
-        out = _bilinear_pass(out, 0, h)
-    return np.ascontiguousarray(out)
-
-
 def resize_bilinear(arr: np.ndarray, wh: Tuple[int, int]) -> np.ndarray:
-    """Float bilinear resize to (W, H), channels resized one at a time, equal
-    to PIL's `Image.fromarray(c, mode="F").resize(wh, Image.BILINEAR)`."""
+    """Float bilinear resize of an (H, W) or (H, W, C) map to (W, H), each
+    channel equal to PIL's `Image.fromarray(c, mode="F").resize(wh,
+    Image.BILINEAR)`."""
     w, h = wh
-    if arr.ndim == 2:
-        return _resize_map(arr, w, h)
-    return np.stack([_resize_map(arr[..., c], w, h) for c in range(arr.shape[-1])], axis=-1)
+    return resample_f32(torch.from_numpy(np.asarray(arr, np.float32)), (h, w), "bilinear").numpy()
 
 
 def normalize_inv_depth(inv_depth: np.ndarray, near: float, far: float) -> np.ndarray:

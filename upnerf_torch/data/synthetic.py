@@ -3,13 +3,12 @@
 Writes a self-contained custom-format scene from a seed: images,
 metadata.json, DINO feature maps + PCA infos, DPT inverse-depth maps; with
 phototourism_layout=True also the tsv and COLMAP binaries of the same
-scene. `generate_scene` has the JAX generator's signature, poses, analytic
-renders and arrays. Its one deviation: the images are written as
-`NNN.png` through the port's PNG writer (upnerf_torch/features/images.py), not
-as JPEGs through PIL, so a host without PIL writes and reads the scene; the
-feature maps' 8-bit bilinear resize is the port's `resize_u8`, which meets
-PIL's BILINEAR within 1 LSB. `upnerf_torch.data.load_custom` and
-`load_phototourism` read the scene as they read any other.
+scene. `generate_scene` is the JAX generator's, file for file: the same
+`NNN.jpg` bytes (the port's JPEG encoder, upnerf_torch/features/jpeg.py, at
+PIL's quality 95), the same metadata.json, and the same feature maps (PIL's
+8-bit BILINEAR through `resize_u8`), PCA infos and DPT arrays, with no PIL
+on the host. `upnerf_torch.data.load_custom` and `load_phototourism` read
+the scene as they read any other.
 """
 
 from __future__ import annotations
@@ -19,7 +18,8 @@ import os
 
 import numpy as np
 
-from upnerf_torch.features.images import resize_u8, write_png
+from upnerf_torch.features.images import resize_u8
+from upnerf_torch.features.jpeg import write_jpeg
 
 from . import colmap
 
@@ -220,9 +220,9 @@ def generate_scene(
 
     metadata = {}
     for i in range(n):
-        name = f"{i:03d}.png"
+        name = f"{i:03d}.jpg"
         rgb, inv_depth, pts_w, hit, dirs_w = _render_image(poses[i], K, H, W)
-        write_png(os.path.join(img_dir, name), rgb)
+        write_jpeg(os.path.join(img_dir, name), rgb, quality=95)
 
         small = resize_u8(rgb, (feat_hw, feat_hw), "bilinear").astype(np.float32) / 255.0
         if feature_mode == "world":
