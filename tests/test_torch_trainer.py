@@ -17,7 +17,9 @@ train CLI.
   default flags and with `tpu.fused_train false`; a val render of the full
   image; checkpoint retention that keeps the latest and the best; the val
   downscale floor; the non-finite watchdog recovering once and aborting after
-  its budget or without a checkpoint; an explicit `resume_ckpt`;
+  its budget or without a checkpoint; an explicit `resume_ckpt`; the
+  `train.profile_at` capture (trace.json and table.txt, one `train.step`
+  range a captured step holding its stage ranges);
 - `cli.train.main` end to end; its checkpoint loads through
   `cli.tto.load_trained` and renders through `cli.render_video`.
 """
@@ -308,6 +310,25 @@ def test_explicit_resume_ckpt(hp):
         dst = trainer_of(hp, exp_name="resume_dst", resume_ckpt=path)
         assert dst.fit(log_every=10, max_steps=10).step == 10
         assert torch.equal(dst.state.pose_params.se3_refine.weight.detach(), se3)
+
+
+def test_profile_capture_writes_the_steps_spans(hp):
+    """`train.profile_at` writes trace.json and table.txt into <run>/profile/,
+    with the program's spans on for the captured steps only: one `train.step`
+    range a step, each holding its stages."""
+    from upnerf_torch.utils import profiling
+
+    trainer = trainer_of(hp, exp_name="profiled", **{"train.profile_at": 3, "train.profile_steps": 2})
+    trainer.fit(log_every=10, max_steps=8)
+    out = os.path.join(trainer.save_dir, "profile")
+    assert "aten::" in open(os.path.join(out, "table.txt")).read() and profiling._log is None
+    with open(os.path.join(out, "trace.json")) as f:
+        ranges = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    steps = sorted((e["ts"], e["ts"] + e["dur"]) for e in ranges if e["name"] == "train.step")
+    assert len(steps) == 2
+    for name in ("train.batch", "train.forward", "train.backward", "train.opt"):
+        inside = [e for e in ranges if e["name"] == name and any(a <= e["ts"] <= b for a, b in steps)]
+        assert len(inside) == (4 if name == "train.opt" else 2), name
 
 
 def test_unported_configurations_raise(hp):

@@ -21,6 +21,9 @@ ones. With a data mesh (`upnerf_torch.parallel`) each rank renders its share
 of every image's B rays (pixels and uniforms drawn at the global (G, B)
 shape, then sliced on B) and one all-reduce-mean combines the loss and the
 gradients; the eval render splits each chunk's rays across the ranks.
+
+A step is the span `tto.step`, tiled by `tto.batch`, `tto.forward`,
+`tto.backward` and `tto.opt` (`utils/profiling.py`; off by default).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from upnerf_torch.models.nerf import NeRFConfig
 from upnerf_torch.parallel import DataMesh, all_gather_rows, all_reduce_grads, shard_batch
 from upnerf_torch.render.render_rays import RenderConfig, render_rays
 from upnerf_torch.train.state import gaussian_1d
+from upnerf_torch.utils.profiling import span
 
 from .metrics import psnr as psnr_fn
 from .metrics import ssim as ssim_fn
@@ -201,23 +205,30 @@ def make_tto_step(frozen: Dict[str, Any], cfg: TTOConfig, *, optimize_pose: bool
 
     def step(trainables, optimizer, group: TTOGroup, generator=None, progress: float = 1.0, px=None, py=None,
              noise=None):
-        G = group.Ks.shape[0]
-        if px is None:
-            px, py = _sample_pixels(generator, group.wh, x_frac, cfg.batch_size)
-        if noise is None:
-            noise = _draw_render_noise(generator, cfg.render, G, px.shape[1], px.device)
-        px, py = shard_batch(mesh, px, axis=1).contiguous(), shard_batch(mesh, py, axis=1).contiguous()
-        noise = shard_batch(mesh, noise, axis=1)
-        se3_delta = trainables["se3"] if optimize_pose else torch.zeros((G, 6), device=px.device)
-        flat = {k: v.reshape(-1, v.shape[-1]) for k, v in noise.items()}
-        pred, gt = _render_group_rays(frozen, trainables["fine_a"], se3_delta, cfg, group, px, py, det=False,
-                                      noise=flat or None, progress=progress)
-        loss = ((pred - gt) ** 2).mean()
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        (loss,) = all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]], mesh, [loss.detach()])
-        optimizer.step()
-        return loss
+        with span("tto.step"):
+            with span("tto.batch"):
+                G = group.Ks.shape[0]
+                if px is None:
+                    px, py = _sample_pixels(generator, group.wh, x_frac, cfg.batch_size)
+                if noise is None:
+                    noise = _draw_render_noise(generator, cfg.render, G, px.shape[1], px.device)
+                px, py = shard_batch(mesh, px, axis=1).contiguous(), shard_batch(mesh, py, axis=1).contiguous()
+                noise = shard_batch(mesh, noise, axis=1)
+                se3_delta = trainables["se3"] if optimize_pose else torch.zeros((G, 6), device=px.device)
+                flat = {k: v.reshape(-1, v.shape[-1]) for k, v in noise.items()}
+            with span("tto.forward"):
+                pred, gt = _render_group_rays(frozen, trainables["fine_a"], se3_delta, cfg, group, px, py, det=False,
+                                              noise=flat or None, progress=progress)
+                loss = ((pred - gt) ** 2).mean()
+            with span("tto.opt"):
+                optimizer.zero_grad(set_to_none=True)
+            with span("tto.backward"):
+                loss.backward()
+            with span("tto.opt"):
+                (loss,) = all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]], mesh,
+                                           [loss.detach()])
+                optimizer.step()
+            return loss
 
     return step
 

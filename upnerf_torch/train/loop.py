@@ -12,7 +12,8 @@ pose errors, checkpoints with auto-resume and `resume_ckpt`, recovers from a
 non-finite loss by restoring the latest checkpoint with a reseeded generator
 (up to `train.max_nan_restarts` times), stops cleanly between steps on
 SIGTERM / SIGINT, and with `train.profile_at` traces `train.profile_steps`
-steps with torch.profiler. The GT-free pose-warp detector logs flagged images
+steps with torch.profiler (`utils/profiling.py:trace`, the program's spans
+on). The GT-free pose-warp detector logs flagged images
 and, with `pose.warp.mitigate` multistart or reset, adopts new poses for them
 (train/warp.py): the se3 rows are written in place and their optimizer
 moments zeroed, within the event budget and after each event a cooldown.
@@ -34,6 +35,7 @@ bit for bit (`parallel.assert_replicated`).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import signal
@@ -51,6 +53,7 @@ from upnerf_torch.data.prefetch import BatchPrefetcher
 from upnerf_torch.evaluate.metrics import psnr as psnr_fn
 from upnerf_torch.geometry import procrustes, se3
 from upnerf_torch.parallel import DataMesh, assert_replicated, fetch, make_mesh, put_replicated, sync
+from upnerf_torch.utils import profiling
 from upnerf_torch.utils.ckpt import CheckpointManager
 from upnerf_torch.utils.logging import MetricLogger
 from upnerf_torch.utils.viz import get_pca_img, visualize_depth
@@ -258,7 +261,7 @@ class Trainer:
         restore_handlers = self._install_preemption_handlers()
         profile_at = int(self.hp.get("train.profile_at", 0) or 0)
         profile_steps = int(self.hp.get("train.profile_steps", 3))
-        profiler = None
+        capture = None
         try:
             while step < max_steps:
                 phase = schedule_phase(step / self.max_steps, self.cfg.candidate_schedule)
@@ -271,10 +274,10 @@ class Trainer:
                 window_rays += self.cfg.batch_size
 
                 if profile_at and step == profile_at:
-                    profiler = self._start_profile()
-                if profiler is not None and step >= profile_at + profile_steps:
-                    self._stop_profile(profiler, profile_steps, profile_at)
-                    profiler = None
+                    capture = self._start_profile()
+                if capture is not None and step >= profile_at + profile_steps:
+                    self._stop_profile(capture, profile_steps, profile_at)
+                    capture = None
 
                 if step % log_every == 0 or step == max_steps:
                     img_sum, img_cnt = metrics.pop("img_loss_sum", None), metrics.pop("img_loss_cnt", None)
@@ -317,8 +320,8 @@ class Trainer:
                               " cleanly")
                     break
         finally:
-            if profiler is not None:  # fit ended mid-capture
-                profiler.stop()
+            if capture is not None:  # fit ended mid-capture: the steps captured are written
+                capture.close()
             for sig, old in restore_handlers.items():
                 signal.signal(sig, old)
             if self.prefetcher is not None:
@@ -327,24 +330,23 @@ class Trainer:
         assert_replicated([self.state.params, self.state.pose_params], self.mesh, "parameters")
         return self.state
 
-    def _start_profile(self):
-        self._sync()
-        profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]
-                                          + ([torch.profiler.ProfilerActivity.CUDA] if self.device.type == "cuda"
-                                             else []))
-        profiler.start()
-        return profiler
+    def _profile_dir(self) -> str:
+        return os.path.join(self.save_dir, "profile" + (f"-proc{self.mesh.rank}" if self.multiprocess else ""))
 
-    def _stop_profile(self, profiler, n: int, start: int) -> None:
+    def _start_profile(self) -> contextlib.ExitStack:
+        """A `profiling.trace` into the profile directory with the program's
+        spans on, so the trace shows each step's stages; closing it writes
+        the trace."""
         self._sync()
-        profiler.stop()
-        out = os.path.join(self.save_dir, "profile" + (f"-proc{self.mesh.rank}" if self.multiprocess else ""))
-        os.makedirs(out, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(out, "trace.json"))
-        sort = "self_cuda_time_total" if self.device.type == "cuda" else "self_cpu_time_total"
-        with open(os.path.join(out, "table.txt"), "w") as f:
-            f.write(profiler.key_averages().table(sort_by=sort, row_limit=40))
-        self._log(f"[upnerf_torch] trace of {n} steps from step {start} -> {out}")
+        capture = contextlib.ExitStack()
+        capture.enter_context(profiling.trace(self._profile_dir()))
+        capture.enter_context(profiling.spans())
+        return capture
+
+    def _stop_profile(self, capture: contextlib.ExitStack, n: int, start: int) -> None:
+        self._sync()
+        capture.close()
+        self._log(f"[upnerf_torch] trace of {n} steps from step {start} -> {self._profile_dir()}")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -11,6 +11,12 @@ The step updates the state's modules and optimizers in place and returns a
 TrainState with the step advanced. Metrics stay on the device; reading one
 waits for the step.
 
+A step is the span `train.step`, tiled by `train.batch` (indices, uniforms,
+gather), `train.forward` (rays, features, render, loss, metrics),
+`train.backward` (as the caller waits for it) and `train.opt` (both
+zero_grads, the mesh's reduce, both optimizer steps, psnr); see
+`utils/profiling.py`, whose spans are off unless a caller turns them on.
+
 With a data mesh (`upnerf_torch.parallel`) each rank renders its rows of the
 global batch and one all-reduce-mean combines the gradients and the raw
 metrics before the optimizers step, as the JAX package's shard_map branch
@@ -30,6 +36,7 @@ from upnerf_torch.models.transient import TransientConfig
 from upnerf_torch.ops.interp import bilinear_gather
 from upnerf_torch.parallel import DataMesh, all_gather_rows, all_reduce_grads, shard_batch
 from upnerf_torch.render.render_rays import RenderConfig, render_rays
+from upnerf_torch.utils.profiling import span
 
 from .losses import LossConfig, compute_loss
 from .schedules import pe_progress, schedule_mult
@@ -231,35 +238,44 @@ def make_train_step(cfg: StepConfig, optimizer, pose_optimizer, mesh: DataMesh =
     def update(state: TrainState, scene, batch, noise, phase: int):
         progress = pe_progress(state.step, cfg.max_steps)
         sched = schedule_mult(progress, cfg.candidate_schedule)
-        state.opt_state.zero_grad()
-        if state.pose_opt_state is not None:
-            state.pose_opt_state.zero_grad()
-        loss, metrics = _loss_and_metrics(state.params, state.pose_params, cfg, scene, batch, noise, phase, sched,
-                                          progress)
-        loss.backward()
-        metrics = reduce(state, {k: v.detach() for k, v in metrics.items()})
-        state.opt_state.step()
-        if cfg.pose_optimize and pose_optimizer is not None:
-            state.pose_opt_state.step()
-        metrics["psnr"] = -10.0 * torch.log10(metrics.pop("mse"))
+        with span("train.opt"):
+            state.opt_state.zero_grad()
+            if state.pose_opt_state is not None:
+                state.pose_opt_state.zero_grad()
+        with span("train.forward"):
+            loss, metrics = _loss_and_metrics(state.params, state.pose_params, cfg, scene, batch, noise, phase,
+                                              sched, progress)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.opt"):
+            metrics = reduce(state, {k: v.detach() for k, v in metrics.items()})
+            state.opt_state.step()
+            if cfg.pose_optimize and pose_optimizer is not None:
+                state.pose_opt_state.step()
+            metrics["psnr"] = -10.0 * torch.log10(metrics.pop("mse"))
         return state._replace(step=state.step + 1), metrics
 
     def step_fn(state: TrainState, scene: SceneConstants, store: RayStore, phase: int):
-        dev = store.px.device
-        idx = torch.randint(0, store.n_rays, (cfg.batch_size,), generator=state.generator, device=dev)
-        noise = draw_noise(state.generator, cfg.batch_size, dev)
-        idx, noise = shard_batch(mesh, idx), shard_batch(mesh, noise)  # each rank gathers only its rows
-        return update(state, scene, gather_batch(store, idx), noise, phase)
+        with span("train.step"):
+            with span("train.batch"):
+                dev = store.px.device
+                idx = torch.randint(0, store.n_rays, (cfg.batch_size,), generator=state.generator, device=dev)
+                noise = draw_noise(state.generator, cfg.batch_size, dev)
+                idx, noise = shard_batch(mesh, idx), shard_batch(mesh, noise)  # each rank gathers only its rows
+                batch = gather_batch(store, idx)
+            return update(state, scene, batch, noise, phase)
 
     def batch_step_fn(state: TrainState, scene: SceneConstants, batch: Dict[str, torch.Tensor], phase: int,
                       noise: Optional[Dict[str, torch.Tensor]] = None, local: bool = False):
-        local_noise = local
-        if noise is None:  # drawn at the global batch shape
-            n_rays = batch["px"].shape[0] * (mesh.size if local else 1)
-            noise, local_noise = draw_noise(state.generator, n_rays, batch["px"].device), False
-        noise = noise if local_noise else shard_batch(mesh, noise)
-        batch = batch if local else shard_batch(mesh, batch)
-        return update(state, scene, batch, noise, phase)
+        with span("train.step"):
+            with span("train.batch"):
+                local_noise = local
+                if noise is None:  # drawn at the global batch shape
+                    n_rays = batch["px"].shape[0] * (mesh.size if local else 1)
+                    noise, local_noise = draw_noise(state.generator, n_rays, batch["px"].device), False
+                noise = noise if local_noise else shard_batch(mesh, noise)
+                batch = batch if local else shard_batch(mesh, batch)
+            return update(state, scene, batch, noise, phase)
 
     return step_fn, batch_step_fn
 

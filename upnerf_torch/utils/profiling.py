@@ -1,12 +1,17 @@
-"""Profiling and timing utilities (upnerf/utils/profiling.py).
+"""Profiling, tracing and span utilities (upnerf/utils/profiling.py).
 
 - `trace(logdir)`: a torch.profiler context over the CPU and, when one is
   present, the card; writes a Chrome trace (`trace.json`, for Perfetto or
   chrome://tracing) and the kernel table (`table.txt`) into `logdir`.
-- `StepTimer`: times blocks of steps. Each block ends by calling `readout`,
-  which must fetch a value that depends on the timed work (e.g. a parameter
-  sum), so the time includes it; on the card the block is also timed by CUDA
-  events around it, and those are the recorded times.
+- `span(name)` / `spans()`: the program's spans. The train step, the TTO
+  step and the served frame open one root span a unit of work and a span a
+  stage inside it (`train.*`, `tto.*`, `serve.*`). Spans are off by
+  default: `span` then returns a shared no-op after one check of a module
+  flag, reads no clock and opens no profiler range. `spans()` turns them on
+  for its block and yields the `SpanLog` they record into, in memory, on the
+  host clock (`time.perf_counter_ns`). While a profiler is running, each
+  span also opens `torch.profiler.record_function(name)`, so that it lands
+  in the profiler's trace beside the kernels it launched.
 - `summarize(metrics_jsonl)`: mean, median, last value and count of every
   numeric key of the training metrics stream.
 """
@@ -16,8 +21,9 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,41 +45,92 @@ def trace(logdir: str):
         f.write(prof.key_averages().table(sort_by=sort, row_limit=40))
 
 
-class StepTimer:
-    """Times blocks of steps; `readout` must fetch a value data-dependent on
-    the timed computation. `device`: a CUDA device times each block with
-    events on its current stream; anything else (the default) by the host
-    clock around the block and its readout."""
+class SpanLog:
+    """The spans recorded while `spans()` was open, in the order they
+    opened. Each record is [name, parent, unit, t0, t1]: the parent's index
+    in `records` (-1 for a root span), the unit (the index of the root span
+    it opened under, so every span of one step or frame shares it), and the
+    host clock in ns at the start and the end (None while it is open). Only
+    the thread that opened `spans()` records."""
 
-    def __init__(self, readout: Callable[[], float], device: Optional[torch.device] = None):
-        self.readout = readout
-        self.cuda = device is not None and torch.device(device).type == "cuda"
-        self.records: List[float] = []
-
-    @contextlib.contextmanager
-    def measure(self, n_steps: int = 1):
-        if self.cuda:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-        t0 = time.perf_counter()
-        yield
-        if self.cuda:
-            end.record()
-        self.readout()
-        if self.cuda:
-            end.synchronize()
-            dt = start.elapsed_time(end) / 1e3
-        else:
-            dt = time.perf_counter() - t0
-        self.records.append(dt / n_steps)
+    def __init__(self):
+        self.records: List[list] = []
+        self.thread = threading.get_ident()
+        self._open: List[int] = []
 
     @property
-    def mean(self) -> float:
-        return float(np.mean(self.records)) if self.records else float("nan")
+    def units(self) -> int:
+        """The root spans seen."""
+        return sum(1 for r in self.records if r[1] < 0)
 
-    @property
-    def p50(self) -> float:
-        return float(np.percentile(self.records, 50)) if self.records else float("nan")
+    def totals(self) -> Dict[str, Tuple[int, float]]:
+        """name -> (count, seconds) of the closed spans. A name opened more
+        than once in one unit counts each time and sums."""
+        out: Dict[str, Tuple[int, float]] = {}
+        for name, _, _, t0, t1 in self.records:
+            if t1 is not None:
+                n, s = out.get(name, (0, 0.0))
+                out[name] = (n + 1, s + (t1 - t0) / 1e9)
+        return out
+
+    def summary(self) -> Dict:
+        """The units seen and each name's count and seconds, as JSON."""
+        return {"units": self.units, "spans": {k: {"count": n, "s": s} for k, (n, s) in self.totals().items()}}
+
+
+_log: Optional[SpanLog] = None  # the log spans record into; None: spans are off
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("log", "name", "i", "rf")
+
+    def __init__(self, log: SpanLog, name: str):
+        self.log, self.name, self.i, self.rf = log, name, None, None
+
+    def __enter__(self):
+        log = self.log
+        if threading.get_ident() != log.thread:
+            return self
+        if torch.autograd._profiler_enabled():
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        parent = log._open[-1] if log._open else -1
+        self.i = len(log.records)
+        unit = log.records[parent][2] if parent >= 0 else self.i
+        log._open.append(self.i)
+        log.records.append([self.name, parent, unit, time.perf_counter_ns(), None])
+        return self
+
+    def __exit__(self, *exc):
+        if self.i is None:
+            return False
+        self.log.records[self.i][4] = time.perf_counter_ns()
+        self.log._open.pop()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager that records `name` while spans are on, and a
+    shared no-op while they are off."""
+    log = _log
+    if log is None:
+        return _NO_SPAN
+    return _Span(log, name)
+
+
+@contextlib.contextmanager
+def spans():
+    """Turns spans on for the block; yields the `SpanLog` they record into.
+    The spans on before it are back on after it."""
+    global _log
+    prev, _log = _log, SpanLog()
+    try:
+        yield _log
+    finally:
+        _log = prev
 
 
 def summarize(metrics_jsonl: str) -> Dict[str, Dict[str, float]]:
