@@ -24,6 +24,19 @@ Frames (renders), over the frames kept from the window:
 - `rgb_rmse`: the root mean square of rgb - reference over every pixel;
 - `depth_rel_rms`: the root mean square of depth - reference over that of
   the reference's depth.
+Features (the preprocessing pass), over the images kept from the window:
+- `key_rel_rms`: the root mean square of DINO's keys - reference over that
+  of the reference's keys;
+- `depth_rel_rms`: as for frames, of DPT's inverse depth at the image's size;
+- `pca_mean_gap`: the largest |PCA mean - reference| / |reference|;
+- `pca_comp_gap`: over the images and the PCA components, the largest
+  distance, up to sign, between a component and the reference's (unit
+  vectors), times the gap between its singular value and the nearest of
+  its neighbours' over its own, all in the reference. A component moves
+  with an error in the keys by about that error over the gap (first-order
+  perturbation), and the keys' singular values lie within a few percent of
+  each other, so the distance alone swings from image to image with the
+  gap; weighted by it, it reads the keys' error as the PCA sees it.
 """
 
 from __future__ import annotations
@@ -75,5 +88,35 @@ def frame_readings(prog: Dict, ref: Dict) -> Dict[str, float]:
     return {"rgb_rmse": rgb if np.isfinite(rgb) else math.inf, "depth_rel_rms": dep if np.isfinite(dep) else math.inf}
 
 
+def _rel_rms(prog, ref, key: str) -> float:
+    d = sum(float(np.sum((p[key].astype(np.float64) - r[key].astype(np.float64)) ** 2)) for p, r in zip(prog, ref))
+    n = sum(float(np.sum(r[key].astype(np.float64) ** 2)) for r in ref)
+    out = math.sqrt(d / n) if n > 0 else math.inf
+    return out if math.isfinite(out) else math.inf
+
+
+def _rel_gap(sv: np.ndarray, k: int) -> float:
+    """The gap from singular value k to the nearer of its neighbours, over it."""
+    return float(min(sv[k] - sv[k + 1], sv[k - 1] - sv[k] if k else math.inf) / sv[k])
+
+
+def feature_readings(prog: Dict, ref: Dict) -> Dict[str, float]:
+    P, R = prog["features"], ref["features"]
+    if not P:
+        return {k: math.inf for k in ("key_rel_rms", "depth_rel_rms", "pca_mean_gap", "pca_comp_gap")}
+    mean = max(float(np.linalg.norm(p["mean"].astype(np.float64) - r["mean"]) / np.linalg.norm(r["mean"]))
+               for p, r in zip(P, R))
+    comp = 0.0
+    for p, r in zip(P, R):
+        for k in range(len(r["components"])):
+            a, b = p["components"][k].astype(np.float64), r["components"][k]
+            comp = max(comp, float(min(np.linalg.norm(a - b), np.linalg.norm(a + b))) * _rel_gap(r["sv"], k))
+    return {"key_rel_rms": _rel_rms(P, R, "keys"), "depth_rel_rms": _rel_rms(P, R, "depth"),
+            "pca_mean_gap": mean if math.isfinite(mean) else math.inf,
+            "pca_comp_gap": comp if math.isfinite(comp) else math.inf}
+
+
 def readings(prog: Dict, ref: Dict) -> Dict[str, float]:
+    if "features" in prog:
+        return feature_readings(prog, ref)
     return frame_readings(prog, ref) if "frames" in prog else step_readings(prog, ref)

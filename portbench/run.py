@@ -81,6 +81,13 @@ def load_cell(name: str) -> Dict:
             "limits": load_json(BENCH / "limits" / f"{name}.json"), "e2e": e2e, "per_layer": per_layer}
 
 
+def rate(win: Dict, traffic: Dict) -> float:
+    """The cell's rate: the window's completed work over its whole length.
+    The work is counted under the traffic's `count` key: "rays" unless it
+    names another (the preprocessing pass counts "images")."""
+    return win[traffic.get("count", "rays")] / win["seconds"]
+
+
 def forbidden_modules() -> List[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
@@ -137,7 +144,7 @@ def main(argv: Optional[List[str]] = None, *, device=None, cfg_overrides: Option
     dev_info = {"platform": "gpu" if cuda else "cpu",
                 "kind": torch.cuda.get_device_name(device) if cuda else "cpu", "count": 1,
                 "memory_peak_bytes": int(peak)}
-    values = {"setup_s": setup_s, "peak_gib": peak / 2**30, traffic["rate_metric"]: win["rays"] / win["seconds"]}
+    values = {"setup_s": setup_s, "peak_gib": peak / 2**30, traffic["rate_metric"]: rate(win, traffic)}
     breakdown = None
     if args.trace:
         span, rec = trace.traced(lambda: driver.run(0.0, max_units=traffic["trace_units"]))

@@ -26,8 +26,8 @@ def top_imports(path: Path):
 def test_a_dry_run_of_every_cell_loads_no_jax():
     code = (
         "import sys; sys.path.insert(0, %r); sys.path.insert(0, %r)\n"
-        "from tiny import CELLS, run_cell\n"
-        "for c in CELLS:\n"
+        "from tiny import CELLS, PREPROCESS, run_cell\n"
+        "for c in CELLS + (PREPROCESS,):\n"
         "    rc, res = run_cell(c, seconds=0.2)\n"
         "    assert rc == 0 and res is not None, c\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}))\n" % (str(ROOT), str(BENCH / "tests"))

@@ -101,7 +101,8 @@ def test_cell_on_the_cpu(cell):
     assert rc == 0
     res = json.loads(out.getvalue().strip().splitlines()[-1])
     host = res["host_span"]
-    root = stages.ROOTS[{"bg_train_blend": "train", "bg_tto": "tto", "idhi_render": "render"}[cell]]
+    root = stages.ROOTS[{"bg_train_blend": "train", "bg_tto": "tto", "idhi_render": "render",
+                         "bg_render": "render"}[cell]]
     assert 3 * res["traced_span"]["units"] == host["units"] > 0 and root in host["stages_ms_per_unit"]
     assert len(host["runs_ms_per_unit"]["on"]) == len(host["runs_ms_per_unit"]["off"]) == 3
     for name, v in res["metrics"].items():

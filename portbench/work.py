@@ -8,6 +8,8 @@ kernel design chooses.
 
 A "pass" is one fused render call over R rays x S samples of one field in
 one mode; `dims` is a configuration's `dims` (portbench/configs/*.json).
+The preprocessing pass (DINO and DPT on one image) is counted at the end,
+from the extractors' published shapes.
 """
 
 from __future__ import annotations
@@ -164,3 +166,73 @@ def render_ray_flops(dims: Dict) -> float:
     """One served ray: both passes forward in phase 2."""
     mode = mode_of_phase(2)
     return 2.0 * sum(sample_macs(dims, mode) * S + ray_macs(dims, mode) for S in passes(dims))
+
+
+# --- the preprocessing pass: DINO ViT-S/8 and DPT-Large on one image ---------------------------
+
+
+def attention_flops(G: int, N: int, hd: int) -> float:
+    """softmax(q k^T) v over G groups of N tokens: the two products."""
+    return 4.0 * G * N * N * hd
+
+
+def attention_bytes(G: int, N: int, hd: int) -> float:
+    """q, k and v read and the output written once, in float32."""
+    return 4.0 * 4 * G * N * hd
+
+
+def attention_least_seconds(G: int, N: int, hd: int) -> float:
+    return least_seconds(attention_flops(G, N, hd), attention_bytes(G, N, hd))
+
+
+def vit_grid(size: int, patch: int, stride: int) -> int:
+    """Tokens along a side of the patch-embedding conv's output."""
+    return (size - patch) // stride + 1
+
+
+def vit_block_flops(n: int, dim: int, mlp_ratio: int) -> float:
+    """One pre-norm block over n tokens: attention's two products, and the
+    qkv, projection and two MLP linears ((4 + 2 mlp_ratio) dim^2 a token)."""
+    return attention_flops(1, n, dim) + 2.0 * n * (4 + 2 * mlp_ratio) * dim * dim
+
+
+def conv_flops(pixels: int, cin: int, cout: int, k: int) -> float:
+    """A k x k conv over `pixels` output pixels (a transposed conv whose
+    kernel is its stride: over its input pixels)."""
+    return 2.0 * pixels * cin * cout * k * k
+
+
+def dino_image_flops(d: Dict) -> float:
+    """DINO on one image: the patch embedding, the blocks before `layer`,
+    and that block's qkv (the keys leave from it)."""
+    g = vit_grid(d["load_size"], d["patch_size"], d["stride"])
+    n, D = g * g + 1, d["dim"]
+    return (conv_flops(g * g, 3, D, d["patch_size"]) + d["layer"] * vit_block_flops(n, D, d["mlp_ratio"])
+            + 2.0 * n * D * 3 * D)
+
+
+def dpt_image_flops(p: Dict) -> float:
+    """DPT on one image: the backbone's every block, the four readouts, the
+    reassembly (1x1 projections, the x4 / x2 transposed convs, the stride-2
+    conv), the 3x3 layer_rn convs, the fusion stages (two convs a residual
+    unit, the 1x1 after the x2 upsample; the deepest stage has no skip) and
+    the head (3x3 at half scale, 3x3 and 1x1 at full scale)."""
+    g = p["net_size"] // p["patch_size"]
+    D, feat, ch = p["dim"], p["features"], p["channels"]
+    f = conv_flops(g * g, 3, D, p["patch_size"]) + p["depth"] * vit_block_flops(g * g + 1, D, p["mlp_ratio"])
+    f += 4 * 2.0 * g * g * 2 * D * D
+    sizes = (4 * g, 2 * g, g, (g - 1) // 2 + 1)
+    f += sum(conv_flops(g * g, D, c, 1) for c in ch)
+    f += conv_flops(g * g, ch[0], ch[0], 4) + conv_flops(g * g, ch[1], ch[1], 2) + conv_flops(sizes[3] ** 2, ch[3],
+                                                                                             ch[3], 3)
+    f += sum(conv_flops(s * s, c, feat, 3) for s, c in zip(sizes, ch))
+    for k, s in enumerate(sizes):
+        f += (1 if k == 3 else 2) * 2 * conv_flops(s * s, feat, feat, 3) + conv_flops(4 * s * s, feat, feat, 1)
+    half, full = 2 * sizes[0], 4 * sizes[0]
+    return f + conv_flops(half * half, feat, feat // 2, 3) + conv_flops(full * full, feat // 2, 32, 3) + \
+        conv_flops(full * full, 32, 1, 1)
+
+
+def preprocess_image_flops(dims: Dict) -> float:
+    """One image of the preprocessing pass: DINO, then DPT."""
+    return dino_image_flops(dims["dino"]) + dpt_image_flops(dims["dpt"])
